@@ -1,0 +1,34 @@
+"""Minimal trees of tensors: nested dicts, lists and tuples with tensor
+(or None) leaves — the shape of the port's decode caches.  ``None``
+leaves are kept in place (a cache-free layer's slot) and skipped by
+``tree_leaves``, as JAX pytrees drop them."""
+
+from __future__ import annotations
+
+from typing import Any, Callable, List
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` leafwise over ``tree`` and same-structured ``rest``;
+    None leaves stay None."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in tree}
+    if isinstance(tree, (list, tuple)):
+        out = [tree_map(fn, t, *(r[i] for r in rest))
+               for i, t in enumerate(tree)]
+        return out if isinstance(tree, list) else tuple(out)
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """The non-None leaves of ``tree``, depth first."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [leaf for k in tree for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for t in tree for leaf in tree_leaves(t)]
+    return [tree]
