@@ -6,9 +6,9 @@
 Phases, one JSON line each:
 
 1. ``env``    — torch/CUDA versions, the card, TF32 switched off.
-2. ``build``  — the flash kernel, ``distkeras_tpu_torch/ops/csrc/
-   flash_fwd.cu``, is built with nvcc for sm_90a if stale (seconds,
-   registers, spills).
+2. ``build``  — the flash kernels, ``distkeras_tpu_torch/ops/csrc/
+   flash_fwd.cu`` (K1) and ``flash_bwd.cu`` (K2, K3), are built with
+   nvcc for sm_90a if stale (seconds, registers, spills).
 3. ``k1``     — the flash-attention forward kernel against its plain
    PyTorch version on the card, at the serving shapes and a few others
    (max abs error of O and lse; f32 <= 1e-5, bf16 <= 2e-2), with its
@@ -26,6 +26,29 @@ Phases, one JSON line each:
    model with the same weights agree within 1e-4, (c) the kernel's launch
    count over the served traffic is exactly 4 (one per attention block)
    per cold join, (d) ``jit.retraces == 0`` after warmup.
+5. ``profile`` — the same traffic under a ``torch.profiler`` trace: the
+   card's busy share and the top kernels.
+6. ``k2k3``   — the backward kernels K2 (dQ) and K3 (dK, dV) against
+   their plain version (``flash_bwd_plain``) on the card: f32 and bf16,
+   causal and not, T in {64, 100, 256, 512} (once with Tq != Tk), Dh 32
+   and 64: f32 within the JAX package's flash-vs-dense gradient bound
+   (rtol 5e-4, atol 1e-5), bf16 within the outputs' bf16 rounding (rtol
+   1e-2, atol 1e-2 of the largest |value|).  Then, at the training shape
+   (B*H = 512, T = 512, Dh = 64, causal; bf16 and f32), each kernel's
+   profiler device time, the plain version's, the device time of
+   ``F.scaled_dot_product_attention``'s backward (one call for K2 and K3
+   together; a yardstick only) and ``bound_ms``; K1 is timed there too.
+7. ``train``  — the same probe model trained by ``SingleTrainer``:
+   (a) f32, flash and dense twins from seed 0, 4 SGD steps of batch 16:
+   per-step losses within rtol 1e-4 and every trained parameter within
+   atol 1e-4; (b) the probe's training config, reduced only in batch
+   (batch 64 for ``mfu.py``'s 1024; sgd, lr 0.1, bf16 compute), 3
+   epochs of 8 steps: losses finite and falling, ``jit.retraces == 0``,
+   K1, K2 and K3 launched exactly 4 x 24 times each; its samples/s,
+   tokens/s, step ms and peak memory; then two more epochs under a
+   ``torch.profiler`` trace, of which the second gives the busy share
+   (device time over the epoch's span on the device's timeline) and
+   each kernel's share.
 
 Then the ``kernels`` line, the card's name and power limit as nvidia-smi
 prints them, and as the last line ``{"ok": true, "device": {...}}``.  Any
@@ -49,6 +72,16 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+#: K2/K3 against flash_bwd_plain on the same inputs: f32 within the JAX
+#: package's flash-vs-dense gradient bound (tests/test_pallas_attention.py:
+#: 41); bf16, where both sides compute in f32 and round their outputs to
+#: bf16, within that rounding: rtol 1e-2 plus 1e-2 of the reference's
+#: largest |value| (``atol_of_max``)
+GRAD_TOL = {"float32": dict(rtol=5e-4, atol=1e-5, atol_of_max=0.0),
+            "bfloat16": dict(rtol=1e-2, atol=0.0, atol_of_max=1e-2)}
+#: the training shape of the probe: batch 64 x 8 heads, T = 512, Dh = 64
+TRAIN_BH, TRAIN_T, TRAIN_DH = 64 * 8, 512, 64
+SCE = "sparse_categorical_crossentropy"
 LM = dict(vocab_size=4000, dim=512, num_heads=8, num_blocks=4, seq_len=512,
           attention_impl="flash")
 PROMPT_LENS = (20, 64, 100, 128, 200, 256, 300, 448)
@@ -101,6 +134,22 @@ def flash_bound(bh, tq, tk, dh, causal, itemsize):
     pairs = tq * (tq + 1) // 2 if causal else tq * tk
     flops = 4 * bh * dh * pairs
     nbytes = itemsize * bh * dh * (2 * tq + 2 * tk) + 4 * bh * tq
+    peak = PEAK_F32_FLOPS if itemsize == 4 else PEAK_BF16_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def flash_bwd_bound(kernel, bh, t, dh, itemsize):
+    """(bound_ms, bound_by) for one causal K2 or K3 call: operations (K2
+    recomputes S and forms dP and dQ, 6·Dh FLOPs per (q, k) pair; K3
+    forms S, dP, dV and dK, 8·Dh) over the peak of the input type, bytes
+    (q, k, v, dO read once, L and D f32, the gradients written once) over
+    the memory rate — the larger of the two."""
+    pairs = t * (t + 1) // 2
+    flops = (6 if kernel == "dq" else 8) * dh * bh * pairs
+    n_out = 1 if kernel == "dq" else 2
+    nbytes = itemsize * bh * t * dh * (4 + n_out) + 2 * 4 * bh * t
     peak = PEAK_F32_FLOPS if itemsize == 4 else PEAK_BF16_FLOPS
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
@@ -310,6 +359,248 @@ def phase_profile(torch, model, prompts):
     return row
 
 
+def _max_err(got, ref):
+    return (got.float() - ref.float()).abs().max().item()
+
+
+def _within(got, ref, rtol, atol, atol_of_max) -> bool:
+    got, ref = got.float(), ref.float()
+    atol = atol + atol_of_max * ref.abs().max()
+    return bool(((got - ref).abs() <= atol + rtol * ref.abs()).all())
+
+
+def phase_k2k3(torch):
+    """K2 and K3 against ``flash_bwd_plain`` on the card, then their times
+    (and K1's) at the training shape; returns the rows."""
+    import torch.nn.functional as F
+    from distkeras_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_bwd_plain,
+        flash_fwd_cuda, flash_fwd_plain)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def inputs(dtype, bh, tq, tk, dh, causal):
+        """q, k, v, dO in ``dtype``; L from the plain forward and
+        D = rowsum(dO∘O), f32 — the same inputs for kernel and plain."""
+        q, do = (torch.randn((bh, tq, dh), generator=gen, device="cuda")
+                 .to(dtype) for _ in range(2))
+        k, v = (torch.randn((bh, tk, dh), generator=gen, device="cuda")
+                .to(dtype) for _ in range(2))
+        o, lse = flash_fwd_plain(q, k, v, causal, dh ** -0.5)
+        dvec = (do.float() * o.float()).sum(-1)
+        return (q, k, v, lse, do, dvec, causal, dh ** -0.5)
+
+    cases = []
+    for dtype in ("float32", "bfloat16"):
+        cases += [(dtype, True, 8, t, t, 64) for t in (64, 100, 256, 512)]
+        cases += [(dtype, False, 8, 256, 256, 32),
+                  (dtype, False, 8, 100, 256, 64),
+                  (dtype, True, 8, 100, 100, 32),
+                  (dtype, True, TRAIN_BH, TRAIN_T, TRAIN_T, TRAIN_DH)]
+    rows = []
+    for dtype_name, causal, bh, tq, tk, dh in cases:
+        args = inputs(getattr(torch, dtype_name), bh, tq, tk, dh, causal)
+        dq = flash_bwd_dq_cuda(*args)
+        dk, dv = flash_bwd_dkv_cuda(*args)
+        torch.cuda.synchronize()
+        ref = flash_bwd_plain(*args)
+        tol = GRAD_TOL[dtype_name]
+        row = {"dtype": dtype_name, "causal": causal, "bh": bh, "tq": tq,
+               "tk": tk, "dh": dh, "tol": tol,
+               "dq_err": _max_err(dq, ref[0]),
+               "dk_err": _max_err(dk, ref[1]),
+               "dv_err": _max_err(dv, ref[2])}
+        check(all(bool(torch.isfinite(g.float()).all()) and
+                  _within(g, r, **tol)
+                  for g, r in zip((dq, dk, dv), ref)),
+              f"K2/K3 disagree with their plain version: {row}")
+        emit({"phase": "k2k3", **row})
+        rows.append(row)
+
+    # times at the training shape
+    timed = []
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        args = inputs(dtype, TRAIN_BH, TRAIN_T, TRAIN_T, TRAIN_DH, True)
+        q, k, v, lse, do = args[:5]
+        item = q.element_size()
+        shape = (TRAIN_BH // 8, 8, TRAIN_T, TRAIN_DH)   # (B, H, T, Dh)
+        qs, ks, vs = (x.detach().view(shape).requires_grad_()
+                      for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        row = {"dtype": dtype_name, "bh": TRAIN_BH, "t": TRAIN_T,
+               "dh": TRAIN_DH, "causal": True,
+               "dq_ms": device_ms(lambda: flash_bwd_dq_cuda(*args)),
+               "dkv_ms": device_ms(lambda: flash_bwd_dkv_cuda(*args)),
+               "plain_ms": device_ms(lambda: flash_bwd_plain(*args)),
+               # one call computes dQ, dK and dV: K2 and K3 together
+               "library_bwd_ms": device_ms(lambda: torch.autograd.grad(
+                   out, (qs, ks, vs), do.view(shape), retain_graph=True)),
+               "k1_ms": device_ms(lambda: flash_fwd_cuda(q, k, v, True,
+                                                         args[7])),
+               "k1_plain_ms": device_ms(lambda: flash_fwd_plain(
+                   q, k, v, True, args[7])),
+               "k1_library_ms": device_ms(
+                   lambda: F.scaled_dot_product_attention(
+                       qs.detach(), ks.detach(), vs.detach(),
+                       is_causal=True))}
+        row["dq_bound_ms"], row["dq_bound_by"] = flash_bwd_bound(
+            "dq", TRAIN_BH, TRAIN_T, TRAIN_DH, item)
+        row["dkv_bound_ms"], row["dkv_bound_by"] = flash_bwd_bound(
+            "dkv", TRAIN_BH, TRAIN_T, TRAIN_DH, item)
+        row["k1_bound_ms"], row["k1_bound_by"] = flash_bound(
+            TRAIN_BH, TRAIN_T, TRAIN_T, TRAIN_DH, True, item)
+        emit({"phase": "k2k3_timed", **row})
+        timed.append(row)
+        del out, qs, ks, vs, args, q, k, v, lse, do
+    return rows, timed
+
+
+def _leaves(variables):
+    from distkeras_tpu_torch.utils.tree import tree_leaves
+    return tree_leaves(variables["params"])
+
+
+def second_epoch_on_device(prof):
+    """The second epoch of a two-epoch ``train()`` traced by ``prof``, on
+    the device's timeline: from the end of epoch 1's loss readback to the
+    end of epoch 2's — the trainer copies each epoch's losses into pinned
+    memory, the run's only such copies — so the window the trainer's
+    ``epoch_seconds`` measure with CUDA events.  Returns (window µs, busy
+    µs: the union of the device's intervals inside the window, {name:
+    device µs inside the window})."""
+    from torch.autograd import DeviceType
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    marks = sorted(e.time_range.end for e in dev if "Pinned" in e.name)
+    check(len(marks) == 2, f"expected 2 loss readbacks to pinned memory in "
+          f"the trace, found {len(marks)}")
+    lo, hi = marks
+    busy, reached, by_name = 0.0, lo, {}
+    for start, end, name in sorted(
+            (max(e.time_range.start, lo), min(e.time_range.end, hi), e.name)
+            for e in dev):
+        if end <= start:
+            continue                  # outside the window
+        busy += max(0.0, end - max(start, reached))
+        reached = max(reached, end)
+        by_name[name] = by_name.get(name, 0.0) + end - start
+    check(busy > 0, "the profiler trace holds no device time in the epoch")
+    return hi - lo, busy, by_name
+
+
+def phase_train(torch):
+    """``SingleTrainer`` on the probe model: (a) f32 flash vs dense
+    parity, (b) the bf16 probe config with its launch counts, rates,
+    memory and, from a profiled run's second epoch, its busy share."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from distkeras_tpu_torch import SingleTrainer
+    from distkeras_tpu_torch.data import load_lm_corpus
+    from distkeras_tpu_torch.models import zoo
+    from distkeras_tpu_torch.obs import Registry
+    from distkeras_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda)
+    kernels = {"flash_fwd": flash_fwd_cuda,
+               "flash_bwd_dq": flash_bwd_dq_cuda,
+               "flash_bwd_dkv": flash_bwd_dkv_cuda}
+    names = {"flash_fwd": "flash_fwd_kernel",
+             "flash_bwd_dq": "flash_bwd_dq_kernel",
+             "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
+
+    # (a) f32 flash vs dense: both trainers initialise from seed 0, so
+    # both models start from the same weights
+    ds = load_lm_corpus(n_train=64, seq_len=LM["seq_len"],
+                        vocab_size=LM["vocab_size"])[0]
+    runs = {}
+    for impl in ("flash", "dense"):
+        t = SingleTrainer(zoo.gpt_lm(**{**LM, "attention_impl": impl}),
+                          "sgd", SCE, batch_size=16, num_epoch=1,
+                          learning_rate=0.1)
+        t.train(ds)
+        runs[impl] = (np.concatenate(t.get_history()),
+                      _leaves(t.trained_variables))
+    (fl, fp), (dl, dp) = runs["flash"], runs["dense"]
+    loss_rel = float(np.max(np.abs(fl - dl) / np.abs(dl)))
+    param_err = max(float(np.max(np.abs(a - b))) for a, b in zip(fp, dp))
+    check(fl.shape == (4,) and loss_rel <= 1e-4,
+          f"f32 flash vs dense losses differ: {fl} vs {dl}")
+    check(param_err <= 1e-4,
+          f"f32 flash vs dense parameters differ by {param_err}")
+
+    # (b) the probe config, batch 64: the main path of this slice
+    ds = load_lm_corpus(n_train=512, seq_len=LM["seq_len"],
+                        vocab_size=LM["vocab_size"])[0]
+
+    def trainer(epochs):
+        t = SingleTrainer(zoo.gpt_lm(**LM), "sgd", SCE, batch_size=64,
+                          learning_rate=0.1, compute_dtype="bfloat16",
+                          num_epoch=epochs)
+        t.tracer.registry = Registry()
+        return t
+
+    steps, epochs = 512 // 64, 3
+    t = trainer(epochs)
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts set to 0 just before, read just after
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    t.train(ds)
+    wall = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    hist = t.get_averaged_history()
+    retraces = t.tracer.registry.get("jit.retraces")
+    retraces = 0 if retraces is None else int(retraces.value)
+    check(all(bool(np.isfinite(h).all()) for h in t.get_history()),
+          "a training loss is not finite")
+    check(hist[-1] < hist[0], f"the loss did not fall: {hist}")
+    check(retraces == 0, f"jit.retraces == {retraces}")
+    want = LM["num_blocks"] * steps * epochs
+    check(all(n == want for n in launches.values()),
+          f"launches {launches} != {want} each")
+    rec = [r for r in t.metrics.records if r["event"] == "epoch"][-1]
+
+    # two more epochs under the profiler (their launches are not counted);
+    # the second is read on the device's timeline
+    pt = trainer(2)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pt.train(ds)
+        torch.cuda.synchronize()
+    window_us, busy_us, by_name = second_epoch_on_device(prof)
+    epoch_s = [r for r in pt.metrics.records
+               if r["event"] == "epoch"][-1]["epoch_seconds"]
+    share = {n: sum(us for name, us in by_name.items()
+                    if names[n] in name) / busy_us for n in kernels}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    row = {"phase": "train", "model": LM,
+           "parity_f32": {"losses_flash": fl.tolist(),
+                          "losses_dense": dl.tolist(),
+                          "loss_max_rel_err": loss_rel,
+                          "param_max_abs_err": param_err},
+           "probe": {"batch_size": 64, "steps_per_epoch": steps,
+                     "epochs": epochs, "compute_dtype": "bfloat16",
+                     "optimizer": "sgd", "learning_rate": 0.1},
+           "epoch_mean_loss": hist.tolist(), "wall_s": wall,
+           "last_epoch_s": rec["epoch_seconds"],
+           "samples_per_s": rec["samples_per_sec"],
+           "tokens_per_s": rec["samples_per_sec"] * LM["seq_len"],
+           "step_ms": 1e3 * rec["epoch_seconds"] / steps,
+           "peak_memory_bytes": peak, "launches": launches,
+           "jit_retraces": retraces,
+           "profiled_epoch": {
+               # the second epoch's window on the trace's device timeline,
+               # and the trainer's own CUDA-event seconds for it
+               "window_s": window_us / 1e6, "epoch_s": epoch_s,
+               "device_busy_s": busy_us / 1e6,
+               "device_busy_share": busy_us / window_us,
+               "kernel_share_of_device": share,
+               "top_kernels": [{"name": name[:90], "device_ms": us / 1e3}
+                               for name, us in top]}}
+    emit(row)
+    return row
+
+
 def _wait_first_token(req, timeout):
     t_end = time.perf_counter() + timeout
     while req.first_token_t is None and time.perf_counter() < t_end:
@@ -336,6 +627,9 @@ def main() -> int:
                    for n in PROMPT_LENS]
         sl = phase_slice(torch, model, prompts)
         phase_profile(torch, model, prompts)
+        del model
+        bwd_rows, bwd_timed = phase_k2k3(torch)
+        tr = phase_train(torch)
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1
@@ -343,12 +637,17 @@ def main() -> int:
                 and r["tq"] == 512 and "ms" in r)
     f32 = [r["max_abs_err"] for r in k1 if r["dtype"] == "float32"]
     bf16 = [r["max_abs_err"] for r in k1 if r["dtype"] == "bfloat16"]
-    emit({"kernels": [{
+    k1_train = {k[3:] if k.startswith("k1_") else k: v
+                for k, v in bwd_timed[0].items()
+                if k.startswith("k1_") or k in ("dtype", "bh", "t", "dh")}
+    kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "distkeras_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "distkeras_tpu/ops/pallas_attention.py:83",
         "replaces_kernel": "_fwd_kernel",
-        "launches": sl["launches"]["served"],
+        "launches": sl["launches"]["served"] + tr["launches"]["flash_fwd"],
+        "launches_by_path": {"serve": sl["launches"]["served"],
+                             "train": tr["launches"]["flash_fwd"]},
         "max_abs_err": max(f32 + bf16), "max_err_f32": max(f32),
         "max_err_bf16": max(bf16),
         "shape": {k: head[k] for k in ("bh", "tq", "tk", "dh", "dtype",
@@ -357,7 +656,40 @@ def main() -> int:
         # ``kernel_ms`` name the same number)
         "ms": head["ms"], "kernel_ms": head["ms"],
         "plain_ms": head["plain_ms"], "library_ms": head["library_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"]}]})
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "train_shape": k1_train}]
+    for name, kern, ms_key, errs, src_line in (
+            ("flash_bwd_dq", "_bwd_dq_kernel", "dq", ("dq_err",), 169),
+            ("flash_bwd_dkv", "_bwd_dkv_kernel", "dkv",
+             ("dk_err", "dv_err"), 200)):
+        f32 = [r[e] for r in bwd_rows for e in errs
+               if r["dtype"] == "float32"]
+        bf16 = [r[e] for r in bwd_rows for e in errs
+                if r["dtype"] == "bfloat16"]
+        bf, fp = bwd_timed
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "distkeras_tpu_torch/ops/csrc/flash_bwd.cu",
+            "replaces": f"distkeras_tpu/ops/pallas_attention.py:{src_line}",
+            "replaces_kernel": kern,
+            "launches": tr["launches"][name],
+            "launches_by_path": {"serve": 0, "train": tr["launches"][name]},
+            "max_abs_err": max(f32 + bf16), "max_err_f32": max(f32),
+            "max_err_bf16": max(bf16),
+            "shape": {"bh": bf["bh"], "tq": bf["t"], "tk": bf["t"],
+                      "dh": bf["dh"], "dtype": bf["dtype"], "causal": True},
+            "ms": bf[f"{ms_key}_ms"], "kernel_ms": bf[f"{ms_key}_ms"],
+            # the plain version computes dQ, dK and dV in one call
+            "plain_ms": bf["plain_ms"],
+            # SDPA's backward: one call for K2 and K3 together
+            "library_ms": bf["library_bwd_ms"],
+            "bound_ms": bf[f"{ms_key}_bound_ms"],
+            "bound_by": bf[f"{ms_key}_bound_by"],
+            "f32": {"ms": fp[f"{ms_key}_ms"], "plain_ms": fp["plain_ms"],
+                    "library_ms": fp["library_bwd_ms"],
+                    "bound_ms": fp[f"{ms_key}_bound_ms"],
+                    "bound_by": fp[f"{ms_key}_bound_by"]}})
+    emit({"kernels": kernels})
     print(env["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,10 @@
 """Model zoo — the port's share of ``distkeras_tpu.models.zoo``: the
-causal language models the serving slice runs."""
+transformer models (the causal language models and the encoder
+classifier)."""
 
 from __future__ import annotations
 
-from ..ops.attention import (LayerNorm, MultiHeadAttention,
+from ..ops.attention import (GlobalAvgPool1D, LayerNorm, MultiHeadAttention,
                              PositionalEmbedding)
 from .layers import Dense, Embedding, Residual, Sequential
 from .model import Model
@@ -16,6 +17,25 @@ def _ff_block(dim: int, ff_mult: int, moe_experts: int):
             "moe_experts > 0 (the switch-MoE FF block) is not ported yet")
     return Residual(Sequential([LayerNorm(), Dense(dim * ff_mult, "gelu"),
                                 Dense(dim)]))
+
+
+def transformer_classifier(vocab_size: int = 20000, dim: int = 128,
+                           num_heads: int = 4, num_blocks: int = 2,
+                           seq_len: int = 200, num_classes: int = 2,
+                           ff_mult: int = 4,
+                           moe_experts: int = 0) -> Model:
+    """Pre-LN transformer encoder classifier: blocks of (non-causal,
+    dense) ``MultiHeadAttention`` + gelu FF, mean-pooled over time, ending
+    in a softmax ``Dense`` (so the trainers pick the on-probs loss)."""
+    layers = [Embedding(vocab_size, dim)]
+    for _ in range(num_blocks):
+        layers.append(Residual(Sequential([
+            LayerNorm(), MultiHeadAttention(num_heads)])))
+        layers.append(_ff_block(dim, ff_mult, moe_experts))
+    layers += [LayerNorm(), GlobalAvgPool1D(),
+               Dense(num_classes, "softmax")]
+    return Model(Sequential(layers), input_shape=(seq_len,),
+                 name="transformer_classifier")
 
 
 def gpt_lm(vocab_size: int = 256, dim: int = 128, num_heads: int = 4,

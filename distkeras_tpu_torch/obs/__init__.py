@@ -1,6 +1,7 @@
-"""Telemetry for the port: instruments and registry, logging, and the
-retrace sentinel — the parts of ``distkeras_tpu.obs`` the serving slice
-records through, with the same metric names and snapshot format."""
+"""Telemetry for the port: instruments and registry, logging, spans, the
+retrace sentinel and the trainers' profile knobs — the parts of
+``distkeras_tpu.obs`` the serving and training slices record through,
+with the same metric names and record formats."""
 
 from .registry import (  # noqa: F401
     TIME_BUCKETS,
@@ -8,7 +9,14 @@ from .registry import (  # noqa: F401
     Gauge,
     Histogram,
     Registry,
+    default_registry,
     snapshot_quantile,
 )
 from .logging import get_logger  # noqa: F401
-from .profile import RetraceSentinel, tree_signature  # noqa: F401
+from .profile import (  # noqa: F401
+    ProfileConfig,
+    RetraceSentinel,
+    observe_memory,
+    tree_signature,
+)
+from .spans import SpanTracer, span  # noqa: F401

@@ -8,16 +8,23 @@ signature after the first.  The counters keep the JAX package's names
 (``jit.compiles`` / ``jit.retraces``), so the serving contract reads the
 same: after ``warmup()`` every bucketed program has its signature, and
 steady-state serving holds ``jit.retraces == 0``.
+
+Also here: ``ProfileConfig``, the trainers' ``profile=`` knobs, and
+``observe_memory``, the ``mem.*`` gauges read from PyTorch's CUDA
+allocator.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import threading
-from typing import Any, Tuple
+from typing import Any, Optional, Sequence, Tuple, Union
+
+import torch
 
 from .logging import get_logger
-from .registry import Registry
+from .registry import Registry, default_registry
 
 _LOG = "obs.profile"
 
@@ -50,20 +57,24 @@ class RetraceSentinel:
 
     ``observe(args)`` returns ``"cold"`` (first signature ever),
     ``"warm"`` (seen before) or ``"retrace"`` (a new signature after the
-    first).  Counters land in ``registry`` — a ``Registry`` or a zero-arg
-    callable returning one.  Retraces log once per signature unless
-    ``warn=False``."""
+    first).  Counters land in ``registry`` — a ``Registry``, a zero-arg
+    callable returning one, or None for the process-wide default.
+    Retraces log once per signature unless ``warn=False`` and, with a
+    ``sink``, emit a ``retrace`` record into the JSONL stream."""
 
-    def __init__(self, name: str, registry, warn: bool = True):
+    def __init__(self, name: str, registry=None, sink=None,
+                 warn: bool = True):
         self.name = name
         self._registry = registry
+        self.sink = sink
         self.warn = bool(warn)
         self._sigs: dict = {}   # signature -> digest
         self._lock = threading.Lock()
 
     def _reg(self) -> Registry:
-        return self._registry() if callable(self._registry) \
+        reg = self._registry() if callable(self._registry) \
             else self._registry
+        return reg if reg is not None else default_registry()
 
     def observe(self, args: Any) -> str:
         sig = tree_signature(args)
@@ -84,4 +95,77 @@ class RetraceSentinel:
                 "%s: retrace #%d — new arg signature %s (shapes/dtypes "
                 "changed since the first call; steady-state steps should "
                 "never change signature)", self.name, n_retrace, digest)
+        if self.sink is not None:
+            self.sink.log("retrace", entry=self.name, signature=digest,
+                          retraces=n_retrace)
         return "retrace"
+
+
+def observe_memory(device, registry: Optional[Registry] = None
+                   ) -> Optional[dict]:
+    """Sample the CUDA allocator of ``device`` into the JAX package's
+    watermark gauges: ``mem.live_bytes`` (bytes allocated now),
+    ``mem.peak_live_bytes`` (the largest such sample) and
+    ``mem.device_peak_bytes`` (the allocator's own peak).  Returns the
+    snapshot, or None on a CPU device, which has no allocator stats."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    snap = {"live_bytes": torch.cuda.memory_allocated(device),
+            "device_peak_bytes": torch.cuda.max_memory_allocated(device)}
+    reg = registry if registry is not None else default_registry()
+    reg.gauge("mem.live_bytes").set(snap["live_bytes"])
+    reg.gauge("mem.device_peak_bytes").set(snap["device_peak_bytes"])
+    peak = reg.gauge("mem.peak_live_bytes")
+    peak.set(max(peak.value, snap["live_bytes"]))
+    return snap
+
+
+#: where the readings a ``ProfileConfig`` asks for are ported (ROADMAP)
+_PROFILE_ITEM = ("ROADMAP Queue 1 item 10 (torch.profiler / "
+                 "torch.cuda readings)")
+
+
+@dataclasses.dataclass
+class ProfileConfig:
+    """Profiling knobs a trainer accepts as ``profile=`` (the JAX
+    package's fields and defaults).
+
+    * ``trace_dir`` / ``trace_epochs`` — per-epoch device captures; not
+      ported yet, so a set ``trace_dir`` raises.
+    * ``step_split`` — the host/device step-time split; not ported yet,
+      so True raises.
+    * ``memory`` — sample ``observe_memory`` at each epoch record (CUDA
+      allocator bytes; nothing on a CPU device)."""
+
+    trace_dir: Optional[str] = None
+    trace_epochs: Optional[Sequence[int]] = (0,)
+    step_split: bool = False
+    memory: bool = True
+
+    def __post_init__(self):
+        if self.trace_dir:
+            raise NotImplementedError(
+                f"profile trace_dir (per-epoch device captures) is not "
+                f"ported yet: {_PROFILE_ITEM}")
+        if self.step_split:
+            raise NotImplementedError(
+                f"profile step_split (the host/device step split) is not "
+                f"ported yet: {_PROFILE_ITEM}")
+
+    @staticmethod
+    def resolve(spec: Union[None, str, dict, "ProfileConfig"]
+                ) -> "ProfileConfig":
+        """``None`` (defaults) | a path string (= ``trace_dir``) | a dict
+        of fields | a ready ProfileConfig."""
+        if spec is None:
+            return ProfileConfig()
+        if isinstance(spec, ProfileConfig):
+            return spec
+        if isinstance(spec, str):
+            return ProfileConfig(trace_dir=spec)
+        if isinstance(spec, dict):
+            return ProfileConfig(**spec)
+        raise TypeError(f"profile= expects None, a trace dir path, a dict "
+                        f"of ProfileConfig fields, or a ProfileConfig "
+                        f"(got {type(spec).__name__})")

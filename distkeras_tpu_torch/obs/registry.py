@@ -168,3 +168,13 @@ class Registry:
             insts = dict(self._instruments)
         return {name: inst.snapshot() for name, inst in sorted(insts.items())}
 
+
+_DEFAULT = Registry()
+
+
+def default_registry() -> Registry:
+    """The process-wide registry: where a component with no registry of
+    its own records (the trainers' ``jit.*`` counters and ``mem.*``
+    gauges)."""
+    return _DEFAULT
+

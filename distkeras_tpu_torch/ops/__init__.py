@@ -2,6 +2,7 @@
 
 from .flash_attention import flash_attention, flash_attention_lse  # noqa: F401
 from .attention import (  # noqa: F401
+    GlobalAvgPool1D,
     LayerNorm,
     MultiHeadAttention,
     PositionalEmbedding,

@@ -1,11 +1,12 @@
-"""Build and load the flash-attention forward kernel: ``nvcc`` → shared
+"""Build and load the flash-attention kernels: ``nvcc`` → one shared
 library with a plain C interface → ``ctypes``.
 
-``csrc/flash_fwd.cu`` builds into ``distkeras_tpu_torch/_build/`` (listed
-in ``.gitignore``), under a name keyed by a hash of the source and the
-flags, so a changed source rebuilds and an unchanged one is reused.
-Nothing here runs at import: the first ``library()`` call builds it if
-stale.
+``csrc/flash_fwd.cu`` (K1) and ``csrc/flash_bwd.cu`` (K2, K3) compile in
+parallel, one ``nvcc`` each, and link into ``distkeras_tpu_torch/_build/``
+(listed in ``.gitignore``) under a name keyed by a hash of the sources
+and the flags, so a changed source rebuilds and an unchanged one is
+reused.  Nothing here runs at import: the first ``library()`` call builds
+it if stale.
 """
 
 from __future__ import annotations
@@ -15,25 +16,35 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from typing import Optional
 
-SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
-                      "flash_fwd.cu")
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+SOURCES = tuple(os.path.join(_CSRC, f)
+                for f in ("flash_fwd.cu", "flash_bwd.cu"))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "_build")
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: function name -> (restype, argtypes)
 SIGNATURES = {
     # q, k, v, o, lse, bh, tq, tk, head_dim, causal, scale, dtype, device,
     # stream -> cudaError_t
-    "dkt_flash_fwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           ctypes.c_float, _I, _I, _P]),
+    "dkt_flash_fwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                           _I, _P]),
+    # q, k, v, dout, lse, dvec, dq, bh, tq, tk, head_dim, causal, scale,
+    # dtype, device, stream -> cudaError_t
+    "dkt_flash_bwd_dq": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _F, _I, _I, _P]),
+    # as dkt_flash_bwd_dq with dk, dv in place of dq
+    "dkt_flash_bwd_dkv": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _F, _I, _I, _P]),
     "dkt_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -42,11 +53,12 @@ _LOCK = threading.Lock()
 
 
 def lib_path() -> str:
-    """The library path for the current source and flags."""
+    """The library path for the current sources and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(SOURCE, "rb") as f:
-        h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libflash_fwd-{h.hexdigest()[:16]}.so")
+    for src in SOURCES:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libflash-{h.hexdigest()[:16]}.so")
 
 
 def build() -> dict:
@@ -59,19 +71,28 @@ def build() -> dict:
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(nvcc):
         raise RuntimeError("nvcc not found (on PATH or /usr/local/cuda/bin); "
-                           "the CUDA kernel is built on first use")
+                           "the CUDA kernels are built on first use")
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{dst}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc flash_fwd.cu failed (exit "
-                           f"{proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, dst)
-    return {"built": True, "seconds": time.perf_counter() - t0,
-            "log": proc.stdout}
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in SOURCES]
+        # one nvcc per source, all started together, then one link
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(SOURCES, objs)]
+        log = "".join([p.communicate()[0] for p in procs])
+        if all(p.returncode == 0 for p in procs):
+            so = os.path.join(tmp, "lib.so")
+            link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", so,
+                                   *objs], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            log += link.stdout
+            if link.returncode == 0:
+                os.replace(so, dst)
+    if not os.path.exists(dst):
+        raise RuntimeError(f"nvcc failed:\n{log}")
+    return {"built": True, "seconds": time.perf_counter() - t0, "log": log}
 
 
 def library() -> ctypes.CDLL:

@@ -6,7 +6,7 @@
   with dim i + Dh/2), as in the JAX package.
 * ``MultiHeadAttention`` — fused qkv projection, grouped-query K/V,
   dense or flash attention, and the cached-decode protocol.
-* ``LayerNorm`` / ``PositionalEmbedding``.
+* ``LayerNorm`` / ``PositionalEmbedding`` / ``GlobalAvgPool1D``.
 
 ``impl="flash"`` runs ``ops.flash_attention`` (the hand-written CUDA
 kernel on the card, its plain version on the CPU).  Sequence-parallel
@@ -306,3 +306,15 @@ class PositionalEmbedding(Layer):
 
     def get_config(self):
         return {"max_len": self.max_len}
+
+
+@register
+class GlobalAvgPool1D(Layer):
+    """Mean over the time axis: (T, D) -> (D,)."""
+    time_mixing = True
+
+    def out_shape(self, in_shape):
+        return (in_shape[-1],)
+
+    def forward(self, x):
+        return x.mean(dim=1)

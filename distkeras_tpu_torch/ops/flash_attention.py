@@ -1,15 +1,15 @@
-"""Flash attention, forward only — the port of
+"""Flash attention, forward and backward — the port of
 ``distkeras_tpu.ops.pallas_attention`` (``flash_attention`` and
 ``flash_attention_lse``).
 
-On a CUDA tensor the forward is the hand-written kernel
-``ops/csrc/flash_fwd.cu`` (the port of the Pallas ``_fwd_kernel``),
-through ``flash_fwd_cuda``; on a CPU tensor it is ``flash_fwd_plain``,
-the dense version of the same function.  A CUDA tensor never takes the
-plain version: the kernel runs or the call raises.
-
-The backward kernels (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``) come with
-the training slice; until then the autograd backward raises.
+On CUDA tensors the forward is the hand-written kernel
+``ops/csrc/flash_fwd.cu`` (the port of the Pallas ``_fwd_kernel``,
+through ``flash_fwd_cuda``) and the backward the two kernels of
+``ops/csrc/flash_bwd.cu`` (``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``,
+through ``flash_bwd_dq_cuda`` and ``flash_bwd_dkv_cuda``).  On CPU
+tensors they are ``flash_fwd_plain`` and ``flash_bwd_plain``, the dense
+versions of the same functions.  A CUDA tensor never takes a plain
+version: the kernel runs or the call raises.
 """
 
 from __future__ import annotations
@@ -21,8 +21,6 @@ from typing import Optional, Tuple
 import torch
 
 from . import _kernels
-
-_BACKWARD_MSG = "flash backward (K2/K3) is ported with the training slice"
 
 
 def _to_bh(x):
@@ -42,13 +40,19 @@ def _blocks(tq: int, tk: int, block_q: Optional[int],
     """The JAX package's block rule, kept for API parity: a given block
     (clipped to the length) must divide it.  None means the whole length
     — the TPU's VMEM-sized default (``_auto_block``) does not carry over,
-    and the CUDA kernel tiles and masks on its own."""
+    and the CUDA kernels tile and mask on their own."""
     bq = tq if block_q is None else min(int(block_q), tq)
     bk = tk if block_k is None else min(int(block_k), tk)
     if tq % bq or tk % bk:
         raise ValueError(f"sequence lengths ({tq}, {tk}) must divide "
                          f"block sizes ({bq}, {bk})")
     return bq, bk
+
+
+def _causal_keep(tq: int, tk: int, device):
+    """(Tq, Tk) bool: key position ≤ query position."""
+    return (torch.arange(tk, device=device)[None, :]
+            <= torch.arange(tq, device=device)[:, None])
 
 
 def flash_fwd_plain(q, k, v, causal: bool, scale: float):
@@ -58,34 +62,51 @@ def flash_fwd_plain(q, k, v, causal: bool, scale: float):
     s = torch.matmul(q.to(torch.float32),
                      k.to(torch.float32).transpose(1, 2)) * scale
     if causal:
-        tq, tk = s.shape[-2:]
-        q_pos = torch.arange(tq, device=s.device)[:, None]
-        k_pos = torch.arange(tk, device=s.device)[None, :]
-        s = s.masked_fill(k_pos > q_pos, float("-inf"))
+        s = s.masked_fill(~_causal_keep(*s.shape[-2:], s.device),
+                          float("-inf"))
     lse = torch.logsumexp(s, dim=-1)
     o = torch.matmul(torch.exp(s - lse[..., None]), v.to(torch.float32))
     return o.to(q.dtype), lse
 
 
-#: dtype codes of the C interface (``dkt_flash_fwd``'s ``dtype``)
+def flash_bwd_plain(q, k, v, lse, do, dvec, causal: bool, scale: float):
+    """Plain PyTorch version of the backward kernels (K2 and K3 together):
+    with P = exp(scale·QKᵀ − L) under the causal mask, dP = dO·Vᵀ and
+    dS = scale·P∘(dP − D), returns (dQ = dS·K, dK = dSᵀ·Q, dV = Pᵀ·dO),
+    computed in f32 and cast to q's, k's and v's dtypes.  Shapes as the
+    kernels': q/do (BH, Tq, Dh), k/v (BH, Tk, Dh), lse/dvec (BH, Tq) f32."""
+    qf, kf, vf, dof = (x.to(torch.float32) for x in (q, k, v, do))
+    p = torch.exp(torch.matmul(qf, kf.transpose(1, 2)) * scale
+                  - lse[..., None])
+    if causal:
+        # a select, so a masked entry is exactly 0 whatever exp gave
+        p = p.masked_fill(~_causal_keep(*p.shape[-2:], p.device), 0.0)
+    dp = torch.matmul(dof, vf.transpose(1, 2))
+    ds = p * (dp - dvec[..., None]) * scale
+    return (torch.matmul(ds, kf).to(q.dtype),
+            torch.matmul(ds.transpose(1, 2), qf).to(k.dtype),
+            torch.matmul(p.transpose(1, 2), dof).to(v.dtype))
+
+
+#: dtype codes of the C interface (the ``dtype`` argument)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims the kernel is instantiated for
+#: head dims the kernels are instantiated for
 HEAD_DIMS = (32, 64)
 
 
-def flash_fwd_cuda(q, k, v, causal: bool, scale: float):
-    """Launch the CUDA forward kernel.  Same contract as
-    ``flash_fwd_plain``; raises on what the kernel does not take.
-    ``flash_fwd_cuda.launches`` counts the launches."""
-    tensors = (q, k, v)
+def _check(name: str, q, k, v, causal: bool, stats=(), do=None):
+    """Refuse what the kernels do not take; returns (bh, tq, tk, dh).
+    ``stats`` are (BH, Tq) f32 vectors (lse, D); ``do`` is shaped and
+    typed like q."""
+    tensors = (q, k, v, *stats) + (() if do is None else (do,))
     if not all(t.is_cuda for t in tensors):
-        raise ValueError("flash_fwd_cuda needs CUDA tensors")
+        raise ValueError(f"{name} needs CUDA tensors")
     if len({t.device for t in tensors}) != 1:
-        raise ValueError("q, k and v must be on one device")
+        raise ValueError(f"{name}: every tensor must be on one device")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
-        raise TypeError(f"flash_fwd_cuda takes float32 or bfloat16 q/k/v of "
-                        f"one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+        raise TypeError(f"{name} takes float32 or bfloat16 q/k/v of one "
+                        f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
     if q.ndim != 3 or k.ndim != 3 or v.shape != k.shape:
         raise ValueError(f"expected (BH, T, Dh) q/k/v, got {tuple(q.shape)}"
                          f", {tuple(k.shape)}, {tuple(v.shape)}")
@@ -102,55 +123,127 @@ def flash_fwd_cuda(q, k, v, causal: bool, scale: float):
     if causal and tq != tk:
         raise ValueError(f"causal flash needs equal q/k lengths, got "
                          f"{tq} vs {tk}")
+    if do is not None and (do.shape != q.shape or do.dtype != q.dtype):
+        raise ValueError(f"{name}: dO {tuple(do.shape)} {do.dtype} must be "
+                         f"shaped and typed like q {tuple(q.shape)} "
+                         f"{q.dtype}")
+    for t in stats:
+        if t.dtype != torch.float32 or t.shape != (bh, tq):
+            raise ValueError(f"{name}: lse and D must be ({bh}, {tq}) "
+                             f"float32, got {tuple(t.shape)} {t.dtype}")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("flash_fwd_cuda needs contiguous q/k/v")
+        raise ValueError(f"{name} needs contiguous inputs")
+    return bh, tq, tk, dh
+
+
+def _launch(fn: str, *args, device):
+    """Call the C function ``fn`` on the current stream of ``device`` and
+    raise on a nonzero CUDA error."""
+    lib = _kernels.library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = getattr(lib, fn)(*args, device.index or 0, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: CUDA error {err} "
+                           f"({lib.dkt_error_string(err).decode()})")
+
+
+def flash_fwd_cuda(q, k, v, causal: bool, scale: float):
+    """Launch the CUDA forward kernel (K1).  Same contract as
+    ``flash_fwd_plain``; raises on what the kernel does not take.
+    ``flash_fwd_cuda.launches`` counts the launches."""
+    bh, tq, tk, dh = _check("flash_fwd_cuda", q, k, v, causal)
     o = torch.empty_like(q)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
-    lib = _kernels.library()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.dkt_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), bh, tq, tk, dh, int(bool(causal)),
-        ctypes.c_float(scale), _DTYPE_CODES[q.dtype], q.device.index or 0,
-        stream)
-    if err != 0:
-        raise RuntimeError(f"flash_fwd launch failed: CUDA error {err} "
-                           f"({lib.dkt_error_string(err).decode()})")
+    _launch("dkt_flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), bh, tq, tk, dh, int(bool(causal)),
+            ctypes.c_float(scale), _DTYPE_CODES[q.dtype], device=q.device)
     flash_fwd_cuda.launches += 1
     return o, lse
 
 
+def flash_bwd_dq_cuda(q, k, v, lse, do, dvec, causal: bool, scale: float):
+    """Launch K2: dQ, like ``flash_bwd_plain``'s first output.
+    ``flash_bwd_dq_cuda.launches`` counts the launches."""
+    bh, tq, tk, dh = _check("flash_bwd_dq_cuda", q, k, v, causal,
+                            (lse, dvec), do)
+    dq = torch.empty_like(q)
+    _launch("dkt_flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(),
+            bh, tq, tk, dh, int(bool(causal)), ctypes.c_float(scale),
+            _DTYPE_CODES[q.dtype], device=q.device)
+    flash_bwd_dq_cuda.launches += 1
+    return dq
+
+
+def flash_bwd_dkv_cuda(q, k, v, lse, do, dvec, causal: bool, scale: float):
+    """Launch K3: (dK, dV), like ``flash_bwd_plain``'s last two outputs.
+    ``flash_bwd_dkv_cuda.launches`` counts the launches."""
+    bh, tq, tk, dh = _check("flash_bwd_dkv_cuda", q, k, v, causal,
+                            (lse, dvec), do)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("dkt_flash_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dvec.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), bh, tq, tk, dh, int(bool(causal)),
+            ctypes.c_float(scale), _DTYPE_CODES[q.dtype], device=q.device)
+    flash_bwd_dkv_cuda.launches += 1
+    return dk, dv
+
+
 flash_fwd_cuda.launches = 0
+flash_bwd_dq_cuda.launches = 0
+flash_bwd_dkv_cuda.launches = 0
 
 
-def _flash_fwd(q, k, v, causal: bool, scale: float):
-    if q.device.type == "cuda":
-        return flash_fwd_cuda(q, k, v, causal, scale)
-    if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, causal, scale)
-    raise ValueError(f"flash attention runs on cuda or cpu tensors, got "
-                     f"{q.device}")
+def _on(q) -> str:
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash attention runs on cuda or cpu tensors, got "
+                         f"{q.device}")
+    return q.device.type
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The differentiable op around the forward kernel; its backward
-    (K2/K3) is not ported yet."""
+    """The differentiable op: (q, k, v) in (BH, T, Dh) → (O, lse).  Its
+    backward computes D = rowsum(dO∘O) in f32 (as the JAX package does,
+    outside the kernels), folds an lse cotangent in as D − g_lse, and runs
+    K2 and K3 (their plain version on CPU tensors)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
-        return _flash_fwd(q, k, v, causal, scale)
+        if _on(q) == "cuda":
+            o, lse = flash_fwd_cuda(q, k, v, causal, scale)
+        else:
+            o, lse = flash_fwd_plain(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        # an unused output's cotangent arrives as None, not as zeros
+        ctx.set_materialize_grads(False)
+        return o, lse
 
     @staticmethod
     def backward(ctx, g_out, g_lse):
-        raise NotImplementedError(_BACKWARD_MSG)
+        q, k, v, o, lse = ctx.saved_tensors
+        # the cotangent of _from_bh's transposed view arrives strided
+        do = torch.zeros_like(q) if g_out is None \
+            else g_out.to(q.dtype).contiguous()
+        dvec = (do.to(torch.float32) * o.to(torch.float32)).sum(-1)
+        if g_lse is not None:
+            dvec = dvec - g_lse.to(torch.float32)
+        args = (q, k, v, lse, do, dvec.contiguous(), ctx.causal, ctx.scale)
+        if _on(q) == "cuda":
+            dq = flash_bwd_dq_cuda(*args)
+            dk, dv = flash_bwd_dkv_cuda(*args)
+        else:
+            dq, dk, dv = flash_bwd_plain(*args)
+        return dq, dk, dv, None, None
 
 
 def flash_attention_lse(q, k, v, causal: bool = False, block_q=None,
                         block_k=None):
     """q (B, Tq, H, Dh), k/v (B, Tk, H, Dh) → (out (B, Tq, H, Dh), lse
-    (B, H, Tq) f32).  Causal requires Tq == Tk; non-causal allows
-    Tq ≠ Tk.  Precision follows the input dtype: f32 inputs are computed
-    in f32, bf16 inputs with f32 accumulation and statistics."""
+    (B, H, Tq) f32), differentiable in both outputs.  Causal requires
+    Tq == Tk; non-causal allows Tq ≠ Tk.  Precision follows the input
+    dtype: f32 inputs are computed in f32, bf16 inputs with f32
+    accumulation and statistics."""
     b, t, h, dh = q.shape
     tk = k.shape[1]
     _blocks(t, tk, block_q, block_k)

@@ -1,0 +1,343 @@
+"""Training orchestration — the port of ``distkeras_tpu.trainers``'
+``Trainer`` and ``SingleTrainer`` (the in-memory path).
+
+The dist-keras surface is unchanged: ``SingleTrainer(model, optimizer,
+loss, ...).train(dataset) -> trained model``, with ``get_history()``,
+``get_averaged_history()`` and ``get_training_time()``.  One epoch is
+one call of the window loop (``parallel.sync.make_window_fn``) over the
+epoch's batches, which are moved to the model's device once.  Epoch k's
+losses are read back only after epoch k+1 is dispatched
+(``_EpochPipeline``), so the host never waits on the card inside an
+epoch.
+
+Not ported yet, and raising where asked for: ``checkpoint_dir`` /
+``resume=True`` (checkpoints) and ``serialize()`` (serde), ROADMAP
+Queue 1 items 3 and 6; a disk-streaming dataset, item 5; the
+distributed trainers, item 7.  The trainers run on the card unless the
+caller passes ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .data.dataset import Dataset
+from .models.layers import Activation, Dense, Sequential
+from .models.model import Model
+from .obs import ProfileConfig, RetraceSentinel, SpanTracer, observe_memory
+from .obs.registry import default_registry
+from .ops.losses import get_loss, probs_loss_variant
+from .ops.optimizers import get_optimizer
+from .parallel.sync import make_window_fn, model_params
+from .utils.device import DeviceLike, default_device
+from .utils.metrics import MetricsLogger
+from .utils.weights import to_numpy_variables
+
+_CHECKPOINT_ITEM = "ROADMAP Queue 1 items 3 and 6 (serde and checkpoints)"
+
+
+class _EpochPipeline:
+    """Deferred per-epoch loss readback.
+
+    Reading an epoch's losses back as soon as it is dispatched would make
+    the host wait for the card at every epoch edge and drain its queue.
+    Instead ``push`` starts a non-blocking copy of epoch k's losses into
+    pinned host memory, marks the device's timeline behind it, and only
+    then waits for epoch k−1's mark, so the wait overlaps epoch k's
+    compute.  ``flush()`` waits for the last epoch before the trainer
+    returns.  An epoch's seconds run from the previous epoch's mark (the
+    first from the loop's start) to its own, on the device's timeline
+    (CUDA events), so they stay honest whether the host or the card is
+    the slower; ``sum(epoch_seconds)`` spans loop start → last epoch's
+    compute finished.
+    """
+
+    def __init__(self, trainer: "Trainer", samples: int, device):
+        self.trainer = trainer
+        self.samples = samples
+        self.pending = None
+        self.last_mark = _mark(device)
+
+    def push(self, epoch: int, dev_losses: torch.Tensor) -> None:
+        """Hand over an epoch's device losses; drains the previous epoch."""
+        prev, self.pending = self.pending, (epoch, *_start_readback(
+            dev_losses))
+        self._drain(prev)
+
+    def flush(self) -> None:
+        self._drain(self.pending)
+        self.pending = None
+
+    def _drain(self, item) -> None:
+        if item is None:
+            return
+        epoch, host, mark = item
+        dt = _seconds_between(self.last_mark, mark)  # waits for the epoch
+        self.last_mark = mark
+        losses = host.numpy()
+        self.trainer.history.append(losses)
+        self.trainer._epoch_metrics(epoch, losses, dt, self.samples)
+
+
+def _mark(device):
+    """A point on ``device``'s timeline: a timing CUDA event recorded on
+    the current stream, or the host clock on a CPU device (whose ops have
+    finished when they return)."""
+    if device.type != "cuda":
+        return time.perf_counter()
+    event = torch.cuda.Event(enable_timing=True)
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
+def _seconds_between(a, b) -> float:
+    """Seconds from mark ``a`` to mark ``b``, waiting until ``b`` is
+    reached."""
+    if isinstance(b, float):
+        return b - a
+    b.synchronize()
+    return a.elapsed_time(b) / 1e3
+
+
+def _start_readback(x: torch.Tensor):
+    """(host tensor, mark): a copy of ``x`` to the host that does not
+    block the caller on the card, and the mark of its completion."""
+    if x.device.type != "cuda":
+        return x.detach(), _mark(x.device)
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x, non_blocking=True)
+    return host, _mark(x.device)
+
+
+def _resolve_dtype(dtype) -> Optional[torch.dtype]:
+    """None | str | torch.dtype -> torch.dtype (or None).  Accepts the
+    common shorthands so ``compute_dtype="bf16"`` works."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    if isinstance(dtype, str):
+        name = {"bf16": "bfloat16", "fp16": "float16", "f32": "float32",
+                "fp32": "float32"}.get(dtype, dtype)
+        resolved = getattr(torch, name, None)
+        if isinstance(resolved, torch.dtype):
+            return resolved
+    raise TypeError(f"compute_dtype must be None, a dtype name or a "
+                    f"torch.dtype, got {dtype!r}")
+
+
+def _ends_in_prob_activation(model) -> bool:
+    """Reference models end in a softmax (or sigmoid, for binary heads)
+    layer and train with crossentropy on probabilities (Keras semantics).
+    Detect that so the loss can use the on-probs variant."""
+    layer = model.layer
+    while isinstance(layer, Sequential) and len(layer.layers):
+        layer = layer.layers[-1]
+    return isinstance(layer, (Activation, Dense)) and \
+        layer.activation in ("softmax", "sigmoid")
+
+
+class Trainer:
+    """Base trainer (reference ``distkeras/trainers.py:Trainer``): owns the
+    model + optimizer + loss, records wall-clock training time and the
+    per-iteration loss history.  ``device`` (default: the card) is where
+    the model is initialised and trained."""
+
+    def __init__(self, keras_model: Model, worker_optimizer="sgd",
+                 loss="categorical_crossentropy", features_col: str = "features",
+                 label_col: str = "label", num_epoch: int = 1,
+                 batch_size: int = 32, learning_rate: float = 0.01,
+                 seed: int = 0, checkpoint_dir: Optional[str] = None,
+                 checkpoint_keep: int = 3, metrics=None,
+                 compute_dtype=None, remat: bool = False,
+                 aux_weight: float = 0.0, profile=None,
+                 device: DeviceLike = None):
+        if checkpoint_dir:
+            raise NotImplementedError(
+                f"checkpoint_dir (mid-training checkpoints) is not ported "
+                f"yet: {_CHECKPOINT_ITEM}")
+        self.model = keras_model
+        self.worker_optimizer = worker_optimizer
+        self.loss = loss
+        self.features_col = features_col
+        self.label_col = label_col
+        self.num_epoch = int(num_epoch)
+        self.batch_size = int(batch_size)
+        self.learning_rate = float(learning_rate)
+        self.seed = int(seed)
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_keep = int(checkpoint_keep)
+        #: mixed precision: the forward runs on copies of the parameters
+        #: cast to this dtype; the optimizer keeps f32 masters
+        self.compute_dtype = _resolve_dtype(compute_dtype)
+        #: recompute the forward's activations in the backward
+        self.remat = bool(remat)
+        #: weight of the layers' ``aux_loss`` terms in the objective
+        self.aux_weight = float(aux_weight)
+        if metrics is None or isinstance(metrics, MetricsLogger):
+            self.metrics = metrics or MetricsLogger(None)
+        else:
+            self.metrics = MetricsLogger(metrics)
+        #: spans share the metrics' sink: one JSONL stream for both
+        self.tracer = SpanTracer(self.metrics)
+        self.profile = ProfileConfig.resolve(profile)
+        self.device = default_device(device)
+        #: per-(kind, config) retrace sentinels behind ``_instrumented``
+        self._sentinels: dict = {}
+
+        self.history: list = []
+        self.training_time: float = 0.0
+        self.trained_variables: Optional[dict] = None
+
+    # -- parity helpers -----------------------------------------------------
+    def get_training_time(self) -> float:
+        """Parity: reference ``Trainer.get_training_time``."""
+        return self.training_time
+
+    def get_history(self) -> list:
+        """Per-epoch arrays of per-iteration training loss."""
+        return self.history
+
+    def get_averaged_history(self) -> np.ndarray:
+        """Mean loss per epoch."""
+        return np.array([float(np.mean(h)) for h in self.history])
+
+    def serialize(self) -> bytes:
+        """Parity: reference ``Trainer.serialize`` — not ported yet."""
+        raise NotImplementedError(
+            f"Trainer.serialize (the msgpack model blob) is not ported "
+            f"yet: {_CHECKPOINT_ITEM}")
+
+    # -- shared plumbing ----------------------------------------------------
+    def _resolve(self):
+        loss_fn = get_loss(self.loss)
+        if isinstance(self.loss, str) and _ends_in_prob_activation(self.model):
+            loss_fn = probs_loss_variant(self.loss) or loss_fn
+        optimizer = get_optimizer(self.worker_optimizer, self.learning_rate)
+        return loss_fn, optimizer
+
+    def _config_key(self) -> tuple:
+        """Hashable fingerprint of everything the window program captures;
+        the cache below rebuilds when it changes."""
+        o, l = self.worker_optimizer, self.loss
+        return (o if isinstance(o, str) else id(o),
+                l if isinstance(l, str) else id(l),
+                self.learning_rate, str(self.compute_dtype), self.remat,
+                self.aux_weight)
+
+    def _obs_registry(self):
+        """Where this trainer's counters land: the tracer's registry when
+        one is attached, else the process-wide default."""
+        return self.tracer.registry if self.tracer.registry is not None \
+            else default_registry()
+
+    def _instrumented(self, run, kind: str = "window"):
+        """Feed every call's argument signature to a retrace sentinel
+        (``jit.compiles`` / ``jit.retraces``).  The first call of a
+        signature is the port's "compile" (the kernels build at first use
+        inside it): it runs under a ``jit_compile`` span, flagged
+        ``retrace=True`` when it is a new signature after the first."""
+        key = (kind, self._config_key())
+        sentinel = self._sentinels.get(key)
+        if sentinel is None:
+            sentinel = self._sentinels[key] = RetraceSentinel(
+                f"{type(self).__name__}.{kind}",
+                registry=self._obs_registry, sink=self.metrics)
+
+        def wrapped(*args):
+            state = sentinel.observe(args)
+            if state == "warm":
+                return run(*args)
+            with self.tracer.span("jit_compile", kind=kind,
+                                  trainer=type(self).__name__,
+                                  **({"retrace": True}
+                                     if state == "retrace" else {})):
+                return run(*args)
+        return wrapped
+
+    def _window_run(self):
+        """The cached window program and its optimizer — rebuilt when a
+        hyperparameter changed between ``train()`` calls."""
+        key = self._config_key()
+        cached = getattr(self, "_run_cache", None)
+        if cached is None or cached[0] != key:
+            loss_fn, optimizer = self._resolve()
+            run = make_window_fn(self.model, loss_fn, optimizer,
+                                 compute_dtype=self.compute_dtype,
+                                 remat=self.remat,
+                                 aux_weight=self.aux_weight)
+            self._run_cache = (key, run, optimizer)
+        _, run, optimizer = self._run_cache
+        return self._instrumented(run), optimizer
+
+    def _finish(self) -> Model:
+        self.trained_variables = to_numpy_variables(self.model)
+        return self.model
+
+    def train(self, dataset: Dataset, shuffle: bool = False,
+              resume: bool = False) -> Model:
+        """Parity: reference ``Trainer.train(dataframe, shuffle)``."""
+        if resume:
+            raise NotImplementedError(
+                f"resume=True (restart from a checkpoint) is not ported "
+                f"yet: {_CHECKPOINT_ITEM}")
+        t0 = time.time()
+        try:
+            with self.tracer.span("train", trainer=type(self).__name__,
+                                  epochs=self.num_epoch):
+                return self._train(dataset, shuffle)
+        finally:
+            self.training_time = time.time() - t0
+
+    def _train(self, dataset: Dataset, shuffle: bool) -> Model:
+        raise NotImplementedError
+
+    def _epoch_metrics(self, epoch: int, losses: np.ndarray, dt: float,
+                       samples: int) -> None:
+        extra = {}
+        if self.profile.memory:
+            snap = observe_memory(self.device, self._obs_registry())
+            if snap is not None:
+                extra["live_bytes"] = snap["live_bytes"]
+        self.metrics.log("epoch", trainer=type(self).__name__, epoch=epoch,
+                         mean_loss=float(np.mean(losses)),
+                         epoch_seconds=dt,
+                         samples_per_sec=samples / dt if dt > 0 else 0.0,
+                         **extra)
+
+
+class SingleTrainer(Trainer):
+    """Single-worker baseline (reference ``SingleTrainer``): the whole
+    dataset on one device, one window loop over its batches per epoch.
+    The conformance anchor the distributed trainers are compared with."""
+
+    def _train(self, dataset: Dataset, shuffle: bool) -> Model:
+        if not isinstance(dataset, Dataset):
+            raise NotImplementedError(
+                f"SingleTrainer trains an in-memory Dataset; the "
+                f"disk-streaming path ({type(dataset).__name__}) is not "
+                f"ported yet: ROADMAP Queue 1 item 5")
+        if shuffle:
+            dataset = dataset.shuffle(self.seed)
+        run, optimizer = self._window_run()
+
+        ds = dataset.coalesce(1)
+        stacked, steps = ds.stacked([self.features_col, self.label_col],
+                                    self.batch_size)
+        # the epoch's batches move to the device once
+        xs = torch.from_numpy(stacked[self.features_col][0]).to(self.device)
+        ys = torch.from_numpy(stacked[self.label_col][0]).to(self.device)
+
+        self.model.init(self.seed, device=self.device)
+        params = model_params(self.model)
+        opt_state = optimizer.init(params)
+
+        samples = int(xs.shape[0]) * self.batch_size
+        pipe = _EpochPipeline(self, samples, self.device)
+        for epoch in range(self.num_epoch):
+            params, opt_state, losses = run(params, opt_state, xs, ys)
+            pipe.push(epoch, losses)
+        pipe.flush()
+        return self._finish()

@@ -1,6 +1,7 @@
-"""The port's CUDA paths on the card: the flash-attention kernel against
-its plain version, the wrapper's refusals, and the decode engine on a
-small model.  Every test is marked ``cuda`` and skips where
+"""The port's CUDA paths on the card: the flash-attention kernels (K1
+forward, K2/K3 backward) against their plain versions, the wrappers'
+refusals, the decode engine on a small model, and a short flash-vs-dense
+``SingleTrainer`` run.  Every test is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is False (the kernel has no CPU mode).
 
 This file imports neither JAX nor the JAX package, so it also runs on
@@ -13,11 +14,15 @@ import numpy as np
 import pytest
 import torch
 
+from distkeras_tpu_torch import SingleTrainer
+from distkeras_tpu_torch.data import load_lm_corpus
 from distkeras_tpu_torch.models import generate_tokens, zoo
 from distkeras_tpu_torch.obs import Registry
 from distkeras_tpu_torch.ops.flash_attention import (
-    _from_bh, _to_bh, flash_attention_lse, flash_fwd_cuda, flash_fwd_plain)
+    _from_bh, _to_bh, flash_attention_lse, flash_bwd_dkv_cuda,
+    flash_bwd_dq_cuda, flash_bwd_plain, flash_fwd_cuda, flash_fwd_plain)
 from distkeras_tpu_torch.serve import DecodeEngine, ServeConfig
+from distkeras_tpu_torch.utils.tree import tree_leaves
 
 pytestmark = pytest.mark.cuda
 
@@ -56,6 +61,55 @@ def test_kernel_matches_plain(dtype, causal, t, tk, dh, tol):
     assert (lse.reshape(8, t) - ref_lse).abs().max() <= tol
 
 
+@pytest.mark.parametrize("dtype,causal,t,tk,dh", [
+    (torch.float32, True, 200, None, 64),
+    (torch.float32, False, 16, 48, 64),
+    (torch.float32, False, 100, 130, 32),
+    (torch.float32, True, 257, None, 32),
+    (torch.bfloat16, True, 200, None, 64),
+    (torch.bfloat16, False, 130, None, 32),
+])
+def test_backward_kernels_match_plain(dtype, causal, t, tk, dh):
+    """K2 and K3 against ``flash_bwd_plain`` on the same inputs, and
+    through autograd, with an lse cotangent: f32 within the JAX package's
+    flash-vs-dense gradient bound (rtol 5e-4, atol 1e-5); bf16, where both
+    sides compute in f32 and round their outputs to bf16, within that
+    rounding (rtol 1e-2, atol 1e-2 of the reference's largest |value|)."""
+
+    def close(got, ref):
+        got, ref = got.float(), ref.float()
+        if dtype == torch.float32:
+            tol = dict(rtol=5e-4, atol=1e-5)
+        else:
+            tol = dict(rtol=1e-2, atol=1e-2 * ref.abs().max().item())
+        torch.testing.assert_close(got, ref, **tol)
+
+    q, k, v = (x.requires_grad_() for x in _qkv(2, t, 4, dh, dtype, tk))
+    out, lse = flash_attention_lse(q, k, v, causal)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    g_out = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+    g_lse = torch.randn(lse.shape, generator=gen, device="cuda")
+    launches = (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches)
+    grads = torch.autograd.grad((out, lse), (q, k, v), (g_out, g_lse))
+    torch.cuda.synchronize()
+    assert (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches) == \
+        (launches[0] + 1, launches[1] + 1)
+    scale = dh ** -0.5
+    qb, kb, vb, ob, dob = (_to_bh(x.detach()) for x in (q, k, v, out, g_out))
+    o_ref, lse_ref = flash_fwd_plain(qb, kb, vb, causal, scale)
+    dvec = (dob.float() * ob.float()).sum(-1) - g_lse.reshape(8, t)
+    refs = flash_bwd_plain(qb, kb, vb, lse.detach().reshape(8, t), dob,
+                           dvec, causal, scale)
+    for got, ref in zip(grads, refs):
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        close(got, _from_bh(ref, 2, 4))
+    # the kernels alone, on the plain version's inputs
+    args = (qb, kb, vb, lse_ref, dob, dvec, causal, scale)
+    close(flash_bwd_dq_cuda(*args), flash_bwd_plain(*args)[0])
+    for got, ref in zip(flash_bwd_dkv_cuda(*args), flash_bwd_plain(*args)[1:]):
+        close(got, ref)
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     launches = flash_fwd_cuda.launches
     q, k, v = (_to_bh(x) for x in _qkv(1, 64, 2, 128, torch.float32))
@@ -71,6 +125,18 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="equal q/k lengths"):
         flash_fwd_cuda(q[:, :32].contiguous(), k, v, True, 0.1)
     assert flash_fwd_cuda.launches == launches
+    bwd = (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches)
+    lse = torch.zeros(q.shape[:2], device="cuda")
+    do = torch.zeros_like(q)
+    for fn in (flash_bwd_dq_cuda, flash_bwd_dkv_cuda):
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(q, k, v, lse, do.transpose(1, 2).contiguous().transpose(1, 2),
+               lse, True, 0.1)
+        with pytest.raises(ValueError, match="float32"):
+            fn(q, k, v, lse.double(), do, lse, True, 0.1)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            fn(q, k, v, lse, do.cpu(), lse, True, 0.1)
+    assert (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches) == bwd
 
 
 def test_engine_on_the_card_matches_generate_tokens():
@@ -96,3 +162,29 @@ def test_engine_on_the_card_matches_generate_tokens():
         ref = generate_tokens(model, p[None], len(got))[0, len(p):]
         np.testing.assert_array_equal(got, ref.cpu().numpy())
     assert registry.counter("jit.retraces").value == 0
+
+
+def test_single_trainer_flash_matches_dense_on_the_card():
+    """A 2-block flash LM and its dense twin (same seed, so the same
+    weights) trained by ``SingleTrainer`` on the card: the flash model's
+    steps run K1, K2 and K3 once per block each, and both give the same
+    per-step losses and trained parameters."""
+    ds = load_lm_corpus(n_train=32, seq_len=128, vocab_size=64)[0]
+    cfg = dict(vocab_size=64, dim=64, num_heads=2, num_blocks=2,
+               seq_len=128)
+    kernels = (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda)
+    runs = {}
+    for impl in ("flash", "dense"):
+        before = [k.launches for k in kernels]
+        t = SingleTrainer(zoo.gpt_lm(**cfg, attention_impl=impl), "sgd",
+                          "sparse_categorical_crossentropy", batch_size=8,
+                          num_epoch=2, learning_rate=0.1)
+        model = t.train(ds)
+        assert model.device.type == "cuda"
+        runs[impl] = (np.concatenate(t.get_history()), t.trained_variables,
+                      [k.launches - b for k, b in zip(kernels, before)])
+    assert runs["flash"][2] == [2 * 8] * 3 and runs["dense"][2] == [0] * 3
+    np.testing.assert_allclose(runs["flash"][0], runs["dense"][0], rtol=1e-4)
+    for a, b in zip(*(tree_leaves(runs[i][1]["params"])
+                      for i in ("flash", "dense"))):
+        np.testing.assert_allclose(a, b, atol=1e-4)

@@ -1,10 +1,12 @@
 """The port's flash attention (``distkeras_tpu_torch.ops.flash_attention``)
 against the JAX package's Pallas flash attention, which runs in interpret
-mode on the CPU.  On the CPU the port runs its plain version; the CUDA
-kernel itself is held against that plain version on the card
-(``tests/test_torch_cuda.py`` and ``chip_smoke.py``)."""
+mode on the CPU — outputs and gradients.  On the CPU the port runs its
+plain versions; the CUDA kernels themselves are held against those plain
+versions on the card (``tests/test_torch_cuda.py`` and
+``chip_smoke.py``)."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -15,11 +17,16 @@ from distkeras_tpu.ops.pallas_attention import flash_attention as jax_flash
 from distkeras_tpu.ops.pallas_attention import (
     flash_attention_lse as jax_flash_lse)
 from distkeras_tpu_torch.ops.attention import _flash_with_blocking
+from distkeras_tpu_torch.ops.attention import dot_product_attention
 from distkeras_tpu_torch.ops.flash_attention import (
-    _BACKWARD_MSG, _blocks, _from_bh, _to_bh, flash_attention,
-    flash_attention_lse, flash_fwd_cuda)
+    _blocks, _from_bh, _to_bh, flash_attention, flash_attention_lse,
+    flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_bwd_plain, flash_fwd_cuda,
+    flash_fwd_plain)
 
 TOL = dict(rtol=2e-5, atol=2e-5)  # the JAX package's own flash-vs-dense bound
+#: the JAX package's f32 flash-vs-dense gradient bound
+#: (tests/test_pallas_attention.py: rtol 5e-4 / atol 1e-5)
+GRAD_TOL = dict(rtol=5e-4, atol=1e-5)
 
 
 def qkv(b=2, t=64, h=2, dh=32, tk=None, seed=0):
@@ -115,12 +122,120 @@ def test_flash_with_blocking_awkward_length(causal):
         **TOL)
 
 
-def test_backward_is_not_ported_yet():
-    q, k, v = (t.requires_grad_() for t in _torch(*qkv(t=16)))
-    out = flash_attention(q, k, v, True)
-    with pytest.raises(NotImplementedError, match="K2/K3"):
-        out.sum().backward()
-    assert "training slice" in _BACKWARD_MSG
+def _cotangents(q, t, seed=5):
+    """A random output cotangent shaped like ``q`` and a random lse
+    cotangent (B, H, T), from numpy."""
+    rng = np.random.default_rng(seed)
+    b, _, h, _ = q.shape
+    return (rng.normal(size=q.shape).astype(np.float32),
+            rng.normal(size=(b, h, t)).astype(np.float32))
+
+
+def _jax_lse_vjp(causal):
+    """jit of the JAX package's (out, lse) vjp, blocks of 16."""
+    def f(q, k, v, g_out, g_lse):
+        _, pull = jax.vjp(
+            lambda a, b, c: jax_flash_lse(a, b, c, causal, 16, 16), q, k, v)
+        return pull((g_out.astype(q.dtype), g_lse))
+    return jax.jit(f)
+
+
+@pytest.mark.parametrize("causal,t,tk", [(True, 64, None), (False, 64, None),
+                                         (False, 16, 48)])
+def test_flash_lse_grads_match_jax(causal, t, tk):
+    """dq, dk, dv through (out, lse), with a random cotangent on both,
+    against ``jax.vjp`` of the JAX package's ``flash_attention_lse``:
+    square causal, square non-causal and rectangular non-causal."""
+    q, k, v = qkv(t=t, tk=tk)
+    g_out, g_lse = _cotangents(q, t)
+    ref = _jax_lse_vjp(causal)(*_jax(q, k, v, g_out, g_lse))
+    tq, tk_, tv = (x.requires_grad_() for x in _torch(q, k, v))
+    out, lse = flash_attention_lse(tq, tk_, tv, causal, 16, 16)
+    got = torch.autograd.grad((out, lse), (tq, tk_, tv),
+                              _torch(g_out, g_lse))
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_backward_matches_jax(causal):
+    """``flash_attention`` alone (no lse cotangent: the port's backward
+    takes ``g_lse`` as None) against ``jax.vjp`` of the JAX package's
+    flash, on a random output cotangent."""
+    q, k, v = qkv(t=32)
+    g_out, _ = _cotangents(q, 32)
+    ref = jax.jit(lambda a, b, c, g: jax.vjp(
+        lambda x, y, z: jax_flash(x, y, z, causal, 16, 16), a, b, c)[1](g))(
+        *_jax(q, k, v, g_out))
+    tq, tk, tv = (x.requires_grad_() for x in _torch(q, k, v))
+    flash_attention(tq, tk, tv, causal, 16, 16).backward(
+        torch.from_numpy(g_out))
+    for a, b in zip((tq.grad, tk.grad, tv.grad), ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bf16_grads_match_jax(causal):
+    """bf16 inputs: gradients come back in bf16 and match the JAX
+    package's own bf16 flash gradients within the outputs' bf16 rounding
+    (rtol 1e-2, atol 1e-2 of the largest |value|), from the same bf16
+    inputs."""
+    q, k, v = qkv(t=64)
+    g_out, g_lse = _cotangents(q, 64)
+    ref = _jax_lse_vjp(causal)(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+        *_jax(g_out, g_lse))
+    tq, tk, tv = (x.to(torch.bfloat16).requires_grad_()
+                  for x in _torch(q, k, v))
+    out, lse = flash_attention_lse(tq, tk, tv, causal, 16, 16)
+    got = torch.autograd.grad((out, lse), (tq, tk, tv),
+                              (torch.from_numpy(g_out).to(torch.bfloat16),
+                               torch.from_numpy(g_lse)))
+    for a, b in zip(got, ref):
+        assert a.dtype == torch.bfloat16
+        b = np.asarray(b, np.float32)
+        np.testing.assert_allclose(a.float().numpy(), b, rtol=1e-2,
+                                   atol=1e-2 * np.abs(b).max())
+
+
+def test_awkward_length_causal_pad_gradients_are_exact():
+    """T = 257 pads to 384 on the causal path; the padded rows' zero
+    cotangent must leave q/k/v gradients exact — against JAX's dense
+    attention gradients (as ``tests/test_pallas_attention.py`` checks the
+    JAX package)."""
+    q, k, v = qkv(b=1, t=257, h=2, dh=16, seed=1)
+    ref = jax.jit(jax.grad(lambda a, b, c: jnp.sum(
+        jax_dense(a, b, c, causal=True) ** 2), argnums=(0, 1, 2)))(
+        *_jax(q, k, v))
+    tq, tk, tv = (x.requires_grad_() for x in _torch(q, k, v))
+    (_flash_with_blocking(tq, tk, tv, True, 257) ** 2).sum().backward()
+    for a, b in zip((tq.grad, tk.grad, tv.grad), ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("causal,tk", [(True, None), (False, 40)])
+def test_plain_backward_matches_autograd_of_dense(causal, tk):
+    """``flash_bwd_plain`` (the kernels' plain version, which the card
+    holds K2/K3 against) equals autograd through the port's dense
+    attention, with D = rowsum(dO∘O) − g_lse."""
+    q, k, v = qkv(t=24, tk=tk)
+    g_out, g_lse = _cotangents(q, 24)
+    tq, tk_, tv = (x.requires_grad_() for x in _torch(q, k, v))
+    dense = dot_product_attention(tq, tk_, tv, causal=causal)
+    lse_ref = torch.logsumexp(torch.einsum(
+        "bqhd,bkhd->bhqk", tq, tk_) / np.sqrt(32) + (torch.triu(
+            torch.full((24, 24), float("-inf")), 1) if causal else 0),
+        dim=-1)
+    ref = torch.autograd.grad((dense, lse_ref), (tq, tk_, tv),
+                              _torch(g_out, g_lse))
+    qb, kb, vb, dob = (_to_bh(torch.from_numpy(a))
+                       for a in (q, k, v, g_out))
+    o, lse = flash_fwd_plain(qb, kb, vb, causal, 32 ** -0.5)
+    dvec = (dob * o).sum(-1) - torch.from_numpy(g_lse).reshape(4, 24)
+    got = flash_bwd_plain(qb, kb, vb, lse, dob, dvec, causal, 32 ** -0.5)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(_from_bh(a, 2, 2).numpy(), b.numpy(),
+                                   rtol=1e-4, atol=1e-5)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
@@ -129,6 +244,12 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         flash_fwd_cuda(q, k, v, True, 0.25)
     assert flash_fwd_cuda.launches == launches
+    lse = torch.zeros(q.shape[:2])
+    bwd = (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches)
+    for fn in (flash_bwd_dq_cuda, flash_bwd_dkv_cuda):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            fn(q, k, v, lse, q, lse, True, 0.25)
+    assert (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches) == bwd
 
 
 
