@@ -7,8 +7,10 @@ Phases, one JSON line each:
 
 1. ``env``    — torch/CUDA versions, the card, TF32 switched off.
 2. ``build``  — the flash kernels, ``distkeras_tpu_torch/ops/csrc/
-   flash_fwd.cu`` (K1) and ``flash_bwd.cu`` (K2, K3), are built with
-   nvcc for sm_90a if stale (seconds, registers, spills).
+   flash_fwd.cu`` (K1), ``flash_bwd.cu`` (K2, K3 in f32) and
+   ``flash_bwd_sm90.cu`` (K2, K3 in bf16, on wgmma and TMA), are built
+   with nvcc for sm_90a if stale (seconds; each kernel's registers, shared
+   memory and spills as ptxas reports them).
 3. ``k1``     — the flash-attention forward kernel against its plain
    PyTorch version on the card, at the serving shapes and a few others
    (max abs error of O and lse; f32 <= 1e-5, bf16 <= 2e-2), with its
@@ -29,15 +31,18 @@ Phases, one JSON line each:
 5. ``profile`` — the same traffic under a ``torch.profiler`` trace: the
    card's busy share and the top kernels.
 6. ``k2k3``   — the backward kernels K2 (dQ) and K3 (dK, dV) against
-   their plain version (``flash_bwd_plain``) on the card: f32 and bf16,
-   causal and not, T in {64, 100, 256, 512} (once with Tq != Tk), Dh 32
-   and 64: f32 within the JAX package's flash-vs-dense gradient bound
-   (rtol 5e-4, atol 1e-5), bf16 within the outputs' bf16 rounding (rtol
-   1e-2, atol 1e-2 of the largest |value|).  Then, at the training shape
-   (B*H = 512, T = 512, Dh = 64, causal; bf16 and f32), each kernel's
-   profiler device time, the plain version's, the device time of
-   ``F.scaled_dot_product_attention``'s backward (one call for K2 and K3
-   together; a yardstick only) and ``bound_ms``; K1 is timed there too.
+   their plain version (``flash_bwd_plain``, which rounds P and dS to
+   bf16 for bf16 inputs as the reference does) on the card: f32 and
+   bf16, causal and not, T in {64, 100, 256, 512} (once with Tq != Tk;
+   bf16 also T = 257), Dh 32 and 64, and the training shape (bf16 also at
+   Dh 32): f32 within the JAX package's flash-vs-dense gradient bound
+   (rtol 5e-4, atol 1e-5), bf16 within the bf16 rounding (rtol 1e-2, atol
+   1e-2 of the largest |value|).  Then, at the training shape (B*H = 512,
+   T = 512, Dh = 64, causal; bf16 and f32), each kernel's profiler device
+   time and achieved TFLOP/s, the plain version's time, the device time
+   of ``F.scaled_dot_product_attention``'s backward (one call for K2 and
+   K3 together; a yardstick only) and ``bound_ms``; K1 is timed there
+   too.
 7. ``train``  — the same probe model trained by ``SingleTrainer``:
    (a) f32, flash and dense twins from seed 0, 4 SGD steps of batch 16:
    per-step losses within rtol 1e-4 and every trained parameter within
@@ -74,9 +79,9 @@ PEAK_BYTES = 3.35e12
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 #: K2/K3 against flash_bwd_plain on the same inputs: f32 within the JAX
 #: package's flash-vs-dense gradient bound (tests/test_pallas_attention.py:
-#: 41); bf16, where both sides compute in f32 and round their outputs to
-#: bf16, within that rounding: rtol 1e-2 plus 1e-2 of the reference's
-#: largest |value| (``atol_of_max``)
+#: 41); bf16, where both sides round P, dS and their outputs to bf16,
+#: within that rounding: rtol 1e-2 plus 1e-2 of the reference's largest
+#: |value| (``atol_of_max``)
 GRAD_TOL = {"float32": dict(rtol=5e-4, atol=1e-5, atol_of_max=0.0),
             "bfloat16": dict(rtol=1e-2, atol=0.0, atol_of_max=1e-2)}
 #: the training shape of the probe: batch 64 x 8 heads, T = 512, Dh = 64
@@ -111,20 +116,24 @@ def smi_line() -> str:
 def device_ms(fn, iters: int = 20) -> float:
     """Device time per call of ``fn``: the durations of the kernels (and
     copies) it ran, from a ``torch.profiler`` CUDA trace, summed — the
-    card's time without the host's launch overhead.  Fails the run when
-    the trace holds no device time."""
+    card's time without the host's launch overhead.  A trace that comes
+    back without device events (seen once in a dozen sessions of one
+    process) is taken again; fails the run when three traces in a row
+    hold no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages())
-    check(us > 0, "the profiler trace holds no device time")
-    return us / iters / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages())
+        if us > 0:
+            return us / iters / 1e3
+    raise CheckFailed("the profiler trace holds no device time")
 
 
 def flash_bound(bh, tq, tk, dh, causal, itemsize):
@@ -140,14 +149,19 @@ def flash_bound(bh, tq, tk, dh, causal, itemsize):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def flash_bwd_flops(kernel, bh, t, dh):
+    """FLOPs of one causal K2 or K3 call: K2 recomputes S and forms dP and
+    dQ, 6·Dh FLOPs per unmasked (q, k) pair; K3 forms S, dP, dV and dK,
+    8·Dh."""
+    return (6 if kernel == "dq" else 8) * dh * bh * (t * (t + 1) // 2)
+
+
 def flash_bwd_bound(kernel, bh, t, dh, itemsize):
-    """(bound_ms, bound_by) for one causal K2 or K3 call: operations (K2
-    recomputes S and forms dP and dQ, 6·Dh FLOPs per (q, k) pair; K3
-    forms S, dP, dV and dK, 8·Dh) over the peak of the input type, bytes
-    (q, k, v, dO read once, L and D f32, the gradients written once) over
-    the memory rate — the larger of the two."""
-    pairs = t * (t + 1) // 2
-    flops = (6 if kernel == "dq" else 8) * dh * bh * pairs
+    """(bound_ms, bound_by) for one causal K2 or K3 call: its operations
+    (``flash_bwd_flops``) over the peak of the input type, bytes (q, k, v,
+    dO read once, L and D f32, the gradients written once) over the memory
+    rate — the larger of the two."""
+    flops = flash_bwd_flops(kernel, bh, t, dh)
     n_out = 1 if kernel == "dq" else 2
     nbytes = itemsize * bh * t * dh * (4 + n_out) + 2 * 4 * bh * t
     peak = PEAK_F32_FLOPS if itemsize == 4 else PEAK_BF16_FLOPS
@@ -168,14 +182,40 @@ def phase_env(torch):
     return row
 
 
+def ptxas_report(log):
+    """Per kernel, from ``nvcc -Xptxas -v``'s log: registers, shared
+    memory (static bytes; the dynamic share is set at launch) and spill
+    bytes."""
+    import re
+    rows, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            # the kernel's name and template arguments, still mangled
+            name = re.search(r"flash_(fwd|bwd_dq|bwd_dkv)(_wgmma)?_kernel"
+                             r"I\w*?E(?=E)", m.group(1))
+            cur = {"kernel": name.group(0) if name else m.group(1)}
+            rows.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = map(int,
+                                                              m.groups())
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                cur["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", ln)
+                cur["smem_bytes"] = int(m.group(1)) if m else 0
+    return rows
+
+
 def phase_build():
     from distkeras_tpu_torch.ops import _kernels
     t0 = time.perf_counter()
     built = _kernels.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "built": built["built"],
-          "ptxas": [ln.strip() for ln in built["log"].splitlines()
-                    if "registers" in ln or "spill" in ln]})
+          "built": built["built"], "ptxas": ptxas_report(built["log"])})
 
 
 def phase_k1(torch):
@@ -396,6 +436,8 @@ def phase_k2k3(torch):
                   (dtype, False, 8, 100, 256, 64),
                   (dtype, True, 8, 100, 100, 32),
                   (dtype, True, TRAIN_BH, TRAIN_T, TRAIN_T, TRAIN_DH)]
+    cases += [("bfloat16", True, 8, 257, 257, 64),
+              ("bfloat16", True, TRAIN_BH, TRAIN_T, TRAIN_T, 32)]
     rows = []
     for dtype_name, causal, bh, tq, tk, dh in cases:
         args = inputs(getattr(torch, dtype_name), bh, tq, tk, dh, causal)
@@ -449,6 +491,9 @@ def phase_k2k3(torch):
             "dkv", TRAIN_BH, TRAIN_T, TRAIN_DH, item)
         row["k1_bound_ms"], row["k1_bound_by"] = flash_bound(
             TRAIN_BH, TRAIN_T, TRAIN_T, TRAIN_DH, True, item)
+        for key in ("dq", "dkv"):
+            row[f"{key}_tflops"] = flash_bwd_flops(
+                key, TRAIN_BH, TRAIN_T, TRAIN_DH) / row[f"{key}_ms"] / 1e9
         emit({"phase": "k2k3_timed", **row})
         timed.append(row)
         del out, qs, ks, vs, args, q, k, v, lse, do
@@ -503,9 +548,11 @@ def phase_train(torch):
     kernels = {"flash_fwd": flash_fwd_cuda,
                "flash_bwd_dq": flash_bwd_dq_cuda,
                "flash_bwd_dkv": flash_bwd_dkv_cuda}
+    # kernel names in the trace (the bf16 backward's are
+    # flash_bwd_{dq,dkv}_wgmma_kernel)
     names = {"flash_fwd": "flash_fwd_kernel",
-             "flash_bwd_dq": "flash_bwd_dq_kernel",
-             "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
+             "flash_bwd_dq": "flash_bwd_dq_",
+             "flash_bwd_dkv": "flash_bwd_dkv_"}
 
     # (a) f32 flash vs dense: both trainers initialise from seed 0, so
     # both models start from the same weights
@@ -669,7 +716,8 @@ def main() -> int:
         bf, fp = bwd_timed
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "distkeras_tpu_torch/ops/csrc/flash_bwd.cu",
+            # the main path trains in bf16: the tensor-core kernels
+            "source": "distkeras_tpu_torch/ops/csrc/flash_bwd_sm90.cu",
             "replaces": f"distkeras_tpu/ops/pallas_attention.py:{src_line}",
             "replaces_kernel": kern,
             "launches": tr["launches"][name],
@@ -679,13 +727,17 @@ def main() -> int:
             "shape": {"bh": bf["bh"], "tq": bf["t"], "tk": bf["t"],
                       "dh": bf["dh"], "dtype": bf["dtype"], "causal": True},
             "ms": bf[f"{ms_key}_ms"], "kernel_ms": bf[f"{ms_key}_ms"],
+            "tflops": bf[f"{ms_key}_tflops"],
             # the plain version computes dQ, dK and dV in one call
             "plain_ms": bf["plain_ms"],
             # SDPA's backward: one call for K2 and K3 together
             "library_ms": bf["library_bwd_ms"],
             "bound_ms": bf[f"{ms_key}_bound_ms"],
             "bound_by": bf[f"{ms_key}_bound_by"],
-            "f32": {"ms": fp[f"{ms_key}_ms"], "plain_ms": fp["plain_ms"],
+            "f32": {"source": "distkeras_tpu_torch/ops/csrc/flash_bwd.cu",
+                    "ms": fp[f"{ms_key}_ms"],
+                    "tflops": fp[f"{ms_key}_tflops"],
+                    "plain_ms": fp["plain_ms"],
                     "library_ms": fp["library_bwd_ms"],
                     "bound_ms": fp[f"{ms_key}_bound_ms"],
                     "bound_by": fp[f"{ms_key}_bound_by"]}})

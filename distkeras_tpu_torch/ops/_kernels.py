@@ -1,11 +1,12 @@
 """Build and load the flash-attention kernels: ``nvcc`` → one shared
 library with a plain C interface → ``ctypes``.
 
-``csrc/flash_fwd.cu`` (K1) and ``csrc/flash_bwd.cu`` (K2, K3) compile in
-parallel, one ``nvcc`` each, and link into ``distkeras_tpu_torch/_build/``
-(listed in ``.gitignore``) under a name keyed by a hash of the sources
-and the flags, so a changed source rebuilds and an unchanged one is
-reused.  Nothing here runs at import: the first ``library()`` call builds
+``csrc/flash_fwd.cu`` (K1), ``csrc/flash_bwd.cu`` (K2, K3 in f32, and
+the C interface of both dtypes) and ``csrc/flash_bwd_sm90.cu`` (K2, K3 in
+bf16) compile in parallel, one ``nvcc`` each, and link into
+``distkeras_tpu_torch/_build/`` (listed in ``.gitignore``) under a name
+keyed by a hash of the sources and the flags, so a changed source
+rebuilds and an unchanged one is reused.  Nothing here runs at import: the first ``library()`` call builds
 it if stale.
 """
 
@@ -23,7 +24,8 @@ from typing import Optional
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = tuple(os.path.join(_CSRC, f)
-                for f in ("flash_fwd.cu", "flash_bwd.cu"))
+                for f in ("flash_fwd.cu", "flash_bwd.cu",
+                          "flash_bwd_sm90.cu"))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "_build")
 

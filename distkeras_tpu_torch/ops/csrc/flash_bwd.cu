@@ -1,5 +1,7 @@
 // Flash-attention backward for Hopper (sm_90a), with a plain C interface:
-// K2 (dQ) and K3 (dK, dV).
+// K2 (dQ) and K3 (dK, dV).  This file holds the f32 kernels and the entry
+// points for both dtypes; bf16 goes to the tensor-core kernels of
+// flash_bwd_sm90.cu.
 //
 // Replaces: distkeras_tpu/ops/pallas_attention.py:_bwd_dq_kernel (K2) and
 // _bwd_dkv_kernel (K3), the Pallas TPU kernels launched by
@@ -10,19 +12,17 @@
 //   K2: dQ = dS K
 //   K3: dV = P^T dO,  dK = dS^T Q
 // Causal needs Tq == Tk and skips the tiles past the diagonal; non-causal
-// takes Tq != Tk.  f32 inputs are computed with f32 FMAs (the JAX
-// package's HIGHEST policy: no TF32, no tensor cores); bf16 inputs are
-// read as bf16 and widened, with f32 products, sums and statistics, and
-// the outputs are written in the input dtype.
+// takes Tq != Tk.  The f32 kernels here compute with f32 FMAs (the JAX
+// package's HIGHEST policy: no TF32, no tensor cores), which is the
+// parity path; the timed main path trains in bf16.
 //
 // What bounds them on this card: at the training shape (B*H = 512,
 // T = 512, Dh = 64, causal) K2 does 6*Dh and K3 8*Dh FLOPs per unmasked
 // (q, k) pair -- 26 and 34 GFLOP -- against 67 TFLOP/s of f32 FMA, about
-// 0.4 and 0.5 ms; the bytes (Q, K, V, dO, L, D read once, the gradients
-// written once) are about 0.03 ms in bf16.  So operations bound both, by
-// more than 10x.  These CUDA-core products reach a fraction of that peak:
-// every FMA of a 4x8 register tile costs shared-memory loads, and only two
-// 85 KB blocks fit on an SM.  Expect several times the bound.
+// 0.4 and 0.5 ms; the bytes are about 0.06 ms.  So operations bound both,
+// by more than 5x.  These CUDA-core products reach a fraction of that
+// peak: every FMA of a 4x8 register tile costs shared-memory loads, and
+// only two 85 KB blocks fit on an SM.  Expect several times the bound.
 //
 // Design: K2 is one block of 128 threads per (batch*head, 64-row query
 // tile) that keeps its Q and dO tiles in shared memory and loops over the
@@ -35,14 +35,23 @@
 // P is exactly 0, never exp of garbage), so any T works.  Padded
 // shared-memory strides keep warp accesses free of bank conflicts.
 //
-// Later work: products on warpgroup MMA (wgmma; f32 as 3xTF32), TMA loads
-// into a ring of tiles, and fusing K2 into K3 (FA2-style, dQ by atomics)
-// once a measurement says the second pass over K/V costs more than that.
+// Later work: f32 products as 3xTF32 on wgmma.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+// the bf16 kernels (flash_bwd_sm90.cu); head_dim 32 or 64
+cudaError_t flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
+                              const void* dout, const void* lse,
+                              const void* dvec, void* dq, int bh, int tq,
+                              int tk, int head_dim, int causal, float scale,
+                              cudaStream_t stream);
+cudaError_t flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse,
+                               const void* dvec, void* dk, void* dv, int bh,
+                               int tq, int tk, int head_dim, int causal,
+                               float scale, cudaStream_t stream);
 
 namespace {
 
@@ -54,15 +63,6 @@ constexpr int kRm = kBlock / kTy;      // tile rows per thread (4)
 constexpr int kRn = kBlock / kTx;      // tile columns per thread (8)
 constexpr int kLdp = kBlock + 8;       // padded stride of the P / dS tile
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void narrow(float* p, float x) { *p = x; }
-__device__ __forceinline__ void narrow(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
 // four (kBlock, D) f32 tiles, the P/dS tile, and two kBlock vectors
 template <int D>
 constexpr size_t smem_bytes() {
@@ -72,13 +72,13 @@ constexpr size_t smem_bytes() {
 
 // Rows [r0, r0 + kBlock) of a contiguous (n, D) matrix into a padded f32
 // tile; rows past n read as 0.
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* src, int r0,
+template <int D>
+__device__ __forceinline__ void stage(float* dst, const float* src, int r0,
                                       int n) {
   for (int i = threadIdx.x; i < kBlock * D; i += kThreads) {
     const int r = i / D, c = i % D;
     dst[r * (D + 1) + c] =
-        r0 + r < n ? widen(src[(size_t)(r0 + r) * D + c]) : 0.f;
+        r0 + r < n ? src[(size_t)(r0 + r) * D + c] : 0.f;
   }
 }
 
@@ -93,12 +93,14 @@ __device__ __forceinline__ void stage_vec(float* dst, const float* src,
 // K2: dQ
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q,
+                    const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ dvec, T* __restrict__ dq,
+                    const float* __restrict__ dvec, float* __restrict__ dq,
                     int tq, int tk, int causal, float scale) {
   static_assert(D % kTx == 0, "head dim must be a multiple of 8");
   constexpr int kLd = D + 1;        // padded stride of the (kBlock, D) tiles
@@ -114,10 +116,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.y * kBlock;
   const int tx = threadIdx.x % kTx;
   const int ty = threadIdx.x / kTx;
-  const T* kb = k + (size_t)bh * tk * D;
-  const T* vb = v + (size_t)bh * tk * D;
-  stage<T, D>(qs, q + (size_t)bh * tq * D, q0, tq);
-  stage<T, D>(dos, dout + (size_t)bh * tq * D, q0, tq);
+  const float* kb = k + (size_t)bh * tk * D;
+  const float* vb = v + (size_t)bh * tk * D;
+  stage<D>(qs, q + (size_t)bh * tq * D, q0, tq);
+  stage<D>(dos, dout + (size_t)bh * tq * D, q0, tq);
 
   // this thread's rows are ty + kTy*i, its columns tx + kTx*j (S, dP) and
   // tx + kTx*c (dQ)
@@ -140,8 +142,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kBlock;
     __syncthreads();  // the last tile's readers are done with ks/vs/ps
-    stage<T, D>(ks, kb, k0, tk);
-    stage<T, D>(vs, vb, k0, tk);
+    stage<D>(ks, kb, k0, tk);
+    stage<D>(vs, vb, k0, tk);
     __syncthreads();
 
     float s[kRm][kRn], dp[kRm][kRn];
@@ -206,9 +208,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < kRm; ++i) {
     const int r = q0 + ty + kTy * i;
     if (r < tq) {
-      T* row = dq + ((size_t)bh * tq + r) * D;
+      float* row = dq + ((size_t)bh * tq + r) * D;
 #pragma unroll
-      for (int c = 0; c < kRd; ++c) narrow(&row[tx + kTx * c], acc[i][c]);
+      for (int c = 0; c < kRd; ++c) row[tx + kTx * c] = acc[i][c];
     }
   }
 }
@@ -217,13 +219,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // K3: dK and dV
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ dvec, T* __restrict__ dk,
-                     T* __restrict__ dv, int tq, int tk, int causal,
+                     const float* __restrict__ dvec, float* __restrict__ dk,
+                     float* __restrict__ dv, int tq, int tk, int causal,
                      float scale) {
   static_assert(D % kTx == 0, "head dim must be a multiple of 8");
   constexpr int kLd = D + 1;
@@ -241,10 +245,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = blockIdx.y * kBlock;
   const int tx = threadIdx.x % kTx;
   const int ty = threadIdx.x / kTx;
-  const T* qb = q + (size_t)bh * tq * D;
-  const T* db = dout + (size_t)bh * tq * D;
-  stage<T, D>(ks, k + (size_t)bh * tk * D, k0, tk);
-  stage<T, D>(vs, v + (size_t)bh * tk * D, k0, tk);
+  const float* qb = q + (size_t)bh * tq * D;
+  const float* db = dout + (size_t)bh * tq * D;
+  stage<D>(ks, k + (size_t)bh * tk * D, k0, tk);
+  stage<D>(vs, v + (size_t)bh * tk * D, k0, tk);
 
   // this thread's key rows are ty + kTy*i; its query columns tx + kTx*j
   // (the transposed S, P, dP, dS tiles) and output columns tx + kTx*c
@@ -261,8 +265,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = first; t < n_tiles; ++t) {
     const int q0 = t * kBlock;
     __syncthreads();  // the last tile's readers are done with qs/dos/ps
-    stage<T, D>(qs, qb, q0, tq);
-    stage<T, D>(dos, db, q0, tq);
+    stage<D>(qs, qb, q0, tq);
+    stage<D>(dos, db, q0, tq);
     stage_vec(ls, lse + (size_t)bh * tq, q0, tq);
     stage_vec(dls, dvec + (size_t)bh * tq, q0, tq);
     __syncthreads();
@@ -367,12 +371,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < kRm; ++i) {
     const int r = k0 + ty + kTy * i;
     if (r < tk) {
-      T* krow = dk + ((size_t)bh * tk + r) * D;
-      T* vrow = dv + ((size_t)bh * tk + r) * D;
+      float* krow = dk + ((size_t)bh * tk + r) * D;
+      float* vrow = dv + ((size_t)bh * tk + r) * D;
 #pragma unroll
       for (int c = 0; c < kRd; ++c) {
-        narrow(&krow[tx + kTx * c], acc_k[i][c]);
-        narrow(&vrow[tx + kTx * c], acc_v[i][c]);
+        krow[tx + kTx * c] = acc_k[i][c];
+        vrow[tx + kTx * c] = acc_v[i][c];
       }
     }
   }
@@ -389,43 +393,55 @@ struct BwdArgs {
   float scale;
 };
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dq(const BwdArgs& a, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.bh, (a.tq + kBlock - 1) / kBlock);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.dvec),
-      static_cast<T*>(a.dq), a.tq, a.tk, a.causal, a.scale);
+      static_cast<float*>(a.dq), a.tq, a.tk, a.causal, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dkv(const BwdArgs& a, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>,
+      flash_bwd_dkv_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.bh, (a.tk + kBlock - 1) / kBlock);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+  flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.dvec),
-      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.tq, a.tk, a.causal,
-      a.scale);
+      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.tq, a.tk,
+      a.causal, a.scale);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq_bf16(const BwdArgs& a, cudaStream_t stream) {
+  return flash_bwd_dq_bf16(a.q, a.k, a.v, a.dout, a.lse, a.dvec, a.dq, a.bh,
+                           a.tq, a.tk, D, a.causal, a.scale, stream);
+}
+
+template <int D>
+cudaError_t launch_dkv_bf16(const BwdArgs& a, cudaStream_t stream) {
+  return flash_bwd_dkv_bf16(a.q, a.k, a.v, a.dout, a.lse, a.dvec, a.dk, a.dv,
+                            a.bh, a.tq, a.tk, D, a.causal, a.scale, stream);
 }
 
 using Launcher = cudaError_t (*)(const BwdArgs&, cudaStream_t);
 
-// The launcher for (dtype, head_dim) among the four instantiations, or
-// nullptr.  Order of `table`: (f32, 32), (f32, 64), (bf16, 32), (bf16, 64).
+// The launcher for (dtype, head_dim), or nullptr.  Order of `table`:
+// (f32, 32), (f32, 64), (bf16, 32), (bf16, 64).
 Launcher pick(const Launcher (&table)[4], int dtype, int head_dim) {
   if ((dtype != 0 && dtype != 1) || (head_dim != 32 && head_dim != 64))
     return nullptr;
@@ -444,17 +460,17 @@ int run(Launcher f, const BwdArgs& a, int device, void* stream) {
 }  // namespace
 
 // q and dout: (bh, tq, head_dim); k and v: (bh, tk, head_dim); all
-// contiguous, of dtype 0 (float32) or 1 (bfloat16); lse and dvec: (bh, tq)
-// float32.  dq is written like q.  Launches on `stream` of `device` and
-// returns cudaGetLastError() after the launch (0 on success).
+// contiguous, of dtype 0 (float32) or 1 (bfloat16, 16-byte aligned for
+// TMA); lse and dvec: (bh, tq) float32.  dq is written like q.  Launches
+// on `stream` of `device` and returns cudaGetLastError() after the launch
+// (0 on success).
 extern "C" int dkt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* dvec, void* dq, int bh, int tq,
                                 int tk, int head_dim, int causal, float scale,
                                 int dtype, int device, void* stream) {
   static const Launcher table[4] = {
-      launch_dq<float, 32>, launch_dq<float, 64>,
-      launch_dq<__nv_bfloat16, 32>, launch_dq<__nv_bfloat16, 64>};
+      launch_dq<32>, launch_dq<64>, launch_dq_bf16<32>, launch_dq_bf16<64>};
   const BwdArgs a{q, k, v, dout, lse, dvec, dq, nullptr, nullptr,
                   bh, tq, tk, causal, scale};
   return run(pick(table, dtype, head_dim), a, device, stream);
@@ -468,8 +484,8 @@ extern "C" int dkt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  float scale, int dtype, int device,
                                  void* stream) {
   static const Launcher table[4] = {
-      launch_dkv<float, 32>, launch_dkv<float, 64>,
-      launch_dkv<__nv_bfloat16, 32>, launch_dkv<__nv_bfloat16, 64>};
+      launch_dkv<32>, launch_dkv<64>, launch_dkv_bf16<32>,
+      launch_dkv_bf16<64>};
   const BwdArgs a{q, k, v, dout, lse, dvec, nullptr, dk, dv,
                   bh, tq, tk, causal, scale};
   return run(pick(table, dtype, head_dim), a, device, stream);

@@ -4,9 +4,11 @@
 
 On CUDA tensors the forward is the hand-written kernel
 ``ops/csrc/flash_fwd.cu`` (the port of the Pallas ``_fwd_kernel``,
-through ``flash_fwd_cuda``) and the backward the two kernels of
-``ops/csrc/flash_bwd.cu`` (``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``,
-through ``flash_bwd_dq_cuda`` and ``flash_bwd_dkv_cuda``).  On CPU
+through ``flash_fwd_cuda``) and the backward two kernels, the ports of
+``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (through ``flash_bwd_dq_cuda``
+and ``flash_bwd_dkv_cuda``): on tensor cores in bf16
+(``ops/csrc/flash_bwd_sm90.cu``), on CUDA cores in f32
+(``ops/csrc/flash_bwd.cu``).  On CPU
 tensors they are ``flash_fwd_plain`` and ``flash_bwd_plain``, the dense
 versions of the same functions.  A CUDA tensor never takes a plain
 version: the kernel runs or the call raises.
@@ -73,8 +75,10 @@ def flash_bwd_plain(q, k, v, lse, do, dvec, causal: bool, scale: float):
     """Plain PyTorch version of the backward kernels (K2 and K3 together):
     with P = exp(scale·QKᵀ − L) under the causal mask, dP = dO·Vᵀ and
     dS = scale·P∘(dP − D), returns (dQ = dS·K, dK = dSᵀ·Q, dV = Pᵀ·dO),
-    computed in f32 and cast to q's, k's and v's dtypes.  Shapes as the
-    kernels': q/do (BH, Tq, Dh), k/v (BH, Tk, Dh), lse/dvec (BH, Tq) f32."""
+    computed in f32 and cast to q's, k's and v's dtypes.  For bf16 inputs
+    P and dS are rounded to bf16 before the second products, as the
+    reference's kernels round them.  Shapes as the kernels': q/do (BH, Tq,
+    Dh), k/v (BH, Tk, Dh), lse/dvec (BH, Tq) f32."""
     qf, kf, vf, dof = (x.to(torch.float32) for x in (q, k, v, do))
     p = torch.exp(torch.matmul(qf, kf.transpose(1, 2)) * scale
                   - lse[..., None])
@@ -83,6 +87,8 @@ def flash_bwd_plain(q, k, v, lse, do, dvec, causal: bool, scale: float):
         p = p.masked_fill(~_causal_keep(*p.shape[-2:], p.device), 0.0)
     dp = torch.matmul(dof, vf.transpose(1, 2))
     ds = p * (dp - dvec[..., None]) * scale
+    # the second products' operands in the input dtype (a no-op for f32)
+    p, ds = (x.to(q.dtype).to(torch.float32) for x in (p, ds))
     return (torch.matmul(ds, kf).to(q.dtype),
             torch.matmul(ds.transpose(1, 2), qf).to(k.dtype),
             torch.matmul(p.transpose(1, 2), dof).to(v.dtype))
@@ -133,6 +139,12 @@ def _check(name: str, q, k, v, causal: bool, stats=(), do=None):
                              f"float32, got {tuple(t.shape)} {t.dtype}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} needs contiguous inputs")
+    if do is not None and q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 for t in (q, k, v, do)):
+        # the bf16 backward loads its tiles by TMA
+        raise ValueError(f"{name}: bf16 q, k, v and dO must start at a "
+                         f"16-byte aligned address (a view with a storage "
+                         f"offset may not)")
     return bh, tq, tk, dh
 
 

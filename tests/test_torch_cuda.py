@@ -61,6 +61,19 @@ def test_kernel_matches_plain(dtype, causal, t, tk, dh, tol):
     assert (lse.reshape(8, t) - ref_lse).abs().max() <= tol
 
 
+def _close(got, ref, dtype):
+    """f32 within the JAX package's flash-vs-dense gradient bound (rtol
+    5e-4, atol 1e-5); bf16, where both sides round P, dS and the outputs
+    to bf16, within that rounding (rtol 1e-2, atol 1e-2 of the reference's
+    largest |value|)."""
+    got, ref = got.float(), ref.float()
+    if dtype == torch.float32:
+        tol = dict(rtol=5e-4, atol=1e-5)
+    else:
+        tol = dict(rtol=1e-2, atol=1e-2 * ref.abs().max().item())
+    torch.testing.assert_close(got, ref, **tol)
+
+
 @pytest.mark.parametrize("dtype,causal,t,tk,dh", [
     (torch.float32, True, 200, None, 64),
     (torch.float32, False, 16, 48, 64),
@@ -68,22 +81,22 @@ def test_kernel_matches_plain(dtype, causal, t, tk, dh, tol):
     (torch.float32, True, 257, None, 32),
     (torch.bfloat16, True, 200, None, 64),
     (torch.bfloat16, False, 130, None, 32),
+    (torch.bfloat16, True, 64, None, 64),
+    (torch.bfloat16, True, 64, None, 32),
+    (torch.bfloat16, True, 100, None, 64),
+    (torch.bfloat16, True, 100, None, 32),
+    (torch.bfloat16, True, 257, None, 64),
+    (torch.bfloat16, True, 257, None, 32),
+    (torch.bfloat16, True, 512, None, 64),
+    (torch.bfloat16, True, 512, None, 32),
+    (torch.bfloat16, False, 100, 257, 64),
+    (torch.bfloat16, False, 512, 100, 32),
+    (torch.bfloat16, False, 16, 48, 64),
 ])
 def test_backward_kernels_match_plain(dtype, causal, t, tk, dh):
-    """K2 and K3 against ``flash_bwd_plain`` on the same inputs, and
-    through autograd, with an lse cotangent: f32 within the JAX package's
-    flash-vs-dense gradient bound (rtol 5e-4, atol 1e-5); bf16, where both
-    sides compute in f32 and round their outputs to bf16, within that
-    rounding (rtol 1e-2, atol 1e-2 of the reference's largest |value|)."""
-
-    def close(got, ref):
-        got, ref = got.float(), ref.float()
-        if dtype == torch.float32:
-            tol = dict(rtol=5e-4, atol=1e-5)
-        else:
-            tol = dict(rtol=1e-2, atol=1e-2 * ref.abs().max().item())
-        torch.testing.assert_close(got, ref, **tol)
-
+    """K2 and K3 (in bf16 the tensor-core kernels, in f32 the FMA ones)
+    against ``flash_bwd_plain`` on the same inputs, and through autograd,
+    with an lse cotangent, within ``_close``'s bounds."""
     q, k, v = (x.requires_grad_() for x in _qkv(2, t, 4, dh, dtype, tk))
     out, lse = flash_attention_lse(q, k, v, causal)
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -102,12 +115,58 @@ def test_backward_kernels_match_plain(dtype, causal, t, tk, dh):
                            dvec, causal, scale)
     for got, ref in zip(grads, refs):
         assert got.dtype == dtype and bool(torch.isfinite(got).all())
-        close(got, _from_bh(ref, 2, 4))
+        _close(got, _from_bh(ref, 2, 4), dtype)
     # the kernels alone, on the plain version's inputs
     args = (qb, kb, vb, lse_ref, dob, dvec, causal, scale)
-    close(flash_bwd_dq_cuda(*args), flash_bwd_plain(*args)[0])
+    _close(flash_bwd_dq_cuda(*args), flash_bwd_plain(*args)[0], dtype)
     for got, ref in zip(flash_bwd_dkv_cuda(*args), flash_bwd_plain(*args)[1:]):
-        close(got, ref)
+        _close(got, ref, dtype)
+
+
+def test_backward_kernels_at_the_training_shape():
+    """The bf16 K2 and K3 at the bf16 probe's training shape (B·H = 512,
+    T = 512, Dh = 64, causal) against ``flash_bwd_plain``: one launch each,
+    within the bf16 bound of ``_close``."""
+    bh, t, dh = 512, 512, 64
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v, do = (torch.randn((bh, t, dh), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = dh ** -0.5
+    o, lse = flash_fwd_plain(q, k, v, True, scale)
+    dvec = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, lse, do, dvec, True, scale)
+    launches = (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches)
+    got = (flash_bwd_dq_cuda(*args), *flash_bwd_dkv_cuda(*args))
+    torch.cuda.synchronize()
+    assert (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches) == \
+        (launches[0] + 1, launches[1] + 1)
+    for g, r in zip(got, flash_bwd_plain(*args)):
+        assert g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all())
+        _close(g, r, torch.bfloat16)
+
+
+def test_bf16_backward_refuses_unaligned_inputs():
+    """The bf16 kernels load tiles by TMA, which needs 16-byte aligned
+    addresses: a contiguous bf16 view at an odd storage offset is refused
+    before any launch."""
+    bh, t, dh = 2, 64, 64
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    base = torch.randn(bh * t * dh + 1, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    shifted = base[1:].view(bh, t, dh)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    q = torch.randn((bh, t, dh), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    lse = torch.zeros((bh, t), device="cuda")
+    launches = (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches)
+    for fn in (flash_bwd_dq_cuda, flash_bwd_dkv_cuda):
+        for i in range(4):
+            args = [q, q, q, lse, q, lse, True, 0.125]
+            args[(0, 1, 2, 4)[i]] = shifted
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                fn(*args)
+    assert (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches) == \
+        launches
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():

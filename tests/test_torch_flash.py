@@ -5,6 +5,8 @@ plain versions; the CUDA kernels themselves are held against those plain
 versions on the card (``tests/test_torch_cuda.py`` and
 ``chip_smoke.py``)."""
 
+import functools
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -13,6 +15,7 @@ import torch
 
 from distkeras_tpu.ops.attention import _flash_with_blocking as jax_fwb
 from distkeras_tpu.ops.attention import dot_product_attention as jax_dense
+from distkeras_tpu.ops.pallas_attention import _flash_bwd_raw
 from distkeras_tpu.ops.pallas_attention import flash_attention as jax_flash
 from distkeras_tpu.ops.pallas_attention import (
     flash_attention_lse as jax_flash_lse)
@@ -196,6 +199,40 @@ def test_flash_bf16_grads_match_jax(causal):
         b = np.asarray(b, np.float32)
         np.testing.assert_allclose(a.float().numpy(), b, rtol=1e-2,
                                    atol=1e-2 * np.abs(b).max())
+
+
+@pytest.mark.parametrize("causal,t,tk", [(False, 64, 64), (True, 64, 64),
+                                         (False, 16, 48)])
+def test_plain_bf16_backward_matches_jax_kernels(causal, t, tk):
+    """bf16 ``flash_bwd_plain`` (what the card holds the bf16 K2/K3
+    against) against the JAX package's bf16 backward kernels
+    (``_flash_bwd_raw``, interpret mode, blocks of 16) on the same inputs:
+    q, k, v, dO in bf16, L and D in f32.  Both round P and dS to bf16
+    before the second products, so they agree within one bf16 ulp of each
+    value (rtol 2⁻⁷) plus 1e-5 of the largest |value|; measured here: at
+    most 1.9e-6 (1.4e-6 of the largest |value|), most outputs exactly.
+    Without the rounding the plain version is off by up to 0.6% of the
+    largest |value|."""
+    rng = np.random.default_rng(7)
+    bh, dh = 4, 32
+    q, do = (torch.from_numpy(rng.normal(size=(bh, t, dh)).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.from_numpy(rng.normal(size=(bh, tk, dh)).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(2))
+    scale = dh ** -0.5
+    o, lse = flash_fwd_plain(q, k, v, causal, scale)
+    dvec = (do.float() * o.float()).sum(-1)
+    got = flash_bwd_plain(q, k, v, lse, do, dvec, causal, scale)
+    ref = jax.jit(functools.partial(_flash_bwd_raw, causal=causal, bq=16,
+                                    bk=16, scale=scale))(
+        *(jnp.asarray(x.float().numpy(), jnp.bfloat16)
+          for x in (q, k, v, do)),
+        *(jnp.asarray(x.numpy())[:, None, :] for x in (lse, dvec)))
+    for a, b in zip(got, ref):
+        assert a.dtype == torch.bfloat16
+        b = np.asarray(b, np.float32)
+        np.testing.assert_allclose(a.float().numpy(), b, rtol=2 ** -7,
+                                   atol=1e-5 * np.abs(b).max())
 
 
 def test_awkward_length_causal_pad_gradients_are_exact():
