@@ -7,16 +7,23 @@ Phases, one JSON line each:
 
 1. ``env``    — torch/CUDA versions, the card, TF32 switched off.
 2. ``build``  — the flash kernels, ``distkeras_tpu_torch/ops/csrc/
-   flash_fwd.cu`` (K1), ``flash_bwd.cu`` (K2, K3 in f32) and
-   ``flash_bwd_sm90.cu`` (K2, K3 in bf16, on wgmma and TMA), are built
-   with nvcc for sm_90a if stale (seconds; each kernel's registers, shared
-   memory and spills as ptxas reports them).
+   flash_fwd.cu`` (K1 in f32), ``flash_fwd_sm90.cu`` (K1 in bf16, on
+   wgmma and TMA), ``flash_bwd.cu`` (K2, K3 in f32) and
+   ``flash_bwd_sm90.cu`` (K2, K3 in bf16, on wgmma and TMA; both
+   ``_sm90`` files include ``sm90.cuh``), are built with nvcc for sm_90a
+   if stale (seconds; each kernel's registers, shared memory and spills
+   as ptxas reports them).
 3. ``k1``     — the flash-attention forward kernel against its plain
-   PyTorch version on the card, at the serving shapes and a few others
-   (max abs error of O and lse; f32 <= 1e-5, bf16 <= 2e-2), with its
-   device time from a ``torch.profiler`` trace, the plain version's,
-   ``F.scaled_dot_product_attention``'s (a yardstick only: the port never
-   calls it) and the least time the card could take (``bound_ms``).
+   PyTorch version on the card: f32 at the serving shapes and a few
+   others (max abs error of O and lse <= 1e-5); bf16 at T in {64, 100,
+   257, 512}, Dh 32 and 64, causal and not, Tq != Tk (100 x 257,
+   512 x 100, 16 x 48), the training shape and a batch-1 join through
+   ``flash_attention_lse`` (O and lse within rtol 1e-2 plus 1e-2 of the
+   largest |value|, as ``GRAD_TOL``).  The f32 serving shapes and the
+   bf16 training shape are timed: device time from a ``torch.profiler``
+   trace, the plain version's, ``F.scaled_dot_product_attention``'s (a
+   yardstick only: the port never calls it) and the least time the card
+   could take (``bound_ms``).
 4. ``slice``  — the ``scripts/mfu.py`` transformer probe
    (``gpt_lm(vocab 4000, dim 512, 8 heads, 4 blocks, seq_len 512,
    flash)``, random weights from seed 0, f32) served by
@@ -76,7 +83,6 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
-TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 #: K2/K3 against flash_bwd_plain on the same inputs: f32 within the JAX
 #: package's flash-vs-dense gradient bound (tests/test_pallas_attention.py:
 #: 41); bf16, where both sides round P, dS and their outputs to bf16,
@@ -184,17 +190,27 @@ def phase_env(torch):
 
 def ptxas_report(log):
     """Per kernel, from ``nvcc -Xptxas -v``'s log: registers, shared
-    memory (static bytes; the dynamic share is set at launch) and spill
-    bytes."""
+    memory (static bytes; the dynamic share is set at launch), spill
+    bytes, and whether ptxas serialized its wgmma products (its C7514 and
+    C7515 warnings: the overlap of products with other work is then
+    lost)."""
     import re
+
+    def short(mangled):
+        # the kernel's name and template arguments, still mangled
+        name = re.search(r"flash_(fwd|bwd_dq|bwd_dkv)(_wgmma)?_kernel"
+                         r"I\w*?E(?=E)", mangled)
+        return name.group(0) if name else mangled
+
     rows, cur = [], None
+    serialized = {short(m.group(1)) for m in re.finditer(
+        r"wgmma\.mma_async instructions are serialized.*?function '(\w+)'",
+        log)}
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            # the kernel's name and template arguments, still mangled
-            name = re.search(r"flash_(fwd|bwd_dq|bwd_dkv)(_wgmma)?_kernel"
-                             r"I\w*?E(?=E)", m.group(1))
-            cur = {"kernel": name.group(0) if name else m.group(1)}
+            cur = {"kernel": short(m.group(1))}
+            cur["wgmma_serialized"] = cur["kernel"] in serialized
             rows.append(cur)
         elif cur is not None:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
@@ -221,19 +237,27 @@ def phase_build():
 def phase_k1(torch):
     """K1 against its plain version; returns the per-case rows."""
     import torch.nn.functional as F
-    from distkeras_tpu_torch.ops.flash_attention import (flash_fwd_cuda,
-                                                         flash_fwd_plain)
+    from distkeras_tpu_torch.ops.flash_attention import (
+        _to_bh, flash_attention_lse, flash_fwd_cuda, flash_fwd_plain)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    # (dtype, causal, bh, tq, tk, dh, timed)
     cases = []
     for t in (64, 128, 256, 512):
         cases.append(("float32", True, 8, t, t, 64, True))
     for t in (64, 128, 256, 512):
         cases.append(("float32", False, 8, t, t, 64, False))
-    for t in (64, 128, 256, 512):
-        cases.append(("bfloat16", True, 8, t, t, 64, False))
     cases += [("float32", False, 8, 16, 48, 64, False),
               ("float32", True, 8, 100, 100, 64, False),
               ("float32", True, 8, 256, 256, 32, False)]
+    for t in (64, 100, 257, 512):
+        for dh in (32, 64):
+            for causal in (True, False):
+                cases.append(("bfloat16", causal, 8, t, t, dh, False))
+    for tq, tk in ((100, 257), (512, 100), (16, 48)):
+        for dh in (32, 64):
+            cases.append(("bfloat16", False, 8, tq, tk, dh, False))
+    cases.append(("bfloat16", True, TRAIN_BH, TRAIN_T, TRAIN_T, TRAIN_DH,
+                  True))
     rows = []
     for dtype_name, causal, bh, tq, tk, dh, timed in cases:
         dtype = getattr(torch, dtype_name)
@@ -243,15 +267,10 @@ def phase_k1(torch):
         scale = dh ** -0.5
         o, lse = flash_fwd_cuda(q, k, v, causal, scale)
         torch.cuda.synchronize()
-        o_ref, lse_ref = flash_fwd_plain(q, k, v, causal, scale)
-        err = max((o.float() - o_ref.float()).abs().max().item(),
-                  (lse - lse_ref).abs().max().item())
-        row = {"dtype": dtype_name, "causal": causal, "bh": bh, "tq": tq,
-               "tk": tk, "dh": dh, "max_abs_err": err,
-               "tol": TOL[dtype_name]}
-        check(bool(torch.isfinite(o.float()).all()) and err <= row["tol"],
-              f"K1 disagrees with its plain version: {row}")
+        rows.append(_k1_check(torch, flash_fwd_plain(q, k, v, causal, scale),
+                              (o, lse), dtype_name, causal, bh, tq, tk, dh))
         if timed:
+            row = rows[-1]
             qs, ks, vs = (x.view(1, bh, -1, dh) for x in (q, k, v))
             row["ms"] = device_ms(
                 lambda: flash_fwd_cuda(q, k, v, causal, scale))
@@ -262,9 +281,42 @@ def phase_k1(torch):
                                                        is_causal=causal))
             row["bound_ms"], row["bound_by"] = flash_bound(
                 bh, tq, tk, dh, causal, q.element_size())
-        rows.append(row)
-        emit({"phase": "k1", **row})
+        emit({"phase": "k1", **rows[-1]})
+        del q, k, v, o, lse
+    # a batch-1 join in bf16, through the op the model calls: (B, T, H, Dh)
+    # in, the (B*H, T, Dh) copies of _to_bh handed to the kernel
+    q, k, v = (torch.randn((1, 200, 8, 64), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    o, lse = flash_attention_lse(q, k, v, True)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = flash_fwd_plain(_to_bh(q), _to_bh(k), _to_bh(v), True,
+                                     64 ** -0.5)
+    rows.append(_k1_check(torch, (o_ref, lse_ref),
+                          (_to_bh(o), lse.reshape(8, 200)), "bfloat16",
+                          True, 8, 200, 200, 64))
+    rows[-1]["join_batch_1"] = True
+    emit({"phase": "k1", **rows[-1]})
     return rows
+
+
+def _k1_check(torch, ref, got, dtype_name, causal, bh, tq, tk, dh):
+    """K1's (O, lse) against the plain version's: f32 within 1e-5 of
+    each value, bf16 within ``GRAD_TOL``'s bf16 bound (rtol 1e-2 plus
+    1e-2 of the largest |value|), both finite.  Returns the case's row."""
+    (o_ref, lse_ref), (o, lse) = ref, got
+    err = max(_max_err(o, o_ref), _max_err(lse, lse_ref))
+    row = {"dtype": dtype_name, "causal": causal, "bh": bh, "tq": tq,
+           "tk": tk, "dh": dh, "max_abs_err": err}
+    if dtype_name == "float32":
+        row["tol"] = {"atol": 1e-5}
+        ok = err <= 1e-5
+    else:
+        row["tol"] = GRAD_TOL["bfloat16"]
+        ok = all(_within(a, b, **row["tol"])
+                 for a, b in ((o, o_ref), (lse, lse_ref)))
+    check(ok and bool(torch.isfinite(o.float()).all()),
+          f"K1 disagrees with its plain version: {row}")
+    return row
 
 
 def serve_traffic(model, prompts, window=None):
@@ -386,7 +438,7 @@ def phase_profile(torch, model, prompts):
     events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in events)
     flash_us = sum(e.self_device_time_total for e in events
-                   if "flash_fwd_kernel" in e.key)
+                   if "flash_fwd_" in e.key)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
     row = {"phase": "profile", "wall_s": wall, "device_busy_s": busy_us / 1e6,
            "device_busy_share": busy_us / 1e6 / wall,
@@ -548,9 +600,9 @@ def phase_train(torch):
     kernels = {"flash_fwd": flash_fwd_cuda,
                "flash_bwd_dq": flash_bwd_dq_cuda,
                "flash_bwd_dkv": flash_bwd_dkv_cuda}
-    # kernel names in the trace (the bf16 backward's are
-    # flash_bwd_{dq,dkv}_wgmma_kernel)
-    names = {"flash_fwd": "flash_fwd_kernel",
+    # kernel names in the trace (the bf16 kernels' are
+    # flash_{fwd,bwd_dq,bwd_dkv}_wgmma_kernel)
+    names = {"flash_fwd": "flash_fwd_",
              "flash_bwd_dq": "flash_bwd_dq_",
              "flash_bwd_dkv": "flash_bwd_dkv_"}
 
@@ -680,16 +732,22 @@ def main() -> int:
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1
-    head = next(r for r in k1 if r["dtype"] == "float32" and r["causal"]
-                and r["tq"] == 512 and "ms" in r)
+    # K1's two routes: bf16 on tensor cores (the training path, timed at
+    # the training shape) and f32 on CUDA cores (the serving path, timed
+    # at the serving shapes; its headline is T = 512)
+    bf = next(r for r in k1 if r["dtype"] == "bfloat16" and "ms" in r)
+    serve = [r for r in k1 if r["dtype"] == "float32" and "ms" in r]
+    fp = next(r for r in serve if r["tq"] == 512)
     f32 = [r["max_abs_err"] for r in k1 if r["dtype"] == "float32"]
     bf16 = [r["max_abs_err"] for r in k1 if r["dtype"] == "bfloat16"]
     k1_train = {k[3:] if k.startswith("k1_") else k: v
                 for k, v in bwd_timed[0].items()
                 if k.startswith("k1_") or k in ("dtype", "bh", "t", "dh")}
+    timing = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    shape = ("bh", "tq", "tk", "dh", "dtype", "causal")
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
-        "source": "distkeras_tpu_torch/ops/csrc/flash_fwd.cu",
+        "source": "distkeras_tpu_torch/ops/csrc/flash_fwd_sm90.cu",
         "replaces": "distkeras_tpu/ops/pallas_attention.py:83",
         "replaces_kernel": "_fwd_kernel",
         "launches": sl["launches"]["served"] + tr["launches"]["flash_fwd"],
@@ -697,13 +755,22 @@ def main() -> int:
                              "train": tr["launches"]["flash_fwd"]},
         "max_abs_err": max(f32 + bf16), "max_err_f32": max(f32),
         "max_err_bf16": max(bf16),
-        "shape": {k: head[k] for k in ("bh", "tq", "tk", "dh", "dtype",
-                                       "causal")},
+        "shape": {k: bf[k] for k in shape},
         # device time per call from the profiler (``ms`` and
         # ``kernel_ms`` name the same number)
-        "ms": head["ms"], "kernel_ms": head["ms"],
-        "plain_ms": head["plain_ms"], "library_ms": head["library_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        **{k: bf[k] for k in timing}, "kernel_ms": bf["ms"],
+        "routes": [
+            {"dtype": "bfloat16", "route": "cuda", "path": "train",
+             "source": "distkeras_tpu_torch/ops/csrc/flash_fwd_sm90.cu",
+             "launches": tr["launches"]["flash_fwd"]},
+            {"dtype": "float32", "route": "cuda", "path": "serve",
+             "source": "distkeras_tpu_torch/ops/csrc/flash_fwd.cu",
+             "launches": sl["launches"]["served"]}],
+        "f32": {"source": "distkeras_tpu_torch/ops/csrc/flash_fwd.cu",
+                "shape": {k: fp[k] for k in shape},
+                **{k: fp[k] for k in timing},
+                "serving": [{"tq": r["tq"], **{k: r[k] for k in timing}}
+                            for r in serve]},
         "train_shape": k1_train}]
     for name, kern, ms_key, errs, src_line in (
             ("flash_bwd_dq", "_bwd_dq_kernel", "dq", ("dq_err",), 169),

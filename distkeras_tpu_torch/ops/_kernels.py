@@ -1,13 +1,16 @@
 """Build and load the flash-attention kernels: ``nvcc`` → one shared
 library with a plain C interface → ``ctypes``.
 
-``csrc/flash_fwd.cu`` (K1), ``csrc/flash_bwd.cu`` (K2, K3 in f32, and
-the C interface of both dtypes) and ``csrc/flash_bwd_sm90.cu`` (K2, K3 in
-bf16) compile in parallel, one ``nvcc`` each, and link into
-``distkeras_tpu_torch/_build/`` (listed in ``.gitignore``) under a name
-keyed by a hash of the sources and the flags, so a changed source
-rebuilds and an unchanged one is reused.  Nothing here runs at import: the first ``library()`` call builds
-it if stale.
+``csrc/flash_fwd.cu`` (K1 in f32, and the C interface of both dtypes),
+``csrc/flash_fwd_sm90.cu`` (K1 in bf16), ``csrc/flash_bwd.cu`` (K2, K3 in
+f32, and the C interface of both dtypes) and ``csrc/flash_bwd_sm90.cu``
+(K2, K3 in bf16; both ``_sm90`` files include ``csrc/sm90.cuh``, their
+shared PTX and tensor-map helpers) compile in parallel, one ``nvcc``
+each, and link into ``distkeras_tpu_torch/_build/`` (listed in
+``.gitignore``) under a name keyed by a hash of every file under
+``csrc/`` and the flags, so a changed source or header rebuilds and an
+unchanged tree is reused.  Nothing here runs at import: the first
+``library()`` call builds it if stale.
 """
 
 from __future__ import annotations
@@ -24,8 +27,8 @@ from typing import Optional
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = tuple(os.path.join(_CSRC, f)
-                for f in ("flash_fwd.cu", "flash_bwd.cu",
-                          "flash_bwd_sm90.cu"))
+                for f in ("flash_fwd.cu", "flash_fwd_sm90.cu",
+                          "flash_bwd.cu", "flash_bwd_sm90.cu"))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "_build")
 
@@ -55,10 +58,12 @@ _LOCK = threading.Lock()
 
 
 def lib_path() -> str:
-    """The library path for the current sources and flags."""
+    """The library path for the current flags and every file under
+    ``csrc/`` (sources and the headers they include)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
-        with open(src, "rb") as f:
+    for name in sorted(os.listdir(_CSRC)):
+        h.update(name.encode())
+        with open(os.path.join(_CSRC, name), "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libflash-{h.hexdigest()[:16]}.so")
 

@@ -2,15 +2,14 @@
 ``distkeras_tpu.ops.pallas_attention`` (``flash_attention`` and
 ``flash_attention_lse``).
 
-On CUDA tensors the forward is the hand-written kernel
-``ops/csrc/flash_fwd.cu`` (the port of the Pallas ``_fwd_kernel``,
-through ``flash_fwd_cuda``) and the backward two kernels, the ports of
-``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (through ``flash_bwd_dq_cuda``
-and ``flash_bwd_dkv_cuda``): on tensor cores in bf16
-(``ops/csrc/flash_bwd_sm90.cu``), on CUDA cores in f32
-(``ops/csrc/flash_bwd.cu``).  On CPU
-tensors they are ``flash_fwd_plain`` and ``flash_bwd_plain``, the dense
-versions of the same functions.  A CUDA tensor never takes a plain
+On CUDA tensors the forward is a hand-written kernel, the port of the
+Pallas ``_fwd_kernel`` (through ``flash_fwd_cuda``), and the backward two
+kernels, the ports of ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (through
+``flash_bwd_dq_cuda`` and ``flash_bwd_dkv_cuda``): on tensor cores in
+bf16 (``ops/csrc/flash_fwd_sm90.cu``, ``ops/csrc/flash_bwd_sm90.cu``), on
+CUDA cores in f32 (``ops/csrc/flash_fwd.cu``, ``ops/csrc/flash_bwd.cu``).
+On CPU tensors they are ``flash_fwd_plain`` and ``flash_bwd_plain``, the
+dense versions of the same functions.  A CUDA tensor never takes a plain
 version: the kernel runs or the call raises.
 """
 
@@ -60,14 +59,23 @@ def _causal_keep(tq: int, tk: int, device):
 def flash_fwd_plain(q, k, v, causal: bool, scale: float):
     """Plain PyTorch version of the forward kernel: dense scores, f32
     statistics.  (BH, Tq, Dh) q and (BH, Tk, Dh) k/v → (O (BH, Tq, Dh)
-    in q's dtype, lse (BH, Tq) f32)."""
+    in q's dtype, lse (BH, Tq) f32).  For bf16 inputs P = exp(S − rowmax)
+    is rounded to bf16 before P·V and the product divided by the f32 row
+    sum of the unrounded P, as the reference's kernel does when one key
+    tile holds the whole row."""
     s = torch.matmul(q.to(torch.float32),
                      k.to(torch.float32).transpose(1, 2)) * scale
     if causal:
         s = s.masked_fill(~_causal_keep(*s.shape[-2:], s.device),
                           float("-inf"))
     lse = torch.logsumexp(s, dim=-1)
-    o = torch.matmul(torch.exp(s - lse[..., None]), v.to(torch.float32))
+    vf = v.to(torch.float32)
+    if q.dtype == torch.float32:
+        o = torch.matmul(torch.exp(s - lse[..., None]), vf)
+    else:
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        o = torch.matmul(p.to(q.dtype).to(torch.float32), vf) \
+            / p.sum(dim=-1, keepdim=True)
     return o.to(q.dtype), lse
 
 
@@ -139,10 +147,10 @@ def _check(name: str, q, k, v, causal: bool, stats=(), do=None):
                              f"float32, got {tuple(t.shape)} {t.dtype}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} needs contiguous inputs")
-    if do is not None and q.dtype == torch.bfloat16 and any(
-            t.data_ptr() % 16 for t in (q, k, v, do)):
-        # the bf16 backward loads its tiles by TMA
-        raise ValueError(f"{name}: bf16 q, k, v and dO must start at a "
+    if q.dtype == torch.bfloat16 and any(
+            t is not None and t.data_ptr() % 16 for t in (q, k, v, do)):
+        # the bf16 kernels load their tiles by TMA
+        raise ValueError(f"{name}: bf16 q, k, v (and dO) must start at a "
                          f"16-byte aligned address (a view with a storage "
                          f"offset may not)")
     return bh, tq, tk, dh

@@ -1,0 +1,100 @@
+#!/usr/bin/env python3
+"""Hold the flash kernels of this tree against those of another tree on
+one card: each tree's kernels are built into their own library, the
+same inputs go through both, and each (kernel, shape) gives the largest
+difference of the two outputs and both device times, taken in turns
+(other, this, this, other).
+
+    mkdir -p _proof/parent                           # a git-ignored dir
+    git archive <commit> | tar -x -C _proof/parent
+    python3 kernel_ab.py _proof/parent
+
+Both trees must have ``distkeras_tpu_torch/ops/_kernels.py`` with the
+C interface ``dkt_flash_fwd``, ``dkt_flash_bwd_dq`` and
+``dkt_flash_bwd_dkv``.  Prints one JSON line per case, then the card's
+name and power limit; exits non-zero without a card.
+"""
+
+import ctypes
+import importlib.util
+import json
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+#: (kernel, dtype, B*H, T, Dh): the serving shapes of the f32 forward and
+#: the training shape (causal throughout)
+CASES = ([("fwd", "float32", 8, t, 64) for t in (64, 128, 256, 512)]
+         + [(k, d, 512, 512, 64) for d in ("bfloat16", "float32")
+            for k in ("fwd", "dq", "dkv")])
+
+
+def library(tree: str, tag: str) -> ctypes.CDLL:
+    """Build (if stale) and load ``tree``'s kernels."""
+    path = os.path.join(tree, "distkeras_tpu_torch", "ops", "_kernels.py")
+    spec = importlib.util.spec_from_file_location(f"_kernels_{tag}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.library()
+
+
+def run(torch, lib, kernel, q, k, v, lse, do, dvec):
+    """One launch of ``kernel`` from ``lib``; returns its outputs."""
+    bh, t, dh = q.shape
+    code = 0 if q.dtype == torch.float32 else 1
+    tail = (bh, t, t, dh, 1, ctypes.c_float(dh ** -0.5), code, 0,
+            torch.cuda.current_stream().cuda_stream)
+    if kernel == "fwd":
+        outs = (torch.empty_like(q), torch.empty((bh, t), device="cuda"))
+        err = lib.dkt_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                *(x.data_ptr() for x in outs), *tail)
+    else:
+        outs = ((torch.empty_like(q),) if kernel == "dq"
+                else (torch.empty_like(k), torch.empty_like(v)))
+        fn = lib.dkt_flash_bwd_dq if kernel == "dq" else lib.dkt_flash_bwd_dkv
+        err = fn(*(x.data_ptr() for x in (q, k, v, do, lse, dvec)),
+                 *(x.data_ptr() for x in outs), *tail)
+    if err:
+        raise RuntimeError(f"{kernel}: CUDA error {err}")
+    return outs
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available() or len(sys.argv) != 2:
+        print("usage: kernel_ab.py OTHER_TREE (on a machine with a card)",
+              file=sys.stderr)
+        return 1
+    import chip_smoke
+    from distkeras_tpu_torch.ops.flash_attention import flash_fwd_plain
+    libs = {"other": library(sys.argv[1], "other"),
+            "this": library(ROOT, "this")}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for kernel, dtype_name, bh, t, dh in CASES:
+        dtype = getattr(torch, dtype_name)
+        q, k, v, do = (torch.randn((bh, t, dh), generator=gen, device="cuda")
+                       .to(dtype) for _ in range(4))
+        o, lse = flash_fwd_plain(q, k, v, True, dh ** -0.5)
+        dvec = (do.float() * o.float()).sum(-1)
+        args = (q, k, v, lse, do, dvec)
+        outs = {n: run(torch, lib, kernel, *args) for n, lib in libs.items()}
+        diff = max((a.float() - b.float()).abs().max().item()
+                   for a, b in zip(outs["other"], outs["this"]))
+        ms = {n: [] for n in libs}
+        for n in ("other", "this", "this", "other"):
+            ms[n].append(chip_smoke.device_ms(
+                lambda: run(torch, libs[n], kernel, *args)))
+        print(json.dumps({
+            "kernel": kernel, "dtype": dtype_name, "bh": bh, "t": t,
+            "dh": dh, "causal": True, "max_abs_diff": diff,
+            "other_ms": ms["other"], "this_ms": ms["this"],
+            "ratio": sum(ms["this"]) / sum(ms["other"])}), flush=True)
+        del q, k, v, do, o, lse, dvec, args, outs
+    print(chip_smoke.smi_line(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -61,6 +61,48 @@ def test_kernel_matches_plain(dtype, causal, t, tk, dh, tol):
     assert (lse.reshape(8, t) - ref_lse).abs().max() <= tol
 
 
+@pytest.mark.parametrize("causal,t,tk,dh", [
+    *[(c, t, None, dh) for t in (64, 100, 257, 512) for dh in (32, 64)
+      for c in (True, False)],
+    (False, 100, 257, 64), (False, 512, 100, 32), (False, 16, 48, 64)])
+def test_bf16_forward_kernel_matches_plain(causal, t, tk, dh):
+    """The bf16 K1 (wgmma + TMA) against ``flash_fwd_plain`` on the same
+    (B·H, T, Dh) inputs: O and lse within ``_close``'s bf16 bound (both
+    sides round P to bf16 before P·V), one launch."""
+    q, k, v = (_to_bh(x) for x in _qkv(2, t, 4, dh, torch.bfloat16, tk))
+    launches = flash_fwd_cuda.launches
+    o, lse = flash_fwd_cuda(q, k, v, causal, dh ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_fwd_cuda.launches == launches + 1
+    o_ref, lse_ref = flash_fwd_plain(q, k, v, causal, dh ** -0.5)
+    assert o.dtype == torch.bfloat16 and bool(torch.isfinite(o).all())
+    _close(o, o_ref, torch.bfloat16)
+    _close(lse, lse_ref, torch.bfloat16)
+
+
+def test_bf16_forward_kernel_at_the_training_shape_and_a_batch_1_join():
+    """The bf16 K1 at the bf16 probe's training shape (B·H = 512, T = 512,
+    Dh = 64, causal), and a batch-1 join of 200 tokens through
+    ``flash_attention_lse`` (whose ``_to_bh`` copies hand the kernel
+    contiguous, aligned rows), against ``flash_fwd_plain``."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v = (torch.randn((512, 512, 64), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    o, lse = flash_fwd_cuda(q, k, v, True, 0.125)
+    o_ref, lse_ref = flash_fwd_plain(q, k, v, True, 0.125)
+    _close(o, o_ref, torch.bfloat16)
+    _close(lse, lse_ref, torch.bfloat16)
+    q, k, v = _qkv(1, 200, 8, 64, torch.bfloat16, seed=5)
+    launches = flash_fwd_cuda.launches
+    out, lse = flash_attention_lse(q, k, v, True)
+    torch.cuda.synchronize()
+    assert flash_fwd_cuda.launches == launches + 1
+    o_ref, lse_ref = flash_fwd_plain(_to_bh(q), _to_bh(k), _to_bh(v), True,
+                                     0.125)
+    _close(_to_bh(out), o_ref, torch.bfloat16)
+    _close(lse.reshape(8, 200), lse_ref, torch.bfloat16)
+
+
 def _close(got, ref, dtype):
     """f32 within the JAX package's flash-vs-dense gradient bound (rtol
     5e-4, atol 1e-5); bf16, where both sides round P, dS and the outputs
@@ -167,6 +209,26 @@ def test_bf16_backward_refuses_unaligned_inputs():
                 fn(*args)
     assert (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches) == \
         launches
+
+
+def test_bf16_forward_refuses_unaligned_inputs():
+    """The bf16 K1 loads its tiles by TMA too: a contiguous bf16 q, k or v
+    at an odd storage offset is refused before any launch."""
+    bh, t, dh = 2, 64, 64
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    base = torch.randn(bh * t * dh + 1, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    shifted = base[1:].view(bh, t, dh)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    q = torch.randn((bh, t, dh), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    launches = flash_fwd_cuda.launches
+    for i in range(3):
+        args = [q, q, q]
+        args[i] = shifted
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            flash_fwd_cuda(*args, True, 0.125)
+    assert flash_fwd_cuda.launches == launches
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():

@@ -6,6 +6,8 @@ versions on the card (``tests/test_torch_cuda.py`` and
 ``chip_smoke.py``)."""
 
 import functools
+import os
+import shutil
 
 import numpy as np
 import jax
@@ -15,10 +17,11 @@ import torch
 
 from distkeras_tpu.ops.attention import _flash_with_blocking as jax_fwb
 from distkeras_tpu.ops.attention import dot_product_attention as jax_dense
-from distkeras_tpu.ops.pallas_attention import _flash_bwd_raw
+from distkeras_tpu.ops.pallas_attention import _flash_bwd_raw, _flash_fwd_raw
 from distkeras_tpu.ops.pallas_attention import flash_attention as jax_flash
 from distkeras_tpu.ops.pallas_attention import (
     flash_attention_lse as jax_flash_lse)
+from distkeras_tpu_torch.ops import _kernels
 from distkeras_tpu_torch.ops.attention import _flash_with_blocking
 from distkeras_tpu_torch.ops.attention import dot_product_attention
 from distkeras_tpu_torch.ops.flash_attention import (
@@ -220,8 +223,10 @@ def test_plain_bf16_backward_matches_jax_kernels(causal, t, tk):
     k, v = (torch.from_numpy(rng.normal(size=(bh, tk, dh)).astype(
         np.float32)).to(torch.bfloat16) for _ in range(2))
     scale = dh ** -0.5
-    o, lse = flash_fwd_plain(q, k, v, causal, scale)
-    dvec = (do.float() * o.float()).sum(-1)
+    # L and D from the f32 forward of the same values: inputs of both
+    # sides, independent of how the bf16 forward rounds
+    o, lse = flash_fwd_plain(q.float(), k.float(), v.float(), causal, scale)
+    dvec = (do.float() * o.to(torch.bfloat16).float()).sum(-1)
     got = flash_bwd_plain(q, k, v, lse, do, dvec, causal, scale)
     ref = jax.jit(functools.partial(_flash_bwd_raw, causal=causal, bq=16,
                                     bk=16, scale=scale))(
@@ -230,6 +235,40 @@ def test_plain_bf16_backward_matches_jax_kernels(causal, t, tk):
         *(jnp.asarray(x.numpy())[:, None, :] for x in (lse, dvec)))
     for a, b in zip(got, ref):
         assert a.dtype == torch.bfloat16
+        b = np.asarray(b, np.float32)
+        np.testing.assert_allclose(a.float().numpy(), b, rtol=2 ** -7,
+                                   atol=1e-5 * np.abs(b).max())
+
+
+@pytest.mark.parametrize("causal,t,tk", [(False, 64, 64), (True, 64, 64),
+                                         (False, 16, 48)])
+def test_plain_bf16_forward_matches_jax_kernel(causal, t, tk):
+    """bf16 ``flash_fwd_plain`` (what the card holds the bf16 K1 against)
+    against the JAX package's bf16 forward kernel (``_flash_fwd_raw``,
+    interpret mode) on the same bf16 q, k, v: O and lse within one bf16
+    ulp of each value (rtol 2⁻⁷) plus 1e-5 of the largest |value|.  The
+    reference runs with query blocks of 16 and one key block holding the
+    whole row, the recurrence the plain version writes out: P =
+    exp(S − rowmax) rounded to bf16 before P·V, divided by the f32 sum of
+    the unrounded P.  Measured here: every O equal, lse within 4.8e-7.
+    Keeping P in f32 instead (the plain version before this test) is off
+    by up to 0.0078, 0.29–0.49% of the largest |value|.  With key blocks
+    of 16 the reference rounds each block's P against its running max, and
+    both versions are off by up to 0.0039–0.0078, so that setting cannot
+    tell them apart."""
+    rng = np.random.default_rng(7)
+    bh, dh = 4, 32
+    q = torch.from_numpy(rng.normal(size=(bh, t, dh)).astype(
+        np.float32)).to(torch.bfloat16)
+    k, v = (torch.from_numpy(rng.normal(size=(bh, tk, dh)).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(2))
+    scale = dh ** -0.5
+    got = flash_fwd_plain(q, k, v, causal, scale)
+    ref_o, ref_lse = jax.jit(functools.partial(
+        _flash_fwd_raw, causal=causal, bq=16, bk=tk, scale=scale))(
+        *(jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, k, v)))
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    for a, b in zip(got, (ref_o, np.asarray(ref_lse)[:, 0])):
         b = np.asarray(b, np.float32)
         np.testing.assert_allclose(a.float().numpy(), b, rtol=2 ** -7,
                                    atol=1e-5 * np.abs(b).max())
@@ -288,6 +327,23 @@ def test_kernel_wrapper_refuses_cpu_tensors():
             fn(q, k, v, lse, q, lse, True, 0.25)
     assert (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches) == bwd
 
+
+
+def test_library_key_covers_every_csrc_file(tmp_path, monkeypatch):
+    """Every ``.cu`` under ``ops/csrc`` is compiled, and the built
+    library's name hashes every file there, headers included: a changed
+    shared header (``sm90.cuh``) must not reuse a stale library."""
+    csrc = os.path.dirname(_kernels.SOURCES[0])
+    assert sorted(map(os.path.basename, _kernels.SOURCES)) == sorted(
+        f for f in os.listdir(csrc) if f.endswith(".cu"))
+    copy = tmp_path / "csrc"
+    shutil.copytree(csrc, copy)
+    monkeypatch.setattr(_kernels, "_CSRC", str(copy))
+    before = _kernels.lib_path()
+    assert before == _kernels.lib_path()
+    with open(copy / "sm90.cuh", "a") as f:
+        f.write("\n// changed\n")
+    assert _kernels.lib_path() != before
 
 
 @pytest.mark.cuda

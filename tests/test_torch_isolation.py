@@ -1,6 +1,6 @@
-"""The port stands alone: ``distkeras_tpu_torch`` and ``chip_smoke.py``
-import neither JAX nor the JAX package, nor ``optax`` or ``msgpack``
-(the card's machine has neither) — checked by importing every
+"""The port stands alone: ``distkeras_tpu_torch``, ``chip_smoke.py`` and
+``kernel_ab.py`` import neither JAX nor the JAX package, nor ``optax``
+or ``msgpack`` (the card's machine has neither) — checked by importing every
 submodule in a subprocess whose import system refuses them, and by an
 AST scan of every import statement."""
 
@@ -42,6 +42,7 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(_ROOT, "chip_smoke.py")
+    yield os.path.join(_ROOT, "kernel_ab.py")
 
 
 def test_every_submodule_imports_with_jax_refused():
