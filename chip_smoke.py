@@ -8,11 +8,12 @@ Phases, one JSON line each:
 1. ``env``    — torch/CUDA versions, the card, TF32 switched off.
 2. ``build``  — the flash kernels, ``distkeras_tpu_torch/ops/csrc/
    flash_fwd.cu`` (K1 in f32), ``flash_fwd_sm90.cu`` (K1 in bf16, on
-   wgmma and TMA), ``flash_bwd.cu`` (K2, K3 in f32) and
-   ``flash_bwd_sm90.cu`` (K2, K3 in bf16, on wgmma and TMA; both
-   ``_sm90`` files include ``sm90.cuh``), are built with nvcc for sm_90a
-   if stale (seconds; each kernel's registers, shared memory and spills
-   as ptxas reports them).
+   wgmma and TMA), ``flash_bwd.cu`` (the backward's C interface),
+   ``flash_bwd_tf32_sm90.cu`` (K2, K3 in f32, as 3xTF32 on mma.sync) and
+   ``flash_bwd_sm90.cu`` (K2, K3 in bf16, on wgmma and TMA; the ``_sm90``
+   files include ``sm90.cuh``), are built with nvcc for sm_90a if stale
+   (seconds; each kernel's registers, shared memory and spills as ptxas
+   reports them, and whether its wgmma products were serialized).
 3. ``k1``     — the flash-attention forward kernel against its plain
    PyTorch version on the card: f32 at the serving shapes and a few
    others (max abs error of O and lse <= 1e-5); bf16 at T in {64, 100,
@@ -40,8 +41,8 @@ Phases, one JSON line each:
 6. ``k2k3``   — the backward kernels K2 (dQ) and K3 (dK, dV) against
    their plain version (``flash_bwd_plain``, which rounds P and dS to
    bf16 for bf16 inputs as the reference does) on the card: f32 and
-   bf16, causal and not, T in {64, 100, 256, 512} (once with Tq != Tk;
-   bf16 also T = 257), Dh 32 and 64, and the training shape (bf16 also at
+   bf16, causal and not, T in {64, 100, 256, 257, 512} (once with
+   Tq != Tk), Dh 32 and 64, and the training shape (bf16 also at
    Dh 32): f32 within the JAX package's flash-vs-dense gradient bound
    (rtol 5e-4, atol 1e-5), bf16 within the bf16 rounding (rtol 1e-2, atol
    1e-2 of the largest |value|).  Then, at the training shape (B*H = 512,
@@ -53,14 +54,15 @@ Phases, one JSON line each:
 7. ``train``  — the same probe model trained by ``SingleTrainer``:
    (a) f32, flash and dense twins from seed 0, 4 SGD steps of batch 16:
    per-step losses within rtol 1e-4 and every trained parameter within
-   atol 1e-4; (b) the probe's training config, reduced only in batch
-   (batch 64 for ``mfu.py``'s 1024; sgd, lr 0.1, bf16 compute), 3
-   epochs of 8 steps: losses finite and falling, ``jit.retraces == 0``,
-   K1, K2 and K3 launched exactly 4 x 24 times each; its samples/s,
-   tokens/s, step ms and peak memory; then two more epochs under a
-   ``torch.profiler`` trace, of which the second gives the busy share
-   (device time over the epoch's span on the device's timeline) and
-   each kernel's share.
+   atol 1e-4, K1, K2 and K3 launched exactly 4 x 4 times each in the
+   flash run, and each run's step ms from its epoch record; (b) the
+   probe's training config, reduced only in batch (batch 64 for
+   ``mfu.py``'s 1024; sgd, lr 0.1, bf16 compute), 3 epochs of 8 steps:
+   losses finite and falling, ``jit.retraces == 0``, K1, K2 and K3
+   launched exactly 4 x 24 times each; its samples/s, tokens/s, step ms
+   and peak memory; then two more epochs under a ``torch.profiler``
+   trace, of which the second gives the busy share (device time over
+   the epoch's span on the device's timeline) and each kernel's share.
 
 Then the ``kernels`` line, the card's name and power limit as nvidia-smi
 prints them, and as the last line ``{"ok": true, "device": {...}}``.  Any
@@ -77,10 +79,14 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-#: H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the tensor
-#: cores, bf16 on them, and HBM3 bandwidth
-PEAK_F32_FLOPS = 67e12
+#: H100 SXM peaks (NVIDIA data sheet, dense): bf16 and TF32 on the tensor
+#: cores, and HBM3 bandwidth.  An exact f32 product costs three TF32
+#: products (3xTF32), so the least time for f32 work is its operations at
+#: a third of the TF32 rate, above the 67 TFLOP/s of f32 outside the
+#: tensor cores.
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
+PEAK_F32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES = 3.35e12
 
 #: K2/K3 against flash_bwd_plain on the same inputs: f32 within the JAX
@@ -144,8 +150,9 @@ def device_ms(fn, iters: int = 20) -> float:
 
 def flash_bound(bh, tq, tk, dh, causal, itemsize):
     """(bound_ms, bound_by) for one forward: operations over the peak of
-    the input type, bytes (q/k/v read once, O and lse written once) over
-    the memory rate — the larger of the two."""
+    the input type (f32 at the 3xTF32 rate), bytes (q/k/v read once, O
+    and lse written once) over the memory rate — the larger of the
+    two."""
     pairs = tq * (tq + 1) // 2 if causal else tq * tk
     flops = 4 * bh * dh * pairs
     nbytes = itemsize * bh * dh * (2 * tq + 2 * tk) + 4 * bh * tq
@@ -164,9 +171,10 @@ def flash_bwd_flops(kernel, bh, t, dh):
 
 def flash_bwd_bound(kernel, bh, t, dh, itemsize):
     """(bound_ms, bound_by) for one causal K2 or K3 call: its operations
-    (``flash_bwd_flops``) over the peak of the input type, bytes (q, k, v,
-    dO read once, L and D f32, the gradients written once) over the memory
-    rate — the larger of the two."""
+    (``flash_bwd_flops``) over the peak of the input type (f32 at the
+    3xTF32 rate), bytes (q, k, v, dO read once, L and D f32, the
+    gradients written once) over the memory rate — the larger of the
+    two."""
     flops = flash_bwd_flops(kernel, bh, t, dh)
     n_out = 1 if kernel == "dq" else 2
     nbytes = itemsize * bh * t * dh * (4 + n_out) + 2 * 4 * bh * t
@@ -198,7 +206,7 @@ def ptxas_report(log):
 
     def short(mangled):
         # the kernel's name and template arguments, still mangled
-        name = re.search(r"flash_(fwd|bwd_dq|bwd_dkv)(_wgmma)?_kernel"
+        name = re.search(r"flash_(fwd|bwd_dq|bwd_dkv)(_wgmma|_tf32)?_kernel"
                          r"I\w*?E(?=E)", mangled)
         return name.group(0) if name else mangled
 
@@ -488,8 +496,9 @@ def phase_k2k3(torch):
                   (dtype, False, 8, 100, 256, 64),
                   (dtype, True, 8, 100, 100, 32),
                   (dtype, True, TRAIN_BH, TRAIN_T, TRAIN_T, TRAIN_DH)]
-    cases += [("bfloat16", True, 8, 257, 257, 64),
-              ("bfloat16", True, TRAIN_BH, TRAIN_T, TRAIN_T, 32)]
+    cases += [(dtype, True, 8, 257, 257, 64)
+              for dtype in ("float32", "bfloat16")]
+    cases += [("bfloat16", True, TRAIN_BH, TRAIN_T, TRAIN_T, 32)]
     rows = []
     for dtype_name, causal, bh, tq, tk, dh in cases:
         args = inputs(getattr(torch, dtype_name), bh, tq, tk, dh, causal)
@@ -610,14 +619,24 @@ def phase_train(torch):
     # both models start from the same weights
     ds = load_lm_corpus(n_train=64, seq_len=LM["seq_len"],
                         vocab_size=LM["vocab_size"])[0]
-    runs = {}
+    runs, f32_step_ms = {}, {}
     for impl in ("flash", "dense"):
         t = SingleTrainer(zoo.gpt_lm(**{**LM, "attention_impl": impl}),
                           "sgd", SCE, batch_size=16, num_epoch=1,
                           learning_rate=0.1)
+        # the f32 path (SingleTrainer's default dtype): counts set to 0
+        # just before, read just after
+        for k in kernels.values():
+            k.launches = 0
         t.train(ds)
+        if impl == "flash":
+            f32_launches = {n: k.launches for n, k in kernels.items()}
         runs[impl] = (np.concatenate(t.get_history()),
                       _leaves(t.trained_variables))
+        # the one epoch's CUDA-event seconds over its steps (the first
+        # step of each run included)
+        rec = [r for r in t.metrics.records if r["event"] == "epoch"][-1]
+        f32_step_ms[impl] = 1e3 * rec["epoch_seconds"] / len(runs[impl][0])
     (fl, fp), (dl, dp) = runs["flash"], runs["dense"]
     loss_rel = float(np.max(np.abs(fl - dl) / np.abs(dl)))
     param_err = max(float(np.max(np.abs(a - b))) for a, b in zip(fp, dp))
@@ -625,6 +644,9 @@ def phase_train(torch):
           f"f32 flash vs dense losses differ: {fl} vs {dl}")
     check(param_err <= 1e-4,
           f"f32 flash vs dense parameters differ by {param_err}")
+    want = LM["num_blocks"] * len(fl)
+    check(all(n == want for n in f32_launches.values()),
+          f"f32 launches {f32_launches} != {want} each")
 
     # (b) the probe config, batch 64: the main path of this slice
     ds = load_lm_corpus(n_train=512, seq_len=LM["seq_len"],
@@ -676,7 +698,10 @@ def phase_train(torch):
            "parity_f32": {"losses_flash": fl.tolist(),
                           "losses_dense": dl.tolist(),
                           "loss_max_rel_err": loss_rel,
-                          "param_max_abs_err": param_err},
+                          "param_max_abs_err": param_err,
+                          "step_ms_flash": f32_step_ms["flash"],
+                          "step_ms_dense": f32_step_ms["dense"],
+                          "launches": f32_launches},
            "probe": {"batch_size": 64, "steps_per_epoch": steps,
                      "epochs": epochs, "compute_dtype": "bfloat16",
                      "optimizer": "sgd", "learning_rate": 0.1},
@@ -752,7 +777,9 @@ def main() -> int:
         "replaces_kernel": "_fwd_kernel",
         "launches": sl["launches"]["served"] + tr["launches"]["flash_fwd"],
         "launches_by_path": {"serve": sl["launches"]["served"],
-                             "train": tr["launches"]["flash_fwd"]},
+                             "train": tr["launches"]["flash_fwd"],
+                             "train_f32": tr["parity_f32"]["launches"][
+                                 "flash_fwd"]},
         "max_abs_err": max(f32 + bf16), "max_err_f32": max(f32),
         "max_err_bf16": max(bf16),
         "shape": {k: bf[k] for k in shape},
@@ -788,7 +815,9 @@ def main() -> int:
             "replaces": f"distkeras_tpu/ops/pallas_attention.py:{src_line}",
             "replaces_kernel": kern,
             "launches": tr["launches"][name],
-            "launches_by_path": {"serve": 0, "train": tr["launches"][name]},
+            "launches_by_path": {
+                "serve": 0, "train": tr["launches"][name],
+                "train_f32": tr["parity_f32"]["launches"][name]},
             "max_abs_err": max(f32 + bf16), "max_err_f32": max(f32),
             "max_err_bf16": max(bf16),
             "shape": {"bh": bf["bh"], "tq": bf["t"], "tk": bf["t"],
@@ -801,7 +830,8 @@ def main() -> int:
             "library_ms": bf["library_bwd_ms"],
             "bound_ms": bf[f"{ms_key}_bound_ms"],
             "bound_by": bf[f"{ms_key}_bound_by"],
-            "f32": {"source": "distkeras_tpu_torch/ops/csrc/flash_bwd.cu",
+            "f32": {"source":
+                    "distkeras_tpu_torch/ops/csrc/flash_bwd_tf32_sm90.cu",
                     "ms": fp[f"{ms_key}_ms"],
                     "tflops": fp[f"{ms_key}_tflops"],
                     "plain_ms": fp["plain_ms"],

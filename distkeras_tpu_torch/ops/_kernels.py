@@ -2,15 +2,16 @@
 library with a plain C interface → ``ctypes``.
 
 ``csrc/flash_fwd.cu`` (K1 in f32, and the C interface of both dtypes),
-``csrc/flash_fwd_sm90.cu`` (K1 in bf16), ``csrc/flash_bwd.cu`` (K2, K3 in
-f32, and the C interface of both dtypes) and ``csrc/flash_bwd_sm90.cu``
-(K2, K3 in bf16; both ``_sm90`` files include ``csrc/sm90.cuh``, their
-shared PTX and tensor-map helpers) compile in parallel, one ``nvcc``
-each, and link into ``distkeras_tpu_torch/_build/`` (listed in
-``.gitignore``) under a name keyed by a hash of every file under
-``csrc/`` and the flags, so a changed source or header rebuilds and an
-unchanged tree is reused.  Nothing here runs at import: the first
-``library()`` call builds it if stale.
+``csrc/flash_fwd_sm90.cu`` (K1 in bf16), ``csrc/flash_bwd.cu`` (the C
+interface of K2, K3), ``csrc/flash_bwd_tf32_sm90.cu`` (K2, K3 in f32, as
+3xTF32 on mma.sync) and ``csrc/flash_bwd_sm90.cu`` (K2, K3 in bf16; the
+``_sm90`` files include ``csrc/sm90.cuh``, their shared PTX and
+tensor-map helpers) compile in parallel, one ``nvcc`` each, and link
+into ``distkeras_tpu_torch/_build/`` (listed in ``.gitignore``) under a
+name keyed by a hash of every file under ``csrc/`` and the flags, so a
+changed source or header rebuilds and an unchanged tree is reused.
+Nothing here runs at import: the first ``library()`` call builds it if
+stale.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ from typing import Optional
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = tuple(os.path.join(_CSRC, f)
                 for f in ("flash_fwd.cu", "flash_fwd_sm90.cu",
-                          "flash_bwd.cu", "flash_bwd_sm90.cu"))
+                          "flash_bwd.cu", "flash_bwd_tf32_sm90.cu",
+                          "flash_bwd_sm90.cu"))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "_build")
 

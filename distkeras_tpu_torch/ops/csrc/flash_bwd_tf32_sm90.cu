@@ -1,0 +1,580 @@
+// Flash-attention backward in f32 on Hopper's tensor cores (sm_90a), every
+// product as 3xTF32: K2 (dQ) and K3 (dK, dV).  Called from flash_bwd.cu's
+// C interface (dkt_flash_bwd_dq, dkt_flash_bwd_dkv) for dtype 0.
+//
+// Replaces: distkeras_tpu/ops/pallas_attention.py:_bwd_dq_kernel (K2,
+// :169) and _bwd_dkv_kernel (K3, :200) under the f32 branch of
+// _dot/_dot_t (precision HIGHEST: exact f32 products).  Same function:
+// with P = exp(scale * Q K^T - L) under the causal mask k_pos <= q_pos (a
+// select: a masked entry is exactly 0), dP = dO V^T and
+// dS = scale * P o (dP - D),
+//   K2: dQ = dS K
+//   K3: dV = P^T dO,  dK = dS^T Q
+// in f32.  Causal needs Tq == Tk; non-causal takes Tq != Tk; any T (rows
+// past T are zero-filled on load and masked).
+//
+// 3xTF32: each f32 operand x is split into hi = x rounded to tf32 (to
+// nearest, ties away, on the bits: (bits + 0x1000) & ~0x1fff) and
+// lo = x - hi (exact in f32, |lo| <= 2^-11 |x|).  lo goes to the tensor
+// core as it is: a .tf32 operand is read from its top 19 bits (on this
+// card, clearing lo's low 13 bits first changed no output bit), so lo
+// loses at most 2^-10 of itself, 2^-21 of x.  Each product is
+// lo*hi + hi*lo + hi*hi, summed in f32; lo*lo (at most 2^-22 of the
+// product) is dropped.  The sums are where precision goes: each mma
+// rounds its sum toward zero at the magnitude of its accumulator, so the
+// error grows with the number of mma fed through one accumulator.  The
+// kernels keep that number small: the small terms of S and dP sum apart
+// from hi*hi, and dQ, dK and dV take each half tile's sum apart from zero
+// and add it with an f32 add.  tests/test_torch_cuda.py holds the kernels
+// to the f32 bound on inputs where one TF32 pass misses it by far.
+//
+// What bounds them on this card: at the training shape (B*H = 512,
+// T = 512, Dh = 64, causal) K2 does 25.8 and K3 34.4 GFLOP of f32
+// products, three times that on the TF32 tensor cores: 77.5 and 103.3
+// TFLOP at 495 TFLOP/s, 0.156 and 0.209 ms.  Their bytes (Q, K, V, dO
+// and L, D read once, the gradients written once) take 0.101 and
+// 0.121 ms at 3.35 TB/s.  So the operations bound both: the kernels have
+// to keep the tensor cores issuing, with the splits, the exp and the
+// shared-memory loads beside them.
+//
+// Design: one block of four warps per (batch*head, 64-row tile), each
+// warp owning 16 rows of every 64 x 64 tile; K2 per query tile, issued
+// from the last (longest causal) one down, looping over the key tiles up
+// to the diagonal; K3 per key tile, from the first up, looping over the
+// query tiles from the diagonal on.  Each output has one writer and the
+// reference's summation order (over key tiles for dQ, over query tiles
+// for dK and dV, each tile in two halves), no atomics.  Every product is
+// mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32, three per 16 x 8 x 8 step:
+//   - tf32 wgmma reads its shared-memory operands as stored and has no
+//     transpose for 32-bit types, so on wgmma every tile would need hi
+//     and lo copies in shared memory, and three of the seven products
+//     (dQ = dS K, dV = P^T dO, dK = dS^T Q contract over the tile's rows)
+//     transposed copies as well: about 190 KB at Dh = 64 and one block
+//     per SM.  mma.sync takes its fragments from registers, so one f32
+//     copy of each tile serves both orientations and the split happens in
+//     registers as a fragment is loaded.
+//   - S = Q K^T and dP = dO V^T (K2), S^T = K Q^T and dP^T = V dO^T (K3,
+//     transposed so that P^T and dS^T land in the accumulators): both
+//     fragments read along Dh, the contiguous dim.
+//   - dQ += dS K, dV += P^T dO, dK += dS^T Q: A is the f32 accumulator of
+//     dS, P^T or dS^T, split in place.  The m16n8k8 accumulator holds
+//     columns 2t and 2t + 1 of a thread's rows where the A fragment wants
+//     t and t + 4; instead of moving values between threads, the k index
+//     of each 8-slice is permuted (logical t <-> physical 2t, t + 4 <->
+//     2t + 1) on both sides: the B fragment reads rows 2t and 2t + 1 of
+//     the slice.  A sum does not depend on the order of its k terms
+//     beyond rounding.
+//   - A warp takes the 64 columns of S and dP (S^T and dP^T) in two
+//     halves of 32, which halves the accumulators it holds at once: with
+//     the register budget set for three blocks per SM, K3 (dK and dV
+//     accumulators of 32 registers each) does not spill.
+//   - Tiles sit in shared memory with a row stride of Dh + 4 floats, so
+//     the fragment reads of both orientations (rows g, columns t; rows
+//     2t, columns g) hit 32 distinct banks.
+//   - The streamed tiles (K and V in K2, Q and dO in K3) arrive by
+//     16-byte cp.async (zero fill past T), the resident ones with the
+//     first.  One buffer holds the streamed pair: a block loads its next
+//     tile once every warp is done with the current one, and the three
+//     blocks on an SM (68 KB of shared memory each at Dh = 64) hide one
+//     another's loads.  A second buffer, to load a tile ahead, fits only
+//     two blocks per SM, which measured slower on this card.  L and D
+//     rows of (B*H, Tq) f32 are not 16-byte aligned at odd Tq: K2 reads
+//     its two rows per thread once, K3 stages each query tile's 64 + 64
+//     values with plain loads beside the tile's cp.async.
+//
+// Later work: tf32 wgmma for the four products that read both operands
+// along Dh (hi/lo copies written as each tile arrives), a producer warp
+// and 128-row tiles, and fusing K2 into K3.
+
+#include "sm90.cuh"
+
+namespace {
+
+using sm90::kBlock;
+using sm90::kThreads;
+using sm90::smem_u32;
+
+// blocks per SM the register budget is set for (68 KB of shared memory
+// each at Dh = 64)
+constexpr int kMinBlocks = 3;
+
+// ---------------------------------------------------------------------------
+// cp.async, the tf32 split, mma.sync
+// ---------------------------------------------------------------------------
+
+// 16 bytes from global to shared memory; `valid` false writes zeros and
+// reads nothing
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+// waits for every cp.async this thread has issued
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// Rows [r0, r0 + kBlock) of a contiguous (n, D) f32 matrix into a tile of
+// row stride D + 4; rows at or past n read as zeros.
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int r0, int n) {
+  constexpr int kChunks = D / 4;  // 16-byte chunks a row
+#pragma unroll
+  for (int u = 0; u < kBlock * kChunks / kThreads; ++u) {
+    const int i = threadIdx.x + u * kThreads;
+    const int r = i / kChunks, c = 4 * (i % kChunks);
+    const bool valid = r0 + r < n;
+    cp_async16(dst + r * (D + 4) + c,
+               src + (size_t)(valid ? r0 + r : 0) * D + c, valid);
+  }
+}
+
+// x = hi + lo exactly: hi is x rounded to tf32 (its low 13 bits zero),
+// lo the rest, which the tensor core reads to tf32 precision
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c (16 x 8) += a (16 x 8) b (8 x 8), tf32 operands, f32 sums
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An m16n8k8 operand pair split into hi and lo
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+// a b in 3xTF32: hi * hi into c, the small terms into cs.  Each mma
+// rounds its sum toward zero at the magnitude of its accumulator, so the
+// small terms kept apart lose nothing to the large sum, and the three
+// products are two chains, not one.
+__device__ __forceinline__ void mma3(float (&c)[4], float (&cs)[4],
+                                     const FragA& a, const FragB& b) {
+  mma(cs, a.lo, b.hi[0], b.hi[1]);
+  mma(cs, a.hi, b.lo[0], b.lo[1]);
+  mma(c, a.hi, b.hi[0], b.hi[1]);
+}
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a,
+                                     const FragB& b) {
+  mma3(c, c, a, b);
+}
+
+// Fragment coordinates in a warp: g = lane / 4 and t = lane % 4.  The
+// m16n8k8 A fragment holds (row g, col t), (g + 8, t), (g, t + 4),
+// (g + 8, t + 4); B (k t, n g), (k t + 4, n g); the accumulator (row g,
+// col 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+
+// A fragment: rows [m0, m0 + 16), columns [k0, k0 + 8) of a tile of
+// stride LD
+template <int LD>
+__device__ __forceinline__ FragA frag_a(const float* x, int m0, int k0,
+                                        int g, int t) {
+  const float* p = x + (m0 + g) * LD + k0 + t;
+  FragA f;
+  split(p[0], f.hi[0], f.lo[0]);
+  split(p[8 * LD], f.hi[1], f.lo[1]);
+  split(p[4], f.hi[2], f.lo[2]);
+  split(p[8 * LD + 4], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// B fragment of X^T, contracted along X's columns: k = columns
+// [k0, k0 + 8), n = rows [n0, n0 + 8) of a tile of stride LD
+template <int LD>
+__device__ __forceinline__ FragB frag_bt(const float* x, int n0, int k0,
+                                         int g, int t) {
+  const float* p = x + (n0 + g) * LD + k0 + t;
+  FragB f;
+  split(p[0], f.hi[0], f.lo[0]);
+  split(p[4], f.hi[1], f.lo[1]);
+  return f;
+}
+
+// B fragment of X, contracted along X's rows in the permuted k order
+// (logical t, t + 4 = rows k0 + 2t, k0 + 2t + 1): n = columns [n0, n0 + 8)
+template <int LD>
+__device__ __forceinline__ FragB frag_b(const float* x, int k0, int n0,
+                                        int g, int t) {
+  const float* p = x + (k0 + 2 * t) * LD + n0 + g;
+  FragB f;
+  split(p[0], f.hi[0], f.lo[0]);
+  split(p[LD], f.hi[1], f.lo[1]);
+  return f;
+}
+
+// A fragment from columns [8s, 8s + 8) of an accumulator c[s], in the
+// permuted k order of frag_b
+__device__ __forceinline__ FragA frag_acc(const float (&c)[4]) {
+  FragA f;
+  split(c[0], f.hi[0], f.lo[0]);
+  split(c[2], f.hi[1], f.lo[1]);
+  split(c[1], f.hi[2], f.lo[2]);
+  split(c[3], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// A warp takes the tile's 64 columns of S (or S^T) in two halves of kHalf,
+// which halves the accumulators it holds at once.
+constexpr int kHalf = 32;
+constexpr int kNJ = kHalf / 8;  // n8 (or k8) tiles of a half
+
+// c[j] (16 x kHalf) = X Y^T for this warp's rows [m0, m0 + 16) of x and
+// the kHalf rows of y, contracted along Dh
+template <int D>
+__device__ __forceinline__ void product_t(float (&c)[kNJ][4], const float* x,
+                                          const float* y, int m0, int g,
+                                          int t) {
+  constexpr int LD = D + 4;
+  float cs[kNJ][4];
+#pragma unroll
+  for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[j][i] = cs[j][i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const FragA a = frag_a<LD>(x, m0, 8 * kk, g, t);
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j)
+      mma3(c[j], cs[j], a, frag_bt<LD>(y, 8 * j, 8 * kk, g, t));
+  }
+#pragma unroll
+  for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[j][i] += cs[j][i];
+}
+
+// acc (16 x D) += A Y, A (16 x kHalf) the accumulator a[s], contracted
+// along the kHalf rows of y.  The half tile's sum is taken apart from zero
+// and added to acc in f32: a running sum fed through mma over many tiles
+// would take each mma's rounding toward zero at its full magnitude.  (The
+// small terms share that sum: twelve mma deep, it stays small, and keeping
+// them apart would cost the registers of a third accumulator.)
+template <int D>
+__device__ __forceinline__ void product(float (&acc)[D / 8][4],
+                                        const float (&a)[kNJ][4],
+                                        const float* y, int g, int t) {
+  constexpr int LD = D + 4;
+  float part[D / 8][4];
+#pragma unroll
+  for (int jd = 0; jd < D / 8; ++jd)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) part[jd][i] = 0.f;
+#pragma unroll
+  for (int s = 0; s < kNJ; ++s) {
+    const FragA f = frag_acc(a[s]);
+#pragma unroll
+    for (int jd = 0; jd < D / 8; ++jd)
+      mma3(part[jd], f, frag_b<LD>(y, 8 * s, 8 * jd, g, t));
+  }
+#pragma unroll
+  for (int jd = 0; jd < D / 8; ++jd)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[jd][i] += part[jd][i];
+}
+
+// rows r0 and r0 + 8 of a (16 x D) accumulator into `out` (row stride D),
+// rows at or past n skipped
+template <int D>
+__device__ __forceinline__ void store_rows(float* out,
+                                           const float (&acc)[D / 8][4],
+                                           int r0, int n, int t) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 8 * half;
+    if (r >= n) continue;
+    float* row = out + (size_t)r * D + 2 * t;
+#pragma unroll
+    for (int jd = 0; jd < D / 8; ++jd)
+      *reinterpret_cast<float2*>(row + 8 * jd) =
+          make_float2(acc[jd][2 * half], acc[jd][2 * half + 1]);
+  }
+}
+
+template <int D>
+__host__ __device__ constexpr size_t tile_floats() {
+  return (size_t)kBlock * (D + 4);
+}
+
+// ---------------------------------------------------------------------------
+// K2: dQ
+// ---------------------------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ dvec,
+                         float* __restrict__ dq, int tq, int tk, int causal,
+                         float scale) {
+  constexpr size_t kTile = tile_floats<D>();
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* qs = smem;  // resident Q and dO
+  float* dos = smem + kTile;
+  float* ks = smem + 2 * kTile;  // the streamed K and V
+  float* vs = smem + 3 * kTile;
+
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // the long tiles first
+  const int q0 = qt * kBlock;
+  int n_k = (tk + kBlock - 1) / kBlock;
+  if (causal) n_k = min(n_k, qt + 1);  // key tiles up to the diagonal
+  const float* kb = k + (size_t)bh * tk * D;
+  const float* vb = v + (size_t)bh * tk * D;
+
+  load_tile<D>(qs, q + (size_t)bh * tq * D, q0, tq);
+  load_tile<D>(dos, dout + (size_t)bh * tq * D, q0, tq);
+  load_tile<D>(ks, kb, 0, tk);
+  load_tile<D>(vs, vb, 0, tk);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int m0 = 16 * warp;   // this warp's rows of the tile
+  const int r0 = q0 + m0 + g;  // this thread's rows: r0, r0 + 8
+  float l_row[2], d_row[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    l_row[h] = r < tq ? lse[(size_t)bh * tq + r] : 0.f;
+    d_row[h] = r < tq ? dvec[(size_t)bh * tq + r] : 0.f;
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int jd = 0; jd < D / 8; ++jd)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[jd][i] = 0.f;
+
+  for (int it = 0; it < n_k; ++it) {
+    const int k0 = it * kBlock;
+    cp_wait_all();  // this tile (and the resident ones) landed
+    __syncthreads();
+
+#pragma unroll 1
+    for (int h = 0; h < kBlock; h += kHalf) {  // keys [h, h + kHalf)
+      const float* kh = ks + h * (D + 4);
+      float sc[kNJ][4], dp[kNJ][4];
+      product_t<D>(sc, qs, kh, m0, g, t);                 // S = Q K^T
+      product_t<D>(dp, dos, vs + h * (D + 4), m0, g, t);  // dP = dO V^T
+      // dS = scale * P o (dP - D), P = exp(scale * S - L) under the mask
+#pragma unroll
+      for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = r0 + 8 * (i >> 1);
+          const int col = k0 + h + 8 * j + 2 * t + (i & 1);
+          const bool keep = row < tq && col < tk && (!causal || col <= row);
+          const float p =
+              keep ? expf(sc[j][i] * scale - l_row[i >> 1]) : 0.f;
+          dp[j][i] = p * (dp[j][i] - d_row[i >> 1]) * scale;
+        }
+      product<D>(acc, dp, kh, g, t);  // dQ += dS K
+    }
+
+    // every read of K and V is done: load the next tile
+    __syncthreads();
+    if (it + 1 < n_k) {
+      load_tile<D>(ks, kb, k0 + kBlock, tk);
+      load_tile<D>(vs, vb, k0 + kBlock, tk);
+    }
+  }
+  store_rows<D>(dq + (size_t)bh * tq * D, acc, r0, tq, t);
+}
+
+// ---------------------------------------------------------------------------
+// K3: dK and dV
+// ---------------------------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ dvec,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          int tq, int tk, int causal, float scale) {
+  constexpr size_t kTile = tile_floats<D>();
+  extern __shared__ float4 smem4[];
+  // L and D of the query tile
+  __shared__ float stats[2][kBlock];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* ks = smem;  // resident K and V
+  float* vs = smem + kTile;
+  float* qs = smem + 2 * kTile;  // the streamed Q and dO
+  float* dos = smem + 3 * kTile;
+
+  const int bh = blockIdx.x;
+  const int kt = blockIdx.y;  // low key tiles (long causal loops) first
+  const int k0 = kt * kBlock;
+  const int first = causal ? kt : 0;  // query tiles from the diagonal on
+  const int n_q = (tq + kBlock - 1) / kBlock - first;
+  const int tid = threadIdx.x;
+  const float* qb = q + (size_t)bh * tq * D;
+  const float* db = dout + (size_t)bh * tq * D;
+  const float* lse_bh = lse + (size_t)bh * tq;
+  const float* dvec_bh = dvec + (size_t)bh * tq;
+  // query tile `it` of the loop's L (threads 0-63) and D (64-127)
+  auto stage_stats = [&](int it) {
+    const int i = tid % kBlock, qp = (first + it) * kBlock + i;
+    const float* src = tid < kBlock ? lse_bh : dvec_bh;
+    stats[tid / kBlock][i] = qp < tq ? src[qp] : 0.f;
+  };
+
+  load_tile<D>(ks, k + (size_t)bh * tk * D, k0, tk);
+  load_tile<D>(vs, v + (size_t)bh * tk * D, k0, tk);
+  load_tile<D>(qs, qb, first * kBlock, tq);
+  load_tile<D>(dos, db, first * kBlock, tq);
+  stage_stats(0);
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int m0 = 16 * warp;   // this warp's keys of the tile
+  const int r0 = k0 + m0 + g;  // this thread's keys: r0, r0 + 8
+  float acc_k[D / 8][4], acc_v[D / 8][4];
+#pragma unroll
+  for (int jd = 0; jd < D / 8; ++jd)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc_k[jd][i] = acc_v[jd][i] = 0.f;
+
+  for (int it = 0; it < n_q; ++it) {
+    const int q0 = (first + it) * kBlock;
+    const float* ls = stats[0];
+    const float* dls = stats[1];
+    cp_wait_all();  // this tile (and the resident ones) landed
+    __syncthreads();
+
+#pragma unroll 1
+    for (int h = 0; h < kBlock; h += kHalf) {  // queries [h, h + kHalf)
+      const float* qh = qs + h * (D + 4);
+      const float* doh = dos + h * (D + 4);
+      // P^T = exp(scale * S^T - L) under the mask, S^T = K Q^T
+      float st[kNJ][4], dpt[kNJ][4];
+      product_t<D>(st, ks, qh, m0, g, t);
+#pragma unroll
+      for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = r0 + 8 * (i >> 1);
+          const int col = h + 8 * j + 2 * t + (i & 1);
+          const int qpos = q0 + col;
+          const bool keep = qpos < tq && key < tk && (!causal || key <= qpos);
+          st[j][i] = keep ? expf(st[j][i] * scale - ls[col]) : 0.f;
+        }
+      // dV += P^T dO before dP^T is formed: fewer values live at once
+      product<D>(acc_v, st, doh, g, t);
+      // dS^T = scale * P^T o (dP^T - D), dP^T = V dO^T
+      product_t<D>(dpt, vs, doh, m0, g, t);
+#pragma unroll
+      for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          dpt[j][i] = st[j][i] *
+                      (dpt[j][i] - dls[h + 8 * j + 2 * t + (i & 1)]) * scale;
+      product<D>(acc_k, dpt, qh, g, t);  // dK += dS^T Q
+    }
+
+    // every read of Q, dO, L and D is done: load the next tile
+    __syncthreads();
+    if (it + 1 < n_q) {
+      load_tile<D>(qs, qb, q0 + kBlock, tq);
+      load_tile<D>(dos, db, q0 + kBlock, tq);
+      stage_stats(it + 1);
+    }
+  }
+  store_rows<D>(dk + (size_t)bh * tk * D, acc_k, r0, tk, t);
+  store_rows<D>(dv + (size_t)bh * tk * D, acc_v, r0, tk, t);
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+// two resident tiles and two streamed ones
+template <int D>
+constexpr size_t smem_bytes() {
+  return 4 * tile_floats<D>() * sizeof(float);
+}
+
+template <int D>
+cudaError_t launch_dq(const float* q, const float* k, const float* v,
+                      const float* dout, const float* lse, const float* dvec,
+                      float* dq, int bh, int tq, int tk, int causal,
+                      float scale, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_tf32_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (tq + kBlock - 1) / kBlock);
+  flash_bwd_dq_tf32_kernel<D><<<grid, kThreads, smem, stream>>>(
+      q, k, v, dout, lse, dvec, dq, tq, tk, causal, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv(const float* q, const float* k, const float* v,
+                       const float* dout, const float* lse,
+                       const float* dvec, float* dk, float* dv, int bh,
+                       int tq, int tk, int causal, float scale,
+                       cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_tf32_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (tk + kBlock - 1) / kBlock);
+  flash_bwd_dkv_tf32_kernel<D><<<grid, kThreads, smem, stream>>>(
+      q, k, v, dout, lse, dvec, dk, dv, tq, tk, causal, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The f32 entry points behind dkt_flash_bwd_dq / dkt_flash_bwd_dkv
+// (flash_bwd.cu, which checks the arguments and sets the device): q, k,
+// v, dout contiguous f32, 16-byte aligned; head_dim 32 or 64.
+cudaError_t flash_bwd_dq_f32(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse,
+                             const void* dvec, void* dq, int bh, int tq,
+                             int tk, int head_dim, int causal, float scale,
+                             cudaStream_t stream) {
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto* out = static_cast<float*>(dq);
+  return head_dim == 64
+             ? launch_dq<64>(f(q), f(k), f(v), f(dout), f(lse), f(dvec), out,
+                             bh, tq, tk, causal, scale, stream)
+             : launch_dq<32>(f(q), f(k), f(v), f(dout), f(lse), f(dvec), out,
+                             bh, tq, tk, causal, scale, stream);
+}
+
+cudaError_t flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
+                              const void* dout, const void* lse,
+                              const void* dvec, void* dk, void* dv, int bh,
+                              int tq, int tk, int head_dim, int causal,
+                              float scale, cudaStream_t stream) {
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto* gk = static_cast<float*>(dk);
+  auto* gv = static_cast<float*>(dv);
+  return head_dim == 64
+             ? launch_dkv<64>(f(q), f(k), f(v), f(dout), f(lse), f(dvec), gk,
+                              gv, bh, tq, tk, causal, scale, stream)
+             : launch_dkv<32>(f(q), f(k), f(v), f(dout), f(lse), f(dvec), gk,
+                              gv, bh, tq, tk, causal, scale, stream);
+}

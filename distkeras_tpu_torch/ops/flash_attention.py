@@ -6,8 +6,9 @@ On CUDA tensors the forward is a hand-written kernel, the port of the
 Pallas ``_fwd_kernel`` (through ``flash_fwd_cuda``), and the backward two
 kernels, the ports of ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (through
 ``flash_bwd_dq_cuda`` and ``flash_bwd_dkv_cuda``): on tensor cores in
-bf16 (``ops/csrc/flash_fwd_sm90.cu``, ``ops/csrc/flash_bwd_sm90.cu``), on
-CUDA cores in f32 (``ops/csrc/flash_fwd.cu``, ``ops/csrc/flash_bwd.cu``).
+bf16 (``ops/csrc/flash_fwd_sm90.cu``, ``ops/csrc/flash_bwd_sm90.cu``); in
+f32 the forward on CUDA cores (``ops/csrc/flash_fwd.cu``) and the
+backward on tensor cores as 3xTF32 (``ops/csrc/flash_bwd_tf32_sm90.cu``).
 On CPU tensors they are ``flash_fwd_plain`` and ``flash_bwd_plain``, the
 dense versions of the same functions.  A CUDA tensor never takes a plain
 version: the kernel runs or the call raises.
@@ -147,10 +148,11 @@ def _check(name: str, q, k, v, causal: bool, stats=(), do=None):
                              f"float32, got {tuple(t.shape)} {t.dtype}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} needs contiguous inputs")
-    if q.dtype == torch.bfloat16 and any(
+    if (q.dtype == torch.bfloat16 or do is not None) and any(
             t is not None and t.data_ptr() % 16 for t in (q, k, v, do)):
-        # the bf16 kernels load their tiles by TMA
-        raise ValueError(f"{name}: bf16 q, k, v (and dO) must start at a "
+        # the bf16 kernels load their tiles by TMA, the f32 backward by
+        # 16-byte cp.async
+        raise ValueError(f"{name}: q, k, v (and dO) must start at a "
                          f"16-byte aligned address (a view with a storage "
                          f"offset may not)")
     return bh, tq, tk, dh

@@ -121,6 +121,8 @@ def _close(got, ref, dtype):
     (torch.float32, False, 16, 48, 64),
     (torch.float32, False, 100, 130, 32),
     (torch.float32, True, 257, None, 32),
+    (torch.float32, True, 257, None, 64),
+    (torch.float32, False, 512, 100, 32),
     (torch.bfloat16, True, 200, None, 64),
     (torch.bfloat16, False, 130, None, 32),
     (torch.bfloat16, True, 64, None, 64),
@@ -136,9 +138,9 @@ def _close(got, ref, dtype):
     (torch.bfloat16, False, 16, 48, 64),
 ])
 def test_backward_kernels_match_plain(dtype, causal, t, tk, dh):
-    """K2 and K3 (in bf16 the tensor-core kernels, in f32 the FMA ones)
-    against ``flash_bwd_plain`` on the same inputs, and through autograd,
-    with an lse cotangent, within ``_close``'s bounds."""
+    """K2 and K3 (bf16 on wgmma, f32 as 3xTF32 on mma.sync) against
+    ``flash_bwd_plain`` on the same inputs, and through autograd, with an
+    lse cotangent, within ``_close``'s bounds."""
     q, k, v = (x.requires_grad_() for x in _qkv(2, t, 4, dh, dtype, tk))
     out, lse = flash_attention_lse(q, k, v, causal)
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -165,14 +167,15 @@ def test_backward_kernels_match_plain(dtype, causal, t, tk, dh):
         _close(got, ref, dtype)
 
 
-def test_backward_kernels_at_the_training_shape():
-    """The bf16 K2 and K3 at the bf16 probe's training shape (B·H = 512,
-    T = 512, Dh = 64, causal) against ``flash_bwd_plain``: one launch each,
-    within the bf16 bound of ``_close``."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_kernels_at_the_training_shape(dtype):
+    """K2 and K3 at the probe's training shape (B·H = 512, T = 512,
+    Dh = 64, causal) against ``flash_bwd_plain``: one launch each, within
+    ``_close``'s bound of the dtype."""
     bh, t, dh = 512, 512, 64
     gen = torch.Generator(device="cuda").manual_seed(2)
     q, k, v, do = (torch.randn((bh, t, dh), generator=gen, device="cuda")
-                   .to(torch.bfloat16) for _ in range(4))
+                   .to(dtype) for _ in range(4))
     scale = dh ** -0.5
     o, lse = flash_fwd_plain(q, k, v, True, scale)
     dvec = (do.float() * o.float()).sum(-1)
@@ -183,22 +186,54 @@ def test_backward_kernels_at_the_training_shape():
     assert (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches) == \
         (launches[0] + 1, launches[1] + 1)
     for g, r in zip(got, flash_bwd_plain(*args)):
-        assert g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all())
-        _close(g, r, torch.bfloat16)
+        assert g.dtype == dtype and bool(torch.isfinite(g).all())
+        _close(g, r, dtype)
 
 
-def test_bf16_backward_refuses_unaligned_inputs():
-    """The bf16 kernels load tiles by TMA, which needs 16-byte aligned
-    addresses: a contiguous bf16 view at an odd storage offset is refused
-    before any launch."""
+@pytest.mark.parametrize("causal,t,tk,dh", [
+    (True, 100, None, 32), (True, 200, None, 64), (False, 64, 130, 64)])
+def test_f32_backward_kernels_are_3xtf32_not_tf32(causal, t, tk, dh):
+    """On Q and K with a common offset of 1 (scores near 64·scale, whose
+    differences TF32's three digits blur), the plain version with TF32
+    products (``allow_tf32``) misses ``_close``'s f32 bound against the
+    plain version in f32, and the f32 kernels meet it: their products are
+    3xTF32 (split hi/lo operands), not one TF32 pass."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    tk = t if tk is None else tk
+    q, do = (torch.randn((8, t, dh), generator=gen, device="cuda")
+             for _ in range(2))
+    k, v = (torch.randn((8, tk, dh), generator=gen, device="cuda")
+            for _ in range(2))
+    q, k = q + 1.0, k + 1.0
+    scale = dh ** -0.5
+    o, lse = flash_fwd_plain(q, k, v, causal, scale)
+    args = (q, k, v, lse, do, (do * o).sum(-1), causal, scale)
+    ref = flash_bwd_plain(*args)
+    got = (flash_bwd_dq_cuda(*args), *flash_bwd_dkv_cuda(*args))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = flash_bwd_plain(*args)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    for g, r, one_pass in zip(got, ref, tf32):
+        _close(g, r, torch.float32)
+        with pytest.raises(AssertionError):
+            _close(one_pass, r, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bf16_backward_refuses_unaligned_inputs(dtype):
+    """The backward kernels load tiles by TMA (bf16) or 16-byte cp.async
+    (f32), both of which need 16-byte aligned addresses: a contiguous view
+    at an odd storage offset is refused before any launch, in either
+    dtype."""
     bh, t, dh = 2, 64, 64
     gen = torch.Generator(device="cuda").manual_seed(3)
     base = torch.randn(bh * t * dh + 1, generator=gen, device="cuda").to(
-        torch.bfloat16)
+        dtype)
     shifted = base[1:].view(bh, t, dh)
-    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
-    q = torch.randn((bh, t, dh), generator=gen, device="cuda").to(
-        torch.bfloat16)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    q = torch.randn((bh, t, dh), generator=gen, device="cuda").to(dtype)
     lse = torch.zeros((bh, t), device="cuda")
     launches = (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches)
     for fn in (flash_bwd_dq_cuda, flash_bwd_dkv_cuda):

@@ -240,6 +240,75 @@ def test_plain_bf16_backward_matches_jax_kernels(causal, t, tk):
                                    atol=1e-5 * np.abs(b).max())
 
 
+def _tf32(x, rounded=True):
+    """x to tf32 on the bits of its int32 view: to nearest, ties away from
+    zero (``rounded``), or by dropping the low 13 bits."""
+    bits = x.view(torch.int32)
+    if rounded:
+        bits = bits + 0x1000
+    return (bits & -0x2000).view(torch.float32)
+
+
+def _tf32_matmul(a, b, passes):
+    """a @ b with tf32 operands and f32 sums: one pass (hi·hi, what TF32
+    tensor cores give), or three (3xTF32, the f32 backward kernels' recipe
+    in ``ops/csrc/flash_bwd_tf32_sm90.cu``: hi rounded to tf32, lo = the
+    rest, read by the tensor core to tf32 by dropping bits, lo·lo
+    dropped)."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    if passes == 1:
+        return a_hi @ b_hi
+    a_lo, b_lo = _tf32(a - a_hi, False), _tf32(b - b_hi, False)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def _bwd_tf32(q, k, v, lse, do, dvec, causal, scale, passes):
+    """``flash_bwd_plain``'s f32 function with its five products
+    (S, dP, dQ, dK, dV) through ``_tf32_matmul``."""
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    p = torch.exp(_tf32_matmul(q, t(k), passes) * scale - lse[..., None])
+    if causal:
+        p = torch.where(torch.ones(p.shape[-2:], dtype=torch.bool).tril(),
+                        p, 0.0)
+    dp = _tf32_matmul(do, t(v), passes)
+    ds = p * (dp - dvec[..., None]) * scale
+    return (_tf32_matmul(ds, k, passes), _tf32_matmul(t(ds), q, passes),
+            _tf32_matmul(t(p), do, passes))
+
+
+@pytest.mark.parametrize("causal,t,tk,dh", [(True, 64, 64, 32),
+                                            (False, 16, 48, 32),
+                                            (True, 64, 64, 64)])
+def test_3xtf32_recipe_matches_jax_backward(causal, t, tk, dh):
+    """The f32 backward kernels' arithmetic, 3xTF32, emulated here in
+    plain torch, against the JAX package's Pallas backward
+    (``_flash_bwd_raw``, interpret mode, f32 HIGHEST): within the f32
+    flash-vs-dense gradient bound (rtol 5e-4, atol 1e-5), on Q and K with
+    a common offset of 1, where scores cluster near 64·scale.  One TF32
+    pass misses that bound on the same inputs, by far: the kernels need
+    the three products."""
+    rng = np.random.default_rng(11)
+    bh = 4
+    q, k = (torch.from_numpy((rng.normal(size=(bh, n, dh)) + 1.0).astype(
+        np.float32)) for n in (t, tk))
+    v = torch.from_numpy(rng.normal(size=(bh, tk, dh)).astype(np.float32))
+    do = torch.from_numpy(rng.normal(size=(bh, t, dh)).astype(np.float32))
+    scale = dh ** -0.5
+    o, lse = flash_fwd_plain(q, k, v, causal, scale)
+    dvec = (do * o).sum(-1)
+    ref = jax.jit(functools.partial(_flash_bwd_raw, causal=causal, bq=16,
+                                    bk=16, scale=scale))(
+        *(jnp.asarray(x.numpy()) for x in (q, k, v, do)),
+        *(jnp.asarray(x.numpy())[:, None, :] for x in (lse, dvec)))
+    args = (q, k, v, lse, do, dvec, causal, scale)
+    for got, one_pass, r in zip(_bwd_tf32(*args, passes=3),
+                                _bwd_tf32(*args, passes=1), ref):
+        r = np.asarray(r)
+        np.testing.assert_allclose(got.numpy(), r, **GRAD_TOL)
+        with pytest.raises(AssertionError):
+            np.testing.assert_allclose(one_pass.numpy(), r, **GRAD_TOL)
+
+
 @pytest.mark.parametrize("causal,t,tk", [(False, 64, 64), (True, 64, 64),
                                          (False, 16, 48)])
 def test_plain_bf16_forward_matches_jax_kernel(causal, t, tk):
