@@ -16,12 +16,14 @@ Phases, one JSON line each:
    reports them, and whether its wgmma products were serialized).
 3. ``k1``     — the flash-attention forward kernel against its plain
    PyTorch version on the card: f32 at the serving shapes and a few
-   others (max abs error of O and lse <= 1e-5); bf16 at T in {64, 100,
-   257, 512}, Dh 32 and 64, causal and not, Tq != Tk (100 x 257,
-   512 x 100, 16 x 48), the training shape and a batch-1 join through
+   others, Dh 128 among them (max abs error of O and lse <= 1e-5); bf16
+   at T in {64, 100, 257, 512}, Dh 32, 64 and 128, causal and not,
+   Tq != Tk (100 x 257, 512 x 100, 16 x 48) and a batch-1 join through
    ``flash_attention_lse`` (O and lse within rtol 1e-2 plus 1e-2 of the
-   largest |value|, as ``GRAD_TOL``).  The f32 serving shapes and the
-   bf16 training shape are timed: device time from a ``torch.profiler``
+   largest |value|, as ``GRAD_TOL``); both dtypes at the two training
+   shapes (B*H = 512, Dh 64 and B*H = 256, Dh 128; T = 512, causal).
+   The f32 serving shapes and the training shapes are timed: device
+   time from a ``torch.profiler``
    trace, the plain version's, ``F.scaled_dot_product_attention``'s (a
    yardstick only: the port never calls it) and the least time the card
    could take (``bound_ms``).
@@ -42,20 +44,22 @@ Phases, one JSON line each:
    their plain version (``flash_bwd_plain``, which rounds P and dS to
    bf16 for bf16 inputs as the reference does) on the card: f32 and
    bf16, causal and not, T in {64, 100, 256, 257, 512} (once with
-   Tq != Tk), Dh 32 and 64, and the training shape (bf16 also at
-   Dh 32): f32 within the JAX package's flash-vs-dense gradient bound
-   (rtol 5e-4, atol 1e-5), bf16 within the bf16 rounding (rtol 1e-2, atol
-   1e-2 of the largest |value|).  Then, at the training shape (B*H = 512,
-   T = 512, Dh = 64, causal; bf16 and f32), each kernel's profiler device
-   time and achieved TFLOP/s, the plain version's time, the device time
-   of ``F.scaled_dot_product_attention``'s backward (one call for K2 and
-   K3 together; a yardstick only) and ``bound_ms``; K1 is timed there
-   too.
+   Tq != Tk), Dh 32, 64 and 128, the training shape (bf16 also at
+   Dh 32) and its Dh-128 twin (B*H = 256), and f32 rows of 2048 and 4096
+   at Dh 64 and 128: f32 within the JAX package's flash-vs-dense
+   gradient bound (rtol 5e-4, atol 1e-5), bf16 within the bf16 rounding
+   (rtol 1e-2, atol 1e-2 of the largest |value|).  Then, at the training
+   shape (B*H = 512, T = 512, Dh = 64, causal) and at B*H = 256, Dh = 128
+   (bf16 and f32 each), each kernel's profiler device time and achieved
+   TFLOP/s, the plain version's time, the device time of
+   ``F.scaled_dot_product_attention``'s backward (one call for K2 and K3
+   together; a yardstick only) and ``bound_ms``.
 7. ``train``  — the same probe model trained by ``SingleTrainer``:
-   (a) f32, flash and dense twins from seed 0, 4 SGD steps of batch 16:
-   per-step losses within rtol 1e-4 and every trained parameter within
-   atol 1e-4, K1, K2 and K3 launched exactly 4 x 4 times each in the
-   flash run, and each run's step ms from its epoch record; (b) the
+   (a) f32, flash and dense twins from seed 0, 2 epochs of 4 SGD steps
+   of batch 16, run flash, dense, dense, flash: per-step losses within
+   rtol 1e-4 and every trained parameter within atol 1e-4, K1, K2 and K3
+   launched exactly 4 x 8 times each in every flash run, and each run's
+   step ms from its warm (second) epoch; (b) the
    probe's training config, reduced only in batch (batch 64 for
    ``mfu.py``'s 1024; sgd, lr 0.1, bf16 compute), 3 epochs of 8 steps:
    losses finite and falling, ``jit.retraces == 0``, K1, K2 and K3
@@ -63,6 +67,25 @@ Phases, one JSON line each:
    and peak memory; then two more epochs under a ``torch.profiler``
    trace, of which the second gives the busy share (device time over
    the epoch's span on the device's timeline) and each kernel's share.
+8. ``lm128``  — ``scripts/mfu.py``'s ``--dim 1024`` probe (8 heads of
+   Dh 128), bf16, 2 epochs of 8 steps at batch 32: the loss falls and
+   K1, K2 and K3 launch exactly once per block per step.
+9. ``conv``   — the headline bench's ResNet-20 (``distkeras_tpu_torch.
+   bench``: width 16, batch 1024, sgd lr 0.1, bf16), 3 epochs of 8
+   steps: samples/s, step ms, peak memory, and the busy share of a
+   profiled warm two-epoch run; the loss falls and every BatchNorm
+   state leaf is finite and has moved.  Then an f32 ResNet-20 on the
+   card (TF32 off, cuDNN deterministic) against the port on the CPU
+   from the same seed's weights, at the bench's lr 0.1: the eval forward
+   and the losses of 2 SGD steps within atol 1e-4, and each parameter
+   and state leaf's 2-step change within ``F32_STEP_REL`` of the CPU's
+   (relative, in norm).  A control run on the card with TF32 on must
+   fail that check; a float64 run on the CPU (the witness) gives both
+   f32 runs' distance from the exact step.
+10. ``mnist`` and ``models`` — the MNIST time-to-99% row (the bench's
+   ``--mnist``), and one bf16 training step each of ``lstm_imdb``,
+   ``resnet50(stem="conv7")`` and ``resnet50(stem="s2d")`` at full width
+   and a small batch, with finite losses.
 
 Then the ``kernels`` line, the card's name and power limit as nvidia-smi
 prints them, and as the last line ``{"ok": true, "device": {...}}``.  Any
@@ -98,9 +121,24 @@ GRAD_TOL = {"float32": dict(rtol=5e-4, atol=1e-5, atol_of_max=0.0),
             "bfloat16": dict(rtol=1e-2, atol=0.0, atol_of_max=1e-2)}
 #: the training shape of the probe: batch 64 x 8 heads, T = 512, Dh = 64
 TRAIN_BH, TRAIN_T, TRAIN_DH = 64 * 8, 512, 64
+#: a head-dim-128 training shape: gpt_lm(dim=1024, num_heads=8) at batch
+#: 32 (B*H = 256), T = 512
+DH128_BH = 256
+HEAD_DIMS = (32, 64, 128)
+#: the headline bench's ResNet-20 (distkeras_tpu_torch/bench.py), cut to
+#: 3 epochs of 8 steps
+CONV = dict(steps=8, epochs=3)
+#: the f32 ResNet-20 check (``f32_parity_ok``): the largest relative error
+#: of a leaf's 2-step change, card against CPU.  On an H100 (700 W) the
+#: card read 0.0074 and the TF32 control 0.38; each f32 run is 0.038-0.039
+#: from the float64 witness (its batch statistics, E[x²] − E[x]² summed in
+#: f32, round alike on both), so the limit sits between the two readings
+F32_STEP_REL = 0.05
 SCE = "sparse_categorical_crossentropy"
 LM = dict(vocab_size=4000, dim=512, num_heads=8, num_blocks=4, seq_len=512,
           attention_impl="flash")
+#: scripts/mfu.py's --dim 1024 probe: 8 heads of Dh = 128
+LM128 = dict(LM, dim=1024)
 PROMPT_LENS = (20, 64, 100, 128, 200, 256, 300, 448)
 MAX_NEW = (64, 16, 40, 24, 64, 32, 48, 64)
 
@@ -256,16 +294,21 @@ def phase_k1(torch):
         cases.append(("float32", False, 8, t, t, 64, False))
     cases += [("float32", False, 8, 16, 48, 64, False),
               ("float32", True, 8, 100, 100, 64, False),
-              ("float32", True, 8, 256, 256, 32, False)]
+              ("float32", True, 8, 256, 256, 32, False),
+              ("float32", True, 8, 256, 256, 128, False),
+              ("float32", False, 8, 100, 257, 128, False)]
     for t in (64, 100, 257, 512):
-        for dh in (32, 64):
+        for dh in HEAD_DIMS:
             for causal in (True, False):
                 cases.append(("bfloat16", causal, 8, t, t, dh, False))
     for tq, tk in ((100, 257), (512, 100), (16, 48)):
-        for dh in (32, 64):
+        for dh in HEAD_DIMS:
             cases.append(("bfloat16", False, 8, tq, tk, dh, False))
-    cases.append(("bfloat16", True, TRAIN_BH, TRAIN_T, TRAIN_T, TRAIN_DH,
-                  True))
+    # the training shapes, checked and timed: the probe's (Dh 64) and the
+    # dim-1024 model's (Dh 128), in both dtypes
+    cases += [(dtype, True, bh, TRAIN_T, TRAIN_T, dh, True)
+              for bh, dh in ((TRAIN_BH, TRAIN_DH), (DH128_BH, 128))
+              for dtype in ("bfloat16", "float32")]
     rows = []
     for dtype_name, causal, bh, tq, tk, dh, timed in cases:
         dtype = getattr(torch, dtype_name)
@@ -471,11 +514,11 @@ def _within(got, ref, rtol, atol, atol_of_max) -> bool:
 
 def phase_k2k3(torch):
     """K2 and K3 against ``flash_bwd_plain`` on the card, then their times
-    (and K1's) at the training shape; returns the rows."""
+    at the training shapes; returns the rows."""
     import torch.nn.functional as F
     from distkeras_tpu_torch.ops.flash_attention import (
         flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_bwd_plain,
-        flash_fwd_cuda, flash_fwd_plain)
+        flash_fwd_plain)
     gen = torch.Generator(device="cuda").manual_seed(1)
 
     def inputs(dtype, bh, tq, tk, dh, causal):
@@ -499,6 +542,13 @@ def phase_k2k3(torch):
     cases += [(dtype, True, 8, 257, 257, 64)
               for dtype in ("float32", "bfloat16")]
     cases += [("bfloat16", True, TRAIN_BH, TRAIN_T, TRAIN_T, 32)]
+    for dtype in ("float32", "bfloat16"):
+        cases += [(dtype, True, 8, t, t, 128) for t in (64, 257, 512)]
+        cases += [(dtype, False, 8, 100, 256, 128),
+                  (dtype, True, DH128_BH, TRAIN_T, TRAIN_T, 128)]
+    # the f32 watch: long rows, where dK and dV sum the most query tiles
+    cases += [("float32", True, 4, t, t, dh) for t in (2048, 4096)
+              for dh in (64, 128)]
     rows = []
     for dtype_name, causal, bh, tq, tk, dh in cases:
         args = inputs(getattr(torch, dtype_name), bh, tq, tk, dh, causal)
@@ -519,45 +569,39 @@ def phase_k2k3(torch):
         emit({"phase": "k2k3", **row})
         rows.append(row)
 
-    # times at the training shape
+    # times at the training shapes: the probe's (Dh 64) in both dtypes,
+    # then Dh 128 (bf16, the dim-1024 model's; f32 beside it)
     timed = []
-    for dtype_name in ("bfloat16", "float32"):
+    for dtype_name, bh, dh in (("bfloat16", TRAIN_BH, TRAIN_DH),
+                               ("float32", TRAIN_BH, TRAIN_DH),
+                               ("bfloat16", DH128_BH, 128),
+                               ("float32", DH128_BH, 128)):
         dtype = getattr(torch, dtype_name)
-        args = inputs(dtype, TRAIN_BH, TRAIN_T, TRAIN_T, TRAIN_DH, True)
-        q, k, v, lse, do = args[:5]
+        args = inputs(dtype, bh, TRAIN_T, TRAIN_T, dh, True)
+        q, k, v, do = args[0], args[1], args[2], args[4]
         item = q.element_size()
-        shape = (TRAIN_BH // 8, 8, TRAIN_T, TRAIN_DH)   # (B, H, T, Dh)
+        shape = (bh // 8, 8, TRAIN_T, dh)   # (B, H, T, Dh)
         qs, ks, vs = (x.detach().view(shape).requires_grad_()
                       for x in (q, k, v))
         out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-        row = {"dtype": dtype_name, "bh": TRAIN_BH, "t": TRAIN_T,
-               "dh": TRAIN_DH, "causal": True,
+        row = {"dtype": dtype_name, "bh": bh, "t": TRAIN_T,
+               "dh": dh, "causal": True,
                "dq_ms": device_ms(lambda: flash_bwd_dq_cuda(*args)),
                "dkv_ms": device_ms(lambda: flash_bwd_dkv_cuda(*args)),
                "plain_ms": device_ms(lambda: flash_bwd_plain(*args)),
                # one call computes dQ, dK and dV: K2 and K3 together
                "library_bwd_ms": device_ms(lambda: torch.autograd.grad(
-                   out, (qs, ks, vs), do.view(shape), retain_graph=True)),
-               "k1_ms": device_ms(lambda: flash_fwd_cuda(q, k, v, True,
-                                                         args[7])),
-               "k1_plain_ms": device_ms(lambda: flash_fwd_plain(
-                   q, k, v, True, args[7])),
-               "k1_library_ms": device_ms(
-                   lambda: F.scaled_dot_product_attention(
-                       qs.detach(), ks.detach(), vs.detach(),
-                       is_causal=True))}
+                   out, (qs, ks, vs), do.view(shape), retain_graph=True))}
         row["dq_bound_ms"], row["dq_bound_by"] = flash_bwd_bound(
-            "dq", TRAIN_BH, TRAIN_T, TRAIN_DH, item)
+            "dq", bh, TRAIN_T, dh, item)
         row["dkv_bound_ms"], row["dkv_bound_by"] = flash_bwd_bound(
-            "dkv", TRAIN_BH, TRAIN_T, TRAIN_DH, item)
-        row["k1_bound_ms"], row["k1_bound_by"] = flash_bound(
-            TRAIN_BH, TRAIN_T, TRAIN_T, TRAIN_DH, True, item)
+            "dkv", bh, TRAIN_T, dh, item)
         for key in ("dq", "dkv"):
             row[f"{key}_tflops"] = flash_bwd_flops(
-                key, TRAIN_BH, TRAIN_T, TRAIN_DH) / row[f"{key}_ms"] / 1e9
+                key, bh, TRAIN_T, dh) / row[f"{key}_ms"] / 1e9
         emit({"phase": "k2k3_timed", **row})
         timed.append(row)
-        del out, qs, ks, vs, args, q, k, v, lse, do
+        del out, qs, ks, vs, args, q, k, v, do
     return rows, timed
 
 
@@ -616,13 +660,16 @@ def phase_train(torch):
              "flash_bwd_dkv": "flash_bwd_dkv_"}
 
     # (a) f32 flash vs dense: both trainers initialise from seed 0, so
-    # both models start from the same weights
+    # both models start from the same weights.  Two epochs of 4 steps a
+    # run; the second (warm) epoch's CUDA-event seconds give the step
+    # time, and the pair runs in both orders (flash first, then dense
+    # first), so neither twin pays the other's first use
     ds = load_lm_corpus(n_train=64, seq_len=LM["seq_len"],
                         vocab_size=LM["vocab_size"])[0]
-    runs, f32_step_ms = {}, {}
-    for impl in ("flash", "dense"):
+    runs, f32_step_ms, f32_launches = {}, {"flash": [], "dense": []}, []
+    for impl in ("flash", "dense", "dense", "flash"):
         t = SingleTrainer(zoo.gpt_lm(**{**LM, "attention_impl": impl}),
-                          "sgd", SCE, batch_size=16, num_epoch=1,
+                          "sgd", SCE, batch_size=16, num_epoch=2,
                           learning_rate=0.1)
         # the f32 path (SingleTrainer's default dtype): counts set to 0
         # just before, read just after
@@ -630,23 +677,23 @@ def phase_train(torch):
             k.launches = 0
         t.train(ds)
         if impl == "flash":
-            f32_launches = {n: k.launches for n, k in kernels.items()}
-        runs[impl] = (np.concatenate(t.get_history()),
-                      _leaves(t.trained_variables))
-        # the one epoch's CUDA-event seconds over its steps (the first
-        # step of each run included)
+            f32_launches.append({n: k.launches for n, k in kernels.items()})
+        runs.setdefault(impl, (np.concatenate(t.get_history()),
+                               _leaves(t.trained_variables)))
         rec = [r for r in t.metrics.records if r["event"] == "epoch"][-1]
-        f32_step_ms[impl] = 1e3 * rec["epoch_seconds"] / len(runs[impl][0])
+        f32_step_ms[impl].append(1e3 * rec["epoch_seconds"]
+                                 / len(t.get_history()[-1]))
     (fl, fp), (dl, dp) = runs["flash"], runs["dense"]
     loss_rel = float(np.max(np.abs(fl - dl) / np.abs(dl)))
     param_err = max(float(np.max(np.abs(a - b))) for a, b in zip(fp, dp))
-    check(fl.shape == (4,) and loss_rel <= 1e-4,
+    check(fl.shape == (8,) and loss_rel <= 1e-4,
           f"f32 flash vs dense losses differ: {fl} vs {dl}")
     check(param_err <= 1e-4,
           f"f32 flash vs dense parameters differ by {param_err}")
     want = LM["num_blocks"] * len(fl)
-    check(all(n == want for n in f32_launches.values()),
+    check(all(n == want for run in f32_launches for n in run.values()),
           f"f32 launches {f32_launches} != {want} each")
+    f32_launches = f32_launches[0]
 
     # (b) the probe config, batch 64: the main path of this slice
     ds = load_lm_corpus(n_train=512, seq_len=LM["seq_len"],
@@ -699,8 +746,10 @@ def phase_train(torch):
                           "losses_dense": dl.tolist(),
                           "loss_max_rel_err": loss_rel,
                           "param_max_abs_err": param_err,
-                          "step_ms_flash": f32_step_ms["flash"],
-                          "step_ms_dense": f32_step_ms["dense"],
+                          # warm epochs, in run order: flash first,
+                          # then dense first
+                          "warm_step_ms_flash": f32_step_ms["flash"],
+                          "warm_step_ms_dense": f32_step_ms["dense"],
                           "launches": f32_launches},
            "probe": {"batch_size": 64, "steps_per_epoch": steps,
                      "epochs": epochs, "compute_dtype": "bfloat16",
@@ -723,6 +772,260 @@ def phase_train(torch):
                                for name, us in top]}}
     emit(row)
     return row
+
+
+def phase_lm128(torch):
+    """``gpt_lm`` at ``mfu.py``'s ``--dim 1024`` (8 heads of Dh 128),
+    bf16, trained by ``SingleTrainer``: 2 epochs of 8 steps at batch 32.
+    The loss falls, and K1, K2 and K3 launch once per block per step."""
+    import numpy as np
+    from distkeras_tpu_torch import SingleTrainer
+    from distkeras_tpu_torch.data import load_lm_corpus
+    from distkeras_tpu_torch.models import zoo
+    from distkeras_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda)
+    kernels = {"flash_fwd": flash_fwd_cuda,
+               "flash_bwd_dq": flash_bwd_dq_cuda,
+               "flash_bwd_dkv": flash_bwd_dkv_cuda}
+    batch, steps, epochs = 32, 8, 2
+    ds = load_lm_corpus(n_train=batch * steps, seq_len=LM128["seq_len"],
+                        vocab_size=LM128["vocab_size"])[0]
+    t = SingleTrainer(zoo.gpt_lm(**LM128), "sgd", SCE, batch_size=batch,
+                      learning_rate=0.1, compute_dtype="bfloat16",
+                      num_epoch=epochs)
+    torch.cuda.reset_peak_memory_stats()
+    # this path: counts set to 0 just before, read just after
+    for k in kernels.values():
+        k.launches = 0
+    t.train(ds)
+    launches = {n: k.launches for n, k in kernels.items()}
+    hist = t.get_averaged_history()
+    check(all(bool(np.isfinite(h).all()) for h in t.get_history()),
+          "a dim-1024 training loss is not finite")
+    check(hist[-1] < hist[0], f"the dim-1024 loss did not fall: {hist}")
+    want = LM128["num_blocks"] * steps * epochs
+    check(all(n == want for n in launches.values()),
+          f"dim-1024 launches {launches} != {want} each")
+    rec = [r for r in t.metrics.records if r["event"] == "epoch"][-1]
+    row = {"phase": "lm128", "model": LM128, "head_dim": 128,
+           "batch_size": batch, "steps_per_epoch": steps, "epochs": epochs,
+           "compute_dtype": "bfloat16", "epoch_mean_loss": hist.tolist(),
+           "step_ms": 1e3 * rec["epoch_seconds"] / steps,
+           "samples_per_s": rec["samples_per_sec"],
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches}
+    emit(row)
+    return row
+
+
+def _resnet20_f32_run(torch, device, dtype=None):
+    """ResNet-20 of the bench's width from seed 0 in f32 (float64 with
+    ``dtype``) on ``device``: (eval forward of 16 bench images, the losses
+    of 2 SGD steps at the bench's lr 0.1 and batch 32, the trained
+    parameters and state as float64 leaves)."""
+    import numpy as np
+    from distkeras_tpu_torch import bench
+    from distkeras_tpu_torch.data import Dataset
+    from distkeras_tpu_torch.models import zoo
+    from distkeras_tpu_torch.utils.tree import tree_leaves
+    data = bench.resnet20_data(64)
+    if dtype is not None:
+        data = Dataset({"features": data["features"].astype(np.float64),
+                        "label": data["label"]})
+    model = zoo.resnet20(width=bench.WIDTH).init(0, device=device).to(
+        dtype or torch.float32)
+    with torch.no_grad():
+        out = model(torch.from_numpy(data["features"][:16]).to(device))
+    t = bench.resnet20_trainer(1, device=device, batch_size=32,
+                               compute_dtype=None)
+    if dtype is not None:
+        build = t.model.init
+        t.model.init = lambda seed=0, device=None: build(
+            seed, device=device).to(dtype)
+    t.train(data)
+    return (out.cpu().double().numpy(), np.concatenate(t.get_history()),
+            [np.asarray(a, np.float64) for a in tree_leaves(
+                t.trained_variables)])
+
+
+def f32_parity(torch):
+    """The f32 card-vs-CPU check of ResNet-20: the card's run (TF32 off,
+    cuDNN deterministic) against the port's on the CPU, beside a float64
+    witness (the port on the CPU in float64) and a control on the card
+    with TF32 on.  Returns the readings: per run, the eval forward's and
+    the losses' largest abs errors and ``step_rel``, the largest over
+    leaves of ||Δ − Δ_ref|| / ||Δ_ref|| of the 2-step change Δ of the
+    parameters and state."""
+    import numpy as np
+    from distkeras_tpu_torch import bench
+    from distkeras_tpu_torch.models import zoo
+    from distkeras_tpu_torch.utils import to_numpy_variables
+    from distkeras_tpu_torch.utils.tree import tree_leaves
+    init = [np.asarray(a, np.float64) for a in tree_leaves(
+        to_numpy_variables(zoo.resnet20(width=bench.WIDTH).init(
+            0, device="cpu")))]
+    prev = (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        runs = {"cpu": _resnet20_f32_run(torch, "cpu"),
+                "float64": _resnet20_f32_run(torch, "cpu", torch.float64),
+                "cuda": _resnet20_f32_run(torch, "cuda")}
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        runs["cuda_tf32"] = _resnet20_f32_run(torch, "cuda")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = prev
+
+    def against(name, ref):
+        (fa, la, va), (fb, lb, vb) = runs[name], runs[ref]
+        return {"forward_max_abs_err": float(np.max(np.abs(fa - fb))),
+                "loss_max_abs_err": float(np.max(np.abs(la - lb))),
+                "step_rel": max(float(np.linalg.norm(a - b) /
+                                      np.linalg.norm(b - i))
+                                for a, b, i in zip(va, vb, init))}
+    return {"cuda_vs_cpu": against("cuda", "cpu"),
+            "cuda_tf32_vs_cpu": against("cuda_tf32", "cpu"),
+            "cuda_vs_float64": against("cuda", "float64"),
+            "cpu_vs_float64": against("cpu", "float64"),
+            "losses_cuda": runs["cuda"][1].tolist()}
+
+
+def f32_parity_ok(reading) -> bool:
+    """The card's f32 ResNet-20 agrees with the CPU's: eval forward and
+    losses within atol 1e-4, every leaf's 2-step change within
+    ``F32_STEP_REL`` of the CPU's."""
+    return (reading["forward_max_abs_err"] <= 1e-4
+            and reading["loss_max_abs_err"] <= 1e-4
+            and reading["step_rel"] <= F32_STEP_REL)
+
+
+def phase_conv(torch):
+    """The headline bench's ResNet-20 (``distkeras_tpu_torch.bench``'s
+    data and trainer: width 16, batch 1024, sgd lr 0.1, bf16) on the card:
+    samples/s, step ms, peak memory and, from a profiled warm two-epoch
+    run, the busy share.  Checks: the loss falls, the BatchNorm state is
+    finite and has moved, and ``f32_parity``: the card's f32 run agrees
+    with the CPU's (``f32_parity_ok``) and the TF32 control does not."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from distkeras_tpu_torch import bench
+    from distkeras_tpu_torch.models import zoo
+    from distkeras_tpu_torch.utils import to_numpy_variables
+    from distkeras_tpu_torch.utils.tree import tree_leaves
+    steps = CONV["steps"]
+    ds = bench.resnet20_data(bench.BATCH * steps)
+
+    t = bench.resnet20_trainer(CONV["epochs"])
+    init_state = tree_leaves(to_numpy_variables(
+        zoo.resnet20(width=bench.WIDTH).init(t.seed, device="cpu"))[
+        "state"])
+    torch.cuda.reset_peak_memory_stats()
+    t.train(ds)
+    peak = torch.cuda.max_memory_allocated()
+    hist = t.get_averaged_history()
+    state = tree_leaves(t.trained_variables["state"])
+    check(all(bool(np.isfinite(h).all()) for h in t.get_history()),
+          "a ResNet-20 training loss is not finite")
+    check(hist[-1] < hist[0], f"the ResNet-20 loss did not fall: {hist}")
+    check(all(bool(np.isfinite(s).all()) for s in state),
+          "the BatchNorm state is not finite")
+    moved = sum(not np.allclose(a, b) for a, b in zip(state, init_state))
+    check(moved == len(state), f"only {moved} of {len(state)} BatchNorm "
+          f"state leaves moved")
+    rec = [r for r in t.metrics.records if r["event"] == "epoch"][-1]
+
+    # a profiled run of 2 epochs, warm (the run above built every cuDNN
+    # and cuBLAS handle): busy share = the union of the device's kernel
+    # intervals (host-to-device copies of the data and weights, made
+    # before the first epoch, left out) over the trainer's CUDA-event
+    # seconds of both epochs
+    from torch.autograd import DeviceType
+    pt = bench.resnet20_trainer(2)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pt.train(ds)
+        torch.cuda.synchronize()
+    dev = sorted((e.time_range.start, e.time_range.end, e.name)
+                 for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)
+                 and "HtoD" not in e.name)
+    busy_us, reached, by_name = 0.0, 0.0, {}
+    for start, end, name in dev:
+        busy_us += max(0.0, end - max(start, reached))
+        reached = max(reached, end)
+        by_name[name] = by_name.get(name, 0.0) + end - start
+    window_us = 1e6 * sum(r["epoch_seconds"] for r in pt.metrics.records
+                          if r["event"] == "epoch")
+    check(busy_us > 0, "the conv profile holds no device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+
+    parity = f32_parity(torch)
+    check(f32_parity_ok(parity["cuda_vs_cpu"]),
+          f"f32 ResNet-20 on the card vs the CPU: {parity}")
+    check(not f32_parity_ok(parity["cuda_tf32_vs_cpu"]),
+          f"the TF32 control passed the f32 check, which then cannot "
+          f"tell TF32 from f32: {parity}")
+    row = {"phase": "conv", "model": f"resnet20(width={bench.WIDTH})",
+           "batch_size": bench.BATCH, "steps_per_epoch": steps,
+           "epochs": CONV["epochs"], "compute_dtype": "bfloat16",
+           "optimizer": "sgd", "learning_rate": bench.LEARNING_RATE,
+           "epoch_mean_loss": hist.tolist(),
+           "samples_per_s": rec["samples_per_sec"],
+           "step_ms": 1e3 * rec["epoch_seconds"] / steps,
+           "peak_memory_bytes": peak,
+           "bn_state_leaves_moved": moved,
+           "profiled_run": {
+               "epochs": 2, "epoch_seconds": window_us / 1e6,
+               "device_busy_s": busy_us / 1e6,
+               "device_busy_share": busy_us / window_us,
+               "top_kernels": [{"name": n[:90], "device_ms": us / 1e3}
+                               for n, us in top]},
+           "parity_f32": {"cudnn_deterministic": True,
+                          "learning_rate": bench.LEARNING_RATE, "steps": 2,
+                          "step_rel_limit": F32_STEP_REL, **parity}}
+    emit(row)
+    return row
+
+
+def phase_models(torch):
+    """The other BASELINE.json models on the card: the MNIST
+    time-to-99% row (``distkeras_tpu_torch.bench``'s ``--mnist``), and
+    one training step each of ``lstm_imdb``, ``resnet50(stem="conv7")``
+    and ``resnet50(stem="s2d")`` at full width and a small batch, with
+    finite losses."""
+    import numpy as np
+    from distkeras_tpu_torch import SingleTrainer, bench
+    from distkeras_tpu_torch.data import load_imagenet_subset, load_imdb
+    from distkeras_tpu_torch.models import zoo
+    mnist = bench.mnist_row()
+    check(mnist["reached"], f"MNIST did not reach 99%: {mnist['checks']}")
+    emit({"phase": "mnist", **mnist})
+    steps = {}
+    for name, model, ds, loss, bs in (
+            ("lstm_imdb", zoo.lstm_imdb(), load_imdb(n_train=64)[0],
+             "binary_crossentropy", 64),
+            ("resnet50_conv7", zoo.resnet50(stem="conv7"),
+             load_imagenet_subset(n_train=16)[0], SCE, 16),
+            ("resnet50_s2d", zoo.resnet50(stem="s2d"),
+             load_imagenet_subset(n_train=16)[0], SCE, 16)):
+        t = SingleTrainer(model, "sgd", loss, batch_size=bs,
+                          learning_rate=0.01, compute_dtype="bfloat16")
+        t.train(ds)
+        losses = np.concatenate(t.get_history())
+        check(losses.shape == (1,) and bool(np.isfinite(losses).all()),
+              f"{name}: training loss {losses}")
+        steps[name] = {"batch_size": bs, "loss": float(losses[0]),
+                       "step_s": [r for r in t.metrics.records
+                                  if r["event"] == "epoch"][-1][
+                                      "epoch_seconds"]}
+    row = {"phase": "models", "one_step": steps}
+    emit(row)
+    return mnist, row
 
 
 def _wait_first_token(req, timeout):
@@ -754,32 +1057,44 @@ def main() -> int:
         del model
         bwd_rows, bwd_timed = phase_k2k3(torch)
         tr = phase_train(torch)
+        lm128 = phase_lm128(torch)
+        phase_conv(torch)
+        phase_models(torch)
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1
-    # K1's two routes: bf16 on tensor cores (the training path, timed at
-    # the training shape) and f32 on CUDA cores (the serving path, timed
-    # at the serving shapes; its headline is T = 512)
-    bf = next(r for r in k1 if r["dtype"] == "bfloat16" and "ms" in r)
-    serve = [r for r in k1 if r["dtype"] == "float32" and "ms" in r]
+    # K1's two routes: bf16 on tensor cores (the training path, headline
+    # at the probe's training shape) and f32 on CUDA cores (the serving
+    # path, timed at the serving shapes; its headline is T = 512), each
+    # also checked and timed at both training shapes
+    timed = [r for r in k1 if "ms" in r]
+    bf = next(r for r in timed if r["dtype"] == "bfloat16"
+              and r["bh"] == TRAIN_BH and r["dh"] == TRAIN_DH)
+    serve = [r for r in timed if r["dtype"] == "float32" and r["bh"] == 8]
     fp = next(r for r in serve if r["tq"] == 512)
     f32 = [r["max_abs_err"] for r in k1 if r["dtype"] == "float32"]
     bf16 = [r["max_abs_err"] for r in k1 if r["dtype"] == "bfloat16"]
-    k1_train = {k[3:] if k.startswith("k1_") else k: v
-                for k, v in bwd_timed[0].items()
-                if k.startswith("k1_") or k in ("dtype", "bh", "t", "dh")}
     timing = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     shape = ("bh", "tq", "tk", "dh", "dtype", "causal")
+
+    def k1_rows(bh):
+        return [{**{k: r[k] for k in shape + timing},
+                 "max_abs_err": r["max_abs_err"]}
+                for r in timed if r["bh"] == bh]
+    # the head-dim-128 training shape's K2/K3 rows (bf16, f32)
+    dh128 = [r for r in bwd_timed if r["dh"] == 128]
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "distkeras_tpu_torch/ops/csrc/flash_fwd_sm90.cu",
         "replaces": "distkeras_tpu/ops/pallas_attention.py:83",
         "replaces_kernel": "_fwd_kernel",
-        "launches": sl["launches"]["served"] + tr["launches"]["flash_fwd"],
+        "launches": sl["launches"]["served"] + tr["launches"]["flash_fwd"]
+        + lm128["launches"]["flash_fwd"],
         "launches_by_path": {"serve": sl["launches"]["served"],
                              "train": tr["launches"]["flash_fwd"],
                              "train_f32": tr["parity_f32"]["launches"][
-                                 "flash_fwd"]},
+                                 "flash_fwd"],
+                             "train_dh128": lm128["launches"]["flash_fwd"]},
         "max_abs_err": max(f32 + bf16), "max_err_f32": max(f32),
         "max_err_bf16": max(bf16),
         "shape": {k: bf[k] for k in shape},
@@ -798,7 +1113,8 @@ def main() -> int:
                 **{k: fp[k] for k in timing},
                 "serving": [{"tq": r["tq"], **{k: r[k] for k in timing}}
                             for r in serve]},
-        "train_shape": k1_train}]
+        "train_shape": k1_rows(TRAIN_BH),
+        "train_shape_dh128": k1_rows(DH128_BH)}]
     for name, kern, ms_key, errs, src_line in (
             ("flash_bwd_dq", "_bwd_dq_kernel", "dq", ("dq_err",), 169),
             ("flash_bwd_dkv", "_bwd_dkv_kernel", "dkv",
@@ -807,17 +1123,18 @@ def main() -> int:
                if r["dtype"] == "float32"]
         bf16 = [r[e] for r in bwd_rows for e in errs
                 if r["dtype"] == "bfloat16"]
-        bf, fp = bwd_timed
+        bf, fp = bwd_timed[:2]
         kernels.append({
             "name": name, "route": "cuda",
             # the main path trains in bf16: the tensor-core kernels
             "source": "distkeras_tpu_torch/ops/csrc/flash_bwd_sm90.cu",
             "replaces": f"distkeras_tpu/ops/pallas_attention.py:{src_line}",
             "replaces_kernel": kern,
-            "launches": tr["launches"][name],
+            "launches": tr["launches"][name] + lm128["launches"][name],
             "launches_by_path": {
                 "serve": 0, "train": tr["launches"][name],
-                "train_f32": tr["parity_f32"]["launches"][name]},
+                "train_f32": tr["parity_f32"]["launches"][name],
+                "train_dh128": lm128["launches"][name]},
             "max_abs_err": max(f32 + bf16), "max_err_f32": max(f32),
             "max_err_bf16": max(bf16),
             "shape": {"bh": bf["bh"], "tq": bf["t"], "tk": bf["t"],
@@ -837,7 +1154,14 @@ def main() -> int:
                     "plain_ms": fp["plain_ms"],
                     "library_ms": fp["library_bwd_ms"],
                     "bound_ms": fp[f"{ms_key}_bound_ms"],
-                    "bound_by": fp[f"{ms_key}_bound_by"]}})
+                    "bound_by": fp[f"{ms_key}_bound_by"]},
+            "train_shape_dh128": [
+                {"dtype": r["dtype"], "bh": r["bh"], "t": r["t"],
+                 "dh": r["dh"], "ms": r[f"{ms_key}_ms"],
+                 "tflops": r[f"{ms_key}_tflops"], "plain_ms": r["plain_ms"],
+                 "library_ms": r["library_bwd_ms"],
+                 "bound_ms": r[f"{ms_key}_bound_ms"],
+                 "bound_by": r[f"{ms_key}_bound_by"]} for r in dh128]})
     emit({"kernels": kernels})
     print(env["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

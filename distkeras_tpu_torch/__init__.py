@@ -4,15 +4,19 @@ A second package beside the JAX one, held against it module by module.
 It imports ``torch`` and nothing of JAX or of ``distkeras_tpu``.  Its
 entry points run on the card unless the caller passes ``device="cpu"``.
 Ported so far: the serving slice — ``zoo.gpt_lm`` served by the
-continuous-batching ``serve.DecodeEngine`` — and the attention training
-slice — ``SingleTrainer`` on the in-memory ``Dataset`` — with the
-flash-attention forward and backward as hand-written CUDA kernels.
+continuous-batching ``serve.DecodeEngine`` — with the flash-attention
+forward and backward as hand-written CUDA kernels; ``SingleTrainer`` on
+the in-memory ``Dataset`` for every ``BASELINE.json`` model (MLP,
+convnets, ResNet-20/50, the IMDB LSTM) and the causal LMs, with the
+loaders, transformers, ``ModelPredictor`` and the evaluators around it;
+and ``python -m distkeras_tpu_torch.bench``, the headline benchmark.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 from .utils.device import default_device  # noqa: F401
 from . import data, models, obs, ops, parallel, serve, utils  # noqa: F401
+from . import evaluators, predictors  # noqa: F401
 from .data import Dataset  # noqa: F401
 from .models import Model, generate_tokens, zoo  # noqa: F401
 from .trainers import SingleTrainer, Trainer  # noqa: F401

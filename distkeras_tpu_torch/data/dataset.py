@@ -5,15 +5,43 @@ the same arrays in both packages).
 A column-oriented in-memory table with explicit partitions: partition k
 feeds worker k, and ``stacked`` lays the partitions out as the leading
 axis of one array per column, so a trainer moves an epoch's batches to
-the device in one copy.  ``from_csv`` (the native CSV parser) is not
-ported yet.
+the device in one copy.  ``from_csv`` reads a numeric CSV with a numpy
+parser of the same token rules as the JAX package's native one.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
+
+_SEPARATORS = re.compile(rb"[,\r\n \t]+")
+_NUMERIC_PREFIX = re.compile(rb"[-+.]?[0-9]*\.?[0-9]*(?:[eE][-+]?[0-9]+)?")
+
+
+def parse_csv(path: str) -> np.ndarray:
+    """Every numeric value of a CSV file as one float32 vector (the caller
+    reshapes).  Tokens split on ``,``, newlines, spaces and tabs; a token
+    counts when it starts numeric (a digit, sign or point), and one that
+    does not parse whole gives its leading numeric prefix (``strtof``'s
+    rule)."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    vals = []
+    for tok in _SEPARATORS.split(buf):
+        if not tok or not (tok[0:1].isdigit() or tok[0:1] in b"-+."):
+            continue
+        try:
+            vals.append(float(tok))
+        except ValueError:
+            m = _NUMERIC_PREFIX.match(tok)
+            if m and m.group():
+                try:
+                    vals.append(float(m.group()))
+                except ValueError:
+                    pass
+    return np.asarray(vals, dtype=np.float32)
 
 
 class Dataset:
@@ -38,6 +66,27 @@ class Dataset:
     @classmethod
     def from_arrays(cls, **columns) -> "Dataset":
         return cls(columns)
+
+    @classmethod
+    def from_csv(cls, path: str, num_features: int,
+                 label_col: str = "label", features_col: str = "features",
+                 label_first: bool = True, nthreads: int = 0) -> "Dataset":
+        """Load a numeric CSV of ``num_features + 1`` columns a row (label
+        and flat pixels, the MNIST-CSV shape).  ``nthreads`` is accepted
+        for parity with the JAX package's native parser and unused."""
+        flat = parse_csv(path)
+        width = num_features + 1
+        if flat.size % width:
+            raise ValueError(
+                f"CSV value count {flat.size} not divisible by row width "
+                f"{width}")
+        rows = flat.reshape(-1, width)
+        if label_first:
+            labels, feats = rows[:, 0], rows[:, 1:]
+        else:
+            labels, feats = rows[:, -1], rows[:, :-1]
+        return cls({features_col: np.ascontiguousarray(feats),
+                    label_col: labels.astype(np.int64)})
 
     # -- Spark-surface ops --------------------------------------------------
     def repartition(self, n: int) -> "Dataset":

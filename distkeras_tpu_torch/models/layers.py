@@ -12,6 +12,18 @@ explicit ``torch.Generator``.  Layouts stay the JAX package's: a
 ``Dense.kernel`` is (in, out), so ``utils.weights.load_jax_variables``
 copies leaves across without a transpose.
 
+Train mode is the module's (``model.train()`` / ``model.eval()``; a
+``Model`` starts in eval mode, as JAX's ``apply`` defaults to
+``train=False``).  Non-trainable state lives in buffers (BatchNorm's
+``mean`` and ``var``): a training forward records the new state in
+``new_state`` and the training step copies it in with ``commit_state``
+after the update, once, however often the forward ran (an activation
+checkpoint runs it twice).  Dropout draws from the ``torch.Generator``
+that ``set_generator`` hands it, never from the global RNG.  Image
+layers keep the JAX package's NHWC layout and HWIO kernels at their
+interface and compute through a channels-last view, so the permutes
+cost no copy.
+
 The cached-decode protocol is the JAX package's, over tensors:
 ``init_cache(batch, in_shape)`` / ``apply_prefill(x, cache)`` /
 ``apply_decode(x, cache, pos)``.  Caches are updated in place (JAX
@@ -22,7 +34,7 @@ read the same either way.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -51,8 +63,15 @@ def _uniform(gen: torch.Generator, shape, limit: float) -> torch.Tensor:
 
 
 def glorot_uniform(gen: torch.Generator, shape) -> torch.Tensor:
-    fan_in, fan_out = shape[-2], shape[-1]
+    receptive = math.prod(shape[:-2]) if len(shape) > 2 else 1
+    fan_in, fan_out = shape[-2] * receptive, shape[-1] * receptive
     return _uniform(gen, shape, math.sqrt(6.0 / (fan_in + fan_out)))
+
+
+def he_normal(gen: torch.Generator, shape) -> torch.Tensor:
+    receptive = math.prod(shape[:-2]) if len(shape) > 2 else 1
+    return torch.randn(shape, generator=gen) * math.sqrt(
+        2.0 / (shape[-2] * receptive))
 
 
 def uniform_scale(gen: torch.Generator, shape, scale: float = 0.05
@@ -107,6 +126,9 @@ class Layer(nn.Module):
     #: the cached decode refuses a stack holding one without its own
     #: ``apply_decode`` (see ``models.generation._model_cache``)
     time_mixing = False
+
+    #: layers whose training forward draws random numbers (Dropout)
+    rng_in_train = False
 
     def build(self, in_shape: tuple, gen: torch.Generator) -> tuple:
         return self.out_shape(in_shape)
@@ -205,6 +227,301 @@ class Activation(Layer):
 
 
 @register
+class Flatten(Layer):
+    """(B, ...) → (B, prod); image inputs flatten in (H, W, C) order."""
+
+    def out_shape(self, in_shape):
+        return (math.prod(in_shape),)
+
+    def forward(self, x):
+        return x.reshape(x.shape[0], -1)
+
+
+@register
+class Reshape(Layer):
+    def __init__(self, target_shape: Sequence[int]):
+        super().__init__()
+        self.target_shape = tuple(int(s) for s in target_shape)
+
+    def out_shape(self, in_shape):
+        return self.target_shape
+
+    def forward(self, x):
+        return x.reshape(x.shape[0], *self.target_shape)
+
+    def get_config(self):
+        return {"target_shape": list(self.target_shape)}
+
+
+@register
+class Dropout(Layer):
+    """In training, ``where(mask, x / keep, 0)`` with ``mask`` drawn with
+    probability ``keep = 1 - rate`` from ``self.generator`` (set by
+    ``set_generator``); the identity in eval mode or at rate 0."""
+    rng_in_train = True
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.generator is None:
+            raise ValueError("Dropout needs a generator in training "
+                             "(models.layers.set_generator)")
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
+    def get_config(self):
+        return {"rate": self.rate}
+
+
+def _same_pads(size: int, window: int, stride: int) -> Tuple[int, int]:
+    """XLA's SAME padding of one spatial dim: the total pad that gives
+    ceil(size / stride) outputs, low = total // 2, high = the rest."""
+    out = -(-size // stride)
+    total = max(0, (out - 1) * stride + window - size)
+    return total // 2, total - total // 2
+
+
+def _nchw(x):
+    """An NHWC tensor as NCHW: a channels-last view, no copy."""
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(y):
+    return y.permute(0, 2, 3, 1)
+
+
+@register
+class Conv2D(Layer):
+    """NHWC convolution with an HWIO kernel (``padding`` "SAME" as XLA
+    pads, or "VALID")."""
+    time_mixing = True
+
+    def __init__(self, filters: int, kernel_size, strides=1, padding="SAME",
+                 activation=None, use_bias: bool = True):
+        super().__init__()
+        self.filters = int(filters)
+        self.kernel_size = (kernel_size, kernel_size) \
+            if isinstance(kernel_size, int) else tuple(kernel_size)
+        self.strides = (strides, strides) if isinstance(strides, int) \
+            else tuple(strides)
+        self.padding = padding
+        self.activation = activation
+        self.use_bias = use_bias
+        self._act = get_activation(activation)
+
+    def build(self, in_shape, gen):
+        c = in_shape[-1]
+        kh, kw = self.kernel_size
+        self.kernel = nn.Parameter(he_normal(gen, (kh, kw, c, self.filters)))
+        if self.use_bias:
+            self.bias = nn.Parameter(torch.zeros(self.filters))
+        return self.out_shape(in_shape)
+
+    def out_shape(self, in_shape):
+        h, w, _ = in_shape
+        sh, sw = self.strides
+        if self.padding == "SAME":
+            oh, ow = -(-h // sh), -(-w // sw)
+        else:
+            kh, kw = self.kernel_size
+            oh, ow = (h - kh) // sh + 1, (w - kw) // sw + 1
+        return (oh, ow, self.filters)
+
+    def forward(self, x):
+        xc = _nchw(x)
+        pad = (0, 0)
+        if self.padding == "SAME":
+            (pt, pb), (pl, pr) = (
+                _same_pads(n, k, s) for n, k, s in
+                zip(x.shape[1:3], self.kernel_size, self.strides))
+            if pt == pb and pl == pr:
+                pad = (pt, pl)
+            else:  # the low side pads less: torch pads symmetrically
+                xc = F.pad(xc, (pl, pr, pt, pb))
+        if xc.device.type == "cpu":
+            # oneDNN's channels-last conv backward crashes at small
+            # batches on the CPU: hand it NCHW there
+            xc = xc.contiguous()
+        y = F.conv2d(xc, self.kernel.to(x.dtype).permute(3, 2, 0, 1),
+                     stride=self.strides, padding=pad)
+        y = _nhwc(y)
+        if self.use_bias:
+            y = y + self.bias.to(x.dtype)
+        return self._act(y)
+
+    def get_config(self):
+        return {"filters": self.filters,
+                "kernel_size": list(self.kernel_size),
+                "strides": list(self.strides), "padding": self.padding,
+                "activation": activation_config(self.activation),
+                "use_bias": self.use_bias}
+
+
+class _Pool2D(Layer):
+    time_mixing = True
+
+    def __init__(self, pool_size=2, strides=None, padding="VALID"):
+        super().__init__()
+        self.pool_size = (pool_size, pool_size) \
+            if isinstance(pool_size, int) else tuple(pool_size)
+        self.strides = self.pool_size if strides is None else (
+            (strides, strides) if isinstance(strides, int)
+            else tuple(strides))
+        self.padding = padding
+
+    def out_shape(self, in_shape):
+        h, w, c = in_shape
+        ph, pw = self.pool_size
+        sh, sw = self.strides
+        if self.padding == "SAME":
+            return (-(-h // sh), -(-w // sw), c)
+        return ((h - ph) // sh + 1, (w - pw) // sw + 1, c)
+
+    def _pads(self, h, w):
+        """(left, right, top, bottom) for ``F.pad`` on NCHW."""
+        if self.padding != "SAME":
+            return (0, 0, 0, 0)
+        (pt, pb), (pl, pr) = (_same_pads(n, k, s) for n, k, s in
+                              zip((h, w), self.pool_size, self.strides))
+        return (pl, pr, pt, pb)
+
+    def get_config(self):
+        return {"pool_size": list(self.pool_size),
+                "strides": list(self.strides), "padding": self.padding}
+
+
+@register
+class MaxPool2D(_Pool2D):
+    """Max over each window; SAME pads with the dtype's most negative
+    finite value, as the JAX package does."""
+
+    def forward(self, x):
+        xc = _nchw(x)
+        pads = self._pads(x.shape[1], x.shape[2])
+        if any(pads):
+            xc = F.pad(xc, pads, value=torch.finfo(x.dtype).min)
+        return _nhwc(F.max_pool2d(xc, self.pool_size, self.strides))
+
+
+@register
+class AvgPool2D(_Pool2D):
+    """Mean over each window; SAME divides by the window's count of valid
+    (unpadded) cells."""
+
+    def forward(self, x):
+        xc = _nchw(x)
+        pads = self._pads(x.shape[1], x.shape[2])
+        if not any(pads):
+            return _nhwc(F.avg_pool2d(xc, self.pool_size, self.strides))
+        ones = torch.ones((1, 1, *xc.shape[2:]), dtype=x.dtype,
+                          device=x.device)
+        return _nhwc(F.avg_pool2d(F.pad(xc, pads), self.pool_size,
+                                  self.strides) / F.avg_pool2d(
+            F.pad(ones, pads), self.pool_size, self.strides))
+
+
+@register
+class SpaceToDepth(Layer):
+    """(H, W, C) → (H/b, W/b, C·b²): each b×b patch becomes one pixel's
+    channel stack, in the JAX package's (row, column, channel) order."""
+
+    def __init__(self, block_size: int):
+        super().__init__()
+        self.block_size = int(block_size)
+
+    def out_shape(self, in_shape):
+        h, w, c = in_shape
+        b = self.block_size
+        if h % b or w % b:
+            raise ValueError(f"spatial extent ({h}, {w}) not divisible by "
+                             f"block_size {b}")
+        return (h // b, w // b, c * b * b)
+
+    def forward(self, x):
+        n, h, w, c = x.shape
+        b = self.block_size
+        x = x.reshape(n, h // b, b, w // b, b, c).permute(0, 1, 3, 2, 4, 5)
+        return x.reshape(n, h // b, w // b, b * b * c)
+
+    def get_config(self):
+        return {"block_size": self.block_size}
+
+
+@register
+class GlobalAvgPool2D(Layer):
+    time_mixing = True
+
+    def out_shape(self, in_shape):
+        return (in_shape[-1],)
+
+    def forward(self, x):
+        return x.mean(dim=(1, 2))
+
+
+@register
+class BatchNorm(Layer):
+    """Batch normalization over every axis but the last, the running
+    statistics in the buffers ``mean`` and ``var`` (f32, whatever the
+    activations' dtype).  Training normalizes by the batch's mean and
+    biased variance max(E[x²] − E[x]², 0), accumulated in f32 (in f64
+    for f64 activations, so a model in float64 is a float64 witness), and
+    records ``momentum · old + (1 − momentum) · batch`` in ``new_state``
+    for ``commit_state``; eval uses the buffers.  The affine folds into
+    x·a + b with a and b cast to x's dtype."""
+
+    def __init__(self, momentum: float = 0.9, epsilon: float = 1e-5,
+                 axis_name: Optional[str] = None):
+        super().__init__()
+        if axis_name is not None:
+            raise NotImplementedError(
+                "BatchNorm(axis_name=...) (cross-replica statistics) comes "
+                "with the distributed trainers")
+        self.momentum = float(momentum)
+        self.epsilon = float(epsilon)
+        self.axis_name = axis_name
+        self.new_state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+    def build(self, in_shape, gen):
+        c = in_shape[-1]
+        self.scale = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("mean", torch.zeros(c))
+        self.register_buffer("var", torch.ones(c))
+        return in_shape
+
+    def forward(self, x):
+        # f32 for bf16 and f32 activations; f64 ones keep f64
+        acc = torch.promote_types(x.dtype, torch.float32)
+        if self.training:
+            dims = tuple(range(x.ndim - 1))
+            mean = torch.mean(x, dim=dims, dtype=acc)
+            mean2 = torch.mean(x.square(), dim=dims, dtype=acc)
+            var = torch.clamp(mean2 - mean.square(), min=0.0)
+            m = self.momentum
+            self.new_state = (
+                (m * self.mean + (1 - m) * mean).detach(),
+                (m * self.var + (1 - m) * var).detach())
+        else:
+            mean, var = self.mean, self.var
+        scale = self.scale.to(acc)
+        inv = torch.rsqrt(var.to(acc) + self.epsilon)
+        a = (inv * scale).to(x.dtype)
+        b = (self.bias.to(acc) - mean.to(acc) * inv * scale).to(x.dtype)
+        return x * a + b
+
+    def get_config(self):
+        return {"momentum": self.momentum, "epsilon": self.epsilon,
+                "axis_name": self.axis_name}
+
+
+@register
 class Embedding(Layer):
     def __init__(self, vocab_size: int, dim: int):
         super().__init__()
@@ -224,6 +541,76 @@ class Embedding(Layer):
 
     def get_config(self):
         return {"vocab_size": self.vocab_size, "dim": self.dim}
+
+
+@register
+class LSTM(Layer):
+    """LSTM over the time axis: gates (i, f, g, o) from one fused
+    (in, 4h) input projection, hoisted out of the loop, plus an (h, 4h)
+    recurrent one per step; forget-gate bias 1.  Returns the last hidden
+    state, or every step's with ``return_sequences``."""
+    time_mixing = True
+
+    def __init__(self, units: int, return_sequences: bool = False):
+        super().__init__()
+        self.units = int(units)
+        self.return_sequences = bool(return_sequences)
+
+    def build(self, in_shape, gen):
+        _, d = in_shape
+        h = self.units
+        self.kernel = nn.Parameter(glorot_uniform(gen, (d, 4 * h)))
+        self.recurrent = nn.Parameter(glorot_uniform(gen, (h, 4 * h)))
+        bias = torch.zeros(4 * h)
+        bias[h:2 * h] = 1.0
+        self.bias = nn.Parameter(bias)
+        return self.out_shape(in_shape)
+
+    def out_shape(self, in_shape):
+        t, _ = in_shape
+        return (t, self.units) if self.return_sequences else (self.units,)
+
+    def forward(self, x):
+        b, t, _ = x.shape
+        wr = self.recurrent.to(x.dtype)
+        x_proj = x @ self.kernel.to(x.dtype) + self.bias.to(x.dtype)
+        h = c = torch.zeros((b, self.units), dtype=x.dtype, device=x.device)
+        hs = []
+        for step in range(t):
+            z = x_proj[:, step] + h @ wr
+            i, f, g, o = z.chunk(4, dim=-1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h = torch.sigmoid(o) * torch.tanh(c)
+            hs.append(h)
+        return torch.stack(hs, dim=1) if self.return_sequences else h
+
+    def get_config(self):
+        return {"units": self.units,
+                "return_sequences": self.return_sequences}
+
+
+# ---------------------------------------------------------------------------
+# training helpers
+# ---------------------------------------------------------------------------
+
+def set_generator(model: nn.Module, gen: Optional[torch.Generator]) -> None:
+    """Hand ``gen`` to every layer of ``model`` that draws random numbers
+    in training (Dropout)."""
+    for lyr in model.modules():
+        if getattr(lyr, "rng_in_train", False):
+            lyr.generator = gen
+
+
+def commit_state(model: nn.Module) -> None:
+    """Copy the state each layer recorded in its last training forward
+    (``new_state``) into its buffers, and clear the record."""
+    with torch.no_grad():
+        for lyr in model.modules():
+            new = getattr(lyr, "new_state", None)
+            if new is not None:
+                lyr.mean.copy_(new[0])
+                lyr.var.copy_(new[1])
+                lyr.new_state = None
 
 
 # ---------------------------------------------------------------------------

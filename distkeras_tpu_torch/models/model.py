@@ -1,11 +1,13 @@
 """``Model``: a layer graph bound to its input shape (the port of
 ``distkeras_tpu.models.model.Model``), as an ``nn.Module``.
 
-``Model.init(seed, device)`` creates every parameter from an explicit
-``torch.Generator`` and places the model on ``device`` (the card unless
-the caller names another).  ``config()`` / ``from_config`` speak the
-JAX package's config JSON, so ``Model.from_config(jax_model.config())``
-builds the same architecture here.
+``Model.init(seed, device)`` creates every parameter (and buffer of
+state) from an explicit ``torch.Generator`` and places the model on
+``device`` (the card unless the caller names another).  A model is in
+eval mode unless a training step switches it.  ``config()`` /
+``from_config`` speak the JAX package's config JSON, so
+``Model.from_config(jax_model.config())`` builds the same architecture
+here.
 """
 
 from __future__ import annotations
@@ -32,6 +34,9 @@ class Model(nn.Module):
         self.input_shape = tuple(input_shape)
         self.name = name
         self.output_shape = layer.out_shape(self.input_shape)
+        # inference until a training step says otherwise (JAX's apply
+        # defaults to train=False)
+        self.train(False)
 
     def init(self, seed: int = 0, device: DeviceLike = None) -> "Model":
         """Create the parameters from ``seed`` (on the CPU generator, so

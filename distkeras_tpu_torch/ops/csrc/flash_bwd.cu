@@ -20,7 +20,7 @@
 #include <stdint.h>
 
 // the f32 kernels (flash_bwd_tf32_sm90.cu) and the bf16 ones
-// (flash_bwd_sm90.cu); head_dim 32 or 64
+// (flash_bwd_sm90.cu); head_dim 32, 64 or 128
 cudaError_t flash_bwd_dq_f32(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* dvec, void* dq, int bh, int tq,
@@ -78,11 +78,12 @@ cudaError_t launch_dkv_bf16(const BwdArgs& a, cudaStream_t stream) {
 using Launcher = cudaError_t (*)(const BwdArgs&, cudaStream_t);
 
 // The launcher for (dtype, head_dim), or nullptr.  Order of `table`:
-// (f32, 32), (f32, 64), (bf16, 32), (bf16, 64).
-Launcher pick(const Launcher (&table)[4], int dtype, int head_dim) {
-  if ((dtype != 0 && dtype != 1) || (head_dim != 32 && head_dim != 64))
-    return nullptr;
-  return table[2 * dtype + (head_dim == 64 ? 1 : 0)];
+// (f32, 32), (f32, 64), (f32, 128), (bf16, 32), (bf16, 64), (bf16, 128).
+Launcher pick(const Launcher (&table)[6], int dtype, int head_dim) {
+  const int d = head_dim == 32 ? 0 : head_dim == 64 ? 1 : head_dim == 128 ? 2
+                                                                          : -1;
+  if ((dtype != 0 && dtype != 1) || d < 0) return nullptr;
+  return table[3 * dtype + d];
 }
 
 int run(Launcher f, const BwdArgs& a, int device, void* stream) {
@@ -106,9 +107,9 @@ extern "C" int dkt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dvec, void* dq, int bh, int tq,
                                 int tk, int head_dim, int causal, float scale,
                                 int dtype, int device, void* stream) {
-  static const Launcher table[4] = {
-      launch_dq_f32<32>, launch_dq_f32<64>, launch_dq_bf16<32>,
-      launch_dq_bf16<64>};
+  static const Launcher table[6] = {
+      launch_dq_f32<32>,  launch_dq_f32<64>,  launch_dq_f32<128>,
+      launch_dq_bf16<32>, launch_dq_bf16<64>, launch_dq_bf16<128>};
   const BwdArgs a{q, k, v, dout, lse, dvec, dq, nullptr, nullptr,
                   bh, tq, tk, causal, scale};
   return run(pick(table, dtype, head_dim), a, device, stream);
@@ -121,9 +122,9 @@ extern "C" int dkt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  int tq, int tk, int head_dim, int causal,
                                  float scale, int dtype, int device,
                                  void* stream) {
-  static const Launcher table[4] = {
-      launch_dkv_f32<32>, launch_dkv_f32<64>, launch_dkv_bf16<32>,
-      launch_dkv_bf16<64>};
+  static const Launcher table[6] = {
+      launch_dkv_f32<32>,  launch_dkv_f32<64>,  launch_dkv_f32<128>,
+      launch_dkv_bf16<32>, launch_dkv_bf16<64>, launch_dkv_bf16<128>};
   const BwdArgs a{q, k, v, dout, lse, dvec, nullptr, dk, dv,
                   bh, tq, tk, causal, scale};
   return run(pick(table, dtype, head_dim), a, device, stream);

@@ -40,7 +40,12 @@
 // from 3-D tensor maps (Dh, T, B*H), so a ragged last tile reads zeros,
 // never the next head.  The swizzle is 128 B for Dh = 64 and 64 B for
 // Dh = 32 (one tile row), the same in the tensor map and the wgmma
-// descriptor; a block holds six 64-row tiles, 48 KB at Dh = 64.  L and D
+// descriptor; a block holds six 64-row tiles, 48 KB at Dh = 64.  At
+// Dh = 128 a tile is two 64-column panels (a swizzled TMA box is at most
+// one swizzle row wide), one box each, and the products step across them
+// (sm90.cuh); K3 runs two warpgroups, each forming the whole S^T and
+// dP^T but holding the dK and dV of one panel, since one warpgroup's
+// 2 x 64 accumulator registers a thread would spill.  L and D
 // rows of (B*H, Tq) f32 are not 16-byte aligned at odd Tq, so TMA cannot
 // take them: K2 reads its two rows per thread once, K3 stages each query
 // tile's 64 + 64 values in shared memory a tile ahead.  The stores are
@@ -92,13 +97,13 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   __syncthreads();
   if (tid == 0) {
     mbar_expect_tx(&bars[0], 2 * kTile);
-    tma_load(qs, &tm_q, &bars[0], q0, bh);
-    tma_load(dos, &tm_do, &bars[0], q0, bh);
+    tma_load_tile<D>(qs, &tm_q, &bars[0], q0, bh);
+    tma_load_tile<D>(dos, &tm_do, &bars[0], q0, bh);
     for (int t = 0; t < 2 && t < n_k; ++t) {
       uint8_t* ks = smem + (2 + 2 * t) * kTile;
       mbar_expect_tx(&bars[1 + t], 2 * kTile);
-      tma_load(ks, &tm_k, &bars[1 + t], t * kBlock, bh);
-      tma_load(ks + kTile, &tm_v, &bars[1 + t], t * kBlock, bh);
+      tma_load_tile<D>(ks, &tm_k, &bars[1 + t], t * kBlock, bh);
+      tma_load_tile<D>(ks + kTile, &tm_v, &bars[1 + t], t * kBlock, bh);
     }
   }
 
@@ -168,8 +173,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     __syncthreads();
     if (tid == 0 && t + 2 < n_k) {
       mbar_expect_tx(&bars[1 + s], 2 * kTile);
-      tma_load(ks, &tm_k, &bars[1 + s], k0 + 2 * kBlock, bh);
-      tma_load(vs, &tm_v, &bars[1 + s], k0 + 2 * kBlock, bh);
+      tma_load_tile<D>(ks, &tm_k, &bars[1 + s], k0 + 2 * kBlock, bh);
+      tma_load_tile<D>(vs, &tm_v, &bars[1 + s], k0 + 2 * kBlock, bh);
     }
   }
   store_rows<D>(dq + (size_t)bh * tq * D, acc, r0, tq, c0);
@@ -179,8 +184,16 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 // K3: dK and dV
 // ---------------------------------------------------------------------------
 
+// K3's warpgroups: one per 64-column panel of dK and dV (two at
+// Dh = 128), each forming the whole S^T and dP^T, so a thread's two
+// accumulators stay at 64 registers
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+constexpr int dkv_threads() {
+  return kThreads * Tile<D>::kPanels;
+}
+
+template <int D>
+__global__ void __launch_bounds__(dkv_threads<D>())
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v,
@@ -191,6 +204,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            __nv_bfloat16* __restrict__ dv, int tq, int tk,
                            int causal, float scale) {
   constexpr uint32_t kTile = Tile<D>::kBytes;
+  constexpr int kN = Tile<D>::kCols;  // the dK, dV columns a warpgroup owns
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t bars[3];  // the resident tiles, ring stages 0 and 1
   // L and D of a query tile, one buffer per ring stage
@@ -208,8 +222,12 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int tid = threadIdx.x;
   const float* lse_bh = lse + (size_t)bh * tq;
   const float* dvec_bh = dvec + (size_t)bh * tq;
+  // this warpgroup's panel of dK and dV (a constant 0 at one panel)
+  constexpr bool kSplit = Tile<D>::kPanels > 1;
+  const int wg = kSplit ? tid / kThreads : 0;
   // query tile `it` of the loop's L (threads 0-63) and D (64-127)
   auto stage_stats = [&](int it) {
+    if (kSplit && tid >= 2 * kBlock) return;
     const int i = tid % kBlock, q = (first + it) * kBlock + i;
     const float* src = tid < kBlock ? lse_bh : dvec_bh;
     stats[it & 1][tid / kBlock][i] = q < tq ? src[q] : 0.f;
@@ -223,22 +241,23 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   __syncthreads();
   if (tid == 0) {
     mbar_expect_tx(&bars[0], 2 * kTile);
-    tma_load(ks, &tm_k, &bars[0], k0, bh);
-    tma_load(vs, &tm_v, &bars[0], k0, bh);
+    tma_load_tile<D>(ks, &tm_k, &bars[0], k0, bh);
+    tma_load_tile<D>(vs, &tm_v, &bars[0], k0, bh);
     for (int it = 0; it < 2 && it < n_q; ++it) {
       uint8_t* qs = smem + (2 + 2 * it) * kTile;
       mbar_expect_tx(&bars[1 + it], 2 * kTile);
-      tma_load(qs, &tm_q, &bars[1 + it], (first + it) * kBlock, bh);
-      tma_load(qs + kTile, &tm_do, &bars[1 + it], (first + it) * kBlock, bh);
+      tma_load_tile<D>(qs, &tm_q, &bars[1 + it], (first + it) * kBlock, bh);
+      tma_load_tile<D>(qs + kTile, &tm_do, &bars[1 + it],
+                       (first + it) * kBlock, bh);
     }
   }
 
-  const int warp = tid / 32, lane = tid % 32;
+  const int warp = (kSplit ? tid % kThreads : tid) / 32, lane = tid % 32;
   const int r0 = k0 + 16 * warp + lane / 4;  // this thread's keys: r0, r0+8
   const int c0 = 2 * (lane % 4);             // its queries c0 + 8j + {0,1}
-  float acc_k[D / 2], acc_v[D / 2];
+  float acc_k[kN / 2], acc_v[kN / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  for (int i = 0; i < kN / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
 
   mbar_wait(&bars[0], 0);
   for (int it = 0; it < n_q; ++it) {
@@ -246,6 +265,9 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int q0 = (first + it) * kBlock;
     uint8_t* qs = smem + (2 + 2 * s) * kTile;
     uint8_t* dos = qs + kTile;
+    // this warpgroup's panel of Q and dO, the B of its second products
+    uint8_t* qp = qs + wg * Tile<D>::kPanelBytes;
+    uint8_t* dop = dos + wg * Tile<D>::kPanelBytes;
     const float* ls = stats[s][0];
     const float* dls = stats[s][1];
     mbar_wait(&bars[1 + s], (it >> 1) & 1);
@@ -281,7 +303,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs<D>(acc_v, pa[kk], desc_mn<D>(dos, kk));
+      wgmma_rs<kN>(acc_v, pa[kk], desc_mn<D>(dop, kk));
     wgmma_commit();
 
     // dS^T = scale * P^T o (dP^T - D)
@@ -300,7 +322,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs<D>(acc_k, da[kk], desc_mn<D>(qs, kk));
+      wgmma_rs<kN>(acc_k, da[kk], desc_mn<D>(qp, kk));
     wgmma_commit();
     if (it + 1 < n_q) stage_stats(it + 1);
     wgmma_wait<0>();
@@ -311,12 +333,13 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     __syncthreads();
     if (tid == 0 && it + 2 < n_q) {
       mbar_expect_tx(&bars[1 + s], 2 * kTile);
-      tma_load(qs, &tm_q, &bars[1 + s], q0 + 2 * kBlock, bh);
-      tma_load(dos, &tm_do, &bars[1 + s], q0 + 2 * kBlock, bh);
+      tma_load_tile<D>(qs, &tm_q, &bars[1 + s], q0 + 2 * kBlock, bh);
+      tma_load_tile<D>(dos, &tm_do, &bars[1 + s], q0 + 2 * kBlock, bh);
     }
   }
-  store_rows<D>(dk + (size_t)bh * tk * D, acc_k, r0, tk, c0);
-  store_rows<D>(dv + (size_t)bh * tk * D, acc_v, r0, tk, c0);
+  const size_t col = (size_t)bh * tk * D + wg * kN;
+  store_rows<kN, D>(dk + col, acc_k, r0, tk, c0);
+  store_rows<kN, D>(dv + col, acc_v, r0, tk, c0);
 }
 
 // ---------------------------------------------------------------------------
@@ -368,7 +391,7 @@ cudaError_t launch_dkv(const Maps& m, const float* lse, const float* dvec,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (tk + kBlock - 1) / kBlock);
-  flash_bwd_dkv_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_dkv_wgmma_kernel<D><<<grid, dkv_threads<D>(), smem, stream>>>(
       m.q, m.k, m.v, m.dout, lse, dvec, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), tq, tk, causal, scale);
   return cudaGetLastError();
@@ -378,7 +401,7 @@ cudaError_t launch_dkv(const Maps& m, const float* lse, const float* dvec,
 
 // The bf16 entry points behind dkt_flash_bwd_dq / dkt_flash_bwd_dkv
 // (flash_bwd.cu, which checks the arguments and sets the device): q, k,
-// v, dout contiguous bf16, 16-byte aligned; head_dim 32 or 64.
+// v, dout contiguous bf16, 16-byte aligned; head_dim 32, 64 or 128.
 cudaError_t flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* dvec, void* dq, int bh, int tq,
@@ -389,9 +412,14 @@ cudaError_t flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   const auto* l = static_cast<const float*>(lse);
   const auto* d = static_cast<const float*>(dvec);
-  return head_dim == 64
-             ? launch_dq<64>(m, l, d, dq, bh, tq, tk, causal, scale, stream)
-             : launch_dq<32>(m, l, d, dq, bh, tq, tk, causal, scale, stream);
+  switch (head_dim) {
+    case 32:
+      return launch_dq<32>(m, l, d, dq, bh, tq, tk, causal, scale, stream);
+    case 64:
+      return launch_dq<64>(m, l, d, dq, bh, tq, tk, causal, scale, stream);
+    default:
+      return launch_dq<128>(m, l, d, dq, bh, tq, tk, causal, scale, stream);
+  }
 }
 
 cudaError_t flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
@@ -404,9 +432,15 @@ cudaError_t flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   const auto* l = static_cast<const float*>(lse);
   const auto* d = static_cast<const float*>(dvec);
-  return head_dim == 64
-             ? launch_dkv<64>(m, l, d, dk, dv, bh, tq, tk, causal, scale,
-                              stream)
-             : launch_dkv<32>(m, l, d, dk, dv, bh, tq, tk, causal, scale,
-                              stream);
+  switch (head_dim) {
+    case 32:
+      return launch_dkv<32>(m, l, d, dk, dv, bh, tq, tk, causal, scale,
+                            stream);
+    case 64:
+      return launch_dkv<64>(m, l, d, dk, dv, bh, tq, tk, causal, scale,
+                            stream);
+    default:
+      return launch_dkv<128>(m, l, d, dk, dv, bh, tq, tk, causal, scale,
+                             stream);
+  }
 }

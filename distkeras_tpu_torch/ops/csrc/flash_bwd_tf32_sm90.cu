@@ -82,6 +82,11 @@
 //     its two rows per thread once, K3 stages each query tile's 64 + 64
 //     values with plain loads beside the tile's cp.async.
 //
+// At Dh = 128 the tiles double (132 KB of shared memory, one block per
+// SM) and so would the accumulators: a block runs eight warps, two per
+// 16 rows, each forming the rows' whole S and dP but holding the outputs
+// of one half of Dh (Cfg).  S and dP then sum 16 mma deep, twice Dh 64's.
+//
 // Later work: tf32 wgmma for the four products that read both operands
 // along Dh (hi/lo copies written as each tile arrives), a producer warp
 // and 128-row tiles, and fusing K2 into K3.
@@ -94,9 +99,20 @@ using sm90::kBlock;
 using sm90::kThreads;
 using sm90::smem_u32;
 
-// blocks per SM the register budget is set for (68 KB of shared memory
-// each at Dh = 64)
-constexpr int kMinBlocks = 3;
+// A block's shape for head dim D.  At Dh <= 64 four warps, one per 16
+// rows of the tile, and the register budget set for three blocks per SM
+// (68 KB of shared memory each at Dh = 64).  At Dh = 128 eight: warps w
+// and w + 4 share rows, each forms their whole S and dP (contracted over
+// all of Dh) but holds the dQ (or dK, dV) columns of one half of Dh, so a
+// thread's accumulators stay at their Dh = 64 size; the 132 KB of shared
+// memory fit one block per SM.
+template <int D>
+struct Cfg {
+  static constexpr int kSplit = D > 64 ? 2 : 1;
+  static constexpr int kCols = D / kSplit;  // output columns of a warp
+  static constexpr int kBlockThreads = kThreads * kSplit;
+  static constexpr int kMinBlocks = D > 64 ? 1 : 3;
+};
 
 // ---------------------------------------------------------------------------
 // cp.async, the tf32 split, mma.sync
@@ -117,14 +133,16 @@ __device__ __forceinline__ void cp_wait_all() {
 }
 
 // Rows [r0, r0 + kBlock) of a contiguous (n, D) f32 matrix into a tile of
-// row stride D + 4; rows at or past n read as zeros.
+// row stride D + 4, by the block's threads; rows at or past n read as
+// zeros.
 template <int D>
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           int r0, int n) {
   constexpr int kChunks = D / 4;  // 16-byte chunks a row
+  constexpr int kNT = Cfg<D>::kBlockThreads;
 #pragma unroll
-  for (int u = 0; u < kBlock * kChunks / kThreads; ++u) {
-    const int i = threadIdx.x + u * kThreads;
+  for (int u = 0; u < kBlock * kChunks / kNT; ++u) {
+    const int i = threadIdx.x + u * kNT;
     const int r = i / kChunks, c = 4 * (i % kChunks);
     const bool valid = r0 + r < n;
     cp_async16(dst + r * (D + 4) + c,
@@ -256,48 +274,49 @@ __device__ __forceinline__ void product_t(float (&c)[kNJ][4], const float* x,
     for (int i = 0; i < 4; ++i) c[j][i] += cs[j][i];
 }
 
-// acc (16 x D) += A Y, A (16 x kHalf) the accumulator a[s], contracted
-// along the kHalf rows of y.  The half tile's sum is taken apart from zero
+// acc (16 x N) += A Y, A (16 x kHalf) the accumulator a[s], contracted
+// along the kHalf rows of y, whose N columns start at y (row stride
+// D + 4).  The half tile's sum is taken apart from zero
 // and added to acc in f32: a running sum fed through mma over many tiles
 // would take each mma's rounding toward zero at its full magnitude.  (The
 // small terms share that sum: twelve mma deep, it stays small, and keeping
 // them apart would cost the registers of a third accumulator.)
-template <int D>
-__device__ __forceinline__ void product(float (&acc)[D / 8][4],
+template <int D, int N>
+__device__ __forceinline__ void product(float (&acc)[N / 8][4],
                                         const float (&a)[kNJ][4],
                                         const float* y, int g, int t) {
   constexpr int LD = D + 4;
-  float part[D / 8][4];
+  float part[N / 8][4];
 #pragma unroll
-  for (int jd = 0; jd < D / 8; ++jd)
+  for (int jd = 0; jd < N / 8; ++jd)
 #pragma unroll
     for (int i = 0; i < 4; ++i) part[jd][i] = 0.f;
 #pragma unroll
   for (int s = 0; s < kNJ; ++s) {
     const FragA f = frag_acc(a[s]);
 #pragma unroll
-    for (int jd = 0; jd < D / 8; ++jd)
+    for (int jd = 0; jd < N / 8; ++jd)
       mma3(part[jd], f, frag_b<LD>(y, 8 * s, 8 * jd, g, t));
   }
 #pragma unroll
-  for (int jd = 0; jd < D / 8; ++jd)
+  for (int jd = 0; jd < N / 8; ++jd)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[jd][i] += part[jd][i];
 }
 
-// rows r0 and r0 + 8 of a (16 x D) accumulator into `out` (row stride D),
-// rows at or past n skipped
-template <int D>
+// rows r0 and r0 + 8 of a (16 x N) accumulator into `out` (row stride
+// LD), rows at or past n skipped
+template <int N, int LD>
 __device__ __forceinline__ void store_rows(float* out,
-                                           const float (&acc)[D / 8][4],
+                                           const float (&acc)[N / 8][4],
                                            int r0, int n, int t) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = r0 + 8 * half;
     if (r >= n) continue;
-    float* row = out + (size_t)r * D + 2 * t;
+    float* row = out + (size_t)r * LD + 2 * t;
 #pragma unroll
-    for (int jd = 0; jd < D / 8; ++jd)
+    for (int jd = 0; jd < N / 8; ++jd)
       *reinterpret_cast<float2*>(row + 8 * jd) =
           make_float2(acc[jd][2 * half], acc[jd][2 * half + 1]);
   }
@@ -313,7 +332,8 @@ __host__ __device__ constexpr size_t tile_floats() {
 // ---------------------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(Cfg<D>::kBlockThreads,
+                                  Cfg<D>::kMinBlocks)
 flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v,
@@ -343,10 +363,13 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
   load_tile<D>(ks, kb, 0, tk);
   load_tile<D>(vs, vb, 0, tk);
 
+  constexpr int kN = Cfg<D>::kCols;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int m0 = 16 * warp;   // this warp's rows of the tile
-  const int r0 = q0 + m0 + g;  // this thread's rows: r0, r0 + 8
+  constexpr bool kSplit = Cfg<D>::kSplit > 1;
+  const int m0 = 16 * (kSplit ? warp % 4 : warp);  // this warp's rows
+  const int c0 = kSplit ? kN * (warp / 4) : 0;     // and its dQ columns
+  const int r0 = q0 + m0 + g;      // this thread's rows: r0, r0 + 8
   float l_row[2], d_row[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -354,9 +377,9 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
     l_row[h] = r < tq ? lse[(size_t)bh * tq + r] : 0.f;
     d_row[h] = r < tq ? dvec[(size_t)bh * tq + r] : 0.f;
   }
-  float acc[D / 8][4];
+  float acc[kN / 8][4];
 #pragma unroll
-  for (int jd = 0; jd < D / 8; ++jd)
+  for (int jd = 0; jd < kN / 8; ++jd)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[jd][i] = 0.f;
 
@@ -383,7 +406,7 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
               keep ? expf(sc[j][i] * scale - l_row[i >> 1]) : 0.f;
           dp[j][i] = p * (dp[j][i] - d_row[i >> 1]) * scale;
         }
-      product<D>(acc, dp, kh, g, t);  // dQ += dS K
+      product<D, kN>(acc, dp, kh + c0, g, t);  // dQ += dS K
     }
 
     // every read of K and V is done: load the next tile
@@ -393,7 +416,7 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
       load_tile<D>(vs, vb, k0 + kBlock, tk);
     }
   }
-  store_rows<D>(dq + (size_t)bh * tq * D, acc, r0, tq, t);
+  store_rows<kN, D>(dq + (size_t)bh * tq * D + c0, acc, r0, tq, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -401,7 +424,8 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
 // ---------------------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(Cfg<D>::kBlockThreads,
+                                  Cfg<D>::kMinBlocks)
 flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
                           const float* __restrict__ v,
@@ -431,7 +455,9 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
   const float* lse_bh = lse + (size_t)bh * tq;
   const float* dvec_bh = dvec + (size_t)bh * tq;
   // query tile `it` of the loop's L (threads 0-63) and D (64-127)
+  constexpr bool kSplit = Cfg<D>::kSplit > 1;
   auto stage_stats = [&](int it) {
+    if (kSplit && tid >= 2 * kBlock) return;
     const int i = tid % kBlock, qp = (first + it) * kBlock + i;
     const float* src = tid < kBlock ? lse_bh : dvec_bh;
     stats[tid / kBlock][i] = qp < tq ? src[qp] : 0.f;
@@ -443,13 +469,15 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
   load_tile<D>(dos, db, first * kBlock, tq);
   stage_stats(0);
 
+  constexpr int kN = Cfg<D>::kCols;
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const int m0 = 16 * warp;   // this warp's keys of the tile
-  const int r0 = k0 + m0 + g;  // this thread's keys: r0, r0 + 8
-  float acc_k[D / 8][4], acc_v[D / 8][4];
+  const int m0 = 16 * (kSplit ? warp % 4 : warp);  // this warp's keys
+  const int c0 = kSplit ? kN * (warp / 4) : 0;     // its dK, dV columns
+  const int r0 = k0 + m0 + g;      // this thread's keys: r0, r0 + 8
+  float acc_k[kN / 8][4], acc_v[kN / 8][4];
 #pragma unroll
-  for (int jd = 0; jd < D / 8; ++jd)
+  for (int jd = 0; jd < kN / 8; ++jd)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc_k[jd][i] = acc_v[jd][i] = 0.f;
 
@@ -478,7 +506,7 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
           st[j][i] = keep ? expf(st[j][i] * scale - ls[col]) : 0.f;
         }
       // dV += P^T dO before dP^T is formed: fewer values live at once
-      product<D>(acc_v, st, doh, g, t);
+      product<D, kN>(acc_v, st, doh + c0, g, t);
       // dS^T = scale * P^T o (dP^T - D), dP^T = V dO^T
       product_t<D>(dpt, vs, doh, m0, g, t);
 #pragma unroll
@@ -487,7 +515,7 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
         for (int i = 0; i < 4; ++i)
           dpt[j][i] = st[j][i] *
                       (dpt[j][i] - dls[h + 8 * j + 2 * t + (i & 1)]) * scale;
-      product<D>(acc_k, dpt, qh, g, t);  // dK += dS^T Q
+      product<D, kN>(acc_k, dpt, qh + c0, g, t);  // dK += dS^T Q
     }
 
     // every read of Q, dO, L and D is done: load the next tile
@@ -498,8 +526,8 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
       stage_stats(it + 1);
     }
   }
-  store_rows<D>(dk + (size_t)bh * tk * D, acc_k, r0, tk, t);
-  store_rows<D>(dv + (size_t)bh * tk * D, acc_v, r0, tk, t);
+  store_rows<kN, D>(dk + (size_t)bh * tk * D + c0, acc_k, r0, tk, t);
+  store_rows<kN, D>(dv + (size_t)bh * tk * D + c0, acc_v, r0, tk, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -523,7 +551,8 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (tq + kBlock - 1) / kBlock);
-  flash_bwd_dq_tf32_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_dq_tf32_kernel<D><<<grid, Cfg<D>::kBlockThreads, smem,
+                                stream>>>(
       q, k, v, dout, lse, dvec, dq, tq, tk, causal, scale);
   return cudaGetLastError();
 }
@@ -540,7 +569,8 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (tk + kBlock - 1) / kBlock);
-  flash_bwd_dkv_tf32_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_dkv_tf32_kernel<D><<<grid, Cfg<D>::kBlockThreads, smem,
+                                 stream>>>(
       q, k, v, dout, lse, dvec, dk, dv, tq, tk, causal, scale);
   return cudaGetLastError();
 }
@@ -549,7 +579,7 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
 
 // The f32 entry points behind dkt_flash_bwd_dq / dkt_flash_bwd_dkv
 // (flash_bwd.cu, which checks the arguments and sets the device): q, k,
-// v, dout contiguous f32, 16-byte aligned; head_dim 32 or 64.
+// v, dout contiguous f32, 16-byte aligned; head_dim 32, 64 or 128.
 cudaError_t flash_bwd_dq_f32(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* dvec, void* dq, int bh, int tq,
@@ -557,11 +587,17 @@ cudaError_t flash_bwd_dq_f32(const void* q, const void* k, const void* v,
                              cudaStream_t stream) {
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto* out = static_cast<float*>(dq);
-  return head_dim == 64
-             ? launch_dq<64>(f(q), f(k), f(v), f(dout), f(lse), f(dvec), out,
-                             bh, tq, tk, causal, scale, stream)
-             : launch_dq<32>(f(q), f(k), f(v), f(dout), f(lse), f(dvec), out,
-                             bh, tq, tk, causal, scale, stream);
+  switch (head_dim) {
+    case 32:
+      return launch_dq<32>(f(q), f(k), f(v), f(dout), f(lse), f(dvec), out,
+                           bh, tq, tk, causal, scale, stream);
+    case 64:
+      return launch_dq<64>(f(q), f(k), f(v), f(dout), f(lse), f(dvec), out,
+                           bh, tq, tk, causal, scale, stream);
+    default:
+      return launch_dq<128>(f(q), f(k), f(v), f(dout), f(lse), f(dvec), out,
+                            bh, tq, tk, causal, scale, stream);
+  }
 }
 
 cudaError_t flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
@@ -572,9 +608,15 @@ cudaError_t flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto* gk = static_cast<float*>(dk);
   auto* gv = static_cast<float*>(dv);
-  return head_dim == 64
-             ? launch_dkv<64>(f(q), f(k), f(v), f(dout), f(lse), f(dvec), gk,
-                              gv, bh, tq, tk, causal, scale, stream)
-             : launch_dkv<32>(f(q), f(k), f(v), f(dout), f(lse), f(dvec), gk,
-                              gv, bh, tq, tk, causal, scale, stream);
+  switch (head_dim) {
+    case 32:
+      return launch_dkv<32>(f(q), f(k), f(v), f(dout), f(lse), f(dvec), gk,
+                            gv, bh, tq, tk, causal, scale, stream);
+    case 64:
+      return launch_dkv<64>(f(q), f(k), f(v), f(dout), f(lse), f(dvec), gk,
+                            gv, bh, tq, tk, causal, scale, stream);
+    default:
+      return launch_dkv<128>(f(q), f(k), f(v), f(dout), f(lse), f(dvec), gk,
+                             gv, bh, tq, tk, causal, scale, stream);
+  }
 }

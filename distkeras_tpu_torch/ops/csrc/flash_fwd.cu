@@ -30,7 +30,8 @@
 // block's chain and multiplies the blocks.  Every row keeps the same key
 // tiles, products and summation order whatever BM is.  The next K/V tile
 // is loaded into registers while the current one is computed.  Rows and
-// keys past the ends are masked, so any T works.  Padded shared-memory
+// keys past the ends are masked, so any T works.  At Dh = 128 the tiles
+// are loaded without the register prefetch (O's tile doubles).  Padded shared-memory
 // strides keep every warp access free of bank conflicts.
 //
 // Later work: f32 products as 3xTF32 on wgmma.
@@ -39,7 +40,7 @@
 #include <math.h>
 #include <stdint.h>
 
-// the bf16 kernel (flash_fwd_sm90.cu); head_dim 32 or 64
+// the bf16 kernel (flash_fwd_sm90.cu); head_dim 32, 64 or 128
 cudaError_t flash_fwd_bf16(const void* q, const void* k, const void* v,
                            void* out, void* lse, int bh, int tq, int tk,
                            int head_dim, int causal, float scale,
@@ -109,9 +110,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   // key tile t + 1 is loaded into registers while tile t is computed, so
-  // each tile's load latency hides behind the previous tile's products
+  // each tile's load latency hides behind the previous tile's products.
+  // At Dh = 128 those would be 128 registers a thread beside O's 64, so
+  // each tile goes straight to shared memory instead.
+  constexpr bool kPrefetch = D <= 64;
   constexpr int kLoads = kBlockN * D / kThreads;  // of K and of V, each
-  float kn[kLoads], vn[kLoads];
+  float kn[kPrefetch ? kLoads : 1], vn[kPrefetch ? kLoads : 1];
   auto fetch = [&](int t) {
 #pragma unroll
     for (int it = 0; it < kLoads; ++it) {
@@ -122,19 +126,29 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       vn[it] = ok ? vb[(size_t)kr * D + i % D] : 0.f;
     }
   };
-  if (n_tiles > 0) fetch(0);
+  if (kPrefetch && n_tiles > 0) fetch(0);
 
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kBlockN;
     __syncthreads();  // the last tile's readers are done with ks/vs/ps
+    if constexpr (kPrefetch) {
 #pragma unroll
-    for (int it = 0; it < kLoads; ++it) {
-      const int i = tid + kThreads * it;
-      ks[(i / D) * kLd + i % D] = kn[it];
-      vs[(i / D) * kLd + i % D] = vn[it];
+      for (int it = 0; it < kLoads; ++it) {
+        const int i = tid + kThreads * it;
+        ks[(i / D) * kLd + i % D] = kn[it];
+        vs[(i / D) * kLd + i % D] = vn[it];
+      }
+    } else {
+#pragma unroll 8
+      for (int i = tid; i < kBlockN * D; i += kThreads) {
+        const int kr = k0 + i / D;
+        const bool ok = kr < tk;
+        ks[(i / D) * kLd + i % D] = ok ? kb[(size_t)kr * D + i % D] : 0.f;
+        vs[(i / D) * kLd + i % D] = ok ? vb[(size_t)kr * D + i % D] : 0.f;
+      }
     }
     __syncthreads();
-    if (t + 1 < n_tiles) fetch(t + 1);
+    if (kPrefetch && t + 1 < n_tiles) fetch(t + 1);
 
     float s[kRm][kRn];
 #pragma unroll
@@ -271,7 +285,7 @@ cudaError_t launch_f32(int rows, const void* q, const void* k, const void* v,
 
 // q: (bh, tq, head_dim), k and v: (bh, tk, head_dim), contiguous, of
 // dtype 0 (float32) or 1 (bfloat16, 16-byte aligned for TMA); o: like q;
-// lse: (bh, tq) float32.  head_dim 32 or 64.  Launches on `stream` of
+// lse: (bh, tq) float32.  head_dim 32, 64 or 128.  Launches on `stream` of
 // `device` and returns cudaGetLastError() after the launch (0 on
 // success).
 extern "C" int dkt_flash_fwd(const void* q, const void* k, const void* v,
@@ -281,7 +295,7 @@ extern "C" int dkt_flash_fwd(const void* q, const void* k, const void* v,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (bh < 1 || tq < 1 || tk < 1 || (causal && tq != tk) ||
-      (head_dim != 32 && head_dim != 64))
+      (head_dim != 32 && head_dim != 64 && head_dim != 128))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
@@ -289,11 +303,17 @@ extern "C" int dkt_flash_fwd(const void* q, const void* k, const void* v,
       int rows;
       if ((err = rows_per_block(device, bh, tq, &rows)) != cudaSuccess)
         return (int)err;
-      return (int)(head_dim == 64
-                       ? launch_f32<64>(rows, q, k, v, o, lse, bh, tq, tk,
-                                        causal, scale, s)
-                       : launch_f32<32>(rows, q, k, v, o, lse, bh, tq, tk,
-                                        causal, scale, s));
+      switch (head_dim) {
+        case 32:
+          return (int)launch_f32<32>(rows, q, k, v, o, lse, bh, tq, tk,
+                                     causal, scale, s);
+        case 64:
+          return (int)launch_f32<64>(rows, q, k, v, o, lse, bh, tq, tk,
+                                     causal, scale, s);
+        default:
+          return (int)launch_f32<128>(rows, q, k, v, o, lse, bh, tq, tk,
+                                      causal, scale, s);
+      }
     }
     case 1:
       return (int)flash_fwd_bf16(q, k, v, o, lse, bh, tq, tk, head_dim,

@@ -28,8 +28,11 @@
 // diagonal.  Q is resident; K and V stream through a two-stage ring.
 // All arrive by TMA on mbarriers from 3-D tensor maps (Dh, T, B*H), so a
 // ragged last tile reads zeros, never the next head; the swizzle is 128 B
-// at Dh = 64 and 64 B at Dh = 32, the same in the map and the wgmma
-// descriptor.  Per key tile:
+// at Dh = 64 and 128 and 64 B at Dh = 32, the same in the map and the
+// wgmma descriptor.  A swizzled box is at most one swizzle row wide, so a
+// Dh = 128 tile is two 64-column panels, one box each, and the products
+// step across them (sm90.cuh: Tile, desc_k, and wgmma_rs<128>, one
+// m64n64k16 per panel of V).  Per key tile:
 //   - S = Q K^T: wgmma m64n64k16, both operands K-major in shared memory;
 //   - the softmax on the accumulator fragments, in base 2 with the scale
 //     folded into one multiply (scale * log2(e)): a row's 64 columns lie
@@ -138,11 +141,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int tid = threadIdx.x;
   auto load_k = [&](int t) {
     mbar_expect_tx(&kbar[t & 1], kTile);
-    tma_load(k_tile(t), &tm_k, &kbar[t & 1], t * kBlock, bh);
+    tma_load_tile<D>(k_tile(t), &tm_k, &kbar[t & 1], t * kBlock, bh);
   };
   auto load_v = [&](int t) {
     mbar_expect_tx(&vbar[t & 1], kTile);
-    tma_load(v_tile(t), &tm_v, &vbar[t & 1], t * kBlock, bh);
+    tma_load_tile<D>(v_tile(t), &tm_v, &vbar[t & 1], t * kBlock, bh);
   };
 
   if (tid == 0) {
@@ -152,7 +155,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   __syncthreads();
   if (tid == 0) {
     mbar_expect_tx(&bars[0], kTile);
-    tma_load(qs, &tm_q, &bars[0], q0, bh);
+    tma_load_tile<D>(qs, &tm_q, &bars[0], q0, bh);
     for (int t = 0; t < 2 && t < n_k; ++t) {
       load_k(t);
       load_v(t);
@@ -279,8 +282,8 @@ cudaError_t launch(const CUtensorMap& q, const CUtensorMap& k,
 
 // The bf16 entry point behind dkt_flash_fwd (flash_fwd.cu, which checks
 // the arguments and sets the device): q (bh, tq, head_dim), k and v (bh,
-// tk, head_dim), contiguous bf16, 16-byte aligned; head_dim 32 or 64;
-// out like q, lse (bh, tq) f32.
+// tk, head_dim), contiguous bf16, 16-byte aligned; head_dim 32, 64 or
+// 128; out like q, lse (bh, tq) f32.
 cudaError_t flash_fwd_bf16(const void* q, const void* k, const void* v,
                            void* out, void* lse, int bh, int tq, int tk,
                            int head_dim, int causal, float scale,
@@ -291,9 +294,15 @@ cudaError_t flash_fwd_bf16(const void* q, const void* k, const void* v,
   if ((err = make_map(&mk, k, bh, tk, head_dim)) != cudaSuccess) return err;
   if ((err = make_map(&mv, v, bh, tk, head_dim)) != cudaSuccess) return err;
   auto* l = static_cast<float*>(lse);
-  return head_dim == 64
-             ? launch<64>(mq, mk, mv, out, l, bh, tq, tk, causal, scale,
-                          stream)
-             : launch<32>(mq, mk, mv, out, l, bh, tq, tk, causal, scale,
-                          stream);
+  switch (head_dim) {
+    case 32:
+      return launch<32>(mq, mk, mv, out, l, bh, tq, tk, causal, scale,
+                        stream);
+    case 64:
+      return launch<64>(mq, mk, mv, out, l, bh, tq, tk, causal, scale,
+                        stream);
+    default:
+      return launch<128>(mq, mk, mv, out, l, bh, tq, tk, causal, scale,
+                         stream);
+  }
 }

@@ -60,14 +60,16 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// rows [row, row + kBlock) of head `bh` of a (Dh, T, B*H) tensor map into
-// a tile of shared memory; completes `bytes` of the barrier's transaction
+// rows [row, row + kBlock), columns [col, col + box) of head `bh` of a
+// (Dh, T, B*H) tensor map into shared memory; completes its bytes of the
+// barrier's transaction
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int row, int bh) {
+                                         uint64_t* bar, int row, int bh,
+                                         int col = 0) {
   asm volatile(
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
       "r"(row), "r"(bh)
       : "memory");
 }
@@ -90,22 +92,27 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// Tile geometry for head dim D: a (kBlock, D) bf16 tile has rows of
-// D * 2 bytes, one swizzle row (128 B at D = 64, 64 B at D = 32); eight
-// rows form one swizzle atom.
+// Tile geometry for head dim D: a (kBlock, D) bf16 tile is stored as
+// D / kCols panels of kCols columns, each panel a (kBlock, kCols) tile
+// of its own whose rows are one swizzle row (128 B at kCols = 64, 64 B
+// at D = 32); eight rows form one swizzle atom.  A swizzled TMA box is at
+// most one swizzle row wide, so Dh = 128 is two panels of 64.
 template <int D>
 struct Tile {
+  static constexpr int kCols = D < 64 ? D : 64;
+  static constexpr int kPanels = D / kCols;
+  static constexpr uint32_t kPanelBytes = kBlock * kCols * 2;
   static constexpr uint32_t kBytes = kBlock * D * 2;
-  static constexpr uint32_t kAtom = 8 * D * 2;              // 8 rows
-  static constexpr uint64_t kLayout = D == 64 ? 1 : 2;      // 128B / 64B
+  static constexpr uint32_t kAtom = 8 * kCols * 2;           // 8 rows
+  static constexpr uint64_t kLayout = kCols == 64 ? 1 : 2;   // 128B / 64B
 };
 
 // wgmma shared-memory descriptor: start address, leading and stride byte
 // offsets (16-byte units) and the swizzle.  Both offsets are the stride
 // between eight-row atoms: for a K-major operand the leading offset is
 // unused (an instruction's 16 K-values lie inside one swizzle row), and
-// for an MN-major one the N extent (D) is one atom wide, so only the
-// stride offset is read.
+// for an MN-major one the N extent of a product is one panel, one atom
+// wide, so only the stride offset is read.
 template <int D>
 __device__ __forceinline__ uint64_t desc(const void* tile, uint32_t offset) {
   const uint64_t atom = (Tile<D>::kAtom >> 4) & 0x3FFF;
@@ -113,15 +120,32 @@ __device__ __forceinline__ uint64_t desc(const void* tile, uint32_t offset) {
          (atom << 32) | (Tile<D>::kLayout << 62);
 }
 // k-slice kk (16 values of the contracted dim) of a tile read K-major: the
-// contracted dim is the tile's columns, 32 bytes a slice
+// contracted dim is the tile's columns, 32 bytes a slice, kCols / 16
+// slices a panel
 template <int D>
 __device__ __forceinline__ uint64_t desc_k(const void* tile, int kk) {
-  return desc<D>(tile, kk * 32);
+  constexpr int kSlices = Tile<D>::kCols / 16;
+  return desc<D>(tile, (kk / kSlices) * Tile<D>::kPanelBytes +
+                           (kk % kSlices) * 32);
 }
 // ... read MN-major (transposed B): the contracted dim is the tile's rows
+// (of the first panel; wgmma_rs<128> steps to the second)
 template <int D>
 __device__ __forceinline__ uint64_t desc_mn(const void* tile, int kk) {
-  return desc<D>(tile, kk * 16 * D * 2);
+  return desc<D>(tile, kk * 16 * Tile<D>::kCols * 2);
+}
+
+// rows [row, row + kBlock) of head `bh` as one (kBlock, D) tile, one
+// box per panel; completes kBytes of the barrier's transaction
+template <int D>
+__device__ __forceinline__ void tma_load_tile(void* dst,
+                                              const CUtensorMap* map,
+                                              uint64_t* bar, int row,
+                                              int bh) {
+#pragma unroll
+  for (int p = 0; p < Tile<D>::kPanels; ++p)
+    tma_load(static_cast<uint8_t*>(dst) + p * Tile<D>::kPanelBytes, map, bar,
+             row, bh, p * Tile<D>::kCols);
 }
 
 // d (64 x 64, f32) (+)= A (64 x 16) B (16 x 64), both bf16 K-major in
@@ -195,6 +219,18 @@ __device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// Dh = 128: one m64n64k16 per 64-column panel of B, the panel's
+// descriptor that of the first moved by kPanelBytes; d's halves are the
+// panels' columns, in the order store_rows<128> reads them
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  wgmma_rs<64>(*reinterpret_cast<float(*)[32]>(&d[0]), a, b);
+  wgmma_rs<64>(*reinterpret_cast<float(*)[32]>(&d[32]), a,
+               b + (Tile<128>::kPanelBytes >> 4));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -214,19 +250,19 @@ __device__ __forceinline__ void to_a(const float (&acc)[32],
       a[kk][h] = pack_bf16(acc[8 * kk + 2 * h], acc[8 * kk + 2 * h + 1]);
 }
 
-// store a (64 x D) f32 accumulator as bf16 rows r0 and r0 + 8 of `out`
-// (row stride D), rows at or past n skipped
-template <int D>
+// store a (64 x N) f32 accumulator as bf16 rows r0 and r0 + 8 of `out`
+// (row stride LD), rows at or past n skipped
+template <int N, int LD = N>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* out,
-                                           const float (&acc)[D / 2], int r0,
+                                           const float (&acc)[N / 2], int r0,
                                            int n, int c0) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = r0 + 8 * half;
     if (r >= n) continue;
-    auto* row = reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * D);
+    auto* row = reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * LD);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < N / 8; ++j)
       row[(8 * j + c0) / 2] = __floats2bfloat162_rn(acc[4 * j + 2 * half],
                                                     acc[4 * j + 2 * half + 1]);
   }
@@ -269,7 +305,8 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A contiguous (bh, t, d) bf16 tensor as a 3-D map (d, t, bh) with
-// (kBlock, d) boxes; rows past t read as zeros.  `base` must be 16-byte
+// (kBlock, min(d, 64)) boxes, one per panel of a tile (Tile<D>); rows
+// past t read as zeros.  `base` must be 16-byte
 // aligned (the wrapper checks).
 inline cudaError_t make_map(CUtensorMap* map, const void* base, int bh,
                             int t, int d) {
@@ -277,12 +314,13 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, int bh,
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)t * d * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)d, (cuuint32_t)kBlock, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)(d < 64 ? d : 64),
+                             (cuuint32_t)kBlock, 1};
   const cuuint32_t step[3] = {1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
       strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      d == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      d >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -106,7 +106,7 @@ def flash_bwd_plain(q, k, v, lse, do, dvec, causal: bool, scale: float):
 #: dtype codes of the C interface (the ``dtype`` argument)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the kernels are instantiated for
-HEAD_DIMS = (32, 64)
+HEAD_DIMS = (32, 64, 128)
 
 
 def _check(name: str, q, k, v, causal: bool, stats=(), do=None):

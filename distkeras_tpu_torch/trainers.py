@@ -186,6 +186,10 @@ class Trainer:
         self.device = default_device(device)
         #: per-(kind, config) retrace sentinels behind ``_instrumented``
         self._sentinels: dict = {}
+        #: the training forward's random draws (Dropout), reseeded from
+        #: ``seed + 1`` by every ``train()`` as the JAX trainer makes
+        #: ``PRNGKey(seed + 1)``
+        self.generator = torch.Generator(device=self.device)
 
         self.history: list = []
         self.training_time: float = 0.0
@@ -267,7 +271,8 @@ class Trainer:
             run = make_window_fn(self.model, loss_fn, optimizer,
                                  compute_dtype=self.compute_dtype,
                                  remat=self.remat,
-                                 aux_weight=self.aux_weight)
+                                 aux_weight=self.aux_weight,
+                                 generator=self.generator)
             self._run_cache = (key, run, optimizer)
         _, run, optimizer = self._run_cache
         return self._instrumented(run), optimizer
@@ -333,6 +338,7 @@ class SingleTrainer(Trainer):
         self.model.init(self.seed, device=self.device)
         params = model_params(self.model)
         opt_state = optimizer.init(params)
+        self.generator.manual_seed(self.seed + 1)
 
         samples = int(xs.shape[0]) * self.batch_size
         pipe = _EpochPipeline(self, samples, self.device)

@@ -2,11 +2,12 @@
 
 ``load_jax_variables(model, variables)`` takes the JAX ``variables`` tree
 (``{"params": [...], "state": [...]}`` with numpy leaves, as
-``jax.tree_util.tree_map(np.asarray, v)`` gives it) and copies every leaf
-into the matching parameter of a built port model, walking the layers in
-the order ``Sequential`` and ``Residual`` nest them.  Layouts are the JAX
-package's on both sides (a ``Dense.kernel`` is (in, out)), so leaves copy
-without transposes.  ``to_numpy_variables`` is the inverse: a round trip
+``jax.tree_util.tree_map(np.asarray, v)`` gives it) and copies every
+leaf into the matching parameter (``params``) or buffer (``state``:
+BatchNorm's ``mean`` and ``var``) of a built port model, walking the
+layers in the order ``Sequential`` and ``Residual`` nest them.  Layouts
+are the JAX package's on both sides (a ``Dense.kernel`` is (in, out)),
+so leaves copy without transposes.  ``to_numpy_variables`` is the inverse: a round trip
 is bit-exact.
 """
 
@@ -22,8 +23,8 @@ from ..models.layers import Layer, Residual, Sequential
 
 def _walk(layer: Layer, params: Any, state: Any, path: str,
           leaf: Callable) -> None:
-    """Visit ``layer``'s parameters beside the JAX trees' leaves, raising
-    on any structure mismatch."""
+    """Visit ``layer``'s parameters and buffers beside the JAX trees'
+    leaves, raising on any structure mismatch."""
     if isinstance(layer, Sequential):
         n = len(layer.layers)
         if not isinstance(params, (list, tuple)) or len(params) != n \
@@ -44,21 +45,23 @@ def _walk(layer: Layer, params: Any, state: Any, path: str,
             _walk(getattr(layer, key), params[key], state[key],
                   f"{path}.{key}", leaf)
         return
-    names = sorted(n for n, _ in layer.named_parameters(recurse=False))
-    if not isinstance(params, dict) or sorted(params) != names:
-        got = sorted(params) if isinstance(params, dict) else type(params)
-        raise ValueError(f"{path} ({type(layer).__name__}): params {got} "
-                         f"!= {names}")
-    if state:
-        raise ValueError(f"{path} ({type(layer).__name__}): non-empty "
-                         f"state is not supported by the port's layers")
-    for name in names:
-        leaf(f"{path}.{name}", getattr(layer, name), params[name])
+    for kind, tree, names in (
+            ("params", params,
+             sorted(n for n, _ in layer.named_parameters(recurse=False))),
+            ("state", state,
+             sorted(n for n, _ in layer.named_buffers(recurse=False)))):
+        if not isinstance(tree, dict) or sorted(tree) != names:
+            got = sorted(tree) if isinstance(tree, dict) else type(tree)
+            raise ValueError(f"{path} ({type(layer).__name__}): {kind} "
+                             f"{got} != {names}")
+        for name in names:
+            leaf(f"{path}.{name}", getattr(layer, name), tree[name])
 
 
 def load_jax_variables(model, variables: dict) -> None:
-    """Copy the JAX ``variables`` tree into ``model``'s parameters in
-    place (the model must be built: ``model.init(...)`` first)."""
+    """Copy the JAX ``variables`` tree into ``model``'s parameters and
+    buffers in place (the model must be built: ``model.init(...)``
+    first)."""
     def copy(path, param, arr):
         arr = np.asarray(arr)
         if tuple(arr.shape) != tuple(param.shape):
@@ -72,8 +75,8 @@ def load_jax_variables(model, variables: dict) -> None:
 
 
 def to_numpy_variables(model) -> dict:
-    """``model``'s parameters as a JAX-shaped ``variables`` tree of numpy
-    arrays (the inverse of :func:`load_jax_variables`)."""
+    """``model``'s parameters and buffers as a JAX-shaped ``variables``
+    tree of numpy arrays (the inverse of :func:`load_jax_variables`)."""
     def tree(layer):
         if isinstance(layer, Sequential):
             pairs = [tree(lyr) for lyr in layer.layers]
@@ -85,8 +88,9 @@ def to_numpy_variables(model) -> dict:
                 if sub is not None:
                     params[key], state[key] = tree(sub)
             return params, state
-        return ({n: p.detach().cpu().numpy().copy()
-                 for n, p in layer.named_parameters(recurse=False)}, {})
+        return tuple({n: t.detach().cpu().numpy().copy() for n, t in it}
+                     for it in (layer.named_parameters(recurse=False),
+                                layer.named_buffers(recurse=False)))
 
     params, state = tree(model.layer)
     return {"params": params, "state": state}

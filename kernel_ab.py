@@ -24,11 +24,11 @@ import sys
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-#: (kernel, dtype, B*H, T, Dh): the serving shapes of the f32 forward and
-#: the training shape (causal throughout)
+#: (kernel, dtype, B*H, T, Dh): the serving shapes of the f32 forward,
+#: the training shape and its Dh = 32 twin (causal throughout)
 CASES = ([("fwd", "float32", 8, t, 64) for t in (64, 128, 256, 512)]
-         + [(k, d, 512, 512, 64) for d in ("bfloat16", "float32")
-            for k in ("fwd", "dq", "dkv")])
+         + [(k, d, 512, 512, dh) for dh in (64, 32)
+            for d in ("bfloat16", "float32") for k in ("fwd", "dq", "dkv")])
 
 
 def library(tree: str, tag: str) -> ctypes.CDLL:

@@ -47,6 +47,9 @@ def _qkv(b, t, h, dh, dtype, tk=None, seed=0):
     (torch.float32, True, 257, None, 32, 1e-5),
     (torch.bfloat16, True, 200, None, 64, 2e-2),
     (torch.bfloat16, False, 130, None, 32, 2e-2),
+    (torch.float32, True, 200, None, 128, 1e-5),
+    (torch.float32, False, 16, 48, 128, 1e-5),
+    (torch.bfloat16, True, 200, None, 128, 2e-2),
 ])
 def test_kernel_matches_plain(dtype, causal, t, tk, dh, tol):
     q, k, v = _qkv(2, t, 4, dh, dtype, tk)
@@ -62,9 +65,10 @@ def test_kernel_matches_plain(dtype, causal, t, tk, dh, tol):
 
 
 @pytest.mark.parametrize("causal,t,tk,dh", [
-    *[(c, t, None, dh) for t in (64, 100, 257, 512) for dh in (32, 64)
+    *[(c, t, None, dh) for t in (64, 100, 257, 512) for dh in (32, 64, 128)
       for c in (True, False)],
-    (False, 100, 257, 64), (False, 512, 100, 32), (False, 16, 48, 64)])
+    (False, 100, 257, 64), (False, 512, 100, 32), (False, 16, 48, 64),
+    (False, 100, 257, 128), (False, 512, 100, 128)])
 def test_bf16_forward_kernel_matches_plain(causal, t, tk, dh):
     """The bf16 K1 (wgmma + TMA) against ``flash_fwd_plain`` on the same
     (B·H, T, Dh) inputs: O and lse within ``_close``'s bf16 bound (both
@@ -136,6 +140,13 @@ def _close(got, ref, dtype):
     (torch.bfloat16, False, 100, 257, 64),
     (torch.bfloat16, False, 512, 100, 32),
     (torch.bfloat16, False, 16, 48, 64),
+    (torch.float32, True, 200, None, 128),
+    (torch.float32, True, 257, None, 128),
+    (torch.float32, False, 100, 257, 128),
+    (torch.bfloat16, True, 64, None, 128),
+    (torch.bfloat16, True, 257, None, 128),
+    (torch.bfloat16, True, 512, None, 128),
+    (torch.bfloat16, False, 100, 257, 128),
 ])
 def test_backward_kernels_match_plain(dtype, causal, t, tk, dh):
     """K2 and K3 (bf16 on wgmma, f32 as 3xTF32 on mma.sync) against
@@ -190,8 +201,54 @@ def test_backward_kernels_at_the_training_shape(dtype):
         _close(g, r, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernels_at_a_head_dim_128_training_shape(dtype):
+    """K1, K2 and K3 at head dim 128 (``gpt_lm(dim=1024, num_heads=8)``'s
+    heads; B·H = 256, T = 512, causal) against the plain versions: one
+    launch each, within ``_close``'s bound of the dtype."""
+    bh, t, dh = 256, 512, 128
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v, do = (torch.randn((bh, t, dh), generator=gen, device="cuda")
+                   .to(dtype) for _ in range(4))
+    scale = dh ** -0.5
+    o_ref, lse_ref = flash_fwd_plain(q, k, v, True, scale)
+    o, lse = flash_fwd_cuda(q, k, v, True, scale)
+    if dtype == torch.float32:
+        assert (o - o_ref).abs().max() <= 1e-5
+        assert (lse - lse_ref).abs().max() <= 1e-5
+    else:
+        _close(o, o_ref, dtype)
+        _close(lse, lse_ref, dtype)
+    dvec = (do.float() * o_ref.float()).sum(-1)
+    args = (q, k, v, lse_ref, do, dvec, True, scale)
+    got = (flash_bwd_dq_cuda(*args), *flash_bwd_dkv_cuda(*args))
+    for g, r in zip(got, flash_bwd_plain(*args)):
+        assert g.dtype == dtype and bool(torch.isfinite(g).all())
+        _close(g, r, dtype)
+
+
+@pytest.mark.parametrize("t,dh", [(2048, 64), (2048, 128), (4096, 64),
+                                  (4096, 128)])
+def test_f32_backward_kernels_at_long_sequences(t, dh):
+    """The f32 K2/K3 (3xTF32) over long causal rows, where dK and dV sum
+    the most query tiles and dQ the most key tiles: still within the f32
+    bound (rtol 5e-4, atol 1e-5) of ``flash_bwd_plain``."""
+    bh = 4
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v, do = (torch.randn((bh, t, dh), generator=gen, device="cuda")
+                   for _ in range(4))
+    scale = dh ** -0.5
+    o, lse = flash_fwd_plain(q, k, v, True, scale)
+    args = (q, k, v, lse, do, (do * o).sum(-1), True, scale)
+    got = (flash_bwd_dq_cuda(*args), *flash_bwd_dkv_cuda(*args))
+    for g, r in zip(got, flash_bwd_plain(*args)):
+        assert bool(torch.isfinite(g).all())
+        _close(g, r, torch.float32)
+
+
 @pytest.mark.parametrize("causal,t,tk,dh", [
-    (True, 100, None, 32), (True, 200, None, 64), (False, 64, 130, 64)])
+    (True, 100, None, 32), (True, 200, None, 64), (False, 64, 130, 64),
+    (True, 200, None, 128)])
 def test_f32_backward_kernels_are_3xtf32_not_tf32(causal, t, tk, dh):
     """On Q and K with a common offset of 1 (scores near 64·scale, whose
     differences TF32's three digits blur), the plain version with TF32
@@ -268,8 +325,8 @@ def test_bf16_forward_refuses_unaligned_inputs():
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     launches = flash_fwd_cuda.launches
-    q, k, v = (_to_bh(x) for x in _qkv(1, 64, 2, 128, torch.float32))
-    with pytest.raises(ValueError, match="head dim 128"):
+    q, k, v = (_to_bh(x) for x in _qkv(1, 64, 2, 96, torch.float32))
+    with pytest.raises(ValueError, match="head dim 96"):
         flash_fwd_cuda(q, k, v, True, 0.1)
     q, k, v = (_to_bh(x) for x in _qkv(1, 64, 2, 64, torch.float16))
     with pytest.raises(TypeError, match="float32 or bfloat16"):

@@ -343,6 +343,51 @@ def test_plain_bf16_forward_matches_jax_kernel(causal, t, tk):
                                    atol=1e-5 * np.abs(b).max())
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,t,tk", [(True, 48, 48), (False, 16, 48)])
+def test_plain_kernels_match_jax_kernels_at_head_dim_128(dtype, causal, t,
+                                                          tk):
+    """Head dim 128, which the CUDA kernels take since they were extended
+    past 32 and 64: ``flash_fwd_plain`` and ``flash_bwd_plain`` (what the
+    card holds K1, K2 and K3 against) against the JAX package's Pallas
+    kernels (``_flash_fwd_raw``, ``_flash_bwd_raw``, interpret mode, one
+    key block a row for the forward as in the bf16 test above) on the same
+    inputs.  f32: within the f32 flash-vs-dense bounds (O and lse ``TOL``,
+    gradients ``GRAD_TOL``); bf16: within one bf16 ulp of each value
+    (rtol 2⁻⁷) plus 1e-5 of the largest |value|."""
+    rng = np.random.default_rng(13)
+    bh, dh = 3, 128
+    tdt = getattr(torch, dtype)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    q, do = (torch.from_numpy(rng.normal(size=(bh, t, dh)).astype(
+        np.float32)).to(tdt) for _ in range(2))
+    k, v = (torch.from_numpy(rng.normal(size=(bh, tk, dh)).astype(
+        np.float32)).to(tdt) for _ in range(2))
+    scale = dh ** -0.5
+    o, lse = flash_fwd_plain(q, k, v, causal, scale)
+    dvec = (do.float() * o.float()).sum(-1)
+    jq, jk, jv, jdo = (jnp.asarray(x.float().numpy(), jdt)
+                       for x in (q, k, v, do))
+    ref_o, ref_lse = jax.jit(functools.partial(
+        _flash_fwd_raw, causal=causal, bq=16, bk=tk, scale=scale))(
+        jq, jk, jv)
+    ref_g = jax.jit(functools.partial(
+        _flash_bwd_raw, causal=causal, bq=16, bk=16, scale=scale))(
+        jq, jk, jv, jdo,
+        *(jnp.asarray(x.numpy())[:, None, :] for x in (lse, dvec)))
+    got_g = flash_bwd_plain(q, k, v, lse, do, dvec, causal, scale)
+    pairs = [(o, ref_o, TOL), (lse, np.asarray(ref_lse)[:, 0], TOL)] + \
+        [(a, b, GRAD_TOL) for a, b in zip(got_g, ref_g)]
+    for a, b, tol in pairs:
+        assert a.dtype == (torch.float32 if a is lse else tdt)
+        b = np.asarray(b, np.float32)
+        if dtype == "float32":
+            np.testing.assert_allclose(a.numpy(), b, **tol)
+        else:
+            np.testing.assert_allclose(a.float().numpy(), b, rtol=2 ** -7,
+                                       atol=1e-5 * np.abs(b).max())
+
+
 def test_awkward_length_causal_pad_gradients_are_exact():
     """T = 257 pads to 384 on the causal path; the padded rows' zero
     cotangent must leave q/k/v gradients exact — against JAX's dense

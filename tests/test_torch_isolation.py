@@ -32,8 +32,13 @@ for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 assert not leaked, leaked
-print(len(names))
+print(" ".join(names))
 """
+
+#: modules the walk must reach (the slices' entry points among them)
+_MUST_WALK = ("bench", "data.datasets", "data.transformers", "evaluators",
+              "models.layers", "models.zoo", "parallel.sync", "predictors",
+              "serve.engine", "trainers", "utils.weights")
 
 
 def _sources():
@@ -51,7 +56,9 @@ def test_every_submodule_imports_with_jax_refused():
         [sys.executable, "-c", _IMPORT_ALL.format(forbidden=_FORBIDDEN)],
         cwd=_ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 30   # every module was walked
+    walked = set(res.stdout.split())
+    assert len(walked) >= 34   # every module was walked
+    assert {f"distkeras_tpu_torch.{m}" for m in _MUST_WALK} <= walked
 
 
 def test_no_import_statement_names_jax_or_the_jax_package():
