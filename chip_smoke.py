@@ -86,6 +86,26 @@ Phases, one JSON line each:
    ``--mnist``), and one bf16 training step each of ``lstm_imdb``,
    ``resnet50(stem="conv7")`` and ``resnet50(stem="s2d")`` at full width
    and a small batch, with finite losses.
+11. ``dist``  — the sync distributed trainers at 8 workers on the card
+   (``DIST_CONFIGS``, the yaml's configs, run as ``DIST_RUNS`` with the
+   epochs of ``DIST_EPOCHS``): ADAG ConvNet, DOWNPOUR ResNet-20, AEASGD
+   and EAMSGD LSTM, DynSGD ResNet-50, AveragingTrainer and
+   EnsembleTrainer MLP; per run samples/s, ms a window, ms of the window
+   edge alone (CUDA events), peak memory and the epochs' mean losses.
+   Checks: every loss falls, and after one more window the edge obeys its
+   rule on the stacked tensors, computed in float64 (each worker model's
+   parameters views into the stack).  Then ADAG over the probe LM in bf16
+   (8 workers of batch 8, window 2): K1, K2 and K3 launched exactly
+   workers x steps x blocks times, and held at its shape (B*H 64).  Then
+   ``dist_parity``: f32 ADAG on the toy problem of tests/
+   test_trainers_sync.py (8 workers, window 4) on the card against the
+   CPU within rtol 1e-5 plus 1e-6 of the largest |value|; and DOWNPOUR
+   over ResNet-20 (width 16, 2 windows of 2 steps at batch 8) against
+   the CPU by ``f32_parity_ok``, with a TF32-on control that must fail.
+
+``k1`` and ``k2k3`` also hold head dims 16, 48 and 96, which the kernels
+run zero-padded to 32, 64 and 128, and time 16 and 96 beside 32 and 128
+at B*H 256, T 512; ``k1`` checks that K1, K2 and K3 refuse Dh 129.
 
 Then the ``kernels`` line, the card's name and power limit as nvidia-smi
 prints them, and as the last line ``{"ok": true, "device": {...}}``.  Any
@@ -125,6 +145,8 @@ TRAIN_BH, TRAIN_T, TRAIN_DH = 64 * 8, 512, 64
 #: 32 (B*H = 256), T = 512
 DH128_BH = 256
 HEAD_DIMS = (32, 64, 128)
+#: head dims the kernels run zero-padded to the next of HEAD_DIMS
+PAD_HEAD_DIMS = (16, 48, 96)
 #: the headline bench's ResNet-20 (distkeras_tpu_torch/bench.py), cut to
 #: 3 epochs of 8 steps
 CONV = dict(steps=8, epochs=3)
@@ -139,6 +161,80 @@ LM = dict(vocab_size=4000, dim=512, num_heads=8, num_blocks=4, seq_len=512,
           attention_impl="flash")
 #: scripts/mfu.py's --dim 1024 probe: 8 heads of Dh = 128
 LM128 = dict(LM, dim=1024)
+#: the sync distributed configs of configs/bench_all.yaml:18-92 and the
+#: SingleTrainer MLP/MNIST config (:6-16) that AveragingTrainer and
+#: EnsembleTrainer run, as data (the card's machine has no yaml;
+#: tests/test_torch_dist.py holds these against the file).  Unset keys
+#: take the file's defaults (distkeras_tpu/config.py:40-42): loss
+#: categorical_crossentropy, features "features", labels "label_onehot".
+DIST_CONFIGS = {
+    "SingleTrainer MLP/MNIST": dict(
+        trainer="SingleTrainer", model="mlp_mnist", model_kwargs={},
+        dataset="load_mnist", dataset_kwargs={"n_train": 16384}, onehot=10,
+        trainer_kwargs={"num_epoch": 5, "batch_size": 128,
+                        "learning_rate": 0.05}),
+    "ADAG ConvNet/CIFAR-10 (auto-w)": dict(
+        trainer="ADAG", model="convnet_cifar10", model_kwargs={},
+        dataset="load_cifar10", dataset_kwargs={"n_train": 8192}, onehot=10,
+        trainer_kwargs={"num_workers": "auto", "communication_window": 4,
+                        "num_epoch": 5, "batch_size": 64,
+                        "learning_rate": 0.05}),
+    "DOWNPOUR ResNet-20/CIFAR-10 (auto-w)": dict(
+        trainer="DOWNPOUR", model="resnet20", model_kwargs={},
+        dataset="load_cifar10", dataset_kwargs={"n_train": 8192}, onehot=10,
+        trainer_kwargs={"num_workers": "auto", "communication_window": 2,
+                        "num_epoch": 3, "batch_size": 64,
+                        "learning_rate": 0.01}),
+    "AEASGD LSTM/IMDB (auto-w)": dict(
+        trainer="AEASGD", model="lstm_imdb",
+        model_kwargs={"vocab_size": 4000, "embed_dim": 64,
+                      "lstm_units": 64, "seq_len": 200},
+        dataset="load_imdb",
+        dataset_kwargs={"n_train": 4096, "seq_len": 200,
+                        "vocab_size": 4000}, onehot=None,
+        trainer_kwargs={"num_workers": "auto", "communication_window": 4,
+                        "rho": 1.0, "loss": "binary_crossentropy",
+                        "label_col": "label", "num_epoch": 3,
+                        "batch_size": 32, "learning_rate": 0.05}),
+    "DynSGD ResNet-50/96px (auto-w)": dict(
+        trainer="DynSGD", model="resnet50",
+        model_kwargs={"num_classes": 100, "input_size": 96},
+        dataset="load_imagenet_subset",
+        dataset_kwargs={"n_train": 1024, "num_classes": 100,
+                        "image_size": 96}, onehot=100,
+        trainer_kwargs={"num_workers": "auto", "communication_window": 2,
+                        "num_epoch": 3, "batch_size": 16,
+                        "learning_rate": 0.005}),
+}
+#: ``num_workers: auto`` on one card: the cap distkeras_tpu/config.py:
+#: 114-119 gives it, the reference examples' worker count
+DIST_WORKERS = 8
+#: the DOWNPOUR BatchNorm check's learning rate.  At the yaml's 0.01 the
+#: f32 run itself is chaotic at batch 8 (the reference's BatchNorm sums
+#: E[x²] − E[x]² in f32): the port's f32 run on the CPU lands 0.17 (per
+#: leaf, in norm) from its float64 run, so no two f32 runs can be held
+#: within F32_STEP_REL.  At 3e-4 the card read 0.016 from the CPU and its
+#: TF32 control 0.24 (H100, 700 W)
+DIST_BN_LR = 3e-4
+#: the runs of the ``dist`` phase: (trainer class, config); the AEASGD
+#: config also runs EAMSGD, the MLP/MNIST config the two averaging
+#: trainers.  ``epochs`` cuts a config's num_epoch (PERF.md §4 lists it)
+DIST_RUNS = (
+    ("ADAG", "ADAG ConvNet/CIFAR-10 (auto-w)"),
+    ("DOWNPOUR", "DOWNPOUR ResNet-20/CIFAR-10 (auto-w)"),
+    ("AEASGD", "AEASGD LSTM/IMDB (auto-w)"),
+    ("EAMSGD", "AEASGD LSTM/IMDB (auto-w)"),
+    ("DynSGD", "DynSGD ResNet-50/96px (auto-w)"),
+    ("AveragingTrainer", "SingleTrainer MLP/MNIST"),
+    ("EnsembleTrainer", "SingleTrainer MLP/MNIST"),
+)
+#: the two LSTM runs (about 14 s an epoch on an H100: the LSTM steps
+#: its 200 positions from Python) are cut from 3 epochs to 2.  DynSGD's
+#: loss rises over the config's 3 epochs (5.83, 6.26, 6.37 on an H100; the
+#: JAX package's own DynSGD on the CPU at 32 px rises alike: 8 workers'
+#: deltas summed in full at lr 0.005), and has fallen by the tenth (4.73),
+#: so it runs 10 epochs
+DIST_EPOCHS = {"AEASGD": 2, "EAMSGD": 2, "DynSGD": 10}
 PROMPT_LENS = (20, 64, 100, 128, 200, 256, 300, 448)
 MAX_NEW = (64, 16, 40, 24, 64, 32, 48, 64)
 
@@ -304,10 +400,19 @@ def phase_k1(torch):
     for tq, tk in ((100, 257), (512, 100), (16, 48)):
         for dh in HEAD_DIMS:
             cases.append(("bfloat16", False, 8, tq, tk, dh, False))
+    # head dims between the instantiated ones, run zero-padded to 32, 64
+    # and 128
+    cases += [(dtype, causal, 8, t, t, dh, False)
+              for dtype in ("bfloat16", "float32") for dh in PAD_HEAD_DIMS
+              for causal in (True, False) for t in (100, 257)]
+    cases += [(dtype, False, 8, 100, 257, dh, False)
+              for dtype in ("bfloat16", "float32") for dh in PAD_HEAD_DIMS]
     # the training shapes, checked and timed: the probe's (Dh 64) and the
-    # dim-1024 model's (Dh 128), in both dtypes
+    # dim-1024 model's (Dh 128), in both dtypes; at B*H 256 also Dh 16 and
+    # 96 beside the Dh 32 and 128 they run as
     cases += [(dtype, True, bh, TRAIN_T, TRAIN_T, dh, True)
-              for bh, dh in ((TRAIN_BH, TRAIN_DH), (DH128_BH, 128))
+              for bh, dh in ((TRAIN_BH, TRAIN_DH), (DH128_BH, 128),
+                             (DH128_BH, 16), (DH128_BH, 32), (DH128_BH, 96))
               for dtype in ("bfloat16", "float32")]
     rows = []
     for dtype_name, causal, bh, tq, tk, dh, timed in cases:
@@ -347,7 +452,28 @@ def phase_k1(torch):
                           True, 8, 200, 200, 64))
     rows[-1]["join_batch_1"] = True
     emit({"phase": "k1", **rows[-1]})
+    _refuses_head_dim_129(torch)
     return rows
+
+
+def _refuses_head_dim_129(torch):
+    """K1, K2 and K3 refuse a head dim past 128 (their tiles and shared
+    memory are sized for Dh <= 128), launching nothing."""
+    from distkeras_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda)
+    x = torch.zeros((2, 64, 129), device="cuda")
+    lse = torch.zeros((2, 64), device="cuda")
+    for fn, args in ((flash_fwd_cuda, (x, x, x)),
+                     (flash_bwd_dq_cuda, (x, x, x, lse, x, lse)),
+                     (flash_bwd_dkv_cuda, (x, x, x, lse, x, lse))):
+        before = fn.launches
+        try:
+            fn(*args, True, 0.1)
+            refused = False
+        except ValueError as e:
+            refused = "head dim 129 > 128" in str(e)
+        check(refused and fn.launches == before,
+              f"{fn.__name__} did not refuse head dim 129")
 
 
 def _k1_check(torch, ref, got, dtype_name, causal, bh, tq, tk, dh):
@@ -549,6 +675,12 @@ def phase_k2k3(torch):
     # the f32 watch: long rows, where dK and dV sum the most query tiles
     cases += [("float32", True, 4, t, t, dh) for t in (2048, 4096)
               for dh in (64, 128)]
+    # head dims between the instantiated ones (zero-padded)
+    cases += [(dtype, causal, 8, 257, 257, dh)
+              for dtype in ("float32", "bfloat16") for dh in PAD_HEAD_DIMS
+              for causal in (True, False)]
+    cases += [(dtype, False, 8, 100, 256, dh)
+              for dtype in ("float32", "bfloat16") for dh in PAD_HEAD_DIMS]
     rows = []
     for dtype_name, causal, bh, tq, tk, dh in cases:
         args = inputs(getattr(torch, dtype_name), bh, tq, tk, dh, causal)
@@ -570,12 +702,16 @@ def phase_k2k3(torch):
         rows.append(row)
 
     # times at the training shapes: the probe's (Dh 64) in both dtypes,
-    # then Dh 128 (bf16, the dim-1024 model's; f32 beside it)
+    # then Dh 128 (bf16, the dim-1024 model's; f32 beside it), then at
+    # B*H 256 the padded Dh 16 and 96 beside Dh 32
     timed = []
     for dtype_name, bh, dh in (("bfloat16", TRAIN_BH, TRAIN_DH),
                                ("float32", TRAIN_BH, TRAIN_DH),
                                ("bfloat16", DH128_BH, 128),
-                               ("float32", DH128_BH, 128)):
+                               ("float32", DH128_BH, 128),
+                               *((dtype, DH128_BH, dh)
+                                 for dh in (16, 32, 96)
+                                 for dtype in ("bfloat16", "float32"))):
         dtype = getattr(torch, dtype_name)
         args = inputs(dtype, bh, TRAIN_T, TRAIN_T, dh, True)
         q, k, v, do = args[0], args[1], args[2], args[4]
@@ -1028,6 +1164,318 @@ def phase_models(torch):
     return mnist, row
 
 
+def _dist_data(cfg):
+    """A ``DIST_CONFIGS`` entry's training Dataset, one-hot labels added
+    as the yaml runner adds them (``label_onehot``)."""
+    from distkeras_tpu_torch import data
+    from distkeras_tpu_torch.data.transformers import OneHotTransformer
+    ds = getattr(data, cfg["dataset"])(**cfg["dataset_kwargs"])[0]
+    if cfg["onehot"]:
+        ds = OneHotTransformer(cfg["onehot"], "label",
+                               "label_onehot").transform(ds)
+    return ds
+
+
+def _dist_trainer(name, cfg, **overrides):
+    """``name`` (a trainer class of the port) over ``cfg`` at
+    ``DIST_WORKERS`` workers, on the card."""
+    import distkeras_tpu_torch as dkt
+    from distkeras_tpu_torch.models import zoo
+    kw = {"loss": "categorical_crossentropy", "features_col": "features",
+          "label_col": "label_onehot", **cfg["trainer_kwargs"]}
+    kw.pop("num_workers", None)
+    kw.update(overrides)
+    workers = {"num_ensembles" if name == "EnsembleTrainer"
+               else "num_workers": DIST_WORKERS}
+    model = getattr(zoo, cfg["model"])(**cfg["model_kwargs"])
+    return getattr(dkt, name)(model, **workers, **kw)
+
+
+def _edge_identities(torch, t, ds):
+    """The rule at one window edge on the card's stacked tensors: worker
+    k's model trains slice k of the local stack through one window, then
+    the edge.  Each rule's closed form, computed in float64 from the
+    trees just before the edge, must hold within 1e-6 of the largest
+    |value| (ADAG: the center is the workers' mean and every worker holds
+    it; DOWNPOUR and DynSGD: the center moves by Σ(l − c); EASGD: the
+    elastic update of both; no rule: nothing moves); and every worker
+    model's parameters must be its slice of the stack.  Returns the
+    largest error."""
+    from distkeras_tpu_torch.parallel.sync import tmap
+    from distkeras_tpu_torch.utils.tree import tree_leaves
+    engine = t._engine_cache[1]
+    xs, ys, _ = t._stage_data(ds, t.communication_window)
+    wx, wy = (torch.from_numpy(a[:, 0]).to(t.device) for a in (xs, ys))
+    center, local = t.center, t.local
+    engine.local_steps(local, engine.init_opt_state(), wx, wy)
+    c0, l0 = (tmap(lambda x: x.double(), tr) for tr in (center, local))
+    engine.edge(center, local)
+    torch.cuda.synchronize()
+    rule = engine.algo.name
+    if rule == "adag":
+        want_c = tmap(lambda l: l.mean(0), l0)
+        want_l = tmap(lambda c, l: c.expand_as(l), want_c, l0)
+    elif rule in ("downpour", "dynsgd"):
+        want_c = tmap(lambda c, l: c + (l - c).sum(0), c0, l0)
+        want_l = tmap(lambda c, l: c.expand_as(l), want_c, l0)
+    elif rule == "easgd":
+        a = engine.algo.alpha
+        want_c = tmap(lambda c, l: c + (a * (l - c)).sum(0), c0, l0)
+        want_l = tmap(lambda c, l: l - a * (l - c), c0, l0)
+    else:
+        want_c, want_l = c0, l0
+    err = 0.0
+    for got, want in zip(tree_leaves(center) + tree_leaves(local),
+                         tree_leaves(want_c) + tree_leaves(want_l)):
+        e = (got.double() - want).abs().max().item()
+        check(e <= 1e-6 * max(want.abs().max().item(), 1.0),
+              f"{rule}: the window edge breaks its rule by {e}")
+        err = max(err, e)
+    for k, worker in enumerate(engine.workers):
+        for name, p in worker.named_parameters():
+            check(p.data_ptr() == local["params"][name][k].data_ptr(),
+                  f"{rule}: worker {k}'s {name} is not a view of the stack")
+    return err
+
+
+def _edge_ms(torch, t, reps=20):
+    """The window edge alone on the trained trees: CUDA events around
+    ``reps`` edges after 3 warm ones, ms per edge."""
+    engine = t._engine_cache[1]
+    for _ in range(3):
+        engine.edge(t.center, t.local)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        engine.edge(t.center, t.local)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _dist_parity_run(torch, name, ds, device, **kw):
+    """(losses, trained leaves as float64, eval forward of the first 16
+    rows) of ``name`` at ``DIST_WORKERS`` workers on ``device``."""
+    import numpy as np
+    import distkeras_tpu_torch as dkt
+    from distkeras_tpu_torch.utils.tree import tree_leaves
+    t = getattr(dkt, name)(device=device, num_workers=DIST_WORKERS, **kw)
+    model = t.train(ds)
+    with torch.no_grad():
+        out = model(torch.from_numpy(ds["features"][:16]).to(t.device))
+    return (np.concatenate([h.reshape(-1) for h in t.get_history()]),
+            [np.asarray(a, np.float64) for a in tree_leaves(
+                t.trained_variables)], out.double().cpu().numpy())
+
+
+def phase_dist(torch):
+    """The sync distributed trainers at ``DIST_WORKERS`` workers on the
+    card: every ``DIST_RUNS`` entry (samples/s, ms a window, ms of the
+    edge alone, peak memory, first and last epoch's mean loss; the loss
+    falls and the edge holds its rule), ADAG over the flash LM in bf16
+    (K1–K3 launched exactly W x steps x blocks times, and held at its
+    shape), and two card-vs-CPU checks: the f32 toy ADAG within rtol 1e-5
+    (plus 1e-6 of the largest |value|), and DOWNPOUR's BatchNorm model by
+    ``f32_parity``'s relative measure, with a TF32-on control that must
+    fail it.  Returns the rows and the flash run's launches."""
+    import numpy as np
+    import distkeras_tpu_torch as dkt
+    from distkeras_tpu_torch import bench
+    from distkeras_tpu_torch.data import load_lm_corpus
+    from distkeras_tpu_torch.data.transformers import OneHotTransformer
+    from distkeras_tpu_torch.models import Model, zoo
+    from distkeras_tpu_torch.models.layers import Dense, Sequential
+    from distkeras_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_bwd_plain,
+        flash_fwd_cuda, flash_fwd_plain)
+    from distkeras_tpu_torch.utils import to_numpy_variables
+    from distkeras_tpu_torch.utils.tree import tree_leaves
+    rows = []
+    for name, cfg_name in DIST_RUNS:
+        cfg = DIST_CONFIGS[cfg_name]
+        epochs = DIST_EPOCHS.get(name, cfg["trainer_kwargs"]["num_epoch"])
+        ds = _dist_data(cfg)
+        t = _dist_trainer(name, cfg, num_epoch=epochs)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        t.train(ds)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        hist = t.get_averaged_history()
+        check(all(bool(np.isfinite(h).all()) for h in t.get_history()),
+              f"{name}: a training loss is not finite")
+        check(hist[-1] < hist[0], f"{name}: the loss did not fall: {hist}")
+        recs = [r for r in t.metrics.records if r["event"] == "epoch"]
+        steps = t.get_history()[-1].shape[1]
+        n_windows = steps // t.communication_window
+        row = {"phase": "dist", "trainer": name, "config": cfg_name,
+               "model": cfg["model"], "workers": DIST_WORKERS,
+               "window": t.communication_window,
+               "batch_size": t.batch_size, "epochs": epochs,
+               "epochs_in_config": cfg["trainer_kwargs"]["num_epoch"],
+               "steps_per_worker_epoch": steps, "windows_per_epoch": n_windows,
+               "first_epoch_mean_loss": float(hist[0]),
+               "last_epoch_mean_loss": float(hist[-1]),
+               "epoch_mean_loss": hist.tolist(),
+               "samples_per_s": recs[-1]["samples_per_sec"],
+               "epoch_s": recs[-1]["epoch_seconds"],
+               "window_ms": 1e3 * recs[-1]["epoch_seconds"] / n_windows,
+               "wall_s": wall, "peak_memory_bytes": peak,
+               "edge_rule_max_err": _edge_identities(torch, t, ds),
+               "edge_ms": _edge_ms(torch, t)}
+        emit(row)
+        rows.append(row)
+        del t, ds
+
+    # ADAG over the flash LM, bf16: the distributed path through K1-K3
+    kernels = {"flash_fwd": flash_fwd_cuda,
+               "flash_bwd_dq": flash_bwd_dq_cuda,
+               "flash_bwd_dkv": flash_bwd_dkv_cuda}
+    batch, window, steps, epochs = 8, 2, 4, 2
+    ds = load_lm_corpus(n_train=DIST_WORKERS * batch * steps,
+                        seq_len=LM["seq_len"],
+                        vocab_size=LM["vocab_size"])[0]
+    t = dkt.ADAG(zoo.gpt_lm(**LM), "sgd", SCE, num_workers=DIST_WORKERS,
+                 batch_size=batch, communication_window=window,
+                 learning_rate=0.1, compute_dtype="bfloat16",
+                 num_epoch=epochs)
+    torch.cuda.reset_peak_memory_stats()
+    # this path: counts set to 0 just before, read just after
+    for k in kernels.values():
+        k.launches = 0
+    t.train(ds)
+    launches = {n: k.launches for n, k in kernels.items()}
+    hist = t.get_averaged_history()
+    check(all(bool(np.isfinite(h).all()) for h in t.get_history()),
+          "flash ADAG: a training loss is not finite")
+    check(hist[-1] < hist[0], f"flash ADAG: the loss did not fall: {hist}")
+    want = DIST_WORKERS * steps * epochs * LM["num_blocks"]
+    check(all(n == want for n in launches.values()),
+          f"flash ADAG launches {launches} != {want} each")
+    recs = [r for r in t.metrics.records if r["event"] == "epoch"]
+    # K1 and K2/K3 at this path's shape: B*H = 8 x 8 heads, T 512, Dh 64
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    bh, dh = batch * LM["num_heads"], LM["dim"] // LM["num_heads"]
+    q, k, v, do = (torch.randn((bh, LM["seq_len"], dh), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    scale = dh ** -0.5
+    o_ref, lse_ref = flash_fwd_plain(q, k, v, True, scale)
+    k1 = _k1_check(torch, (o_ref, lse_ref), flash_fwd_cuda(q, k, v, True,
+                                                          scale),
+                   "bfloat16", True, bh, LM["seq_len"], LM["seq_len"], dh)
+    dvec = (do.float() * o_ref.float()).sum(-1)
+    args = (q, k, v, lse_ref, do, dvec, True, scale)
+    got = (flash_bwd_dq_cuda(*args), *flash_bwd_dkv_cuda(*args))
+    ref = flash_bwd_plain(*args)
+    check(all(_within(g, r, **GRAD_TOL["bfloat16"]) and
+              bool(torch.isfinite(g.float()).all())
+              for g, r in zip(got, ref)),
+          "K2/K3 disagree with their plain version at the flash ADAG shape")
+    flash = {"phase": "dist", "trainer": "ADAG", "config": "flash LM",
+             "model": LM, "compute_dtype": "bfloat16",
+             "workers": DIST_WORKERS, "window": window, "batch_size": batch,
+             "epochs": epochs, "steps_per_worker_epoch": steps,
+             "first_epoch_mean_loss": float(hist[0]),
+             "last_epoch_mean_loss": float(hist[-1]),
+             "samples_per_s": recs[-1]["samples_per_sec"],
+             "tokens_per_s": recs[-1]["samples_per_sec"] * LM["seq_len"],
+             "window_ms": 1e3 * recs[-1]["epoch_seconds"] / (steps // window),
+             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+             "edge_rule_max_err": _edge_identities(torch, t, ds),
+             "edge_ms": _edge_ms(torch, t), "launches": launches,
+             "k1_max_abs_err": k1["max_abs_err"],
+             "k2k3_max_abs_err": max(_max_err(g, r)
+                                     for g, r in zip(got, ref))}
+    emit(flash)
+    rows.append(flash)
+    del t, ds, q, k, v, do
+
+    # f32 ADAG on the toy problem (tests/test_trainers_sync.py:18-30):
+    # the card against the CPU, TF32 off
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2048, 10)).astype(np.float32)
+    w = rng.normal(size=(10, 3)).astype(np.float32)
+    y = np.argmax(x @ w + 0.1 * rng.normal(size=(2048, 3)), axis=-1)
+    toy = OneHotTransformer(3, "label", "label_onehot").transform(
+        dkt.Dataset({"features": x, "label": y}))
+
+    def mlp():
+        return Model(Sequential([Dense(32, "relu"), Dense(3, "softmax")]),
+                     input_shape=(10,))
+    toy_kw = dict(loss="categorical_crossentropy", label_col="label_onehot",
+                  num_epoch=3, batch_size=32, learning_rate=0.05,
+                  communication_window=4)
+    runs = {dev: _dist_parity_run(torch, "ADAG", toy, dev,
+                                  keras_model=mlp(), **toy_kw)
+            for dev in ("cpu", "cuda")}
+    toy_err = 0.0
+    for a, b in zip([runs["cuda"][0]] + runs["cuda"][1],
+                    [runs["cpu"][0]] + runs["cpu"][1]):
+        bound = 1e-6 * np.abs(b).max() + 1e-5 * np.abs(b)
+        check(bool(np.all(np.abs(a - b) <= bound)),
+              f"f32 toy ADAG: the card differs from the CPU by "
+              f"{np.abs(a - b).max()}")
+        toy_err = max(toy_err, float(np.max(np.abs(a - b) / (
+            1e-6 * np.abs(b).max() + 1e-5 * np.abs(b)))))
+
+    # DOWNPOUR over ResNet-20 (width 16): BatchNorm state through the sum
+    # rule.  One epoch of 2 windows of 2 steps at batch 8 per worker, at
+    # ``DIST_BN_LR``
+    bn_ds = bench.resnet20_data(DIST_WORKERS * 8 * 4)
+    init = [np.asarray(a, np.float64) for a in tree_leaves(
+        to_numpy_variables(zoo.resnet20(width=bench.WIDTH).init(
+            0, device="cpu")))]
+    bn_kw = dict(loss="categorical_crossentropy", num_epoch=1, batch_size=8,
+                 communication_window=2, learning_rate=DIST_BN_LR)
+    prev = (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    bn = {}
+    try:
+        for key, dev in (("cpu", "cpu"), ("cuda", "cuda")):
+            bn[key] = _dist_parity_run(
+                torch, "DOWNPOUR", bn_ds, dev,
+                keras_model=zoo.resnet20(width=bench.WIDTH), **bn_kw)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        bn["cuda_tf32"] = _dist_parity_run(
+            torch, "DOWNPOUR", bn_ds, "cuda",
+            keras_model=zoo.resnet20(width=bench.WIDTH), **bn_kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = prev
+
+    def against(name):
+        (la, va, fa), (lb, vb, fb) = bn[name], bn["cpu"]
+        return {"forward_max_abs_err": float(np.max(np.abs(fa - fb))),
+                "loss_max_abs_err": float(np.max(np.abs(la - lb))),
+                "step_rel": max(float(np.linalg.norm(a - b) /
+                                      np.linalg.norm(b - i))
+                                for a, b, i in zip(va, vb, init))}
+    bn_reading = {"cuda_vs_cpu": against("cuda"),
+                  "cuda_tf32_vs_cpu": against("cuda_tf32")}
+    check(f32_parity_ok(bn_reading["cuda_vs_cpu"]),
+          f"f32 DOWNPOUR ResNet-20 on the card vs the CPU: {bn_reading}")
+    check(not f32_parity_ok(bn_reading["cuda_tf32_vs_cpu"]),
+          f"the TF32 control passed the DOWNPOUR f32 check: {bn_reading}")
+    parity = {"phase": "dist_parity",
+              "toy_adag": {"workers": DIST_WORKERS, "window": 4,
+                           "epochs": 3, "tol": {"rtol": 1e-5,
+                                                "atol_of_max": 1e-6},
+                           "worst_share_of_bound": toy_err},
+              "downpour_resnet20": {"width": bench.WIDTH, "batch_size": 8,
+                                    "windows": 2, "window": 2,
+                                    "learning_rate": DIST_BN_LR,
+                                    "step_rel_limit": F32_STEP_REL,
+                                    **bn_reading}}
+    emit(parity)
+    return rows, parity, launches
+
+
 def _wait_first_token(req, timeout):
     t_end = time.perf_counter() + timeout
     while req.first_token_t is None and time.perf_counter() < t_end:
@@ -1060,6 +1508,7 @@ def main() -> int:
         lm128 = phase_lm128(torch)
         phase_conv(torch)
         phase_models(torch)
+        _, _, dist_launches = phase_dist(torch)
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1
@@ -1077,24 +1526,27 @@ def main() -> int:
     timing = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     shape = ("bh", "tq", "tk", "dh", "dtype", "causal")
 
-    def k1_rows(bh):
+    def k1_rows(bh, dims):
         return [{**{k: r[k] for k in shape + timing},
                  "max_abs_err": r["max_abs_err"]}
-                for r in timed if r["bh"] == bh]
-    # the head-dim-128 training shape's K2/K3 rows (bf16, f32)
+                for r in timed if r["bh"] == bh and r["dh"] in dims]
+    # the head-dim-128 training shape's K2/K3 rows (bf16, f32), and the
+    # padded head dims beside the size they run as, at B*H 256
     dh128 = [r for r in bwd_timed if r["dh"] == 128]
+    bwd_pad = [r for r in bwd_timed if r["dh"] in (16, 32, 96)]
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "distkeras_tpu_torch/ops/csrc/flash_fwd_sm90.cu",
         "replaces": "distkeras_tpu/ops/pallas_attention.py:83",
         "replaces_kernel": "_fwd_kernel",
         "launches": sl["launches"]["served"] + tr["launches"]["flash_fwd"]
-        + lm128["launches"]["flash_fwd"],
+        + lm128["launches"]["flash_fwd"] + dist_launches["flash_fwd"],
         "launches_by_path": {"serve": sl["launches"]["served"],
                              "train": tr["launches"]["flash_fwd"],
                              "train_f32": tr["parity_f32"]["launches"][
                                  "flash_fwd"],
-                             "train_dh128": lm128["launches"]["flash_fwd"]},
+                             "train_dh128": lm128["launches"]["flash_fwd"],
+                             "dist_adag": dist_launches["flash_fwd"]},
         "max_abs_err": max(f32 + bf16), "max_err_f32": max(f32),
         "max_err_bf16": max(bf16),
         "shape": {k: bf[k] for k in shape},
@@ -1113,8 +1565,9 @@ def main() -> int:
                 **{k: fp[k] for k in timing},
                 "serving": [{"tq": r["tq"], **{k: r[k] for k in timing}}
                             for r in serve]},
-        "train_shape": k1_rows(TRAIN_BH),
-        "train_shape_dh128": k1_rows(DH128_BH)}]
+        "train_shape": k1_rows(TRAIN_BH, (TRAIN_DH,)),
+        "train_shape_dh128": k1_rows(DH128_BH, (128,)),
+        "padded_head_dims": k1_rows(DH128_BH, (16, 32, 96))}]
     for name, kern, ms_key, errs, src_line in (
             ("flash_bwd_dq", "_bwd_dq_kernel", "dq", ("dq_err",), 169),
             ("flash_bwd_dkv", "_bwd_dkv_kernel", "dkv",
@@ -1130,11 +1583,13 @@ def main() -> int:
             "source": "distkeras_tpu_torch/ops/csrc/flash_bwd_sm90.cu",
             "replaces": f"distkeras_tpu/ops/pallas_attention.py:{src_line}",
             "replaces_kernel": kern,
-            "launches": tr["launches"][name] + lm128["launches"][name],
+            "launches": tr["launches"][name] + lm128["launches"][name]
+            + dist_launches[name],
             "launches_by_path": {
                 "serve": 0, "train": tr["launches"][name],
                 "train_f32": tr["parity_f32"]["launches"][name],
-                "train_dh128": lm128["launches"][name]},
+                "train_dh128": lm128["launches"][name],
+                "dist_adag": dist_launches[name]},
             "max_abs_err": max(f32 + bf16), "max_err_f32": max(f32),
             "max_err_bf16": max(bf16),
             "shape": {"bh": bf["bh"], "tq": bf["t"], "tk": bf["t"],
@@ -1155,13 +1610,15 @@ def main() -> int:
                     "library_ms": fp["library_bwd_ms"],
                     "bound_ms": fp[f"{ms_key}_bound_ms"],
                     "bound_by": fp[f"{ms_key}_bound_by"]},
-            "train_shape_dh128": [
+            **{key: [
                 {"dtype": r["dtype"], "bh": r["bh"], "t": r["t"],
                  "dh": r["dh"], "ms": r[f"{ms_key}_ms"],
                  "tflops": r[f"{ms_key}_tflops"], "plain_ms": r["plain_ms"],
                  "library_ms": r["library_bwd_ms"],
                  "bound_ms": r[f"{ms_key}_bound_ms"],
-                 "bound_by": r[f"{ms_key}_bound_by"]} for r in dh128]})
+                 "bound_by": r[f"{ms_key}_bound_by"]} for r in rows]
+               for key, rows in (("train_shape_dh128", dh128),
+                                 ("padded_head_dims", bwd_pad))}})
     emit({"kernels": kernels})
     print(env["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

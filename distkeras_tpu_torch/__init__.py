@@ -9,7 +9,10 @@ forward and backward as hand-written CUDA kernels; ``SingleTrainer`` on
 the in-memory ``Dataset`` for every ``BASELINE.json`` model (MLP,
 convnets, ResNet-20/50, the IMDB LSTM) and the causal LMs, with the
 loaders, transformers, ``ModelPredictor`` and the evaluators around it;
-and ``python -m distkeras_tpu_torch.bench``, the headline benchmark.
+``python -m distkeras_tpu_torch.bench``, the headline benchmark; and the
+sync distributed trainers (``ADAG``, ``DOWNPOUR``, ``DynSGD``,
+``AEASGD``, ``EAMSGD``, ``AveragingTrainer``, ``EnsembleTrainer``), their
+workers stepped one after another on one card.
 """
 
 __version__ = "0.3.0"
@@ -19,4 +22,15 @@ from . import data, models, obs, ops, parallel, serve, utils  # noqa: F401
 from . import evaluators, predictors  # noqa: F401
 from .data import Dataset  # noqa: F401
 from .models import Model, generate_tokens, zoo  # noqa: F401
-from .trainers import SingleTrainer, Trainer  # noqa: F401
+from .trainers import (  # noqa: F401
+    ADAG,
+    AEASGD,
+    DOWNPOUR,
+    EAMSGD,
+    AveragingTrainer,
+    DistributedTrainer,
+    DynSGD,
+    EnsembleTrainer,
+    SingleTrainer,
+    Trainer,
+)

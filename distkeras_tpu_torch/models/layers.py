@@ -481,8 +481,10 @@ class BatchNorm(Layer):
         super().__init__()
         if axis_name is not None:
             raise NotImplementedError(
-                "BatchNorm(axis_name=...) (cross-replica statistics) comes "
-                "with the distributed trainers")
+                "BatchNorm(axis_name=...) (statistics summed across "
+                "replicas) needs workers that run in lockstep, one per "
+                "card; the one-card sync trainers step their workers one "
+                "after another: ROADMAP Queue 1 item 8")
         self.momentum = float(momentum)
         self.epsilon = float(epsilon)
         self.axis_name = axis_name

@@ -12,6 +12,14 @@ backward on tensor cores as 3xTF32 (``ops/csrc/flash_bwd_tf32_sm90.cu``).
 On CPU tensors they are ``flash_fwd_plain`` and ``flash_bwd_plain``, the
 dense versions of the same functions.  A CUDA tensor never takes a plain
 version: the kernel runs or the call raises.
+
+The kernels are instantiated for head dims 32, 64 and 128
+(``HEAD_DIMS``); the wrappers take any Dh up to 128 by zero-padding q,
+k, v (and dO) along Dh to the next of those (``pad_head_dim``), running
+that kernel with the caller's ``scale`` and slicing the outputs back.
+That is the same function: zero columns add nothing to QKᵀ, O's and the
+gradients' padded columns are products with zeros, and D = rowsum(dO∘O)
+does not see them.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import _kernels
 
@@ -109,6 +118,27 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
 
 
+def padded_head_dim(dh: int) -> int:
+    """The instantiated head dim a Dh ≤ 128 runs as: the least of
+    ``HEAD_DIMS`` that holds it."""
+    for size in HEAD_DIMS:
+        if dh <= size:
+            return size
+    raise ValueError(f"head dim {dh} > {HEAD_DIMS[-1]}: the kernels' tiles "
+                     f"and shared memory are sized for Dh <= {HEAD_DIMS[-1]}")
+
+
+def pad_head_dim(x: torch.Tensor, size: int) -> torch.Tensor:
+    """``x`` (…, Dh) zero-padded along its last axis to ``size``, as a
+    new contiguous tensor (``x`` itself when Dh is already ``size``)."""
+    dh = x.shape[-1]
+    return x if dh == size else F.pad(x, (0, size - dh))
+
+
+def _unpad(x: torch.Tensor, dh: int) -> torch.Tensor:
+    return x if x.shape[-1] == dh else x[..., :dh].contiguous()
+
+
 def _check(name: str, q, k, v, causal: bool, stats=(), do=None):
     """Refuse what the kernels do not take; returns (bh, tq, tk, dh).
     ``stats`` are (BH, Tq) f32 vectors (lse, D); ``do`` is shaped and
@@ -130,9 +160,9 @@ def _check(name: str, q, k, v, causal: bool, stats=(), do=None):
     if k.shape[0] != bh or k.shape[2] != dh:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
                          f"in batch·heads or head dim")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head dim {dh} not supported by the kernel "
-                         f"(supported: {HEAD_DIMS})")
+    if dh < 1:
+        raise ValueError("empty head dim")
+    padded_head_dim(dh)   # raises past the largest instantiated size
     if tq < 1 or tk < 1:
         raise ValueError("empty sequence")
     if causal and tq != tk:
@@ -174,13 +204,16 @@ def flash_fwd_cuda(q, k, v, causal: bool, scale: float):
     ``flash_fwd_plain``; raises on what the kernel does not take.
     ``flash_fwd_cuda.launches`` counts the launches."""
     bh, tq, tk, dh = _check("flash_fwd_cuda", q, k, v, causal)
+    size = padded_head_dim(dh)
+    q, k, v = (pad_head_dim(x, size) for x in (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
     _launch("dkt_flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), bh, tq, tk, dh, int(bool(causal)),
-            ctypes.c_float(scale), _DTYPE_CODES[q.dtype], device=q.device)
+            o.data_ptr(), lse.data_ptr(), bh, tq, tk, size,
+            int(bool(causal)), ctypes.c_float(scale), _DTYPE_CODES[q.dtype],
+            device=q.device)
     flash_fwd_cuda.launches += 1
-    return o, lse
+    return _unpad(o, dh), lse
 
 
 def flash_bwd_dq_cuda(q, k, v, lse, do, dvec, causal: bool, scale: float):
@@ -188,13 +221,15 @@ def flash_bwd_dq_cuda(q, k, v, lse, do, dvec, causal: bool, scale: float):
     ``flash_bwd_dq_cuda.launches`` counts the launches."""
     bh, tq, tk, dh = _check("flash_bwd_dq_cuda", q, k, v, causal,
                             (lse, dvec), do)
+    size = padded_head_dim(dh)
+    q, k, v, do = (pad_head_dim(x, size) for x in (q, k, v, do))
     dq = torch.empty_like(q)
     _launch("dkt_flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(),
-            bh, tq, tk, dh, int(bool(causal)), ctypes.c_float(scale),
+            bh, tq, tk, size, int(bool(causal)), ctypes.c_float(scale),
             _DTYPE_CODES[q.dtype], device=q.device)
     flash_bwd_dq_cuda.launches += 1
-    return dq
+    return _unpad(dq, dh)
 
 
 def flash_bwd_dkv_cuda(q, k, v, lse, do, dvec, causal: bool, scale: float):
@@ -202,13 +237,15 @@ def flash_bwd_dkv_cuda(q, k, v, lse, do, dvec, causal: bool, scale: float):
     ``flash_bwd_dkv_cuda.launches`` counts the launches."""
     bh, tq, tk, dh = _check("flash_bwd_dkv_cuda", q, k, v, causal,
                             (lse, dvec), do)
+    size = padded_head_dim(dh)
+    q, k, v, do = (pad_head_dim(x, size) for x in (q, k, v, do))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("dkt_flash_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), dvec.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), bh, tq, tk, dh, int(bool(causal)),
+            dv.data_ptr(), bh, tq, tk, size, int(bool(causal)),
             ctypes.c_float(scale), _DTYPE_CODES[q.dtype], device=q.device)
     flash_bwd_dkv_cuda.launches += 1
-    return dk, dv
+    return _unpad(dk, dh), _unpad(dv, dh)
 
 
 flash_fwd_cuda.launches = 0

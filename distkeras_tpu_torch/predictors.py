@@ -55,13 +55,12 @@ class ModelPredictor(Predictor):
                  variables: Optional[dict] = None,
                  batch_size: int = 512, devices=None):
         super().__init__(keras_model, variables)
-        if devices is not None:
-            raise NotImplementedError(
-                "ModelPredictor(devices=...) (prediction sharded over a "
-                "mesh) comes with the distributed trainers")
         self.features_col = features_col
         self.output_col = output_col
         self.batch_size = int(batch_size)
+        #: kept as the JAX package keeps it; prediction runs on the
+        #: model's device
+        self._devices = devices
         # batches are padded to one shape: a second signature is a retrace
         self._sentinel = RetraceSentinel(f"{type(self).__name__}.predict")
 

@@ -1,5 +1,8 @@
 """Training orchestration — the port of ``distkeras_tpu.trainers``'
-``Trainer`` and ``SingleTrainer`` (the in-memory path).
+``Trainer``, ``SingleTrainer`` and the sync distributed trainers
+(``DistributedTrainer``, ``AveragingTrainer``, ``EnsembleTrainer`` and
+``ADAG`` / ``DOWNPOUR`` / ``DynSGD`` / ``AEASGD`` / ``EAMSGD``), on the
+in-memory path.
 
 The dist-keras surface is unchanged: ``SingleTrainer(model, optimizer,
 loss, ...).train(dataset) -> trained model``, with ``get_history()``,
@@ -8,18 +11,21 @@ one call of the window loop (``parallel.sync.make_window_fn``) over the
 epoch's batches, which are moved to the model's device once.  Epoch k's
 losses are read back only after epoch k+1 is dispatched
 (``_EpochPipeline``), so the host never waits on the card inside an
-epoch.
+epoch.  A distributed trainer's epoch is ``parallel.sync.SyncEngine``'s:
+W workers on one device, each on its partition, with the algorithm's
+rule at every window edge; its history rows are (workers, steps).
 
 Not ported yet, and raising where asked for: ``checkpoint_dir`` /
-``resume=True`` (checkpoints) and ``serialize()`` (serde), ROADMAP
-Queue 1 items 3 and 6; a disk-streaming dataset, item 5; the
-distributed trainers, item 7.  The trainers run on the card unless the
-caller passes ``device="cpu"``.
+``resume=True`` and ``serialize()`` (serde and checkpoints), ROADMAP
+Queue 1 item 3; a disk-streaming dataset, item 4; ``mode="async"`` (the
+parameter server), item 5; a ``mesh`` (workers across cards), item 8.
+The trainers run on the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -31,13 +37,17 @@ from .models.model import Model
 from .obs import ProfileConfig, RetraceSentinel, SpanTracer, observe_memory
 from .obs.registry import default_registry
 from .ops.losses import get_loss, probs_loss_variant
-from .ops.optimizers import get_optimizer
-from .parallel.sync import make_window_fn, model_params
+from .ops.optimizers import get_optimizer, sgd
+from .parallel.sync import (AdagSync, DownpourSync, DynSgdSync, EasgdSync,
+                            NoCommSync, SyncEngine, _inexact, make_window_fn,
+                            model_params, replicate, stack_trees, tmap,
+                            variables_of)
 from .utils.device import DeviceLike, default_device
 from .utils.metrics import MetricsLogger
 from .utils.weights import to_numpy_variables
 
-_CHECKPOINT_ITEM = "ROADMAP Queue 1 items 3 and 6 (serde and checkpoints)"
+_CHECKPOINT_ITEM = "ROADMAP Queue 1 item 3 (serde and checkpoints)"
+_STREAMING_ITEM = "ROADMAP Queue 1 item 4 (disk-streaming data)"
 
 
 class _EpochPipeline:
@@ -323,7 +333,7 @@ class SingleTrainer(Trainer):
             raise NotImplementedError(
                 f"SingleTrainer trains an in-memory Dataset; the "
                 f"disk-streaming path ({type(dataset).__name__}) is not "
-                f"ported yet: ROADMAP Queue 1 item 5")
+                f"ported yet: {_STREAMING_ITEM}")
         if shuffle:
             dataset = dataset.shuffle(self.seed)
         run, optimizer = self._window_run()
@@ -347,3 +357,366 @@ class SingleTrainer(Trainer):
             pipe.push(epoch, losses)
         pipe.flush()
         return self._finish()
+
+
+# ---------------------------------------------------------------------------
+# the sync distributed trainers
+# ---------------------------------------------------------------------------
+
+def _codec_name(spec) -> str:
+    """A ``comm_codec`` spec's canonical name (the JAX package's
+    ``ps.codecs.get_codec`` rules): ``"none"``/None, ``"int8"``,
+    ``"bf16"``/``"bfloat16"``, ``"topk<frac>"`` with 0 < frac ≤ 1."""
+    if spec is None or spec == "none":
+        return "none"
+    if spec == "int8":
+        return "int8"
+    if spec in ("bf16", "bfloat16"):
+        return "bf16"
+    if isinstance(spec, str) and spec.startswith("topk"):
+        try:
+            frac = float(spec[4:])
+        except ValueError as e:
+            raise ValueError(
+                f"bad comm_codec {spec!r}: topk needs a fraction suffix, "
+                f"e.g. 'topk0.01' ({e})") from e
+        if not 0.0 < frac <= 1.0:
+            raise ValueError(f"topk fraction must be in (0, 1], got {frac}")
+        return f"topk{frac:g}"
+    raise ValueError(f"unknown comm_codec {spec!r} "
+                     f"(known: none, int8, bf16, topk<frac>)")
+
+
+def _down_spec(spec) -> str:
+    """Normalize a ``comm_down`` spec (``ps.codecs.validate_down_spec``):
+    ``"none"``/None, ``"adaptive"``, or any non-identity codec spec."""
+    if spec is None or spec == "none":
+        return "none"
+    if spec == "adaptive":
+        return "adaptive"
+    name = _codec_name(spec)
+    if name == "none":
+        raise ValueError(f"comm_down {spec!r} is an identity codec; use "
+                         f"'none' to disable DOWN compression")
+    return name
+
+
+class DistributedTrainer(Trainer):
+    """Base for multi-worker trainers (reference ``DistributedTrainer``):
+    owns ``num_workers``, partitions the dataset one partition per worker
+    and drives the epoch program.  Subclasses pick the communication
+    rule.
+
+    Sync mode only: W workers run on the trainer's device, one after
+    another, through ``parallel.sync.SyncEngine``.  The async-mode
+    arguments (``async_workers``, ``comm_codec``, ``comm_down``,
+    ``ps_shm``, ``pull_overlap``, ``ps_shards``, the heartbeat knobs) are
+    validated and kept as the JAX package keeps them; ``mode="async"``
+    raises (ROADMAP Queue 1 item 5), as do a ``mesh`` (item 8) and a
+    disk-streaming dataset (item 4)."""
+
+    #: default window when the algorithm has no explicit one
+    _default_window = 1
+
+    def __init__(self, keras_model: Model, worker_optimizer="sgd",
+                 loss="categorical_crossentropy", num_workers: int = 2,
+                 features_col: str = "features", label_col: str = "label",
+                 num_epoch: int = 1, batch_size: int = 32,
+                 communication_window: Optional[int] = None,
+                 learning_rate: float = 0.01, seed: int = 0,
+                 mode: str = "sync", mesh=None,
+                 async_workers: str = "threads",
+                 comm_codec: str = "none",
+                 comm_down: str = "none",
+                 ps_shm: bool = False,
+                 pull_overlap: bool = False,
+                 ps_shards: int = 1,
+                 heartbeat_hard_s: float = 30.0,
+                 startup_grace_s: float = 300.0, **kw):
+        super().__init__(keras_model, worker_optimizer, loss, features_col,
+                         label_col, num_epoch, batch_size, learning_rate, seed,
+                         **kw)
+        self.num_workers = int(num_workers)
+        self.heartbeat_hard_s = float(heartbeat_hard_s)
+        self.startup_grace_s = float(startup_grace_s)
+        self.communication_window = int(
+            communication_window if communication_window is not None
+            else self._default_window)
+        if mode not in ("sync", "async"):
+            raise ValueError(f"mode must be 'sync' or 'async', got {mode!r}")
+        if async_workers not in ("threads", "processes"):
+            raise ValueError(f"async_workers must be 'threads' or "
+                             f"'processes', got {async_workers!r}")
+        self.mode = mode
+        self.mesh = mesh
+        self.async_workers = async_workers
+        self.ps_shards = int(ps_shards)
+        if self.ps_shards < 1:
+            raise ValueError(f"ps_shards must be >= 1, got {ps_shards}")
+        _codec_name(comm_codec)  # validate the spec at construction time
+        self.comm_codec = comm_codec
+        self.comm_down = _down_spec(comm_down)
+        self.ps_shm = bool(ps_shm)
+        self.pull_overlap = bool(pull_overlap)
+        if mode == "async":
+            raise NotImplementedError(
+                "mode='async' (the host parameter server and its wire) is "
+                "not ported yet: ROADMAP Queue 1 item 5")
+        if mesh is not None:
+            raise NotImplementedError(
+                "DistributedTrainer(mesh=...) (workers across cards) is not "
+                "ported yet: ROADMAP Queue 1 item 8")
+
+    # -- fleet elasticity -----------------------------------------------------
+    def add_worker(self, worker_id=None) -> int:
+        """Elastic join of a worker into a live async run — which the port
+        never has: async mode is ROADMAP Queue 1 item 5."""
+        raise RuntimeError(
+            "no live async run to join — add_worker() is valid only "
+            "while train(mode='async') is in flight")
+
+    # -- algorithm hooks ------------------------------------------------------
+    def _sync_algorithm(self):
+        raise NotImplementedError
+
+    # -- data staging ---------------------------------------------------------
+    def _stage_data(self, dataset: Dataset, window: int):
+        """(P, n_windows, window, batch, ...) host arrays, one partition
+        per worker, cut to whole windows."""
+        ds = dataset.repartition(self.num_workers)
+        stacked, steps = ds.stacked([self.features_col, self.label_col],
+                                    self.batch_size)
+        n_windows = steps // window
+        if n_windows == 0:
+            raise ValueError(
+                f"communication_window {window} exceeds the {steps} "
+                f"steps available per worker (decrease window/batch_size "
+                f"or add data)")
+        dropped = steps - n_windows * window
+        if dropped:
+            warnings.warn(
+                f"{dropped} of {steps} per-worker batches don't fill a "
+                f"communication_window of {window} and are dropped each "
+                f"epoch (static shapes require whole windows); pick a "
+                f"window dividing {steps} to use all data", stacklevel=3)
+
+        def shape_windows(a):
+            a = a[:, : n_windows * window]
+            return a.reshape(a.shape[0], n_windows, window, *a.shape[2:])
+
+        xs = shape_windows(stacked[self.features_col])
+        ys = shape_windows(stacked[self.label_col])
+        return xs, ys, n_windows
+
+    # -- training -------------------------------------------------------------
+    def _train(self, dataset: Dataset, shuffle: bool) -> Model:
+        if not isinstance(dataset, Dataset):
+            raise NotImplementedError(
+                f"{type(self).__name__} trains an in-memory Dataset; the "
+                f"disk-streaming path ({type(dataset).__name__}) is not "
+                f"ported yet: {_STREAMING_ITEM}")
+        if shuffle:
+            dataset = dataset.shuffle(self.seed)
+        return self._train_sync(dataset)
+
+    def _config_key(self) -> tuple:
+        return super()._config_key() + (
+            self.num_workers, self.communication_window,
+            getattr(self, "rho", None), getattr(self, "momentum", None))
+
+    def _engine_run(self):
+        """The cached engine and its epoch program, rebuilt when a
+        hyperparameter changed between ``train()`` calls."""
+        key = self._config_key()
+        cached = getattr(self, "_engine_cache", None)
+        if cached is None or cached[0] != key:
+            loss_fn, optimizer = self._resolve()
+            engine = SyncEngine(self.model, loss_fn, optimizer,
+                                self._sync_algorithm(), self.num_workers,
+                                self.communication_window,
+                                compute_dtype=self.compute_dtype,
+                                remat=self.remat,
+                                aux_weight=self.aux_weight)
+            self._engine_cache = (key, engine, engine.epoch_fn())
+        _, engine, run = self._engine_cache
+        return engine, self._instrumented(run, "epoch")
+
+    def _init_variables(self):
+        """(center, local): the model initialised from ``seed`` (its own
+        tensors are the center) and every worker starting from it."""
+        self.model.init(self.seed, device=self.device)
+        center = variables_of(self.model)
+        return center, replicate(center, self.num_workers)
+
+    def _train_sync(self, dataset: Dataset):
+        engine, run = self._engine_run()
+        P = self.num_workers
+
+        xs, ys, _ = self._stage_data(dataset, self.communication_window)
+        xs = torch.from_numpy(xs).to(self.device)
+        ys = torch.from_numpy(ys).to(self.device)
+
+        center, local = self._init_variables()
+        engine.bind(local)
+        opt_state = engine.init_opt_state()
+        engine.seed(self.seed + 1)
+
+        samples = int(xs.shape[1]) * int(xs.shape[2]) * self.batch_size * P
+        pipe = _EpochPipeline(self, samples, self.device)
+        for epoch in range(self.num_epoch):
+            center, local, opt_state, losses = run(center, local, opt_state,
+                                                   xs, ys)
+            pipe.push(epoch, losses.reshape(P, -1))  # rows: (workers, steps)
+        pipe.flush()
+        #: the final (center, local) trees, on the device
+        self.center, self.local = center, local
+        return self._collect(center, local)
+
+    def _collect(self, center, local):
+        """Final model = the center variable (reference: trainers return
+        ``PS.get_model()``); ``center`` is the model's own tensors."""
+        return self._finish()
+
+
+class AveragingTrainer(DistributedTrainer):
+    """Model averaging (reference ``AveragingTrainer``): workers train
+    completely independently on their partition; the final model is the
+    plain average of all worker models."""
+
+    def __init__(self, keras_model, worker_optimizer="sgd",
+                 loss="categorical_crossentropy", num_workers: int = 2,
+                 **kw):
+        super().__init__(keras_model, worker_optimizer, loss, num_workers,
+                         **kw)
+
+    def _sync_algorithm(self):
+        return NoCommSync()
+
+    def _collect(self, center, local) -> Model:
+        with torch.no_grad():
+            tmap(lambda c, l: c.copy_(l.mean(0)) if _inexact(l)
+                 else c.copy_(l[0]), center, local)
+        return self._finish()
+
+
+class EnsembleTrainer(DistributedTrainer):
+    """Ensemble training (reference ``EnsembleTrainer``): N independent
+    models (different partitions AND different init seeds: member i from
+    ``init(seed + i)``), all returned.  ``train`` returns a list of
+    Models; ``trained_variables`` is member 0's."""
+
+    def __init__(self, keras_model, worker_optimizer="sgd",
+                 loss="categorical_crossentropy", num_ensembles: int = 2,
+                 **kw):
+        super().__init__(keras_model, worker_optimizer, loss,
+                         num_workers=num_ensembles, **kw)
+        self.num_ensembles = int(num_ensembles)
+
+    def _sync_algorithm(self):
+        return NoCommSync()
+
+    def _init_variables(self):
+        # member i from init(seed + i); each init makes new tensors, so
+        # the earlier members' stay as they were
+        inits = []
+        for i in range(self.num_workers):
+            self.model.init(self.seed + i, device=self.device)
+            inits.append(variables_of(self.model))
+        local = stack_trees(inits)
+        # the center is member 0's init, as the reference's
+        self.model.init(self.seed, device=self.device)
+        return variables_of(self.model), local
+
+    def _collect(self, center, local):
+        models = []
+        for i in range(self.num_workers):
+            m = type(self.model).from_config(self.model.config()).init(
+                0, device=self.device)
+            with torch.no_grad():
+                tmap(lambda d, l: d.copy_(l[i]), variables_of(m), local)
+            models.append(m)
+        self.trained_variables = to_numpy_variables(models[0])
+        return models
+
+
+class AsynchronousDistributedTrainer(DistributedTrainer):
+    """Base for the asynchronous algorithm family (reference
+    ``AsynchronousDistributedTrainer``).  In sync mode these run their
+    synchronous limit; ``mode='async'`` (faithful staleness through the
+    host parameter server) is ROADMAP Queue 1 item 5."""
+
+
+class DOWNPOUR(AsynchronousDistributedTrainer):
+    """DOWNPOUR SGD (Dean et al. 2012; reference ``DOWNPOUR`` trainer)."""
+
+    _default_window = 5
+
+    def _sync_algorithm(self):
+        return DownpourSync()
+
+
+class ADAG(AsynchronousDistributedTrainer):
+    """ADAG — asynchronous distributed adaptive gradients (reference
+    ``ADAG`` trainer; the upstream README's recommended algorithm).  The
+    synchronous limit is allreduce-mean windowed SGD."""
+
+    _default_window = 12
+
+    def _sync_algorithm(self):
+        return AdagSync()
+
+
+class DynSGD(AsynchronousDistributedTrainer):
+    """DynSGD — staleness-aware dynamic SGD (reference ``DynSGD`` trainer +
+    ``DynSGDParameterServer``): commits scaled by 1/(staleness+1)."""
+
+    _default_window = 5
+
+    def _sync_algorithm(self):
+        return DynSgdSync()
+
+
+class AEASGD(AsynchronousDistributedTrainer):
+    """Asynchronous elastic averaging SGD (Zhang et al. 2015; reference
+    ``AEASGD`` trainer).  ``rho`` is the elastic force coefficient; the
+    elastic alpha is ``rho * learning_rate`` as in the reference."""
+
+    _default_window = 32
+
+    def __init__(self, keras_model, worker_optimizer="sgd",
+                 loss="categorical_crossentropy", num_workers: int = 2,
+                 rho: float = 5.0, learning_rate: float = 0.01, **kw):
+        super().__init__(keras_model, worker_optimizer, loss, num_workers,
+                         learning_rate=learning_rate, **kw)
+        self.rho = float(rho)
+
+    @property
+    def alpha(self) -> float:
+        return self.rho * self.learning_rate
+
+    def _sync_algorithm(self):
+        return EasgdSync(self.alpha)
+
+
+class EAMSGD(AEASGD):
+    """Elastic averaging with (Nesterov) momentum (reference ``EAMSGD``):
+    identical elastic exchange, Nesterov momentum in the local optimizer."""
+
+    def __init__(self, keras_model, worker_optimizer="sgd",
+                 loss="categorical_crossentropy", num_workers: int = 2,
+                 rho: float = 5.0, learning_rate: float = 0.01,
+                 momentum: float = 0.9, **kw):
+        if not (worker_optimizer == "sgd" or worker_optimizer is None):
+            raise ValueError(
+                "EAMSGD defines its own local optimizer (Nesterov-momentum "
+                "SGD, per the algorithm); worker_optimizer must be left as "
+                f"'sgd', got {worker_optimizer!r}")
+        super().__init__(keras_model, "sgd", loss, num_workers,
+                         rho=rho, learning_rate=learning_rate, **kw)
+        self.momentum = float(momentum)
+
+    def _resolve(self):
+        loss_fn, _ = super()._resolve()
+        optimizer = sgd(self.learning_rate, momentum=self.momentum,
+                        nesterov=True)
+        return loss_fn, optimizer

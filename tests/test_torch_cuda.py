@@ -1,7 +1,9 @@
 """The port's CUDA paths on the card: the flash-attention kernels (K1
 forward, K2/K3 backward) against their plain versions, the wrappers'
-refusals, the decode engine on a small model, and a short flash-vs-dense
-``SingleTrainer`` run.  Every test is marked ``cuda`` and skips where
+refusals, the decode engine on a small model, a short flash-vs-dense
+``SingleTrainer`` run, and the sync distributed trainers (card against
+CPU, the window-edge rules on CUDA tensors, K1–K3 launches under ADAG).
+Every test is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is False (the kernel has no CPU mode).
 
 This file imports neither JAX nor the JAX package, so it also runs on
@@ -14,9 +16,13 @@ import numpy as np
 import pytest
 import torch
 
+import distkeras_tpu_torch as dkt
 from distkeras_tpu_torch import SingleTrainer
 from distkeras_tpu_torch.data import load_lm_corpus
-from distkeras_tpu_torch.models import generate_tokens, zoo
+from distkeras_tpu_torch.data.transformers import OneHotTransformer
+from distkeras_tpu_torch.models import Model, generate_tokens, zoo
+from distkeras_tpu_torch.models.layers import Dense, Sequential
+from distkeras_tpu_torch.parallel import sync
 from distkeras_tpu_torch.obs import Registry
 from distkeras_tpu_torch.ops.flash_attention import (
     _from_bh, _to_bh, flash_attention_lse, flash_bwd_dkv_cuda,
@@ -227,6 +233,40 @@ def test_kernels_at_a_head_dim_128_training_shape(dtype):
         _close(g, r, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal,t,tk", [(True, 100, 100), (False, 64, 130)])
+@pytest.mark.parametrize("dh", [16, 48, 96])
+def test_kernels_at_head_dims_between_the_instantiated_ones(dtype, causal,
+                                                            t, tk, dh):
+    """A head dim the kernels are not instantiated for runs as the next
+    instantiated one (zero-padded): K1, K2 and K3 against the plain
+    versions on the unpadded inputs, one launch each, within ``_close``'s
+    bound, the outputs contiguous and of the caller's Dh."""
+    gen = torch.Generator(device="cuda").manual_seed(dh)
+    q, do = (torch.randn((6, t, dh), generator=gen, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((6, tk, dh), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    scale = dh ** -0.5
+    counts = (flash_fwd_cuda.launches, flash_bwd_dq_cuda.launches,
+              flash_bwd_dkv_cuda.launches)
+    o, lse = flash_fwd_cuda(q, k, v, causal, scale)
+    o_ref, lse_ref = flash_fwd_plain(q, k, v, causal, scale)
+    dvec = (do.float() * o_ref.float()).sum(-1)
+    args = (q, k, v, lse_ref, do, dvec, causal, scale)
+    got = (o, lse, flash_bwd_dq_cuda(*args), *flash_bwd_dkv_cuda(*args))
+    torch.cuda.synchronize()
+    assert (flash_fwd_cuda.launches, flash_bwd_dq_cuda.launches,
+            flash_bwd_dkv_cuda.launches) == tuple(c + 1 for c in counts)
+    for g, r in zip(got, (o_ref, lse_ref, *flash_bwd_plain(*args))):
+        assert g.shape == r.shape and g.is_contiguous()
+        assert bool(torch.isfinite(g).all())
+        if dtype == torch.float32 and g is o or g is lse:
+            assert (g - r).abs().max() <= 1e-5
+        else:
+            _close(g, r, dtype)
+
+
 @pytest.mark.parametrize("t,dh", [(2048, 64), (2048, 128), (4096, 64),
                                   (4096, 128)])
 def test_f32_backward_kernels_at_long_sequences(t, dh):
@@ -325,8 +365,8 @@ def test_bf16_forward_refuses_unaligned_inputs():
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     launches = flash_fwd_cuda.launches
-    q, k, v = (_to_bh(x) for x in _qkv(1, 64, 2, 96, torch.float32))
-    with pytest.raises(ValueError, match="head dim 96"):
+    q, k, v = (_to_bh(x) for x in _qkv(1, 64, 2, 129, torch.float32))
+    with pytest.raises(ValueError, match="head dim 129 > 128"):
         flash_fwd_cuda(q, k, v, True, 0.1)
     q, k, v = (_to_bh(x) for x in _qkv(1, 64, 2, 64, torch.float16))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -401,3 +441,80 @@ def test_single_trainer_flash_matches_dense_on_the_card():
     for a, b in zip(*(tree_leaves(runs[i][1]["params"])
                       for i in ("flash", "dense"))):
         np.testing.assert_allclose(a, b, atol=1e-4)
+
+
+def _toy():
+    """``tests/test_trainers_sync.py:toy_problem`` (2048 rows, 10
+    features, 3 classes, one-hot labels)."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2048, 10)).astype(np.float32)
+    w = rng.normal(size=(10, 3)).astype(np.float32)
+    y = np.argmax(x @ w + 0.1 * rng.normal(size=(2048, 3)), axis=-1)
+    return OneHotTransformer(3, "label", "label_onehot").transform(
+        dkt.Dataset({"features": x, "label": y}))
+
+
+@pytest.mark.parametrize("name", ["ADAG", "EAMSGD"])
+def test_sync_trainer_on_the_card_matches_the_cpu(name):
+    """8 workers, window 4, 3 epochs of the f32 toy problem, TF32 off:
+    the trained center and the per-worker losses on the card within rtol
+    1e-5 plus 1e-6 of the largest |value| of the CPU's."""
+    ds = _toy()
+    out = {}
+    for device in ("cpu", "cuda"):
+        model = Model(Sequential([Dense(32, "relu"), Dense(3, "softmax")]),
+                      input_shape=(10,))
+        t = getattr(dkt, name)(model, num_workers=8, communication_window=4,
+                               label_col="label_onehot", num_epoch=3,
+                               batch_size=32, learning_rate=0.05,
+                               device=device)
+        t.train(ds)
+        assert t.get_history()[0].shape == (8, 8)
+        out[device] = tree_leaves(t.trained_variables) + t.get_history()
+    for a, b in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(a, b, rtol=1e-5,
+                                   atol=1e-6 * np.abs(b).max())
+
+
+@pytest.mark.parametrize("rule", ["adag", "downpour", "dynsgd", "easgd",
+                                  "none"])
+def test_rules_on_cuda_tensors(rule):
+    """Each window-edge rule on a stacked (8, 4) tree of CUDA tensors
+    against its closed form; the integer leaf passes unchanged."""
+    algo = {"adag": sync.AdagSync(), "downpour": sync.DownpourSync(),
+            "dynsgd": sync.DynSgdSync(), "easgd": sync.EasgdSync(0.25),
+            "none": sync.NoCommSync()}[rule]
+    c = torch.linspace(-1, 1, 4, device="cuda")
+    l = torch.arange(32, dtype=torch.float32, device="cuda").reshape(8, 4)
+    n = torch.arange(32, device="cuda").reshape(8, 4)
+    c2, l2 = algo.communicate({"w": c, "n": n[0]}, {"w": l, "n": n})
+    assert c2["w"].is_cuda and l2["w"].shape == (8, 4)
+    assert torch.equal(l2["n"], n)
+    mean, moved = l.mean(0), c + (l - c).sum(0)
+    want = {"adag": (mean, mean.expand(8, 4)),
+            "downpour": (moved, moved.expand(8, 4)),
+            "easgd": (c + (0.25 * (l - c)).sum(0), l - 0.25 * (l - c)),
+            "none": (c, l)}
+    want["dynsgd"] = want["downpour"]
+    torch.testing.assert_close(c2["w"], want[rule][0], rtol=1e-6, atol=0)
+    torch.testing.assert_close(l2["w"], want[rule][1], rtol=1e-6, atol=0)
+
+
+def test_adag_over_the_flash_lm_launches_each_kernel_per_worker_step():
+    """ADAG over a 2-block flash LM in bf16, 4 workers, window 2, 2
+    epochs of 4 steps a worker: K1, K2 and K3 launch exactly W x steps x
+    blocks times each, and the loss is finite."""
+    ds = load_lm_corpus(n_train=4 * 2 * 4, seq_len=128, vocab_size=64)[0]
+    kernels = (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda)
+    before = [k.launches for k in kernels]
+    t = dkt.ADAG(zoo.gpt_lm(vocab_size=64, dim=64, num_heads=2,
+                            num_blocks=2, seq_len=128,
+                            attention_impl="flash"),
+                 "sgd", "sparse_categorical_crossentropy", num_workers=4,
+                 batch_size=2, communication_window=2, num_epoch=2,
+                 learning_rate=0.1, compute_dtype="bfloat16")
+    t.train(ds)
+    assert [k.launches - b for k, b in zip(kernels, before)] == \
+        [4 * 4 * 2 * 2] * 3
+    assert all(np.isfinite(h).all() and h.shape == (4, 4)
+               for h in t.get_history())

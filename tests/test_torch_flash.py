@@ -27,7 +27,7 @@ from distkeras_tpu_torch.ops.attention import dot_product_attention
 from distkeras_tpu_torch.ops.flash_attention import (
     _blocks, _from_bh, _to_bh, flash_attention, flash_attention_lse,
     flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_bwd_plain, flash_fwd_cuda,
-    flash_fwd_plain)
+    flash_fwd_plain, pad_head_dim, padded_head_dim)
 
 TOL = dict(rtol=2e-5, atol=2e-5)  # the JAX package's own flash-vs-dense bound
 #: the JAX package's f32 flash-vs-dense gradient bound
@@ -355,8 +355,24 @@ def test_plain_kernels_match_jax_kernels_at_head_dim_128(dtype, causal, t,
     inputs.  f32: within the f32 flash-vs-dense bounds (O and lse ``TOL``,
     gradients ``GRAD_TOL``); bf16: within one bf16 ulp of each value
     (rtol 2⁻⁷) plus 1e-5 of the largest |value|."""
+    _plain_against_jax_kernels(dtype, causal, t, tk, 128)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,t,tk", [(True, 48, 48), (False, 16, 48)])
+@pytest.mark.parametrize("dh", [16, 96])
+def test_plain_kernels_match_jax_kernels_at_odd_head_dims(dtype, causal, t,
+                                                          tk, dh):
+    """Head dims the CUDA kernels run zero-padded to an instantiated size
+    (16 as 32, 96 as 128): the plain versions against the JAX package's
+    Pallas kernels, whose blocks span any head dim, at the bounds of the
+    head-dim-128 test."""
+    _plain_against_jax_kernels(dtype, causal, t, tk, dh)
+
+
+def _plain_against_jax_kernels(dtype, causal, t, tk, dh):
     rng = np.random.default_rng(13)
-    bh, dh = 3, 128
+    bh = 3
     tdt = getattr(torch, dtype)
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
     q, do = (torch.from_numpy(rng.normal(size=(bh, t, dh)).astype(
@@ -386,6 +402,42 @@ def test_plain_kernels_match_jax_kernels_at_head_dim_128(dtype, causal, t,
         else:
             np.testing.assert_allclose(a.float().numpy(), b, rtol=2 ** -7,
                                        atol=1e-5 * np.abs(b).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dh", [1, 16, 48, 96])
+def test_zero_padded_head_dim_is_the_same_function(dtype, dh):
+    """What the CUDA wrappers do at a head dim they are not instantiated
+    for: the plain versions on inputs zero-padded to ``padded_head_dim``,
+    sliced back, equal the plain versions on the unpadded inputs (the
+    caller's scale kept), and the padded columns of O, dQ, dK and dV are
+    exactly 0.  f32 within 1e-6 relative to the largest |value| (the
+    products' summation length differs); bf16 within one bf16 ulp."""
+    tdt = getattr(torch, dtype)
+    size = padded_head_dim(dh)
+    assert size in (32, 64, 128) and size >= dh
+    rng = np.random.default_rng(dh)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(3, 40, dh)).astype(
+        np.float32)).to(tdt) for _ in range(4))
+    scale = dh ** -0.5
+    o, lse = flash_fwd_plain(q, k, v, True, scale)
+    po, plse = flash_fwd_plain(*(pad_head_dim(x, size) for x in (q, k, v)),
+                               True, scale)
+    dvec = (do.float() * o.float()).sum(-1)
+    grads = flash_bwd_plain(q, k, v, lse, do, dvec, True, scale)
+    pgrads = flash_bwd_plain(*(pad_head_dim(x, size) for x in (q, k, v)),
+                             lse, pad_head_dim(do, size), dvec, True, scale)
+    assert pad_head_dim(q, dh) is q
+    for got, ref in [(po, o), (plse, lse), *zip(pgrads, grads)]:
+        if got.shape[-1] == size:
+            assert not got[..., dh:].any()
+            got = got[..., :dh]
+        ref = ref.float().numpy()
+        rtol = 1e-6 if dtype == "float32" or got is plse else 2 ** -7
+        np.testing.assert_allclose(got.float().numpy(), ref, rtol=rtol,
+                                   atol=1e-6 * np.abs(ref).max())
+    with pytest.raises(ValueError, match="head dim 129 > 128"):
+        padded_head_dim(129)
 
 
 def test_awkward_length_causal_pad_gradients_are_exact():

@@ -1,8 +1,8 @@
 """The port stands alone: ``distkeras_tpu_torch``, ``chip_smoke.py`` and
-``kernel_ab.py`` import neither JAX nor the JAX package, nor ``optax``
-or ``msgpack`` (the card's machine has neither) — checked by importing every
-submodule in a subprocess whose import system refuses them, and by an
-AST scan of every import statement."""
+``kernel_ab.py`` import neither JAX nor the JAX package, nor ``optax``,
+``msgpack`` or ``yaml`` (the card's machine has none of them) — checked
+by importing every submodule in a subprocess whose import system refuses
+them, and by an AST scan of every import statement."""
 
 import ast
 import os
@@ -11,7 +11,7 @@ import sys
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PKG = os.path.join(_ROOT, "distkeras_tpu_torch")
-_FORBIDDEN = ("jax", "jaxlib", "distkeras_tpu", "optax", "msgpack")
+_FORBIDDEN = ("jax", "jaxlib", "distkeras_tpu", "optax", "msgpack", "yaml")
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
