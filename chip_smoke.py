@@ -7,13 +7,17 @@ Phases, one JSON line each:
 
 1. ``env``    — torch/CUDA versions, the card, TF32 switched off.
 2. ``build``  — the flash kernels, ``distkeras_tpu_torch/ops/csrc/
-   flash_fwd.cu`` (K1 in f32), ``flash_fwd_sm90.cu`` (K1 in bf16, on
-   wgmma and TMA), ``flash_bwd.cu`` (the backward's C interface),
-   ``flash_bwd_tf32_sm90.cu`` (K2, K3 in f32, as 3xTF32 on mma.sync) and
-   ``flash_bwd_sm90.cu`` (K2, K3 in bf16, on wgmma and TMA; the ``_sm90``
-   files include ``sm90.cuh``), are built with nvcc for sm_90a if stale
-   (seconds; each kernel's registers, shared memory and spills as ptxas
-   reports them, and whether its wgmma products were serialized).
+   flash_fwd.cu`` (K1's C interface; K1 on CUDA cores: f32 at grids too
+   small for 64-row tiles, both dtypes at head dims 129-256),
+   ``flash_fwd_tf32_sm90.cu`` (K1 in f32 as 3xTF32 on mma.sync),
+   ``flash_fwd_sm90.cu`` (K1 in bf16, on wgmma and TMA), ``flash_bwd.cu``
+   (the backward's C interface), ``flash_bwd_tf32_sm90.cu`` (K2, K3 in
+   f32, as 3xTF32 on mma.sync), ``flash_bwd_sm90.cu`` (K2, K3 in bf16, on
+   wgmma and TMA) and ``flash_bwd_wide.cu`` (K2, K3 on CUDA cores at head
+   dims 129-256; the ``_sm90`` files include ``sm90.cuh``, the ``_tf32_``
+   ones ``tf32.cuh``), are built with nvcc for sm_90a if stale (seconds;
+   each kernel's registers, shared memory and spills as ptxas reports
+   them, and whether its wgmma products were serialized).
 3. ``k1``     — the flash-attention forward kernel against its plain
    PyTorch version on the card: f32 at the serving shapes and a few
    others, Dh 128 among them (max abs error of O and lse <= 1e-5); bf16
@@ -69,7 +73,13 @@ Phases, one JSON line each:
    the epoch's span on the device's timeline) and each kernel's share.
 8. ``lm128``  — ``scripts/mfu.py``'s ``--dim 1024`` probe (8 heads of
    Dh 128), bf16, 2 epochs of 8 steps at batch 32: the loss falls and
-   K1, K2 and K3 launch exactly once per block per step.
+   K1, K2 and K3 launch exactly once per block per step.  ``lm256`` —
+   the ``--dim 2048`` probe (8 heads of Dh 256, on the CUDA-core
+   kernels): bf16, 2 epochs of 4 steps at batch 16, the loss falls; 2
+   f32 steps against its dense twin (losses within rtol 1e-4, parameters
+   within 1e-4); 4 greedy requests served, each equal to
+   ``generate_tokens``; K1, K2 and K3 once per block per step, K1 once
+   per block per join.
 9. ``conv``   — the headline bench's ResNet-20 (``distkeras_tpu_torch.
    bench``: width 16, batch 1024, sgd lr 0.1, bf16), 3 epochs of 8
    steps: samples/s, step ms, peak memory, and the busy share of a
@@ -103,12 +113,19 @@ Phases, one JSON line each:
    over ResNet-20 (width 16, 2 windows of 2 steps at batch 8) against
    the CPU by ``f32_parity_ok``, with a TF32-on control that must fail.
 
-``k1`` and ``k2k3`` also hold head dims 16, 48 and 96, which the kernels
-run zero-padded to 32, 64 and 128, and time 16 and 96 beside 32 and 128
-at B*H 256, T 512; ``k1`` checks that K1, K2 and K3 refuse Dh 129.
+``k1`` and ``k2k3`` also hold head dims 16, 48 and 96 (which bf16 K1
+and K2/K3 run zero-padded to 32, 64 and 128, and the f32 K1 reads
+unpadded; the f32 K1 also at Dh 5 and 127 on both its kernels), 136,
+192 and 256 (on CUDA cores), and time 16 and 96 beside 32 and 128 at
+B*H 256 and 192 and 256 at B*H 128 (T 512).  ``k1_tf32_control``: on Q
+and K with a common offset, the f32 K1 on tensor cores is within 1e-5
+of attention in float64 and one TF32 pass is not.  ``k1`` checks that
+K1, K2 and K3 refuse Dh 257.
 
-Then the ``kernels`` line, the card's name and power limit as nvidia-smi
-prints them, and as the last line ``{"ok": true, "device": {...}}``.  Any
+Then the ``kernels`` line (one entry per CUDA kernel: its launches on
+the main paths, its largest error against the plain version, its
+timed rows), the card's name and power limit as nvidia-smi prints them,
+and as the last line ``{"ok": true, "device": {...}}``.  Any
 failed check exits non-zero before that line; so does a machine without
 CUDA, and a directory holding this script without the package.
 """
@@ -145,8 +162,14 @@ TRAIN_BH, TRAIN_T, TRAIN_DH = 64 * 8, 512, 64
 #: 32 (B*H = 256), T = 512
 DH128_BH = 256
 HEAD_DIMS = (32, 64, 128)
-#: head dims the kernels run zero-padded to the next of HEAD_DIMS
+#: head dims the kernels run zero-padded to the next of HEAD_DIMS (bf16
+#: K1, K2 and K3; the f32 K1 reads them unpadded)
 PAD_HEAD_DIMS = (16, 48, 96)
+#: head dims past 128, which K1, K2 and K3 take on CUDA cores
+WIDE_HEAD_DIMS = (136, 192, 256)
+#: a head-dim-256 training shape: gpt_lm(dim=2048, num_heads=8) at batch
+#: 16 (B*H = 128), T = 512
+DH256_BH = 128
 #: the headline bench's ResNet-20 (distkeras_tpu_torch/bench.py), cut to
 #: 3 epochs of 8 steps
 CONV = dict(steps=8, epochs=3)
@@ -161,6 +184,8 @@ LM = dict(vocab_size=4000, dim=512, num_heads=8, num_blocks=4, seq_len=512,
           attention_impl="flash")
 #: scripts/mfu.py's --dim 1024 probe: 8 heads of Dh = 128
 LM128 = dict(LM, dim=1024)
+#: scripts/mfu.py's --dim 2048 probe: 8 heads of Dh = 256
+LM256 = dict(LM, dim=2048)
 #: the sync distributed configs of configs/bench_all.yaml:18-92 and the
 #: SingleTrainer MLP/MNIST config (:6-16) that AveragingTrainer and
 #: EnsembleTrainer run, as data (the card's machine has no yaml;
@@ -340,8 +365,8 @@ def ptxas_report(log):
 
     def short(mangled):
         # the kernel's name and template arguments, still mangled
-        name = re.search(r"flash_(fwd|bwd_dq|bwd_dkv)(_wgmma|_tf32)?_kernel"
-                         r"I\w*?E(?=E)", mangled)
+        name = re.search(r"flash_(fwd|bwd_dq|bwd_dkv)(_wgmma|_tf32|_wide)?"
+                         r"_kernelI\w*?E(?=E)", mangled)
         return name.group(0) if name else mangled
 
     rows, cur = [], None
@@ -407,12 +432,25 @@ def phase_k1(torch):
               for causal in (True, False) for t in (100, 257)]
     cases += [(dtype, False, 8, 100, 257, dh, False)
               for dtype in ("bfloat16", "float32") for dh in PAD_HEAD_DIMS]
-    # the training shapes, checked and timed: the probe's (Dh 64) and the
-    # dim-1024 model's (Dh 128), in both dtypes; at B*H 256 also Dh 16 and
-    # 96 beside the Dh 32 and 128 they run as
+    # the f32 K1 on tensor cores (B*H 136: 64-row tiles fill the card) at
+    # head dims between 32, 64 and 128, and not a multiple of 4 (its 4-byte
+    # loads); the same on CUDA cores (B*H 8)
+    cases += [("float32", causal, bh, 130, 130, dh, False)
+              for bh in (136, 8) for dh in (5, 48, 96, 127)
+              for causal in (True, False)]
+    # head dims past 128, on CUDA cores
+    cases += [(dtype, causal, 8, t, t, dh, False)
+              for dtype in ("bfloat16", "float32") for dh in WIDE_HEAD_DIMS
+              for causal in (True, False) for t in (100, 257)]
+    cases += [(dtype, False, 8, 100, 257, dh, False)
+              for dtype in ("bfloat16", "float32") for dh in WIDE_HEAD_DIMS]
+    # the training shapes, checked and timed: the probe's (Dh 64), the
+    # dim-1024 model's (Dh 128) and the dim-2048 model's (Dh 256, with 192
+    # beside it), in both dtypes; at B*H 256 also Dh 16 and 96 beside 32
     cases += [(dtype, True, bh, TRAIN_T, TRAIN_T, dh, True)
               for bh, dh in ((TRAIN_BH, TRAIN_DH), (DH128_BH, 128),
-                             (DH128_BH, 16), (DH128_BH, 32), (DH128_BH, 96))
+                             (DH128_BH, 16), (DH128_BH, 32), (DH128_BH, 96),
+                             (DH256_BH, 192), (DH256_BH, 256))
               for dtype in ("bfloat16", "float32")]
     rows = []
     for dtype_name, causal, bh, tq, tk, dh, timed in cases:
@@ -452,16 +490,69 @@ def phase_k1(torch):
                           True, 8, 200, 200, 64))
     rows[-1]["join_batch_1"] = True
     emit({"phase": "k1", **rows[-1]})
-    _refuses_head_dim_129(torch)
+    _k1_tf32_control(torch)
+    _refuses_head_dim_257(torch)
     return rows
 
 
-def _refuses_head_dim_129(torch):
-    """K1, K2 and K3 refuse a head dim past 128 (their tiles and shared
-    memory are sized for Dh <= 128), launching nothing."""
+def _k1_tf32_control(torch):
+    """The f32 K1 on tensor cores (grids that fill the card) is 3xTF32,
+    not one TF32 pass: on Q and K with a common offset of 1 (scores near
+    64·scale, whose differences TF32's three digits blur) the kernel is
+    within the f32 bound of 1e-5 of causal attention computed in float64,
+    and the plain version with TF32 products (``allow_tf32``) misses it by
+    far.  The witness is float64, not the plain version in f32: at Dh 128
+    on these inputs that is itself 1.1e-5 from float64 in O (an H100).
+    Each row also gives the plain f32 version's distance and the kernel's
+    from it."""
+    from distkeras_tpu_torch.ops.flash_attention import (
+        flash_fwd_cuda, flash_fwd_plain)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for bh, t, dh in ((136, 200, 128), (64, 512, 64), (64, 512, 32)):
+        q, k = (torch.randn((bh, t, dh), generator=gen, device="cuda") + 1.0
+                for _ in range(2))
+        v = torch.randn((bh, t, dh), generator=gen, device="cuda")
+        exact = attention_float64(torch, q, k, v, True, dh ** -0.5)
+        plain = flash_fwd_plain(q, k, v, True, dh ** -0.5)
+        got = flash_fwd_cuda(q, k, v, True, dh ** -0.5)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = flash_fwd_plain(q, k, v, True, dh ** -0.5)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+        def err(a, b):
+            return {"o": _max_err(a[0], b[0]), "lse": _max_err(a[1], b[1])}
+        rows.append({"phase": "k1_tf32_control", "bh": bh, "t": t, "dh": dh,
+                     "causal": True, "witness": "float64",
+                     "tol": {"atol": 1e-5}, "kernel_err": err(got, exact),
+                     "plain_f32_err": err(plain, exact),
+                     "one_tf32_pass_err": err(tf32, exact),
+                     "kernel_vs_plain_f32": err(got, plain)})
+        emit(rows[-1])
+    check(all(max(r["kernel_err"].values()) <= 1e-5
+              < min(r["one_tf32_pass_err"].values()) for r in rows),
+          f"the f32 K1 is not held apart from one TF32 pass: {rows}")
+
+
+def attention_float64(torch, q, k, v, causal, scale):
+    """Attention's (O, lse) computed in float64 on (BH, T, Dh) inputs: the
+    witness the f32 versions are measured from."""
+    s = torch.matmul(q.double(), k.double().transpose(1, 2)) * scale
+    if causal:
+        s = s.masked_fill(torch.ones(s.shape[-2:], dtype=torch.bool,
+                                     device=s.device).triu(1), float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
+    return torch.matmul(torch.exp(s - lse[..., None]), v.double()), lse
+
+
+def _refuses_head_dim_257(torch):
+    """K1, K2 and K3 refuse a head dim past 256 (their tiles and shared
+    memory are sized for Dh <= 256), launching nothing."""
     from distkeras_tpu_torch.ops.flash_attention import (
         flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda)
-    x = torch.zeros((2, 64, 129), device="cuda")
+    x = torch.zeros((2, 64, 257), device="cuda")
     lse = torch.zeros((2, 64), device="cuda")
     for fn, args in ((flash_fwd_cuda, (x, x, x)),
                      (flash_bwd_dq_cuda, (x, x, x, lse, x, lse)),
@@ -471,9 +562,9 @@ def _refuses_head_dim_129(torch):
             fn(*args, True, 0.1)
             refused = False
         except ValueError as e:
-            refused = "head dim 129 > 128" in str(e)
+            refused = "head dim 257 > 256" in str(e)
         check(refused and fn.launches == before,
-              f"{fn.__name__} did not refuse head dim 129")
+              f"{fn.__name__} did not refuse head dim 257")
 
 
 def _k1_check(torch, ref, got, dtype_name, causal, bh, tq, tk, dh):
@@ -537,7 +628,7 @@ def serve_traffic(model, prompts, window=None):
 def phase_slice(torch, model, prompts):
     """Serve 8 greedy requests on the card and hold them to the checks."""
     import numpy as np
-    from distkeras_tpu_torch.models import generate_tokens, zoo
+    from distkeras_tpu_torch.models import zoo
     from distkeras_tpu_torch.ops.flash_attention import flash_fwd_cuda
 
     registry, reqs, wall, warmup_launches, served_launches = serve_traffic(
@@ -548,22 +639,7 @@ def phase_slice(torch, model, prompts):
 
     # (a) each answer against the port's generate_tokens on the card
     flash_fwd_cuda.launches = 0
-    mismatches = []
-    for i, (p, m, got) in enumerate(zip(prompts, MAX_NEW, answers)):
-        ref = generate_tokens(model, p[None, :], m)[0, len(p):].cpu().numpy()
-        check(got.shape == ref.shape, f"request {i}: {got.shape} tokens, "
-              f"expected {ref.shape}")
-        diff = np.nonzero(got != ref)[0]
-        if diff.size:
-            step = int(diff[0])
-            seq = torch.as_tensor(np.concatenate([p, ref]))[None].cuda()
-            with torch.no_grad():
-                logits = model(seq)[0, len(p) - 1 + step]
-            top2 = torch.topk(logits, 2).values
-            gap = float(top2[0] - top2[1])
-            mismatches.append({"request": i, "step": step, "gap": gap})
-            check(gap < 1e-4, f"request {i} differs from generate_tokens at "
-                  f"step {step} where the top-2 gap is {gap}")
+    mismatches = _answers_match(torch, model, prompts, answers)
     reference_launches = flash_fwd_cuda.launches
 
     # (b) flash vs dense first-token logits on the same weights
@@ -604,6 +680,31 @@ def phase_slice(torch, model, prompts):
            "jit_compiles": int(snap["jit.compiles"]["value"])}
     emit(row)
     return row
+
+
+def _answers_match(torch, model, prompts, answers):
+    """Each served answer against the port's ``generate_tokens`` on the
+    card (``MAX_NEW`` tokens a request): a mismatch is allowed only where
+    the reference's top-2 logit gap is < 1e-4.  Returns the mismatches."""
+    import numpy as np
+    from distkeras_tpu_torch.models import generate_tokens
+    mismatches = []
+    for i, (p, m, got) in enumerate(zip(prompts, MAX_NEW, answers)):
+        ref = generate_tokens(model, p[None, :], m)[0, len(p):].cpu().numpy()
+        check(got.shape == ref.shape, f"request {i}: {got.shape} tokens, "
+              f"expected {ref.shape}")
+        diff = np.nonzero(got != ref)[0]
+        if diff.size:
+            step = int(diff[0])
+            seq = torch.as_tensor(np.concatenate([p, ref]))[None].cuda()
+            with torch.no_grad():
+                logits = model(seq)[0, len(p) - 1 + step]
+            top2 = torch.topk(logits, 2).values
+            gap = float(top2[0] - top2[1])
+            mismatches.append({"request": i, "step": step, "gap": gap})
+            check(gap < 1e-4, f"request {i} differs from generate_tokens at "
+                  f"step {step} where the top-2 gap is {gap}")
+    return mismatches
 
 
 def phase_profile(torch, model, prompts):
@@ -681,6 +782,12 @@ def phase_k2k3(torch):
               for causal in (True, False)]
     cases += [(dtype, False, 8, 100, 256, dh)
               for dtype in ("float32", "bfloat16") for dh in PAD_HEAD_DIMS]
+    # head dims past 128, on CUDA cores
+    cases += [(dtype, causal, 8, 257, 257, dh)
+              for dtype in ("float32", "bfloat16") for dh in WIDE_HEAD_DIMS
+              for causal in (True, False)]
+    cases += [(dtype, False, 8, 100, 256, dh)
+              for dtype in ("float32", "bfloat16") for dh in WIDE_HEAD_DIMS]
     rows = []
     for dtype_name, causal, bh, tq, tk, dh in cases:
         args = inputs(getattr(torch, dtype_name), bh, tq, tk, dh, causal)
@@ -703,7 +810,8 @@ def phase_k2k3(torch):
 
     # times at the training shapes: the probe's (Dh 64) in both dtypes,
     # then Dh 128 (bf16, the dim-1024 model's; f32 beside it), then at
-    # B*H 256 the padded Dh 16 and 96 beside Dh 32
+    # B*H 256 the padded Dh 16 and 96 beside Dh 32, then the dim-2048
+    # model's Dh 256 with 192 beside it (B*H 128)
     timed = []
     for dtype_name, bh, dh in (("bfloat16", TRAIN_BH, TRAIN_DH),
                                ("float32", TRAIN_BH, TRAIN_DH),
@@ -711,6 +819,9 @@ def phase_k2k3(torch):
                                ("float32", DH128_BH, 128),
                                *((dtype, DH128_BH, dh)
                                  for dh in (16, 32, 96)
+                                 for dtype in ("bfloat16", "float32")),
+                               *((dtype, DH256_BH, dh)
+                                 for dh in (192, 256)
                                  for dtype in ("bfloat16", "float32"))):
         dtype = getattr(torch, dtype_name)
         args = inputs(dtype, bh, TRAIN_T, TRAIN_T, dh, True)
@@ -950,6 +1061,113 @@ def phase_lm128(torch):
            "samples_per_s": rec["samples_per_sec"],
            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
            "launches": launches}
+    emit(row)
+    return row
+
+
+def phase_lm256(torch):
+    """``gpt_lm`` at ``mfu.py``'s ``--dim 2048`` (8 heads of Dh 256, which
+    K1, K2 and K3 take on CUDA cores): (a) bf16, trained by
+    ``SingleTrainer``, 2 epochs of 4 steps at batch 16: the loss falls;
+    (b) f32, flash and dense twins from seed 0, 2 steps at batch 16:
+    per-step losses within rtol 1e-4 and every trained parameter within
+    atol 1e-4; (c) f32, 4 greedy requests served by ``DecodeEngine``:
+    every answer equals ``generate_tokens`` on the card.  K1, K2 and K3
+    launch exactly once per block per step, K1 once per block per cold
+    join."""
+    import numpy as np
+    from distkeras_tpu_torch import SingleTrainer
+    from distkeras_tpu_torch.data import load_lm_corpus
+    from distkeras_tpu_torch.models import zoo
+    from distkeras_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda)
+    kernels = {"flash_fwd": flash_fwd_cuda,
+               "flash_bwd_dq": flash_bwd_dq_cuda,
+               "flash_bwd_dkv": flash_bwd_dkv_cuda}
+    blocks = LM256["num_blocks"]
+
+    def corpus(n):
+        return load_lm_corpus(n_train=n, seq_len=LM256["seq_len"],
+                              vocab_size=LM256["vocab_size"])[0]
+
+    def counts():
+        return {n: k.launches for n, k in kernels.items()}
+
+    # (a) bf16: this path's counts set to 0 just before, read just after
+    batch, steps, epochs = 16, 4, 2
+    t = SingleTrainer(zoo.gpt_lm(**LM256), "sgd", SCE, batch_size=batch,
+                      learning_rate=0.1, compute_dtype="bfloat16",
+                      num_epoch=epochs)
+    ds = corpus(batch * steps)
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    t.train(ds)
+    launches = counts()
+    hist = t.get_averaged_history()
+    check(all(bool(np.isfinite(h).all()) for h in t.get_history()),
+          "a dim-2048 training loss is not finite")
+    check(hist[-1] < hist[0], f"the dim-2048 loss did not fall: {hist}")
+    want = blocks * steps * epochs
+    check(all(n == want for n in launches.values()),
+          f"dim-2048 launches {launches} != {want} each")
+    rec = [r for r in t.metrics.records if r["event"] == "epoch"][-1]
+    peak = torch.cuda.max_memory_allocated()
+    del t
+
+    # (b) f32, flash against dense: 2 steps of batch 16 from seed 0
+    ds = corpus(2 * batch)
+    runs, f32_launches = {}, None
+    for impl in ("flash", "dense"):
+        t = SingleTrainer(zoo.gpt_lm(**{**LM256, "attention_impl": impl}),
+                          "sgd", SCE, batch_size=batch, num_epoch=1,
+                          learning_rate=0.1)
+        for k in kernels.values():
+            k.launches = 0
+        t.train(ds)
+        if impl == "flash":
+            f32_launches = counts()
+        runs[impl] = (np.concatenate(t.get_history()),
+                      _leaves(t.trained_variables))
+        del t
+    (fl, fp), (dl, dp) = runs["flash"], runs["dense"]
+    loss_rel = float(np.max(np.abs(fl - dl) / np.abs(dl)))
+    param_err = max(float(np.max(np.abs(a - b))) for a, b in zip(fp, dp))
+    check(fl.shape == (2,) and loss_rel <= 1e-4,
+          f"dim-2048 f32 flash vs dense losses differ: {fl} vs {dl}")
+    check(param_err <= 1e-4,
+          f"dim-2048 f32 flash vs dense parameters differ by {param_err}")
+    check(all(n == blocks * 2 for n in f32_launches.values()),
+          f"dim-2048 f32 launches {f32_launches} != {blocks * 2} each")
+    del runs, fp, dp
+
+    # (c) f32 serving: 4 greedy requests, the first 4 of PROMPT_LENS
+    model = zoo.gpt_lm(**LM256).init(seed=0)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, LM256["vocab_size"], size=n)
+               for n in PROMPT_LENS[:4]]
+    registry, reqs, wall, _, served = serve_traffic(model, prompts)
+    mismatches = _answers_match(torch, model, prompts,
+                                [r.result() for r in reqs])
+    joins = int(registry.snapshot()["serve.joins"]["value"])
+    check(joins == len(prompts) and served == blocks * joins,
+          f"dim-2048 flash_fwd launches {served} != {blocks} x {joins} "
+          f"joins")
+    row = {"phase": "lm256", "model": LM256, "head_dim": 256,
+           "train": {"batch_size": batch, "steps_per_epoch": steps,
+                     "epochs": epochs, "compute_dtype": "bfloat16",
+                     "epoch_mean_loss": hist.tolist(),
+                     "step_ms": 1e3 * rec["epoch_seconds"] / steps,
+                     "samples_per_s": rec["samples_per_sec"],
+                     "peak_memory_bytes": peak, "launches": launches},
+           "parity_f32": {"losses_flash": fl.tolist(),
+                          "losses_dense": dl.tolist(),
+                          "loss_max_rel_err": loss_rel,
+                          "param_max_abs_err": param_err,
+                          "launches": f32_launches},
+           "serve": {"requests": len(reqs), "joins": joins,
+                     "launches": served, "wall_s": wall,
+                     "mismatches": mismatches}}
     emit(row)
     return row
 
@@ -1476,6 +1694,120 @@ def phase_dist(torch):
     return rows, parity, launches
 
 
+#: K1's and K2/K3's CUDA kernels, one entry each in the ``kernels`` line:
+#: (name, source under distkeras_tpu_torch/ops/csrc, route (``k1_route``,
+#: ``bwd_route``), the wrapper it launches from, the line of
+#: distkeras_tpu/ops/pallas_attention.py it replaces)
+CUDA_KERNELS = (
+    ("flash_fwd", "flash_fwd_sm90.cu", "wgmma", "flash_fwd", 83),
+    ("flash_fwd_f32", "flash_fwd_tf32_sm90.cu", "tf32", "flash_fwd", 83),
+    ("flash_fwd_cuda_cores", "flash_fwd.cu", "cuda_cores", "flash_fwd", 83),
+    ("flash_bwd_dq", "flash_bwd_sm90.cu", "wgmma", "flash_bwd_dq", 169),
+    ("flash_bwd_dq_f32", "flash_bwd_tf32_sm90.cu", "tf32", "flash_bwd_dq",
+     169),
+    ("flash_bwd_dq_wide", "flash_bwd_wide.cu", "cuda_cores", "flash_bwd_dq",
+     169),
+    ("flash_bwd_dkv", "flash_bwd_sm90.cu", "wgmma", "flash_bwd_dkv", 200),
+    ("flash_bwd_dkv_f32", "flash_bwd_tf32_sm90.cu", "tf32", "flash_bwd_dkv",
+     200),
+    ("flash_bwd_dkv_wide", "flash_bwd_wide.cu", "cuda_cores",
+     "flash_bwd_dkv", 200),
+)
+
+
+def k1_route(dtype, bh, tq, dh, sms):
+    """The kernel ``dkt_flash_fwd`` runs for a case: bf16 up to Dh 128 on
+    wgmma; f32 up to 128 as 3xTF32 where 64-row query tiles give at least
+    two blocks an SM, on CUDA cores where they do not; both dtypes past
+    128 on CUDA cores."""
+    if dh > 128:
+        return "cuda_cores"
+    if dtype == "bfloat16":
+        return "wgmma"
+    return "tf32" if bh * -(-tq // 64) >= 2 * sms else "cuda_cores"
+
+
+def bwd_route(dtype, dh):
+    """The kernel K2 and K3 run: up to Dh 128 wgmma (bf16) or 3xTF32
+    (f32), past 128 CUDA cores."""
+    if dh > 128:
+        return "cuda_cores"
+    return "wgmma" if dtype == "bfloat16" else "tf32"
+
+
+def kernels_line(k1, sl, tr, lm128, lm256, dist_launches, bwd_rows,
+                 bwd_timed, sms):
+    """The ``kernels`` line: one entry per CUDA kernel, with its launches
+    on the main paths (each path's counts were set to 0 just before it ran
+    and read just after; a kernel's paths are those its dtype, head dim and
+    grid route to it), its largest error against the plain version over
+    every checked case it ran, and its headline timed row (the training
+    shape of its main path) with the other timed shapes it ran."""
+    timing = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    # launches by path and route: bf16 (the probe, lm128, distributed
+    # ADAG) on wgmma; the f32 parity run (B*H 128) as 3xTF32; served
+    # traffic (f32, Dh 64, B*H 8) and lm256 (Dh 256) on CUDA cores
+    paths = {
+        "wgmma": lambda w: {"train": tr["launches"][w],
+                            "train_dh128": lm128["launches"][w],
+                            "dist_adag": dist_launches[w]},
+        "tf32": lambda w: {"train_f32": tr["parity_f32"]["launches"][w]},
+        "cuda_cores": lambda w: {
+            "serve": sl["launches"]["served"] if w == "flash_fwd" else 0,
+            "lm256_train": lm256["train"]["launches"][w],
+            "lm256_train_f32": lm256["parity_f32"]["launches"][w],
+            "lm256_serve": lm256["serve"]["launches"]
+            if w == "flash_fwd" else 0}}
+    kernels = []
+    for name, src, route, wrapper, line in CUDA_KERNELS:
+        if wrapper == "flash_fwd":
+            def ran(r):
+                return k1_route(r["dtype"], r["bh"], r["tq"], r["dh"],
+                                sms) == route
+            checked = [(r, ("max_abs_err",)) for r in k1]
+            timed = [{**{k: r[k] for k in ("dtype", "bh", "tq", "dh")},
+                      **{k: r[k] for k in timing}}
+                     for r in k1 if "ms" in r and ran(r)]
+        else:
+            def ran(r):
+                return bwd_route(r["dtype"], r["dh"]) == route
+            key = "dq" if wrapper == "flash_bwd_dq" else "dkv"
+            errs = ("dq_err",) if key == "dq" else ("dk_err", "dv_err")
+            checked = [(r, errs) for r in bwd_rows]
+            # the plain version computes dQ, dK and dV in one call, and so
+            # does SDPA's backward (K2 and K3 together)
+            timed = [{"dtype": r["dtype"], "bh": r["bh"], "tq": r["t"],
+                      "dh": r["dh"], "ms": r[f"{key}_ms"],
+                      "tflops": r[f"{key}_tflops"],
+                      "plain_ms": r["plain_ms"],
+                      "library_ms": r["library_bwd_ms"],
+                      "bound_ms": r[f"{key}_bound_ms"],
+                      "bound_by": r[f"{key}_bound_by"]}
+                     for r in bwd_timed if ran(r)]
+        errs = [r[e] for r, es in checked if ran(r) for e in es]
+        # the headline: the training shape of the kernel's main path (the
+        # probe's at Dh 64; lm256's at Dh 256 on CUDA cores)
+        head = next(r for r in timed
+                    if r["dtype"] == ("float32" if route == "tf32"
+                                      else "bfloat16")
+                    and r["dh"] == (256 if route == "cuda_cores"
+                                    else TRAIN_DH))
+        by_path = paths[route](wrapper)
+        entry = {"name": name, "route": "cuda",
+                 "source": f"distkeras_tpu_torch/ops/csrc/{src}",
+                 "replaces": f"distkeras_tpu/ops/pallas_attention.py:{line}",
+                 "kernel_route": route, "wrapper": wrapper,
+                 "launches": sum(by_path.values()),
+                 "launches_by_path": by_path,
+                 "max_abs_err": max(errs), "checked_cases": len(errs),
+                 "shape": {k: head[k] for k in ("dtype", "bh", "tq", "dh")},
+                 **{k: head[k] for k in timing}, "timed": timed}
+        check(entry["launches"] > 0,
+              f"{name} was not launched on its main paths: {by_path}")
+        kernels.append(entry)
+    return kernels
+
+
 def _wait_first_token(req, timeout):
     t_end = time.perf_counter() + timeout
     while req.first_token_t is None and time.perf_counter() < t_end:
@@ -1506,119 +1838,16 @@ def main() -> int:
         bwd_rows, bwd_timed = phase_k2k3(torch)
         tr = phase_train(torch)
         lm128 = phase_lm128(torch)
+        lm256 = phase_lm256(torch)
         phase_conv(torch)
         phase_models(torch)
         _, _, dist_launches = phase_dist(torch)
+        kernels = kernels_line(
+            k1, sl, tr, lm128, lm256, dist_launches, bwd_rows, bwd_timed,
+            torch.cuda.get_device_properties(0).multi_processor_count)
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1
-    # K1's two routes: bf16 on tensor cores (the training path, headline
-    # at the probe's training shape) and f32 on CUDA cores (the serving
-    # path, timed at the serving shapes; its headline is T = 512), each
-    # also checked and timed at both training shapes
-    timed = [r for r in k1 if "ms" in r]
-    bf = next(r for r in timed if r["dtype"] == "bfloat16"
-              and r["bh"] == TRAIN_BH and r["dh"] == TRAIN_DH)
-    serve = [r for r in timed if r["dtype"] == "float32" and r["bh"] == 8]
-    fp = next(r for r in serve if r["tq"] == 512)
-    f32 = [r["max_abs_err"] for r in k1 if r["dtype"] == "float32"]
-    bf16 = [r["max_abs_err"] for r in k1 if r["dtype"] == "bfloat16"]
-    timing = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
-    shape = ("bh", "tq", "tk", "dh", "dtype", "causal")
-
-    def k1_rows(bh, dims):
-        return [{**{k: r[k] for k in shape + timing},
-                 "max_abs_err": r["max_abs_err"]}
-                for r in timed if r["bh"] == bh and r["dh"] in dims]
-    # the head-dim-128 training shape's K2/K3 rows (bf16, f32), and the
-    # padded head dims beside the size they run as, at B*H 256
-    dh128 = [r for r in bwd_timed if r["dh"] == 128]
-    bwd_pad = [r for r in bwd_timed if r["dh"] in (16, 32, 96)]
-    kernels = [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "distkeras_tpu_torch/ops/csrc/flash_fwd_sm90.cu",
-        "replaces": "distkeras_tpu/ops/pallas_attention.py:83",
-        "replaces_kernel": "_fwd_kernel",
-        "launches": sl["launches"]["served"] + tr["launches"]["flash_fwd"]
-        + lm128["launches"]["flash_fwd"] + dist_launches["flash_fwd"],
-        "launches_by_path": {"serve": sl["launches"]["served"],
-                             "train": tr["launches"]["flash_fwd"],
-                             "train_f32": tr["parity_f32"]["launches"][
-                                 "flash_fwd"],
-                             "train_dh128": lm128["launches"]["flash_fwd"],
-                             "dist_adag": dist_launches["flash_fwd"]},
-        "max_abs_err": max(f32 + bf16), "max_err_f32": max(f32),
-        "max_err_bf16": max(bf16),
-        "shape": {k: bf[k] for k in shape},
-        # device time per call from the profiler (``ms`` and
-        # ``kernel_ms`` name the same number)
-        **{k: bf[k] for k in timing}, "kernel_ms": bf["ms"],
-        "routes": [
-            {"dtype": "bfloat16", "route": "cuda", "path": "train",
-             "source": "distkeras_tpu_torch/ops/csrc/flash_fwd_sm90.cu",
-             "launches": tr["launches"]["flash_fwd"]},
-            {"dtype": "float32", "route": "cuda", "path": "serve",
-             "source": "distkeras_tpu_torch/ops/csrc/flash_fwd.cu",
-             "launches": sl["launches"]["served"]}],
-        "f32": {"source": "distkeras_tpu_torch/ops/csrc/flash_fwd.cu",
-                "shape": {k: fp[k] for k in shape},
-                **{k: fp[k] for k in timing},
-                "serving": [{"tq": r["tq"], **{k: r[k] for k in timing}}
-                            for r in serve]},
-        "train_shape": k1_rows(TRAIN_BH, (TRAIN_DH,)),
-        "train_shape_dh128": k1_rows(DH128_BH, (128,)),
-        "padded_head_dims": k1_rows(DH128_BH, (16, 32, 96))}]
-    for name, kern, ms_key, errs, src_line in (
-            ("flash_bwd_dq", "_bwd_dq_kernel", "dq", ("dq_err",), 169),
-            ("flash_bwd_dkv", "_bwd_dkv_kernel", "dkv",
-             ("dk_err", "dv_err"), 200)):
-        f32 = [r[e] for r in bwd_rows for e in errs
-               if r["dtype"] == "float32"]
-        bf16 = [r[e] for r in bwd_rows for e in errs
-                if r["dtype"] == "bfloat16"]
-        bf, fp = bwd_timed[:2]
-        kernels.append({
-            "name": name, "route": "cuda",
-            # the main path trains in bf16: the tensor-core kernels
-            "source": "distkeras_tpu_torch/ops/csrc/flash_bwd_sm90.cu",
-            "replaces": f"distkeras_tpu/ops/pallas_attention.py:{src_line}",
-            "replaces_kernel": kern,
-            "launches": tr["launches"][name] + lm128["launches"][name]
-            + dist_launches[name],
-            "launches_by_path": {
-                "serve": 0, "train": tr["launches"][name],
-                "train_f32": tr["parity_f32"]["launches"][name],
-                "train_dh128": lm128["launches"][name],
-                "dist_adag": dist_launches[name]},
-            "max_abs_err": max(f32 + bf16), "max_err_f32": max(f32),
-            "max_err_bf16": max(bf16),
-            "shape": {"bh": bf["bh"], "tq": bf["t"], "tk": bf["t"],
-                      "dh": bf["dh"], "dtype": bf["dtype"], "causal": True},
-            "ms": bf[f"{ms_key}_ms"], "kernel_ms": bf[f"{ms_key}_ms"],
-            "tflops": bf[f"{ms_key}_tflops"],
-            # the plain version computes dQ, dK and dV in one call
-            "plain_ms": bf["plain_ms"],
-            # SDPA's backward: one call for K2 and K3 together
-            "library_ms": bf["library_bwd_ms"],
-            "bound_ms": bf[f"{ms_key}_bound_ms"],
-            "bound_by": bf[f"{ms_key}_bound_by"],
-            "f32": {"source":
-                    "distkeras_tpu_torch/ops/csrc/flash_bwd_tf32_sm90.cu",
-                    "ms": fp[f"{ms_key}_ms"],
-                    "tflops": fp[f"{ms_key}_tflops"],
-                    "plain_ms": fp["plain_ms"],
-                    "library_ms": fp["library_bwd_ms"],
-                    "bound_ms": fp[f"{ms_key}_bound_ms"],
-                    "bound_by": fp[f"{ms_key}_bound_by"]},
-            **{key: [
-                {"dtype": r["dtype"], "bh": r["bh"], "t": r["t"],
-                 "dh": r["dh"], "ms": r[f"{ms_key}_ms"],
-                 "tflops": r[f"{ms_key}_tflops"], "plain_ms": r["plain_ms"],
-                 "library_ms": r["library_bwd_ms"],
-                 "bound_ms": r[f"{ms_key}_bound_ms"],
-                 "bound_by": r[f"{ms_key}_bound_by"]} for r in rows]
-               for key, rows in (("train_shape_dh128", dh128),
-                                 ("padded_head_dims", bwd_pad))}})
     emit({"kernels": kernels})
     print(env["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

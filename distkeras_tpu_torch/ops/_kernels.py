@@ -1,12 +1,16 @@
 """Build and load the flash-attention kernels: ``nvcc`` → one shared
 library with a plain C interface → ``ctypes``.
 
-``csrc/flash_fwd.cu`` (K1 in f32, and the C interface of both dtypes),
-``csrc/flash_fwd_sm90.cu`` (K1 in bf16), ``csrc/flash_bwd.cu`` (the C
-interface of K2, K3), ``csrc/flash_bwd_tf32_sm90.cu`` (K2, K3 in f32, as
-3xTF32 on mma.sync) and ``csrc/flash_bwd_sm90.cu`` (K2, K3 in bf16; the
-``_sm90`` files include ``csrc/sm90.cuh``, their shared PTX and
-tensor-map helpers) compile in parallel, one ``nvcc`` each, and link
+``csrc/flash_fwd.cu`` (the C interface of K1 in both dtypes, and K1 on
+CUDA cores for head dims 129-256), ``csrc/flash_fwd_tf32_sm90.cu`` (K1 in
+f32, as 3xTF32 on mma.sync), ``csrc/flash_fwd_sm90.cu`` (K1 in bf16),
+``csrc/flash_bwd.cu`` (the C interface of K2, K3),
+``csrc/flash_bwd_tf32_sm90.cu`` (K2, K3 in f32, as 3xTF32 on mma.sync),
+``csrc/flash_bwd_sm90.cu`` (K2, K3 in bf16) and ``csrc/flash_bwd_wide.cu``
+(K2, K3 on CUDA cores for head dims 129-256; the ``_sm90`` files include
+``csrc/sm90.cuh``, their shared PTX and tensor-map helpers, and the
+``_tf32_`` ones ``csrc/tf32.cuh``, the 3xTF32 pieces) compile in
+parallel, one ``nvcc`` each, and link
 into ``distkeras_tpu_torch/_build/`` (listed in ``.gitignore``) under a
 name keyed by a hash of every file under ``csrc/`` and the flags, so a
 changed source or header rebuilds and an unchanged tree is reused.
@@ -28,9 +32,10 @@ from typing import Optional
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = tuple(os.path.join(_CSRC, f)
-                for f in ("flash_fwd.cu", "flash_fwd_sm90.cu",
-                          "flash_bwd.cu", "flash_bwd_tf32_sm90.cu",
-                          "flash_bwd_sm90.cu"))
+                for f in ("flash_fwd.cu", "flash_fwd_tf32_sm90.cu",
+                          "flash_fwd_sm90.cu", "flash_bwd.cu",
+                          "flash_bwd_tf32_sm90.cu", "flash_bwd_sm90.cu",
+                          "flash_bwd_wide.cu"))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "_build")
 

@@ -1,8 +1,10 @@
 // Flash-attention backward, the C interface: K2 (dQ) and K3 (dK, dV) for
-// both dtypes.  The kernels live beside it, on Hopper's tensor cores
-// (sm_90a): f32 as 3xTF32 on mma.sync in flash_bwd_tf32_sm90.cu, bf16 on
-// wgmma and TMA in flash_bwd_sm90.cu.  This file checks the arguments,
-// sets the device and picks the kernel for (dtype, head dim).
+// both dtypes.  The kernels live beside it: for head dims 32, 64 and 128
+// on Hopper's tensor cores (sm_90a), f32 as 3xTF32 on mma.sync in
+// flash_bwd_tf32_sm90.cu and bf16 on wgmma and TMA in flash_bwd_sm90.cu;
+// for 128 < Dh <= 256 on CUDA cores in flash_bwd_wide.cu.  This file
+// checks the arguments, sets the device and picks the kernel for (dtype,
+// head dim).
 //
 // Replaces: distkeras_tpu/ops/pallas_attention.py:_bwd_dq_kernel (K2) and
 // _bwd_dkv_kernel (K3), the Pallas TPU kernels launched by
@@ -41,14 +43,26 @@ cudaError_t flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                const void* dvec, void* dk, void* dv, int bh,
                                int tq, int tk, int head_dim, int causal,
                                float scale, cudaStream_t stream);
+// the CUDA-core kernels for 128 < head_dim <= 256 (flash_bwd_wide.cu)
+cudaError_t flash_bwd_dq_wide(const void* q, const void* k, const void* v,
+                              const void* dout, const void* lse,
+                              const void* dvec, void* dq, int bh, int tq,
+                              int tk, int head_dim, int causal, float scale,
+                              int dtype, cudaStream_t stream);
+cudaError_t flash_bwd_dkv_wide(const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse,
+                               const void* dvec, void* dk, void* dv, int bh,
+                               int tq, int tk, int head_dim, int causal,
+                               float scale, int dtype, cudaStream_t stream);
 
 namespace {
 
 struct BwdArgs {
   const void *q, *k, *v, *dout, *lse, *dvec;
   void *dq, *dk, *dv;
-  int bh, tq, tk, causal;
+  int bh, tq, tk, head_dim, causal;
   float scale;
+  int dtype;
 };
 
 template <int D>
@@ -75,15 +89,30 @@ cudaError_t launch_dkv_bf16(const BwdArgs& a, cudaStream_t stream) {
                             a.bh, a.tq, a.tk, D, a.causal, a.scale, stream);
 }
 
+cudaError_t launch_dq_wide(const BwdArgs& a, cudaStream_t stream) {
+  return flash_bwd_dq_wide(a.q, a.k, a.v, a.dout, a.lse, a.dvec, a.dq, a.bh,
+                           a.tq, a.tk, a.head_dim, a.causal, a.scale, a.dtype,
+                           stream);
+}
+
+cudaError_t launch_dkv_wide(const BwdArgs& a, cudaStream_t stream) {
+  return flash_bwd_dkv_wide(a.q, a.k, a.v, a.dout, a.lse, a.dvec, a.dk, a.dv,
+                            a.bh, a.tq, a.tk, a.head_dim, a.causal, a.scale,
+                            a.dtype, stream);
+}
+
 using Launcher = cudaError_t (*)(const BwdArgs&, cudaStream_t);
 
 // The launcher for (dtype, head_dim), or nullptr.  Order of `table`:
-// (f32, 32), (f32, 64), (f32, 128), (bf16, 32), (bf16, 64), (bf16, 128).
-Launcher pick(const Launcher (&table)[6], int dtype, int head_dim) {
+// (f32, 32), (f32, 64), (f32, 128), (bf16, 32), (bf16, 64), (bf16, 128);
+// `wide` takes 128 < head_dim <= 256 in either dtype.
+Launcher pick(const Launcher (&table)[6], Launcher wide, int dtype,
+              int head_dim) {
+  if (dtype != 0 && dtype != 1) return nullptr;
+  if (head_dim > 128 && head_dim <= 256) return wide;
   const int d = head_dim == 32 ? 0 : head_dim == 64 ? 1 : head_dim == 128 ? 2
                                                                           : -1;
-  if ((dtype != 0 && dtype != 1) || d < 0) return nullptr;
-  return table[3 * dtype + d];
+  return d < 0 ? nullptr : table[3 * dtype + d];
 }
 
 int run(Launcher f, const BwdArgs& a, int device, void* stream) {
@@ -98,10 +127,11 @@ int run(Launcher f, const BwdArgs& a, int device, void* stream) {
 }  // namespace
 
 // q and dout: (bh, tq, head_dim); k and v: (bh, tk, head_dim); all
-// contiguous and 16-byte aligned (the kernels load tiles by cp.async or
-// TMA), of dtype 0 (float32) or 1 (bfloat16); lse and dvec: (bh, tq)
-// float32.  dq is written like q.  Launches on `stream` of `device` and
-// returns cudaGetLastError() after the launch (0 on success).
+// contiguous and 16-byte aligned (the tensor-core kernels load tiles by
+// cp.async or TMA), of dtype 0 (float32) or 1 (bfloat16); head_dim 32, 64,
+// 128 or 129-256; lse and dvec: (bh, tq) float32.  dq is written like q.
+// Launches on `stream` of `device` and returns cudaGetLastError() after the
+// launch (0 on success).
 extern "C" int dkt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* dvec, void* dq, int bh, int tq,
@@ -111,8 +141,9 @@ extern "C" int dkt_flash_bwd_dq(const void* q, const void* k, const void* v,
       launch_dq_f32<32>,  launch_dq_f32<64>,  launch_dq_f32<128>,
       launch_dq_bf16<32>, launch_dq_bf16<64>, launch_dq_bf16<128>};
   const BwdArgs a{q, k, v, dout, lse, dvec, dq, nullptr, nullptr,
-                  bh, tq, tk, causal, scale};
-  return run(pick(table, dtype, head_dim), a, device, stream);
+                  bh, tq, tk, head_dim, causal, scale, dtype};
+  return run(pick(table, launch_dq_wide, dtype, head_dim), a, device,
+             stream);
 }
 
 // As dkt_flash_bwd_dq; dk and dv are written like k and v.
@@ -126,6 +157,7 @@ extern "C" int dkt_flash_bwd_dkv(const void* q, const void* k, const void* v,
       launch_dkv_f32<32>,  launch_dkv_f32<64>,  launch_dkv_f32<128>,
       launch_dkv_bf16<32>, launch_dkv_bf16<64>, launch_dkv_bf16<128>};
   const BwdArgs a{q, k, v, dout, lse, dvec, nullptr, dk, dv,
-                  bh, tq, tk, causal, scale};
-  return run(pick(table, dtype, head_dim), a, device, stream);
+                  bh, tq, tk, head_dim, causal, scale, dtype};
+  return run(pick(table, launch_dkv_wide, dtype, head_dim), a, device,
+             stream);
 }

@@ -1,41 +1,65 @@
 // Flash-attention forward for Hopper (sm_90a), with a plain C interface:
-// K1.  This file holds the f32 kernel and the entry point for both
-// dtypes; bf16 goes to the tensor-core kernel of flash_fwd_sm90.cu.
+// K1.  This file holds the entry point for both dtypes and the CUDA-core
+// kernel; the tensor-core kernels are beside it: f32 as 3xTF32 on
+// mma.sync (flash_fwd_tf32_sm90.cu), bf16 on wgmma and TMA
+// (flash_fwd_sm90.cu).
 //
 // Replaces: distkeras_tpu/ops/pallas_attention.py:_fwd_kernel, the Pallas
 // TPU kernel launched by _flash_fwd_raw.  Same function: for every
 // (batch*head, query row) it streams the keys in tiles with the online
 // softmax -- S = scale * Q K^T, causal mask k_pos <= q_pos with the tiles
 // past the diagonal skipped, O = softmax(S) V, lse = m + log(l) -- and
-// writes O in the input dtype and lse in f32.  Causal needs Tq == Tk;
-// non-causal takes Tq != Tk.  The f32 kernel here computes with f32 FMAs
-// (the JAX package's HIGHEST policy: no TF32, no tensor cores).
+// writes O in the input dtype and lse in f32.  In bf16, P = exp(S - m) is
+// rounded to bf16 before P V and the row sum l is taken of the unrounded
+// P, as the reference's _fwd_kernel rounds it (:111-112).  Causal needs
+// Tq == Tk; non-causal takes Tq != Tk.
+//
+// Which kernel runs (dkt_flash_fwd), by dtype, head dim and grid:
+//   - bf16, Dh 32, 64 or 128: the wgmma kernel (the wrapper pads other
+//     Dh up to 128 to the next of those);
+//   - f32, Dh <= 128, where 64-row query tiles give at least two blocks an
+//     SM (the training shapes): the 3xTF32 kernel;
+//   - f32, Dh <= 128, where they do not (the serving shapes, B*H = 8 and
+//     T <= 512): the CUDA-core kernel here with 32- or 16-row tiles, which
+//     fills the card with more, shorter blocks.  On an H100 it took
+//     0.72-0.87x the 3xTF32 kernel's time at those shapes, and the 3xTF32
+//     kernel 0.31-0.61x its time at the training shapes;
+//   - both dtypes, 128 < Dh <= 256 (the reference's BlockSpecs span any
+//     head dim): the CUDA-core kernel.
+// Both f32 kernels compute exact f32 products (the JAX package's HIGHEST
+// policy); both are held against the plain version on the card.
+//
+// The CUDA-core kernel: f32 FMAs; bf16 inputs are read as bf16 and
+// widened, with f32 products, sums and statistics.  Its tiles are D = 32,
+// 64, 128 or 256 columns wide, the columns past the caller's Dh
+// zero-filled on load and never stored, so any Dh runs on unpadded rows.
 //
 // What bounds it on this card: at the serving shapes (B*H = 8, T <= 512,
 // Dh = 64) the work is 4*T^2*Dh FLOPs per head (halved by the causal
-// skip) against 67 TFLOP/s of f32 FMA, and the bytes are one read of Q,
-// K, V and one write of O against 3.35 TB/s: bytes bound it up to
-// T = 128, operations from T = 256 (by about 3x at T = 512).  Both
-// bounds are a few microseconds at most, so what it really pays at these
-// shapes is the length of each block's serial chain of shared-memory
-// loads and FMAs, and how few blocks there are for 132 SMs.
+// skip) and the bytes are one read of Q, K, V and one write of O: bytes
+// bound it up to T = 128, operations from T = 256.  Both bounds are a few
+// microseconds at most, so what it pays there is the length of each
+// block's serial chain of shared-memory loads and FMAs, and how few blocks
+// there are for 132 SMs.  At Dh 256 (B*H = 128, T = 512, causal; gpt_lm at
+// dim 2048, 8 heads, batch 16) it does 17.2 GFLOP: 0.104 ms at the 3xTF32
+// rate (f32), 0.017 ms at bf16's; operations bound it, and FMAs on CUDA
+// cores (67 TFLOP/s) cannot come near either.  Tensor cores at those head
+// dims are later work.
 //
 // Design: one block of 128 threads per (batch*head, query tile of BM
-// rows); a loop over 64-row K/V tiles staged in shared memory; each thread
-// owns a (BM/16)x8 cell tile of S and a (BM/16)x(Dh/8) tile of O in
-// registers, with the running max and sum of its rows in f32 registers
-// (the 8 threads sharing a row reduce with warp shuffles).  BM is 64
-// where B*H*T/64 blocks already fill the card twice (the training shape)
-// and 32 or 16 where they do not (the serving shapes), which shortens each
-// block's chain and multiplies the blocks.  Every row keeps the same key
-// tiles, products and summation order whatever BM is.  The next K/V tile
-// is loaded into registers while the current one is computed.  Rows and
-// keys past the ends are masked, so any T works.  At Dh = 128 the tiles
-// are loaded without the register prefetch (O's tile doubles).  Padded shared-memory
-// strides keep every warp access free of bank conflicts.
-//
-// Later work: f32 products as 3xTF32 on wgmma.
+// rows); a loop over K/V tiles (64 rows, 32 at Dh 256) staged in shared
+// memory as f32; each thread owns a (BM/16)x(BN/8) cell tile of S and a
+// (BM/16)x(D/8) tile of O in registers, with the running max and sum of
+// its rows in f32 registers (the 8 threads sharing a row reduce with warp
+// shuffles).  BM is 32 where B*H*T/32 blocks fill the card twice and 16
+// where they do not; at Dh 256, 104 KB of shared memory at BM = 32 fit
+// two blocks an SM.  Every row keeps the same key tiles, products and
+// summation order whatever BM is.  Up to Dh 64 the next K/V tile is loaded
+// into registers while the current one is computed.  Rows and keys past
+// the ends are masked, so any T works.  Padded shared-memory strides keep
+// every warp access free of bank conflicts.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -45,30 +69,56 @@ cudaError_t flash_fwd_bf16(const void* q, const void* k, const void* v,
                            void* out, void* lse, int bh, int tq, int tk,
                            int head_dim, int causal, float scale,
                            cudaStream_t stream);
+// the f32 tensor-core kernel (flash_fwd_tf32_sm90.cu); 1 <= head_dim <= 128
+cudaError_t flash_fwd_f32(const void* q, const void* k, const void* v,
+                          void* o, void* lse, int bh, int tq, int tk,
+                          int head_dim, int causal, float scale,
+                          cudaStream_t stream);
 
 namespace {
 
-constexpr int kBlockN = 64;            // keys per tile
 constexpr int kThreads = 128;
 constexpr int kTx = 8;                 // threads across a tile's columns
 constexpr int kTy = kThreads / kTx;    // threads across its rows (16)
-constexpr int kRn = kBlockN / kTx;     // score columns per thread (8)
-constexpr int kLdp = kBlockN + 8;      // padded stride of the P tile
 
-template <int D, int BM>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * ((BM + 2 * kBlockN) * (D + 1) + BM * kLdp);
+// keys per K/V tile at tile width D
+template <int D>
+__host__ __device__ constexpr int block_n() {
+  return D > 128 ? 32 : 64;
+}
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void narrow(float* p, float x) { *p = x; }
+__device__ __forceinline__ void narrow(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+// x as the P V product reads it: itself in f32, rounded to bf16 in bf16
+__device__ __forceinline__ float as_operand(float x, float) { return x; }
+__device__ __forceinline__ float as_operand(float x, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16(x));
 }
 
 template <int D, int BM>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * ((BM + 2 * block_n<D>()) * (D + 1) +
+                          BM * (block_n<D>() + 8));
+}
+
+template <typename T, int D, int BM>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int tq, int tk, int causal,
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int tq, int tk, int dh, int causal,
                  float scale) {
   static_assert(D % kTx == 0, "head dim must be a multiple of 8");
   static_assert(BM % kTy == 0, "query tile must be a multiple of 16 rows");
-  constexpr int kRm = BM / kTy;     // rows per thread (1, 2 or 4)
+  constexpr int kBlockN = block_n<D>();  // keys per tile
+  constexpr int kRn = kBlockN / kTx;     // score columns per thread
+  constexpr int kLdp = kBlockN + 8;      // padded stride of the P tile
+  constexpr int kRm = BM / kTy;     // rows per thread (1 or 2)
   constexpr int kLd = D + 1;        // padded stride of the Q/K/V tiles
   constexpr int kRd = D / kTx;      // output columns per thread
   extern __shared__ float smem[];
@@ -82,14 +132,16 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x;
   const int tx = tid % kTx;
   const int ty = tid / kTx;
-  const float* qb = q + (size_t)bh * tq * D;
-  const float* kb = k + (size_t)bh * tk * D;
-  const float* vb = v + (size_t)bh * tk * D;
+  const T* qb = q + (size_t)bh * tq * dh;
+  const T* kb = k + (size_t)bh * tk * dh;
+  const T* vb = v + (size_t)bh * tk * dh;
 
+  // columns at or past dh (and rows past the ends) read as 0
   for (int i = tid; i < BM * D; i += kThreads) {
     const int r = i / D, c = i % D;
     const int qr = q0 + r;
-    qs[r * kLd + c] = qr < tq ? qb[(size_t)qr * D + c] : 0.f;
+    qs[r * kLd + c] = qr < tq && c < dh ? widen(qb[(size_t)qr * dh + c])
+                                        : 0.f;
   }
 
   // this thread's rows are ty + kTy*i, its columns tx + kTx*j (S) and
@@ -120,10 +172,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int it = 0; it < kLoads; ++it) {
       const int i = tid + kThreads * it;
-      const int kr = t * kBlockN + i / D;
-      const bool ok = kr < tk;
-      kn[it] = ok ? kb[(size_t)kr * D + i % D] : 0.f;
-      vn[it] = ok ? vb[(size_t)kr * D + i % D] : 0.f;
+      const int kr = t * kBlockN + i / D, c = i % D;
+      const bool ok = kr < tk && c < dh;
+      kn[it] = ok ? widen(kb[(size_t)kr * dh + c]) : 0.f;
+      vn[it] = ok ? widen(vb[(size_t)kr * dh + c]) : 0.f;
     }
   };
   if (kPrefetch && n_tiles > 0) fetch(0);
@@ -141,10 +193,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     } else {
 #pragma unroll 8
       for (int i = tid; i < kBlockN * D; i += kThreads) {
-        const int kr = k0 + i / D;
-        const bool ok = kr < tk;
-        ks[(i / D) * kLd + i % D] = ok ? kb[(size_t)kr * D + i % D] : 0.f;
-        vs[(i / D) * kLd + i % D] = ok ? vb[(size_t)kr * D + i % D] : 0.f;
+        const int kr = k0 + i / D, c = i % D;
+        const bool ok = kr < tk && c < dh;
+        ks[(i / D) * kLd + c] = ok ? widen(kb[(size_t)kr * dh + c]) : 0.f;
+        vs[(i / D) * kLd + c] = ok ? widen(vb[(size_t)kr * dh + c]) : 0.f;
       }
     }
     __syncthreads();
@@ -193,7 +245,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < kRn; ++j) {
         const float p = expf(s[i][j] - m_ref);
-        ps[row * kLdp + tx + kTx * j] = p;
+        ps[row * kLdp + tx + kTx * j] = as_operand(p, T());
         rs += p;
       }
 #pragma unroll
@@ -225,28 +277,29 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < kRm; ++i) {
     const int r = q0 + ty + kTy * i;
     if (r < tq) {
-      float* orow = o + ((size_t)bh * tq + r) * D;
+      T* orow = o + ((size_t)bh * tq + r) * dh;
 #pragma unroll
-      for (int c = 0; c < kRd; ++c) orow[tx + kTx * c] = acc[i][c] / l[i];
+      for (int c = 0; c < kRd; ++c)
+        if (tx + kTx * c < dh) narrow(&orow[tx + kTx * c], acc[i][c] / l[i]);
       if (tx == 0) lse[(size_t)bh * tq + r] = m[i] + logf(l[i]);
     }
   }
 }
 
-template <int D, int BM>
+template <typename T, int D, int BM>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int bh, int tq, int tk, int causal,
+                   void* lse, int bh, int tq, int tk, int dh, int causal,
                    float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D, BM>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<T, D, BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (tq + BM - 1) / BM);
-  flash_fwd_kernel<D, BM><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), tq, tk, causal, scale);
+  flash_fwd_kernel<T, D, BM><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+      tq, tk, dh, causal, scale);
   return cudaGetLastError();
 }
 
@@ -264,63 +317,65 @@ cudaError_t rows_per_block(int device, int bh, int tq, int* rows) {
   return cudaSuccess;
 }
 
-template <int D>
-cudaError_t launch_f32(int rows, const void* q, const void* k, const void* v,
-                       void* o, void* lse, int bh, int tq, int tk,
-                       int causal, float scale, cudaStream_t stream) {
-  switch (rows) {
-    case 16:
-      return launch<D, 16>(q, k, v, o, lse, bh, tq, tk, causal, scale,
-                           stream);
-    case 32:
-      return launch<D, 32>(q, k, v, o, lse, bh, tq, tk, causal, scale,
-                           stream);
-    default:
-      return launch<D, 64>(q, k, v, o, lse, bh, tq, tk, causal, scale,
-                           stream);
-  }
+// the CUDA-core kernel at tile width D with `rows` (16, or 32 for more)
+// query rows a block
+template <typename T, int D>
+cudaError_t launch_rows(int rows, const void* q, const void* k,
+                        const void* v, void* o, void* lse, int bh, int tq,
+                        int tk, int dh, int causal, float scale,
+                        cudaStream_t stream) {
+  return rows == 16 ? launch<T, D, 16>(q, k, v, o, lse, bh, tq, tk, dh,
+                                       causal, scale, stream)
+                    : launch<T, D, 32>(q, k, v, o, lse, bh, tq, tk, dh,
+                                       causal, scale, stream);
 }
 
 }  // namespace
 
-// q: (bh, tq, head_dim), k and v: (bh, tk, head_dim), contiguous, of
-// dtype 0 (float32) or 1 (bfloat16, 16-byte aligned for TMA); o: like q;
-// lse: (bh, tq) float32.  head_dim 32, 64 or 128.  Launches on `stream` of
-// `device` and returns cudaGetLastError() after the launch (0 on
-// success).
+// q: (bh, tq, head_dim), k and v: (bh, tk, head_dim), contiguous, from
+// 16-byte aligned addresses (the tensor-core kernels load by TMA or
+// cp.async), of dtype 0 (float32) or 1 (bfloat16); o: like q; lse:
+// (bh, tq) float32.  head_dim: float32 1-256, bfloat16 32, 64, 128 or
+// 129-256.  Launches on `stream` of `device` and returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int dkt_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int bh, int tq, int tk,
                              int head_dim, int causal, float scale,
                              int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  const bool wide = head_dim > 128 && head_dim <= 256;
+  const bool tiled = dtype == 0 ? head_dim >= 1 && head_dim <= 128
+                                : head_dim == 32 || head_dim == 64 ||
+                                      head_dim == 128;
   if (bh < 1 || tq < 1 || tk < 1 || (causal && tq != tk) ||
-      (head_dim != 32 && head_dim != 64 && head_dim != 128))
+      (dtype != 0 && dtype != 1) || !(wide || tiled))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: {
-      int rows;
-      if ((err = rows_per_block(device, bh, tq, &rows)) != cudaSuccess)
-        return (int)err;
-      switch (head_dim) {
-        case 32:
-          return (int)launch_f32<32>(rows, q, k, v, o, lse, bh, tq, tk,
-                                     causal, scale, s);
-        case 64:
-          return (int)launch_f32<64>(rows, q, k, v, o, lse, bh, tq, tk,
-                                     causal, scale, s);
-        default:
-          return (int)launch_f32<128>(rows, q, k, v, o, lse, bh, tq, tk,
-                                      causal, scale, s);
-      }
-    }
-    case 1:
-      return (int)flash_fwd_bf16(q, k, v, o, lse, bh, tq, tk, head_dim,
-                                 causal, scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (dtype == 1 && !wide)
+    return (int)flash_fwd_bf16(q, k, v, o, lse, bh, tq, tk, head_dim, causal,
+                               scale, s);
+  int rows;
+  if ((err = rows_per_block(device, bh, tq, &rows)) != cudaSuccess)
+    return (int)err;
+  if (wide)
+    return (int)(dtype == 0
+                     ? launch_rows<float, 256>(rows, q, k, v, o, lse, bh, tq,
+                                               tk, head_dim, causal, scale, s)
+                     : launch_rows<__nv_bfloat16, 256>(rows, q, k, v, o, lse,
+                                                       bh, tq, tk, head_dim,
+                                                       causal, scale, s));
+  if (rows == 64)  // the grid fills the card: tensor cores
+    return (int)flash_fwd_f32(q, k, v, o, lse, bh, tq, tk, head_dim, causal,
+                              scale, s);
+  if (head_dim <= 32)
+    return (int)launch_rows<float, 32>(rows, q, k, v, o, lse, bh, tq, tk,
+                                       head_dim, causal, scale, s);
+  if (head_dim <= 64)
+    return (int)launch_rows<float, 64>(rows, q, k, v, o, lse, bh, tq, tk,
+                                       head_dim, causal, scale, s);
+  return (int)launch_rows<float, 128>(rows, q, k, v, o, lse, bh, tq, tk,
+                                      head_dim, causal, scale, s);
 }
 
 extern "C" const char* dkt_error_string(int err) {

@@ -1,0 +1,366 @@
+// Flash-attention forward in f32 on Hopper's tensor cores (sm_90a), every
+// product as 3xTF32: K1 for head dims up to 128 at grids that fill the
+// card.  Called from flash_fwd.cu's C interface (dkt_flash_fwd) for dtype
+// 0 where 64-row query tiles give at least two blocks an SM; smaller grids
+// (the serving shapes) take the CUDA-core kernel there.
+//
+// Replaces: distkeras_tpu/ops/pallas_attention.py:_fwd_kernel (:83) under
+// the f32 branch of _dot/_dot_t (precision HIGHEST: exact f32 products).
+// Same function: for every (batch*head, query row) it streams the keys in
+// tiles with the online softmax -- S = scale * Q K^T, the causal mask
+// k_pos <= q_pos (a select: -inf before the max, never exp of garbage),
+// O = softmax(S) V, lse = m + log(l) -- and writes O and lse in f32.
+// Causal needs Tq == Tk; non-causal takes Tq != Tk; any T.
+//
+// Any Dh <= 128 without a padded copy: the kernel is instantiated for tile
+// widths D = 32, 64 and 128 and reads rows of the caller's Dh (dh), the
+// columns [dh, D) of each shared-memory tile zero-filled (they add nothing
+// to Q K^T and give O columns that are never stored).  Rows arrive by
+// 16-byte cp.async when dh % 4 == 0 (a 16-byte aligned base is checked by
+// the wrapper), by 4-byte cp.async otherwise.
+//
+// 3xTF32 as in flash_bwd_tf32_sm90.cu (its header has the recipe and the
+// measurements behind it; the pieces are in tf32.cuh): each operand is
+// split in registers into tf32 hi and lo as its fragment is loaded, each
+// product is lo*hi + hi*lo + hi*hi on mma.sync.m16n8k8, and because the
+// tensor core rounds each mma's sum toward zero at its accumulator's
+// magnitude, sums are kept short: S's hi*hi sums a pair of k-steps at a
+// time from zero, added in f32, its small terms apart, and each half key
+// tile's P V starts from zero and is added to O with an f32 add.
+//
+// What bounds it on this card: at the training shape (B*H = 512,
+// T = 512, Dh = 64, causal) K1 does 4*Dh FLOPs per unmasked (q, k) pair,
+// 17.2 GFLOP of f32 products, three times that on the TF32 tensor cores:
+// 51.7 TFLOP at 495 TFLOP/s, 0.104 ms.  Its bytes (Q, K, V read once, O
+// and lse written once) take 0.040 ms at 3.35 TB/s.  So operations bound
+// it, and the kernel has to keep the tensor cores issuing with the
+// splits, the exp and the shared-memory loads beside them.  At the
+// serving shapes (B*H = 8, T <= 512) both bounds are a few microseconds;
+// there what counts is how many blocks fill the 132 SMs and how long each
+// block's chain of tiles is: a version of this kernel with one or two
+// warps a block (16 or 32 query rows) measured 1.17-1.40x the CUDA-core
+// kernel's time there on an H100, so it is not used there.
+//
+// Design: one block of four warps per (batch*head, 64-row query tile),
+// each warp owning 16 rows.  Q's tile stays in shared memory; the 64-row
+// K and V tiles stream through one buffer by cp.async, the blocks on an
+// SM (two at Dh 128, three below) hiding one another's loads as the
+// backward's do; blocks are issued from the last (longest causal) query
+// tile down, and tiles past the diagonal are skipped.  A warp takes each
+// key tile in two halves of 32 keys:
+//   - S = Q K^T reads both fragments along Dh (rows of Q and K);
+//   - the online softmax (max, rescale, row sum) runs on the accumulator
+//     layout: a thread holds columns 2t, 2t + 1 of rows g and g + 8, and
+//     the four threads that share a row reduce with quad shuffles.  A row
+//     whose keys are all masked so far has m = -inf and takes 0 as its
+//     reference, so p = 0 and the rescale 0 instead of NaN;
+//   - O += P V takes P's accumulator as the A operand, split in place, in
+//     the backward's permuted k order (logical t <-> physical 2t, t + 4 <->
+//     2t + 1; the B fragment reads rows 2t and 2t + 1 of V), so nothing
+//     moves between threads.  The A fragments of the half are split once
+//     and the product runs over 32 output columns at a time, which keeps
+//     the partial sum at 16 registers beside O's Dh / 2;
+//   - a half whose first key is past the warp's last row is skipped
+//     (causal): it would add exact zeros.
+// Tiles sit at a row stride of Dh + 4 floats, so both fragment
+// orientations hit 32 distinct banks.
+
+#include <math.h>
+
+#include "tf32.cuh"
+
+namespace {
+
+using tf32::cp_async16;
+using tf32::cp_async4;
+using tf32::cp_wait_all;
+using tf32::FragA;
+using tf32::frag_a;
+using tf32::frag_acc;
+using tf32::frag_b;
+using tf32::frag_bt;
+using tf32::kHalf;
+using tf32::kNJ;
+using tf32::mma3;
+
+constexpr int kBlock = 64;     // query rows of a block, keys of a tile
+constexpr int kThreads = 128;  // four warps, 16 query rows each
+
+// the register budget: three blocks an SM at D <= 64 (52 KB of shared
+// memory each), two at D = 128 (101 KB)
+template <int D>
+__host__ __device__ constexpr int min_blocks() {
+  return D > 64 ? 2 : 3;
+}
+
+// Q's tile and one K and one V tile, each 64 rows at stride D + 4
+template <int D>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * 3 * kBlock * (D + 4);
+}
+
+// Rows [r0, r0 + ROWS) of a contiguous (n, dh) f32 matrix into a tile of
+// ROWS x D at row stride D + 4, by the block's NT threads; rows at or past
+// n and columns at or past dh read as zeros.  16-byte chunks when `vec`
+// (dh % 4 == 0), else one float at a time.
+template <int D, int ROWS, int NT>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int r0, int n, int dh, bool vec) {
+  if (vec) {
+    constexpr int kChunks = D / 4;
+#pragma unroll
+    for (int u = 0; u < ROWS * kChunks / NT; ++u) {
+      const int i = threadIdx.x + u * NT;
+      const int r = i / kChunks, c = 4 * (i % kChunks);
+      const bool valid = r0 + r < n && c < dh;
+      cp_async16(dst + r * (D + 4) + c,
+                 valid ? src + (size_t)(r0 + r) * dh + c : src, valid);
+    }
+  } else {
+#pragma unroll 8
+    for (int u = 0; u < ROWS * D / NT; ++u) {
+      const int i = threadIdx.x + u * NT;
+      const int r = i / D, c = i % D;
+      const bool valid = r0 + r < n && c < dh;
+      cp_async4(dst + r * (D + 4) + c,
+                valid ? src + (size_t)(r0 + r) * dh + c : src, valid);
+    }
+  }
+}
+
+// c[j] (16 x kHalf) = X Y^T for this warp's rows [m0, m0 + 16) of x and
+// the kHalf rows of y, contracted along Dh.  hi*hi of each pair of k-steps
+// sums from zero and is added to c in f32; the small terms sum apart in
+// cs.  The tensor core aligns an mma's addends to the largest and rounds
+// toward zero, so in one chain over Dh/8 k-steps (the backward's
+// product_t) every product loses bits at the scale of the growing sum and
+// S comes out low: on queries and keys with a common offset of 1 (scores
+// near 11 at Dh 128), lse ran 5.5e-6 low on average and 1.1e-5 at most
+// against float64, where the f32 plain version is 6.7e-6 off.  In pairs
+// the mean bias is 9.4e-7 and the largest error 3.8e-6 (O 3.0e-6, the
+// plain version's 1.1e-5), for 3-5% more time; each k-step from zero gains
+// little more for 19% (an H100, 700 W).
+template <int D>
+__device__ __forceinline__ void product_s(float (&c)[kNJ][4], const float* x,
+                                          const float* y, int m0, int g,
+                                          int t) {
+  static_assert(D % 16 == 0, "k-steps go in pairs");
+  constexpr int LD = D + 4;
+  float cs[kNJ][4];
+#pragma unroll
+  for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[j][i] = cs[j][i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; kk += 2) {
+    float pair[kNJ][4];
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pair[j][i] = 0.f;
+#pragma unroll
+    for (int k2 = kk; k2 < kk + 2; ++k2) {
+      const FragA a = frag_a<LD>(x, m0, 8 * k2, g, t);
+#pragma unroll
+      for (int j = 0; j < kNJ; ++j)
+        mma3(pair[j], cs[j], a, frag_bt<LD>(y, 8 * j, 8 * k2, g, t));
+    }
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[j][i] += pair[j][i];
+  }
+#pragma unroll
+  for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[j][i] += cs[j][i];
+}
+
+// acc (16 x D) += P V for this warp's 16 rows: P (16 x kHalf) the
+// accumulator p[s] (columns 8s .. 8s + 7 of the half), V the kHalf rows of
+// `y` (row stride D + 4).  P's fragments are split once; the product runs
+// over 32 output columns at a time, each chunk's sum taken apart from zero
+// and added to acc in f32.
+template <int D>
+__device__ __forceinline__ void product_pv(float (&acc)[D / 8][4],
+                                           const float (&p)[kNJ][4],
+                                           const float* y, int g, int t) {
+  constexpr int LD = D + 4;
+  constexpr int kChunk = 4;  // n8 tiles of a 32-column chunk
+  FragA a[kNJ];
+#pragma unroll
+  for (int s = 0; s < kNJ; ++s) a[s] = frag_acc(p[s]);
+#pragma unroll
+  for (int c0 = 0; c0 < D / 8; c0 += kChunk) {
+    float part[kChunk][4];
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) part[j][i] = 0.f;
+#pragma unroll
+    for (int s = 0; s < kNJ; ++s)
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j)
+        mma3(part[j], a[s], frag_b<LD>(y, 8 * s, 8 * (c0 + j), g, t));
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[c0 + j][i] += part[j][i];
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, min_blocks<D>())
+flash_fwd_tf32_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      float* __restrict__ lse, int tq, int tk, int dh,
+                      int causal, float scale) {
+  constexpr int LD = D + 4;
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);  // [kBlock][LD] each
+  float* ks = qs + kBlock * LD;
+  float* vs = ks + kBlock * LD;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlock;  // long tiles first
+  int n_k = (tk + kBlock - 1) / kBlock;
+  if (causal) n_k = min(n_k, q0 / kBlock + 1);  // key tiles to the diagonal
+  const bool vec = dh % 4 == 0;
+  const float* kb = k + (size_t)bh * tk * dh;
+  const float* vb = v + (size_t)bh * tk * dh;
+
+  load_rows<D, kBlock, kThreads>(qs, q + (size_t)bh * tq * dh, q0, tq, dh,
+                                 vec);
+  load_rows<D, kBlock, kThreads>(ks, kb, 0, tk, dh, vec);
+  load_rows<D, kBlock, kThreads>(vs, vb, 0, tk, dh, vec);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int m0 = 16 * warp;      // this warp's rows of the tile
+  const int r0 = q0 + m0 + g;    // this thread's rows: r0, r0 + 8
+  const int last = q0 + m0 + 15;  // the warp's last row
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int jd = 0; jd < D / 8; ++jd)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[jd][i] = 0.f;
+
+  for (int it = 0; it < n_k; ++it) {
+    const int k0 = it * kBlock;
+    cp_wait_all();  // this tile (and Q) landed
+    __syncthreads();
+
+#pragma unroll 1
+    for (int h = 0; h < kBlock; h += kHalf) {  // keys k0 + [h, h + kHalf)
+      if (causal && k0 + h > last) break;       // all masked for this warp
+      float sc[kNJ][4];
+      product_s<D>(sc, qs, ks + h * LD, m0, g, t);  // S = Q K^T
+      // scale and mask, then the rows' maxima over the half
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = r0 + 8 * (i >> 1);
+          const int col = k0 + h + 8 * j + 2 * t + (i & 1);
+          const bool keep = col < tk && (!causal || col <= row);
+          sc[j][i] = keep ? sc[j][i] * scale : -INFINITY;
+          mx[i >> 1] = fmaxf(mx[i >> 1], sc[j][i]);
+        }
+      float m_ref[2], corr[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        // the four threads of a row are lanes 4g .. 4g + 3
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+        const float m_new = fmaxf(m_run[hh], mx[hh]);
+        // a row with every key masked so far keeps m = -inf: use 0 as its
+        // reference so exp gives p = 0 and corr = 0 instead of NaN
+        m_ref[hh] = m_new == -INFINITY ? 0.f : m_new;
+        corr[hh] = expf(m_run[hh] - m_ref[hh]);
+        m_run[hh] = m_new;
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          sc[j][i] = expf(sc[j][i] - m_ref[i >> 1]);
+          rs[i >> 1] += sc[j][i];
+        }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        rs[hh] += __shfl_xor_sync(0xffffffffu, rs[hh], 1);
+        rs[hh] += __shfl_xor_sync(0xffffffffu, rs[hh], 2);
+        l_run[hh] = l_run[hh] * corr[hh] + rs[hh];
+      }
+#pragma unroll
+      for (int jd = 0; jd < D / 8; ++jd)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[jd][i] *= corr[i >> 1];
+      product_pv<D>(acc, sc, vs + h * LD, g, t);  // O += P V
+    }
+
+    // every read of K and V is done: load the next tile
+    __syncthreads();
+    if (it + 1 < n_k) {
+      load_rows<D, kBlock, kThreads>(ks, kb, k0 + kBlock, tk, dh, vec);
+      load_rows<D, kBlock, kThreads>(vs, vb, k0 + kBlock, tk, dh, vec);
+    }
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = r0 + 8 * hh;
+    if (r >= tq) continue;
+    float* row = o + ((size_t)bh * tq + r) * dh;
+#pragma unroll
+    for (int jd = 0; jd < D / 8; ++jd)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * jd + 2 * t + e;
+        if (c < dh) row[c] = acc[jd][2 * hh + e] / l_run[hh];
+      }
+    if (t == 0) lse[(size_t)bh * tq + r] = m_run[hh] + logf(l_run[hh]);
+  }
+}
+
+template <int D>
+cudaError_t launch(const float* q, const float* k, const float* v, float* o,
+                   float* lse, int bh, int tq, int tk, int dh, int causal,
+                   float scale, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tf32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (tq + kBlock - 1) / kBlock);
+  flash_fwd_tf32_kernel<D><<<grid, kThreads, smem, stream>>>(
+      q, k, v, o, lse, tq, tk, dh, causal, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The f32 entry point behind dkt_flash_fwd (flash_fwd.cu, which checks
+// the arguments and sets the device): q (bh, tq, head_dim), k and v
+// (bh, tk, head_dim), contiguous f32 from 16-byte aligned addresses, o like
+// q, lse (bh, tq); 1 <= head_dim <= 128.
+cudaError_t flash_fwd_f32(const void* q, const void* k, const void* v,
+                          void* o, void* lse, int bh, int tq, int tk,
+                          int head_dim, int causal, float scale,
+                          cudaStream_t stream) {
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto* out = static_cast<float*>(o);
+  auto* l = static_cast<float*>(lse);
+  if (head_dim <= 32)
+    return launch<32>(f(q), f(k), f(v), out, l, bh, tq, tk, head_dim, causal,
+                      scale, stream);
+  if (head_dim <= 64)
+    return launch<64>(f(q), f(k), f(v), out, l, bh, tq, tk, head_dim, causal,
+                      scale, stream);
+  return launch<128>(f(q), f(k), f(v), out, l, bh, tq, tk, head_dim, causal,
+                     scale, stream);
+}

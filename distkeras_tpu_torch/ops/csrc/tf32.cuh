@@ -1,0 +1,168 @@
+// The 3xTF32 building blocks shared by the f32 flash-attention kernels on
+// Hopper's tensor cores (sm_90a): K1 (flash_fwd_tf32_sm90.cu) and K2/K3
+// (flash_bwd_tf32_sm90.cu).  cp.async into shared memory, the split of an
+// f32 value into tf32 hi and lo, mma.sync.m16n8k8 on tf32 operands, the
+// fragment loads of both orientations of a tile (row stride Dh + 4
+// floats), the A fragment taken from an accumulator, and S = X Y^T over
+// half a 64-row tile with the small terms summed apart.  The file header
+// of flash_bwd_tf32_sm90.cu says why each is as it is.
+//
+// Everything here is inline or a template, so each .cu that includes it
+// keeps its own copy and the linked library has no duplicate symbols.
+
+#pragma once
+
+#include "sm90.cuh"
+
+namespace tf32 {
+
+using sm90::smem_u32;
+
+// 16 bytes from global to shared memory; `valid` false writes zeros and
+// reads nothing
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+// waits for every cp.async this thread has issued
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+// 4 bytes from global to shared memory (for rows that are not 16-byte
+// aligned); `valid` false writes zeros and reads nothing
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// x = hi + lo exactly: hi is x rounded to tf32 (its low 13 bits zero),
+// lo the rest, which the tensor core reads to tf32 precision
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c (16 x 8) += a (16 x 8) b (8 x 8), tf32 operands, f32 sums
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An m16n8k8 operand pair split into hi and lo
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+// a b in 3xTF32: hi * hi into c, the small terms into cs.  Each mma
+// rounds its sum toward zero at the magnitude of its accumulator, so the
+// small terms kept apart lose nothing to the large sum, and the three
+// products are two chains, not one.
+__device__ __forceinline__ void mma3(float (&c)[4], float (&cs)[4],
+                                     const FragA& a, const FragB& b) {
+  mma(cs, a.lo, b.hi[0], b.hi[1]);
+  mma(cs, a.hi, b.lo[0], b.lo[1]);
+  mma(c, a.hi, b.hi[0], b.hi[1]);
+}
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a,
+                                     const FragB& b) {
+  mma3(c, c, a, b);
+}
+
+// Fragment coordinates in a warp: g = lane / 4 and t = lane % 4.  The
+// m16n8k8 A fragment holds (row g, col t), (g + 8, t), (g, t + 4),
+// (g + 8, t + 4); B (k t, n g), (k t + 4, n g); the accumulator (row g,
+// col 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+
+// A fragment: rows [m0, m0 + 16), columns [k0, k0 + 8) of a tile of
+// stride LD
+template <int LD>
+__device__ __forceinline__ FragA frag_a(const float* x, int m0, int k0,
+                                        int g, int t) {
+  const float* p = x + (m0 + g) * LD + k0 + t;
+  FragA f;
+  split(p[0], f.hi[0], f.lo[0]);
+  split(p[8 * LD], f.hi[1], f.lo[1]);
+  split(p[4], f.hi[2], f.lo[2]);
+  split(p[8 * LD + 4], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// B fragment of X^T, contracted along X's columns: k = columns
+// [k0, k0 + 8), n = rows [n0, n0 + 8) of a tile of stride LD
+template <int LD>
+__device__ __forceinline__ FragB frag_bt(const float* x, int n0, int k0,
+                                         int g, int t) {
+  const float* p = x + (n0 + g) * LD + k0 + t;
+  FragB f;
+  split(p[0], f.hi[0], f.lo[0]);
+  split(p[4], f.hi[1], f.lo[1]);
+  return f;
+}
+
+// B fragment of X, contracted along X's rows in the permuted k order
+// (logical t, t + 4 = rows k0 + 2t, k0 + 2t + 1): n = columns [n0, n0 + 8)
+template <int LD>
+__device__ __forceinline__ FragB frag_b(const float* x, int k0, int n0,
+                                        int g, int t) {
+  const float* p = x + (k0 + 2 * t) * LD + n0 + g;
+  FragB f;
+  split(p[0], f.hi[0], f.lo[0]);
+  split(p[LD], f.hi[1], f.lo[1]);
+  return f;
+}
+
+// A fragment from columns [8s, 8s + 8) of an accumulator c[s], in the
+// permuted k order of frag_b
+__device__ __forceinline__ FragA frag_acc(const float (&c)[4]) {
+  FragA f;
+  split(c[0], f.hi[0], f.lo[0]);
+  split(c[2], f.hi[1], f.lo[1]);
+  split(c[1], f.hi[2], f.lo[2]);
+  split(c[3], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// A warp takes the tile's 64 columns of S (or S^T) in two halves of kHalf,
+// which halves the accumulators it holds at once.
+constexpr int kHalf = 32;
+constexpr int kNJ = kHalf / 8;  // n8 (or k8) tiles of a half
+
+// c[j] (16 x kHalf) = X Y^T for this warp's rows [m0, m0 + 16) of x and
+// the kHalf rows of y, contracted along Dh
+template <int D>
+__device__ __forceinline__ void product_t(float (&c)[kNJ][4], const float* x,
+                                          const float* y, int m0, int g,
+                                          int t) {
+  constexpr int LD = D + 4;
+  float cs[kNJ][4];
+#pragma unroll
+  for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[j][i] = cs[j][i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const FragA a = frag_a<LD>(x, m0, 8 * kk, g, t);
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j)
+      mma3(c[j], cs[j], a, frag_bt<LD>(y, 8 * j, 8 * kk, g, t));
+  }
+#pragma unroll
+  for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[j][i] += cs[j][i];
+}
+
+}  // namespace tf32

@@ -5,21 +5,27 @@
 On CUDA tensors the forward is a hand-written kernel, the port of the
 Pallas ``_fwd_kernel`` (through ``flash_fwd_cuda``), and the backward two
 kernels, the ports of ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (through
-``flash_bwd_dq_cuda`` and ``flash_bwd_dkv_cuda``): on tensor cores in
-bf16 (``ops/csrc/flash_fwd_sm90.cu``, ``ops/csrc/flash_bwd_sm90.cu``); in
-f32 the forward on CUDA cores (``ops/csrc/flash_fwd.cu``) and the
-backward on tensor cores as 3xTF32 (``ops/csrc/flash_bwd_tf32_sm90.cu``).
-On CPU tensors they are ``flash_fwd_plain`` and ``flash_bwd_plain``, the
-dense versions of the same functions.  A CUDA tensor never takes a plain
-version: the kernel runs or the call raises.
+``flash_bwd_dq_cuda`` and ``flash_bwd_dkv_cuda``).  Up to head dim 128
+they run on tensor cores: in bf16 on wgmma and TMA
+(``ops/csrc/flash_fwd_sm90.cu``, ``ops/csrc/flash_bwd_sm90.cu``), in f32
+as 3xTF32 on mma.sync (``ops/csrc/flash_fwd_tf32_sm90.cu``,
+``ops/csrc/flash_bwd_tf32_sm90.cu``).  From 129 to 256 (``MAX_HEAD_DIM``)
+both dtypes run on CUDA cores (``ops/csrc/flash_fwd.cu``,
+``ops/csrc/flash_bwd_wide.cu``).  On CPU tensors they are
+``flash_fwd_plain`` and ``flash_bwd_plain``, the dense versions of the
+same functions.  A CUDA tensor never takes a plain version: the kernel
+runs or the call raises.
 
-The kernels are instantiated for head dims 32, 64 and 128
-(``HEAD_DIMS``); the wrappers take any Dh up to 128 by zero-padding q,
-k, v (and dO) along Dh to the next of those (``pad_head_dim``), running
-that kernel with the caller's ``scale`` and slicing the outputs back.
-That is the same function: zero columns add nothing to QKᵀ, O's and the
-gradients' padded columns are products with zeros, and D = rowsum(dO∘O)
-does not see them.
+Head dims: the f32 forward and every kernel past 128 read rows of the
+caller's Dh and mask the columns past it in their tiles.  The bf16
+forward and both backward dtypes up to 128 are instantiated for 32, 64
+and 128 (``HEAD_DIMS``, the widths of their TMA or cp.async tiles); the
+wrappers take any other Dh up to 128 by zero-padding q, k, v (and dO)
+along Dh to the next of those (``pad_head_dim``), running that kernel
+with the caller's ``scale`` and slicing the outputs back.  That is the
+same function: zero columns add nothing to QKᵀ, O's and the gradients'
+padded columns are products with zeros, and D = rowsum(dO∘O) does not
+see them.
 """
 
 from __future__ import annotations
@@ -114,18 +120,22 @@ def flash_bwd_plain(q, k, v, lse, do, dvec, causal: bool, scale: float):
 
 #: dtype codes of the C interface (the ``dtype`` argument)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims the kernels are instantiated for
+#: head dims the tensor-core kernels are instantiated for
 HEAD_DIMS = (32, 64, 128)
+#: the largest head dim the kernels take: the CUDA-core kernels' tile width
+MAX_HEAD_DIM = 256
 
 
 def padded_head_dim(dh: int) -> int:
-    """The instantiated head dim a Dh ≤ 128 runs as: the least of
-    ``HEAD_DIMS`` that holds it."""
-    for size in HEAD_DIMS:
-        if dh <= size:
-            return size
-    raise ValueError(f"head dim {dh} > {HEAD_DIMS[-1]}: the kernels' tiles "
-                     f"and shared memory are sized for Dh <= {HEAD_DIMS[-1]}")
+    """The head dim a Dh runs as where the kernel is instantiated per
+    width: up to 128 the least of ``HEAD_DIMS`` that holds it, from 129 to
+    ``MAX_HEAD_DIM`` Dh itself (those kernels mask the columns past Dh).
+    Raises past ``MAX_HEAD_DIM``."""
+    if dh > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {dh} > {MAX_HEAD_DIM}: the kernels' "
+                         f"tiles and shared memory are sized for "
+                         f"Dh <= {MAX_HEAD_DIM}")
+    return next((size for size in HEAD_DIMS if dh <= size), dh)
 
 
 def pad_head_dim(x: torch.Tensor, size: int) -> torch.Tensor:
@@ -162,7 +172,7 @@ def _check(name: str, q, k, v, causal: bool, stats=(), do=None):
                          f"in batch·heads or head dim")
     if dh < 1:
         raise ValueError("empty head dim")
-    padded_head_dim(dh)   # raises past the largest instantiated size
+    padded_head_dim(dh)   # raises past MAX_HEAD_DIM
     if tq < 1 or tk < 1:
         raise ValueError("empty sequence")
     if causal and tq != tk:
@@ -178,10 +188,9 @@ def _check(name: str, q, k, v, causal: bool, stats=(), do=None):
                              f"float32, got {tuple(t.shape)} {t.dtype}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} needs contiguous inputs")
-    if (q.dtype == torch.bfloat16 or do is not None) and any(
-            t is not None and t.data_ptr() % 16 for t in (q, k, v, do)):
-        # the bf16 kernels load their tiles by TMA, the f32 backward by
-        # 16-byte cp.async
+    if any(t is not None and t.data_ptr() % 16 for t in (q, k, v, do)):
+        # the tensor-core kernels load their tiles by TMA (bf16) or by
+        # 16-byte cp.async (f32)
         raise ValueError(f"{name}: q, k, v (and dO) must start at a "
                          f"16-byte aligned address (a view with a storage "
                          f"offset may not)")
@@ -204,7 +213,8 @@ def flash_fwd_cuda(q, k, v, causal: bool, scale: float):
     ``flash_fwd_plain``; raises on what the kernel does not take.
     ``flash_fwd_cuda.launches`` counts the launches."""
     bh, tq, tk, dh = _check("flash_fwd_cuda", q, k, v, causal)
-    size = padded_head_dim(dh)
+    # the f32 kernels read unpadded rows at any Dh
+    size = dh if q.dtype == torch.float32 else padded_head_dim(dh)
     q, k, v = (pad_head_dim(x, size) for x in (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import distkeras_tpu_torch as dkt
+from chip_smoke import attention_float64
 from distkeras_tpu_torch import SingleTrainer
 from distkeras_tpu_torch.data import load_lm_corpus
 from distkeras_tpu_torch.data.transformers import OneHotTransformer
@@ -267,6 +268,115 @@ def test_kernels_at_head_dims_between_the_instantiated_ones(dtype, causal,
             _close(g, r, dtype)
 
 
+#: B·H of f32 forward cases that take the 3xTF32 kernel: 64-row query
+#: tiles give at least two blocks an SM (2 x 132 on an H100) from T = 100;
+#: at B·H 8 (the serving shapes) the CUDA-core kernel runs
+TC_BH = 136
+
+
+@pytest.mark.parametrize("bh,causal,t,tk,dh", [
+    *[(TC_BH, c, t, None, dh) for dh in (16, 32, 48, 64, 96, 128)
+      for c in (True, False) for t in (100, 257)],
+    (TC_BH, False, 100, 257, 96), (TC_BH, True, 130, None, 5),
+    (TC_BH, False, 130, None, 127), (TC_BH, False, 130, 64, 1),
+    *[(8, True, t, None, 64) for t in (64, 128, 256, 512)],
+    *[(8, c, 100, None, dh) for dh in (16, 96, 128) for c in (True, False)],
+    (8, False, 16, 48, 64), (8, False, 512, 100, 1), (8, True, 130, None, 5),
+    (8, False, 100, 257, 127)])
+def test_f32_forward_kernel_matches_plain(bh, causal, t, tk, dh):
+    """The f32 K1 against ``flash_fwd_plain`` on the same inputs: O and lse
+    within 1e-5, one launch, rows of the caller's Dh read unpadded.  At
+    B·H ``TC_BH`` the 3xTF32 kernel runs (Dh 1, 5 and 127 by its 4-byte
+    loads); at B·H 8, the serving shapes among them (T 64–512, Dh 64), the
+    CUDA-core kernel with 32- and 16-row tiles."""
+    q, k, v = (_to_bh(x) for x in _qkv(bh // 4, t, 4, dh, torch.float32,
+                                         tk))
+    launches = flash_fwd_cuda.launches
+    o, lse = flash_fwd_cuda(q, k, v, causal, dh ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_fwd_cuda.launches == launches + 1
+    o_ref, lse_ref = flash_fwd_plain(q, k, v, causal, dh ** -0.5)
+    assert o.shape == o_ref.shape and bool(torch.isfinite(o).all())
+    assert (o - o_ref).abs().max() <= 1e-5
+    assert (lse - lse_ref).abs().max() <= 1e-5
+
+
+@pytest.mark.parametrize("bh,dh", [(512, 64), (256, 128), (256, 96)])
+def test_f32_forward_kernel_at_the_training_shapes(bh, dh):
+    """The f32 K1 at the training shapes (T = 512, causal; query tiles of
+    64 rows) against ``flash_fwd_plain``: within 1e-5."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    q, k, v = (torch.randn((bh, 512, dh), generator=gen, device="cuda")
+               for _ in range(3))
+    o, lse = flash_fwd_cuda(q, k, v, True, dh ** -0.5)
+    o_ref, lse_ref = flash_fwd_plain(q, k, v, True, dh ** -0.5)
+    assert (o - o_ref).abs().max() <= 1e-5
+    assert (lse - lse_ref).abs().max() <= 1e-5
+
+
+@pytest.mark.parametrize("causal,t,tk,dh", [
+    (True, 100, None, 32), (True, 200, None, 64), (False, 130, 64, 64),
+    (True, 200, None, 128), (True, 512, None, 64)])
+def test_f32_forward_kernel_is_3xtf32_not_tf32(causal, t, tk, dh):
+    """On Q and K with a common offset of 1 (scores near 64·scale, whose
+    differences TF32's three digits blur), the 3xTF32 K1 (B·H ``TC_BH``)
+    is within the f32 bound of 1e-5 of attention computed in float64, and
+    the plain forward with TF32 products (``allow_tf32``) misses it by
+    far: the kernel's products are 3xTF32 (split hi/lo operands), not one
+    TF32 pass.  float64 is the witness because the plain version in f32 is
+    itself up to 1.1e-5 from it at Dh 128 on such inputs."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    tk = t if tk is None else tk
+    q = torch.randn((TC_BH, t, dh), generator=gen, device="cuda") + 1.0
+    k = torch.randn((TC_BH, tk, dh), generator=gen, device="cuda") + 1.0
+    v = torch.randn((TC_BH, tk, dh), generator=gen, device="cuda")
+    scale = dh ** -0.5
+    exact = attention_float64(torch, q, k, v, causal, scale)
+    got = flash_fwd_cuda(q, k, v, causal, scale)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = flash_fwd_plain(q, k, v, causal, scale)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert max((g - r).abs().max().item() for g, r in zip(got, exact)) \
+        <= 1e-5
+    assert min((g - r).abs().max().item() for g, r in zip(tf32, exact)) \
+        > 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal,t,tk", [(True, 100, 100), (False, 64, 130),
+                                         (True, 257, 257)])
+@pytest.mark.parametrize("dh", [136, 192, 256])
+def test_kernels_at_head_dims_past_128(dtype, causal, t, tk, dh):
+    """Head dims 129–256, which the CUDA-core kernels take on unpadded
+    rows: K1, K2 and K3 against the plain versions, one launch each; K1 in
+    f32 within 1e-5, the rest within ``_close``'s bound of the dtype."""
+    gen = torch.Generator(device="cuda").manual_seed(dh)
+    q, do = (torch.randn((6, t, dh), generator=gen, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((6, tk, dh), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    scale = dh ** -0.5
+    counts = (flash_fwd_cuda.launches, flash_bwd_dq_cuda.launches,
+              flash_bwd_dkv_cuda.launches)
+    o, lse = flash_fwd_cuda(q, k, v, causal, scale)
+    o_ref, lse_ref = flash_fwd_plain(q, k, v, causal, scale)
+    dvec = (do.float() * o_ref.float()).sum(-1)
+    args = (q, k, v, lse_ref, do, dvec, causal, scale)
+    got = (o, lse, flash_bwd_dq_cuda(*args), *flash_bwd_dkv_cuda(*args))
+    torch.cuda.synchronize()
+    assert (flash_fwd_cuda.launches, flash_bwd_dq_cuda.launches,
+            flash_bwd_dkv_cuda.launches) == tuple(c + 1 for c in counts)
+    for g, r in zip(got, (o_ref, lse_ref, *flash_bwd_plain(*args))):
+        assert g.shape == r.shape and g.dtype == r.dtype
+        assert bool(torch.isfinite(g).all())
+        if dtype == torch.float32 and g is o or g is lse:
+            assert (g - r).abs().max() <= 1e-5
+        else:
+            _close(g, r, dtype)
+
+
 @pytest.mark.parametrize("t,dh", [(2048, 64), (2048, 128), (4096, 64),
                                   (4096, 128)])
 def test_f32_backward_kernels_at_long_sequences(t, dh):
@@ -365,8 +475,8 @@ def test_bf16_forward_refuses_unaligned_inputs():
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     launches = flash_fwd_cuda.launches
-    q, k, v = (_to_bh(x) for x in _qkv(1, 64, 2, 129, torch.float32))
-    with pytest.raises(ValueError, match="head dim 129 > 128"):
+    q, k, v = (_to_bh(x) for x in _qkv(1, 64, 2, 257, torch.float32))
+    with pytest.raises(ValueError, match="head dim 257 > 256"):
         flash_fwd_cuda(q, k, v, True, 0.1)
     q, k, v = (_to_bh(x) for x in _qkv(1, 64, 2, 64, torch.float16))
     with pytest.raises(TypeError, match="float32 or bfloat16"):

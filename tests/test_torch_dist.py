@@ -21,6 +21,7 @@ the losses (AEASGD, AveragingTrainer).
 """
 
 import inspect
+import os
 import warnings
 
 import jax
@@ -46,6 +47,12 @@ from distkeras_tpu_torch.models.layers import BatchNorm
 from distkeras_tpu_torch.parallel import sync
 from distkeras_tpu_torch.predictors import ModelPredictor
 from distkeras_tpu_torch.utils import load_jax_variables, to_numpy_variables
+
+# pytest-xdist's workers share the cores: an intra-op pool of the
+# workers' share each, not one of every core per worker
+if os.environ.get("PYTEST_XDIST_WORKER_COUNT"):
+    torch.set_num_threads(max(1, os.cpu_count()
+                              // int(os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 W, WINDOW, EPOCHS = 4, 2, 2
 COMMON = dict(loss="categorical_crossentropy", features_col="features",
@@ -173,7 +180,20 @@ def test_sync_trainer_matches_jax(name, data, jax_runs):
                                _leaves(members[1])[0])
 
 
-def test_adag_moves_batchnorm_state_through_the_rule():
+@pytest.fixture
+def all_cores():
+    """torch's intra-op pool on every core for one test, whatever the cap
+    above.  oneDNN's f32 conv weight gradient splits its batch reduction
+    over the pool's threads, and how it splits sets its error: against
+    float64, ResNet-20's first conv kernel after two ADAG windows reads
+    3.3e-7 with 8 threads and 9.6e-5 with 1 or 2."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count())
+    yield
+    torch.set_num_threads(before)
+
+
+def test_adag_moves_batchnorm_state_through_the_rule(all_cores):
     """ADAG on ``resnet20(width=4)``: BatchNorm's running statistics are
     float leaves of ``state`` and go through the mean at every edge.  From
     the same weights (the port's init, handed to JAX), 1 epoch of 2

@@ -5,6 +5,8 @@ KV-cached and full recompute), the per-row sampling filters and
 distributions at 1e-6, and the exact argmax of greedy rows when
 sampling."""
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +17,12 @@ from distkeras_tpu.models import generation as jg
 from distkeras_tpu.models import zoo as jzoo
 from distkeras_tpu_torch.models import Model, generation as tg
 from distkeras_tpu_torch.utils.weights import load_jax_variables
+
+# pytest-xdist's workers share the cores: an intra-op pool of the
+# workers' share each, not one of every core per worker
+if os.environ.get("PYTEST_XDIST_WORKER_COUNT"):
+    torch.set_num_threads(max(1, os.cpu_count()
+                              // int(os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 VOCAB, SEQ, STEPS = 32, 48, 10
 

@@ -10,6 +10,8 @@ goes through both.  Outputs agree within 1e-5 of the reference's largest
 |value| (f32, where the two frameworks sum in different orders).
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +24,12 @@ from distkeras_tpu.models.model import Model as JaxModel
 from distkeras_tpu_torch.models import (LSTM, Dropout, Model, commit_state,
                                         set_generator)
 from distkeras_tpu_torch.utils import load_jax_variables, to_numpy_variables
+
+# pytest-xdist's workers share the cores: an intra-op pool of the
+# workers' share each, not one of every core per worker
+if os.environ.get("PYTEST_XDIST_WORKER_COUNT"):
+    torch.set_num_threads(max(1, os.cpu_count()
+                              // int(os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 #: outputs within this share of the reference's largest |value|
 REL_TOL = 1e-5

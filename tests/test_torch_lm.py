@@ -5,6 +5,7 @@ config JSON and the weight round trip.  Both sides run f32 with
 different summation orders, hence rtol = atol = 1e-5."""
 
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +21,12 @@ from distkeras_tpu_torch.models import Model, zoo
 from distkeras_tpu_torch.ops.attention import apply_rope
 from distkeras_tpu_torch.utils.weights import (load_jax_variables,
                                                to_numpy_variables)
+
+# pytest-xdist's workers share the cores: an intra-op pool of the
+# workers' share each, not one of every core per worker
+if os.environ.get("PYTEST_XDIST_WORKER_COUNT"):
+    torch.set_num_threads(max(1, os.cpu_count()
+                              // int(os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 VOCAB, DIM, SEQ = 32, 32, 32

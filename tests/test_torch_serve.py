@@ -6,6 +6,8 @@ mid-decode; admission control; the zero-retrace contract after
 ``warmup()``; the accelerators that are not ported yet; and the refusal
 to drift onto the CPU when no device is named."""
 
+import os
+
 import jax
 import numpy as np
 import pytest
@@ -18,6 +20,12 @@ from distkeras_tpu_torch.models.generation import generate_tokens
 from distkeras_tpu_torch.obs import Registry
 from distkeras_tpu_torch.serve import DecodeEngine, ServeConfig, ServeRejected
 from distkeras_tpu_torch.utils.weights import load_jax_variables
+
+# pytest-xdist's workers share the cores: an intra-op pool of the
+# workers' share each, not one of every core per worker
+if os.environ.get("PYTEST_XDIST_WORKER_COUNT"):
+    torch.set_num_threads(max(1, os.cpu_count()
+                              // int(os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 VOCAB, SEQ = 32, 64
 BUCKETS = (8, 16, 32)          # resolved to (8, 16, 32, 64)

@@ -9,6 +9,7 @@ mode, so the flash models here are small (T ≤ 32, dim 32, two blocks).
 
 import io
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +35,12 @@ from distkeras_tpu_torch.ops.optimizers import get_optimizer
 from distkeras_tpu_torch.parallel import make_window_fn, model_params
 from distkeras_tpu_torch.utils import load_jax_variables, to_numpy_variables
 from distkeras_tpu_torch.utils.metrics import MetricsLogger
+
+# pytest-xdist's workers share the cores: an intra-op pool of the
+# workers' share each, not one of every core per worker
+if os.environ.get("PYTEST_XDIST_WORKER_COUNT"):
+    torch.set_num_threads(max(1, os.cpu_count()
+                              // int(os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 VOCAB, SEQ = 17, 32
 LM = dict(vocab_size=VOCAB, dim=32, num_heads=2, num_blocks=2, seq_len=SEQ,

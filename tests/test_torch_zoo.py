@@ -16,6 +16,8 @@ JAX trainer's own f32 run strays further from the witness
 (``JAX_F32_WITNESS_ATOL``).
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +37,12 @@ from distkeras_tpu_torch.data import Dataset, load_cifar10, load_mnist
 from distkeras_tpu_torch.models import Model, zoo
 from distkeras_tpu_torch.predictors import ModelPredictor
 from distkeras_tpu_torch.utils import to_numpy_variables
+
+# pytest-xdist's workers share the cores: an intra-op pool of the
+# workers' share each, not one of every core per worker
+if os.environ.get("PYTEST_XDIST_WORKER_COUNT"):
+    torch.set_num_threads(max(1, os.cpu_count()
+                              // int(os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 REL_TOL = 1e-5
 #: the JAX package's f32 SingleTrainer on resnet20(width=4) at lr 0.1
