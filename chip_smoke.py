@@ -10,12 +10,14 @@ Phases, one JSON line each:
    flash_fwd.cu`` (K1's C interface; K1 on CUDA cores: f32 at grids too
    small for 64-row tiles, both dtypes at head dims 129-256),
    ``flash_fwd_tf32_sm90.cu`` (K1 in f32 as 3xTF32 on mma.sync),
-   ``flash_fwd_sm90.cu`` (K1 in bf16, on wgmma and TMA), ``flash_bwd.cu``
-   (the backward's C interface), ``flash_bwd_tf32_sm90.cu`` (K2, K3 in
-   f32, as 3xTF32 on mma.sync), ``flash_bwd_sm90.cu`` (K2, K3 in bf16, on
-   wgmma and TMA) and ``flash_bwd_wide.cu`` (K2, K3 on CUDA cores at head
-   dims 129-256; the ``_sm90`` files include ``sm90.cuh``, the ``_tf32_``
-   ones ``tf32.cuh``), are built with nvcc for sm_90a if stale (seconds;
+   ``flash_fwd_sm90.cu`` (K1 in bf16 up to head dim 256, on wgmma and
+   TMA), ``flash_bwd.cu`` (the backward's C interface),
+   ``flash_bwd_tf32_sm90.cu`` (K2, K3 in f32, as 3xTF32 on mma.sync),
+   ``flash_bwd_sm90.cu`` (K2, K3 in bf16 up to 128 and K3 in bf16 at
+   129-256, on wgmma and TMA) and ``flash_bwd_wide.cu`` (K2, K3 on CUDA
+   cores past 128, in 256-column panels past 256; the ``_sm90`` files
+   include ``sm90.cuh``, the ``_tf32_`` ones ``tf32.cuh``), are built
+   with nvcc for sm_90a if stale (seconds;
    each kernel's registers, shared memory and spills as ptxas reports
    them, and whether its wgmma products were serialized).
 3. ``k1``     — the flash-attention forward kernel against its plain
@@ -54,7 +56,8 @@ Phases, one JSON line each:
    gradient bound (rtol 5e-4, atol 1e-5), bf16 within the bf16 rounding
    (rtol 1e-2, atol 1e-2 of the largest |value|).  Then, at the training
    shape (B*H = 512, T = 512, Dh = 64, causal) and at B*H = 256, Dh = 128
-   (bf16 and f32 each), each kernel's profiler device time and achieved
+   (bf16 and f32 each), each kernel checked so against the plain version
+   first, then its profiler device time and achieved
    TFLOP/s, the plain version's time, the device time of
    ``F.scaled_dot_product_attention``'s backward (one call for K2 and K3
    together; a yardstick only) and ``bound_ms``.
@@ -74,8 +77,9 @@ Phases, one JSON line each:
 8. ``lm128``  — ``scripts/mfu.py``'s ``--dim 1024`` probe (8 heads of
    Dh 128), bf16, 2 epochs of 8 steps at batch 32: the loss falls and
    K1, K2 and K3 launch exactly once per block per step.  ``lm256`` —
-   the ``--dim 2048`` probe (8 heads of Dh 256, on the CUDA-core
-   kernels): bf16, 2 epochs of 4 steps at batch 16, the loss falls; 2
+   the ``--dim 2048`` probe (8 heads of Dh 256; in bf16 K1 and K3 on
+   wgmma, K2 on CUDA cores; in f32 all three on CUDA cores): bf16, 2
+   epochs of 4 steps at batch 16, the loss falls; 2
    f32 steps against its dense twin (losses within rtol 1e-4, parameters
    within 1e-4); 4 greedy requests served, each equal to
    ``generate_tokens``; K1, K2 and K3 once per block per step, K1 once
@@ -116,15 +120,20 @@ Phases, one JSON line each:
 ``k1`` and ``k2k3`` also hold head dims 16, 48 and 96 (which bf16 K1
 and K2/K3 run zero-padded to 32, 64 and 128, and the f32 K1 reads
 unpadded; the f32 K1 also at Dh 5 and 127 on both its kernels), 136,
-192 and 256 (on CUDA cores), and time 16 and 96 beside 32 and 128 at
-B*H 256 and 192 and 256 at B*H 128 (T 512).  ``k1_tf32_control``: on Q
-and K with a common offset, the f32 K1 on tensor cores is within 1e-5
-of attention in float64 and one TF32 pass is not.  ``k1`` checks that
-K1, K2 and K3 refuse Dh 257.
+192, 200 and 256 (bf16 K1 and K3 on wgmma, the rest on CUDA cores) and
+320 (CUDA cores, two 256-column panels), and time 16 and 96 beside 32
+and 128 at B*H 256 and 192, 256, 320 and 512 at B*H 128 (T 512).
+``k1_tf32_control``: on Q and K with a common offset, the f32 K1 on
+tensor cores is within 1e-5 of attention in float64 and one TF32 pass
+is not.  ``past256``: K1, K2 and K3 at Dh 320 in both dtypes through
+the differentiable op (``flash_attention_lse`` and autograd) against
+the plain versions, one launch each.
 
 Then the ``kernels`` line (one entry per CUDA kernel: its launches on
-the main paths, its largest error against the plain version, its
-timed rows), the card's name and power limit as nvidia-smi prints them,
+the main paths, counted by the wrappers under the kernel each C entry
+point reports it ran; its largest error against the plain version over
+the checked cases it ran, every timed shape among them; its timed
+rows), the card's name and power limit as nvidia-smi prints them,
 and as the last line ``{"ok": true, "device": {...}}``.  Any
 failed check exits non-zero before that line; so does a machine without
 CUDA, and a directory holding this script without the package.
@@ -165,8 +174,13 @@ HEAD_DIMS = (32, 64, 128)
 #: head dims the kernels run zero-padded to the next of HEAD_DIMS (bf16
 #: K1, K2 and K3; the f32 K1 reads them unpadded)
 PAD_HEAD_DIMS = (16, 48, 96)
-#: head dims past 128, which K1, K2 and K3 take on CUDA cores
-WIDE_HEAD_DIMS = (136, 192, 256)
+#: head dims past 128: bf16 K1 and K3 on wgmma (192- and 256-wide tiles),
+#: the rest on CUDA cores
+WIDE_HEAD_DIMS = (136, 192, 200, 256)
+#: head dims past 256, which K1, K2 and K3 take on CUDA cores in
+#: 256-column panels: checked at 320, timed at 320 and 512 (B*H 128)
+PAST_HEAD_DIM = 320
+PAST_TIMED_HEAD_DIMS = (320, 512)
 #: a head-dim-256 training shape: gpt_lm(dim=2048, num_heads=8) at batch
 #: 16 (B*H = 128), T = 512
 DH256_BH = 128
@@ -275,6 +289,25 @@ def emit(obj) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise CheckFailed(what)
+
+
+def kernel_launches():
+    """The wrappers' launches since the last ``reset_launches``, by the
+    kernel that ran: [kernel, dtype, head dim, launches] rows."""
+    from distkeras_tpu_torch.ops.flash_attention import KERNEL_LAUNCHES
+    return [[k, d, h, n] for (k, d, h), n in sorted(KERNEL_LAUNCHES.items())]
+
+
+def launched(call):
+    """``call()``'s result and the name of the one kernel it launched,
+    read from the wrappers' launch counts."""
+    from collections import Counter
+    from distkeras_tpu_torch.ops.flash_attention import KERNEL_LAUNCHES
+    before = Counter(KERNEL_LAUNCHES)
+    out = call()
+    ran = {k for k, _, _ in KERNEL_LAUNCHES - before}
+    check(len(ran) == 1, f"expected one kernel launched, got {ran}")
+    return out, ran.pop()
 
 
 def smi_line() -> str:
@@ -438,19 +471,25 @@ def phase_k1(torch):
     cases += [("float32", causal, bh, 130, 130, dh, False)
               for bh in (136, 8) for dh in (5, 48, 96, 127)
               for causal in (True, False)]
-    # head dims past 128, on CUDA cores
+    # head dims past 128 (bf16 on wgmma up to 256, the rest on CUDA
+    # cores) and past 256 (CUDA cores, 256-column panels)
     cases += [(dtype, causal, 8, t, t, dh, False)
-              for dtype in ("bfloat16", "float32") for dh in WIDE_HEAD_DIMS
+              for dtype in ("bfloat16", "float32")
+              for dh in (*WIDE_HEAD_DIMS, PAST_HEAD_DIM)
               for causal in (True, False) for t in (100, 257)]
     cases += [(dtype, False, 8, 100, 257, dh, False)
-              for dtype in ("bfloat16", "float32") for dh in WIDE_HEAD_DIMS]
+              for dtype in ("bfloat16", "float32")
+              for dh in (*WIDE_HEAD_DIMS, PAST_HEAD_DIM)]
     # the training shapes, checked and timed: the probe's (Dh 64), the
-    # dim-1024 model's (Dh 128) and the dim-2048 model's (Dh 256, with 192
-    # beside it), in both dtypes; at B*H 256 also Dh 16 and 96 beside 32
+    # dim-1024 model's (Dh 128) and the dim-2048 model's (Dh 256, with
+    # 192, 320 and 512 beside it), in both dtypes; at B*H 256 also Dh 16
+    # and 96 beside 32
     cases += [(dtype, True, bh, TRAIN_T, TRAIN_T, dh, True)
               for bh, dh in ((TRAIN_BH, TRAIN_DH), (DH128_BH, 128),
                              (DH128_BH, 16), (DH128_BH, 32), (DH128_BH, 96),
-                             (DH256_BH, 192), (DH256_BH, 256))
+                             (DH256_BH, 192), (DH256_BH, 256),
+                             *((DH256_BH, dh)
+                               for dh in PAST_TIMED_HEAD_DIMS))
               for dtype in ("bfloat16", "float32")]
     rows = []
     for dtype_name, causal, bh, tq, tk, dh, timed in cases:
@@ -459,10 +498,12 @@ def phase_k1(torch):
         k = torch.randn((bh, tk, dh), generator=gen, device="cuda").to(dtype)
         v = torch.randn((bh, tk, dh), generator=gen, device="cuda").to(dtype)
         scale = dh ** -0.5
-        o, lse = flash_fwd_cuda(q, k, v, causal, scale)
+        (o, lse), kernel = launched(
+            lambda: flash_fwd_cuda(q, k, v, causal, scale))
         torch.cuda.synchronize()
         rows.append(_k1_check(torch, flash_fwd_plain(q, k, v, causal, scale),
                               (o, lse), dtype_name, causal, bh, tq, tk, dh))
+        rows[-1]["kernel"] = kernel
         if timed:
             row = rows[-1]
             qs, ks, vs = (x.view(1, bh, -1, dh) for x in (q, k, v))
@@ -481,17 +522,17 @@ def phase_k1(torch):
     # in, the (B*H, T, Dh) copies of _to_bh handed to the kernel
     q, k, v = (torch.randn((1, 200, 8, 64), generator=gen, device="cuda")
                .to(torch.bfloat16) for _ in range(3))
-    o, lse = flash_attention_lse(q, k, v, True)
+    (o, lse), kernel = launched(lambda: flash_attention_lse(q, k, v, True))
     torch.cuda.synchronize()
     o_ref, lse_ref = flash_fwd_plain(_to_bh(q), _to_bh(k), _to_bh(v), True,
                                      64 ** -0.5)
     rows.append(_k1_check(torch, (o_ref, lse_ref),
                           (_to_bh(o), lse.reshape(8, 200)), "bfloat16",
                           True, 8, 200, 200, 64))
-    rows[-1]["join_batch_1"] = True
+    rows[-1].update(kernel=kernel, join_batch_1=True)
     emit({"phase": "k1", **rows[-1]})
     _k1_tf32_control(torch)
-    _refuses_head_dim_257(torch)
+    phase_past256(torch)
     return rows
 
 
@@ -547,24 +588,58 @@ def attention_float64(torch, q, k, v, causal, scale):
     return torch.matmul(torch.exp(s - lse[..., None]), v.double()), lse
 
 
-def _refuses_head_dim_257(torch):
-    """K1, K2 and K3 refuse a head dim past 256 (their tiles and shared
-    memory are sized for Dh <= 256), launching nothing."""
+def phase_past256(torch):
+    """K1, K2 and K3 at Dh ``PAST_HEAD_DIM`` (320: two 256-column panels
+    on CUDA cores, as the reference's BlockSpecs span any head dim), in
+    both dtypes, through the differentiable op a model calls
+    (``flash_attention_lse``, then autograd with an lse cotangent),
+    against the plain versions on the same inputs: one launch each, O and
+    lse (f32 within 1e-5) and dQ, dK, dV within ``GRAD_TOL``.  Emits a
+    row per dtype."""
     from distkeras_tpu_torch.ops.flash_attention import (
-        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda)
-    x = torch.zeros((2, 64, 257), device="cuda")
-    lse = torch.zeros((2, 64), device="cuda")
-    for fn, args in ((flash_fwd_cuda, (x, x, x)),
-                     (flash_bwd_dq_cuda, (x, x, x, lse, x, lse)),
-                     (flash_bwd_dkv_cuda, (x, x, x, lse, x, lse))):
-        before = fn.launches
-        try:
-            fn(*args, True, 0.1)
-            refused = False
-        except ValueError as e:
-            refused = "head dim 257 > 256" in str(e)
-        check(refused and fn.launches == before,
-              f"{fn.__name__} did not refuse head dim 257")
+        _to_bh, flash_attention_lse, flash_bwd_dkv_cuda, flash_bwd_dq_cuda,
+        flash_bwd_plain, flash_fwd_cuda, flash_fwd_plain)
+    kernels = (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, t, h, dh = 2, 200, 4, PAST_HEAD_DIM
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        q, k, v, g = (torch.randn((b, t, h, dh), generator=gen,
+                                  device="cuda").to(dtype)
+                      for _ in range(4))
+        g_lse = torch.randn((b, h, t), generator=gen, device="cuda")
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        before = [fn.launches for fn in kernels]
+        out, lse = flash_attention_lse(q, k, v, True)
+        grads = torch.autograd.grad((out, lse), (q, k, v), (g, g_lse))
+        torch.cuda.synchronize()
+        launches = [fn.launches - n for fn, n in zip(kernels, before)]
+        qb, kb, vb, ob, gb = (_to_bh(x.detach()) for x in (q, k, v, out, g))
+        scale = dh ** -0.5
+        o_ref, lse_ref = flash_fwd_plain(qb, kb, vb, True, scale)
+        dvec = (gb.float() * ob.float()).sum(-1) - g_lse.reshape(b * h, t)
+        refs = flash_bwd_plain(qb, kb, vb, lse.detach().reshape(b * h, t),
+                               gb, dvec, True, scale)
+        got = [_to_bh(x) for x in grads]
+        tol = GRAD_TOL[dtype_name]
+        row = {"phase": "past256", "dtype": dtype_name, "bh": b * h,
+               "t": t, "dh": dh, "causal": True, "launches": launches,
+               "o_err": _max_err(_to_bh(out), o_ref),
+               "lse_err": _max_err(lse.reshape(b * h, t), lse_ref),
+               "dq_err": _max_err(got[0], refs[0]),
+               "dk_err": _max_err(got[1], refs[1]),
+               "dv_err": _max_err(got[2], refs[2]), "tol": tol}
+        emit(row)
+        if dtype_name == "float32":
+            fwd_ok = max(row["o_err"], row["lse_err"]) <= 1e-5
+        else:
+            fwd_ok = all(_within(a, r, **tol) for a, r in (
+                (_to_bh(out), o_ref), (lse.reshape(b * h, t), lse_ref)))
+        check(launches == [1, 1, 1] and fwd_ok and
+              all(bool(torch.isfinite(x.float()).all()) and
+                  _within(x, r, **tol) for x, r in zip(got, refs)),
+              f"K1-K3 at head dim {dh} disagree with the plain versions "
+              f"or launched other than once each: {row}")
 
 
 def _k1_check(torch, ref, got, dtype_name, causal, bh, tq, tk, dh):
@@ -593,20 +668,22 @@ def serve_traffic(model, prompts, window=None):
     requests free their slots, mid-decode for the others).  ``window``
     (a context manager) wraps the served traffic only.  Returns the
     registry, the requests, the wall seconds and the kernel's launches
-    in warmup and in the served traffic."""
+    in warmup and in the served traffic, and the served traffic's
+    ``kernel_launches``."""
     import contextlib
     from distkeras_tpu_torch.obs import Registry
-    from distkeras_tpu_torch.ops.flash_attention import flash_fwd_cuda
+    from distkeras_tpu_torch.ops.flash_attention import (
+        flash_fwd_cuda, reset_launches)
     from distkeras_tpu_torch.serve import DecodeEngine, ServeConfig
 
     registry = Registry()
     engine = DecodeEngine(model, ServeConfig(slots=4, max_new_tokens=64),
                           registry=registry)
-    flash_fwd_cuda.launches = 0
+    reset_launches()
     engine.warmup()
     warmup_launches = flash_fwd_cuda.launches
     # the main path: counts set to 0 just before, read just after
-    flash_fwd_cuda.launches = 0
+    reset_launches()
     with window if window is not None else contextlib.nullcontext():
         t0 = time.perf_counter()
         engine.start()
@@ -622,23 +699,25 @@ def serve_traffic(model, prompts, window=None):
         finally:
             engine.stop()
         wall = time.perf_counter() - t0
-    return registry, reqs, wall, warmup_launches, flash_fwd_cuda.launches
+    return (registry, reqs, wall, warmup_launches, flash_fwd_cuda.launches,
+            kernel_launches())
 
 
 def phase_slice(torch, model, prompts):
     """Serve 8 greedy requests on the card and hold them to the checks."""
     import numpy as np
     from distkeras_tpu_torch.models import zoo
-    from distkeras_tpu_torch.ops.flash_attention import flash_fwd_cuda
+    from distkeras_tpu_torch.ops.flash_attention import (
+        flash_fwd_cuda, reset_launches)
 
-    registry, reqs, wall, warmup_launches, served_launches = serve_traffic(
-        model, prompts)
+    (registry, reqs, wall, warmup_launches, served_launches,
+     served_kernels) = serve_traffic(model, prompts)
     answers = [r.result() for r in reqs]
     snap = registry.snapshot()
     joins = int(snap["serve.joins"]["value"])
 
     # (a) each answer against the port's generate_tokens on the card
-    flash_fwd_cuda.launches = 0
+    reset_launches()
     mismatches = _answers_match(torch, model, prompts, answers)
     reference_launches = flash_fwd_cuda.launches
 
@@ -675,6 +754,7 @@ def phase_slice(torch, model, prompts):
            "launches": {"warmup": warmup_launches,
                         "served": served_launches,
                         "generate_tokens": reference_launches},
+           "kernel_launches": served_kernels,
            "mismatches": mismatches, "flash_vs_dense_logit_err": logit_err,
            "jit_retraces": retraces,
            "jit_compiles": int(snap["jit.compiles"]["value"])}
@@ -712,7 +792,8 @@ def phase_profile(torch, model, prompts):
     card's busy share of the served wall and where its time goes."""
     from torch.profiler import ProfilerActivity, profile
     prof = profile(activities=[ProfilerActivity.CUDA])
-    _, reqs, wall, _, launches = serve_traffic(model, prompts, window=prof)
+    _, reqs, wall, _, launches, _ = serve_traffic(model, prompts,
+                                                  window=prof)
     events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in events)
     flash_us = sum(e.self_device_time_total for e in events
@@ -764,15 +845,13 @@ def phase_k2k3(torch):
         cases += [(dtype, True, 8, t, t, 64) for t in (64, 100, 256, 512)]
         cases += [(dtype, False, 8, 256, 256, 32),
                   (dtype, False, 8, 100, 256, 64),
-                  (dtype, True, 8, 100, 100, 32),
-                  (dtype, True, TRAIN_BH, TRAIN_T, TRAIN_T, TRAIN_DH)]
+                  (dtype, True, 8, 100, 100, 32)]
     cases += [(dtype, True, 8, 257, 257, 64)
               for dtype in ("float32", "bfloat16")]
     cases += [("bfloat16", True, TRAIN_BH, TRAIN_T, TRAIN_T, 32)]
     for dtype in ("float32", "bfloat16"):
         cases += [(dtype, True, 8, t, t, 128) for t in (64, 257, 512)]
-        cases += [(dtype, False, 8, 100, 256, 128),
-                  (dtype, True, DH128_BH, TRAIN_T, TRAIN_T, 128)]
+        cases += [(dtype, False, 8, 100, 256, 128)]
     # the f32 watch: long rows, where dK and dV sum the most query tiles
     cases += [("float32", True, 4, t, t, dh) for t in (2048, 4096)
               for dh in (64, 128)]
@@ -782,23 +861,26 @@ def phase_k2k3(torch):
               for causal in (True, False)]
     cases += [(dtype, False, 8, 100, 256, dh)
               for dtype in ("float32", "bfloat16") for dh in PAD_HEAD_DIMS]
-    # head dims past 128, on CUDA cores
+    # head dims past 128 (bf16 K3 on wgmma up to 256, the rest on CUDA
+    # cores) and past 256 (CUDA cores, 256-column panels)
     cases += [(dtype, causal, 8, 257, 257, dh)
-              for dtype in ("float32", "bfloat16") for dh in WIDE_HEAD_DIMS
+              for dtype in ("float32", "bfloat16")
+              for dh in (*WIDE_HEAD_DIMS, PAST_HEAD_DIM)
               for causal in (True, False)]
     cases += [(dtype, False, 8, 100, 256, dh)
-              for dtype in ("float32", "bfloat16") for dh in WIDE_HEAD_DIMS]
-    rows = []
-    for dtype_name, causal, bh, tq, tk, dh in cases:
-        args = inputs(getattr(torch, dtype_name), bh, tq, tk, dh, causal)
-        dq = flash_bwd_dq_cuda(*args)
-        dk, dv = flash_bwd_dkv_cuda(*args)
+              for dtype in ("float32", "bfloat16")
+              for dh in (*WIDE_HEAD_DIMS, PAST_HEAD_DIM)]
+    def checked(dtype_name, causal, bh, tq, tk, dh, args):
+        """K2 and K3 on ``args`` against the plain version; the row, with
+        the kernel each launched."""
+        dq, dq_kernel = launched(lambda: flash_bwd_dq_cuda(*args))
+        (dk, dv), dkv_kernel = launched(lambda: flash_bwd_dkv_cuda(*args))
         torch.cuda.synchronize()
         ref = flash_bwd_plain(*args)
         tol = GRAD_TOL[dtype_name]
         row = {"dtype": dtype_name, "causal": causal, "bh": bh, "tq": tq,
-               "tk": tk, "dh": dh, "tol": tol,
-               "dq_err": _max_err(dq, ref[0]),
+               "tk": tk, "dh": dh, "tol": tol, "dq_kernel": dq_kernel,
+               "dkv_kernel": dkv_kernel, "dq_err": _max_err(dq, ref[0]),
                "dk_err": _max_err(dk, ref[1]),
                "dv_err": _max_err(dv, ref[2])}
         check(all(bool(torch.isfinite(g.float()).all()) and
@@ -806,12 +888,18 @@ def phase_k2k3(torch):
                   for g, r in zip((dq, dk, dv), ref)),
               f"K2/K3 disagree with their plain version: {row}")
         emit({"phase": "k2k3", **row})
-        rows.append(row)
+        return row
 
-    # times at the training shapes: the probe's (Dh 64) in both dtypes,
-    # then Dh 128 (bf16, the dim-1024 model's; f32 beside it), then at
-    # B*H 256 the padded Dh 16 and 96 beside Dh 32, then the dim-2048
-    # model's Dh 256 with 192 beside it (B*H 128)
+    rows = [checked(dtype_name, causal, bh, tq, tk, dh,
+                    inputs(getattr(torch, dtype_name), bh, tq, tk, dh,
+                           causal))
+            for dtype_name, causal, bh, tq, tk, dh in cases]
+
+    # the training shapes, each checked as above and then timed: the
+    # probe's (Dh 64) in both dtypes, then Dh 128 (bf16, the dim-1024
+    # model's; f32 beside it), then at B*H 256 the padded Dh 16 and 96
+    # beside Dh 32, then the dim-2048 model's Dh 256 with 192, 320 and
+    # 512 beside it (B*H 128)
     timed = []
     for dtype_name, bh, dh in (("bfloat16", TRAIN_BH, TRAIN_DH),
                                ("float32", TRAIN_BH, TRAIN_DH),
@@ -821,10 +909,12 @@ def phase_k2k3(torch):
                                  for dh in (16, 32, 96)
                                  for dtype in ("bfloat16", "float32")),
                                *((dtype, DH256_BH, dh)
-                                 for dh in (192, 256)
+                                 for dh in (192, 256, *PAST_TIMED_HEAD_DIMS)
                                  for dtype in ("bfloat16", "float32"))):
         dtype = getattr(torch, dtype_name)
         args = inputs(dtype, bh, TRAIN_T, TRAIN_T, dh, True)
+        rows.append(checked(dtype_name, True, bh, TRAIN_T, TRAIN_T, dh,
+                            args))
         q, k, v, do = args[0], args[1], args[2], args[4]
         item = q.element_size()
         shape = (bh // 8, 8, TRAIN_T, dh)   # (B, H, T, Dh)
@@ -833,6 +923,8 @@ def phase_k2k3(torch):
         out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
         row = {"dtype": dtype_name, "bh": bh, "t": TRAIN_T,
                "dh": dh, "causal": True,
+               "dq_kernel": rows[-1]["dq_kernel"],
+               "dkv_kernel": rows[-1]["dkv_kernel"],
                "dq_ms": device_ms(lambda: flash_bwd_dq_cuda(*args)),
                "dkv_ms": device_ms(lambda: flash_bwd_dkv_cuda(*args)),
                "plain_ms": device_ms(lambda: flash_bwd_plain(*args)),
@@ -896,7 +988,8 @@ def phase_train(torch):
     from distkeras_tpu_torch.models import zoo
     from distkeras_tpu_torch.obs import Registry
     from distkeras_tpu_torch.ops.flash_attention import (
-        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda)
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda,
+        reset_launches)
     kernels = {"flash_fwd": flash_fwd_cuda,
                "flash_bwd_dq": flash_bwd_dq_cuda,
                "flash_bwd_dkv": flash_bwd_dkv_cuda}
@@ -914,17 +1007,18 @@ def phase_train(torch):
     ds = load_lm_corpus(n_train=64, seq_len=LM["seq_len"],
                         vocab_size=LM["vocab_size"])[0]
     runs, f32_step_ms, f32_launches = {}, {"flash": [], "dense": []}, []
+    f32_kernels = None
     for impl in ("flash", "dense", "dense", "flash"):
         t = SingleTrainer(zoo.gpt_lm(**{**LM, "attention_impl": impl}),
                           "sgd", SCE, batch_size=16, num_epoch=2,
                           learning_rate=0.1)
         # the f32 path (SingleTrainer's default dtype): counts set to 0
         # just before, read just after
-        for k in kernels.values():
-            k.launches = 0
+        reset_launches()
         t.train(ds)
         if impl == "flash":
             f32_launches.append({n: k.launches for n, k in kernels.items()})
+            f32_kernels = f32_kernels or kernel_launches()
         runs.setdefault(impl, (np.concatenate(t.get_history()),
                                _leaves(t.trained_variables)))
         rec = [r for r in t.metrics.records if r["event"] == "epoch"][-1]
@@ -957,12 +1051,12 @@ def phase_train(torch):
     t = trainer(epochs)
     torch.cuda.reset_peak_memory_stats()
     # the main path: counts set to 0 just before, read just after
-    for k in kernels.values():
-        k.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     t.train(ds)
     wall = time.perf_counter() - t0
     launches = {n: k.launches for n, k in kernels.items()}
+    by_kernel = kernel_launches()
     peak = torch.cuda.max_memory_allocated()
     hist = t.get_averaged_history()
     retraces = t.tracer.registry.get("jit.retraces")
@@ -997,7 +1091,8 @@ def phase_train(torch):
                           # then dense first
                           "warm_step_ms_flash": f32_step_ms["flash"],
                           "warm_step_ms_dense": f32_step_ms["dense"],
-                          "launches": f32_launches},
+                          "launches": f32_launches,
+                          "kernel_launches": f32_kernels},
            "probe": {"batch_size": 64, "steps_per_epoch": steps,
                      "epochs": epochs, "compute_dtype": "bfloat16",
                      "optimizer": "sgd", "learning_rate": 0.1},
@@ -1007,7 +1102,7 @@ def phase_train(torch):
            "tokens_per_s": rec["samples_per_sec"] * LM["seq_len"],
            "step_ms": 1e3 * rec["epoch_seconds"] / steps,
            "peak_memory_bytes": peak, "launches": launches,
-           "jit_retraces": retraces,
+           "kernel_launches": by_kernel, "jit_retraces": retraces,
            "profiled_epoch": {
                # the second epoch's window on the trace's device timeline,
                # and the trainer's own CUDA-event seconds for it
@@ -1030,7 +1125,8 @@ def phase_lm128(torch):
     from distkeras_tpu_torch.data import load_lm_corpus
     from distkeras_tpu_torch.models import zoo
     from distkeras_tpu_torch.ops.flash_attention import (
-        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda)
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda,
+        reset_launches)
     kernels = {"flash_fwd": flash_fwd_cuda,
                "flash_bwd_dq": flash_bwd_dq_cuda,
                "flash_bwd_dkv": flash_bwd_dkv_cuda}
@@ -1042,10 +1138,10 @@ def phase_lm128(torch):
                       num_epoch=epochs)
     torch.cuda.reset_peak_memory_stats()
     # this path: counts set to 0 just before, read just after
-    for k in kernels.values():
-        k.launches = 0
+    reset_launches()
     t.train(ds)
     launches = {n: k.launches for n, k in kernels.items()}
+    by_kernel = kernel_launches()
     hist = t.get_averaged_history()
     check(all(bool(np.isfinite(h).all()) for h in t.get_history()),
           "a dim-1024 training loss is not finite")
@@ -1060,14 +1156,15 @@ def phase_lm128(torch):
            "step_ms": 1e3 * rec["epoch_seconds"] / steps,
            "samples_per_s": rec["samples_per_sec"],
            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-           "launches": launches}
+           "launches": launches, "kernel_launches": by_kernel}
     emit(row)
     return row
 
 
 def phase_lm256(torch):
-    """``gpt_lm`` at ``mfu.py``'s ``--dim 2048`` (8 heads of Dh 256, which
-    K1, K2 and K3 take on CUDA cores): (a) bf16, trained by
+    """``gpt_lm`` at ``mfu.py``'s ``--dim 2048`` (8 heads of Dh 256: in
+    bf16 K1 and K3 on wgmma and K2 on CUDA cores, in f32 all three on
+    CUDA cores): (a) bf16, trained by
     ``SingleTrainer``, 2 epochs of 4 steps at batch 16: the loss falls;
     (b) f32, flash and dense twins from seed 0, 2 steps at batch 16:
     per-step losses within rtol 1e-4 and every trained parameter within
@@ -1080,7 +1177,8 @@ def phase_lm256(torch):
     from distkeras_tpu_torch.data import load_lm_corpus
     from distkeras_tpu_torch.models import zoo
     from distkeras_tpu_torch.ops.flash_attention import (
-        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda)
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda,
+        reset_launches)
     kernels = {"flash_fwd": flash_fwd_cuda,
                "flash_bwd_dq": flash_bwd_dq_cuda,
                "flash_bwd_dkv": flash_bwd_dkv_cuda}
@@ -1100,10 +1198,10 @@ def phase_lm256(torch):
                       num_epoch=epochs)
     ds = corpus(batch * steps)
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels.values():
-        k.launches = 0
+    reset_launches()
     t.train(ds)
     launches = counts()
+    by_kernel = kernel_launches()
     hist = t.get_averaged_history()
     check(all(bool(np.isfinite(h).all()) for h in t.get_history()),
           "a dim-2048 training loss is not finite")
@@ -1117,16 +1215,16 @@ def phase_lm256(torch):
 
     # (b) f32, flash against dense: 2 steps of batch 16 from seed 0
     ds = corpus(2 * batch)
-    runs, f32_launches = {}, None
+    runs, f32_launches, f32_kernels = {}, None, None
     for impl in ("flash", "dense"):
         t = SingleTrainer(zoo.gpt_lm(**{**LM256, "attention_impl": impl}),
                           "sgd", SCE, batch_size=batch, num_epoch=1,
                           learning_rate=0.1)
-        for k in kernels.values():
-            k.launches = 0
+        reset_launches()
         t.train(ds)
         if impl == "flash":
             f32_launches = counts()
+            f32_kernels = kernel_launches()
         runs[impl] = (np.concatenate(t.get_history()),
                       _leaves(t.trained_variables))
         del t
@@ -1146,7 +1244,8 @@ def phase_lm256(torch):
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, LM256["vocab_size"], size=n)
                for n in PROMPT_LENS[:4]]
-    registry, reqs, wall, _, served = serve_traffic(model, prompts)
+    registry, reqs, wall, _, served, served_kernels = serve_traffic(
+        model, prompts)
     mismatches = _answers_match(torch, model, prompts,
                                 [r.result() for r in reqs])
     joins = int(registry.snapshot()["serve.joins"]["value"])
@@ -1159,14 +1258,17 @@ def phase_lm256(torch):
                      "epoch_mean_loss": hist.tolist(),
                      "step_ms": 1e3 * rec["epoch_seconds"] / steps,
                      "samples_per_s": rec["samples_per_sec"],
-                     "peak_memory_bytes": peak, "launches": launches},
+                     "peak_memory_bytes": peak, "launches": launches,
+                     "kernel_launches": by_kernel},
            "parity_f32": {"losses_flash": fl.tolist(),
                           "losses_dense": dl.tolist(),
                           "loss_max_rel_err": loss_rel,
                           "param_max_abs_err": param_err,
-                          "launches": f32_launches},
+                          "launches": f32_launches,
+                          "kernel_launches": f32_kernels},
            "serve": {"requests": len(reqs), "joins": joins,
-                     "launches": served, "wall_s": wall,
+                     "launches": served, "kernel_launches": served_kernels,
+                     "wall_s": wall,
                      "mismatches": mismatches}}
     emit(row)
     return row
@@ -1495,7 +1597,8 @@ def phase_dist(torch):
     shape), and two card-vs-CPU checks: the f32 toy ADAG within rtol 1e-5
     (plus 1e-6 of the largest |value|), and DOWNPOUR's BatchNorm model by
     ``f32_parity``'s relative measure, with a TF32-on control that must
-    fail it.  Returns the rows and the flash run's launches."""
+    fail it.  Returns the rows, the parity rows and the flash run's
+    ``kernel_launches``."""
     import numpy as np
     import distkeras_tpu_torch as dkt
     from distkeras_tpu_torch import bench
@@ -1505,7 +1608,7 @@ def phase_dist(torch):
     from distkeras_tpu_torch.models.layers import Dense, Sequential
     from distkeras_tpu_torch.ops.flash_attention import (
         flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_bwd_plain,
-        flash_fwd_cuda, flash_fwd_plain)
+        flash_fwd_cuda, flash_fwd_plain, reset_launches)
     from distkeras_tpu_torch.utils import to_numpy_variables
     from distkeras_tpu_torch.utils.tree import tree_leaves
     rows = []
@@ -1559,10 +1662,10 @@ def phase_dist(torch):
                  num_epoch=epochs)
     torch.cuda.reset_peak_memory_stats()
     # this path: counts set to 0 just before, read just after
-    for k in kernels.values():
-        k.launches = 0
+    reset_launches()
     t.train(ds)
     launches = {n: k.launches for n, k in kernels.items()}
+    by_kernel = kernel_launches()
     hist = t.get_averaged_history()
     check(all(bool(np.isfinite(h).all()) for h in t.get_history()),
           "flash ADAG: a training loss is not finite")
@@ -1602,6 +1705,7 @@ def phase_dist(torch):
              "peak_memory_bytes": torch.cuda.max_memory_allocated(),
              "edge_rule_max_err": _edge_identities(torch, t, ds),
              "edge_ms": _edge_ms(torch, t), "launches": launches,
+             "kernel_launches": by_kernel,
              "k1_max_abs_err": k1["max_abs_err"],
              "k2k3_max_abs_err": max(_max_err(g, r)
                                      for g, r in zip(got, ref))}
@@ -1691,89 +1795,68 @@ def phase_dist(torch):
                                     "step_rel_limit": F32_STEP_REL,
                                     **bn_reading}}
     emit(parity)
-    return rows, parity, launches
+    return rows, parity, flash["kernel_launches"]
 
 
 #: K1's and K2/K3's CUDA kernels, one entry each in the ``kernels`` line:
-#: (name, source under distkeras_tpu_torch/ops/csrc, route (``k1_route``,
-#: ``bwd_route``), the wrapper it launches from, the line of
+#: (name, as the wrappers count it (``flash_attention.KERNELS``), source
+#: under distkeras_tpu_torch/ops/csrc, the line of
 #: distkeras_tpu/ops/pallas_attention.py it replaces)
 CUDA_KERNELS = (
-    ("flash_fwd", "flash_fwd_sm90.cu", "wgmma", "flash_fwd", 83),
-    ("flash_fwd_f32", "flash_fwd_tf32_sm90.cu", "tf32", "flash_fwd", 83),
-    ("flash_fwd_cuda_cores", "flash_fwd.cu", "cuda_cores", "flash_fwd", 83),
-    ("flash_bwd_dq", "flash_bwd_sm90.cu", "wgmma", "flash_bwd_dq", 169),
-    ("flash_bwd_dq_f32", "flash_bwd_tf32_sm90.cu", "tf32", "flash_bwd_dq",
-     169),
-    ("flash_bwd_dq_wide", "flash_bwd_wide.cu", "cuda_cores", "flash_bwd_dq",
-     169),
-    ("flash_bwd_dkv", "flash_bwd_sm90.cu", "wgmma", "flash_bwd_dkv", 200),
-    ("flash_bwd_dkv_f32", "flash_bwd_tf32_sm90.cu", "tf32", "flash_bwd_dkv",
-     200),
-    ("flash_bwd_dkv_wide", "flash_bwd_wide.cu", "cuda_cores",
-     "flash_bwd_dkv", 200),
+    ("flash_fwd", "flash_fwd_sm90.cu", 83),
+    ("flash_fwd_wgmma_wide", "flash_fwd_sm90.cu", 83),
+    ("flash_fwd_f32", "flash_fwd_tf32_sm90.cu", 83),
+    ("flash_fwd_cuda_cores", "flash_fwd.cu", 83),
+    ("flash_bwd_dq", "flash_bwd_sm90.cu", 169),
+    ("flash_bwd_dq_f32", "flash_bwd_tf32_sm90.cu", 169),
+    ("flash_bwd_dq_wide", "flash_bwd_wide.cu", 169),
+    ("flash_bwd_dkv", "flash_bwd_sm90.cu", 200),
+    ("flash_bwd_dkv_wgmma_wide", "flash_bwd_sm90.cu", 200),
+    ("flash_bwd_dkv_f32", "flash_bwd_tf32_sm90.cu", 200),
+    ("flash_bwd_dkv_wide", "flash_bwd_wide.cu", 200),
 )
 
 
-def k1_route(dtype, bh, tq, dh, sms):
-    """The kernel ``dkt_flash_fwd`` runs for a case: bf16 up to Dh 128 on
-    wgmma; f32 up to 128 as 3xTF32 where 64-row query tiles give at least
-    two blocks an SM, on CUDA cores where they do not; both dtypes past
-    128 on CUDA cores."""
-    if dh > 128:
-        return "cuda_cores"
-    if dtype == "bfloat16":
-        return "wgmma"
-    return "tf32" if bh * -(-tq // 64) >= 2 * sms else "cuda_cores"
-
-
-def bwd_route(dtype, dh):
-    """The kernel K2 and K3 run: up to Dh 128 wgmma (bf16) or 3xTF32
-    (f32), past 128 CUDA cores."""
-    if dh > 128:
-        return "cuda_cores"
-    return "wgmma" if dtype == "bfloat16" else "tf32"
-
-
-def kernels_line(k1, sl, tr, lm128, lm256, dist_launches, bwd_rows,
-                 bwd_timed, sms):
+def kernels_line(k1, sl, tr, lm128, lm256, dist_kernels, bwd_rows,
+                 bwd_timed):
     """The ``kernels`` line: one entry per CUDA kernel, with its launches
     on the main paths (each path's counts were set to 0 just before it ran
-    and read just after; a kernel's paths are those its dtype, head dim and
-    grid route to it), its largest error against the plain version over
-    every checked case it ran, and its headline timed row (the training
-    shape of its main path) with the other timed shapes it ran."""
+    and read just after, each launch counted under the kernel its C entry
+    point reports it ran), its largest error against the plain version
+    over every checked case it ran, and its headline timed row (the shape
+    of its launches on its first training path) with the other timed
+    shapes it ran."""
+    from distkeras_tpu_torch.ops.flash_attention import KERNELS
+    names = {n for ns in KERNELS.values() for n in ns if n is not None}
+    check(names == {n for n, _, _ in CUDA_KERNELS},
+          f"CUDA_KERNELS does not name the wrappers' kernels {names}")
     timing = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
-    # launches by path and route: bf16 (the probe, lm128, distributed
-    # ADAG) on wgmma; the f32 parity run (B*H 128) as 3xTF32; served
-    # traffic (f32, Dh 64, B*H 8) and lm256 (Dh 256) on CUDA cores
-    paths = {
-        "wgmma": lambda w: {"train": tr["launches"][w],
-                            "train_dh128": lm128["launches"][w],
-                            "dist_adag": dist_launches[w]},
-        "tf32": lambda w: {"train_f32": tr["parity_f32"]["launches"][w]},
-        "cuda_cores": lambda w: {
-            "serve": sl["launches"]["served"] if w == "flash_fwd" else 0,
-            "lm256_train": lm256["train"]["launches"][w],
-            "lm256_train_f32": lm256["parity_f32"]["launches"][w],
-            "lm256_serve": lm256["serve"]["launches"]
-            if w == "flash_fwd" else 0}}
+    # (path, [kernel, dtype, head dim, launches] rows): served traffic,
+    # the bf16 probe, its f32 parity run, the Dh 128 model, distributed
+    # ADAG, and lm256's bf16 training, f32 parity and serving
+    paths = (
+        ("serve", sl["kernel_launches"]),
+        ("train", tr["kernel_launches"]),
+        ("train_f32", tr["parity_f32"]["kernel_launches"]),
+        ("train_dh128", lm128["kernel_launches"]),
+        ("dist_adag", dist_kernels),
+        ("lm256_train", lm256["train"]["kernel_launches"]),
+        ("lm256_train_f32", lm256["parity_f32"]["kernel_launches"]),
+        ("lm256_serve", lm256["serve"]["kernel_launches"]))
     kernels = []
-    for name, src, route, wrapper, line in CUDA_KERNELS:
-        if wrapper == "flash_fwd":
-            def ran(r):
-                return k1_route(r["dtype"], r["bh"], r["tq"], r["dh"],
-                                sms) == route
-            checked = [(r, ("max_abs_err",)) for r in k1]
+    for name, src, line in CUDA_KERNELS:
+        wrapper = next(fn for fn, ns in KERNELS.items() if name in ns)
+        if wrapper == "dkt_flash_fwd":
+            checked = [(r, ("max_abs_err",)) for r in k1
+                       if r["kernel"] == name]
             timed = [{**{k: r[k] for k in ("dtype", "bh", "tq", "dh")},
                       **{k: r[k] for k in timing}}
-                     for r in k1 if "ms" in r and ran(r)]
+                     for r in k1 if "ms" in r and r["kernel"] == name]
         else:
-            def ran(r):
-                return bwd_route(r["dtype"], r["dh"]) == route
-            key = "dq" if wrapper == "flash_bwd_dq" else "dkv"
+            key = "dq" if wrapper == "dkt_flash_bwd_dq" else "dkv"
             errs = ("dq_err",) if key == "dq" else ("dk_err", "dv_err")
-            checked = [(r, errs) for r in bwd_rows]
+            checked = [(r, errs) for r in bwd_rows
+                       if r[f"{key}_kernel"] == name]
             # the plain version computes dQ, dK and dV in one call, and so
             # does SDPA's backward (K2 and K3 together)
             timed = [{"dtype": r["dtype"], "bh": r["bh"], "tq": r["t"],
@@ -1783,27 +1866,28 @@ def kernels_line(k1, sl, tr, lm128, lm256, dist_launches, bwd_rows,
                       "library_ms": r["library_bwd_ms"],
                       "bound_ms": r[f"{key}_bound_ms"],
                       "bound_by": r[f"{key}_bound_by"]}
-                     for r in bwd_timed if ran(r)]
-        errs = [r[e] for r, es in checked if ran(r) for e in es]
-        # the headline: the training shape of the kernel's main path (the
-        # probe's at Dh 64; lm256's at Dh 256 on CUDA cores)
-        head = next(r for r in timed
-                    if r["dtype"] == ("float32" if route == "tf32"
-                                      else "bfloat16")
-                    and r["dh"] == (256 if route == "cuda_cores"
-                                    else TRAIN_DH))
-        by_path = paths[route](wrapper)
+                     for r in bwd_timed if r[f"{key}_kernel"] == name]
+        errs = [r[e] for r, es in checked for e in es]
+        mine = {p: [(d, h, n) for k, d, h, n in rows if k == name]
+                for p, rows in paths}
+        by_path = {p: sum(n for _, _, n in m) for p, m in mine.items()}
+        check(sum(by_path.values()) > 0,
+              f"{name} was not launched on its main paths: {by_path}")
+        # the headline: the dtype and head dim of the kernel's launches on
+        # its first training path (serving runs at one request's B*H)
+        main = next(m for p, m in mine.items() if m
+                    and p not in ("serve", "lm256_serve"))
+        dtype, dh, _ = max(main, key=lambda x: x[2])
+        head = next(r for r in timed if (r["dtype"], r["dh"]) == (dtype, dh))
         entry = {"name": name, "route": "cuda",
                  "source": f"distkeras_tpu_torch/ops/csrc/{src}",
                  "replaces": f"distkeras_tpu/ops/pallas_attention.py:{line}",
-                 "kernel_route": route, "wrapper": wrapper,
+                 "entry_point": wrapper,
                  "launches": sum(by_path.values()),
                  "launches_by_path": by_path,
                  "max_abs_err": max(errs), "checked_cases": len(errs),
                  "shape": {k: head[k] for k in ("dtype", "bh", "tq", "dh")},
                  **{k: head[k] for k in timing}, "timed": timed}
-        check(entry["launches"] > 0,
-              f"{name} was not launched on its main paths: {by_path}")
         kernels.append(entry)
     return kernels
 
@@ -1841,10 +1925,9 @@ def main() -> int:
         lm256 = phase_lm256(torch)
         phase_conv(torch)
         phase_models(torch)
-        _, _, dist_launches = phase_dist(torch)
-        kernels = kernels_line(
-            k1, sl, tr, lm128, lm256, dist_launches, bwd_rows, bwd_timed,
-            torch.cuda.get_device_properties(0).multi_processor_count)
+        _, _, dist_kernels = phase_dist(torch)
+        kernels = kernels_line(k1, sl, tr, lm128, lm256, dist_kernels,
+                               bwd_rows, bwd_timed)
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1

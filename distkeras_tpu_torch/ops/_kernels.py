@@ -2,14 +2,16 @@
 library with a plain C interface → ``ctypes``.
 
 ``csrc/flash_fwd.cu`` (the C interface of K1 in both dtypes, and K1 on
-CUDA cores for head dims 129-256), ``csrc/flash_fwd_tf32_sm90.cu`` (K1 in
+CUDA cores past head dim 128), ``csrc/flash_fwd_tf32_sm90.cu`` (K1 in
 f32, as 3xTF32 on mma.sync), ``csrc/flash_fwd_sm90.cu`` (K1 in bf16),
 ``csrc/flash_bwd.cu`` (the C interface of K2, K3),
 ``csrc/flash_bwd_tf32_sm90.cu`` (K2, K3 in f32, as 3xTF32 on mma.sync),
 ``csrc/flash_bwd_sm90.cu`` (K2, K3 in bf16) and ``csrc/flash_bwd_wide.cu``
-(K2, K3 on CUDA cores for head dims 129-256; the ``_sm90`` files include
-``csrc/sm90.cuh``, their shared PTX and tensor-map helpers, and the
-``_tf32_`` ones ``csrc/tf32.cuh``, the 3xTF32 pieces) compile in
+(K2, K3 on CUDA cores past head dim 128; the ``_sm90`` files include
+``csrc/sm90.cuh``, their shared PTX and tensor-map helpers, the
+``_tf32_`` ones ``csrc/tf32.cuh``, the 3xTF32 pieces, and the two C
+interfaces ``csrc/launched.h``, the codes of the kernel a call ran)
+compile in
 parallel, one ``nvcc`` each, and link
 into ``distkeras_tpu_torch/_build/`` (listed in ``.gitignore``) under a
 name keyed by a hash of every file under ``csrc/`` and the flags, so a
@@ -57,6 +59,8 @@ SIGNATURES = {
     # as dkt_flash_bwd_dq with dk, dv in place of dq
     "dkt_flash_bwd_dkv": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _F, _I, _I, _P]),
+    # -> the kernel the calling thread's last launch ran (csrc/launched.h)
+    "dkt_flash_last_kernel": (_I, []),
     "dkt_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -2,9 +2,9 @@
 // both dtypes.  The kernels live beside it: for head dims 32, 64 and 128
 // on Hopper's tensor cores (sm_90a), f32 as 3xTF32 on mma.sync in
 // flash_bwd_tf32_sm90.cu and bf16 on wgmma and TMA in flash_bwd_sm90.cu;
-// for 128 < Dh <= 256 on CUDA cores in flash_bwd_wide.cu.  This file
-// checks the arguments, sets the device and picks the kernel for (dtype,
-// head dim).
+// bf16 K3 at 129-256 on wgmma too (flash_bwd_sm90.cu); the rest past 128
+// on CUDA cores in flash_bwd_wide.cu.  This file checks the arguments,
+// sets the device and picks the kernel for (dtype, head dim).
 //
 // Replaces: distkeras_tpu/ops/pallas_attention.py:_bwd_dq_kernel (K2) and
 // _bwd_dkv_kernel (K3), the Pallas TPU kernels launched by
@@ -21,8 +21,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launched.h"
+
 // the f32 kernels (flash_bwd_tf32_sm90.cu) and the bf16 ones
-// (flash_bwd_sm90.cu); head_dim 32, 64 or 128
+// (flash_bwd_sm90.cu); head_dim 32, 64 or 128, and bf16 K3 also a
+// multiple of 8 in 129-256
 cudaError_t flash_bwd_dq_f32(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* dvec, void* dq, int bh, int tq,
@@ -43,7 +46,7 @@ cudaError_t flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                const void* dvec, void* dk, void* dv, int bh,
                                int tq, int tk, int head_dim, int causal,
                                float scale, cudaStream_t stream);
-// the CUDA-core kernels for 128 < head_dim <= 256 (flash_bwd_wide.cu)
+// the CUDA-core kernels for head_dim > 128 (flash_bwd_wide.cu)
 cudaError_t flash_bwd_dq_wide(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* dvec, void* dq, int bh, int tq,
@@ -101,27 +104,47 @@ cudaError_t launch_dkv_wide(const BwdArgs& a, cudaStream_t stream) {
                             a.dtype, stream);
 }
 
-using Launcher = cudaError_t (*)(const BwdArgs&, cudaStream_t);
-
-// The launcher for (dtype, head_dim), or nullptr.  Order of `table`:
-// (f32, 32), (f32, 64), (f32, 128), (bf16, 32), (bf16, 64), (bf16, 128);
-// `wide` takes 128 < head_dim <= 256 in either dtype.
-Launcher pick(const Launcher (&table)[6], Launcher wide, int dtype,
-              int head_dim) {
-  if (dtype != 0 && dtype != 1) return nullptr;
-  if (head_dim > 128 && head_dim <= 256) return wide;
-  const int d = head_dim == 32 ? 0 : head_dim == 64 ? 1 : head_dim == 128 ? 2
-                                                                          : -1;
-  return d < 0 ? nullptr : table[3 * dtype + d];
+// bf16 K3 at 129 <= head_dim <= 256 on wgmma (the runtime head dim)
+cudaError_t launch_dkv_bf16_wide(const BwdArgs& a, cudaStream_t stream) {
+  return flash_bwd_dkv_bf16(a.q, a.k, a.v, a.dout, a.lse, a.dvec, a.dk, a.dv,
+                            a.bh, a.tq, a.tk, a.head_dim, a.causal, a.scale,
+                            stream);
 }
 
-int run(Launcher f, const BwdArgs& a, int device, void* stream) {
+using Launcher = cudaError_t (*)(const BwdArgs&, cudaStream_t);
+
+// A launcher and the kernel it runs (launched.h)
+struct Pick {
+  Launcher f;
+  LaunchedKernel kernel;
+};
+
+// The launcher for (dtype, head_dim); f is nullptr for what no kernel
+// takes.  Order of `table`: (f32, 32), (f32, 64), (f32, 128), (bf16, 32),
+// (bf16, 64), (bf16, 128); `wide` takes head_dim > 128 in either dtype,
+// but for bf16 at 129-256 where `bf16_wide` is given, which takes a
+// multiple of 8 there (its TMA row stride) and nothing else.
+Pick pick(const Launcher (&table)[6], Launcher wide, Launcher bf16_wide,
+          int dtype, int head_dim) {
+  if (dtype != 0 && dtype != 1) return {nullptr, kCudaCores};
+  if (dtype == 1 && bf16_wide != nullptr && head_dim > 128 &&
+      head_dim <= 256)
+    return {head_dim % 8 == 0 ? bf16_wide : nullptr, kWgmmaWide};
+  if (head_dim > 128) return {wide, kCudaCores};
+  const int d = head_dim == 32 ? 0 : head_dim == 64 ? 1 : head_dim == 128 ? 2
+                                                                          : -1;
+  return {d < 0 ? nullptr : table[3 * dtype + d],
+          dtype == 0 ? kTf32 : kWgmma};
+}
+
+int run(Pick p, const BwdArgs& a, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (f == nullptr || a.bh < 1 || a.tq < 1 || a.tk < 1 ||
+  if (p.f == nullptr || a.bh < 1 || a.tq < 1 || a.tk < 1 ||
       (a.causal && a.tq != a.tk))
     return (int)cudaErrorInvalidValue;
-  return (int)f(a, static_cast<cudaStream_t>(stream));
+  dkt_set_last_kernel(p.kernel);
+  return (int)p.f(a, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -129,7 +152,8 @@ int run(Launcher f, const BwdArgs& a, int device, void* stream) {
 // q and dout: (bh, tq, head_dim); k and v: (bh, tk, head_dim); all
 // contiguous and 16-byte aligned (the tensor-core kernels load tiles by
 // cp.async or TMA), of dtype 0 (float32) or 1 (bfloat16); head_dim 32, 64,
-// 128 or 129-256; lse and dvec: (bh, tq) float32.  dq is written like q.
+// 128 or any past 128; lse and dvec: (bh, tq) float32.  dq is written like
+// q.
 // Launches on `stream` of `device` and returns cudaGetLastError() after the
 // launch (0 on success).
 extern "C" int dkt_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -142,11 +166,12 @@ extern "C" int dkt_flash_bwd_dq(const void* q, const void* k, const void* v,
       launch_dq_bf16<32>, launch_dq_bf16<64>, launch_dq_bf16<128>};
   const BwdArgs a{q, k, v, dout, lse, dvec, dq, nullptr, nullptr,
                   bh, tq, tk, head_dim, causal, scale, dtype};
-  return run(pick(table, launch_dq_wide, dtype, head_dim), a, device,
-             stream);
+  return run(pick(table, launch_dq_wide, nullptr, dtype, head_dim), a,
+             device, stream);
 }
 
-// As dkt_flash_bwd_dq; dk and dv are written like k and v.
+// As dkt_flash_bwd_dq, but bf16 head_dim in 129-256 a multiple of 8; dk
+// and dv are written like k and v.
 extern "C" int dkt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* dvec, void* dk, void* dv, int bh,
@@ -158,6 +183,7 @@ extern "C" int dkt_flash_bwd_dkv(const void* q, const void* k, const void* v,
       launch_dkv_bf16<32>, launch_dkv_bf16<64>, launch_dkv_bf16<128>};
   const BwdArgs a{q, k, v, dout, lse, dvec, nullptr, dk, dv,
                   bh, tq, tk, head_dim, causal, scale, dtype};
-  return run(pick(table, launch_dkv_wide, dtype, head_dim), a, device,
-             stream);
+  return run(pick(table, launch_dkv_wide, launch_dkv_bf16_wide, dtype,
+                  head_dim),
+             a, device, stream);
 }

@@ -1,6 +1,8 @@
 // Flash-attention backward in bf16 on Hopper's tensor cores (sm_90a):
-// K2 (dQ) and K3 (dK, dV).  Called from flash_bwd.cu's C interface
-// (dkt_flash_bwd_dq, dkt_flash_bwd_dkv) for dtype 1; f32 stays there.
+// K2 (dQ) and K3 (dK, dV) at head dims 32, 64 and 128, and K3 at 129-256.
+// Called from flash_bwd.cu's C interface (dkt_flash_bwd_dq,
+// dkt_flash_bwd_dkv) for dtype 1; f32 stays there, and so does bf16 K2
+// past 128 (flash_bwd_wide.cu).
 //
 // Replaces: distkeras_tpu/ops/pallas_attention.py:_bwd_dq_kernel (K2) and
 // _bwd_dkv_kernel (K3) under the bf16 branch of _dot/_dot_t.  With
@@ -20,7 +22,9 @@
 // bf16 and L, D f32 read once, the gradients written once) take 0.051 and
 // 0.061 ms at 3.35 TB/s.  So bytes bound both, with the operations close
 // behind: the kernels have to keep the tensor cores fed from shared memory
-// and their exp/select work off the critical path.
+// and their exp/select work off the critical path.  K3 at Dh 256 (B*H =
+// 128, gpt_lm at dim 2048) does the same 34.4 GFLOP over the same bytes:
+// 0.035 and 0.060 ms.
 //
 // Design: one warpgroup (128 threads) per block and 64-row tiles, the
 // wgmma M.  K2 is one block per (batch*head, query tile), issued from the
@@ -45,7 +49,24 @@
 // one swizzle row wide), one box each, and the products step across them
 // (sm90.cuh); K3 runs two warpgroups, each forming the whole S^T and
 // dP^T but holding the dK and dV of one panel, since one warpgroup's
-// 2 x 64 accumulator registers a thread would spill.  L and D
+// 2 x 64 accumulator registers a thread would spill.
+//
+// K3 at Dh 129-256 (the reference's BlockSpecs span any Dh) is the same
+// kernel on 256-wide tiles of four panels, read from unpadded rows of Dh
+// columns (Dh % 8 == 0, the TMA row stride; the wrapper pads other Dh to
+// the next multiple of 8), the columns past Dh zero-filled by TMA (a box
+// wholly past Dh reads zeros) and dK, dV stored masked at Dh.  dK and dV
+// are 2 x 64 x 256 f32, 256 registers a thread for one warpgroup, so two
+// warpgroups each hold a 128-column half (two panels, 128 registers) and
+// each forms the whole S^T and dP^T: 1.5x the minimal products for no
+// traffic between them.  Measured against the minimal products on an
+// H100 (kernel_ab.py, tree against tree): warpgroup 0 forming S^T and
+// P, warpgroup 1 dP^T and dS from P passed in f32, P^T and dS^T written
+// in bf16 to swizzled shared memory as both warpgroups' A operands, ran
+// 7-9% slower at Dh 192 and 256: the products saved cost two block
+// barriers and a serial P -> dS hand-off a query tile.
+// K, V resident and the Q/dO ring are six 32 KB tiles, 192 KB: one block
+// of 256 threads an SM.  L and D
 // rows of (B*H, Tq) f32 are not 16-byte aligned at odd Tq, so TMA cannot
 // take them: K2 reads its two rows per thread once, K3 stages each query
 // tile's 64 + 64 values in shared memory a tile ahead.  The stores are
@@ -184,12 +205,17 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 // K3: dK and dV
 // ---------------------------------------------------------------------------
 
-// K3's warpgroups: one per 64-column panel of dK and dV (two at
-// Dh = 128), each forming the whole S^T and dP^T, so a thread's two
-// accumulators stay at 64 registers
+// K3's warpgroups, each forming the whole S^T and dP^T and holding D /
+// dkv_groups columns of dK and dV: one at Dh 32 and 64, one per 64-column
+// panel at 128 (a thread's two accumulators stay at 64 registers), and
+// two at 256, 128 columns each (128 registers)
+template <int D>
+__host__ __device__ constexpr int dkv_groups() {
+  return D == 256 ? 2 : Tile<D>::kPanels;
+}
 template <int D>
 constexpr int dkv_threads() {
-  return kThreads * Tile<D>::kPanels;
+  return kThreads * dkv_groups<D>();
 }
 
 template <int D>
@@ -202,9 +228,10 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const float* __restrict__ dvec,
                            __nv_bfloat16* __restrict__ dk,
                            __nv_bfloat16* __restrict__ dv, int tq, int tk,
-                           int causal, float scale) {
+                           int dh, int causal, float scale) {
   constexpr uint32_t kTile = Tile<D>::kBytes;
-  constexpr int kN = Tile<D>::kCols;  // the dK, dV columns a warpgroup owns
+  // the dK, dV columns a warpgroup owns
+  constexpr int kN = D / dkv_groups<D>();
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t bars[3];  // the resident tiles, ring stages 0 and 1
   // L and D of a query tile, one buffer per ring stage
@@ -222,8 +249,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int tid = threadIdx.x;
   const float* lse_bh = lse + (size_t)bh * tq;
   const float* dvec_bh = dvec + (size_t)bh * tq;
-  // this warpgroup's panel of dK and dV (a constant 0 at one panel)
-  constexpr bool kSplit = Tile<D>::kPanels > 1;
+  // this warpgroup's columns of dK and dV (a constant 0 at one group)
+  constexpr bool kSplit = dkv_groups<D>() > 1;
   const int wg = kSplit ? tid / kThreads : 0;
   // query tile `it` of the loop's L (threads 0-63) and D (64-127)
   auto stage_stats = [&](int it) {
@@ -265,9 +292,10 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int q0 = (first + it) * kBlock;
     uint8_t* qs = smem + (2 + 2 * s) * kTile;
     uint8_t* dos = qs + kTile;
-    // this warpgroup's panel of Q and dO, the B of its second products
-    uint8_t* qp = qs + wg * Tile<D>::kPanelBytes;
-    uint8_t* dop = dos + wg * Tile<D>::kPanelBytes;
+    // this warpgroup's panels of Q and dO, the B of its second products
+    constexpr uint32_t kOwn = kN / Tile<D>::kCols * Tile<D>::kPanelBytes;
+    uint8_t* qp = qs + wg * kOwn;
+    uint8_t* dop = dos + wg * kOwn;
     const float* ls = stats[s][0];
     const float* dls = stats[s][1];
     mbar_wait(&bars[1 + s], (it >> 1) & 1);
@@ -337,9 +365,15 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       tma_load_tile<D>(dos, &tm_do, &bars[1 + s], q0 + 2 * kBlock, bh);
     }
   }
-  const size_t col = (size_t)bh * tk * D + wg * kN;
-  store_rows<kN, D>(dk + col, acc_k, r0, tk, c0);
-  store_rows<kN, D>(dv + col, acc_v, r0, tk, c0);
+  if constexpr (D > 128) {  // rows of dh columns
+    const size_t col = (size_t)bh * tk * dh + wg * kN;
+    store_rows_masked<kN>(dk + col, acc_k, r0, tk, c0, dh, dh - wg * kN);
+    store_rows_masked<kN>(dv + col, acc_v, r0, tk, c0, dh, dh - wg * kN);
+  } else {
+    const size_t col = (size_t)bh * tk * D + wg * kN;
+    store_rows<kN, D>(dk + col, acc_k, r0, tk, c0);
+    store_rows<kN, D>(dv + col, acc_v, r0, tk, c0);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -383,8 +417,8 @@ cudaError_t launch_dq(const Maps& m, const float* lse, const float* dvec,
 
 template <int D>
 cudaError_t launch_dkv(const Maps& m, const float* lse, const float* dvec,
-                       void* dk, void* dv, int bh, int tq, int tk, int causal,
-                       float scale, cudaStream_t stream) {
+                       void* dk, void* dv, int bh, int tq, int tk, int dh,
+                       int causal, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_wgmma_kernel<D>,
@@ -393,7 +427,7 @@ cudaError_t launch_dkv(const Maps& m, const float* lse, const float* dvec,
   const dim3 grid(bh, (tk + kBlock - 1) / kBlock);
   flash_bwd_dkv_wgmma_kernel<D><<<grid, dkv_threads<D>(), smem, stream>>>(
       m.q, m.k, m.v, m.dout, lse, dvec, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), tq, tk, causal, scale);
+      static_cast<__nv_bfloat16*>(dv), tq, tk, dh, causal, scale);
   return cudaGetLastError();
 }
 
@@ -401,7 +435,8 @@ cudaError_t launch_dkv(const Maps& m, const float* lse, const float* dvec,
 
 // The bf16 entry points behind dkt_flash_bwd_dq / dkt_flash_bwd_dkv
 // (flash_bwd.cu, which checks the arguments and sets the device): q, k,
-// v, dout contiguous bf16, 16-byte aligned; head_dim 32, 64 or 128.
+// v, dout contiguous bf16, 16-byte aligned; head_dim 32, 64 or 128, and
+// for K3 also a multiple of 8 in 129-256.
 cudaError_t flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* dvec, void* dq, int bh, int tq,
@@ -432,15 +467,19 @@ cudaError_t flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   const auto* l = static_cast<const float*>(lse);
   const auto* d = static_cast<const float*>(dvec);
+  const int dh = head_dim;
   switch (head_dim) {
     case 32:
-      return launch_dkv<32>(m, l, d, dk, dv, bh, tq, tk, causal, scale,
+      return launch_dkv<32>(m, l, d, dk, dv, bh, tq, tk, dh, causal, scale,
                             stream);
     case 64:
-      return launch_dkv<64>(m, l, d, dk, dv, bh, tq, tk, causal, scale,
+      return launch_dkv<64>(m, l, d, dk, dv, bh, tq, tk, dh, causal, scale,
                             stream);
-    default:
-      return launch_dkv<128>(m, l, d, dk, dv, bh, tq, tk, causal, scale,
+    case 128:
+      return launch_dkv<128>(m, l, d, dk, dv, bh, tq, tk, dh, causal, scale,
+                             stream);
+    default:  // 129-256
+      return launch_dkv<256>(m, l, d, dk, dv, bh, tq, tk, dh, causal, scale,
                              stream);
   }
 }

@@ -1,5 +1,6 @@
-// Flash-attention backward on CUDA cores for head dims 129-256: K2 (dQ)
-// and K3 (dK, dV) in both dtypes.  Called from flash_bwd.cu's C interface
+// Flash-attention backward on CUDA cores for head dims past 128: K2 (dQ)
+// and K3 (dK, dV) in both dtypes, but for bf16 K3 at 129-256, which runs
+// on wgmma (flash_bwd_sm90.cu).  Called from flash_bwd.cu's C interface
 // (dkt_flash_bwd_dq, dkt_flash_bwd_dkv); the head dims up to 128 go to
 // the tensor-core kernels.
 //
@@ -18,8 +19,16 @@
 // dtype.  Causal needs Tq == Tk; non-causal takes Tq != Tk; any T.
 //
 // Tiles are D = 256 columns wide; the columns past the caller's Dh are
-// zero-filled on load and never stored, so any Dh in 129-256 runs on
-// unpadded rows (a Dh below 256 pays the full width's products).
+// zero-filled on load and never stored, so any Dh runs on unpadded rows
+// (a Dh below 256 pays the full width's products).  Past Dh 256 a block
+// computes one 256-column panel of its outputs (dQ; dK and dV), the
+// grid's third dimension holding the panels, and forms S and dP over the
+// whole Dh by staging its operands in 256-column chunks, in order, so
+// every panel's block holds the same P and dS; then the panel's columns
+// of K (K2) or of Q and dO (K3) are staged for the second products.
+// Registers and shared memory stay at the single tile's; at Dh <= 256
+// there is one chunk and one panel, and the kernels are the single-tile
+// ones.
 //
 // What bounds them on this card: at B*H = 128, T = 512, Dh = 256, causal
 // (gpt_lm at dim 2048, 8 heads, batch 16) K2 does 6*Dh and K3 8*Dh FLOPs
@@ -28,7 +37,8 @@
 // 989.  Operations bound both; f32 FMAs on CUDA cores (67 TFLOP/s) cannot
 // reach that, and these kernels, staging every operand through shared
 // memory, reach a fraction of the FMA rate.  They are the simple ones:
-// tensor cores at these head dims are later work.
+// bf16 K3 runs on tensor cores at these head dims; K2 and f32 there are
+// later work.
 //
 // Design (the simple CUDA-core backward): K2 is one block of 128 threads
 // per (batch*head, 32-row query tile) that keeps its Q and dO
@@ -71,16 +81,18 @@ __device__ __forceinline__ float as_operand(float x, __nv_bfloat16) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// Rows [r0, r0 + ROWS) of a contiguous (n, dh) matrix into a padded f32
-// tile of kD columns; rows past n and columns past dh read as 0.
+// Rows [r0, r0 + ROWS), columns [c0, c0 + kD) of a contiguous (n, dh)
+// matrix into a padded f32 tile of kD columns; rows past n and columns
+// past dh read as 0.
 template <typename T, int ROWS>
 __device__ __forceinline__ void stage(float* dst, const T* src, int r0, int n,
-                                      int dh) {
+                                      int dh, int c0 = 0) {
 #pragma unroll 8
   for (int i = threadIdx.x; i < ROWS * kD; i += kThreads) {
     const int r = i / kD, c = i % kD;
-    dst[r * kLd + c] =
-        r0 + r < n && c < dh ? widen(src[(size_t)(r0 + r) * dh + c]) : 0.f;
+    dst[r * kLd + c] = r0 + r < n && c0 + c < dh
+                           ? widen(src[(size_t)(r0 + r) * dh + c0 + c])
+                           : 0.f;
   }
 }
 
@@ -93,14 +105,17 @@ __device__ __forceinline__ void stage_vec(float* dst, const float* src,
 }
 
 // c[i][j] = sum_d x[row i][d] y[col j][d] for this thread's kRm rows of x
-// (ty + kTy*i) and kRn rows of y (tx + kTx*j), contracted over kD
+// (ty + kTy*i) and kRn rows of y (tx + kTx*j), contracted over kD; with
+// `add`, added to c (the next chunk of Dh)
 template <int kRm, int kRn>
 __device__ __forceinline__ void scores(float (&c)[kRm][kRn], const float* x,
-                                       const float* y, int tx, int ty) {
+                                       const float* y, int tx, int ty,
+                                       bool add = false) {
 #pragma unroll
   for (int i = 0; i < kRm; ++i)
 #pragma unroll
-    for (int j = 0; j < kRn; ++j) c[i][j] = 0.f;
+    for (int j = 0; j < kRn; ++j)
+      if (!add) c[i][j] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < kD; ++d) {
     float xv[kRm], yv[kRn];
@@ -136,19 +151,20 @@ __device__ __forceinline__ void accumulate(float (&acc)[kRm][kRd],
   }
 }
 
-// rows r0 + ty + kTy*i of a (n, dh) output from acc, columns past dh
-// and rows past n skipped
+// rows r0 + ty + kTy*i, columns [p0, p0 + kD) of a (n, dh) output from
+// acc, columns past dh and rows past n skipped
 template <typename T, int kRm>
 __device__ __forceinline__ void store(T* out, const float (&acc)[kRm][kRd],
-                                      int r0, int n, int dh, int tx, int ty) {
+                                      int r0, int n, int dh, int p0, int tx,
+                                      int ty) {
 #pragma unroll
   for (int i = 0; i < kRm; ++i) {
     const int r = r0 + ty + kTy * i;
     if (r >= n) continue;
-    T* row = out + (size_t)r * dh;
+    T* row = out + (size_t)r * dh + p0;
 #pragma unroll
     for (int c = 0; c < kRd; ++c)
-      if (tx + kTx * c < dh) narrow(&row[tx + kTx * c], acc[i][c]);
+      if (p0 + tx + kTx * c < dh) narrow(&row[tx + kTx * c], acc[i][c]);
   }
 }
 
@@ -164,7 +180,7 @@ constexpr size_t dq_smem_bytes() {
                           kDqRows * (kDqKeys + 8));
 }
 
-template <typename T>
+template <typename T, bool kChunked>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
@@ -185,10 +201,18 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.y * kDqRows;
   const int tx = threadIdx.x % kTx;
   const int ty = threadIdx.x / kTx;
+  const T* qb = q + (size_t)bh * tq * dh;
+  const T* db = dout + (size_t)bh * tq * dh;
   const T* kb = k + (size_t)bh * tk * dh;
   const T* vb = v + (size_t)bh * tk * dh;
-  stage<T, kDqRows>(qs, q + (size_t)bh * tq * dh, q0, tq, dh);
-  stage<T, kDqRows>(dos, dout + (size_t)bh * tq * dh, q0, tq, dh);
+  // this block's panel of dQ, and the chunks of Dh that S and dP sum
+  // (one of each at compile time unless kChunked, Dh > kD)
+  const int p0 = kChunked ? blockIdx.z * kD : 0;
+  const int n_chunks = kChunked ? (dh + kD - 1) / kD : 1;
+  if (n_chunks == 1) {  // Q and dO stay resident
+    stage<T, kDqRows>(qs, qb, q0, tq, dh);
+    stage<T, kDqRows>(dos, db, q0, tq, dh);
+  }
 
   // this thread's rows are ty + kTy*i, its keys tx + kTx*j
   float l_row[kRm], d_row[kRm], acc[kRm][kRd];
@@ -207,14 +231,24 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kDqKeys;
-    __syncthreads();  // the last tile's readers are done with ks/vs/ps
-    stage<T, kDqKeys>(ks, kb, k0, tk, dh);
-    stage<T, kDqKeys>(vs, vb, k0, tk, dh);
-    __syncthreads();
-
     float s[kRm][kRn], dp[kRm][kRn];
-    scores<kRm, kRn>(s, qs, ks, tx, ty);
-    scores<kRm, kRn>(dp, dos, vs, tx, ty);
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      // the last tile's (or chunk's) readers are done with the tiles
+      __syncthreads();
+      if (n_chunks > 1) {
+        stage<T, kDqRows>(qs, qb, q0, tq, dh, ch * kD);
+        stage<T, kDqRows>(dos, db, q0, tq, dh, ch * kD);
+      }
+      stage<T, kDqKeys>(ks, kb, k0, tk, dh, ch * kD);
+      stage<T, kDqKeys>(vs, vb, k0, tk, dh, ch * kD);
+      __syncthreads();
+      scores<kRm, kRn>(s, qs, ks, tx, ty, ch > 0);
+      scores<kRm, kRn>(dp, dos, vs, tx, ty, ch > 0);
+    }
+    if (p0 != (n_chunks - 1) * kD) {  // K's panel for dQ += dS K
+      __syncthreads();
+      stage<T, kDqKeys>(ks, kb, k0, tk, dh, p0);
+    }
 #pragma unroll
     for (int i = 0; i < kRm; ++i) {
       const int row = ty + kTy * i;
@@ -233,7 +267,7 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     accumulate<kRm, kDqKeys>(acc, ps, ks, tx, ty);  // dQ += dS K
   }
-  store<T, kRm>(dq + (size_t)bh * tq * dh, acc, q0, tq, dh, tx, ty);
+  store<T, kRm>(dq + (size_t)bh * tq * dh, acc, q0, tq, dh, p0, tx, ty);
 }
 
 // ---------------------------------------------------------------------------
@@ -248,7 +282,7 @@ constexpr size_t dkv_smem_bytes() {
                           kDkvKeys * (kDkvRows + 8) + 2 * kDkvRows);
 }
 
-template <typename T>
+template <typename T, bool kChunked>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ dout,
@@ -274,8 +308,16 @@ flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = threadIdx.x / kTx;
   const T* qb = q + (size_t)bh * tq * dh;
   const T* db = dout + (size_t)bh * tq * dh;
-  stage<T, kDkvKeys>(ks, k + (size_t)bh * tk * dh, k0, tk, dh);
-  stage<T, kDkvKeys>(vs, v + (size_t)bh * tk * dh, k0, tk, dh);
+  const T* kb = k + (size_t)bh * tk * dh;
+  const T* vb = v + (size_t)bh * tk * dh;
+  // this block's panel of dK and dV, and the chunks of Dh that S and dP
+  // sum (one of each at compile time unless kChunked, Dh > kD)
+  const int p0 = kChunked ? blockIdx.z * kD : 0;
+  const int n_chunks = kChunked ? (dh + kD - 1) / kD : 1;
+  if (n_chunks == 1) {  // K and V stay resident
+    stage<T, kDkvKeys>(ks, kb, k0, tk, dh);
+    stage<T, kDkvKeys>(vs, vb, k0, tk, dh);
+  }
 
   // this thread's keys are ty + kTy*i; its queries tx + kTx*j (the
   // transposed S, P, dP, dS tiles) and output columns tx + kTx*c
@@ -291,16 +333,32 @@ flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int t = first; t < n_tiles; ++t) {
     const int q0 = t * kDkvRows;
-    __syncthreads();  // the last tile's readers are done with qs/dos/ps
-    stage<T, kDkvRows>(qs, qb, q0, tq, dh);
-    stage<T, kDkvRows>(dos, db, q0, tq, dh);
-    stage_vec<kDkvRows>(ls, lse + (size_t)bh * tq, q0, tq);
-    stage_vec<kDkvRows>(dls, dvec + (size_t)bh * tq, q0, tq);
-    __syncthreads();
-
-    // P^T = exp(scale * K Q^T - L) under the mask, kept unrounded for dS
+    // S^T = K Q^T and dP^T = V dO^T
     float pt[kRm][kRn], dpt[kRm][kRn];
-    scores<kRm, kRn>(pt, ks, qs, tx, ty);
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      // the last tile's (or chunk's) readers are done with the tiles
+      __syncthreads();
+      if (n_chunks > 1) {
+        stage<T, kDkvKeys>(ks, kb, k0, tk, dh, ch * kD);
+        stage<T, kDkvKeys>(vs, vb, k0, tk, dh, ch * kD);
+      }
+      stage<T, kDkvRows>(qs, qb, q0, tq, dh, ch * kD);
+      stage<T, kDkvRows>(dos, db, q0, tq, dh, ch * kD);
+      if (ch == 0) {
+        stage_vec<kDkvRows>(ls, lse + (size_t)bh * tq, q0, tq);
+        stage_vec<kDkvRows>(dls, dvec + (size_t)bh * tq, q0, tq);
+      }
+      __syncthreads();
+      scores<kRm, kRn>(pt, ks, qs, tx, ty, ch > 0);
+      scores<kRm, kRn>(dpt, vs, dos, tx, ty, ch > 0);
+    }
+    if (p0 != (n_chunks - 1) * kD) {  // Q's and dO's panel for dK, dV
+      __syncthreads();
+      stage<T, kDkvRows>(qs, qb, q0, tq, dh, p0);
+      stage<T, kDkvRows>(dos, db, q0, tq, dh, p0);
+    }
+
+    // P^T = exp(scale * S^T - L) under the mask, kept unrounded for dS
 #pragma unroll
     for (int i = 0; i < kRm; ++i) {
       const int row = ty + kTy * i;
@@ -315,8 +373,6 @@ flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
         ps[row * kLdp + col] = as_operand(pt[i][j], T());
       }
     }
-    // dP^T = V dO^T
-    scores<kRm, kRn>(dpt, vs, dos, tx, ty);
     __syncthreads();
     accumulate<kRm, kDkvRows>(acc_v, ps, dos, tx, ty);  // dV += P^T dO
     __syncthreads();  // every thread has read P^T
@@ -335,22 +391,22 @@ flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     accumulate<kRm, kDkvRows>(acc_k, ps, qs, tx, ty);  // dK += dS^T Q
   }
-  store<T, kRm>(dk + (size_t)bh * tk * dh, acc_k, k0, tk, dh, tx, ty);
-  store<T, kRm>(dv + (size_t)bh * tk * dh, acc_v, k0, tk, dh, tx, ty);
+  store<T, kRm>(dk + (size_t)bh * tk * dh, acc_k, k0, tk, dh, p0, tx, ty);
+  store<T, kRm>(dv + (size_t)bh * tk * dh, acc_v, k0, tk, dh, p0, tx, ty);
 }
 
-template <typename T>
+template <typename T, bool kChunked>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* dvec,
                       void* dq, int bh, int tq, int tk, int dh, int causal,
                       float scale, cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_wide_kernel<T>,
+      flash_bwd_dq_wide_kernel<T, kChunked>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (tq + kDqRows - 1) / kDqRows);
-  flash_bwd_dq_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(bh, (tq + kDqRows - 1) / kDqRows, (dh + kD - 1) / kD);
+  flash_bwd_dq_wide_kernel<T, kChunked><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dvec),
@@ -358,18 +414,18 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kChunked>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* dvec,
                        void* dk, void* dv, int bh, int tq, int tk, int dh,
                        int causal, float scale, cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_wide_kernel<T>,
+      flash_bwd_dkv_wide_kernel<T, kChunked>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (tk + kDkvKeys - 1) / kDkvKeys);
-  flash_bwd_dkv_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(bh, (tk + kDkvKeys - 1) / kDkvKeys, (dh + kD - 1) / kD);
+  flash_bwd_dkv_wide_kernel<T, kChunked><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dvec),
@@ -380,19 +436,21 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 }  // namespace
 
 // The entry points behind dkt_flash_bwd_dq / dkt_flash_bwd_dkv for
-// 128 < head_dim <= 256 (flash_bwd.cu, which checks the arguments and sets
-// the device): q, k, v, dout contiguous, of dtype 0 (float32) or 1
+// head_dim > 128 (flash_bwd.cu, which checks the arguments and sets the
+// device): q, k, v, dout contiguous, of dtype 0 (float32) or 1
 // (bfloat16), rows of head_dim values.
 cudaError_t flash_bwd_dq_wide(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* dvec, void* dq, int bh, int tq,
                               int tk, int head_dim, int causal, float scale,
                               int dtype, cudaStream_t stream) {
-  return dtype == 0
-             ? launch_dq<float>(q, k, v, dout, lse, dvec, dq, bh, tq, tk,
-                                head_dim, causal, scale, stream)
-             : launch_dq<__nv_bfloat16>(q, k, v, dout, lse, dvec, dq, bh, tq,
-                                        tk, head_dim, causal, scale, stream);
+  const bool chunked = head_dim > kD;
+  auto f = dtype == 0 ? (chunked ? launch_dq<float, true>
+                                 : launch_dq<float, false>)
+                      : (chunked ? launch_dq<__nv_bfloat16, true>
+                                 : launch_dq<__nv_bfloat16, false>);
+  return f(q, k, v, dout, lse, dvec, dq, bh, tq, tk, head_dim, causal, scale,
+           stream);
 }
 
 cudaError_t flash_bwd_dkv_wide(const void* q, const void* k, const void* v,
@@ -400,10 +458,11 @@ cudaError_t flash_bwd_dkv_wide(const void* q, const void* k, const void* v,
                                const void* dvec, void* dk, void* dv, int bh,
                                int tq, int tk, int head_dim, int causal,
                                float scale, int dtype, cudaStream_t stream) {
-  return dtype == 0
-             ? launch_dkv<float>(q, k, v, dout, lse, dvec, dk, dv, bh, tq, tk,
-                                 head_dim, causal, scale, stream)
-             : launch_dkv<__nv_bfloat16>(q, k, v, dout, lse, dvec, dk, dv, bh,
-                                         tq, tk, head_dim, causal, scale,
-                                         stream);
+  const bool chunked = head_dim > kD;
+  auto f = dtype == 0 ? (chunked ? launch_dkv<float, true>
+                                 : launch_dkv<float, false>)
+                      : (chunked ? launch_dkv<__nv_bfloat16, true>
+                                 : launch_dkv<__nv_bfloat16, false>);
+  return f(q, k, v, dout, lse, dvec, dk, dv, bh, tq, tk, head_dim, causal,
+           scale, stream);
 }

@@ -16,7 +16,9 @@
 //
 // Which kernel runs (dkt_flash_fwd), by dtype, head dim and grid:
 //   - bf16, Dh 32, 64 or 128: the wgmma kernel (the wrapper pads other
-//     Dh up to 128 to the next of those);
+//     Dh up to 128 to the next of those); bf16, Dh 129-256 and a multiple
+//     of 8: the wgmma kernel on 192- or 256-wide tiles (the wrapper pads
+//     other Dh there to the next multiple of 8);
 //   - f32, Dh <= 128, where 64-row query tiles give at least two blocks an
 //     SM (the training shapes): the 3xTF32 kernel;
 //   - f32, Dh <= 128, where they do not (the serving shapes, B*H = 8 and
@@ -24,8 +26,8 @@
 //     fills the card with more, shorter blocks.  On an H100 it took
 //     0.72-0.87x the 3xTF32 kernel's time at those shapes, and the 3xTF32
 //     kernel 0.31-0.61x its time at the training shapes;
-//   - both dtypes, 128 < Dh <= 256 (the reference's BlockSpecs span any
-//     head dim): the CUDA-core kernel.
+//   - f32 past Dh 128 and bf16 past 256 (the reference's BlockSpecs
+//     span any head dim): the CUDA-core kernel.
 // Both f32 kernels compute exact f32 products (the JAX package's HIGHEST
 // policy); both are held against the plain version on the card.
 //
@@ -33,6 +35,12 @@
 // widened, with f32 products, sums and statistics.  Its tiles are D = 32,
 // 64, 128 or 256 columns wide, the columns past the caller's Dh
 // zero-filled on load and never stored, so any Dh runs on unpadded rows.
+// Past Dh 256 a block computes one 256-column panel of O (the grid's
+// third dimension holds the panels) and forms S over the whole Dh by
+// staging Q and K in 256-column chunks, in order, so every panel's block
+// sums S alike and holds the same P; panel 0 writes lse.  Registers and
+// shared memory stay at the 256-wide tile's; at Dh <= 256 there is one
+// chunk and one panel, and the kernel is the single-tile one.
 //
 // What bounds it on this card: at the serving shapes (B*H = 8, T <= 512,
 // Dh = 64) the work is 4*T^2*Dh FLOPs per head (halved by the causal
@@ -43,8 +51,8 @@
 // there are for 132 SMs.  At Dh 256 (B*H = 128, T = 512, causal; gpt_lm at
 // dim 2048, 8 heads, batch 16) it does 17.2 GFLOP: 0.104 ms at the 3xTF32
 // rate (f32), 0.017 ms at bf16's; operations bound it, and FMAs on CUDA
-// cores (67 TFLOP/s) cannot come near either.  Tensor cores at those head
-// dims are later work.
+// cores (67 TFLOP/s) cannot come near either.  bf16 there runs on the
+// wgmma kernel; f32 on tensor cores past Dh 128 is later work.
 //
 // Design: one block of 128 threads per (batch*head, query tile of BM
 // rows); a loop over K/V tiles (64 rows, 32 at Dh 256) staged in shared
@@ -64,7 +72,10 @@
 #include <math.h>
 #include <stdint.h>
 
-// the bf16 kernel (flash_fwd_sm90.cu); head_dim 32, 64 or 128
+#include "launched.h"
+
+// the bf16 kernel (flash_fwd_sm90.cu); head_dim 32, 64, 128 or a
+// multiple of 8 in 129-256
 cudaError_t flash_fwd_bf16(const void* q, const void* k, const void* v,
                            void* out, void* lse, int bh, int tq, int tk,
                            int head_dim, int causal, float scale,
@@ -107,7 +118,7 @@ constexpr size_t smem_bytes() {
                           BM * (block_n<D>() + 8));
 }
 
-template <typename T, int D, int BM>
+template <typename T, int D, int BM, bool kChunked>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
@@ -136,13 +147,24 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + (size_t)bh * tk * dh;
   const T* vb = v + (size_t)bh * tk * dh;
 
-  // columns at or past dh (and rows past the ends) read as 0
-  for (int i = tid; i < BM * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    const int qr = q0 + r;
-    qs[r * kLd + c] = qr < tq && c < dh ? widen(qb[(size_t)qr * dh + c])
-                                        : 0.f;
-  }
+  // kChunked (Dh > D; launched with the 256-wide tile only): the block
+  // computes O's columns [p0, p0 + D) (a panel; gridDim.z panels in all)
+  // and forms S over the whole Dh in chunks of D columns, Q's and K's
+  // chunk c staged in turn.  Otherwise one chunk and one panel, at
+  // compile time, and Q is staged once.
+  const int p0 = kChunked ? blockIdx.z * D : 0;
+  const int n_chunks = kChunked ? (dh + D - 1) / D : 1;
+  // columns [c0, c0 + D) of Q; columns at or past dh (and rows past the
+  // ends) read as 0
+  auto load_q = [&](int c0) {
+    for (int i = tid; i < BM * D; i += kThreads) {
+      const int r = i / D, c = c0 + i % D;
+      const int qr = q0 + r;
+      qs[r * kLd + i % D] =
+          qr < tq && c < dh ? widen(qb[(size_t)qr * dh + c]) : 0.f;
+    }
+  };
+  if (n_chunks == 1) load_q(0);
 
   // this thread's rows are ty + kTy*i, its columns tx + kTx*j (S) and
   // tx + kTx*c (O)
@@ -182,42 +204,54 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kBlockN;
-    __syncthreads();  // the last tile's readers are done with ks/vs/ps
-    if constexpr (kPrefetch) {
-#pragma unroll
-      for (int it = 0; it < kLoads; ++it) {
-        const int i = tid + kThreads * it;
-        ks[(i / D) * kLd + i % D] = kn[it];
-        vs[(i / D) * kLd + i % D] = vn[it];
-      }
-    } else {
-#pragma unroll 8
-      for (int i = tid; i < kBlockN * D; i += kThreads) {
-        const int kr = k0 + i / D, c = i % D;
-        const bool ok = kr < tk && c < dh;
-        ks[(i / D) * kLd + c] = ok ? widen(kb[(size_t)kr * dh + c]) : 0.f;
-        vs[(i / D) * kLd + c] = ok ? widen(vb[(size_t)kr * dh + c]) : 0.f;
-      }
-    }
-    __syncthreads();
-    if (kPrefetch && t + 1 < n_tiles) fetch(t + 1);
-
     float s[kRm][kRn];
 #pragma unroll
     for (int i = 0; i < kRm; ++i)
 #pragma unroll
       for (int j = 0; j < kRn; ++j) s[i][j] = 0.f;
+    // S over chunk c of Dh; V's panel arrives with the last chunk
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      // the last chunk's (or tile's) readers are done with qs/ks/vs/ps
+      __syncthreads();
+      if constexpr (kPrefetch) {  // D <= 64: one chunk
+#pragma unroll
+        for (int it = 0; it < kLoads; ++it) {
+          const int i = tid + kThreads * it;
+          ks[(i / D) * kLd + i % D] = kn[it];
+          vs[(i / D) * kLd + i % D] = vn[it];
+        }
+      } else {
+        const int kc = ch * D;
+        const bool last = ch == n_chunks - 1;
+        if (n_chunks > 1) load_q(kc);
+#pragma unroll 8
+        for (int i = tid; i < kBlockN * D; i += kThreads) {
+          const int kr = k0 + i / D, c = i % D;
+          ks[(i / D) * kLd + c] = kr < tk && kc + c < dh
+                                      ? widen(kb[(size_t)kr * dh + kc + c])
+                                      : 0.f;
+          if (last)
+            vs[(i / D) * kLd + c] = kr < tk && p0 + c < dh
+                                        ? widen(vb[(size_t)kr * dh + p0 + c])
+                                        : 0.f;
+        }
+      }
+      __syncthreads();
+      if (kPrefetch && t + 1 < n_tiles) fetch(t + 1);
+
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[kRm], kv[kRn];
+      for (int d = 0; d < D; ++d) {
+        float qv[kRm], kv[kRn];
 #pragma unroll
-      for (int i = 0; i < kRm; ++i) qv[i] = qs[(ty + kTy * i) * kLd + d];
+        for (int i = 0; i < kRm; ++i) qv[i] = qs[(ty + kTy * i) * kLd + d];
 #pragma unroll
-      for (int j = 0; j < kRn; ++j) kv[j] = ks[(tx + kTx * j) * kLd + d];
+        for (int j = 0; j < kRn; ++j) kv[j] = ks[(tx + kTx * j) * kLd + d];
 #pragma unroll
-      for (int i = 0; i < kRm; ++i)
+        for (int i = 0; i < kRm; ++i)
 #pragma unroll
-        for (int j = 0; j < kRn; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          for (int j = 0; j < kRn; ++j)
+            s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      }
     }
 
 #pragma unroll
@@ -277,26 +311,32 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < kRm; ++i) {
     const int r = q0 + ty + kTy * i;
     if (r < tq) {
-      T* orow = o + ((size_t)bh * tq + r) * dh;
+      T* orow = o + ((size_t)bh * tq + r) * dh + p0;
 #pragma unroll
       for (int c = 0; c < kRd; ++c)
-        if (tx + kTx * c < dh) narrow(&orow[tx + kTx * c], acc[i][c] / l[i]);
-      if (tx == 0) lse[(size_t)bh * tq + r] = m[i] + logf(l[i]);
+        if (p0 + tx + kTx * c < dh)
+          narrow(&orow[tx + kTx * c], acc[i][c] / l[i]);
+      if (tx == 0 && p0 == 0) lse[(size_t)bh * tq + r] = m[i] + logf(l[i]);
     }
   }
 }
 
-template <typename T, int D, int BM>
+template <typename T, int D, int BM, bool kChunked = false>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int bh, int tq, int tk, int dh, int causal,
                    float scale, cudaStream_t stream) {
+  if constexpr (D == 256 && !kChunked)
+    if (dh > D)  // past the tile: panels and chunks
+      return launch<T, D, BM, true>(q, k, v, o, lse, bh, tq, tk, dh, causal,
+                                    scale, stream);
   constexpr size_t smem = smem_bytes<D, BM>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D, BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_kernel<T, D, BM, kChunked>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (tq + BM - 1) / BM);
-  flash_fwd_kernel<T, D, BM><<<grid, kThreads, smem, stream>>>(
+  // one panel of D output columns a block along z
+  const dim3 grid(bh, (tq + BM - 1) / BM, (dh + D - 1) / D);
+  flash_fwd_kernel<T, D, BM, kChunked><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
       tq, tk, dh, causal, scale);
@@ -335,29 +375,40 @@ cudaError_t launch_rows(int rows, const void* q, const void* k,
 // q: (bh, tq, head_dim), k and v: (bh, tk, head_dim), contiguous, from
 // 16-byte aligned addresses (the tensor-core kernels load by TMA or
 // cp.async), of dtype 0 (float32) or 1 (bfloat16); o: like q; lse:
-// (bh, tq) float32.  head_dim: float32 1-256, bfloat16 32, 64, 128 or
-// 129-256.  Launches on `stream` of `device` and returns
-// cudaGetLastError() after the launch (0 on success).
+// (bh, tq) float32.  head_dim: float32 any >= 1; bfloat16 32, 64, 128,
+// a multiple of 8 in 129-256, or any past 256.  Launches on `stream` of
+// `device` and returns cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int dkt_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int bh, int tq, int tk,
                              int head_dim, int causal, float scale,
                              int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const bool wide = head_dim > 128 && head_dim <= 256;
-  const bool tiled = dtype == 0 ? head_dim >= 1 && head_dim <= 128
-                                : head_dim == 32 || head_dim == 64 ||
-                                      head_dim == 128;
-  if (bh < 1 || tq < 1 || tk < 1 || (causal && tq != tk) ||
-      (dtype != 0 && dtype != 1) || !(wide || tiled))
+  // bf16 up to Dh 256 runs on wgmma, at the widths it is built for
+  const bool wgmma = dtype == 1 && head_dim <= 256;
+  const bool wgmma_dim = head_dim == 32 || head_dim == 64 ||
+                         head_dim == 128 ||
+                         (head_dim > 128 && head_dim % 8 == 0);
+  if (bh < 1 || tq < 1 || tk < 1 || head_dim < 1 || (causal && tq != tk) ||
+      (dtype != 0 && dtype != 1) || (wgmma && !wgmma_dim))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && !wide)
+  if (wgmma) {
+    dkt_set_last_kernel(head_dim <= 128 ? kWgmma : kWgmmaWide);
     return (int)flash_fwd_bf16(q, k, v, o, lse, bh, tq, tk, head_dim, causal,
                                scale, s);
+  }
+  const bool wide = head_dim > 128;
   int rows;
   if ((err = rows_per_block(device, bh, tq, &rows)) != cudaSuccess)
     return (int)err;
+  if (!wide && rows == 64) {  // the grid fills the card: tensor cores
+    dkt_set_last_kernel(kTf32);
+    return (int)flash_fwd_f32(q, k, v, o, lse, bh, tq, tk, head_dim, causal,
+                              scale, s);
+  }
+  dkt_set_last_kernel(kCudaCores);
   if (wide)
     return (int)(dtype == 0
                      ? launch_rows<float, 256>(rows, q, k, v, o, lse, bh, tq,
@@ -365,9 +416,6 @@ extern "C" int dkt_flash_fwd(const void* q, const void* k, const void* v,
                      : launch_rows<__nv_bfloat16, 256>(rows, q, k, v, o, lse,
                                                        bh, tq, tk, head_dim,
                                                        causal, scale, s));
-  if (rows == 64)  // the grid fills the card: tensor cores
-    return (int)flash_fwd_f32(q, k, v, o, lse, bh, tq, tk, head_dim, causal,
-                              scale, s);
   if (head_dim <= 32)
     return (int)launch_rows<float, 32>(rows, q, k, v, o, lse, bh, tq, tk,
                                        head_dim, causal, scale, s);
@@ -377,6 +425,16 @@ extern "C" int dkt_flash_fwd(const void* q, const void* k, const void* v,
   return (int)launch_rows<float, 128>(rows, q, k, v, o, lse, bh, tq, tk,
                                       head_dim, causal, scale, s);
 }
+
+namespace {
+thread_local LaunchedKernel last_kernel = kCudaCores;
+}  // namespace
+
+void dkt_set_last_kernel(LaunchedKernel kernel) { last_kernel = kernel; }
+
+// The kernel the calling thread's last launch through dkt_flash_fwd,
+// dkt_flash_bwd_dq or dkt_flash_bwd_dkv ran (LaunchedKernel, launched.h).
+extern "C" int dkt_flash_last_kernel() { return (int)last_kernel; }
 
 extern "C" const char* dkt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

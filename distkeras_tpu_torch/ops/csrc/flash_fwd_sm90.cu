@@ -1,6 +1,6 @@
 // Flash-attention forward in bf16 on Hopper's tensor cores (sm_90a): K1.
-// Called from flash_fwd.cu's C interface (dkt_flash_fwd) for dtype 1;
-// f32 stays there.
+// Called from flash_fwd.cu's C interface (dkt_flash_fwd) for dtype 1 up
+// to head dim 256; f32, and bf16 past 256, stay there.
 //
 // Replaces: distkeras_tpu/ops/pallas_attention.py:_fwd_kernel under the
 // bf16 branch of _dot/_dot_t.  For every (batch*head, query row) it
@@ -19,7 +19,9 @@
 // (Q, K, V bf16 read once, O bf16 and lse f32 written once) take
 // 0.040 ms at 3.35 TB/s.  So bytes bound it, with the operations within
 // a factor of 2.3: the kernel has to keep the tensor cores fed from
-// shared memory and its exp/select work short.
+// shared memory and its exp/select work short.  The same holds at
+// Dh 256 (B*H = 128, gpt_lm at dim 2048): the same 17.2 GFLOP, 0.040 ms
+// of bytes.
 //
 // Design: K2's (flash_bwd_sm90.cu) with one product fewer and an online
 // softmax.  One warpgroup (128 threads) per block and 64-row tiles, the
@@ -31,7 +33,7 @@
 // at Dh = 64 and 128 and 64 B at Dh = 32, the same in the map and the
 // wgmma descriptor.  A swizzled box is at most one swizzle row wide, so a
 // Dh = 128 tile is two 64-column panels, one box each, and the products
-// step across them (sm90.cuh: Tile, desc_k, and wgmma_rs<128>, one
+// step across them (sm90.cuh: Tile, desc_k, and wgmma_rs<D>, one
 // m64n64k16 per panel of V).  Per key tile:
 //   - S = Q K^T: wgmma m64n64k16, both operands K-major in shared memory;
 //   - the softmax on the accumulator fragments, in base 2 with the scale
@@ -54,6 +56,16 @@
 // written between a product's issue and its wait.
 // O is stored as bf16 rows, lse as f32 by plain stores (its rows are not
 // 16-byte aligned at odd T), both masked at T.
+//
+// Head dims 129-256 (the reference's BlockSpecs span any Dh): the same
+// design on tiles of three or four 64-column panels (D = 192 for
+// Dh <= 192, else 256), read from unpadded rows of Dh columns (Dh % 8 ==
+// 0, the TMA row stride; the wrapper pads other Dh to the next multiple
+// of 8) with the columns past Dh zero-filled by TMA, and O stored masked
+// at Dh.  A thread then holds O's 64 x D f32 accumulator, 96 or 128
+// registers, beside S (32) and P (16): at 128 threads that fits ptxas's
+// 255 (the build phase reports registers and spills).  Q and the K/V
+// ring take 5 tiles, 120 or 160 KB: one block an SM.
 //
 // Later work: a producer warp with setmaxnreg and two consumer
 // warpgroups on 128-row tiles, and TMA stores.
@@ -120,8 +132,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
                        __nv_bfloat16* __restrict__ out,
-                       float* __restrict__ lse, int tq, int tk, int causal,
-                       float scale) {
+                       float* __restrict__ lse, int tq, int tk, int dh,
+                       int causal, float scale) {
   constexpr uint32_t kTile = Tile<D>::kBytes;
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t bars[5];  // Q, K stages 0 and 1, V stages 0 and 1
@@ -245,7 +257,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   // O / l, then lse = m + log(l) (m is in base 2)
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] /= l[(i >> 1) & 1];
-  store_rows<D>(out + (size_t)bh * tq * D, acc, r0, tq, c0);
+  if constexpr (D > 128)  // rows of dh columns
+    store_rows_masked<D>(out + (size_t)bh * tq * dh, acc, r0, tq, c0, dh,
+                         dh);
+  else
+    store_rows<D>(out + (size_t)bh * tq * D, acc, r0, tq, c0);
   if (lane % 4 == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -265,7 +281,7 @@ constexpr size_t smem_bytes() {
 template <int D>
 cudaError_t launch(const CUtensorMap& q, const CUtensorMap& k,
                    const CUtensorMap& v, void* out, float* lse, int bh,
-                   int tq, int tk, int causal, float scale,
+                   int tq, int tk, int dh, int causal, float scale,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -274,7 +290,8 @@ cudaError_t launch(const CUtensorMap& q, const CUtensorMap& k,
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (tq + kBlock - 1) / kBlock);
   flash_fwd_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
-      q, k, v, static_cast<__nv_bfloat16*>(out), lse, tq, tk, causal, scale);
+      q, k, v, static_cast<__nv_bfloat16*>(out), lse, tq, tk, dh, causal,
+      scale);
   return cudaGetLastError();
 }
 
@@ -282,8 +299,8 @@ cudaError_t launch(const CUtensorMap& q, const CUtensorMap& k,
 
 // The bf16 entry point behind dkt_flash_fwd (flash_fwd.cu, which checks
 // the arguments and sets the device): q (bh, tq, head_dim), k and v (bh,
-// tk, head_dim), contiguous bf16, 16-byte aligned; head_dim 32, 64 or
-// 128; out like q, lse (bh, tq) f32.
+// tk, head_dim), contiguous bf16, 16-byte aligned; head_dim 32, 64, 128
+// or a multiple of 8 in 129-256; out like q, lse (bh, tq) f32.
 cudaError_t flash_fwd_bf16(const void* q, const void* k, const void* v,
                            void* out, void* lse, int bh, int tq, int tk,
                            int head_dim, int causal, float scale,
@@ -294,15 +311,22 @@ cudaError_t flash_fwd_bf16(const void* q, const void* k, const void* v,
   if ((err = make_map(&mk, k, bh, tk, head_dim)) != cudaSuccess) return err;
   if ((err = make_map(&mv, v, bh, tk, head_dim)) != cudaSuccess) return err;
   auto* l = static_cast<float*>(lse);
+  const int d = head_dim;
   switch (head_dim) {
     case 32:
-      return launch<32>(mq, mk, mv, out, l, bh, tq, tk, causal, scale,
+      return launch<32>(mq, mk, mv, out, l, bh, tq, tk, d, causal, scale,
                         stream);
     case 64:
-      return launch<64>(mq, mk, mv, out, l, bh, tq, tk, causal, scale,
+      return launch<64>(mq, mk, mv, out, l, bh, tq, tk, d, causal, scale,
                         stream);
-    default:
-      return launch<128>(mq, mk, mv, out, l, bh, tq, tk, causal, scale,
+    case 128:
+      return launch<128>(mq, mk, mv, out, l, bh, tq, tk, d, causal, scale,
                          stream);
+    default:
+      return head_dim <= 192
+                 ? launch<192>(mq, mk, mv, out, l, bh, tq, tk, d, causal,
+                               scale, stream)
+                 : launch<256>(mq, mk, mv, out, l, bh, tq, tk, d, causal,
+                               scale, stream);
   }
 }

@@ -96,7 +96,8 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 // D / kCols panels of kCols columns, each panel a (kBlock, kCols) tile
 // of its own whose rows are one swizzle row (128 B at kCols = 64, 64 B
 // at D = 32); eight rows form one swizzle atom.  A swizzled TMA box is at
-// most one swizzle row wide, so Dh = 128 is two panels of 64.
+// most one swizzle row wide, so Dh = 128 is two panels of 64, 192 three
+// and 256 four.
 template <int D>
 struct Tile {
   static constexpr int kCols = D < 64 ? D : 64;
@@ -219,16 +220,35 @@ __device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// Dh = 128: one m64n64k16 per 64-column panel of B, the panel's
-// descriptor that of the first moved by kPanelBytes; d's halves are the
-// panels' columns, in the order store_rows<128> reads them
+// Dh = 128, 192, 256: one m64n64k16 per 64-column panel of B, panel p's
+// descriptor that of the first moved by p * kPanelBytes; d's quarters
+// of 32 are the panels' columns, in the order store_rows reads them
+template <int P>
+__device__ __forceinline__ void wgmma_rs_panels(float (&d)[32 * P],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+    wgmma_rs<64>(*reinterpret_cast<float(*)[32]>(&d[32 * p]), a,
+                 b + p * (Tile<64>::kPanelBytes >> 4));
+}
 template <>
 __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
                                               const uint32_t (&a)[4],
                                               uint64_t b) {
-  wgmma_rs<64>(*reinterpret_cast<float(*)[32]>(&d[0]), a, b);
-  wgmma_rs<64>(*reinterpret_cast<float(*)[32]>(&d[32]), a,
-               b + (Tile<128>::kPanelBytes >> 4));
+  wgmma_rs_panels<2>(d, a, b);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<192>(float (&d)[96],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  wgmma_rs_panels<3>(d, a, b);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  wgmma_rs_panels<4>(d, a, b);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -265,6 +285,29 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out,
     for (int j = 0; j < N / 8; ++j)
       row[(8 * j + c0) / 2] = __floats2bfloat162_rn(acc[4 * j + 2 * half],
                                                     acc[4 * j + 2 * half + 1]);
+  }
+}
+
+// store a (64 x N) f32 accumulator as bf16 rows r0 and r0 + 8 of `out`
+// (row stride ld), rows at or past n and columns at or past `cols`
+// skipped (ld and cols even): the kernels at Dh 129-256 store Dh columns
+// of a 192- or 256-wide tile
+template <int N>
+__device__ __forceinline__ void store_rows_masked(__nv_bfloat16* out,
+                                                  const float (&acc)[N / 2],
+                                                  int r0, int n, int c0,
+                                                  int ld, int cols) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 8 * half;
+    if (r >= n) continue;
+    __nv_bfloat16* row = out + (size_t)r * ld;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+      if (8 * j + c0 < cols)
+        *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + c0) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * half],
+                                  acc[4 * j + 2 * half + 1]);
   }
 }
 
@@ -306,8 +349,9 @@ inline EncodeTiled encode_tiled() {
 
 // A contiguous (bh, t, d) bf16 tensor as a 3-D map (d, t, bh) with
 // (kBlock, min(d, 64)) boxes, one per panel of a tile (Tile<D>); rows
-// past t read as zeros.  `base` must be 16-byte
-// aligned (the wrapper checks).
+// past t, and columns past d of a tile wider than d, read as zeros.
+// `base` must be 16-byte aligned (the wrapper checks) and d * 2 bytes a
+// multiple of 16 (d % 8 == 0; the C interface checks).
 inline cudaError_t make_map(CUtensorMap* map, const void* base, int bh,
                             int t, int d) {
   const EncodeTiled encode = encode_tiled();

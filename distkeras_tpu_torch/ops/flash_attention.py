@@ -9,14 +9,17 @@ kernels, the ports of ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (through
 they run on tensor cores: in bf16 on wgmma and TMA
 (``ops/csrc/flash_fwd_sm90.cu``, ``ops/csrc/flash_bwd_sm90.cu``), in f32
 as 3xTF32 on mma.sync (``ops/csrc/flash_fwd_tf32_sm90.cu``,
-``ops/csrc/flash_bwd_tf32_sm90.cu``).  From 129 to 256 (``MAX_HEAD_DIM``)
-both dtypes run on CUDA cores (``ops/csrc/flash_fwd.cu``,
-``ops/csrc/flash_bwd_wide.cu``).  On CPU tensors they are
+``ops/csrc/flash_bwd_tf32_sm90.cu``).  From 129 to 256 the bf16 forward
+and K3 stay on wgmma (192- and 256-wide tiles); the rest past 128 — f32,
+bf16 K2, and bf16 past 256 — runs on CUDA cores
+(``ops/csrc/flash_fwd.cu``, ``ops/csrc/flash_bwd_wide.cu``), which take
+any head dim, as the reference's BlockSpecs do.  ``kernel_head_dim``
+names the width each kernel runs.  On CPU tensors they are
 ``flash_fwd_plain`` and ``flash_bwd_plain``, the dense versions of the
 same functions.  A CUDA tensor never takes a plain version: the kernel
 runs or the call raises.
 
-Head dims: the f32 forward and every kernel past 128 read rows of the
+Head dims: the f32 forward and the CUDA-core kernels read rows of the
 caller's Dh and mask the columns past it in their tiles.  The bf16
 forward and both backward dtypes up to 128 are instantiated for 32, 64
 and 128 (``HEAD_DIMS``, the widths of their TMA or cp.async tiles); the
@@ -25,13 +28,16 @@ along Dh to the next of those (``pad_head_dim``), running that kernel
 with the caller's ``scale`` and slicing the outputs back.  That is the
 same function: zero columns add nothing to QKᵀ, O's and the gradients'
 padded columns are products with zeros, and D = rowsum(dO∘O) does not
-see them.
+see them.  The bf16 forward and K3 at 129–256 read unpadded rows whose
+byte stride TMA needs a multiple of 16 (Dh % 8 == 0): the wrappers pad
+other Dh there to the next multiple of 8 the same way.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from collections import Counter
 from typing import Optional, Tuple
 
 import torch
@@ -120,21 +126,26 @@ def flash_bwd_plain(q, k, v, lse, do, dvec, causal: bool, scale: float):
 
 #: dtype codes of the C interface (the ``dtype`` argument)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims the tensor-core kernels are instantiated for
+#: head dims the tensor-core kernels are instantiated for up to 128
 HEAD_DIMS = (32, 64, 128)
-#: the largest head dim the kernels take: the CUDA-core kernels' tile width
-MAX_HEAD_DIM = 256
+#: the widest head dim of the bf16 wgmma kernels past 128 (K1 and K3)
+WGMMA_WIDE_MAX = 256
 
 
-def padded_head_dim(dh: int) -> int:
-    """The head dim a Dh runs as where the kernel is instantiated per
-    width: up to 128 the least of ``HEAD_DIMS`` that holds it, from 129 to
-    ``MAX_HEAD_DIM`` Dh itself (those kernels mask the columns past Dh).
-    Raises past ``MAX_HEAD_DIM``."""
-    if dh > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {dh} > {MAX_HEAD_DIM}: the kernels' "
-                         f"tiles and shared memory are sized for "
-                         f"Dh <= {MAX_HEAD_DIM}")
+def kernel_head_dim(dh: int, dtype: torch.dtype, kernel: str) -> int:
+    """The head dim the CUDA ``kernel`` ("fwd", "dq" or "dkv") runs a Dh
+    of ``dtype`` as, the rows the wrapper hands it — the padding half of
+    the routing, whose other half is the C entry points' choice of kernel
+    (they refuse a width this does not give them): the f32 forward reads
+    any Dh; the bf16 forward and bf16 K3 at 129–``WGMMA_WIDE_MAX`` (wgmma,
+    TMA rows of a 16-byte multiple) the next multiple of 8; the rest up
+    to 128 the least of ``HEAD_DIMS`` that holds it, past 128 Dh itself
+    (the CUDA-core kernels mask the columns past Dh and take any Dh)."""
+    if kernel == "fwd" and dtype == torch.float32:
+        return dh
+    if (dtype == torch.bfloat16 and kernel in ("fwd", "dkv")
+            and HEAD_DIMS[-1] < dh <= WGMMA_WIDE_MAX):
+        return -(-dh // 8) * 8
     return next((size for size in HEAD_DIMS if dh <= size), dh)
 
 
@@ -172,7 +183,6 @@ def _check(name: str, q, k, v, causal: bool, stats=(), do=None):
                          f"in batch·heads or head dim")
     if dh < 1:
         raise ValueError("empty head dim")
-    padded_head_dim(dh)   # raises past MAX_HEAD_DIM
     if tq < 1 or tk < 1:
         raise ValueError("empty sequence")
     if causal and tq != tk:
@@ -197,70 +207,106 @@ def _check(name: str, q, k, v, causal: bool, stats=(), do=None):
     return bh, tq, tk, dh
 
 
-def _launch(fn: str, *args, device):
-    """Call the C function ``fn`` on the current stream of ``device`` and
-    raise on a nonzero CUDA error."""
+#: the kernel each C entry point reports it ran
+#: (``dkt_flash_last_kernel``), by its code in ``csrc/launched.h``: bf16
+#: on wgmma at head dim 32/64/128, bf16 on wgmma at 129–256, f32 as
+#: 3xTF32, CUDA cores (None: no such kernel)
+KERNELS = {
+    "dkt_flash_fwd": ("flash_fwd", "flash_fwd_wgmma_wide", "flash_fwd_f32",
+                      "flash_fwd_cuda_cores"),
+    "dkt_flash_bwd_dq": ("flash_bwd_dq", None, "flash_bwd_dq_f32",
+                         "flash_bwd_dq_wide"),
+    "dkt_flash_bwd_dkv": ("flash_bwd_dkv", "flash_bwd_dkv_wgmma_wide",
+                          "flash_bwd_dkv_f32", "flash_bwd_dkv_wide"),
+}
+#: launches by (kernel of ``KERNELS``, dtype name, the caller's head dim),
+#: each counted where its launch returned, under the kernel the C entry
+#: point reports it ran; ``reset_launches`` sets them to 0
+KERNEL_LAUNCHES: Counter = Counter()
+
+
+def _launch(fn: str, *args, device) -> str:
+    """Call the C function ``fn`` on the current stream of ``device``,
+    raise on a nonzero CUDA error, and return the name of the kernel it
+    ran (``KERNELS``)."""
     lib = _kernels.library()
     stream = torch.cuda.current_stream(device).cuda_stream
     err = getattr(lib, fn)(*args, device.index or 0, stream)
     if err != 0:
         raise RuntimeError(f"{fn} launch failed: CUDA error {err} "
                            f"({lib.dkt_error_string(err).decode()})")
+    return KERNELS[fn][lib.dkt_flash_last_kernel()]
+
+
+def _count(wrapper, kernel: str, dtype: torch.dtype, dh: int) -> None:
+    """One launch of ``kernel`` through ``wrapper`` at head dim ``dh``."""
+    wrapper.launches += 1
+    KERNEL_LAUNCHES[(kernel, str(dtype).removeprefix("torch."), dh)] += 1
 
 
 def flash_fwd_cuda(q, k, v, causal: bool, scale: float):
     """Launch the CUDA forward kernel (K1).  Same contract as
     ``flash_fwd_plain``; raises on what the kernel does not take.
-    ``flash_fwd_cuda.launches`` counts the launches."""
+    ``flash_fwd_cuda.launches`` counts the launches (and
+    ``KERNEL_LAUNCHES`` each by the kernel that ran)."""
     bh, tq, tk, dh = _check("flash_fwd_cuda", q, k, v, causal)
-    # the f32 kernels read unpadded rows at any Dh
-    size = dh if q.dtype == torch.float32 else padded_head_dim(dh)
+    size = kernel_head_dim(dh, q.dtype, "fwd")
     q, k, v = (pad_head_dim(x, size) for x in (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
-    _launch("dkt_flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), bh, tq, tk, size,
-            int(bool(causal)), ctypes.c_float(scale), _DTYPE_CODES[q.dtype],
-            device=q.device)
-    flash_fwd_cuda.launches += 1
+    kernel = _launch("dkt_flash_fwd", q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), o.data_ptr(), lse.data_ptr(), bh, tq, tk,
+                     size, int(bool(causal)), ctypes.c_float(scale),
+                     _DTYPE_CODES[q.dtype], device=q.device)
+    _count(flash_fwd_cuda, kernel, q.dtype, dh)
     return _unpad(o, dh), lse
 
 
 def flash_bwd_dq_cuda(q, k, v, lse, do, dvec, causal: bool, scale: float):
     """Launch K2: dQ, like ``flash_bwd_plain``'s first output.
-    ``flash_bwd_dq_cuda.launches`` counts the launches."""
+    ``flash_bwd_dq_cuda.launches`` counts the launches (and
+    ``KERNEL_LAUNCHES`` each by the kernel that ran)."""
     bh, tq, tk, dh = _check("flash_bwd_dq_cuda", q, k, v, causal,
                             (lse, dvec), do)
-    size = padded_head_dim(dh)
+    size = kernel_head_dim(dh, q.dtype, "dq")
     q, k, v, do = (pad_head_dim(x, size) for x in (q, k, v, do))
     dq = torch.empty_like(q)
-    _launch("dkt_flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(),
-            bh, tq, tk, size, int(bool(causal)), ctypes.c_float(scale),
-            _DTYPE_CODES[q.dtype], device=q.device)
-    flash_bwd_dq_cuda.launches += 1
+    kernel = _launch("dkt_flash_bwd_dq", q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                     dvec.data_ptr(), dq.data_ptr(), bh, tq, tk, size,
+                     int(bool(causal)), ctypes.c_float(scale),
+                     _DTYPE_CODES[q.dtype], device=q.device)
+    _count(flash_bwd_dq_cuda, kernel, q.dtype, dh)
     return _unpad(dq, dh)
 
 
 def flash_bwd_dkv_cuda(q, k, v, lse, do, dvec, causal: bool, scale: float):
     """Launch K3: (dK, dV), like ``flash_bwd_plain``'s last two outputs.
-    ``flash_bwd_dkv_cuda.launches`` counts the launches."""
+    ``flash_bwd_dkv_cuda.launches`` counts the launches (and
+    ``KERNEL_LAUNCHES`` each by the kernel that ran)."""
     bh, tq, tk, dh = _check("flash_bwd_dkv_cuda", q, k, v, causal,
                             (lse, dvec), do)
-    size = padded_head_dim(dh)
+    size = kernel_head_dim(dh, q.dtype, "dkv")
     q, k, v, do = (pad_head_dim(x, size) for x in (q, k, v, do))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("dkt_flash_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), dvec.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), bh, tq, tk, size, int(bool(causal)),
-            ctypes.c_float(scale), _DTYPE_CODES[q.dtype], device=q.device)
-    flash_bwd_dkv_cuda.launches += 1
+    kernel = _launch("dkt_flash_bwd_dkv", q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                     dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, tq,
+                     tk, size, int(bool(causal)), ctypes.c_float(scale),
+                     _DTYPE_CODES[q.dtype], device=q.device)
+    _count(flash_bwd_dkv_cuda, kernel, q.dtype, dh)
     return _unpad(dk, dh), _unpad(dv, dh)
 
 
-flash_fwd_cuda.launches = 0
-flash_bwd_dq_cuda.launches = 0
-flash_bwd_dkv_cuda.launches = 0
+def reset_launches() -> None:
+    """Set every launch count to 0: each wrapper's ``launches`` and
+    ``KERNEL_LAUNCHES``."""
+    for wrapper in (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda):
+        wrapper.launches = 0
+    KERNEL_LAUNCHES.clear()
+
+
+reset_launches()
 
 
 def _on(q) -> str:

@@ -28,10 +28,12 @@ sys.path.insert(0, ROOT)
 
 #: (kernel, dtype, B*H, T, Dh): the serving shapes of the f32 forward,
 #: the training shape and its Dh = 32 twin, the Dh-128 training shape
-#: (gpt_lm at dim 1024) and the Dh-256 one (dim 2048; causal throughout)
+#: (gpt_lm at dim 1024), the Dh-256 one (dim 2048) with Dh 192 beside it,
+#: and Dh 320 past the 256-wide tile (causal throughout)
 CASES = ([("fwd", "float32", 8, t, 64) for t in (64, 128, 256, 512)]
          + [(k, d, bh, 512, dh)
-            for bh, dh in ((512, 64), (512, 32), (256, 128), (128, 256))
+            for bh, dh in ((512, 64), (512, 32), (256, 128), (128, 192),
+                           (128, 256), (128, 320))
             for d in ("bfloat16", "float32") for k in ("fwd", "dq", "dkv")])
 
 

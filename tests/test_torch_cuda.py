@@ -12,6 +12,8 @@ a machine that has only PyTorch:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -26,8 +28,9 @@ from distkeras_tpu_torch.models.layers import Dense, Sequential
 from distkeras_tpu_torch.parallel import sync
 from distkeras_tpu_torch.obs import Registry
 from distkeras_tpu_torch.ops.flash_attention import (
-    _from_bh, _to_bh, flash_attention_lse, flash_bwd_dkv_cuda,
-    flash_bwd_dq_cuda, flash_bwd_plain, flash_fwd_cuda, flash_fwd_plain)
+    KERNEL_LAUNCHES, _from_bh, _to_bh, flash_attention_lse,
+    flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_bwd_plain, flash_fwd_cuda,
+    flash_fwd_plain)
 from distkeras_tpu_torch.serve import DecodeEngine, ServeConfig
 from distkeras_tpu_torch.utils.tree import tree_leaves
 
@@ -346,12 +349,16 @@ def test_f32_forward_kernel_is_3xtf32_not_tf32(causal, t, tk, dh):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("causal,t,tk", [(True, 100, 100), (False, 64, 130),
-                                         (True, 257, 257)])
-@pytest.mark.parametrize("dh", [136, 192, 256])
+                                         (True, 257, 257), (False, 200, 200),
+                                         (False, 257, 100)])
+@pytest.mark.parametrize("dh", [130, 136, 192, 200, 256])
 def test_kernels_at_head_dims_past_128(dtype, causal, t, tk, dh):
-    """Head dims 129–256, which the CUDA-core kernels take on unpadded
-    rows: K1, K2 and K3 against the plain versions, one launch each; K1 in
-    f32 within 1e-5, the rest within ``_close``'s bound of the dtype."""
+    """Head dims 129–256: in bf16 K1 and K3 on wgmma (192- and 256-wide
+    tiles from unpadded rows; Dh 130 padded to 136) and K2 on CUDA cores,
+    in f32 all three on CUDA cores.  K1, K2 and K3 against the plain
+    versions, causal and not, Tq ≠ Tk both ways, ragged T, one launch
+    each; K1 in f32 within 1e-5, the rest within ``_close``'s bound of
+    the dtype."""
     gen = torch.Generator(device="cuda").manual_seed(dh)
     q, do = (torch.randn((6, t, dh), generator=gen, device="cuda").to(dtype)
              for _ in range(2))
@@ -375,6 +382,98 @@ def test_kernels_at_head_dims_past_128(dtype, causal, t, tk, dh):
             assert (g - r).abs().max() <= 1e-5
         else:
             _close(g, r, dtype)
+
+
+def _close_o(o, ref, v):
+    """bf16 O past head dim 128 against the plain version: ``_close``'s
+    bound plus 2⁻⁸·max|V|.  Both round P = exp(S − max) to bf16 before
+    P·V, from S summed over Dh in different orders, so a P at a rounding
+    boundary can round one way in each (the CPU test's allowance,
+    ``tests/test_torch_flash.py``)."""
+    o, ref = o.float(), ref.float()
+    atol = 1e-2 * ref.abs().max().item() \
+        + 2 ** -8 * v.float().abs().max().item()
+    torch.testing.assert_close(o, ref, rtol=1e-2, atol=atol)
+
+
+def _wide_inputs(bh, t, tk, dh, dtype, causal, seed):
+    """q, k, v, dO in ``dtype`` and the plain forward's (O, lse), with
+    D = rowsum(dO∘O): the same inputs for kernel and plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, do = (torch.randn((bh, t, dh), generator=gen, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((bh, tk, dh), generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
+    o_ref, lse_ref = flash_fwd_plain(q, k, v, causal, dh ** -0.5)
+    dvec = (do.float() * o_ref.float()).sum(-1)
+    return (q, k, v, lse_ref, do, dvec, causal, dh ** -0.5), o_ref
+
+
+@pytest.mark.parametrize("dh", [192, 256])
+def test_bf16_wgmma_k1_k3_at_the_dim_2048_training_shape(dh):
+    """The bf16 K1 and K3 at ``gpt_lm(dim=2048)``'s training shape
+    (B·H = 128, T = 512, causal; Dh 256, and 192 beside it) against the
+    plain versions, each launch counted under the wgmma kernel, and K1
+    through ``flash_attention_lse`` on a batch-1 join of 200 tokens (8
+    heads)."""
+    args, o_ref = _wide_inputs(128, 512, 512, dh, torch.bfloat16, True, dh)
+    q, k, v, lse_ref = args[:4]
+    before = Counter(KERNEL_LAUNCHES)
+    o, lse = flash_fwd_cuda(q, k, v, True, args[-1])
+    _close_o(o, o_ref, v)
+    _close(lse, lse_ref, torch.bfloat16)
+    for g, r in zip(flash_bwd_dkv_cuda(*args), flash_bwd_plain(*args)[1:]):
+        assert bool(torch.isfinite(g).all())
+        _close(g, r, torch.bfloat16)
+    assert KERNEL_LAUNCHES - before == Counter(
+        {("flash_fwd_wgmma_wide", "bfloat16", dh): 1,
+         ("flash_bwd_dkv_wgmma_wide", "bfloat16", dh): 1})
+    q, k, v = _qkv(1, 200, 8, dh, torch.bfloat16, seed=dh)
+    launches = flash_fwd_cuda.launches
+    out, lse = flash_attention_lse(q, k, v, True)
+    torch.cuda.synchronize()
+    assert flash_fwd_cuda.launches == launches + 1
+    o_ref, lse_ref = flash_fwd_plain(_to_bh(q), _to_bh(k), _to_bh(v), True,
+                                     dh ** -0.5)
+    _close_o(_to_bh(out), o_ref, v)
+    _close(lse.reshape(8, 200), lse_ref, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal,t,tk", [(True, 100, 100), (False, 64, 130)])
+@pytest.mark.parametrize("dh", [257, 300, 320, 512])
+def test_kernels_at_head_dims_past_256(dtype, causal, t, tk, dh):
+    """Head dims past 256, which the CUDA-core kernels take in 256-column
+    panels (S and dP summed over every chunk of Dh): K1, K2 and K3 against
+    the plain versions, one launch each, on CUDA cores; f32 O and lse
+    within 1e-5, the rest within ``_close``'s bound of the dtype (bf16 O
+    within ``_close_o``)."""
+    args, o_ref = _wide_inputs(4, t, tk, dh, dtype, causal, dh)
+    q, k, v, lse_ref = args[:4]
+    counts = (flash_fwd_cuda.launches, flash_bwd_dq_cuda.launches,
+              flash_bwd_dkv_cuda.launches)
+    before = Counter(KERNEL_LAUNCHES)
+    o, lse = flash_fwd_cuda(q, k, v, causal, args[-1])
+    got = (flash_bwd_dq_cuda(*args), *flash_bwd_dkv_cuda(*args))
+    torch.cuda.synchronize()
+    assert (flash_fwd_cuda.launches, flash_bwd_dq_cuda.launches,
+            flash_bwd_dkv_cuda.launches) == tuple(c + 1 for c in counts)
+    name = str(dtype).removeprefix("torch.")
+    assert KERNEL_LAUNCHES - before == Counter(
+        {(kernel, name, dh): 1 for kernel in (
+            "flash_fwd_cuda_cores", "flash_bwd_dq_wide",
+            "flash_bwd_dkv_wide")})
+    assert o.shape == q.shape and bool(torch.isfinite(o).all())
+    if dtype == torch.float32:
+        assert (o - o_ref).abs().max() <= 1e-5
+        assert (lse - lse_ref).abs().max() <= 1e-5
+    else:
+        _close_o(o, o_ref, v)
+        _close(lse, lse_ref, dtype)
+    for g, r in zip(got, flash_bwd_plain(*args)):
+        assert g.shape == r.shape and g.dtype == r.dtype
+        assert bool(torch.isfinite(g).all())
+        _close(g, r, dtype)
 
 
 @pytest.mark.parametrize("t,dh", [(2048, 64), (2048, 128), (4096, 64),
@@ -474,10 +573,20 @@ def test_bf16_forward_refuses_unaligned_inputs():
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
-    launches = flash_fwd_cuda.launches
+    """Head dim 257 runs (the CUDA-core kernels take any Dh past 256, as
+    the reference does): one launch, within 1e-5 of the plain version.
+    What the kernels do not take is refused before any launch: float16,
+    non-contiguous inputs, causal with unequal lengths, and for the
+    backward a strided dO, a float64 lse and a CPU tensor."""
     q, k, v = (_to_bh(x) for x in _qkv(1, 64, 2, 257, torch.float32))
-    with pytest.raises(ValueError, match="head dim 257 > 256"):
-        flash_fwd_cuda(q, k, v, True, 0.1)
+    launches = flash_fwd_cuda.launches
+    o, lse = flash_fwd_cuda(q, k, v, True, 0.1)
+    torch.cuda.synchronize()
+    assert flash_fwd_cuda.launches == launches + 1
+    o_ref, lse_ref = flash_fwd_plain(q, k, v, True, 0.1)
+    assert (o - o_ref).abs().max() <= 1e-5
+    assert (lse - lse_ref).abs().max() <= 1e-5
+    launches = flash_fwd_cuda.launches
     q, k, v = (_to_bh(x) for x in _qkv(1, 64, 2, 64, torch.float16))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash_fwd_cuda(q, k, v, True, 0.1)

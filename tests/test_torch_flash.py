@@ -31,7 +31,7 @@ from distkeras_tpu_torch.ops.attention import dot_product_attention
 from distkeras_tpu_torch.ops.flash_attention import (
     _blocks, _from_bh, _to_bh, flash_attention, flash_attention_lse,
     flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_bwd_plain, flash_fwd_cuda,
-    flash_fwd_plain, pad_head_dim, padded_head_dim)
+    flash_fwd_plain, kernel_head_dim, pad_head_dim)
 from distkeras_tpu_torch.utils.weights import (load_jax_variables,
                                                to_numpy_variables)
 
@@ -383,6 +383,14 @@ def test_plain_kernels_match_jax_kernels_at_odd_head_dims(dtype, causal, t,
     _plain_against_jax_kernels(dtype, causal, t, tk, dh)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_kernels_match_jax_kernels_past_head_dim_256(dtype):
+    """Dh 320, which the CUDA kernels take in 256-column panels on CUDA
+    cores: the plain versions against the JAX package's Pallas kernels
+    (interpret mode), causal, at the bounds of the head-dim-128 test."""
+    _plain_against_jax_kernels(dtype, True, 32, 32, 320)
+
+
 def _plain_against_jax_kernels(dtype, causal, t, tk, dh):
     rng = np.random.default_rng(13)
     bh = 3
@@ -429,13 +437,13 @@ def _plain_against_jax_kernels(dtype, causal, t, tk, dh):
 @pytest.mark.parametrize("dh", [1, 16, 48, 96])
 def test_zero_padded_head_dim_is_the_same_function(dtype, dh):
     """What the CUDA wrappers do at a head dim they are not instantiated
-    for: the plain versions on inputs zero-padded to ``padded_head_dim``,
+    for: the plain versions on inputs zero-padded to ``kernel_head_dim``,
     sliced back, equal the plain versions on the unpadded inputs (the
     caller's scale kept), and the padded columns of O, dQ, dK and dV are
     exactly 0.  f32 within 1e-6 relative to the largest |value| (the
     products' summation length differs); bf16 within one bf16 ulp."""
     tdt = getattr(torch, dtype)
-    size = padded_head_dim(dh)
+    size = kernel_head_dim(dh, tdt, "dq")
     assert size in (32, 64, 128) and size >= dh
     rng = np.random.default_rng(dh)
     q, k, v, do = (torch.from_numpy(rng.normal(size=(3, 40, dh)).astype(
@@ -457,28 +465,52 @@ def test_zero_padded_head_dim_is_the_same_function(dtype, dh):
         rtol = 1e-6 if dtype == "float32" or got is plse else 2 ** -7
         np.testing.assert_allclose(got.float().numpy(), ref, rtol=rtol,
                                    atol=1e-6 * np.abs(ref).max())
-    # past 128 the kernels take Dh itself, up to 256
-    assert padded_head_dim(129) == 129 and padded_head_dim(256) == 256
-    with pytest.raises(ValueError, match="head dim 257 > 256"):
-        padded_head_dim(257)
+    # past 128 the kernels take Dh itself, at any width (the CUDA-core
+    # kernels in 256-column panels past 256); the bf16 forward and K3 on
+    # wgmma (129-256) read rows of a multiple of 8 columns, the rest
+    # unpadded
+    bf16 = torch.bfloat16
+    assert [kernel_head_dim(d, dt, "dq") for dt in (bf16, torch.float32)
+            for d in (129, 256, 257, 320, 512)] == \
+        [129, 256, 257, 320, 512] * 2
+    assert [kernel_head_dim(d, bf16, "fwd") for d in (130, 136, 200, 256,
+                                                      257, 320)] == \
+        [136, 136, 200, 256, 257, 320]
+    assert [kernel_head_dim(130, bf16, k) for k in ("dq", "dkv")] == \
+        [130, 136]
+    assert [kernel_head_dim(130, torch.float32, k)
+            for k in ("fwd", "dq", "dkv")] == [130, 130, 130]
+    assert kernel_head_dim(96, bf16, "fwd") == 128
+    assert kernel_head_dim(96, torch.float32, "fwd") == 96
 
 
 def test_flash_attention_layer_at_head_dim_256_matches_jax():
     """``MultiHeadAttention(impl="flash")`` at dim 512 with 2 heads (Dh 256,
-    which the CUDA kernels take on CUDA cores) against the JAX package's
-    layer (Pallas flash in interpret mode) on the same weights, carried by
-    ``load_jax_variables``: the output within the f32 flash bound (``TOL``)
-    and the gradients of the input and of every parameter under a random
-    cotangent within the f32 gradient bound (``GRAD_TOL``)."""
+    which the CUDA kernels take in one 256-wide tile) against the JAX
+    package's layer (Pallas flash in interpret mode) on the same weights,
+    carried by ``load_jax_variables``: the output within the f32 flash
+    bound (``TOL``) and the gradients of the input and of every parameter
+    under a random cotangent within the f32 gradient bound
+    (``GRAD_TOL``)."""
+    _flash_layer_against_jax(512)
+
+
+def test_flash_attention_layer_at_head_dim_320_matches_jax():
+    """As the Dh 256 test at dim 640 with 2 heads: Dh 320, which the CUDA
+    kernels take in two 256-column panels."""
+    _flash_layer_against_jax(640)
+
+
+def _flash_layer_against_jax(dim):
     jm = JaxModel(ja.MultiHeadAttention(2, causal=True, impl="flash"),
-                  input_shape=(16, 512))
+                  input_shape=(16, dim))
     v = jax.tree_util.tree_map(np.asarray, jm.init(5))
     model = Model.from_config(json.loads(json.dumps(jm.config())))
     model.init(0, device="cpu")
     load_jax_variables(model, v)
     rng = np.random.default_rng(6)
-    x = rng.normal(size=(2, 16, 512)).astype(np.float32)
-    g = rng.normal(size=(2, 16, 512)).astype(np.float32)
+    x = rng.normal(size=(2, 16, dim)).astype(np.float32)
+    g = rng.normal(size=(2, 16, dim)).astype(np.float32)
 
     def loss(params, xs):
         return jnp.sum(jm.apply({**v, "params": params}, xs)[0] * g)
@@ -575,6 +607,33 @@ def test_library_key_covers_every_csrc_file(tmp_path, monkeypatch):
     with open(copy / "sm90.cuh", "a") as f:
         f.write("\n// changed\n")
     assert _kernels.lib_path() != before
+
+
+def test_kernel_names_follow_the_c_interface_codes():
+    """``KERNELS`` names the kernel each C entry point reports it ran by
+    its code in ``csrc/launched.h``, the one place the codes are defined;
+    K2 has no wgmma kernel past head dim 128; the launch counts start
+    from 0 after ``reset_launches``; and ``chip_smoke.CUDA_KERNELS``
+    lists every named kernel once."""
+    import importlib
+    import re
+    import chip_smoke
+    fa_mod = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
+    csrc = os.path.dirname(_kernels.SOURCES[0])
+    with open(os.path.join(csrc, "launched.h")) as f:
+        codes = dict(re.findall(r"(k\w+) = (\d+),", f.read()))
+    assert codes == {"kWgmma": "0", "kWgmmaWide": "1", "kTf32": "2",
+                     "kCudaCores": "3"}
+    assert set(fa_mod.KERNELS) == set(_kernels.SIGNATURES) - {
+        "dkt_flash_last_kernel", "dkt_error_string"}
+    assert all(len(names) == len(codes) for names in fa_mod.KERNELS.values())
+    assert fa_mod.KERNELS["dkt_flash_bwd_dq"][1] is None
+    names = [n for ns in fa_mod.KERNELS.values() for n in ns if n]
+    assert sorted(names) == sorted(n for n, _, _ in chip_smoke.CUDA_KERNELS)
+    fa_mod.KERNEL_LAUNCHES[("flash_fwd", "float32", 64)] += 1
+    flash_fwd_cuda.launches += 1
+    fa_mod.reset_launches()
+    assert not fa_mod.KERNEL_LAUNCHES and flash_fwd_cuda.launches == 0
 
 
 @pytest.mark.cuda
