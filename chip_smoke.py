@@ -8,15 +8,16 @@ Phases, one JSON line each:
 1. ``env``    — torch/CUDA versions, the card, TF32 switched off.
 2. ``build``  — the flash kernels, ``distkeras_tpu_torch/ops/csrc/
    flash_fwd.cu`` (K1's C interface; K1 on CUDA cores: f32 at grids too
-   small for 64-row tiles, both dtypes at head dims 129-256),
+   small for 64-row tiles and past head dim 128, bf16 past 256),
    ``flash_fwd_tf32_sm90.cu`` (K1 in f32 as 3xTF32 on mma.sync),
    ``flash_fwd_sm90.cu`` (K1 in bf16 up to head dim 256, on wgmma and
    TMA), ``flash_bwd.cu`` (the backward's C interface),
-   ``flash_bwd_tf32_sm90.cu`` (K2, K3 in f32, as 3xTF32 on mma.sync),
-   ``flash_bwd_sm90.cu`` (K2, K3 in bf16 up to 128 and K3 in bf16 at
-   129-256, on wgmma and TMA) and ``flash_bwd_wide.cu`` (K2, K3 on CUDA
-   cores past 128, in 256-column panels past 256; the ``_sm90`` files
-   include ``sm90.cuh``, the ``_tf32_`` ones ``tf32.cuh``), are built
+   ``flash_bwd_tf32_sm90.cu`` (K2, K3 in f32 up to 128 and K3 in f32 at
+   129-256, as 3xTF32 on mma.sync), ``flash_bwd_sm90.cu`` (K2, K3 in
+   bf16 up to 256, on wgmma and TMA) and ``flash_bwd_wide.cu`` (f32 K2 at
+   129-256 and K2, K3 past 256 on CUDA cores, in 256-column panels past
+   256; the ``_sm90`` files include ``sm90.cuh``, the ``_tf32_`` ones
+   ``tf32.cuh``), are built
    with nvcc for sm_90a if stale (seconds;
    each kernel's registers, shared memory and spills as ptxas reports
    them, and whether its wgmma products were serialized).
@@ -77,13 +78,14 @@ Phases, one JSON line each:
 8. ``lm128``  — ``scripts/mfu.py``'s ``--dim 1024`` probe (8 heads of
    Dh 128), bf16, 2 epochs of 8 steps at batch 32: the loss falls and
    K1, K2 and K3 launch exactly once per block per step.  ``lm256`` —
-   the ``--dim 2048`` probe (8 heads of Dh 256; in bf16 K1 and K3 on
-   wgmma, K2 on CUDA cores; in f32 all three on CUDA cores): bf16, 2
-   epochs of 4 steps at batch 16, the loss falls; 2
+   the ``--dim 2048`` probe (8 heads of Dh 256; in bf16 K1, K2 and K3 on
+   wgmma; in f32 K3 as 3xTF32, K1 and K2 on CUDA cores): bf16, 2 epochs
+   of 4 steps at batch 16, the loss falls; 2
    f32 steps against its dense twin (losses within rtol 1e-4, parameters
    within 1e-4); 4 greedy requests served, each equal to
    ``generate_tokens``; K1, K2 and K3 once per block per step, K1 once
-   per block per join.
+   per block per join; each launch counted under the kernel of that
+   route, none under the CUDA-core K2 in bf16 or K3 in f32.
 9. ``conv``   — the headline bench's ResNet-20 (``distkeras_tpu_torch.
    bench``: width 16, batch 1024, sgd lr 0.1, bf16), 3 epochs of 8
    steps: samples/s, step ms, peak memory, and the busy share of a
@@ -120,14 +122,21 @@ Phases, one JSON line each:
 ``k1`` and ``k2k3`` also hold head dims 16, 48 and 96 (which bf16 K1
 and K2/K3 run zero-padded to 32, 64 and 128, and the f32 K1 reads
 unpadded; the f32 K1 also at Dh 5 and 127 on both its kernels), 136,
-192, 200 and 256 (bf16 K1 and K3 on wgmma, the rest on CUDA cores) and
-320 (CUDA cores, two 256-column panels), and time 16 and 96 beside 32
-and 128 at B*H 256 and 192, 256, 320 and 512 at B*H 128 (T 512).
+192, 200 and 256 (bf16 K1, K2 and K3 on wgmma, f32 K3 as 3xTF32, f32 K1
+and K2 on CUDA cores) and 320 (CUDA cores, two 256-column panels), and
+time 16 and 96 beside 32 and 128 at B*H 256 and 192, 256, 320 and 512
+at B*H 128 (T 512).  Where an f32 kernel's output reads an error of
+exactly 0 against the plain version, ``k2k3`` also shows the check is
+live: a copy with its smallest value moved by 1e-4 must fail it.
 ``k1_tf32_control``: on Q and K with a common offset, the f32 K1 on
 tensor cores is within 1e-5 of attention in float64 and one TF32 pass
-is not.  ``past256``: K1, K2 and K3 at Dh 320 in both dtypes through
-the differentiable op (``flash_attention_lse`` and autograd) against
-the plain versions, one launch each.
+is not; ``k3_tf32_control`` holds the f32 K3 at Dh 192 and 256 so (its
+dK and dV against K3 in float64, within ``GRAD_TOL``), and
+``k2k3_exact_reading`` shows why the CUDA-core f32 K2 can equal its
+plain version bit for bit.  ``past256``: K1, K2 and K3 at Dh 320 in both
+dtypes through the differentiable op (``flash_attention_lse`` and
+autograd) against the plain versions, one launch each: the one path of
+the CUDA-core K3, counted as the other paths are.
 
 Then the ``kernels`` line (one entry per CUDA kernel: its launches on
 the main paths, counted by the wrappers under the kernel each C entry
@@ -174,8 +183,8 @@ HEAD_DIMS = (32, 64, 128)
 #: head dims the kernels run zero-padded to the next of HEAD_DIMS (bf16
 #: K1, K2 and K3; the f32 K1 reads them unpadded)
 PAD_HEAD_DIMS = (16, 48, 96)
-#: head dims past 128: bf16 K1 and K3 on wgmma (192- and 256-wide tiles),
-#: the rest on CUDA cores
+#: head dims past 128: bf16 K1, K2 and K3 on wgmma (192- and 256-wide
+#: tiles), f32 K3 as 3xTF32, f32 K1 and K2 on CUDA cores
 WIDE_HEAD_DIMS = (136, 192, 200, 256)
 #: head dims past 256, which K1, K2 and K3 take on CUDA cores in
 #: 256-column panels: checked at 320, timed at 320 and 512 (B*H 128)
@@ -532,7 +541,6 @@ def phase_k1(torch):
     rows[-1].update(kernel=kernel, join_batch_1=True)
     emit({"phase": "k1", **rows[-1]})
     _k1_tf32_control(torch)
-    phase_past256(torch)
     return rows
 
 
@@ -588,6 +596,97 @@ def attention_float64(torch, q, k, v, causal, scale):
     return torch.matmul(torch.exp(s - lse[..., None]), v.double()), lse
 
 
+def dkv_float64(torch, q, k, v, lse, do, dvec, causal, scale):
+    """K3's (dK, dV) computed in float64 from the same inputs (L and D as
+    given): the witness the f32 versions are measured from."""
+    qd, kd, vd, dod = (x.double() for x in (q, k, v, do))
+    p = torch.exp(qd @ kd.transpose(1, 2) * scale - lse.double()[..., None])
+    if causal:
+        p = p.masked_fill(torch.ones(p.shape[-2:], dtype=torch.bool,
+                                     device=p.device).triu(1), 0.0)
+    ds = p * (dod @ vd.transpose(1, 2) - dvec.double()[..., None]) * scale
+    return ds.transpose(1, 2) @ qd, p.transpose(1, 2) @ dod
+
+
+def _k3_tf32_control(torch):
+    """The f32 K3 at head dims 129-256 is 3xTF32, not one TF32 pass: on Q
+    and K with a common offset of 1 its dK and dV are within
+    ``GRAD_TOL``'s f32 bound of K3 computed in float64, and the plain
+    version with TF32 products (``allow_tf32``) misses it.  The witness
+    is float64 because on these inputs the plain version in f32 can
+    itself be outside that bound; each row gives its distance too."""
+    from distkeras_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv_cuda, flash_bwd_plain, flash_fwd_plain)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    tol = GRAD_TOL["float32"]
+    rows = []
+    for causal, tq, tk, dh in ((True, 200, 200, 192), (True, 200, 200, 256),
+                               (False, 64, 130, 256)):
+        q, do = (torch.randn((8, tq, dh), generator=gen, device="cuda")
+                 for _ in range(2))
+        k, v = (torch.randn((8, tk, dh), generator=gen, device="cuda")
+                for _ in range(2))
+        q, k = q + 1.0, k + 1.0
+        o, lse = flash_fwd_plain(q, k, v, causal, dh ** -0.5)
+        args = (q, k, v, lse, do, (do * o).sum(-1), causal, dh ** -0.5)
+        exact = dkv_float64(torch, *args)
+        got, kernel = launched(lambda: flash_bwd_dkv_cuda(*args))
+        plain = flash_bwd_plain(*args)[1:]
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = flash_bwd_plain(*args)[1:]
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+        def err(a):
+            return {"dk": _max_err(a[0], exact[0]),
+                    "dv": _max_err(a[1], exact[1])}
+
+        def within(a):
+            return all(_within(x, r, **tol) for x, r in zip(a, exact))
+        rows.append({"phase": "k3_tf32_control", "bh": 8, "tq": tq, "tk": tk,
+                     "dh": dh, "causal": causal, "kernel": kernel,
+                     "witness": "float64", "tol": tol,
+                     "kernel_err": err(got), "kernel_within": within(got),
+                     "plain_f32_err": err(plain),
+                     "plain_f32_within": within(plain),
+                     "one_tf32_pass_err": err(tf32),
+                     "one_tf32_pass_within": within(tf32)})
+        emit(rows[-1])
+    check(all(r["kernel"] == "flash_bwd_dkv_f32_wide" and r["kernel_within"]
+              and not r["one_tf32_pass_within"] for r in rows),
+          f"the f32 K3 at Dh 129-256 is not held apart from one TF32 pass: "
+          f"{rows}")
+
+
+def _exact_reading(torch):
+    """Why the CUDA-core f32 K2 can agree with its plain version bit for
+    bit: the plain version's f32 products (cuBLAS) at these shapes against
+    an in-order ``torch.addcmul`` chain over the contracted dim (the
+    CUDA-core kernels' FMA loop), and ``s * scale - L`` rounded twice (the
+    plain version) against one fused ``addcmul`` (the kernel's contracted
+    FMA) at the scales 1/16 (Dh 256) and 1/sqrt(192).  Emits the shares of
+    equal values; checks nothing."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    row = {"phase": "k2k3_exact_reading", "matmul_equals_fma_chain": {},
+           "scaled_minus_l_equals_fma": {}}
+    for dh in (192, 256, 320):
+        a, b = (torch.randn((8, 512, dh), generator=gen, device="cuda")
+                for _ in range(2))
+        mm = a @ b.transpose(1, 2)
+        chain = torch.zeros_like(mm)
+        for d in range(dh):
+            chain = torch.addcmul(chain, a[:, :, d, None], b[:, None, :, d])
+        row["matmul_equals_fma_chain"][dh] = (mm == chain).float().mean() \
+            .item()
+        lse = torch.randn((8, 512, 1), generator=gen, device="cuda")
+        scale = torch.full_like(mm, dh ** -0.5)
+        row["scaled_minus_l_equals_fma"][dh] = (
+            mm * dh ** -0.5 - lse == torch.addcmul(-lse, mm, scale)) \
+            .float().mean().item()
+    emit(row)
+
+
 def phase_past256(torch):
     """K1, K2 and K3 at Dh ``PAST_HEAD_DIM`` (320: two 256-column panels
     on CUDA cores, as the reference's BlockSpecs span any head dim), in
@@ -595,13 +694,15 @@ def phase_past256(torch):
     (``flash_attention_lse``, then autograd with an lse cotangent),
     against the plain versions on the same inputs: one launch each, O and
     lse (f32 within 1e-5) and dQ, dK, dV within ``GRAD_TOL``.  Emits a
-    row per dtype."""
+    row per dtype; returns the path's launches by kernel (counts set to 0
+    just before, read just after)."""
     from distkeras_tpu_torch.ops.flash_attention import (
         _to_bh, flash_attention_lse, flash_bwd_dkv_cuda, flash_bwd_dq_cuda,
-        flash_bwd_plain, flash_fwd_cuda, flash_fwd_plain)
+        flash_bwd_plain, flash_fwd_cuda, flash_fwd_plain, reset_launches)
     kernels = (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda)
     gen = torch.Generator(device="cuda").manual_seed(5)
     b, t, h, dh = 2, 200, 4, PAST_HEAD_DIM
+    reset_launches()
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
         q, k, v, g = (torch.randn((b, t, h, dh), generator=gen,
@@ -640,6 +741,7 @@ def phase_past256(torch):
                   _within(x, r, **tol) for x, r in zip(got, refs)),
               f"K1-K3 at head dim {dh} disagree with the plain versions "
               f"or launched other than once each: {row}")
+    return kernel_launches()
 
 
 def _k1_check(torch, ref, got, dtype_name, causal, bh, tq, tk, dh):
@@ -820,6 +922,16 @@ def _within(got, ref, rtol, atol, atol_of_max) -> bool:
     return bool(((got - ref).abs() <= atol + rtol * ref.abs()).all())
 
 
+def _check_is_live(got, ref, tol) -> bool:
+    """Whether ``_within`` fails for a copy of ``got`` whose value at the
+    smallest |reference| is moved by 1e-4: the check can see an error
+    there.  (An exact reading is no fault: cuBLAS's f32 products at these
+    shapes sum in order with FMA, as the CUDA-core K2 does; PERF.md.)"""
+    moved = got.float().clone().reshape(-1)
+    moved[ref.float().abs().reshape(-1).argmin()] += 1e-4
+    return not _within(moved.reshape(got.shape), ref, **tol)
+
+
 def phase_k2k3(torch):
     """K2 and K3 against ``flash_bwd_plain`` on the card, then their times
     at the training shapes; returns the rows."""
@@ -861,8 +973,9 @@ def phase_k2k3(torch):
               for causal in (True, False)]
     cases += [(dtype, False, 8, 100, 256, dh)
               for dtype in ("float32", "bfloat16") for dh in PAD_HEAD_DIMS]
-    # head dims past 128 (bf16 K3 on wgmma up to 256, the rest on CUDA
-    # cores) and past 256 (CUDA cores, 256-column panels)
+    # head dims past 128 (bf16 K2, K3 on wgmma and f32 K3 as 3xTF32 up to
+    # 256, f32 K2 on CUDA cores) and past 256 (CUDA cores, 256-column
+    # panels)
     cases += [(dtype, causal, 8, 257, 257, dh)
               for dtype in ("float32", "bfloat16")
               for dh in (*WIDE_HEAD_DIMS, PAST_HEAD_DIM)
@@ -887,6 +1000,13 @@ def phase_k2k3(torch):
                   _within(g, r, **tol)
                   for g, r in zip((dq, dk, dv), ref)),
               f"K2/K3 disagree with their plain version: {row}")
+        # an f32 output equal to the plain version's: the check must see
+        # an error of 1e-4 there (bf16 outputs round alike to equal)
+        zero = [n for n, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref)
+                if dtype_name == "float32" and row[f"{n}_err"] == 0.0
+                and not _check_is_live(g, r, tol)]
+        check(not zero, f"an exact reading of {zero} is not a live check: "
+              f"{row}")
         emit({"phase": "k2k3", **row})
         return row
 
@@ -894,6 +1014,8 @@ def phase_k2k3(torch):
                     inputs(getattr(torch, dtype_name), bh, tq, tk, dh,
                            causal))
             for dtype_name, causal, bh, tq, tk, dh in cases]
+    _k3_tf32_control(torch)
+    _exact_reading(torch)
 
     # the training shapes, each checked as above and then timed: the
     # probe's (Dh 64) in both dtypes, then Dh 128 (bf16, the dim-1024
@@ -1163,15 +1285,16 @@ def phase_lm128(torch):
 
 def phase_lm256(torch):
     """``gpt_lm`` at ``mfu.py``'s ``--dim 2048`` (8 heads of Dh 256: in
-    bf16 K1 and K3 on wgmma and K2 on CUDA cores, in f32 all three on
-    CUDA cores): (a) bf16, trained by
-    ``SingleTrainer``, 2 epochs of 4 steps at batch 16: the loss falls;
-    (b) f32, flash and dense twins from seed 0, 2 steps at batch 16:
-    per-step losses within rtol 1e-4 and every trained parameter within
-    atol 1e-4; (c) f32, 4 greedy requests served by ``DecodeEngine``:
-    every answer equals ``generate_tokens`` on the card.  K1, K2 and K3
-    launch exactly once per block per step, K1 once per block per cold
-    join."""
+    bf16 K1, K2 and K3 on wgmma; in f32 K3 as 3xTF32 on mma.sync, K1 and
+    K2 on CUDA cores): (a) bf16, trained by ``SingleTrainer``, 2 epochs
+    of 4 steps at batch 16: the loss falls; (b) f32, flash and dense twins
+    from seed 0, 2 steps at batch 16: per-step losses within rtol 1e-4
+    and every trained parameter within atol 1e-4; (c) f32, 4 greedy
+    requests served by ``DecodeEngine``: every answer equals
+    ``generate_tokens`` on the card.  K1, K2 and K3 launch exactly once
+    per block per step, each counted under the kernel of its route (so
+    the CUDA-core K2 shows no bf16 launch and the CUDA-core K3 no f32
+    launch), and K1 once per block per cold join."""
     import numpy as np
     from distkeras_tpu_torch import SingleTrainer
     from distkeras_tpu_torch.data import load_lm_corpus
@@ -1209,6 +1332,11 @@ def phase_lm256(torch):
     want = blocks * steps * epochs
     check(all(n == want for n in launches.values()),
           f"dim-2048 launches {launches} != {want} each")
+    check(by_kernel == [[k, "bfloat16", 256, want] for k in (
+              "flash_bwd_dkv_wgmma_wide", "flash_bwd_dq_wgmma_wide",
+              "flash_fwd_wgmma_wide")],
+          f"dim-2048 bf16 launches by kernel {by_kernel}: K1-K3 not all "
+          f"on wgmma")
     rec = [r for r in t.metrics.records if r["event"] == "epoch"][-1]
     peak = torch.cuda.max_memory_allocated()
     del t
@@ -1237,6 +1365,11 @@ def phase_lm256(torch):
           f"dim-2048 f32 flash vs dense parameters differ by {param_err}")
     check(all(n == blocks * 2 for n in f32_launches.values()),
           f"dim-2048 f32 launches {f32_launches} != {blocks * 2} each")
+    check(f32_kernels == [[k, "float32", 256, blocks * 2] for k in (
+              "flash_bwd_dkv_f32_wide", "flash_bwd_dq_wide",
+              "flash_fwd_cuda_cores")],
+          f"dim-2048 f32 launches by kernel {f32_kernels}: K3 not on "
+          f"3xTF32")
     del runs, fp, dp
 
     # (c) f32 serving: 4 greedy requests, the first 4 of PROMPT_LENS
@@ -1808,16 +1941,18 @@ CUDA_KERNELS = (
     ("flash_fwd_f32", "flash_fwd_tf32_sm90.cu", 83),
     ("flash_fwd_cuda_cores", "flash_fwd.cu", 83),
     ("flash_bwd_dq", "flash_bwd_sm90.cu", 169),
+    ("flash_bwd_dq_wgmma_wide", "flash_bwd_sm90.cu", 169),
     ("flash_bwd_dq_f32", "flash_bwd_tf32_sm90.cu", 169),
     ("flash_bwd_dq_wide", "flash_bwd_wide.cu", 169),
     ("flash_bwd_dkv", "flash_bwd_sm90.cu", 200),
     ("flash_bwd_dkv_wgmma_wide", "flash_bwd_sm90.cu", 200),
     ("flash_bwd_dkv_f32", "flash_bwd_tf32_sm90.cu", 200),
+    ("flash_bwd_dkv_f32_wide", "flash_bwd_tf32_sm90.cu", 200),
     ("flash_bwd_dkv_wide", "flash_bwd_wide.cu", 200),
 )
 
 
-def kernels_line(k1, sl, tr, lm128, lm256, dist_kernels, bwd_rows,
+def kernels_line(k1, sl, tr, lm128, lm256, dist_kernels, past256, bwd_rows,
                  bwd_timed):
     """The ``kernels`` line: one entry per CUDA kernel, with its launches
     on the main paths (each path's counts were set to 0 just before it ran
@@ -1833,7 +1968,8 @@ def kernels_line(k1, sl, tr, lm128, lm256, dist_kernels, bwd_rows,
     timing = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     # (path, [kernel, dtype, head dim, launches] rows): served traffic,
     # the bf16 probe, its f32 parity run, the Dh 128 model, distributed
-    # ADAG, and lm256's bf16 training, f32 parity and serving
+    # ADAG, lm256's bf16 training, f32 parity and serving, and the Dh 320
+    # op through autograd (the CUDA-core K3's one path)
     paths = (
         ("serve", sl["kernel_launches"]),
         ("train", tr["kernel_launches"]),
@@ -1842,7 +1978,8 @@ def kernels_line(k1, sl, tr, lm128, lm256, dist_kernels, bwd_rows,
         ("dist_adag", dist_kernels),
         ("lm256_train", lm256["train"]["kernel_launches"]),
         ("lm256_train_f32", lm256["parity_f32"]["kernel_launches"]),
-        ("lm256_serve", lm256["serve"]["kernel_launches"]))
+        ("lm256_serve", lm256["serve"]["kernel_launches"]),
+        ("past256", past256))
     kernels = []
     for name, src, line in CUDA_KERNELS:
         wrapper = next(fn for fn, ns in KERNELS.items() if name in ns)
@@ -1910,6 +2047,7 @@ def main() -> int:
         env = phase_env(torch)
         phase_build()
         k1 = phase_k1(torch)
+        past256 = phase_past256(torch)
         import numpy as np
         from distkeras_tpu_torch.models import zoo
         model = zoo.gpt_lm(**LM).init(seed=0)
@@ -1927,7 +2065,7 @@ def main() -> int:
         phase_models(torch)
         _, _, dist_kernels = phase_dist(torch)
         kernels = kernels_line(k1, sl, tr, lm128, lm256, dist_kernels,
-                               bwd_rows, bwd_timed)
+                               past256, bwd_rows, bwd_timed)
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1

@@ -7,14 +7,13 @@ f32, as 3xTF32 on mma.sync), ``csrc/flash_fwd_sm90.cu`` (K1 in bf16),
 ``csrc/flash_bwd.cu`` (the C interface of K2, K3),
 ``csrc/flash_bwd_tf32_sm90.cu`` (K2, K3 in f32, as 3xTF32 on mma.sync),
 ``csrc/flash_bwd_sm90.cu`` (K2, K3 in bf16) and ``csrc/flash_bwd_wide.cu``
-(K2, K3 on CUDA cores past head dim 128; the ``_sm90`` files include
-``csrc/sm90.cuh``, their shared PTX and tensor-map helpers, the
-``_tf32_`` ones ``csrc/tf32.cuh``, the 3xTF32 pieces, and the two C
-interfaces ``csrc/launched.h``, the codes of the kernel a call ran)
-compile in
-parallel, one ``nvcc`` each, and link
-into ``distkeras_tpu_torch/_build/`` (listed in ``.gitignore``) under a
-name keyed by a hash of every file under ``csrc/`` and the flags, so a
+(on CUDA cores f32 K2 at head dims 129–256, K2 and K3 past 256; the
+``_sm90`` files include ``csrc/sm90.cuh``, their shared PTX and
+tensor-map helpers, the ``_tf32_`` ones ``csrc/tf32.cuh``, the 3xTF32
+pieces, and the two C interfaces ``csrc/launched.h``, the codes of the
+kernel a call ran) compile in parallel, one ``nvcc`` each, and link into
+``distkeras_tpu_torch/_build/`` (listed in ``.gitignore``) under a name
+keyed by a hash of every file under ``csrc/`` and the flags, so a
 changed source or header rebuilds and an unchanged tree is reused.
 Nothing here runs at import: the first ``library()`` call builds it if
 stale.

@@ -1,8 +1,8 @@
 // Flash-attention backward in bf16 on Hopper's tensor cores (sm_90a):
-// K2 (dQ) and K3 (dK, dV) at head dims 32, 64 and 128, and K3 at 129-256.
+// K2 (dQ) and K3 (dK, dV) at head dims 32, 64 and 128, and at 129-256.
 // Called from flash_bwd.cu's C interface (dkt_flash_bwd_dq,
-// dkt_flash_bwd_dkv) for dtype 1; f32 stays there, and so does bf16 K2
-// past 128 (flash_bwd_wide.cu).
+// dkt_flash_bwd_dkv) for dtype 1; bf16 past 256 runs on CUDA cores
+// (flash_bwd_wide.cu).
 //
 // Replaces: distkeras_tpu/ops/pallas_attention.py:_bwd_dq_kernel (K2) and
 // _bwd_dkv_kernel (K3) under the bf16 branch of _dot/_dot_t.  With
@@ -22,9 +22,9 @@
 // bf16 and L, D f32 read once, the gradients written once) take 0.051 and
 // 0.061 ms at 3.35 TB/s.  So bytes bound both, with the operations close
 // behind: the kernels have to keep the tensor cores fed from shared memory
-// and their exp/select work off the critical path.  K3 at Dh 256 (B*H =
-// 128, gpt_lm at dim 2048) does the same 34.4 GFLOP over the same bytes:
-// 0.035 and 0.060 ms.
+// and their exp/select work off the critical path.  At Dh 256 (B*H =
+// 128, gpt_lm at dim 2048) K2 and K3 do the same 25.8 and 34.4 GFLOP
+// over the same bytes: 0.050 and 0.060 ms by bytes.
 //
 // Design: one warpgroup (128 threads) per block and 64-row tiles, the
 // wgmma M.  K2 is one block per (batch*head, query tile), issued from the
@@ -51,22 +51,32 @@
 // dP^T but holding the dK and dV of one panel, since one warpgroup's
 // 2 x 64 accumulator registers a thread would spill.
 //
-// K3 at Dh 129-256 (the reference's BlockSpecs span any Dh) is the same
-// kernel on 256-wide tiles of four panels, read from unpadded rows of Dh
-// columns (Dh % 8 == 0, the TMA row stride; the wrapper pads other Dh to
-// the next multiple of 8), the columns past Dh zero-filled by TMA (a box
-// wholly past Dh reads zeros) and dK, dV stored masked at Dh.  dK and dV
-// are 2 x 64 x 256 f32, 256 registers a thread for one warpgroup, so two
-// warpgroups each hold a 128-column half (two panels, 128 registers) and
-// each forms the whole S^T and dP^T: 1.5x the minimal products for no
-// traffic between them.  Measured against the minimal products on an
-// H100 (kernel_ab.py, tree against tree): warpgroup 0 forming S^T and
-// P, warpgroup 1 dP^T and dS from P passed in f32, P^T and dS^T written
-// in bf16 to swizzled shared memory as both warpgroups' A operands, ran
-// 7-9% slower at Dh 192 and 256: the products saved cost two block
-// barriers and a serial P -> dS hand-off a query tile.
-// K, V resident and the Q/dO ring are six 32 KB tiles, 192 KB: one block
-// of 256 threads an SM.  L and D
+// K2 and K3 at Dh 129-256 (the reference's BlockSpecs span any Dh) are
+// the same kernels on 256-wide tiles of four panels, read from unpadded
+// rows of Dh columns (Dh % 8 == 0, the TMA row stride; the wrapper pads
+// other Dh to the next multiple of 8), the columns past Dh zero-filled by
+// TMA (a box wholly past Dh reads zeros) and the outputs stored masked at
+// Dh.  A warpgroup's accumulators would not fit: dK and dV are
+// 2 x 64 x 256 f32, 256 registers a thread, and dQ's 128 beside S, dP
+// and dS's A fragments would come to about 210.  So both run two
+// warpgroups, each holding a 128-column half of the outputs (two panels)
+// and each forming the whole S and dP (S^T and dP^T): K3 1.5x the
+// minimal products, K2 1.67x, for no traffic between them.  Measured
+// against the minimal products for K3 on an H100 at 700 W (kernel_ab.py,
+// tree against tree): warpgroup 0 forming S^T and P, warpgroup 1 dP^T
+// and dS from P passed in f32, P^T and dS^T written in bf16 to swizzled
+// shared memory as both warpgroups' A operands, ran 7-9% slower at Dh 192
+// and 256: the products saved cost two block barriers and a serial
+// P -> dS hand-off a query tile.  K2 on two warpgroups takes 0.146 /
+// 0.155 ms at Dh 192 / 256 (B*H 128, T 512, causal; an H100 at 700 W),
+// 156 registers, against 2.37 / 2.47 ms on CUDA cores in the same call.
+// Its minimal-products twin (warpgroup 0 forming S and P, warpgroup 1 dP
+// and dS, P in f32 and dS's bf16 A fragments passed lane to lane through
+// shared memory, 161 registers) ran 3.6-4.5% faster with identical
+// outputs (kernel_ab.py, tree against tree): 0.006 ms a call, 0.02 ms of
+// the 32 ms gpt_lm step at dim 2048, not worth a second kernel.
+// Q, dO (K2) or K, V (K3) resident and the ring are six 32 KB tiles,
+// 192 KB: one block of 256 threads an SM.  L and D
 // rows of (B*H, Tq) f32 are not 16-byte aligned at odd Tq, so TMA cannot
 // take them: K2 reads its two rows per thread once, K3 stages each query
 // tile's 64 + 64 values in shared memory a tile ahead.  The stores are
@@ -86,8 +96,21 @@ using namespace sm90;
 // K2: dQ
 // ---------------------------------------------------------------------------
 
+// K2's warpgroups, each forming the whole S and dP and holding D /
+// dq_groups columns of dQ: one up to Dh 128 (at most 64 accumulator
+// registers a thread), two at 256, 128 columns each (64 registers beside
+// S, dP and dS's A fragments)
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__host__ __device__ constexpr int dq_groups() {
+  return D == 256 ? 2 : 1;
+}
+template <int D>
+constexpr int dq_threads() {
+  return kThreads * dq_groups<D>();
+}
+
+template <int D>
+__global__ void __launch_bounds__(dq_threads<D>())
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v,
@@ -95,8 +118,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const float* __restrict__ lse,
                           const float* __restrict__ dvec,
                           __nv_bfloat16* __restrict__ dq, int tq, int tk,
-                          int causal, float scale) {
+                          int dh, int causal, float scale) {
   constexpr uint32_t kTile = Tile<D>::kBytes;
+  // the dQ columns a warpgroup owns
+  constexpr int kN = D / dq_groups<D>();
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t bars[3];  // the resident tiles, ring stages 0 and 1
   uint8_t* smem = aligned_smem(smem_raw);
@@ -128,7 +153,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
   }
 
-  const int warp = tid / 32, lane = tid % 32;
+  // this warpgroup's columns of dQ (a constant 0 at one group)
+  constexpr bool kSplit = dq_groups<D>() > 1;
+  const int wg = kSplit ? tid / kThreads : 0;
+  const int warp = (kSplit ? tid % kThreads : tid) / 32, lane = tid % 32;
   const int r0 = q0 + 16 * warp + lane / 4;  // this thread's rows: r0, r0+8
   const int c0 = 2 * (lane % 4);             // and columns c0 + 8j + {0,1}
   float l_row[2], d_row[2];
@@ -138,9 +166,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     l_row[h] = r < tq ? lse[(size_t)bh * tq + r] : 0.f;
     d_row[h] = r < tq ? dvec[(size_t)bh * tq + r] : 0.f;
   }
-  float acc[D / 2];
+  float acc[kN / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kN / 2; ++i) acc[i] = 0.f;
 
   mbar_wait(&bars[0], 0);
   for (int t = 0; t < n_k; ++t) {
@@ -148,6 +176,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int k0 = t * kBlock;
     uint8_t* ks = smem + (2 + 2 * s) * kTile;
     uint8_t* vs = ks + kTile;
+    // this warpgroup's panels of K, the B of its dQ product
+    constexpr uint32_t kOwn = kN / Tile<D>::kCols * Tile<D>::kPanelBytes;
+    uint8_t* kp = ks + wg * kOwn;
     mbar_wait(&bars[1 + s], (t >> 1) & 1);
 
     // S = Q K^T and dP = dO V^T, two groups
@@ -185,7 +216,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(acc, a[kk], desc_mn<D>(ks, kk));
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<kN>(acc, a[kk], desc_mn<D>(kp, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -198,7 +230,12 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       tma_load_tile<D>(vs, &tm_v, &bars[1 + s], k0 + 2 * kBlock, bh);
     }
   }
-  store_rows<D>(dq + (size_t)bh * tq * D, acc, r0, tq, c0);
+  if constexpr (D > 128) {  // rows of dh columns
+    store_rows_masked<kN>(dq + (size_t)bh * tq * dh + wg * kN, acc, r0, tq,
+                          c0, dh, dh - wg * kN);
+  } else {
+    store_rows<D>(dq + (size_t)bh * tq * D, acc, r0, tq, c0);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -401,7 +438,7 @@ constexpr size_t smem_bytes() {
 
 template <int D>
 cudaError_t launch_dq(const Maps& m, const float* lse, const float* dvec,
-                      void* dq, int bh, int tq, int tk, int causal,
+                      void* dq, int bh, int tq, int tk, int dh, int causal,
                       float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -409,9 +446,9 @@ cudaError_t launch_dq(const Maps& m, const float* lse, const float* dvec,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (tq + kBlock - 1) / kBlock);
-  flash_bwd_dq_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_dq_wgmma_kernel<D><<<grid, dq_threads<D>(), smem, stream>>>(
       m.q, m.k, m.v, m.dout, lse, dvec, static_cast<__nv_bfloat16*>(dq), tq,
-      tk, causal, scale);
+      tk, dh, causal, scale);
   return cudaGetLastError();
 }
 
@@ -435,8 +472,8 @@ cudaError_t launch_dkv(const Maps& m, const float* lse, const float* dvec,
 
 // The bf16 entry points behind dkt_flash_bwd_dq / dkt_flash_bwd_dkv
 // (flash_bwd.cu, which checks the arguments and sets the device): q, k,
-// v, dout contiguous bf16, 16-byte aligned; head_dim 32, 64 or 128, and
-// for K3 also a multiple of 8 in 129-256.
+// v, dout contiguous bf16, 16-byte aligned; head_dim 32, 64 or 128, or a
+// multiple of 8 in 129-256.
 cudaError_t flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* dvec, void* dq, int bh, int tq,
@@ -447,13 +484,20 @@ cudaError_t flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   const auto* l = static_cast<const float*>(lse);
   const auto* d = static_cast<const float*>(dvec);
+  const int dh = head_dim;
   switch (head_dim) {
     case 32:
-      return launch_dq<32>(m, l, d, dq, bh, tq, tk, causal, scale, stream);
+      return launch_dq<32>(m, l, d, dq, bh, tq, tk, dh, causal, scale,
+                           stream);
     case 64:
-      return launch_dq<64>(m, l, d, dq, bh, tq, tk, causal, scale, stream);
-    default:
-      return launch_dq<128>(m, l, d, dq, bh, tq, tk, causal, scale, stream);
+      return launch_dq<64>(m, l, d, dq, bh, tq, tk, dh, causal, scale,
+                           stream);
+    case 128:
+      return launch_dq<128>(m, l, d, dq, bh, tq, tk, dh, causal, scale,
+                            stream);
+    default:  // 129-256
+      return launch_dq<256>(m, l, d, dq, bh, tq, tk, dh, causal, scale,
+                            stream);
   }
 }
 

@@ -1,6 +1,8 @@
 // Flash-attention backward in f32 on Hopper's tensor cores (sm_90a), every
-// product as 3xTF32: K2 (dQ) and K3 (dK, dV).  Called from flash_bwd.cu's
-// C interface (dkt_flash_bwd_dq, dkt_flash_bwd_dkv) for dtype 0.
+// product as 3xTF32: K2 (dQ) and K3 (dK, dV) at head dims 32, 64 and 128,
+// and K3 at 129-256.  Called from flash_bwd.cu's C interface
+// (dkt_flash_bwd_dq, dkt_flash_bwd_dkv) for dtype 0; f32 K2 past 128 runs
+// on CUDA cores (flash_bwd_wide.cu).
 //
 // Replaces: distkeras_tpu/ops/pallas_attention.py:_bwd_dq_kernel (K2,
 // :169) and _bwd_dkv_kernel (K3, :200) under the f32 branch of
@@ -87,9 +89,52 @@
 // 16 rows, each forming the rows' whole S and dP but holding the outputs
 // of one half of Dh (Cfg).  S and dP then sum 16 mma deep, twice Dh 64's.
 //
+// K3 at Dh 129-256 (flash_bwd_dkv_tf32_wide_kernel; the reference's
+// BlockSpecs span any Dh) does 8*Dh FLOPs per unmasked pair: at B*H 128,
+// T 512, Dh 256, causal (gpt_lm at dim 2048) 34.4 GFLOP, 0.209 ms at the
+// 3xTF32 rate, so operations bound it.  Dh 128's design does not carry
+// over:
+//   - Shared memory: a 64-row tile at stride 260 is 66.5 KB, and four
+//     would be 266 KB.  K and V stay resident (64 rows); Q and dO stream
+//     in tiles of 32 rows, one buffer as at Dh 128: 200 KB at Dh 256
+//     (tiles of D = 256 columns) and 155 KB at 129-192 (D = 192), one
+//     block an SM.  32-row key tiles under 64-row Q/dO tiles would fit as
+//     well but double the grid and the Q/dO traffic.
+//   - Registers: dK + dV at 64 keys x D columns are 128 f32 a thread of
+//     eight warps.  Split over warps that each form the whole S^T and
+//     dP^T (Dh 128's way, four column slices of 16 warps, 64 registers
+//     each), the products would cost 2.5x the minimal ones; measured on an
+//     H100 at 700 W (kernel_ab.py, tree against tree) that ran in 1.48 /
+//     2.00 ms at Dh 192 / 256 with spills at the 128-register cap.  So
+//     each product is formed once: warps w and w + 4 share 16 keys; w
+//     forms S^T, P^T and dV over all D columns, w + 4 forms dP^T, takes
+//     P^T from w through shared memory (8 KB, each lane's own accumulator
+//     values, a named barrier per pair) and forms dS^T and dK.  A warp
+//     holds one output (D / 2 registers), the two warps of a pair do the
+//     same products, and P^T arrives in the accumulator layout, so it is
+//     split as an A operand as it stands.  0.747 / 1.001 ms at Dh 192 /
+//     256 (chip_smoke.py k2k3, an H100 at 700 W), 255 registers: S^T and
+//     dP^T loop over their pairs of k-steps one pair at a time and the
+//     second products split their A fragments again for each 16-column
+//     chunk, which changes no sum and took the spills from 204 B to none
+//     at D = 256 (1.50 -> 1.00 ms) and to 8 B at D = 192 (0.87 ->
+//     0.75 ms, at 0.75x D = 256's time for 0.75x its columns; 8-column
+//     chunks left the 8 B).
+//   - Precision: S^T and dP^T sum 32 k-steps, twice Dh 128's, so they sum
+//     each pair of k-steps' hi*hi from zero (K1's product_s), the small
+//     terms apart; each 32-query tile's dK and dV sum from zero and are
+//     added in f32.  On queries and keys with a common offset of 1 the
+//     kernel is 6.9e-6 to 2.0e-5 from K3 in float64, within GRAD_TOL,
+//     where the plain version in f32 is 1.7e-5 to 4.9e-5 off, outside it
+//     at Dh 256 causal (chip_smoke.py's k3_tf32_control).
+//   - Rows: read unpadded at the caller's Dh, 16-byte cp.async where
+//     Dh % 4 == 0 and 4-byte otherwise, tile columns past Dh zero-filled,
+//     outputs stored masked at Dh.
+//
 // Later work: tf32 wgmma for the four products that read both operands
 // along Dh (hi/lo copies written as each tile arrives), a producer warp
-// and 128-row tiles, and fusing K2 into K3.
+// and 128-row tiles, a second Q/dO buffer at Dh 129-256, and fusing K2
+// into K3.
 
 #include "tf32.cuh"
 
@@ -104,7 +149,10 @@ using tf32::frag_acc;
 using tf32::frag_b;
 using tf32::kHalf;
 using tf32::kNJ;
+using tf32::load_rows;
 using tf32::mma3;
+using tf32::product_pv;
+using tf32::product_s;
 using tf32::product_t;
 
 // A block's shape for head dim D.  At Dh <= 64 four warps, one per 16
@@ -401,6 +449,170 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// K3 at Dh 129-256: dK and dV with P^T handed from warp to warp
+// ---------------------------------------------------------------------------
+
+// A block of eight warps per (batch*head, 64-key tile).  Warps w and w + 4
+// (w < 4) share keys [16w, 16w + 16): w forms S^T = K Q^T, P^T and dV,
+// w + 4 forms dP^T = V dO^T, dS^T and dK, each over all D columns (D / 2
+// accumulator registers a thread), so every product is formed once.
+constexpr int kWideThreads = 256;
+constexpr int kWideRows = kHalf;  // queries of a streamed Q / dO tile
+
+// named barriers (0 is __syncthreads): warp w arrives once its P^T is in
+// shared memory, warp w + 4 waits for it
+__device__ __forceinline__ void pair_arrive(int id) {
+  asm volatile("bar.arrive %0, 64;" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void pair_sync(int id) {
+  asm volatile("bar.sync %0, 64;" ::"r"(id) : "memory");
+}
+
+// K and V (64 rows) resident, Q and dO (kWideRows rows) streamed, all at
+// stride D + 4, and the four warps' P^T (16 x kWideRows each)
+template <int D>
+constexpr size_t wide_smem_bytes() {
+  return sizeof(float) * ((2 * kBlock + 2 * kWideRows) * (D + 4) +
+                          4 * 16 * kWideRows);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWideThreads, 1)
+flash_bwd_dkv_tf32_wide_kernel(const float* __restrict__ q,
+                               const float* __restrict__ k,
+                               const float* __restrict__ v,
+                               const float* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ dvec,
+                               float* __restrict__ dk, float* __restrict__ dv,
+                               int tq, int tk, int dh, int causal,
+                               float scale) {
+  constexpr int LD = D + 4;
+  extern __shared__ float4 smem4[];
+  // L and D of the query tile
+  __shared__ float stats[2][kWideRows];
+  float* ks = reinterpret_cast<float*>(smem4);  // resident K and V
+  float* vs = ks + kBlock * LD;
+  float* qs = vs + kBlock * LD;  // the streamed Q and dO
+  float* dos = qs + kWideRows * LD;
+  // warp w's P^T as its lanes hold it: [w][j][lane], four values each
+  float4* pts = reinterpret_cast<float4*>(dos + kWideRows * LD);
+
+  const int bh = blockIdx.x;
+  const int kt = blockIdx.y;  // low key tiles (long causal loops) first
+  const int k0 = kt * kBlock;
+  const int first = causal ? k0 / kWideRows : 0;  // from the diagonal on
+  const int n_q = (tq + kWideRows - 1) / kWideRows - first;
+  const int tid = threadIdx.x;
+  const bool vec = dh % 4 == 0;
+  const float* qb = q + (size_t)bh * tq * dh;
+  const float* db = dout + (size_t)bh * tq * dh;
+  const float* lse_bh = lse + (size_t)bh * tq;
+  const float* dvec_bh = dvec + (size_t)bh * tq;
+  // query tile `it` of the loop's L (threads 0-31) and D (32-63)
+  auto stage_stats = [&](int it) {
+    if (tid >= 2 * kWideRows) return;
+    const int i = tid % kWideRows, qp = (first + it) * kWideRows + i;
+    const float* src = tid < kWideRows ? lse_bh : dvec_bh;
+    stats[tid / kWideRows][i] = qp < tq ? src[qp] : 0.f;
+  };
+
+  load_rows<D, kBlock, kWideThreads>(ks, k + (size_t)bh * tk * dh, k0, tk,
+                                     dh, vec);
+  load_rows<D, kBlock, kWideThreads>(vs, v + (size_t)bh * tk * dh, k0, tk,
+                                     dh, vec);
+  load_rows<D, kWideRows, kWideThreads>(qs, qb, first * kWideRows, tq, dh,
+                                        vec);
+  load_rows<D, kWideRows, kWideThreads>(dos, db, first * kWideRows, tq, dh,
+                                        vec);
+  stage_stats(0);
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const bool forms_p = warp < 4;  // P^T and dV; else dS^T and dK
+  const int pair = warp % 4;
+  const int m0 = 16 * pair;    // this warp's keys of the tile
+  const int r0 = k0 + m0 + g;  // this thread's keys: r0, r0 + 8
+  float4* pt = pts + pair * kNJ * 32 + lane;
+  float acc[D / 8][4];  // dV or dK
+#pragma unroll
+  for (int jd = 0; jd < D / 8; ++jd)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[jd][i] = 0.f;
+
+  for (int it = 0; it < n_q; ++it) {
+    const int q0 = (first + it) * kWideRows;
+    cp_wait_all();  // this tile (and the resident ones) landed
+    __syncthreads();
+
+    // causal: a warp whose first key is past the tile's last query adds
+    // exact zeros, and so does its partner
+    if (!causal || k0 + m0 < q0 + kWideRows) {
+      float c[kNJ][4];
+      if (forms_p) {
+        // P^T = exp(scale * S^T - L) under the mask, S^T = K Q^T
+        product_s<D, 1>(c, ks, qs, m0, g, t);
+#pragma unroll
+        for (int j = 0; j < kNJ; ++j) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int key = r0 + 8 * (i >> 1);
+            const int col = 8 * j + 2 * t + (i & 1);
+            const int qpos = q0 + col;
+            const bool keep =
+                qpos < tq && key < tk && (!causal || key <= qpos);
+            c[j][i] = keep ? expf(c[j][i] * scale - stats[0][col]) : 0.f;
+          }
+          pt[32 * j] = make_float4(c[j][0], c[j][1], c[j][2], c[j][3]);
+        }
+        pair_arrive(1 + pair);
+        product_pv<D, false, 2>(acc, c, dos, g, t);  // dV += P^T dO
+      } else {
+        // dS^T = scale * P^T o (dP^T - D), dP^T = V dO^T
+        product_s<D, 1>(c, vs, dos, m0, g, t);
+        pair_sync(1 + pair);
+#pragma unroll
+        for (int j = 0; j < kNJ; ++j) {
+          const float4 p = pt[32 * j];
+          const float pj[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            c[j][i] = pj[i] * (c[j][i] - stats[1][8 * j + 2 * t + (i & 1)]) *
+                      scale;
+        }
+        product_pv<D, false, 2>(acc, c, qs, g, t);  // dK += dS^T Q
+      }
+    }
+
+    // every read of Q, dO, L, D and P^T is done: load the next tile
+    __syncthreads();
+    if (it + 1 < n_q) {
+      load_rows<D, kWideRows, kWideThreads>(qs, qb, q0 + kWideRows, tq, dh,
+                                            vec);
+      load_rows<D, kWideRows, kWideThreads>(dos, db, q0 + kWideRows, tq, dh,
+                                            vec);
+      stage_stats(it + 1);
+    }
+  }
+  // rows of dh columns, keys at or past tk and columns at or past dh
+  // skipped
+  float* out = (forms_p ? dv : dk) + (size_t)bh * tk * dh;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 8 * half;
+    if (r >= tk) continue;
+    float* row = out + (size_t)r * dh;
+#pragma unroll
+    for (int jd = 0; jd < D / 8; ++jd)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * jd + 2 * t + e;
+        if (col < dh) row[col] = acc[jd][2 * half + e];
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -445,11 +657,29 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_dkv_wide(const float* q, const float* k, const float* v,
+                            const float* dout, const float* lse,
+                            const float* dvec, float* dk, float* dv, int bh,
+                            int tq, int tk, int dh, int causal, float scale,
+                            cudaStream_t stream) {
+  constexpr size_t smem = wide_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_tf32_wide_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (tk + kBlock - 1) / kBlock);
+  flash_bwd_dkv_tf32_wide_kernel<D><<<grid, kWideThreads, smem, stream>>>(
+      q, k, v, dout, lse, dvec, dk, dv, tq, tk, dh, causal, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The f32 entry points behind dkt_flash_bwd_dq / dkt_flash_bwd_dkv
 // (flash_bwd.cu, which checks the arguments and sets the device): q, k,
-// v, dout contiguous f32, 16-byte aligned; head_dim 32, 64 or 128.
+// v, dout contiguous f32, 16-byte aligned; head_dim 32, 64 or 128, and
+// for K3 also any in 129-256.
 cudaError_t flash_bwd_dq_f32(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* dvec, void* dq, int bh, int tq,
@@ -485,8 +715,15 @@ cudaError_t flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
     case 64:
       return launch_dkv<64>(f(q), f(k), f(v), f(dout), f(lse), f(dvec), gk,
                             gv, bh, tq, tk, causal, scale, stream);
-    default:
+    case 128:
       return launch_dkv<128>(f(q), f(k), f(v), f(dout), f(lse), f(dvec), gk,
                              gv, bh, tq, tk, causal, scale, stream);
   }
+  if (head_dim <= 192)
+    return launch_dkv_wide<192>(f(q), f(k), f(v), f(dout), f(lse), f(dvec),
+                                gk, gv, bh, tq, tk, head_dim, causal, scale,
+                                stream);
+  return launch_dkv_wide<256>(f(q), f(k), f(v), f(dout), f(lse), f(dvec), gk,
+                              gv, bh, tq, tk, head_dim, causal, scale,
+                              stream);
 }

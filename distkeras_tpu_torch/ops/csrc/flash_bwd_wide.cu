@@ -1,8 +1,9 @@
-// Flash-attention backward on CUDA cores for head dims past 128: K2 (dQ)
-// and K3 (dK, dV) in both dtypes, but for bf16 K3 at 129-256, which runs
-// on wgmma (flash_bwd_sm90.cu).  Called from flash_bwd.cu's C interface
-// (dkt_flash_bwd_dq, dkt_flash_bwd_dkv); the head dims up to 128 go to
-// the tensor-core kernels.
+// Flash-attention backward on CUDA cores for head dims past 128: f32 K2
+// (dQ) at 129-256, and K2 and K3 (dK, dV) in both dtypes past 256.  At
+// 129-256 bf16 K2 and K3 run on wgmma (flash_bwd_sm90.cu) and f32 K3 as
+// 3xTF32 (flash_bwd_tf32_sm90.cu).  Called from flash_bwd.cu's C
+// interface (dkt_flash_bwd_dq, dkt_flash_bwd_dkv); the head dims up to
+// 128 go to the tensor-core kernels.
 //
 // Replaces: distkeras_tpu/ops/pallas_attention.py:_bwd_dq_kernel (K2,
 // :169) and _bwd_dkv_kernel (K3, :200), whose BlockSpecs span any head
@@ -26,9 +27,9 @@
 // whole Dh by staging its operands in 256-column chunks, in order, so
 // every panel's block holds the same P and dS; then the panel's columns
 // of K (K2) or of Q and dO (K3) are staged for the second products.
-// Registers and shared memory stay at the single tile's; at Dh <= 256
-// there is one chunk and one panel, and the kernels are the single-tile
-// ones.
+// Registers and shared memory stay at the single tile's.  f32 K2 at
+// Dh <= 256 has one chunk and one panel, and its kernel is the
+// single-tile instantiation (kChunked false: Q and dO resident).
 //
 // What bounds them on this card: at B*H = 128, T = 512, Dh = 256, causal
 // (gpt_lm at dim 2048, 8 heads, batch 16) K2 does 6*Dh and K3 8*Dh FLOPs
@@ -36,9 +37,17 @@
 // the 3xTF32 rate of 165 TFLOP/s (f32), 0.026 and 0.035 ms at bf16's
 // 989.  Operations bound both; f32 FMAs on CUDA cores (67 TFLOP/s) cannot
 // reach that, and these kernels, staging every operand through shared
-// memory, reach a fraction of the FMA rate.  They are the simple ones:
-// bf16 K3 runs on tensor cores at these head dims; K2 and f32 there are
-// later work.
+// memory, reach a fraction of the FMA rate: f32 K2 at Dh 256 takes
+// 2.33 ms there, 6.7% of its 0.157 ms bound (an H100 at 700 W).  They are
+// the simple ones; f32 K2 on tensor cores at 129-256 is later work, and
+// past 256 no configuration of the repo has heads.
+//
+// An f32 dQ at Dh 256 can equal the plain version (flash_bwd_plain) bit
+// for bit: cuBLAS's f32 products at these shapes sum in order with FMA, as
+// these loops do, and the kernel's s * scale - L, contracted to one FMA,
+// rounds as the plain version's multiply and subtract do when the scale is
+// a power of two (1/16).  chip_smoke.py's k2k3_exact_reading row shows
+// both; the check itself is live there (a value moved by 1e-4 fails it).
 //
 // Design (the simple CUDA-core backward): K2 is one block of 128 threads
 // per (batch*head, 32-row query tile) that keeps its Q and dO
@@ -282,7 +291,7 @@ constexpr size_t dkv_smem_bytes() {
                           kDkvKeys * (kDkvRows + 8) + 2 * kDkvRows);
 }
 
-template <typename T, bool kChunked>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ dout,
@@ -310,14 +319,10 @@ flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* db = dout + (size_t)bh * tq * dh;
   const T* kb = k + (size_t)bh * tk * dh;
   const T* vb = v + (size_t)bh * tk * dh;
-  // this block's panel of dK and dV, and the chunks of Dh that S and dP
-  // sum (one of each at compile time unless kChunked, Dh > kD)
-  const int p0 = kChunked ? blockIdx.z * kD : 0;
-  const int n_chunks = kChunked ? (dh + kD - 1) / kD : 1;
-  if (n_chunks == 1) {  // K and V stay resident
-    stage<T, kDkvKeys>(ks, kb, k0, tk, dh);
-    stage<T, kDkvKeys>(vs, vb, k0, tk, dh);
-  }
+  // this block's panel of dK and dV, and the chunks of Dh (> kD) that S
+  // and dP sum
+  const int p0 = blockIdx.z * kD;
+  const int n_chunks = (dh + kD - 1) / kD;
 
   // this thread's keys are ty + kTy*i; its queries tx + kTx*j (the
   // transposed S, P, dP, dS tiles) and output columns tx + kTx*c
@@ -338,10 +343,8 @@ flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int ch = 0; ch < n_chunks; ++ch) {
       // the last tile's (or chunk's) readers are done with the tiles
       __syncthreads();
-      if (n_chunks > 1) {
-        stage<T, kDkvKeys>(ks, kb, k0, tk, dh, ch * kD);
-        stage<T, kDkvKeys>(vs, vb, k0, tk, dh, ch * kD);
-      }
+      stage<T, kDkvKeys>(ks, kb, k0, tk, dh, ch * kD);
+      stage<T, kDkvKeys>(vs, vb, k0, tk, dh, ch * kD);
       stage<T, kDkvRows>(qs, qb, q0, tq, dh, ch * kD);
       stage<T, kDkvRows>(dos, db, q0, tq, dh, ch * kD);
       if (ch == 0) {
@@ -414,18 +417,18 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, bool kChunked>
+template <typename T>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* dvec,
                        void* dk, void* dv, int bh, int tq, int tk, int dh,
                        int causal, float scale, cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_wide_kernel<T, kChunked>,
+      flash_bwd_dkv_wide_kernel<T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (tk + kDkvKeys - 1) / kDkvKeys, (dh + kD - 1) / kD);
-  flash_bwd_dkv_wide_kernel<T, kChunked><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_dkv_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dvec),
@@ -435,20 +438,18 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// The entry points behind dkt_flash_bwd_dq / dkt_flash_bwd_dkv for
-// head_dim > 128 (flash_bwd.cu, which checks the arguments and sets the
-// device): q, k, v, dout contiguous, of dtype 0 (float32) or 1
-// (bfloat16), rows of head_dim values.
+// The entry points behind dkt_flash_bwd_dq / dkt_flash_bwd_dkv on CUDA
+// cores (flash_bwd.cu, which checks the arguments and sets the device):
+// q, k, v, dout contiguous, of dtype 0 (float32) or 1 (bfloat16), rows of
+// head_dim values; head_dim > 256, or for f32 K2 > 128.
 cudaError_t flash_bwd_dq_wide(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* dvec, void* dq, int bh, int tq,
                               int tk, int head_dim, int causal, float scale,
                               int dtype, cudaStream_t stream) {
-  const bool chunked = head_dim > kD;
-  auto f = dtype == 0 ? (chunked ? launch_dq<float, true>
-                                 : launch_dq<float, false>)
-                      : (chunked ? launch_dq<__nv_bfloat16, true>
-                                 : launch_dq<__nv_bfloat16, false>);
+  auto f = dtype == 1       ? launch_dq<__nv_bfloat16, true>
+           : head_dim > kD  ? launch_dq<float, true>
+                            : launch_dq<float, false>;
   return f(q, k, v, dout, lse, dvec, dq, bh, tq, tk, head_dim, causal, scale,
            stream);
 }
@@ -458,11 +459,7 @@ cudaError_t flash_bwd_dkv_wide(const void* q, const void* k, const void* v,
                                const void* dvec, void* dk, void* dv, int bh,
                                int tq, int tk, int head_dim, int causal,
                                float scale, int dtype, cudaStream_t stream) {
-  const bool chunked = head_dim > kD;
-  auto f = dtype == 0 ? (chunked ? launch_dkv<float, true>
-                                 : launch_dkv<float, false>)
-                      : (chunked ? launch_dkv<__nv_bfloat16, true>
-                                 : launch_dkv<__nv_bfloat16, false>);
+  auto f = dtype == 0 ? launch_dkv<float> : launch_dkv<__nv_bfloat16>;
   return f(q, k, v, dout, lse, dvec, dk, dv, bh, tq, tk, head_dim, causal,
            scale, stream);
 }

@@ -71,17 +71,12 @@
 
 namespace {
 
-using tf32::cp_async16;
-using tf32::cp_async4;
 using tf32::cp_wait_all;
-using tf32::FragA;
-using tf32::frag_a;
-using tf32::frag_acc;
-using tf32::frag_b;
-using tf32::frag_bt;
 using tf32::kHalf;
 using tf32::kNJ;
-using tf32::mma3;
+using tf32::load_rows;
+using tf32::product_pv;
+using tf32::product_s;
 
 constexpr int kBlock = 64;     // query rows of a block, keys of a tile
 constexpr int kThreads = 128;  // four warps, 16 query rows each
@@ -97,116 +92,6 @@ __host__ __device__ constexpr int min_blocks() {
 template <int D>
 constexpr size_t smem_bytes() {
   return sizeof(float) * 3 * kBlock * (D + 4);
-}
-
-// Rows [r0, r0 + ROWS) of a contiguous (n, dh) f32 matrix into a tile of
-// ROWS x D at row stride D + 4, by the block's NT threads; rows at or past
-// n and columns at or past dh read as zeros.  16-byte chunks when `vec`
-// (dh % 4 == 0), else one float at a time.
-template <int D, int ROWS, int NT>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int r0, int n, int dh, bool vec) {
-  if (vec) {
-    constexpr int kChunks = D / 4;
-#pragma unroll
-    for (int u = 0; u < ROWS * kChunks / NT; ++u) {
-      const int i = threadIdx.x + u * NT;
-      const int r = i / kChunks, c = 4 * (i % kChunks);
-      const bool valid = r0 + r < n && c < dh;
-      cp_async16(dst + r * (D + 4) + c,
-                 valid ? src + (size_t)(r0 + r) * dh + c : src, valid);
-    }
-  } else {
-#pragma unroll 8
-    for (int u = 0; u < ROWS * D / NT; ++u) {
-      const int i = threadIdx.x + u * NT;
-      const int r = i / D, c = i % D;
-      const bool valid = r0 + r < n && c < dh;
-      cp_async4(dst + r * (D + 4) + c,
-                valid ? src + (size_t)(r0 + r) * dh + c : src, valid);
-    }
-  }
-}
-
-// c[j] (16 x kHalf) = X Y^T for this warp's rows [m0, m0 + 16) of x and
-// the kHalf rows of y, contracted along Dh.  hi*hi of each pair of k-steps
-// sums from zero and is added to c in f32; the small terms sum apart in
-// cs.  The tensor core aligns an mma's addends to the largest and rounds
-// toward zero, so in one chain over Dh/8 k-steps (the backward's
-// product_t) every product loses bits at the scale of the growing sum and
-// S comes out low: on queries and keys with a common offset of 1 (scores
-// near 11 at Dh 128), lse ran 5.5e-6 low on average and 1.1e-5 at most
-// against float64, where the f32 plain version is 6.7e-6 off.  In pairs
-// the mean bias is 9.4e-7 and the largest error 3.8e-6 (O 3.0e-6, the
-// plain version's 1.1e-5), for 3-5% more time; each k-step from zero gains
-// little more for 19% (an H100, 700 W).
-template <int D>
-__device__ __forceinline__ void product_s(float (&c)[kNJ][4], const float* x,
-                                          const float* y, int m0, int g,
-                                          int t) {
-  static_assert(D % 16 == 0, "k-steps go in pairs");
-  constexpr int LD = D + 4;
-  float cs[kNJ][4];
-#pragma unroll
-  for (int j = 0; j < kNJ; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) c[j][i] = cs[j][i] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 8; kk += 2) {
-    float pair[kNJ][4];
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pair[j][i] = 0.f;
-#pragma unroll
-    for (int k2 = kk; k2 < kk + 2; ++k2) {
-      const FragA a = frag_a<LD>(x, m0, 8 * k2, g, t);
-#pragma unroll
-      for (int j = 0; j < kNJ; ++j)
-        mma3(pair[j], cs[j], a, frag_bt<LD>(y, 8 * j, 8 * k2, g, t));
-    }
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) c[j][i] += pair[j][i];
-  }
-#pragma unroll
-  for (int j = 0; j < kNJ; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) c[j][i] += cs[j][i];
-}
-
-// acc (16 x D) += P V for this warp's 16 rows: P (16 x kHalf) the
-// accumulator p[s] (columns 8s .. 8s + 7 of the half), V the kHalf rows of
-// `y` (row stride D + 4).  P's fragments are split once; the product runs
-// over 32 output columns at a time, each chunk's sum taken apart from zero
-// and added to acc in f32.
-template <int D>
-__device__ __forceinline__ void product_pv(float (&acc)[D / 8][4],
-                                           const float (&p)[kNJ][4],
-                                           const float* y, int g, int t) {
-  constexpr int LD = D + 4;
-  constexpr int kChunk = 4;  // n8 tiles of a 32-column chunk
-  FragA a[kNJ];
-#pragma unroll
-  for (int s = 0; s < kNJ; ++s) a[s] = frag_acc(p[s]);
-#pragma unroll
-  for (int c0 = 0; c0 < D / 8; c0 += kChunk) {
-    float part[kChunk][4];
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) part[j][i] = 0.f;
-#pragma unroll
-    for (int s = 0; s < kNJ; ++s)
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j)
-        mma3(part[j], a[s], frag_b<LD>(y, 8 * s, 8 * (c0 + j), g, t));
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[c0 + j][i] += part[j][i];
-  }
 }
 
 template <int D>

@@ -9,6 +9,7 @@ enum LaunchedKernel {
   kWgmmaWide = 1,  // bf16 on wgmma, head dim 129-256
   kTf32 = 2,       // f32 as 3xTF32 on mma.sync, head dim <= 128
   kCudaCores = 3,  // CUDA cores (flash_fwd.cu, flash_bwd_wide.cu)
+  kTf32Wide = 4,   // f32 as 3xTF32 on mma.sync, head dim 129-256
 };
 
 void dkt_set_last_kernel(LaunchedKernel kernel);

@@ -9,11 +9,12 @@ kernels, the ports of ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (through
 they run on tensor cores: in bf16 on wgmma and TMA
 (``ops/csrc/flash_fwd_sm90.cu``, ``ops/csrc/flash_bwd_sm90.cu``), in f32
 as 3xTF32 on mma.sync (``ops/csrc/flash_fwd_tf32_sm90.cu``,
-``ops/csrc/flash_bwd_tf32_sm90.cu``).  From 129 to 256 the bf16 forward
-and K3 stay on wgmma (192- and 256-wide tiles); the rest past 128 — f32,
-bf16 K2, and bf16 past 256 — runs on CUDA cores
-(``ops/csrc/flash_fwd.cu``, ``ops/csrc/flash_bwd_wide.cu``), which take
-any head dim, as the reference's BlockSpecs do.  ``kernel_head_dim``
+``ops/csrc/flash_bwd_tf32_sm90.cu``).  From 129 to 256 all three bf16
+kernels stay on wgmma (192- and 256-wide tiles) and the f32 K3 on
+3xTF32; the rest past 128 — the f32 forward and K2, and bf16 past 256 —
+runs on CUDA cores (``ops/csrc/flash_fwd.cu``,
+``ops/csrc/flash_bwd_wide.cu``), which take any head dim, as the
+reference's BlockSpecs do.  ``kernel_head_dim``
 names the width each kernel runs.  On CPU tensors they are
 ``flash_fwd_plain`` and ``flash_bwd_plain``, the dense versions of the
 same functions.  A CUDA tensor never takes a plain version: the kernel
@@ -28,9 +29,9 @@ along Dh to the next of those (``pad_head_dim``), running that kernel
 with the caller's ``scale`` and slicing the outputs back.  That is the
 same function: zero columns add nothing to QKᵀ, O's and the gradients'
 padded columns are products with zeros, and D = rowsum(dO∘O) does not
-see them.  The bf16 forward and K3 at 129–256 read unpadded rows whose
-byte stride TMA needs a multiple of 16 (Dh % 8 == 0): the wrappers pad
-other Dh there to the next multiple of 8 the same way.
+see them.  The bf16 kernels at 129–256 read unpadded rows whose byte
+stride TMA needs a multiple of 16 (Dh % 8 == 0): the wrappers pad other
+Dh there to the next multiple of 8 the same way.
 """
 
 from __future__ import annotations
@@ -128,7 +129,7 @@ def flash_bwd_plain(q, k, v, lse, do, dvec, causal: bool, scale: float):
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the tensor-core kernels are instantiated for up to 128
 HEAD_DIMS = (32, 64, 128)
-#: the widest head dim of the bf16 wgmma kernels past 128 (K1 and K3)
+#: the widest head dim of the bf16 wgmma kernels past 128
 WGMMA_WIDE_MAX = 256
 
 
@@ -137,14 +138,14 @@ def kernel_head_dim(dh: int, dtype: torch.dtype, kernel: str) -> int:
     of ``dtype`` as, the rows the wrapper hands it — the padding half of
     the routing, whose other half is the C entry points' choice of kernel
     (they refuse a width this does not give them): the f32 forward reads
-    any Dh; the bf16 forward and bf16 K3 at 129–``WGMMA_WIDE_MAX`` (wgmma,
-    TMA rows of a 16-byte multiple) the next multiple of 8; the rest up
-    to 128 the least of ``HEAD_DIMS`` that holds it, past 128 Dh itself
-    (the CUDA-core kernels mask the columns past Dh and take any Dh)."""
+    any Dh; the bf16 kernels at 129–``WGMMA_WIDE_MAX`` (wgmma, TMA rows
+    of a 16-byte multiple) the next multiple of 8; the rest up to 128 the
+    least of ``HEAD_DIMS`` that holds it, past 128 Dh itself (the f32 K3
+    at 129–256 and the CUDA-core kernels mask the columns past Dh and
+    take any Dh)."""
     if kernel == "fwd" and dtype == torch.float32:
         return dh
-    if (dtype == torch.bfloat16 and kernel in ("fwd", "dkv")
-            and HEAD_DIMS[-1] < dh <= WGMMA_WIDE_MAX):
+    if dtype == torch.bfloat16 and HEAD_DIMS[-1] < dh <= WGMMA_WIDE_MAX:
         return -(-dh // 8) * 8
     return next((size for size in HEAD_DIMS if dh <= size), dh)
 
@@ -210,14 +211,16 @@ def _check(name: str, q, k, v, causal: bool, stats=(), do=None):
 #: the kernel each C entry point reports it ran
 #: (``dkt_flash_last_kernel``), by its code in ``csrc/launched.h``: bf16
 #: on wgmma at head dim 32/64/128, bf16 on wgmma at 129–256, f32 as
-#: 3xTF32, CUDA cores (None: no such kernel)
+#: 3xTF32 up to 128, CUDA cores, f32 as 3xTF32 at 129–256 (None: no such
+#: kernel)
 KERNELS = {
     "dkt_flash_fwd": ("flash_fwd", "flash_fwd_wgmma_wide", "flash_fwd_f32",
-                      "flash_fwd_cuda_cores"),
-    "dkt_flash_bwd_dq": ("flash_bwd_dq", None, "flash_bwd_dq_f32",
-                         "flash_bwd_dq_wide"),
+                      "flash_fwd_cuda_cores", None),
+    "dkt_flash_bwd_dq": ("flash_bwd_dq", "flash_bwd_dq_wgmma_wide",
+                         "flash_bwd_dq_f32", "flash_bwd_dq_wide", None),
     "dkt_flash_bwd_dkv": ("flash_bwd_dkv", "flash_bwd_dkv_wgmma_wide",
-                          "flash_bwd_dkv_f32", "flash_bwd_dkv_wide"),
+                          "flash_bwd_dkv_f32", "flash_bwd_dkv_wide",
+                          "flash_bwd_dkv_f32_wide"),
 }
 #: launches by (kernel of ``KERNELS``, dtype name, the caller's head dim),
 #: each counted where its launch returned, under the kernel the C entry

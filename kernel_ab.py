@@ -2,15 +2,18 @@
 """Hold the flash kernels of this tree against those of another tree on
 one card: each tree's kernels are built into their own library, the
 same inputs go through both, and each (kernel, shape) gives the largest
-difference of the two outputs and both device times, taken in turns
-(other, this, this, other).
+difference of the two outputs, whether they agree within
+``chip_smoke.GRAD_TOL`` of the dtype, and both device times, taken in
+turns (other, this, this, other).
 
     mkdir -p _proof/parent                           # a git-ignored dir
     git archive <commit> | tar -x -C _proof/parent
     python3 kernel_ab.py _proof/parent
 
-Both trees must have ``distkeras_tpu_torch/ops/_kernels.py`` with the
-C interface ``dkt_flash_fwd``, ``dkt_flash_bwd_dq`` and
+Each tree's build prints one line first: per kernel, its registers,
+spill-store bytes and whether its wgmma products were serialized, as
+ptxas reported them.  Both trees must have
+``distkeras_tpu_torch/ops/_kernels.py`` with the C interface ``dkt_flash_fwd``, ``dkt_flash_bwd_dq`` and
 ``dkt_flash_bwd_dkv``.  A case the other tree's interface refuses (a
 head dim it does not take) is timed in this tree alone, its line saying
 ``"other": "refused"``.  Prints one JSON line per case, then the card's
@@ -38,11 +41,18 @@ CASES = ([("fwd", "float32", 8, t, 64) for t in (64, 128, 256, 512)]
 
 
 def library(tree: str, tag: str) -> ctypes.CDLL:
-    """Build (if stale) and load ``tree``'s kernels."""
+    """Build (if stale) and load ``tree``'s kernels; prints a line of the
+    registers and spill bytes ptxas reported for each kernel it built."""
+    import chip_smoke
     path = os.path.join(tree, "distkeras_tpu_torch", "ops", "_kernels.py")
     spec = importlib.util.spec_from_file_location(f"_kernels_{tag}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    built = mod.build()
+    print(json.dumps({"tree": tag, "ptxas": [
+        [r["kernel"][-60:], r.get("registers"), r.get("spill_stores", 0),
+         r["wgmma_serialized"]]
+        for r in chip_smoke.ptxas_report(built["log"])]}), flush=True)
     return mod.library()
 
 
@@ -100,9 +110,13 @@ def main() -> int:
         if outs["other"] is None:
             row["other"] = "refused"
         else:
+            pairs = list(zip(outs["this"], outs["other"]))
             row.update(max_abs_diff=max(
                 (a.float() - b.float()).abs().max().item()
-                for a, b in zip(outs["other"], outs["this"])),
+                for a, b in pairs),
+                within_grad_tol=all(chip_smoke._within(
+                    a, b, **chip_smoke.GRAD_TOL[dtype_name])
+                    for a, b in pairs),
                 other_ms=ms["other"],
                 ratio=sum(ms["this"]) / sum(ms["other"]))
         print(json.dumps(row), flush=True)

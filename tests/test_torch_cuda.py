@@ -19,7 +19,7 @@ import pytest
 import torch
 
 import distkeras_tpu_torch as dkt
-from chip_smoke import attention_float64
+from chip_smoke import attention_float64, dkv_float64
 from distkeras_tpu_torch import SingleTrainer
 from distkeras_tpu_torch.data import load_lm_corpus
 from distkeras_tpu_torch.data.transformers import OneHotTransformer
@@ -353,12 +353,13 @@ def test_f32_forward_kernel_is_3xtf32_not_tf32(causal, t, tk, dh):
                                          (False, 257, 100)])
 @pytest.mark.parametrize("dh", [130, 136, 192, 200, 256])
 def test_kernels_at_head_dims_past_128(dtype, causal, t, tk, dh):
-    """Head dims 129–256: in bf16 K1 and K3 on wgmma (192- and 256-wide
-    tiles from unpadded rows; Dh 130 padded to 136) and K2 on CUDA cores,
-    in f32 all three on CUDA cores.  K1, K2 and K3 against the plain
-    versions, causal and not, Tq ≠ Tk both ways, ragged T, one launch
-    each; K1 in f32 within 1e-5, the rest within ``_close``'s bound of
-    the dtype."""
+    """Head dims 129–256: in bf16 K1, K2 and K3 on wgmma (192- and
+    256-wide tiles from unpadded rows; Dh 130 padded to 136), in f32 K3
+    as 3xTF32 on mma.sync (unpadded rows, 192 or 256 columns wide) and
+    K1 and K2 on CUDA cores.  K1, K2 and K3 against the plain versions,
+    causal and not, Tq ≠ Tk both ways, ragged T, one launch each, each
+    counted under its kernel; K1 in f32 within 1e-5, the rest within
+    ``_close``'s bound of the dtype."""
     gen = torch.Generator(device="cuda").manual_seed(dh)
     q, do = (torch.randn((6, t, dh), generator=gen, device="cuda").to(dtype)
              for _ in range(2))
@@ -367,6 +368,7 @@ def test_kernels_at_head_dims_past_128(dtype, causal, t, tk, dh):
     scale = dh ** -0.5
     counts = (flash_fwd_cuda.launches, flash_bwd_dq_cuda.launches,
               flash_bwd_dkv_cuda.launches)
+    before = Counter(KERNEL_LAUNCHES)
     o, lse = flash_fwd_cuda(q, k, v, causal, scale)
     o_ref, lse_ref = flash_fwd_plain(q, k, v, causal, scale)
     dvec = (do.float() * o_ref.float()).sum(-1)
@@ -375,6 +377,13 @@ def test_kernels_at_head_dims_past_128(dtype, causal, t, tk, dh):
     torch.cuda.synchronize()
     assert (flash_fwd_cuda.launches, flash_bwd_dq_cuda.launches,
             flash_bwd_dkv_cuda.launches) == tuple(c + 1 for c in counts)
+    name = str(dtype).removeprefix("torch.")
+    kernels = (("flash_fwd_wgmma_wide", "flash_bwd_dq_wgmma_wide",
+                "flash_bwd_dkv_wgmma_wide") if dtype == torch.bfloat16 else
+               ("flash_fwd_cuda_cores", "flash_bwd_dq_wide",
+                "flash_bwd_dkv_f32_wide"))
+    assert KERNEL_LAUNCHES - before == Counter(
+        {(kernel, name, dh): 1 for kernel in kernels})
     for g, r in zip(got, (o_ref, lse_ref, *flash_bwd_plain(*args))):
         assert g.shape == r.shape and g.dtype == r.dtype
         assert bool(torch.isfinite(g).all())
@@ -411,9 +420,9 @@ def _wide_inputs(bh, t, tk, dh, dtype, causal, seed):
 
 @pytest.mark.parametrize("dh", [192, 256])
 def test_bf16_wgmma_k1_k3_at_the_dim_2048_training_shape(dh):
-    """The bf16 K1 and K3 at ``gpt_lm(dim=2048)``'s training shape
+    """The bf16 K1, K2 and K3 at ``gpt_lm(dim=2048)``'s training shape
     (B·H = 128, T = 512, causal; Dh 256, and 192 beside it) against the
-    plain versions, each launch counted under the wgmma kernel, and K1
+    plain versions, each launch counted under its wgmma kernel, and K1
     through ``flash_attention_lse`` on a batch-1 join of 200 tokens (8
     heads)."""
     args, o_ref = _wide_inputs(128, 512, 512, dh, torch.bfloat16, True, dh)
@@ -422,11 +431,13 @@ def test_bf16_wgmma_k1_k3_at_the_dim_2048_training_shape(dh):
     o, lse = flash_fwd_cuda(q, k, v, True, args[-1])
     _close_o(o, o_ref, v)
     _close(lse, lse_ref, torch.bfloat16)
-    for g, r in zip(flash_bwd_dkv_cuda(*args), flash_bwd_plain(*args)[1:]):
+    got = (flash_bwd_dq_cuda(*args), *flash_bwd_dkv_cuda(*args))
+    for g, r in zip(got, flash_bwd_plain(*args)):
         assert bool(torch.isfinite(g).all())
         _close(g, r, torch.bfloat16)
     assert KERNEL_LAUNCHES - before == Counter(
         {("flash_fwd_wgmma_wide", "bfloat16", dh): 1,
+         ("flash_bwd_dq_wgmma_wide", "bfloat16", dh): 1,
          ("flash_bwd_dkv_wgmma_wide", "bfloat16", dh): 1})
     q, k, v = _qkv(1, 200, 8, dh, torch.bfloat16, seed=dh)
     launches = flash_fwd_cuda.launches
@@ -437,6 +448,23 @@ def test_bf16_wgmma_k1_k3_at_the_dim_2048_training_shape(dh):
                                      dh ** -0.5)
     _close_o(_to_bh(out), o_ref, v)
     _close(lse.reshape(8, 200), lse_ref, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dh", [192, 256])
+def test_f32_k3_at_the_dim_2048_training_shape(dh):
+    """The f32 K3 (3xTF32 on mma.sync) at ``gpt_lm(dim=2048)``'s training
+    shape (B·H = 128, T = 512, causal; Dh 256, and 192 beside it) against
+    ``flash_bwd_plain`` within the f32 bound, its launch counted under
+    ``flash_bwd_dkv_f32_wide``; K2 beside it on CUDA cores."""
+    args, _ = _wide_inputs(128, 512, 512, dh, torch.float32, True, dh)
+    before = Counter(KERNEL_LAUNCHES)
+    got = (flash_bwd_dq_cuda(*args), *flash_bwd_dkv_cuda(*args))
+    for g, r in zip(got, flash_bwd_plain(*args)):
+        assert bool(torch.isfinite(g).all())
+        _close(g, r, torch.float32)
+    assert KERNEL_LAUNCHES - before == Counter(
+        {("flash_bwd_dq_wide", "float32", dh): 1,
+         ("flash_bwd_dkv_f32_wide", "float32", dh): 1})
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -477,11 +505,12 @@ def test_kernels_at_head_dims_past_256(dtype, causal, t, tk, dh):
 
 
 @pytest.mark.parametrize("t,dh", [(2048, 64), (2048, 128), (4096, 64),
-                                  (4096, 128)])
+                                  (4096, 128), (2048, 256), (4096, 256)])
 def test_f32_backward_kernels_at_long_sequences(t, dh):
-    """The f32 K2/K3 (3xTF32) over long causal rows, where dK and dV sum
-    the most query tiles and dQ the most key tiles: still within the f32
-    bound (rtol 5e-4, atol 1e-5) of ``flash_bwd_plain``."""
+    """The f32 K2/K3 (3xTF32; at Dh 256 K3 alone, K2 on CUDA cores) over
+    long causal rows, where dK and dV sum the most query tiles and dQ the
+    most key tiles: still within the f32 bound (rtol 5e-4, atol 1e-5) of
+    ``flash_bwd_plain``."""
     bh = 4
     gen = torch.Generator(device="cuda").manual_seed(9)
     q, k, v, do = (torch.randn((bh, t, dh), generator=gen, device="cuda")
@@ -522,6 +551,43 @@ def test_f32_backward_kernels_are_3xtf32_not_tf32(causal, t, tk, dh):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
     for g, r, one_pass in zip(got, ref, tf32):
+        _close(g, r, torch.float32)
+        with pytest.raises(AssertionError):
+            _close(one_pass, r, torch.float32)
+
+
+@pytest.mark.parametrize("causal,t,tk,dh", [
+    (True, 200, None, 192), (True, 200, None, 256), (False, 64, 130, 256)])
+def test_f32_wide_k3_is_3xtf32_not_tf32(causal, t, tk, dh):
+    """At head dims 129–256, on Q and K with a common offset of 1, the f32
+    K3 is within ``_close``'s f32 bound of dK and dV computed in float64,
+    and the plain version with TF32 products (``allow_tf32``) misses it:
+    its products are 3xTF32, not one TF32 pass.  float64 is the witness
+    because on such inputs the plain version in f32 can itself be outside
+    that bound (``chip_smoke.py``'s ``k3_tf32_control``: 1.7e-5 to 4.9e-5
+    from float64 on an H100, outside it at Dh 256 causal, against the
+    kernel's 6.9e-6 to 2.0e-5)."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    tk = t if tk is None else tk
+    q, do = (torch.randn((8, t, dh), generator=gen, device="cuda")
+             for _ in range(2))
+    k, v = (torch.randn((8, tk, dh), generator=gen, device="cuda")
+            for _ in range(2))
+    q, k = q + 1.0, k + 1.0
+    scale = dh ** -0.5
+    o, lse = flash_fwd_plain(q, k, v, causal, scale)
+    args = (q, k, v, lse, do, (do * o).sum(-1), causal, scale)
+    exact = dkv_float64(torch, *args)
+    before = Counter(KERNEL_LAUNCHES)
+    got = flash_bwd_dkv_cuda(*args)
+    assert KERNEL_LAUNCHES - before == Counter(
+        {("flash_bwd_dkv_f32_wide", "float32", dh): 1})
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = flash_bwd_plain(*args)[1:]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    for g, r, one_pass in zip(got, exact, tf32):
         _close(g, r, torch.float32)
         with pytest.raises(AssertionError):
             _close(one_pass, r, torch.float32)

@@ -466,22 +466,48 @@ def test_zero_padded_head_dim_is_the_same_function(dtype, dh):
         np.testing.assert_allclose(got.float().numpy(), ref, rtol=rtol,
                                    atol=1e-6 * np.abs(ref).max())
     # past 128 the kernels take Dh itself, at any width (the CUDA-core
-    # kernels in 256-column panels past 256); the bf16 forward and K3 on
+    # kernels in 256-column panels past 256); the bf16 K1, K2 and K3 on
     # wgmma (129-256) read rows of a multiple of 8 columns, the rest
     # unpadded
     bf16 = torch.bfloat16
     assert [kernel_head_dim(d, dt, "dq") for dt in (bf16, torch.float32)
             for d in (129, 256, 257, 320, 512)] == \
-        [129, 256, 257, 320, 512] * 2
+        [136, 256, 257, 320, 512, 129, 256, 257, 320, 512]
     assert [kernel_head_dim(d, bf16, "fwd") for d in (130, 136, 200, 256,
                                                       257, 320)] == \
         [136, 136, 200, 256, 257, 320]
     assert [kernel_head_dim(130, bf16, k) for k in ("dq", "dkv")] == \
-        [130, 136]
+        [136, 136]
     assert [kernel_head_dim(130, torch.float32, k)
             for k in ("fwd", "dq", "dkv")] == [130, 130, 130]
     assert kernel_head_dim(96, bf16, "fwd") == 128
     assert kernel_head_dim(96, torch.float32, "fwd") == 96
+
+
+@pytest.mark.parametrize("dh,size", [(130, 136), (200, 200)])
+def test_bf16_dq_padding_past_128_is_the_same_function(dh, size):
+    """What the CUDA K2 wrapper does with a bf16 head dim in 129–256, whose
+    wgmma kernel reads TMA rows of a multiple of 8 columns: the plain
+    backward on inputs zero-padded to ``kernel_head_dim``, sliced back,
+    equals it on the unpadded inputs (the caller's scale kept), and the
+    padded columns of dQ, dK and dV are exactly 0.  Within one bf16 ulp
+    (the products' summation length differs)."""
+    assert kernel_head_dim(dh, torch.bfloat16, "dq") == size
+    rng = np.random.default_rng(dh)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(2, 24, dh)).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(4))
+    scale = dh ** -0.5
+    o, lse = flash_fwd_plain(q, k, v, True, scale)
+    dvec = (do.float() * o.float()).sum(-1)
+    grads = flash_bwd_plain(q, k, v, lse, do, dvec, True, scale)
+    pgrads = flash_bwd_plain(*(pad_head_dim(x, size) for x in (q, k, v)),
+                             lse, pad_head_dim(do, size), dvec, True, scale)
+    for got, ref in zip(pgrads, grads):
+        assert got.shape[-1] == size and not got[..., dh:].any()
+        ref = ref.float().numpy()
+        np.testing.assert_allclose(got[..., :dh].float().numpy(), ref,
+                                   rtol=2 ** -7,
+                                   atol=1e-6 * np.abs(ref).max())
 
 
 def test_flash_attention_layer_at_head_dim_256_matches_jax():
@@ -612,9 +638,10 @@ def test_library_key_covers_every_csrc_file(tmp_path, monkeypatch):
 def test_kernel_names_follow_the_c_interface_codes():
     """``KERNELS`` names the kernel each C entry point reports it ran by
     its code in ``csrc/launched.h``, the one place the codes are defined;
-    K2 has no wgmma kernel past head dim 128; the launch counts start
-    from 0 after ``reset_launches``; and ``chip_smoke.CUDA_KERNELS``
-    lists every named kernel once."""
+    past head dim 128 all three bf16 kernels have a wgmma kernel and only
+    K3 a 3xTF32 one; the launch counts start from 0 after
+    ``reset_launches``; and ``chip_smoke.CUDA_KERNELS`` lists every named
+    kernel once."""
     import importlib
     import re
     import chip_smoke
@@ -623,11 +650,13 @@ def test_kernel_names_follow_the_c_interface_codes():
     with open(os.path.join(csrc, "launched.h")) as f:
         codes = dict(re.findall(r"(k\w+) = (\d+),", f.read()))
     assert codes == {"kWgmma": "0", "kWgmmaWide": "1", "kTf32": "2",
-                     "kCudaCores": "3"}
+                     "kCudaCores": "3", "kTf32Wide": "4"}
     assert set(fa_mod.KERNELS) == set(_kernels.SIGNATURES) - {
         "dkt_flash_last_kernel", "dkt_error_string"}
     assert all(len(names) == len(codes) for names in fa_mod.KERNELS.values())
-    assert fa_mod.KERNELS["dkt_flash_bwd_dq"][1] is None
+    assert all(names[1] for names in fa_mod.KERNELS.values())
+    assert [names[4] for names in fa_mod.KERNELS.values()] == [
+        None, None, "flash_bwd_dkv_f32_wide"]
     names = [n for ns in fa_mod.KERNELS.values() for n in ns if n]
     assert sorted(names) == sorted(n for n, _, _ in chip_smoke.CUDA_KERNELS)
     fa_mod.KERNEL_LAUNCHES[("flash_fwd", "float32", 64)] += 1
