@@ -7,16 +7,17 @@ Phases, one JSON line each:
 
 1. ``env``    — torch/CUDA versions, the card, TF32 switched off.
 2. ``build``  — the flash kernels, ``distkeras_tpu_torch/ops/csrc/
-   flash_fwd.cu`` (K1's C interface; K1 on CUDA cores: f32 at grids too
-   small for 64-row tiles and past head dim 128, bf16 past 256),
-   ``flash_fwd_tf32_sm90.cu`` (K1 in f32 as 3xTF32 on mma.sync),
+   flash_fwd.cu`` (K1's C interface; K1 on CUDA cores: f32 up to head
+   dim 128 at grids too small for 64-row tiles, both dtypes past 256),
+   ``flash_fwd_tf32_sm90.cu`` (K1 in f32 as 3xTF32 on mma.sync, up to
+   head dim 256),
    ``flash_fwd_sm90.cu`` (K1 in bf16 up to head dim 256, on wgmma and
    TMA), ``flash_bwd.cu`` (the backward's C interface),
-   ``flash_bwd_tf32_sm90.cu`` (K2, K3 in f32 up to 128 and K3 in f32 at
-   129-256, as 3xTF32 on mma.sync), ``flash_bwd_sm90.cu`` (K2, K3 in
-   bf16 up to 256, on wgmma and TMA) and ``flash_bwd_wide.cu`` (f32 K2 at
-   129-256 and K2, K3 past 256 on CUDA cores, in 256-column panels past
-   256; the ``_sm90`` files include ``sm90.cuh``, the ``_tf32_`` ones
+   ``flash_bwd_tf32_sm90.cu`` (K2, K3 in f32 up to 256, as 3xTF32 on
+   mma.sync), ``flash_bwd_sm90.cu`` (K2, K3 in bf16 up to 256, on wgmma
+   and TMA) and ``flash_bwd_wide.cu`` (K2, K3 past 256 on CUDA cores, in
+   256-column panels; the ``_sm90`` files include ``sm90.cuh``, the
+   ``_tf32_`` ones
    ``tf32.cuh``), are built
    with nvcc for sm_90a if stale (seconds;
    each kernel's registers, shared memory and spills as ptxas reports
@@ -29,7 +30,8 @@ Phases, one JSON line each:
    ``flash_attention_lse`` (O and lse within rtol 1e-2 plus 1e-2 of the
    largest |value|, as ``GRAD_TOL``); both dtypes at the two training
    shapes (B*H = 512, Dh 64 and B*H = 256, Dh 128; T = 512, causal).
-   The f32 serving shapes and the training shapes are timed: device
+   The f32 serving shapes (the probe's at Dh 64, the dim-2048 model's
+   joins at Dh 256) and the training shapes are timed: device
    time from a ``torch.profiler``
    trace, the plain version's, ``F.scaled_dot_product_attention``'s (a
    yardstick only: the port never calls it) and the least time the card
@@ -79,13 +81,13 @@ Phases, one JSON line each:
    Dh 128), bf16, 2 epochs of 8 steps at batch 32: the loss falls and
    K1, K2 and K3 launch exactly once per block per step.  ``lm256`` —
    the ``--dim 2048`` probe (8 heads of Dh 256; in bf16 K1, K2 and K3 on
-   wgmma; in f32 K3 as 3xTF32, K1 and K2 on CUDA cores): bf16, 2 epochs
+   wgmma; in f32 all three as 3xTF32 on mma.sync): bf16, 2 epochs
    of 4 steps at batch 16, the loss falls; 2
    f32 steps against its dense twin (losses within rtol 1e-4, parameters
    within 1e-4); 4 greedy requests served, each equal to
    ``generate_tokens``; K1, K2 and K3 once per block per step, K1 once
    per block per join; each launch counted under the kernel of that
-   route, none under the CUDA-core K2 in bf16 or K3 in f32.
+   route, none under a CUDA-core kernel in training.
 9. ``conv``   — the headline bench's ResNet-20 (``distkeras_tpu_torch.
    bench``: width 16, batch 1024, sgd lr 0.1, bf16), 3 epochs of 8
    steps: samples/s, step ms, peak memory, and the busy share of a
@@ -122,18 +124,21 @@ Phases, one JSON line each:
 ``k1`` and ``k2k3`` also hold head dims 16, 48 and 96 (which bf16 K1
 and K2/K3 run zero-padded to 32, 64 and 128, and the f32 K1 reads
 unpadded; the f32 K1 also at Dh 5 and 127 on both its kernels), 136,
-192, 200 and 256 (bf16 K1, K2 and K3 on wgmma, f32 K3 as 3xTF32, f32 K1
-and K2 on CUDA cores) and 320 (CUDA cores, two 256-column panels), and
+192, 200 and 256 (bf16 K1, K2 and K3 on wgmma, f32 K1, K2 and K3 as
+3xTF32 at every grid; f32 also at 130, 193 and 255, read by 4-byte
+loads) and 320 (CUDA cores, two 256-column panels), and
 time 16 and 96 beside 32 and 128 at B*H 256 and 192, 256, 320 and 512
 at B*H 128 (T 512).  Where an f32 kernel's output reads an error of
 exactly 0 against the plain version, ``k2k3`` also shows the check is
 live: a copy with its smallest value moved by 1e-4 must fail it.
 ``k1_tf32_control``: on Q and K with a common offset, the f32 K1 on
-tensor cores is within 1e-5 of attention in float64 and one TF32 pass
-is not; ``k3_tf32_control`` holds the f32 K3 at Dh 192 and 256 so (its
-dK and dV against K3 in float64, within ``GRAD_TOL``), and
-``k2k3_exact_reading`` shows why the CUDA-core f32 K2 can equal its
-plain version bit for bit.  ``past256``: K1, K2 and K3 at Dh 320 in both
+tensor cores (at Dh 192 and 256 its eight-warp kernel) is within 1e-5
+of attention in float64 and one TF32 pass is not;
+``k2_tf32_control`` and ``k3_tf32_control`` hold the f32 K2 and K3 at
+Dh 192 and 256 so (dQ, dK and dV against K2 and K3 in float64, within
+``GRAD_TOL``), and ``k2k3_exact_reading`` shows why the CUDA-core f32
+K2 and K3 past Dh 256 can equal their plain version bit for bit.
+``past256``: K1, K2 and K3 at Dh 320 in both
 dtypes through the differentiable op (``flash_attention_lse`` and
 autograd) against the plain versions, one launch each: the one path of
 the CUDA-core K3, counted as the other paths are.
@@ -184,8 +189,11 @@ HEAD_DIMS = (32, 64, 128)
 #: K1, K2 and K3; the f32 K1 reads them unpadded)
 PAD_HEAD_DIMS = (16, 48, 96)
 #: head dims past 128: bf16 K1, K2 and K3 on wgmma (192- and 256-wide
-#: tiles), f32 K3 as 3xTF32, f32 K1 and K2 on CUDA cores
+#: tiles), f32 K1, K2 and K3 as 3xTF32 (192- and 256-wide tiles)
 WIDE_HEAD_DIMS = (136, 192, 200, 256)
+#: head dims past 128 that are not a multiple of 4: the f32 kernels read
+#: their rows unpadded by 4-byte loads
+WIDE_ODD_HEAD_DIMS = (130, 193, 255)
 #: head dims past 256, which K1, K2 and K3 take on CUDA cores in
 #: 256-column panels: checked at 320, timed at 320 and 512 (B*H 128)
 PAST_HEAD_DIM = 320
@@ -480,8 +488,15 @@ def phase_k1(torch):
     cases += [("float32", causal, bh, 130, 130, dh, False)
               for bh in (136, 8) for dh in (5, 48, 96, 127)
               for causal in (True, False)]
-    # head dims past 128 (bf16 on wgmma up to 256, the rest on CUDA
-    # cores) and past 256 (CUDA cores, 256-column panels)
+    # the f32 K1 at 129-256 on a grid that fills the card (B*H 136), Dh %
+    # 4 != 0 among them, causal and not, Tq != Tk
+    cases += [("float32", causal, 136, 130, 130, dh, False)
+              for dh in (*WIDE_HEAD_DIMS, *WIDE_ODD_HEAD_DIMS)
+              for causal in (True, False)]
+    cases += [("float32", False, 136, 100, 257, dh, False)
+              for dh in (192, *WIDE_ODD_HEAD_DIMS)]
+    # head dims past 128 at B*H 8 (bf16 on wgmma, f32 as 3xTF32, up to
+    # 256) and past 256 (CUDA cores, 256-column panels)
     cases += [(dtype, causal, 8, t, t, dh, False)
               for dtype in ("bfloat16", "float32")
               for dh in (*WIDE_HEAD_DIMS, PAST_HEAD_DIM)
@@ -500,6 +515,10 @@ def phase_k1(torch):
                              *((DH256_BH, dh)
                                for dh in PAST_TIMED_HEAD_DIMS))
               for dtype in ("bfloat16", "float32")]
+    # and the dim-2048 model's serving joins in f32 (B*H 8, Dh 256, the
+    # lengths of lm256's first four prompts), after its training shape
+    cases += [("float32", True, 8, t, t, 256, True)
+              for t in PROMPT_LENS[:4]]
     rows = []
     for dtype_name, causal, bh, tq, tk, dh, timed in cases:
         dtype = getattr(torch, dtype_name)
@@ -550,21 +569,28 @@ def _k1_tf32_control(torch):
     64·scale, whose differences TF32's three digits blur) the kernel is
     within the f32 bound of 1e-5 of causal attention computed in float64,
     and the plain version with TF32 products (``allow_tf32``) misses it by
-    far.  The witness is float64, not the plain version in f32: at Dh 128
-    on these inputs that is itself 1.1e-5 from float64 in O (an H100).
-    Each row also gives the plain f32 version's distance and the kernel's
-    from it."""
+    far; at Dh 192 and 256 (B·H 128, T 200) the same of the eight-warp
+    kernel (``flash_fwd_f32_wide``), S summed over 32 k-steps.  The
+    witness is float64, not the plain version in f32: at Dh 128 on these
+    inputs that is itself 1.1e-5 from float64 in O (an H100).  Each row
+    also gives the plain f32 version's distance and the kernel's from
+    it."""
     from distkeras_tpu_torch.ops.flash_attention import (
         flash_fwd_cuda, flash_fwd_plain)
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = []
-    for bh, t, dh in ((136, 200, 128), (64, 512, 64), (64, 512, 32)):
+    for bh, t, dh, want in ((136, 200, 128, "flash_fwd_f32"),
+                            (64, 512, 64, "flash_fwd_f32"),
+                            (64, 512, 32, "flash_fwd_f32"),
+                            (DH256_BH, 200, 192, "flash_fwd_f32_wide"),
+                            (DH256_BH, 200, 256, "flash_fwd_f32_wide")):
         q, k = (torch.randn((bh, t, dh), generator=gen, device="cuda") + 1.0
                 for _ in range(2))
         v = torch.randn((bh, t, dh), generator=gen, device="cuda")
         exact = attention_float64(torch, q, k, v, True, dh ** -0.5)
         plain = flash_fwd_plain(q, k, v, True, dh ** -0.5)
-        got = flash_fwd_cuda(q, k, v, True, dh ** -0.5)
+        got, kernel = launched(
+            lambda: flash_fwd_cuda(q, k, v, True, dh ** -0.5))
         torch.backends.cuda.matmul.allow_tf32 = True
         try:
             tf32 = flash_fwd_plain(q, k, v, True, dh ** -0.5)
@@ -574,13 +600,15 @@ def _k1_tf32_control(torch):
         def err(a, b):
             return {"o": _max_err(a[0], b[0]), "lse": _max_err(a[1], b[1])}
         rows.append({"phase": "k1_tf32_control", "bh": bh, "t": t, "dh": dh,
-                     "causal": True, "witness": "float64",
+                     "causal": True, "kernel": kernel, "want": want,
+                     "witness": "float64",
                      "tol": {"atol": 1e-5}, "kernel_err": err(got, exact),
                      "plain_f32_err": err(plain, exact),
                      "one_tf32_pass_err": err(tf32, exact),
                      "kernel_vs_plain_f32": err(got, plain)})
         emit(rows[-1])
-    check(all(max(r["kernel_err"].values()) <= 1e-5
+    check(all(r["kernel"] == r["want"] and
+              max(r["kernel_err"].values()) <= 1e-5
               < min(r["one_tf32_pass_err"].values()) for r in rows),
           f"the f32 K1 is not held apart from one TF32 pass: {rows}")
 
@@ -596,27 +624,44 @@ def attention_float64(torch, q, k, v, causal, scale):
     return torch.matmul(torch.exp(s - lse[..., None]), v.double()), lse
 
 
-def dkv_float64(torch, q, k, v, lse, do, dvec, causal, scale):
-    """K3's (dK, dV) computed in float64 from the same inputs (L and D as
-    given): the witness the f32 versions are measured from."""
+def _p_ds_float64(torch, q, k, v, lse, do, dvec, causal, scale):
+    """P and dS of the backward in float64 from the same inputs (L and D
+    as given), with q, k, dO in float64."""
     qd, kd, vd, dod = (x.double() for x in (q, k, v, do))
     p = torch.exp(qd @ kd.transpose(1, 2) * scale - lse.double()[..., None])
     if causal:
         p = p.masked_fill(torch.ones(p.shape[-2:], dtype=torch.bool,
                                      device=p.device).triu(1), 0.0)
     ds = p * (dod @ vd.transpose(1, 2) - dvec.double()[..., None]) * scale
+    return p, ds, qd, kd, dod
+
+
+def dq_float64(torch, *args):
+    """K2's dQ computed in float64 from ``flash_bwd_plain``'s arguments:
+    the witness the f32 versions are measured from."""
+    _, ds, _, kd, _ = _p_ds_float64(torch, *args)
+    return ds @ kd
+
+
+def dkv_float64(torch, *args):
+    """K3's (dK, dV) computed in float64 from ``flash_bwd_plain``'s
+    arguments: the witness the f32 versions are measured from."""
+    p, ds, qd, _, dod = _p_ds_float64(torch, *args)
     return ds.transpose(1, 2) @ qd, p.transpose(1, 2) @ dod
 
 
-def _k3_tf32_control(torch):
-    """The f32 K3 at head dims 129-256 is 3xTF32, not one TF32 pass: on Q
-    and K with a common offset of 1 its dK and dV are within
-    ``GRAD_TOL``'s f32 bound of K3 computed in float64, and the plain
-    version with TF32 products (``allow_tf32``) misses it.  The witness
-    is float64 because on these inputs the plain version in f32 can
-    itself be outside that bound; each row gives its distance too."""
+def _wide_bwd_tf32_control(torch):
+    """The f32 K2 and K3 at head dims 129-256 are 3xTF32, not one TF32
+    pass: on Q and K with a common offset of 1 their dQ (K2) and dK, dV
+    (K3) are within ``GRAD_TOL``'s f32 bound of K2 and K3 computed in
+    float64 (``dq_float64``, ``dkv_float64``), and the plain version with
+    TF32 products (``allow_tf32``) misses it.  The witness is float64
+    because on these inputs the plain version in f32 can itself be
+    outside that bound; each row gives its distance too.  Emits one
+    ``k2_tf32_control`` and one ``k3_tf32_control`` row a case."""
     from distkeras_tpu_torch.ops.flash_attention import (
-        flash_bwd_dkv_cuda, flash_bwd_plain, flash_fwd_plain)
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_bwd_plain,
+        flash_fwd_plain)
     gen = torch.Generator(device="cuda").manual_seed(7)
     tol = GRAD_TOL["float32"]
     rows = []
@@ -629,48 +674,57 @@ def _k3_tf32_control(torch):
         q, k = q + 1.0, k + 1.0
         o, lse = flash_fwd_plain(q, k, v, causal, dh ** -0.5)
         args = (q, k, v, lse, do, (do * o).sum(-1), causal, dh ** -0.5)
-        exact = dkv_float64(torch, *args)
-        got, kernel = launched(lambda: flash_bwd_dkv_cuda(*args))
-        plain = flash_bwd_plain(*args)[1:]
+        plain = flash_bwd_plain(*args)
         torch.backends.cuda.matmul.allow_tf32 = True
         try:
-            tf32 = flash_bwd_plain(*args)[1:]
+            tf32 = flash_bwd_plain(*args)
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
+        dq, dq_kernel = launched(lambda: flash_bwd_dq_cuda(*args))
+        dkv, dkv_kernel = launched(lambda: flash_bwd_dkv_cuda(*args))
+        # (phase, output names, their slice of (dQ, dK, dV), kernel ran,
+        # outputs, float64 witness, kernel wanted)
+        for phase, names, cut, kernel, got, exact, want in (
+                ("k2_tf32_control", ("dq",), slice(0, 1), dq_kernel, (dq,),
+                 (dq_float64(torch, *args),), "flash_bwd_dq_f32_wide"),
+                ("k3_tf32_control", ("dk", "dv"), slice(1, 3), dkv_kernel,
+                 dkv, dkv_float64(torch, *args), "flash_bwd_dkv_f32_wide")):
 
-        def err(a):
-            return {"dk": _max_err(a[0], exact[0]),
-                    "dv": _max_err(a[1], exact[1])}
+            def err(a):
+                return {n: _max_err(x, r)
+                        for n, x, r in zip(names, a, exact)}
 
-        def within(a):
-            return all(_within(x, r, **tol) for x, r in zip(a, exact))
-        rows.append({"phase": "k3_tf32_control", "bh": 8, "tq": tq, "tk": tk,
-                     "dh": dh, "causal": causal, "kernel": kernel,
-                     "witness": "float64", "tol": tol,
-                     "kernel_err": err(got), "kernel_within": within(got),
-                     "plain_f32_err": err(plain),
-                     "plain_f32_within": within(plain),
-                     "one_tf32_pass_err": err(tf32),
-                     "one_tf32_pass_within": within(tf32)})
-        emit(rows[-1])
-    check(all(r["kernel"] == "flash_bwd_dkv_f32_wide" and r["kernel_within"]
+            def within(a):
+                return all(_within(x, r, **tol) for x, r in zip(a, exact))
+            rows.append({"phase": phase, "bh": 8, "tq": tq, "tk": tk,
+                         "dh": dh, "causal": causal, "kernel": kernel,
+                         "want": want, "witness": "float64", "tol": tol,
+                         "kernel_err": err(got),
+                         "kernel_within": within(got),
+                         "plain_f32_err": err(plain[cut]),
+                         "plain_f32_within": within(plain[cut]),
+                         "one_tf32_pass_err": err(tf32[cut]),
+                         "one_tf32_pass_within": within(tf32[cut])})
+            emit(rows[-1])
+    check(all(r["kernel"] == r["want"] and r["kernel_within"]
               and not r["one_tf32_pass_within"] for r in rows),
-          f"the f32 K3 at Dh 129-256 is not held apart from one TF32 pass: "
-          f"{rows}")
+          f"the f32 K2/K3 at Dh 129-256 are not held apart from one TF32 "
+          f"pass: {rows}")
 
 
 def _exact_reading(torch):
-    """Why the CUDA-core f32 K2 can agree with its plain version bit for
-    bit: the plain version's f32 products (cuBLAS) at these shapes against
-    an in-order ``torch.addcmul`` chain over the contracted dim (the
-    CUDA-core kernels' FMA loop), and ``s * scale - L`` rounded twice (the
-    plain version) against one fused ``addcmul`` (the kernel's contracted
-    FMA) at the scales 1/16 (Dh 256) and 1/sqrt(192).  Emits the shares of
-    equal values; checks nothing."""
+    """Why the CUDA-core f32 K2 and K3 (past Dh 256) can agree with their
+    plain version bit for bit: the plain version's f32 products (cuBLAS)
+    at these shapes against an in-order ``torch.addcmul`` chain over the
+    contracted dim (those kernels' FMA loops), and ``s * scale - L``
+    rounded twice (the plain version) against one fused ``addcmul`` (the
+    kernels' contracted FMA) at the scales 1/sqrt(320) and 1/sqrt(512).
+    (Up to Dh 256 every f32 kernel is 3xTF32, whose sums run in another
+    order.)  Emits the shares of equal values; checks nothing."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     row = {"phase": "k2k3_exact_reading", "matmul_equals_fma_chain": {},
            "scaled_minus_l_equals_fma": {}}
-    for dh in (192, 256, 320):
+    for dh in PAST_TIMED_HEAD_DIMS:
         a, b = (torch.randn((8, 512, dh), generator=gen, device="cuda")
                 for _ in range(2))
         mm = a @ b.transpose(1, 2)
@@ -926,7 +980,8 @@ def _check_is_live(got, ref, tol) -> bool:
     """Whether ``_within`` fails for a copy of ``got`` whose value at the
     smallest |reference| is moved by 1e-4: the check can see an error
     there.  (An exact reading is no fault: cuBLAS's f32 products at these
-    shapes sum in order with FMA, as the CUDA-core K2 does; PERF.md.)"""
+    shapes sum in order with FMA, as the CUDA-core K2 and K3 past Dh 256
+    do; PERF.md.)"""
     moved = got.float().clone().reshape(-1)
     moved[ref.float().abs().reshape(-1).argmin()] += 1e-4
     return not _within(moved.reshape(got.shape), ref, **tol)
@@ -965,17 +1020,18 @@ def phase_k2k3(torch):
         cases += [(dtype, True, 8, t, t, 128) for t in (64, 257, 512)]
         cases += [(dtype, False, 8, 100, 256, 128)]
     # the f32 watch: long rows, where dK and dV sum the most query tiles
+    # and dQ the most key tiles
     cases += [("float32", True, 4, t, t, dh) for t in (2048, 4096)
-              for dh in (64, 128)]
+              for dh in (64, 128, 256)]
     # head dims between the instantiated ones (zero-padded)
     cases += [(dtype, causal, 8, 257, 257, dh)
               for dtype in ("float32", "bfloat16") for dh in PAD_HEAD_DIMS
               for causal in (True, False)]
     cases += [(dtype, False, 8, 100, 256, dh)
               for dtype in ("float32", "bfloat16") for dh in PAD_HEAD_DIMS]
-    # head dims past 128 (bf16 K2, K3 on wgmma and f32 K3 as 3xTF32 up to
-    # 256, f32 K2 on CUDA cores) and past 256 (CUDA cores, 256-column
-    # panels)
+    # head dims past 128 (bf16 K2, K3 on wgmma and f32 K2, K3 as 3xTF32 up
+    # to 256; f32 also at Dh % 4 != 0, read by 4-byte loads) and past 256
+    # (CUDA cores, 256-column panels)
     cases += [(dtype, causal, 8, 257, 257, dh)
               for dtype in ("float32", "bfloat16")
               for dh in (*WIDE_HEAD_DIMS, PAST_HEAD_DIM)
@@ -983,6 +1039,9 @@ def phase_k2k3(torch):
     cases += [(dtype, False, 8, 100, 256, dh)
               for dtype in ("float32", "bfloat16")
               for dh in (*WIDE_HEAD_DIMS, PAST_HEAD_DIM)]
+    cases += [("float32", causal, 8, 257, 257, dh) for dh in WIDE_ODD_HEAD_DIMS
+              for causal in (True, False)]
+    cases += [("float32", False, 8, 100, 256, dh) for dh in WIDE_ODD_HEAD_DIMS]
     def checked(dtype_name, causal, bh, tq, tk, dh, args):
         """K2 and K3 on ``args`` against the plain version; the row, with
         the kernel each launched."""
@@ -1014,7 +1073,7 @@ def phase_k2k3(torch):
                     inputs(getattr(torch, dtype_name), bh, tq, tk, dh,
                            causal))
             for dtype_name, causal, bh, tq, tk, dh in cases]
-    _k3_tf32_control(torch)
+    _wide_bwd_tf32_control(torch)
     _exact_reading(torch)
 
     # the training shapes, each checked as above and then timed: the
@@ -1285,16 +1344,16 @@ def phase_lm128(torch):
 
 def phase_lm256(torch):
     """``gpt_lm`` at ``mfu.py``'s ``--dim 2048`` (8 heads of Dh 256: in
-    bf16 K1, K2 and K3 on wgmma; in f32 K3 as 3xTF32 on mma.sync, K1 and
-    K2 on CUDA cores): (a) bf16, trained by ``SingleTrainer``, 2 epochs
-    of 4 steps at batch 16: the loss falls; (b) f32, flash and dense twins
-    from seed 0, 2 steps at batch 16: per-step losses within rtol 1e-4
-    and every trained parameter within atol 1e-4; (c) f32, 4 greedy
-    requests served by ``DecodeEngine``: every answer equals
-    ``generate_tokens`` on the card.  K1, K2 and K3 launch exactly once
-    per block per step, each counted under the kernel of its route (so
-    the CUDA-core K2 shows no bf16 launch and the CUDA-core K3 no f32
-    launch), and K1 once per block per cold join."""
+    bf16 K1, K2 and K3 on wgmma; in f32 all three as 3xTF32 on
+    mma.sync): (a) bf16, trained by
+    ``SingleTrainer``, 2 epochs of 4 steps at batch 16: the loss falls;
+    (b) f32, flash and dense twins from seed 0, 2 steps at batch 16:
+    per-step losses within rtol 1e-4 and every trained parameter within
+    atol 1e-4; (c) f32, 4 greedy requests served by ``DecodeEngine``:
+    every answer equals ``generate_tokens`` on the card.  K1, K2 and K3
+    launch exactly once per block per step, each counted under the kernel
+    of its route (so no training launch runs on a CUDA-core kernel), and
+    K1 once per block per cold join."""
     import numpy as np
     from distkeras_tpu_torch import SingleTrainer
     from distkeras_tpu_torch.data import load_lm_corpus
@@ -1366,10 +1425,10 @@ def phase_lm256(torch):
     check(all(n == blocks * 2 for n in f32_launches.values()),
           f"dim-2048 f32 launches {f32_launches} != {blocks * 2} each")
     check(f32_kernels == [[k, "float32", 256, blocks * 2] for k in (
-              "flash_bwd_dkv_f32_wide", "flash_bwd_dq_wide",
-              "flash_fwd_cuda_cores")],
-          f"dim-2048 f32 launches by kernel {f32_kernels}: K3 not on "
-          f"3xTF32")
+              "flash_bwd_dkv_f32_wide", "flash_bwd_dq_f32_wide",
+              "flash_fwd_f32_wide")],
+          f"dim-2048 f32 launches by kernel {f32_kernels}: K1-K3 not all "
+          f"on 3xTF32")
     del runs, fp, dp
 
     # (c) f32 serving: 4 greedy requests, the first 4 of PROMPT_LENS
@@ -1940,10 +1999,12 @@ CUDA_KERNELS = (
     ("flash_fwd_wgmma_wide", "flash_fwd_sm90.cu", 83),
     ("flash_fwd_f32", "flash_fwd_tf32_sm90.cu", 83),
     ("flash_fwd_cuda_cores", "flash_fwd.cu", 83),
+    ("flash_fwd_f32_wide", "flash_fwd_tf32_sm90.cu", 83),
     ("flash_bwd_dq", "flash_bwd_sm90.cu", 169),
     ("flash_bwd_dq_wgmma_wide", "flash_bwd_sm90.cu", 169),
     ("flash_bwd_dq_f32", "flash_bwd_tf32_sm90.cu", 169),
     ("flash_bwd_dq_wide", "flash_bwd_wide.cu", 169),
+    ("flash_bwd_dq_f32_wide", "flash_bwd_tf32_sm90.cu", 169),
     ("flash_bwd_dkv", "flash_bwd_sm90.cu", 200),
     ("flash_bwd_dkv_wgmma_wide", "flash_bwd_sm90.cu", 200),
     ("flash_bwd_dkv_f32", "flash_bwd_tf32_sm90.cu", 200),

@@ -122,7 +122,7 @@ def observe_memory(device, registry: Optional[Registry] = None
 
 
 #: where the readings a ``ProfileConfig`` asks for are ported (ROADMAP)
-_PROFILE_ITEM = ("ROADMAP Queue 1 item 10 (torch.profiler / "
+_PROFILE_ITEM = ("ROADMAP Queue 1 item 7 (torch.profiler / "
                  "torch.cuda readings)")
 
 

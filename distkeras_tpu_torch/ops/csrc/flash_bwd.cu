@@ -1,11 +1,11 @@
 // Flash-attention backward, the C interface: K2 (dQ) and K3 (dK, dV) for
-// both dtypes.  The kernels live beside it: for head dims 32, 64 and 128
-// on Hopper's tensor cores (sm_90a), f32 as 3xTF32 on mma.sync in
-// flash_bwd_tf32_sm90.cu and bf16 on wgmma and TMA in flash_bwd_sm90.cu;
-// at 129-256 bf16 K2 and K3 on wgmma (flash_bwd_sm90.cu) and f32 K3 as
-// 3xTF32 (flash_bwd_tf32_sm90.cu); f32 K2 at 129-256 and both past 256 on
-// CUDA cores in flash_bwd_wide.cu.  This file checks the arguments, sets
-// the device and picks the kernel for (dtype, head dim).
+// both dtypes.  The kernels live beside it: up to head dim 256 on
+// Hopper's tensor cores (sm_90a), f32 as 3xTF32 on mma.sync in
+// flash_bwd_tf32_sm90.cu (32, 64, 128 and any in 129-256) and bf16 on
+// wgmma and TMA in flash_bwd_sm90.cu (32, 64, 128 and multiples of 8 in
+// 129-256); past 256 both dtypes on CUDA cores in flash_bwd_wide.cu.
+// This file checks the arguments, sets the device and picks the kernel
+// for (dtype, head dim).
 //
 // Replaces: distkeras_tpu/ops/pallas_attention.py:_bwd_dq_kernel (K2) and
 // _bwd_dkv_kernel (K3), the Pallas TPU kernels launched by
@@ -25,8 +25,8 @@
 #include "launched.h"
 
 // the f32 kernels (flash_bwd_tf32_sm90.cu) and the bf16 ones
-// (flash_bwd_sm90.cu); head_dim 32, 64 or 128, and also 129-256 for f32
-// K3 and (a multiple of 8) for bf16 K2 and K3
+// (flash_bwd_sm90.cu); head_dim 32, 64 or 128, and also 129-256 (for
+// bf16 a multiple of 8)
 cudaError_t flash_bwd_dq_f32(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* dvec, void* dq, int bh, int tq,
@@ -47,7 +47,7 @@ cudaError_t flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                const void* dvec, void* dk, void* dv, int bh,
                                int tq, int tk, int head_dim, int causal,
                                float scale, cudaStream_t stream);
-// the CUDA-core kernels for head_dim > 128 (flash_bwd_wide.cu)
+// the CUDA-core kernels for head_dim > 256 (flash_bwd_wide.cu)
 cudaError_t flash_bwd_dq_wide(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* dvec, void* dq, int bh, int tq,
@@ -105,8 +105,8 @@ cudaError_t launch_dkv_wide(const BwdArgs& a, cudaStream_t stream) {
                             a.dtype, stream);
 }
 
-// bf16 K2 and K3 at 129 <= head_dim <= 256 on wgmma, f32 K3 there as
-// 3xTF32 (the runtime head dim)
+// bf16 K2 and K3 at 129 <= head_dim <= 256 on wgmma, f32 K2 and K3 there
+// as 3xTF32 (the runtime head dim)
 cudaError_t launch_dq_bf16_wide(const BwdArgs& a, cudaStream_t stream) {
   return flash_bwd_dq_bf16(a.q, a.k, a.v, a.dout, a.lse, a.dvec, a.dq, a.bh,
                            a.tq, a.tk, a.head_dim, a.causal, a.scale, stream);
@@ -116,6 +116,11 @@ cudaError_t launch_dkv_bf16_wide(const BwdArgs& a, cudaStream_t stream) {
   return flash_bwd_dkv_bf16(a.q, a.k, a.v, a.dout, a.lse, a.dvec, a.dk, a.dv,
                             a.bh, a.tq, a.tk, a.head_dim, a.causal, a.scale,
                             stream);
+}
+
+cudaError_t launch_dq_f32_wide(const BwdArgs& a, cudaStream_t stream) {
+  return flash_bwd_dq_f32(a.q, a.k, a.v, a.dout, a.lse, a.dvec, a.dq, a.bh,
+                          a.tq, a.tk, a.head_dim, a.causal, a.scale, stream);
 }
 
 cudaError_t launch_dkv_f32_wide(const BwdArgs& a, cudaStream_t stream) {
@@ -134,19 +139,17 @@ struct Pick {
 
 // The launcher for (dtype, head_dim); f is nullptr for what no kernel
 // takes.  Order of `table`: (f32, 32), (f32, 64), (f32, 128), (bf16, 32),
-// (bf16, 64), (bf16, 128); `wide` takes head_dim > 128 in either dtype,
-// but at 129-256 where `bf16_wide` (bf16) or `f32_wide` (f32) is given:
-// `bf16_wide` takes a multiple of 8 there (its TMA row stride) and
-// nothing else, `f32_wide` any head dim there.
+// (bf16, 64), (bf16, 128); at 129-256 `f32_wide` takes any head dim and
+// `bf16_wide` a multiple of 8 (its TMA row stride); `wide` takes
+// head_dim > 256 in either dtype.
 Pick pick(const Launcher (&table)[6], Launcher wide, Launcher bf16_wide,
           Launcher f32_wide, int dtype, int head_dim) {
   if (dtype != 0 && dtype != 1) return {nullptr, kCudaCores};
-  if (head_dim > 128 && head_dim <= 256) {
-    if (dtype == 1 && bf16_wide != nullptr)
-      return {head_dim % 8 == 0 ? bf16_wide : nullptr, kWgmmaWide};
-    if (dtype == 0 && f32_wide != nullptr) return {f32_wide, kTf32Wide};
+  if (head_dim > 256) return {wide, kCudaCores};
+  if (head_dim > 128) {
+    if (dtype == 0) return {f32_wide, kTf32Wide};
+    return {head_dim % 8 == 0 ? bf16_wide : nullptr, kWgmmaWide};
   }
-  if (head_dim > 128) return {wide, kCudaCores};
   const int d = head_dim == 32 ? 0 : head_dim == 64 ? 1 : head_dim == 128 ? 2
                                                                           : -1;
   return {d < 0 ? nullptr : table[3 * dtype + d],
@@ -182,8 +185,8 @@ extern "C" int dkt_flash_bwd_dq(const void* q, const void* k, const void* v,
       launch_dq_bf16<32>, launch_dq_bf16<64>, launch_dq_bf16<128>};
   const BwdArgs a{q, k, v, dout, lse, dvec, dq, nullptr, nullptr,
                   bh, tq, tk, head_dim, causal, scale, dtype};
-  return run(pick(table, launch_dq_wide, launch_dq_bf16_wide, nullptr, dtype,
-                  head_dim),
+  return run(pick(table, launch_dq_wide, launch_dq_bf16_wide,
+                  launch_dq_f32_wide, dtype, head_dim),
              a, device, stream);
 }
 

@@ -1,8 +1,8 @@
 // Flash-attention backward in f32 on Hopper's tensor cores (sm_90a), every
 // product as 3xTF32: K2 (dQ) and K3 (dK, dV) at head dims 32, 64 and 128,
-// and K3 at 129-256.  Called from flash_bwd.cu's C interface
-// (dkt_flash_bwd_dq, dkt_flash_bwd_dkv) for dtype 0; f32 K2 past 128 runs
-// on CUDA cores (flash_bwd_wide.cu).
+// and at any head dim in 129-256.  Called from flash_bwd.cu's C interface
+// (dkt_flash_bwd_dq, dkt_flash_bwd_dkv) for dtype 0; past 256 both run on
+// CUDA cores (flash_bwd_wide.cu).
 //
 // Replaces: distkeras_tpu/ops/pallas_attention.py:_bwd_dq_kernel (K2,
 // :169) and _bwd_dkv_kernel (K3, :200) under the f32 branch of
@@ -131,6 +131,31 @@
 //     Dh % 4 == 0 and 4-byte otherwise, tile columns past Dh zero-filled,
 //     outputs stored masked at Dh.
 //
+// K2 at Dh 129-256 (flash_bwd_dq_tf32_wide_kernel) does 6*Dh FLOPs per
+// unmasked pair: at B*H 128, T 512, Dh 256, causal 25.8 GFLOP, 0.156 ms
+// at the 3xTF32 rate (bytes 0.100 ms), so operations bound it.  It is
+// K3's mirror: one block of eight warps per (batch*head, 64-row query
+// tile), issued from the last (longest causal) tile down; Q and dO stay
+// resident, K and V stream in 32-row tiles through one buffer (203 KB at
+// D = 256, 155 KB at D = 192, one block an SM).  Warps w and w + 4 share
+// 16 rows: each forms S, P, dP and dS for one half (16 keys) of every
+// tile over all of Dh, hands its half of dS to the other through shared
+// memory (each lane's own values, a named barrier per pair), and
+// accumulates dQ = dS K over one half of D, so every product is formed
+// once and both warps issue in both phases.  S and dP sum 32 k-steps,
+// hi*hi in pairs from zero (product_s, four pairs unrolled at a time:
+// 2-3% faster than all sixteen); each tile's dQ sum starts from zero and
+// is added in f32; one writer per output, over the key tiles in order.
+// Measured against it on an H100 at 700 W (kernel_ab.py, tree against
+// tree; 0.577 / 0.760 ms at Dh 192 / 256 then): warp w forming S and P,
+// w + 4 dP and dS for the whole tile, P handed to w + 4 and dS back to w,
+// each holding half of dQ, 0.600 / 0.871 ms (the pair waits on itself
+// twice a tile); the query tiles of one head side by side in the grid
+// (K and V shared in L2), 0.632 / 0.821 ms.  Measured (chip_smoke.py
+// k2k3, NVIDIA H100 80GB HBM3, 700.00 W): 0.5745 / 0.7333 ms at Dh
+// 192 / 256, 20% / 21% of the 0.1174 / 0.1565 ms bound; the CUDA-core
+// kernel it replaces there took 2.28 / 2.29 ms (kernel_ab.py).
+//
 // Later work: tf32 wgmma for the four products that read both operands
 // along Dh (hi/lo copies written as each tile arrives), a producer warp
 // and 128-row tiles, a second Q/dO buffer at Dh 129-256, and fusing K2
@@ -147,10 +172,15 @@ using tf32::cp_wait_all;
 using tf32::FragA;
 using tf32::frag_acc;
 using tf32::frag_b;
+using tf32::join_halves;
 using tf32::kHalf;
 using tf32::kNJ;
+using tf32::kSideKeys;
+using tf32::kSideNJ;
 using tf32::load_rows;
 using tf32::mma3;
+using tf32::pair_arrive;
+using tf32::pair_sync;
 using tf32::product_pv;
 using tf32::product_s;
 using tf32::product_t;
@@ -457,16 +487,7 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
 // w + 4 forms dP^T = V dO^T, dS^T and dK, each over all D columns (D / 2
 // accumulator registers a thread), so every product is formed once.
 constexpr int kWideThreads = 256;
-constexpr int kWideRows = kHalf;  // queries of a streamed Q / dO tile
-
-// named barriers (0 is __syncthreads): warp w arrives once its P^T is in
-// shared memory, warp w + 4 waits for it
-__device__ __forceinline__ void pair_arrive(int id) {
-  asm volatile("bar.arrive %0, 64;" ::"r"(id) : "memory");
-}
-__device__ __forceinline__ void pair_sync(int id) {
-  asm volatile("bar.sync %0, 64;" ::"r"(id) : "memory");
-}
+constexpr int kWideRows = kHalf;  // rows of a streamed tile (Q, dO; K, V)
 
 // K and V (64 rows) resident, Q and dO (kWideRows rows) streamed, all at
 // stride D + 4, and the four warps' P^T (16 x kWideRows each)
@@ -613,6 +634,141 @@ flash_bwd_dkv_tf32_wide_kernel(const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// K2 at Dh 129-256: dQ with the keys of each tile split within a warp pair
+// ---------------------------------------------------------------------------
+
+// A block of eight warps per (batch*head, 64-row query tile), Q and dO
+// resident, K and V streamed in tiles of kWideRows keys.  Warps w and
+// w + 4 (w < 4) share rows [16w, 16w + 16): each forms S, P, dP and dS
+// for one half of every key tile (`side` 0 the first) over all of Dh,
+// hands its half of dS to the other through shared memory, and
+// accumulates dQ over one half of D (D / 4 registers a thread).  Shared
+// memory: Q and dO, K and V, all at stride D + 4, and each warp's half of
+// dS as its lanes hold it ([warp][j][lane]).
+template <int D>
+constexpr size_t wide_dq_smem_bytes() {
+  return sizeof(float) * ((2 * kBlock + 2 * kWideRows) * (D + 4) +
+                          8 * kSideNJ * 32 * 4);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWideThreads, 1)
+flash_bwd_dq_tf32_wide_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const float* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ dvec,
+                              float* __restrict__ dq, int tq, int tk, int dh,
+                              int causal, float scale) {
+  constexpr int LD = D + 4;
+  constexpr int kCols = D / 2;  // dQ columns of a warp
+  // S's and dP's pairs of k-steps unrolled four at a time: 2-3% faster
+  // than all sixteen (kernel_ab.py, an H100)
+  constexpr int kPairsAtOnce = 4;
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);  // resident Q and dO
+  float* dos = qs + kBlock * LD;
+  float* ks = dos + kBlock * LD;  // the streamed K and V
+  float* vs = ks + kWideRows * LD;
+  float4* xs = reinterpret_cast<float4*>(vs + kWideRows * LD);
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlock;  // long tiles first
+  int n_k = (tk + kWideRows - 1) / kWideRows;
+  if (causal) n_k = min(n_k, (q0 + kBlock - 1) / kWideRows + 1);
+  const bool vec = dh % 4 == 0;
+  const float* kb = k + (size_t)bh * tk * dh;
+  const float* vb = v + (size_t)bh * tk * dh;
+
+  load_rows<D, kBlock, kWideThreads>(qs, q + (size_t)bh * tq * dh, q0, tq,
+                                     dh, vec);
+  load_rows<D, kBlock, kWideThreads>(dos, dout + (size_t)bh * tq * dh, q0,
+                                     tq, dh, vec);
+  load_rows<D, kWideRows, kWideThreads>(ks, kb, 0, tk, dh, vec);
+  load_rows<D, kWideRows, kWideThreads>(vs, vb, 0, tk, dh, vec);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int pair = warp % 4, side = warp / 4;
+  const int m0 = 16 * pair;       // the pair's rows of the tile
+  const int r0 = q0 + m0 + g;     // this thread's rows: r0, r0 + 8
+  const int last = q0 + m0 + 15;  // the pair's last row
+  const int c0 = side * kCols;    // this warp's dQ columns
+  float4* my_ds = xs + kSideNJ * 32 * warp + lane;
+  const float4* its_ds = xs + kSideNJ * 32 * (warp ^ 4) + lane;
+  float l_row[2], d_row[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    l_row[h] = r < tq ? lse[(size_t)bh * tq + r] : 0.f;
+    d_row[h] = r < tq ? dvec[(size_t)bh * tq + r] : 0.f;
+  }
+  float acc[kCols / 8][4];
+#pragma unroll
+  for (int jd = 0; jd < kCols / 8; ++jd)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[jd][i] = 0.f;
+
+  for (int it = 0; it < n_k; ++it) {
+    const int k0 = it * kWideRows;
+    cp_wait_all();  // this tile (and the resident ones) landed
+    __syncthreads();
+
+    // causal: a pair whose last row is before the tile's first key adds
+    // exact zeros
+    if (!causal || k0 <= last) {
+      const int kh = side * kSideKeys;  // this warp's keys of the tile
+      float sc[kSideNJ][4], dp[kSideNJ][4];
+      product_s<D, kPairsAtOnce>(sc, qs, ks + kh * LD, m0, g, t);  // Q K^T
+      product_s<D, kPairsAtOnce>(dp, dos, vs + kh * LD, m0, g, t);  // dO V^T
+      // dS = scale * P o (dP - D), P = exp(scale * S - L) under the mask
+#pragma unroll
+      for (int j = 0; j < kSideNJ; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = r0 + 8 * (i >> 1);
+          const int col = k0 + kh + 8 * j + 2 * t + (i & 1);
+          const bool keep = row < tq && col < tk && (!causal || col <= row);
+          const float p =
+              keep ? expf(sc[j][i] * scale - l_row[i >> 1]) : 0.f;
+          dp[j][i] = p * (dp[j][i] - d_row[i >> 1]) * scale;
+        }
+        my_ds[32 * j] = make_float4(dp[j][0], dp[j][1], dp[j][2], dp[j][3]);
+      }
+      pair_sync(1 + pair);
+      float ds[kNJ][4];  // dS over the tile's keys: both halves
+      join_halves(ds, dp, its_ds, side);
+      product_pv<D, true, 4, kCols>(acc, ds, ks + c0, g, t);  // dS K
+    }
+
+    // every read of K, V and dS is done: load the next tile
+    __syncthreads();
+    if (it + 1 < n_k) {
+      load_rows<D, kWideRows, kWideThreads>(ks, kb, k0 + kWideRows, tk, dh,
+                                            vec);
+      load_rows<D, kWideRows, kWideThreads>(vs, vb, k0 + kWideRows, tk, dh,
+                                            vec);
+    }
+  }
+  // rows of dh columns, rows at or past tq and columns at or past dh
+  // skipped
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 8 * half;
+    if (r >= tq) continue;
+    float* row = dq + ((size_t)bh * tq + r) * dh;
+#pragma unroll
+    for (int jd = 0; jd < kCols / 8; ++jd)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = c0 + 8 * jd + 2 * t + e;
+        if (col < dh) row[col] = acc[jd][2 * half + e];
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -658,6 +814,23 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
 }
 
 template <int D>
+cudaError_t launch_dq_wide(const float* q, const float* k, const float* v,
+                           const float* dout, const float* lse,
+                           const float* dvec, float* dq, int bh, int tq,
+                           int tk, int dh, int causal, float scale,
+                           cudaStream_t stream) {
+  constexpr size_t smem = wide_dq_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_tf32_wide_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (tq + kBlock - 1) / kBlock);
+  flash_bwd_dq_tf32_wide_kernel<D><<<grid, kWideThreads, smem, stream>>>(
+      q, k, v, dout, lse, dvec, dq, tq, tk, dh, causal, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
 cudaError_t launch_dkv_wide(const float* q, const float* k, const float* v,
                             const float* dout, const float* lse,
                             const float* dvec, float* dk, float* dv, int bh,
@@ -678,8 +851,8 @@ cudaError_t launch_dkv_wide(const float* q, const float* k, const float* v,
 
 // The f32 entry points behind dkt_flash_bwd_dq / dkt_flash_bwd_dkv
 // (flash_bwd.cu, which checks the arguments and sets the device): q, k,
-// v, dout contiguous f32, 16-byte aligned; head_dim 32, 64 or 128, and
-// for K3 also any in 129-256.
+// v, dout contiguous f32, 16-byte aligned; head_dim 32, 64, 128 or any
+// in 129-256.
 cudaError_t flash_bwd_dq_f32(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* dvec, void* dq, int bh, int tq,
@@ -694,10 +867,16 @@ cudaError_t flash_bwd_dq_f32(const void* q, const void* k, const void* v,
     case 64:
       return launch_dq<64>(f(q), f(k), f(v), f(dout), f(lse), f(dvec), out,
                            bh, tq, tk, causal, scale, stream);
-    default:
+    case 128:
       return launch_dq<128>(f(q), f(k), f(v), f(dout), f(lse), f(dvec), out,
                             bh, tq, tk, causal, scale, stream);
   }
+  if (head_dim <= 192)
+    return launch_dq_wide<192>(f(q), f(k), f(v), f(dout), f(lse), f(dvec),
+                               out, bh, tq, tk, head_dim, causal, scale,
+                               stream);
+  return launch_dq_wide<256>(f(q), f(k), f(v), f(dout), f(lse), f(dvec), out,
+                             bh, tq, tk, head_dim, causal, scale, stream);
 }
 
 cudaError_t flash_bwd_dkv_f32(const void* q, const void* k, const void* v,

@@ -1,9 +1,7 @@
-// Flash-attention backward on CUDA cores for head dims past 128: f32 K2
-// (dQ) at 129-256, and K2 and K3 (dK, dV) in both dtypes past 256.  At
-// 129-256 bf16 K2 and K3 run on wgmma (flash_bwd_sm90.cu) and f32 K3 as
-// 3xTF32 (flash_bwd_tf32_sm90.cu).  Called from flash_bwd.cu's C
-// interface (dkt_flash_bwd_dq, dkt_flash_bwd_dkv); the head dims up to
-// 128 go to the tensor-core kernels.
+// Flash-attention backward on CUDA cores past head dim 256: K2 (dQ) and
+// K3 (dK, dV) in both dtypes.  Up to 256 both run on Hopper's tensor cores
+// (flash_bwd_tf32_sm90.cu in f32, flash_bwd_sm90.cu in bf16).  Called
+// from flash_bwd.cu's C interface (dkt_flash_bwd_dq, dkt_flash_bwd_dkv).
 //
 // Replaces: distkeras_tpu/ops/pallas_attention.py:_bwd_dq_kernel (K2,
 // :169) and _bwd_dkv_kernel (K3, :200), whose BlockSpecs span any head
@@ -19,48 +17,44 @@
 // formed from the unrounded P).  The outputs are written in the input
 // dtype.  Causal needs Tq == Tk; non-causal takes Tq != Tk; any T.
 //
-// Tiles are D = 256 columns wide; the columns past the caller's Dh are
-// zero-filled on load and never stored, so any Dh runs on unpadded rows
-// (a Dh below 256 pays the full width's products).  Past Dh 256 a block
-// computes one 256-column panel of its outputs (dQ; dK and dV), the
-// grid's third dimension holding the panels, and forms S and dP over the
-// whole Dh by staging its operands in 256-column chunks, in order, so
-// every panel's block holds the same P and dS; then the panel's columns
-// of K (K2) or of Q and dO (K3) are staged for the second products.
-// Registers and shared memory stay at the single tile's.  f32 K2 at
-// Dh <= 256 has one chunk and one panel, and its kernel is the
-// single-tile instantiation (kChunked false: Q and dO resident).
+// Tiles are D = 256 columns wide.  A block computes one 256-column panel
+// of its outputs (dQ; dK and dV), the grid's third dimension holding the
+// panels, and forms S and dP over the whole Dh by staging its operands in
+// 256-column chunks, in order, so every panel's block holds the same P
+// and dS; then the panel's columns of K (K2) or of Q and dO (K3) are
+// staged for the second products.  Columns past the caller's Dh are
+// zero-filled on load and never stored, so any Dh runs on unpadded rows.
+// Registers and shared memory stay at the single tile's.
 //
-// What bounds them on this card: at B*H = 128, T = 512, Dh = 256, causal
-// (gpt_lm at dim 2048, 8 heads, batch 16) K2 does 6*Dh and K3 8*Dh FLOPs
-// per unmasked (q, k) pair, 25.8 and 34.4 GFLOP: 0.156 and 0.209 ms at
-// the 3xTF32 rate of 165 TFLOP/s (f32), 0.026 and 0.035 ms at bf16's
-// 989.  Operations bound both; f32 FMAs on CUDA cores (67 TFLOP/s) cannot
-// reach that, and these kernels, staging every operand through shared
-// memory, reach a fraction of the FMA rate: f32 K2 at Dh 256 takes
-// 2.33 ms there, 6.7% of its 0.157 ms bound (an H100 at 700 W).  They are
-// the simple ones; f32 K2 on tensor cores at 129-256 is later work, and
-// past 256 no configuration of the repo has heads.
+// What bounds them on this card: at B*H = 128, T = 512, Dh = 320, causal,
+// K2 does 6*Dh and K3 8*Dh FLOPs per unmasked (q, k) pair, 32.3 and 43.0
+// GFLOP: 0.196 and 0.261 ms at the 3xTF32 rate of 165 TFLOP/s (f32),
+// 0.033 and 0.043 ms at bf16's 989.  Operations bound both; f32 FMAs on
+// CUDA cores (67 TFLOP/s) cannot reach that, and these kernels, staging
+// every operand through shared memory, reach a fraction of the FMA rate
+// (12-20 ms at Dh 320 and 512 on an H100 at 700 W).  They are the simple
+// ones: no configuration or probe of the repo has heads past 256.
 //
-// An f32 dQ at Dh 256 can equal the plain version (flash_bwd_plain) bit
-// for bit: cuBLAS's f32 products at these shapes sum in order with FMA, as
+// An f32 output can equal the plain version (flash_bwd_plain) bit for
+// bit: cuBLAS's f32 products at these shapes sum in order with FMA, as
 // these loops do, and the kernel's s * scale - L, contracted to one FMA,
-// rounds as the plain version's multiply and subtract do when the scale is
-// a power of two (1/16).  chip_smoke.py's k2k3_exact_reading row shows
-// both; the check itself is live there (a value moved by 1e-4 fails it).
+// rounds as the plain version's multiply and subtract do when the product
+// is exact (a scale that is a power of two).  chip_smoke.py's
+// k2k3_exact_reading row shows the first; the check itself is live there
+// (a value moved by 1e-4 fails it).
 //
 // Design (the simple CUDA-core backward): K2 is one block of 128 threads
-// per (batch*head, 32-row query tile) that keeps its Q and dO
-// tiles in shared memory and loops over 16-row K/V tiles, recomputing S
-// and dP per tile and accumulating dQ in registers.  K3 is one block per
-// (batch*head, 16-row key tile) that keeps K and V and loops over 32-row
-// Q/dO tiles from the diagonal on, accumulating dK and dV in registers.
-// The tile heights keep a thread's accumulators at 64 floats (2 x 32 of
-// dQ; 1 x 32 each of dK and dV) and each block's shared memory near
-// 100 KB, two blocks an SM.  Each output has one writer and the
-// reference's summation order (over key tiles for dQ, over query tiles for
-// dK and dV), no atomics.  Padded shared-memory strides keep warp
-// accesses free of bank conflicts.
+// per (batch*head, 32-row query tile, panel) that loops over 16-row K/V
+// tiles, staging Q, dO, K and V chunk by chunk to recompute S and dP per
+// tile, and accumulates its panel of dQ in registers.  K3 is one block per
+// (batch*head, 16-row key tile, panel) that loops over 32-row Q/dO tiles
+// from the diagonal on, accumulating dK and dV in registers.  The tile
+// heights keep a thread's accumulators at 64 floats (2 x 32 of dQ;
+// 1 x 32 each of dK and dV) and each block's shared memory near 100 KB,
+// two blocks an SM.  Each output has one writer and the reference's
+// summation order (over key tiles for dQ, over query tiles for dK and
+// dV), no atomics.  Padded shared-memory strides keep warp accesses free
+// of bank conflicts.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -189,7 +183,7 @@ constexpr size_t dq_smem_bytes() {
                           kDqRows * (kDqKeys + 8));
 }
 
-template <typename T, bool kChunked>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
@@ -214,14 +208,10 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* db = dout + (size_t)bh * tq * dh;
   const T* kb = k + (size_t)bh * tk * dh;
   const T* vb = v + (size_t)bh * tk * dh;
-  // this block's panel of dQ, and the chunks of Dh that S and dP sum
-  // (one of each at compile time unless kChunked, Dh > kD)
-  const int p0 = kChunked ? blockIdx.z * kD : 0;
-  const int n_chunks = kChunked ? (dh + kD - 1) / kD : 1;
-  if (n_chunks == 1) {  // Q and dO stay resident
-    stage<T, kDqRows>(qs, qb, q0, tq, dh);
-    stage<T, kDqRows>(dos, db, q0, tq, dh);
-  }
+  // this block's panel of dQ, and the chunks of Dh (> kD) that S and dP
+  // sum
+  const int p0 = blockIdx.z * kD;
+  const int n_chunks = (dh + kD - 1) / kD;
 
   // this thread's rows are ty + kTy*i, its keys tx + kTx*j
   float l_row[kRm], d_row[kRm], acc[kRm][kRd];
@@ -244,10 +234,8 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int ch = 0; ch < n_chunks; ++ch) {
       // the last tile's (or chunk's) readers are done with the tiles
       __syncthreads();
-      if (n_chunks > 1) {
-        stage<T, kDqRows>(qs, qb, q0, tq, dh, ch * kD);
-        stage<T, kDqRows>(dos, db, q0, tq, dh, ch * kD);
-      }
+      stage<T, kDqRows>(qs, qb, q0, tq, dh, ch * kD);
+      stage<T, kDqRows>(dos, db, q0, tq, dh, ch * kD);
       stage<T, kDqKeys>(ks, kb, k0, tk, dh, ch * kD);
       stage<T, kDqKeys>(vs, vb, k0, tk, dh, ch * kD);
       __syncthreads();
@@ -398,18 +386,18 @@ flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store<T, kRm>(dv + (size_t)bh * tk * dh, acc_v, k0, tk, dh, p0, tx, ty);
 }
 
-template <typename T, bool kChunked>
+template <typename T>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* dvec,
                       void* dq, int bh, int tq, int tk, int dh, int causal,
                       float scale, cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_wide_kernel<T, kChunked>,
+      flash_bwd_dq_wide_kernel<T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (tq + kDqRows - 1) / kDqRows, (dh + kD - 1) / kD);
-  flash_bwd_dq_wide_kernel<T, kChunked><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_dq_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dvec),
@@ -441,15 +429,13 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 // The entry points behind dkt_flash_bwd_dq / dkt_flash_bwd_dkv on CUDA
 // cores (flash_bwd.cu, which checks the arguments and sets the device):
 // q, k, v, dout contiguous, of dtype 0 (float32) or 1 (bfloat16), rows of
-// head_dim values; head_dim > 256, or for f32 K2 > 128.
+// head_dim > 256 values.
 cudaError_t flash_bwd_dq_wide(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* dvec, void* dq, int bh, int tq,
                               int tk, int head_dim, int causal, float scale,
                               int dtype, cudaStream_t stream) {
-  auto f = dtype == 1       ? launch_dq<__nv_bfloat16, true>
-           : head_dim > kD  ? launch_dq<float, true>
-                            : launch_dq<float, false>;
+  auto f = dtype == 0 ? launch_dq<float> : launch_dq<__nv_bfloat16>;
   return f(q, k, v, dout, lse, dvec, dq, bh, tq, tk, head_dim, causal, scale,
            stream);
 }

@@ -24,23 +24,28 @@
 //   - f32, Dh <= 128, where they do not (the serving shapes, B*H = 8 and
 //     T <= 512): the CUDA-core kernel here with 32- or 16-row tiles, which
 //     fills the card with more, shorter blocks.  On an H100 it took
-//     0.72-0.87x the 3xTF32 kernel's time at those shapes, and the 3xTF32
-//     kernel 0.31-0.61x its time at the training shapes;
-//   - f32 past Dh 128 and bf16 past 256 (the reference's BlockSpecs
-//     span any head dim): the CUDA-core kernel.
+//     0.72-0.87x the 3xTF32 kernel's time at those shapes at Dh 64, and
+//     the 3xTF32 kernel 0.31-0.61x its time at the training shapes;
+//   - f32, Dh 129-256, at any grid: the 3xTF32 kernel's eight-warp form
+//     (flash_fwd_tf32_wide_kernel).  At gpt_lm(dim=2048)'s serving joins
+//     (B*H = 8, T 20-128, Dh 256) it took 0.55-0.80x the CUDA-core
+//     kernel's time on an H100 (kernel_ab.py), and at its training shape
+//     0.31-0.33x;
+//   - past Dh 256 in both dtypes (the reference's BlockSpecs span any
+//     head dim): the CUDA-core kernel.
 // Both f32 kernels compute exact f32 products (the JAX package's HIGHEST
 // policy); both are held against the plain version on the card.
 //
 // The CUDA-core kernel: f32 FMAs; bf16 inputs are read as bf16 and
 // widened, with f32 products, sums and statistics.  Its tiles are D = 32,
-// 64, 128 or 256 columns wide, the columns past the caller's Dh
-// zero-filled on load and never stored, so any Dh runs on unpadded rows.
-// Past Dh 256 a block computes one 256-column panel of O (the grid's
-// third dimension holds the panels) and forms S over the whole Dh by
-// staging Q and K in 256-column chunks, in order, so every panel's block
-// sums S alike and holds the same P; panel 0 writes lse.  Registers and
-// shared memory stay at the 256-wide tile's; at Dh <= 256 there is one
-// chunk and one panel, and the kernel is the single-tile one.
+// 64, 128 (f32 at the serving grids) or 256 (past Dh 256) columns wide,
+// the columns past the caller's Dh zero-filled on load and never stored,
+// so any Dh runs on unpadded rows.  Past Dh 256 a block computes one
+// 256-column panel of O (the grid's third dimension holds the panels) and
+// forms S over the whole Dh by staging Q and K in 256-column chunks, in
+// order, so every panel's block sums S alike and holds the same P; panel
+// 0 writes lse.  Registers and shared memory stay at the 256-wide
+// tile's.
 //
 // What bounds it on this card: at the serving shapes (B*H = 8, T <= 512,
 // Dh = 64) the work is 4*T^2*Dh FLOPs per head (halved by the causal
@@ -51,17 +56,17 @@
 // there are for 132 SMs.  At Dh 256 (B*H = 128, T = 512, causal; gpt_lm at
 // dim 2048, 8 heads, batch 16) it does 17.2 GFLOP: 0.104 ms at the 3xTF32
 // rate (f32), 0.017 ms at bf16's; operations bound it, and FMAs on CUDA
-// cores (67 TFLOP/s) cannot come near either.  bf16 there runs on the
-// wgmma kernel; f32 on tensor cores past Dh 128 is later work.
+// cores (67 TFLOP/s) cannot come near either, so both dtypes run there on
+// the tensor-core kernels.
 //
 // Design: one block of 128 threads per (batch*head, query tile of BM
-// rows); a loop over K/V tiles (64 rows, 32 at Dh 256) staged in shared
-// memory as f32; each thread owns a (BM/16)x(BN/8) cell tile of S and a
-// (BM/16)x(D/8) tile of O in registers, with the running max and sum of
-// its rows in f32 registers (the 8 threads sharing a row reduce with warp
-// shuffles).  BM is 32 where B*H*T/32 blocks fill the card twice and 16
-// where they do not; at Dh 256, 104 KB of shared memory at BM = 32 fit
-// two blocks an SM.  Every row keeps the same key tiles, products and
+// rows); a loop over K/V tiles (64 rows, 32 on the 256-wide tile) staged
+// in shared memory as f32; each thread owns a (BM/16)x(BN/8) cell tile of
+// S and a (BM/16)x(D/8) tile of O in registers, with the running max and
+// sum of its rows in f32 registers (the 8 threads sharing a row reduce
+// with warp shuffles).  BM is 32 where B*H*T/32 blocks fill the card
+// twice and 16 where they do not; on the 256-wide tile, 104 KB of shared
+// memory at BM = 32 fit two blocks an SM.  Every row keeps the same key tiles, products and
 // summation order whatever BM is.  Up to Dh 64 the next K/V tile is loaded
 // into registers while the current one is computed.  Rows and keys past
 // the ends are masked, so any T works.  Padded shared-memory strides keep
@@ -80,7 +85,7 @@ cudaError_t flash_fwd_bf16(const void* q, const void* k, const void* v,
                            void* out, void* lse, int bh, int tq, int tk,
                            int head_dim, int causal, float scale,
                            cudaStream_t stream);
-// the f32 tensor-core kernel (flash_fwd_tf32_sm90.cu); 1 <= head_dim <= 128
+// the f32 tensor-core kernels (flash_fwd_tf32_sm90.cu); 1 <= head_dim <= 256
 cudaError_t flash_fwd_f32(const void* q, const void* k, const void* v,
                           void* o, void* lse, int bh, int tq, int tk,
                           int head_dim, int causal, float scale,
@@ -147,11 +152,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + (size_t)bh * tk * dh;
   const T* vb = v + (size_t)bh * tk * dh;
 
-  // kChunked (Dh > D; launched with the 256-wide tile only): the block
-  // computes O's columns [p0, p0 + D) (a panel; gridDim.z panels in all)
-  // and forms S over the whole Dh in chunks of D columns, Q's and K's
-  // chunk c staged in turn.  Otherwise one chunk and one panel, at
-  // compile time, and Q is staged once.
+  // kChunked (the 256-wide tile, Dh > D): the block computes O's columns
+  // [p0, p0 + D) (a panel; gridDim.z panels in all) and forms S over the
+  // whole Dh in chunks of D columns, Q's and K's chunk c staged in turn.
+  // Otherwise one chunk and one panel, at compile time, and Q is staged
+  // once.
   const int p0 = kChunked ? blockIdx.z * D : 0;
   const int n_chunks = kChunked ? (dh + D - 1) / D : 1;
   // columns [c0, c0 + D) of Q; columns at or past dh (and rows past the
@@ -321,14 +326,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D, int BM, bool kChunked = false>
+// the 256-wide tile runs only past Dh 256: panels and chunks
+template <typename T, int D, int BM, bool kChunked = D == 256>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int bh, int tq, int tk, int dh, int causal,
                    float scale, cudaStream_t stream) {
-  if constexpr (D == 256 && !kChunked)
-    if (dh > D)  // past the tile: panels and chunks
-      return launch<T, D, BM, true>(q, k, v, o, lse, bh, tq, tk, dh, causal,
-                                    scale, stream);
   constexpr size_t smem = smem_bytes<D, BM>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D, BM, kChunked>,
@@ -403,13 +405,15 @@ extern "C" int dkt_flash_fwd(const void* q, const void* k, const void* v,
   int rows;
   if ((err = rows_per_block(device, bh, tq, &rows)) != cudaSuccess)
     return (int)err;
-  if (!wide && rows == 64) {  // the grid fills the card: tensor cores
-    dkt_set_last_kernel(kTf32);
+  if (dtype == 0 && (wide ? head_dim <= 256 : rows == 64)) {
+    // up to Dh 128 where the grid fills the card, at 129-256 at any grid:
+    // tensor cores
+    dkt_set_last_kernel(wide ? kTf32Wide : kTf32);
     return (int)flash_fwd_f32(q, k, v, o, lse, bh, tq, tk, head_dim, causal,
                               scale, s);
   }
   dkt_set_last_kernel(kCudaCores);
-  if (wide)
+  if (wide)  // past 256
     return (int)(dtype == 0
                      ? launch_rows<float, 256>(rows, q, k, v, o, lse, bh, tq,
                                                tk, head_dim, causal, scale, s)

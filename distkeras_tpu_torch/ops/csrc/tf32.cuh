@@ -5,9 +5,10 @@
 // fragment loads of both orientations of a tile (row stride Dh + 4
 // floats), the A fragment taken from an accumulator, S = X Y^T over half
 // a 64-row tile with the small terms summed apart (in one chain, or in
-// pairs of k-steps from zero), unpadded rows of any Dh into a tile, and
-// the product of an accumulator with a tile's rows over all of Dh.  The
-// file header of flash_bwd_tf32_sm90.cu says why each is as it is.
+// pairs of k-steps from zero), unpadded rows of any Dh into a tile, the
+// product of an accumulator with a tile's rows over Dh or a slice of it,
+// and the named barriers of a warp pair.  The file header of
+// flash_bwd_tf32_sm90.cu says why each is as it is.
 //
 // Everything here is inline or a template, so each .cu that includes it
 // keeps its own copy and the linked library has no duplicate symbols.
@@ -196,8 +197,9 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
   }
 }
 
-// c[j] (16 x kHalf) = X Y^T for this warp's rows [m0, m0 + 16) of x and
-// the kHalf rows of y, contracted along Dh.  hi*hi of each pair of k-steps
+// c[j] (16 x 8 NJ) = X Y^T for this warp's rows [m0, m0 + 16) of x and
+// the 8 NJ rows of y (kHalf by default), contracted along Dh.  hi*hi of
+// each pair of k-steps
 // sums from zero and is added to c in f32; the small terms sum apart in
 // cs.  The tensor core aligns an mma's addends to the largest and rounds
 // toward zero, so in one chain over Dh/8 k-steps (the backward's
@@ -209,54 +211,56 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
 // plain version's 1.1e-5), for 3-5% more time; each k-step from zero gains
 // little more for 19% (an H100, 700 W).  U pairs are unrolled at a time
 // (all by default): K3 at Dh 129-256 takes one, to keep its registers.
-template <int D, int U = D / 16>
-__device__ __forceinline__ void product_s(float (&c)[kNJ][4], const float* x,
+template <int D, int U = D / 16, int NJ = kNJ>
+__device__ __forceinline__ void product_s(float (&c)[NJ][4], const float* x,
                                           const float* y, int m0, int g,
                                           int t) {
   static_assert(D % 16 == 0, "k-steps go in pairs");
   constexpr int LD = D + 4;
-  float cs[kNJ][4];
+  float cs[NJ][4];
 #pragma unroll
-  for (int j = 0; j < kNJ; ++j)
+  for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) c[j][i] = cs[j][i] = 0.f;
 #pragma unroll(U)
   for (int kk = 0; kk < D / 8; kk += 2) {
-    float pair[kNJ][4];
+    float pair[NJ][4];
 #pragma unroll
-    for (int j = 0; j < kNJ; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) pair[j][i] = 0.f;
 #pragma unroll
     for (int k2 = kk; k2 < kk + 2; ++k2) {
       const FragA a = frag_a<LD>(x, m0, 8 * k2, g, t);
 #pragma unroll
-      for (int j = 0; j < kNJ; ++j)
+      for (int j = 0; j < NJ; ++j)
         mma3(pair[j], cs[j], a, frag_bt<LD>(y, 8 * j, 8 * k2, g, t));
     }
 #pragma unroll
-    for (int j = 0; j < kNJ; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) c[j][i] += pair[j][i];
   }
 #pragma unroll
-  for (int j = 0; j < kNJ; ++j)
+  for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) c[j][i] += cs[j][i];
 }
 
-// acc (16 x D) += P V for this warp's 16 rows: P (16 x kHalf) the
+// acc (16 x N) += P V for this warp's 16 rows: P (16 x kHalf) the
 // accumulator p[s] (columns 8s .. 8s + 7 of the half), V the kHalf rows of
-// `y` (row stride D + 4); K3 at Dh 129-256 forms dV += P^T dO and
-// dK += dS^T Q so.  P's fragments are split once (or, with !kSplitOnce,
-// again for each chunk, which keeps 32 registers free); the product runs
-// over kChunk n8 tiles of output columns at a time (32 columns by
-// default), each chunk's sum taken apart from zero and added to acc in
-// f32.  Neither choice changes a sum.
-template <int D, bool kSplitOnce = true, int kChunk = 4>
-__device__ __forceinline__ void product_pv(float (&acc)[D / 8][4],
+// `y` (row stride D + 4), its N columns (all D by default) from `y` on;
+// K3 at Dh 129-256 forms dV += P^T dO and dK += dS^T Q so, K1 and K2
+// there O += P V and dQ += dS K over half of D.  P's fragments are split
+// once (or, with !kSplitOnce, again for each chunk, which keeps 32
+// registers free); the product runs over kChunk n8 tiles of output
+// columns at a time (32 columns by default), each chunk's sum taken apart
+// from zero and added to acc in f32.  Neither choice changes a sum.
+template <int D, bool kSplitOnce = true, int kChunk = 4, int N = D>
+__device__ __forceinline__ void product_pv(float (&acc)[N / 8][4],
                                            const float (&p)[kNJ][4],
                                            const float* y, int g, int t) {
+  static_assert(N % (8 * kChunk) == 0, "whole chunks");
   constexpr int LD = D + 4;
   FragA a[kSplitOnce ? kNJ : 1];
   if constexpr (kSplitOnce) {
@@ -264,7 +268,7 @@ __device__ __forceinline__ void product_pv(float (&acc)[D / 8][4],
     for (int s = 0; s < kNJ; ++s) a[s] = frag_acc(p[s]);
   }
 #pragma unroll
-  for (int c0 = 0; c0 < D / 8; c0 += kChunk) {
+  for (int c0 = 0; c0 < N / 8; c0 += kChunk) {
     float part[kChunk][4];
 #pragma unroll
     for (int j = 0; j < kChunk; ++j)
@@ -282,6 +286,42 @@ __device__ __forceinline__ void product_pv(float (&acc)[D / 8][4],
     for (int j = 0; j < kChunk; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[c0 + j][i] += part[j][i];
+  }
+}
+
+// Named barriers of a warp pair (id 0 is __syncthreads): pair_sync waits
+// until both warps (64 threads) have reached barrier `id`; pair_arrive
+// counts this warp in without waiting.
+__device__ __forceinline__ void pair_arrive(int id) {
+  asm volatile("bar.arrive %0, 64;" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void pair_sync(int id) {
+  asm volatile("bar.sync %0, 64;" ::"r"(id) : "memory");
+}
+
+// K1 and K2 at Dh 129-256 split each kHalf-key tile between the two
+// warps of a pair: each scores kSideKeys of its keys.
+constexpr int kSideKeys = kHalf / 2;
+constexpr int kSideNJ = kSideKeys / 8;
+
+// The 16 x kHalf accumulator of a warp pair's shared rows, each warp
+// having formed the columns of one half of it (`own`, its keys of a
+// tile) and handed them to the other through shared memory: the pair's
+// warps hold them at the same lanes, so `other` is the partner's `own`
+// as read back.  `side` 0 holds the first half.  Selects, not an index by
+// `side`, keep the array in registers.
+__device__ __forceinline__ void join_halves(float (&p)[kNJ][4],
+                                            const float (&own)[kSideNJ][4],
+                                            const float4* other, int side) {
+#pragma unroll
+  for (int j = 0; j < kSideNJ; ++j) {
+    const float4 x = other[32 * j];
+    const float xo[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      p[j][i] = side ? xo[i] : own[j][i];
+      p[j + kSideNJ][i] = side ? own[j][i] : xo[i];
+    }
   }
 }
 

@@ -9,12 +9,13 @@ kernels, the ports of ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (through
 they run on tensor cores: in bf16 on wgmma and TMA
 (``ops/csrc/flash_fwd_sm90.cu``, ``ops/csrc/flash_bwd_sm90.cu``), in f32
 as 3xTF32 on mma.sync (``ops/csrc/flash_fwd_tf32_sm90.cu``,
-``ops/csrc/flash_bwd_tf32_sm90.cu``).  From 129 to 256 all three bf16
-kernels stay on wgmma (192- and 256-wide tiles) and the f32 K3 on
-3xTF32; the rest past 128 — the f32 forward and K2, and bf16 past 256 —
-runs on CUDA cores (``ops/csrc/flash_fwd.cu``,
-``ops/csrc/flash_bwd_wide.cu``), which take any head dim, as the
-reference's BlockSpecs do.  ``kernel_head_dim``
+``ops/csrc/flash_bwd_tf32_sm90.cu``), and so from 129 to 256: the bf16
+kernels on 192- and 256-wide wgmma tiles, the f32 ones as 3xTF32 on
+192- and 256-wide tiles.  The f32 forward up to 128 at grids too small
+for 64-row tiles (the serving shapes) and every kernel past 256 run on
+CUDA cores
+(``ops/csrc/flash_fwd.cu``, ``ops/csrc/flash_bwd_wide.cu``), which take
+any head dim, as the reference's BlockSpecs do.  ``kernel_head_dim``
 names the width each kernel runs.  On CPU tensors they are
 ``flash_fwd_plain`` and ``flash_bwd_plain``, the dense versions of the
 same functions.  A CUDA tensor never takes a plain version: the kernel
@@ -140,9 +141,9 @@ def kernel_head_dim(dh: int, dtype: torch.dtype, kernel: str) -> int:
     (they refuse a width this does not give them): the f32 forward reads
     any Dh; the bf16 kernels at 129–``WGMMA_WIDE_MAX`` (wgmma, TMA rows
     of a 16-byte multiple) the next multiple of 8; the rest up to 128 the
-    least of ``HEAD_DIMS`` that holds it, past 128 Dh itself (the f32 K3
-    at 129–256 and the CUDA-core kernels mask the columns past Dh and
-    take any Dh)."""
+    least of ``HEAD_DIMS`` that holds it, past 128 Dh itself (the f32 K2
+    and K3 at 129–256 and the CUDA-core kernels mask the columns past Dh
+    and take any Dh)."""
     if kernel == "fwd" and dtype == torch.float32:
         return dh
     if dtype == torch.bfloat16 and HEAD_DIMS[-1] < dh <= WGMMA_WIDE_MAX:
@@ -211,13 +212,13 @@ def _check(name: str, q, k, v, causal: bool, stats=(), do=None):
 #: the kernel each C entry point reports it ran
 #: (``dkt_flash_last_kernel``), by its code in ``csrc/launched.h``: bf16
 #: on wgmma at head dim 32/64/128, bf16 on wgmma at 129–256, f32 as
-#: 3xTF32 up to 128, CUDA cores, f32 as 3xTF32 at 129–256 (None: no such
-#: kernel)
+#: 3xTF32 up to 128, CUDA cores, f32 as 3xTF32 at 129–256
 KERNELS = {
     "dkt_flash_fwd": ("flash_fwd", "flash_fwd_wgmma_wide", "flash_fwd_f32",
-                      "flash_fwd_cuda_cores", None),
+                      "flash_fwd_cuda_cores", "flash_fwd_f32_wide"),
     "dkt_flash_bwd_dq": ("flash_bwd_dq", "flash_bwd_dq_wgmma_wide",
-                         "flash_bwd_dq_f32", "flash_bwd_dq_wide", None),
+                         "flash_bwd_dq_f32", "flash_bwd_dq_wide",
+                         "flash_bwd_dq_f32_wide"),
     "dkt_flash_bwd_dkv": ("flash_bwd_dkv", "flash_bwd_dkv_wgmma_wide",
                           "flash_bwd_dkv_f32", "flash_bwd_dkv_wide",
                           "flash_bwd_dkv_f32_wide"),

@@ -8,7 +8,7 @@ turns (other, this, this, other).
 
     mkdir -p _proof/parent                           # a git-ignored dir
     git archive <commit> | tar -x -C _proof/parent
-    python3 kernel_ab.py _proof/parent
+    python3 kernel_ab.py _proof/parent [192,256]     # optional: these Dh
 
 Each tree's build prints one line first: per kernel, its registers,
 spill-store bytes and whether its wgmma products were serialized, as
@@ -29,11 +29,14 @@ import sys
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-#: (kernel, dtype, B*H, T, Dh): the serving shapes of the f32 forward,
-#: the training shape and its Dh = 32 twin, the Dh-128 training shape
-#: (gpt_lm at dim 1024), the Dh-256 one (dim 2048) with Dh 192 beside it,
-#: and Dh 320 past the 256-wide tile (causal throughout)
+#: (kernel, dtype, B*H, T, Dh): the serving shapes of the f32 forward
+#: (the probe's at Dh 64, and gpt_lm at dim 2048's joins at Dh 256), the
+#: training shape and its Dh = 32 twin, the Dh-128 training shape (gpt_lm
+#: at dim 1024), the Dh-256 one (dim 2048) with Dh 192 beside it, and Dh
+#: 320 past the 256-wide tile (causal throughout)
 CASES = ([("fwd", "float32", 8, t, 64) for t in (64, 128, 256, 512)]
+         + [("fwd", "float32", 8, t, 256)
+            for t in (20, 64, 100, 128, 256, 512)]
          + [(k, d, bh, 512, dh)
             for bh, dh in ((512, 64), (512, 32), (256, 128), (128, 192),
                            (128, 256), (128, 320))
@@ -79,16 +82,20 @@ def run(torch, lib, kernel, q, k, v, lse, do, dvec):
 
 def main() -> int:
     import torch
-    if not torch.cuda.is_available() or len(sys.argv) != 2:
-        print("usage: kernel_ab.py OTHER_TREE (on a machine with a card)",
-              file=sys.stderr)
+    if not torch.cuda.is_available() or len(sys.argv) not in (2, 3):
+        print("usage: kernel_ab.py OTHER_TREE [DH,DH,...] (on a machine "
+              "with a card)", file=sys.stderr)
         return 1
+    dims = ({int(d) for d in sys.argv[2].split(",")} if len(sys.argv) == 3
+            else None)
     import chip_smoke
     from distkeras_tpu_torch.ops.flash_attention import flash_fwd_plain
     libs = {"other": library(sys.argv[1], "other"),
             "this": library(ROOT, "this")}
     gen = torch.Generator(device="cuda").manual_seed(0)
     for kernel, dtype_name, bh, t, dh in CASES:
+        if dims is not None and dh not in dims:
+            continue
         dtype = getattr(torch, dtype_name)
         q, k, v, do = (torch.randn((bh, t, dh), generator=gen, device="cuda")
                        .to(dtype) for _ in range(4))

@@ -19,7 +19,7 @@ import pytest
 import torch
 
 import distkeras_tpu_torch as dkt
-from chip_smoke import attention_float64, dkv_float64
+from chip_smoke import attention_float64, dkv_float64, dq_float64
 from distkeras_tpu_torch import SingleTrainer
 from distkeras_tpu_torch.data import load_lm_corpus
 from distkeras_tpu_torch.data.transformers import OneHotTransformer
@@ -273,7 +273,7 @@ def test_kernels_at_head_dims_between_the_instantiated_ones(dtype, causal,
 
 #: B·H of f32 forward cases that take the 3xTF32 kernel: 64-row query
 #: tiles give at least two blocks an SM (2 x 132 on an H100) from T = 100;
-#: at B·H 8 (the serving shapes) the CUDA-core kernel runs
+#: at B·H 8 (the serving shapes) the CUDA-core kernel runs up to Dh 128
 TC_BH = 136
 
 
@@ -282,6 +282,9 @@ TC_BH = 136
       for c in (True, False) for t in (100, 257)],
     (TC_BH, False, 100, 257, 96), (TC_BH, True, 130, None, 5),
     (TC_BH, False, 130, None, 127), (TC_BH, False, 130, 64, 1),
+    *[(TC_BH, c, 130, None, dh) for dh in (130, 192, 193, 255, 256)
+      for c in (True, False)],
+    (TC_BH, False, 100, 257, 200), (TC_BH, False, 100, 257, 255),
     *[(8, True, t, None, 64) for t in (64, 128, 256, 512)],
     *[(8, c, 100, None, dh) for dh in (16, 96, 128) for c in (True, False)],
     (8, False, 16, 48, 64), (8, False, 512, 100, 1), (8, True, 130, None, 5),
@@ -289,9 +292,10 @@ TC_BH = 136
 def test_f32_forward_kernel_matches_plain(bh, causal, t, tk, dh):
     """The f32 K1 against ``flash_fwd_plain`` on the same inputs: O and lse
     within 1e-5, one launch, rows of the caller's Dh read unpadded.  At
-    B·H ``TC_BH`` the 3xTF32 kernel runs (Dh 1, 5 and 127 by its 4-byte
-    loads); at B·H 8, the serving shapes among them (T 64–512, Dh 64), the
-    CUDA-core kernel with 32- and 16-row tiles."""
+    B·H ``TC_BH`` the 3xTF32 kernel runs (Dh 1, 5, 127, 130, 193 and 255
+    by its 4-byte loads; past 128 its eight-warp form); at B·H 8, the
+    serving shapes among them (T 64–512, Dh 64), the CUDA-core kernel with
+    32- and 16-row tiles."""
     q, k, v = (_to_bh(x) for x in _qkv(bh // 4, t, 4, dh, torch.float32,
                                          tk))
     launches = flash_fwd_cuda.launches
@@ -354,9 +358,10 @@ def test_f32_forward_kernel_is_3xtf32_not_tf32(causal, t, tk, dh):
 @pytest.mark.parametrize("dh", [130, 136, 192, 200, 256])
 def test_kernels_at_head_dims_past_128(dtype, causal, t, tk, dh):
     """Head dims 129–256: in bf16 K1, K2 and K3 on wgmma (192- and
-    256-wide tiles from unpadded rows; Dh 130 padded to 136), in f32 K3
-    as 3xTF32 on mma.sync (unpadded rows, 192 or 256 columns wide) and
-    K1 and K2 on CUDA cores.  K1, K2 and K3 against the plain versions,
+    256-wide tiles from unpadded rows; Dh 130 padded to 136), in f32 as
+    3xTF32 on mma.sync (unpadded rows, 192 or 256 columns wide; K1 so at
+    B·H 6 too, a grid of fewer blocks than SMs).  K1, K2 and K3 against
+    the plain versions,
     causal and not, Tq ≠ Tk both ways, ragged T, one launch each, each
     counted under its kernel; K1 in f32 within 1e-5, the rest within
     ``_close``'s bound of the dtype."""
@@ -380,7 +385,7 @@ def test_kernels_at_head_dims_past_128(dtype, causal, t, tk, dh):
     name = str(dtype).removeprefix("torch.")
     kernels = (("flash_fwd_wgmma_wide", "flash_bwd_dq_wgmma_wide",
                 "flash_bwd_dkv_wgmma_wide") if dtype == torch.bfloat16 else
-               ("flash_fwd_cuda_cores", "flash_bwd_dq_wide",
+               ("flash_fwd_f32_wide", "flash_bwd_dq_f32_wide",
                 "flash_bwd_dkv_f32_wide"))
     assert KERNEL_LAUNCHES - before == Counter(
         {(kernel, name, dh): 1 for kernel in kernels})
@@ -452,10 +457,11 @@ def test_bf16_wgmma_k1_k3_at_the_dim_2048_training_shape(dh):
 
 @pytest.mark.parametrize("dh", [192, 256])
 def test_f32_k3_at_the_dim_2048_training_shape(dh):
-    """The f32 K3 (3xTF32 on mma.sync) at ``gpt_lm(dim=2048)``'s training
-    shape (B·H = 128, T = 512, causal; Dh 256, and 192 beside it) against
-    ``flash_bwd_plain`` within the f32 bound, its launch counted under
-    ``flash_bwd_dkv_f32_wide``; K2 beside it on CUDA cores."""
+    """The f32 K2 and K3 (3xTF32 on mma.sync) at ``gpt_lm(dim=2048)``'s
+    training shape (B·H = 128, T = 512, causal; Dh 256, and 192 beside
+    it) against ``flash_bwd_plain`` within the f32 bound, their launches
+    counted under ``flash_bwd_dq_f32_wide`` and
+    ``flash_bwd_dkv_f32_wide``."""
     args, _ = _wide_inputs(128, 512, 512, dh, torch.float32, True, dh)
     before = Counter(KERNEL_LAUNCHES)
     got = (flash_bwd_dq_cuda(*args), *flash_bwd_dkv_cuda(*args))
@@ -463,8 +469,56 @@ def test_f32_k3_at_the_dim_2048_training_shape(dh):
         assert bool(torch.isfinite(g).all())
         _close(g, r, torch.float32)
     assert KERNEL_LAUNCHES - before == Counter(
-        {("flash_bwd_dq_wide", "float32", dh): 1,
+        {("flash_bwd_dq_f32_wide", "float32", dh): 1,
          ("flash_bwd_dkv_f32_wide", "float32", dh): 1})
+
+
+@pytest.mark.parametrize("dh", [192, 256])
+def test_f32_k1_at_the_dim_2048_training_shape(dh):
+    """The f32 K1 at ``gpt_lm(dim=2048)``'s training shape (B·H = 128,
+    T = 512, causal; Dh 256, and 192 beside it) against
+    ``flash_fwd_plain``: O and lse within 1e-5, the launch counted under
+    ``flash_fwd_f32_wide`` (3xTF32 on mma.sync, eight warps a block)."""
+    args, o_ref = _wide_inputs(128, 512, 512, dh, torch.float32, True, dh)
+    q, k, v, lse_ref = args[:4]
+    before = Counter(KERNEL_LAUNCHES)
+    o, lse = flash_fwd_cuda(q, k, v, True, args[-1])
+    torch.cuda.synchronize()
+    assert KERNEL_LAUNCHES - before == Counter(
+        {("flash_fwd_f32_wide", "float32", dh): 1})
+    assert bool(torch.isfinite(o).all())
+    assert (o - o_ref).abs().max() <= 1e-5
+    assert (lse - lse_ref).abs().max() <= 1e-5
+
+
+#: the f32 K1 at Dh 129-256 on a grid of B·H 8 (``gpt_lm(dim=2048)``'s
+#: serving joins): the kernel the measured dispatch gives it, the 3xTF32
+#: one, which took 0.52-0.75x the CUDA-core kernel's time there
+#: (``PERF.md`` §6, PR 11)
+SERVE_WIDE_K1 = "flash_fwd_f32_wide"
+
+
+@pytest.mark.parametrize("bh,t,want", [(128, 512, "flash_fwd_f32_wide"),
+                                       (8, 100, SERVE_WIDE_K1),
+                                       (8, 512, SERVE_WIDE_K1)])
+def test_f32_k1_at_head_dim_256_dispatches_by_grid_fill(bh, t, want):
+    """At Dh 256 the f32 K1 takes its 3xTF32 kernel on
+    ``gpt_lm(dim=2048)``'s training grid (B·H 128, where 64-row query
+    tiles give at least two blocks an SM) and ``SERVE_WIDE_K1`` at the
+    serving grids (B·H 8, a join of 100 tokens and a full row of 512),
+    where below Dh 128 the grid's fill picks the CUDA-core kernel: one
+    launch, counted under that kernel, within 1e-5 of
+    ``flash_fwd_plain``."""
+    gen = torch.Generator(device="cuda").manual_seed(bh + t)
+    q, k, v = (torch.randn((bh, t, 256), generator=gen, device="cuda")
+               for _ in range(3))
+    before = Counter(KERNEL_LAUNCHES)
+    o, lse = flash_fwd_cuda(q, k, v, True, 256 ** -0.5)
+    torch.cuda.synchronize()
+    assert KERNEL_LAUNCHES - before == Counter({(want, "float32", 256): 1})
+    o_ref, lse_ref = flash_fwd_plain(q, k, v, True, 256 ** -0.5)
+    assert (o - o_ref).abs().max() <= 1e-5
+    assert (lse - lse_ref).abs().max() <= 1e-5
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -507,8 +561,8 @@ def test_kernels_at_head_dims_past_256(dtype, causal, t, tk, dh):
 @pytest.mark.parametrize("t,dh", [(2048, 64), (2048, 128), (4096, 64),
                                   (4096, 128), (2048, 256), (4096, 256)])
 def test_f32_backward_kernels_at_long_sequences(t, dh):
-    """The f32 K2/K3 (3xTF32; at Dh 256 K3 alone, K2 on CUDA cores) over
-    long causal rows, where dK and dV sum the most query tiles and dQ the
+    """The f32 K2/K3 (3xTF32; at Dh 256 on 256-wide tiles) over long
+    causal rows, where dK and dV sum the most query tiles and dQ the
     most key tiles: still within the f32 bound (rtol 5e-4, atol 1e-5) of
     ``flash_bwd_plain``."""
     bh = 4
@@ -591,6 +645,71 @@ def test_f32_wide_k3_is_3xtf32_not_tf32(causal, t, tk, dh):
         _close(g, r, torch.float32)
         with pytest.raises(AssertionError):
             _close(one_pass, r, torch.float32)
+
+
+@pytest.mark.parametrize("causal,t,tk,dh", [
+    (True, 200, None, 192), (True, 200, None, 256), (False, 64, 130, 256)])
+def test_f32_wide_k2_is_3xtf32_not_tf32(causal, t, tk, dh):
+    """At head dims 129–256, on Q and K with a common offset of 1, the f32
+    K2 is within ``_close``'s f32 bound of dQ computed in float64, and
+    the plain version with TF32 products (``allow_tf32``) misses it: its
+    products are 3xTF32, not one TF32 pass (S and dP sum 24 or 32 k-steps
+    there, hi·hi in pairs from zero).  float64 is the witness, as for
+    K3."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    tk = t if tk is None else tk
+    q, do = (torch.randn((8, t, dh), generator=gen, device="cuda")
+             for _ in range(2))
+    k, v = (torch.randn((8, tk, dh), generator=gen, device="cuda")
+            for _ in range(2))
+    q, k = q + 1.0, k + 1.0
+    scale = dh ** -0.5
+    o, lse = flash_fwd_plain(q, k, v, causal, scale)
+    args = (q, k, v, lse, do, (do * o).sum(-1), causal, scale)
+    exact = dq_float64(torch, *args)
+    before = Counter(KERNEL_LAUNCHES)
+    got = flash_bwd_dq_cuda(*args)
+    assert KERNEL_LAUNCHES - before == Counter(
+        {("flash_bwd_dq_f32_wide", "float32", dh): 1})
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = flash_bwd_plain(*args)[0]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    _close(got, exact, torch.float32)
+    with pytest.raises(AssertionError):
+        _close(tf32, exact, torch.float32)
+
+
+@pytest.mark.parametrize("causal,t,tk,dh", [
+    (True, 200, None, 192), (True, 200, None, 256), (False, 130, 64, 256)])
+def test_f32_wide_k1_is_3xtf32_not_tf32(causal, t, tk, dh):
+    """At head dims 129–256 (B·H 128: 64-row tiles fill the card), on Q
+    and K with a common offset of 1, the f32 K1 is within 1e-5 of
+    attention computed in float64 (O and lse), and the plain forward with
+    TF32 products (``allow_tf32``) misses it: its products are 3xTF32, not
+    one TF32 pass (S sums 24 or 32 k-steps there, hi·hi in pairs from
+    zero)."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    tk = t if tk is None else tk
+    q = torch.randn((128, t, dh), generator=gen, device="cuda") + 1.0
+    k = torch.randn((128, tk, dh), generator=gen, device="cuda") + 1.0
+    v = torch.randn((128, tk, dh), generator=gen, device="cuda")
+    scale = dh ** -0.5
+    exact = attention_float64(torch, q, k, v, causal, scale)
+    before = Counter(KERNEL_LAUNCHES)
+    got = flash_fwd_cuda(q, k, v, causal, scale)
+    assert KERNEL_LAUNCHES - before == Counter(
+        {("flash_fwd_f32_wide", "float32", dh): 1})
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = flash_fwd_plain(q, k, v, causal, scale)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert max((g - r).abs().max().item() for g, r in zip(got, exact)) \
+        <= 1e-5
+    assert min((g - r).abs().max().item() for g, r in zip(tf32, exact)) \
+        > 1e-5
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

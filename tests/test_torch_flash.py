@@ -288,6 +288,116 @@ def _bwd_tf32(q, k, v, lse, do, dvec, causal, scale, passes):
             _tf32_matmul(t(p), do, passes))
 
 
+def _tf32_scores(a, b, passes):
+    """a @ bᵀ, contracted along Dh, as the f32 kernels at Dh 129–256 sum
+    S and dP (``tf32.cuh`` ``product_s``): hi·hi of each pair of 8-wide
+    k-steps from zero, the pairs added in f32 in order, the small terms
+    (lo·hi + hi·lo) summed apart over all of Dh and added last; one pass
+    is hi·hi alone."""
+    a_hi, b_hi = _tf32(a), _tf32(b.transpose(1, 2))
+    if passes == 1:
+        return a_hi @ b_hi
+    a_lo, b_lo = _tf32(a - a_hi, False), _tf32(b.transpose(1, 2) - b_hi,
+                                                False)
+    out = torch.zeros(a.shape[:-1] + b.shape[1:2])
+    for k0 in range(0, a.shape[-1], 16):
+        out = out + a_hi[..., k0:k0 + 16] @ b_hi[..., k0:k0 + 16, :]
+    return out + (a_lo @ b_hi + a_hi @ b_lo)
+
+
+def _tiled(a, b, passes, dim, tile=32):
+    """Σ over tiles of ``tile`` along a's axis ``dim`` (the contracted
+    one) of a_tile @ b_tile through ``_tf32_matmul``: each tile's product
+    from zero, added in f32, as the wide kernels add each 32-row tile's
+    O, dQ, dK and dV."""
+    out = 0
+    for k0 in range(0, a.shape[dim], tile):
+        out = out + _tf32_matmul(a.narrow(dim, k0, min(tile, a.shape[dim]
+                                                       - k0)),
+                                 b[:, k0:k0 + tile], passes)
+    return out
+
+
+def _causal_mask(tq, tk):
+    return torch.ones((tq, tk), dtype=torch.bool).tril()
+
+
+def _fwd_tf32_wide(q, k, v, causal, scale, passes):
+    """The f32 K1 at Dh 129–256: the online softmax over 32-key tiles, S
+    through ``_tf32_scores``, each tile's P·V from zero through
+    ``_tf32_matmul`` and added to the rescaled O in f32."""
+    bh, tq, _ = q.shape
+    keep = _causal_mask(tq, k.shape[1]) if causal else None
+    m = torch.full((bh, tq, 1), -float("inf"))
+    l, o = torch.zeros((bh, tq, 1)), 0
+    for k0 in range(0, k.shape[1], 32):
+        s = _tf32_scores(q, k[:, k0:k0 + 32], passes) * scale
+        if causal:
+            s = s.masked_fill(~keep[:, k0:k0 + 32], -float("inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr, p = torch.exp(m - m_new), torch.exp(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        o = o * corr + _tf32_matmul(p, v[:, k0:k0 + 32], passes)
+        m = m_new
+    return o / l, (m + torch.log(l))[..., 0]
+
+
+def _bwd_tf32_wide(q, k, v, lse, do, dvec, causal, scale, passes):
+    """The f32 K2 and K3 at Dh 129–256: S and dP through
+    ``_tf32_scores``; dQ summed over 32-key tiles, dK and dV over 32-query
+    tiles (``_tiled``)."""
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    p = torch.exp(_tf32_scores(q, k, passes) * scale - lse[..., None])
+    if causal:
+        p = torch.where(_causal_mask(*p.shape[-2:]), p, 0.0)
+    ds = p * (_tf32_scores(do, v, passes) - dvec[..., None]) * scale
+    return (_tiled(ds, k, passes, 2), _tiled(t(ds), q, passes, 2),
+            _tiled(t(p), do, passes, 2))
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "bwd"])
+@pytest.mark.parametrize("causal,t,tk", [(True, 64, 64), (False, 32, 96)])
+def test_wide_3xtf32_recipe_matches_jax_kernels(kernel, causal, t, tk):
+    """The f32 kernels' arithmetic at head dims 129–256 (Dh 256 here),
+    emulated in plain torch — 3xTF32 with S and dP's hi·hi summed in
+    pairs of k-steps from zero and each 32-row tile's output product
+    summed from zero and added in f32 (``_fwd_tf32_wide``,
+    ``_bwd_tf32_wide``) — against the JAX package's Pallas kernels
+    (``_flash_fwd_raw``, ``_flash_bwd_raw``, interpret mode, f32
+    HIGHEST) on Q and K with a common offset of 1 (scores near 16):
+    forward O and lse within the f32 flash bound (``TOL``), gradients
+    within ``GRAD_TOL``; one TF32 pass misses both."""
+    rng = np.random.default_rng(13)
+    bh, dh = 2, 256
+    q, k = (torch.from_numpy((rng.normal(size=(bh, n, dh)) + 1.0).astype(
+        np.float32)) for n in (t, tk))
+    v = torch.from_numpy(rng.normal(size=(bh, tk, dh)).astype(np.float32))
+    scale = dh ** -0.5
+    if kernel == "fwd":
+        out = jax.jit(functools.partial(_flash_fwd_raw, causal=causal,
+                                        bq=16, bk=16, scale=scale))(
+            *(jnp.asarray(x.numpy()) for x in (q, k, v)))
+        ref = (out[0], out[1][:, 0])
+        run = functools.partial(_fwd_tf32_wide, q, k, v, causal, scale)
+        tol = TOL
+    else:
+        do = torch.from_numpy(rng.normal(size=(bh, t, dh)).astype(np.float32))
+        o, lse = flash_fwd_plain(q, k, v, causal, scale)
+        dvec = (do * o).sum(-1)
+        ref = jax.jit(functools.partial(_flash_bwd_raw, causal=causal, bq=16,
+                                        bk=16, scale=scale))(
+            *(jnp.asarray(x.numpy()) for x in (q, k, v, do)),
+            *(jnp.asarray(x.numpy())[:, None, :] for x in (lse, dvec)))
+        run = functools.partial(_bwd_tf32_wide, q, k, v, lse, do, dvec,
+                                causal, scale)
+        tol = GRAD_TOL
+    for got, one_pass, r in zip(run(passes=3), run(passes=1), ref):
+        r = np.asarray(r)
+        np.testing.assert_allclose(got.numpy(), r, **tol)
+        with pytest.raises(AssertionError):
+            np.testing.assert_allclose(one_pass.numpy(), r, **tol)
+
+
 @pytest.mark.parametrize("causal,t,tk,dh", [(True, 64, 64, 32),
                                             (False, 16, 48, 32),
                                             (True, 64, 64, 64)])
@@ -638,8 +748,8 @@ def test_library_key_covers_every_csrc_file(tmp_path, monkeypatch):
 def test_kernel_names_follow_the_c_interface_codes():
     """``KERNELS`` names the kernel each C entry point reports it ran by
     its code in ``csrc/launched.h``, the one place the codes are defined;
-    past head dim 128 all three bf16 kernels have a wgmma kernel and only
-    K3 a 3xTF32 one; the launch counts start from 0 after
+    past head dim 128 all three kernels have a wgmma kernel (bf16) and a
+    3xTF32 one (f32); the launch counts start from 0 after
     ``reset_launches``; and ``chip_smoke.CUDA_KERNELS`` lists every named
     kernel once."""
     import importlib
@@ -656,7 +766,8 @@ def test_kernel_names_follow_the_c_interface_codes():
     assert all(len(names) == len(codes) for names in fa_mod.KERNELS.values())
     assert all(names[1] for names in fa_mod.KERNELS.values())
     assert [names[4] for names in fa_mod.KERNELS.values()] == [
-        None, None, "flash_bwd_dkv_f32_wide"]
+        "flash_fwd_f32_wide", "flash_bwd_dq_f32_wide",
+        "flash_bwd_dkv_f32_wide"]
     names = [n for ns in fa_mod.KERNELS.values() for n in ns if n]
     assert sorted(names) == sorted(n for n, _, _ in chip_smoke.CUDA_KERNELS)
     fa_mod.KERNEL_LAUNCHES[("flash_fwd", "float32", 64)] += 1

@@ -376,7 +376,7 @@ def test_unported_trainer_options_raise():
     with pytest.raises(NotImplementedError, match="Queue 1 item 4 "):
         t.train(object())
     for profile in ("trace", {"step_split": True}):
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 7 "):
             dkt.SingleTrainer(model, profile=profile, device="cpu")
 
 
