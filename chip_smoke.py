@@ -121,6 +121,30 @@ Phases, one JSON line each:
    over ResNet-20 (width 16, 2 windows of 2 steps at batch 8) against
    the CPU by ``f32_parity_ok``, with a TF32-on control that must fail.
 
+12. ``yaml_lm`` — configs/bench_all.yaml's flash LM (``YAML_LM_CONFIGS``:
+   dim 128, 4 heads of Dh 32, bf16, 4 epochs of 32 steps at batch 64) as
+   configured, then its ``quick`` variant (Dh 16, zero-padded to 32 by
+   the bf16 kernels): K1, K2 and K3 launched exactly once per block per
+   step, the loss falls.
+13. ``ckpt`` — the bf16 probe LM (``train``'s part (b)) trained 3 epochs
+   straight (twice: the run repeats bit for bit) and 1 epoch with
+   ``checkpoint_dir`` then resumed to 3: parameters and the resumed
+   epochs' losses bit-identical to the straight run's, K1-K3 counted on
+   both; the checkpoint's bytes and its save and load ms; then
+   ``serialize()`` -> ``deserialize_model`` -> ``load_jax_variables``
+   onto the card, 4 greedy requests served through ``DecodeEngine``
+   equal to the trained model's ``generate_tokens``; then ADAG on the
+   ConvNet at 8 workers, 2 epochs straight against 1 plus a resume, the
+   center bit-identical.
+14. ``stream`` — configs/bench_all.yaml's two stream-from-disk configs
+   (``STREAM_CONFIGS``: ResNet-50/96px, bf16, ``SingleTrainer`` from
+   256-row shards for 4 epochs, ADAG at 8 workers from 128-row shards
+   for 3), from shards written to a temporary directory: samples/s of
+   the last epoch, stall seconds, the prefetch queue's mean depth over
+   the run, peak memory; the busy share of the last epoch of the same
+   configured run repeated under the profiler; the loss falls.  One epoch of the SingleTrainer config from RAM and from
+   disk: parameters within rtol 2e-5, atol 2e-6.
+
 ``k1`` and ``k2k3`` also hold head dims 16, 48 and 96 (which bf16 K1
 and K2/K3 run zero-padded to 32, 64 and 128, and the f32 K1 reads
 unpadded; the f32 K1 also at Dh 5 and 127 on both its kernels), 136,
@@ -291,6 +315,52 @@ DIST_RUNS = (
 #: deltas summed in full at lr 0.005), and has fallen by the tenth (4.73),
 #: so it runs 10 epochs
 DIST_EPOCHS = {"AEASGD": 2, "EAMSGD": 2, "DynSGD": 10}
+#: configs/bench_all.yaml:97-117, the flash LM (Dh 32) and its ``quick``
+#: variant (Dh 16, which the bf16 kernels run zero-padded to 32), as data
+#: (tests/test_torch_dist.py holds them against the file)
+YAML_LM_CONFIGS = {
+    "GPT-LM flash T=256 (bf16)": dict(
+        trainer="SingleTrainer", model="gpt_lm",
+        model_kwargs={"vocab_size": 64, "dim": 128, "num_heads": 4,
+                      "num_blocks": 2, "seq_len": 256,
+                      "attention_impl": "flash"},
+        dataset="load_lm_corpus",
+        dataset_kwargs={"n_train": 2048, "seq_len": 256, "vocab_size": 64},
+        onehot=None,
+        trainer_kwargs={"loss": SCE, "label_col": "label", "num_epoch": 4,
+                        "batch_size": 64, "learning_rate": 0.003,
+                        "compute_dtype": "bfloat16"},
+        quick={"model_kwargs": {"vocab_size": 64, "dim": 32,
+                                "num_heads": 2, "num_blocks": 1,
+                                "seq_len": 64, "attention_impl": "flash"},
+               "dataset_kwargs": {"n_train": 256, "seq_len": 64,
+                                  "vocab_size": 64},
+               "trainer_kwargs": {"num_epoch": 1}}),
+}
+#: configs/bench_all.yaml:124-170, the two stream-from-disk configs, as
+#: data: ``streaming`` is rows a shard, spilled by
+#: ``ShardedFileDataset.write`` (distkeras_tpu/config.py:122-150)
+STREAM_CONFIGS = {
+    "ResNet-50/96px stream-from-disk": dict(
+        trainer="SingleTrainer", model="resnet50",
+        model_kwargs={"num_classes": 100, "input_size": 96},
+        dataset="load_imagenet_subset",
+        dataset_kwargs={"n_train": 1024, "num_classes": 100,
+                        "image_size": 96}, onehot=100, streaming=256,
+        trainer_kwargs={"num_epoch": 4, "batch_size": 16,
+                        "learning_rate": 0.005,
+                        "compute_dtype": "bfloat16"}),
+    "ADAG ResNet-50/96px stream-from-disk (auto-w)": dict(
+        trainer="ADAG", model="resnet50",
+        model_kwargs={"num_classes": 100, "input_size": 96},
+        dataset="load_imagenet_subset",
+        dataset_kwargs={"n_train": 1024, "num_classes": 100,
+                        "image_size": 96}, onehot=100, streaming=128,
+        trainer_kwargs={"num_workers": "auto", "communication_window": 2,
+                        "num_epoch": 3, "batch_size": 16,
+                        "learning_rate": 0.005,
+                        "compute_dtype": "bfloat16"}),
+}
 PROMPT_LENS = (20, 64, 100, 128, 200, 256, 300, 448)
 MAX_NEW = (64, 16, 40, 24, 64, 32, 48, 64)
 
@@ -1130,25 +1200,35 @@ def _leaves(variables):
     return tree_leaves(variables["params"])
 
 
-def second_epoch_on_device(prof):
-    """The second epoch of a two-epoch ``train()`` traced by ``prof``, on
-    the device's timeline: from the end of epoch 1's loss readback to the
-    end of epoch 2's — the trainer copies each epoch's losses into pinned
-    memory, the run's only such copies — so the window the trainer's
-    ``epoch_seconds`` measure with CUDA events.  Returns (window µs, busy
-    µs: the union of the device's intervals inside the window, {name:
-    device µs inside the window})."""
+def device_events(prof):
+    """The device's kernels and copies in ``prof``'s trace, as (start µs,
+    end µs, name), read from kineto's own event list: ``prof.events()``
+    builds a tree of every event first, which takes minutes for a few
+    epochs of ResNet-50."""
     from torch.autograd import DeviceType
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-           and not getattr(e, "is_user_annotation", False)]
-    marks = sorted(e.time_range.end for e in dev if "Pinned" in e.name)
-    check(len(marks) == 2, f"expected 2 loss readbacks to pinned memory in "
-          f"the trace, found {len(marks)}")
-    lo, hi = marks
+    return [(e.start_ns() / 1e3, e.end_ns() / 1e3, e.name())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA
+            and not e.is_user_annotation()
+            and not getattr(e, "is_hidden_event", lambda: False)()]
+
+
+def last_epoch_on_device(prof, epochs=2):
+    """The last epoch of an ``epochs``-epoch ``train()`` traced by
+    ``prof``, on the device's timeline: from the end of the previous
+    epoch's loss readback to the end of its own — the trainer copies each
+    epoch's losses into pinned memory, the run's only such copies — so
+    the window the trainer's ``epoch_seconds`` measure with CUDA events.
+    Returns (window µs, busy µs: the union of the device's intervals
+    inside the window, {name: device µs inside the window})."""
+    dev = device_events(prof)
+    marks = sorted(end for _, end, name in dev if "Pinned" in name)
+    check(len(marks) == epochs, f"expected {epochs} loss readbacks to "
+          f"pinned memory in the trace, found {len(marks)}")
+    lo, hi = marks[-2:]
     busy, reached, by_name = 0.0, lo, {}
     for start, end, name in sorted(
-            (max(e.time_range.start, lo), min(e.time_range.end, hi), e.name)
-            for e in dev):
+            (max(start, lo), min(end, hi), name) for start, end, name in dev):
         if end <= start:
             continue                  # outside the window
         busy += max(0.0, end - max(start, reached))
@@ -1257,7 +1337,7 @@ def phase_train(torch):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         pt.train(ds)
         torch.cuda.synchronize()
-    window_us, busy_us, by_name = second_epoch_on_device(prof)
+    window_us, busy_us, by_name = last_epoch_on_device(prof)
     epoch_s = [r for r in pt.metrics.records
                if r["event"] == "epoch"][-1]["epoch_seconds"]
     share = {n: sum(us for name, us in by_name.items()
@@ -1592,16 +1672,11 @@ def phase_conv(torch):
     # intervals (host-to-device copies of the data and weights, made
     # before the first epoch, left out) over the trainer's CUDA-event
     # seconds of both epochs
-    from torch.autograd import DeviceType
     pt = bench.resnet20_trainer(2)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         pt.train(ds)
         torch.cuda.synchronize()
-    dev = sorted((e.time_range.start, e.time_range.end, e.name)
-                 for e in prof.events()
-                 if e.device_type == DeviceType.CUDA
-                 and not getattr(e, "is_user_annotation", False)
-                 and "HtoD" not in e.name)
+    dev = sorted(e for e in device_events(prof) if "HtoD" not in e[2])
     busy_us, reached, by_name = 0.0, 0.0, {}
     for start, end, name in dev:
         busy_us += max(0.0, end - max(start, reached))
@@ -1689,18 +1764,20 @@ def _dist_data(cfg):
 
 
 def _dist_trainer(name, cfg, **overrides):
-    """``name`` (a trainer class of the port) over ``cfg`` at
-    ``DIST_WORKERS`` workers, on the card."""
+    """``name`` (a trainer class of the port) over ``cfg`` (a yaml
+    config as data) on the card, a distributed one at ``DIST_WORKERS``
+    workers (``num_workers: auto``'s cap on one card)."""
     import distkeras_tpu_torch as dkt
     from distkeras_tpu_torch.models import zoo
     kw = {"loss": "categorical_crossentropy", "features_col": "features",
           "label_col": "label_onehot", **cfg["trainer_kwargs"]}
     kw.pop("num_workers", None)
     kw.update(overrides)
-    workers = {"num_ensembles" if name == "EnsembleTrainer"
-               else "num_workers": DIST_WORKERS}
+    if name != "SingleTrainer":
+        kw["num_ensembles" if name == "EnsembleTrainer"
+           else "num_workers"] = DIST_WORKERS
     model = getattr(zoo, cfg["model"])(**cfg["model_kwargs"])
-    return getattr(dkt, name)(model, **workers, **kw)
+    return getattr(dkt, name)(model, **kw)
 
 
 def _edge_identities(torch, t, ds):
@@ -1990,6 +2067,385 @@ def phase_dist(torch):
     return rows, parity, flash["kernel_launches"]
 
 
+def _with_quick(cfg):
+    """A config with its ``quick`` overrides (distkeras_tpu/config.py:
+    74-87: dicts merge, scalars replace)."""
+    out = {k: v for k, v in cfg.items() if k != "quick"}
+    for k, v in cfg.get("quick", {}).items():
+        out[k] = {**out[k], **v} if isinstance(v, dict) and \
+            isinstance(out.get(k), dict) else v
+    return out
+
+
+def _reset_peak(torch) -> int:
+    """Collect the earlier phases' garbage (trainers hold reference
+    cycles, so their tensors outlive them until a collection), then
+    restart the allocator's peak; returns the bytes still live, which
+    the next peak reading includes."""
+    import gc
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _launch_counts():
+    from distkeras_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda)
+    return {"flash_fwd": flash_fwd_cuda.launches,
+            "flash_bwd_dq": flash_bwd_dq_cuda.launches,
+            "flash_bwd_dkv": flash_bwd_dkv_cuda.launches}
+
+
+def _sum_launches(*rows):
+    """[kernel, dtype, head dim, launches] rows of several paths, summed."""
+    from collections import Counter
+    total = Counter()
+    for r in rows:
+        for k, d, h, n in r:
+            total[(k, d, h)] += n
+    return [[k, d, h, n] for (k, d, h), n in sorted(total.items())]
+
+
+def _same_bits(a, b) -> bool:
+    import numpy as np
+    return len(a) == len(b) and all(
+        x.shape == y.shape and x.dtype == y.dtype and np.array_equal(x, y)
+        for x, y in zip(a, b))
+
+
+def phase_yaml_lm(torch):
+    """configs/bench_all.yaml's flash LM (Dh 32) as configured, then its
+    ``quick`` variant (Dh 16, zero-padded to 32 by the bf16 kernels):
+    losses finite, the configured run's falling, K1, K2 and K3 launched
+    exactly once per block per step.  Returns the rows."""
+    import numpy as np
+    from distkeras_tpu_torch.ops.flash_attention import reset_launches
+    rows = []
+    for name, base in YAML_LM_CONFIGS.items():
+        for variant, cfg in (("config", base), ("quick", _with_quick(base))):
+            ds = _dist_data(cfg)
+            t = _dist_trainer(cfg["trainer"], cfg)
+            kw, mk = cfg["trainer_kwargs"], cfg["model_kwargs"]
+            steps = ds.num_rows // kw["batch_size"]
+            live = _reset_peak(torch)
+            # this path: counts set to 0 just before, read just after
+            reset_launches()
+            t.train(ds)
+            launches, by_kernel = _launch_counts(), kernel_launches()
+            hist = t.get_averaged_history()
+            check(all(bool(np.isfinite(h).all()) for h in t.get_history()),
+                  f"{name} ({variant}): a training loss is not finite")
+            if len(hist) > 1:
+                check(hist[-1] < hist[0],
+                      f"{name} ({variant}): the loss did not fall: {hist}")
+            want = mk["num_blocks"] * steps * kw["num_epoch"]
+            check(all(n == want for n in launches.values()),
+                  f"{name} ({variant}): launches {launches} != {want} each")
+            rec = [r for r in t.metrics.records if r["event"] == "epoch"][-1]
+            row = {"phase": "yaml_lm", "config": name, "variant": variant,
+                   "model": mk, "head_dim": mk["dim"] // mk["num_heads"],
+                   "steps_per_epoch": steps, "epochs": kw["num_epoch"],
+                   "epoch_mean_loss": hist.tolist(),
+                   "samples_per_s": rec["samples_per_sec"],
+                   "step_ms": 1e3 * rec["epoch_seconds"] / steps,
+                   "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                   "live_before_bytes": live,
+                   "launches": launches, "kernel_launches": by_kernel}
+            emit(row)
+            rows.append(row)
+    return rows
+
+
+def _ckpt_dist(torch, tmp):
+    """ADAG on ``DIST_CONFIGS``' ConvNet at 8 workers (its Dropout draws
+    from the workers' generators): 2 epochs straight, twice (the control
+    that the run itself repeats), against 1 epoch plus a resume to 2; the
+    centers and the resumed epoch's losses must be bit-identical.  cuDNN
+    runs its deterministic algorithms here."""
+    import numpy as np
+    from distkeras_tpu_torch.utils.tree import tree_leaves
+    cfg = DIST_CONFIGS["ADAG ConvNet/CIFAR-10 (auto-w)"]
+    ds = _dist_data(cfg)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for _ in range(2):
+            t = _dist_trainer("ADAG", cfg, num_epoch=2)
+            t.train(ds)
+            runs.append(t)
+        first = _dist_trainer("ADAG", cfg, num_epoch=1, checkpoint_dir=tmp)
+        first.train(ds)
+        resumed = _dist_trainer("ADAG", cfg, num_epoch=2,
+                                checkpoint_dir=tmp)
+        resumed.train(ds, resume=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    leaves = [[np.asarray(a) for a in tree_leaves(t.trained_variables)]
+              for t in (*runs, resumed)]
+    repeat = _same_bits(leaves[0], leaves[1])
+    same = _same_bits(leaves[2], leaves[0]) and _same_bits(
+        resumed.get_history(), runs[0].get_history()[1:])
+    err = max(float(np.max(np.abs(a.astype(np.float64) - b)))
+              for a, b in zip(leaves[2], leaves[0]))
+    check(repeat, "ADAG ConvNet: two straight runs differ (the run itself "
+          "does not repeat)")
+    check(same, f"ADAG ConvNet: 1 epoch + resume differs from 2 straight "
+          f"epochs by {err}")
+    return {"config": "ADAG ConvNet/CIFAR-10 (auto-w)",
+            "workers": DIST_WORKERS, "epochs": 2,
+            "straight_repeats_bit_identical": repeat,
+            "resumed_bit_identical": same, "center_max_abs_diff": err}
+
+
+def phase_ckpt(torch):
+    """Checkpoints, resume and the model blob on the card, through K1-K3:
+    the bf16 probe LM (``train``'s part (b): batch 64, 512 rows) trained
+    3 epochs straight, twice, and 1 epoch with ``checkpoint_dir`` then
+    resumed to 3; parameters and the resumed epochs' losses must equal
+    the straight run's bit for bit, and K1, K2 and K3 launch once per
+    block per step in every run.  The checkpoint's bytes, and its save
+    and load on their own (device synchronised around each, 3 times).
+    Then ``serialize()`` -> ``deserialize_model`` -> ``load_jax_variables``
+    onto the card, serving 4 greedy requests through ``DecodeEngine``,
+    whose answers must equal the trained model's ``generate_tokens``.
+    Then ``_ckpt_dist`` (ADAG, 8 workers)."""
+    import tempfile
+    import numpy as np
+    from distkeras_tpu_torch import SingleTrainer
+    from distkeras_tpu_torch.data import load_lm_corpus
+    from distkeras_tpu_torch.models import zoo
+    from distkeras_tpu_torch.ops.flash_attention import reset_launches
+    from distkeras_tpu_torch.utils import checkpoint, serde
+    from distkeras_tpu_torch.utils.tree import tree_leaves
+    from distkeras_tpu_torch.utils.weights import (load_jax_variables,
+                                                   to_numpy_variables)
+    batch, steps, epochs = 64, 512 // 64, 3
+    ds = load_lm_corpus(n_train=batch * steps, seq_len=LM["seq_len"],
+                        vocab_size=LM["vocab_size"])[0]
+
+    def trainer(n, **kw):
+        return SingleTrainer(zoo.gpt_lm(**LM), "sgd", SCE, batch_size=batch,
+                             learning_rate=0.1, compute_dtype="bfloat16",
+                             num_epoch=n, **kw)
+
+    def run(t, **kw):
+        # this path: counts set to 0 just before, read just after
+        reset_launches()
+        t.train(ds, **kw)
+        launches = _launch_counts()
+        want = LM["num_blocks"] * steps * len(t.get_history())
+        check(all(n == want for n in launches.values()),
+              f"ckpt: launches {launches} != {want} each")
+        return launches, kernel_launches()
+
+    def leaves(t):
+        return [np.asarray(a) for a in tree_leaves(t.trained_variables)]
+
+    straight = [trainer(epochs) for _ in range(2)]
+    straight_launches = [run(t) for t in straight]
+    with tempfile.TemporaryDirectory() as tmp:
+        first, resumed = trainer(1, checkpoint_dir=tmp), \
+            trainer(epochs, checkpoint_dir=tmp)
+        first_launches = run(first)
+        resumed_launches = run(resumed, resume=True)
+        mgr = checkpoint.CheckpointManager(tmp)
+        path = mgr.path(mgr.latest_step())
+        ckpt_bytes = os.path.getsize(path)
+        # the probe trains with plain sgd: an empty optimizer state
+        tree = resumed._state_tree({})
+        meta = {"epoch": epochs - 1}
+        save_ms, load_ms = [], []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            checkpoint.save_tree(os.path.join(tmp, f"timed-{i}.ckpt"), tree,
+                                 meta)
+            save_ms.append(1e3 * (time.perf_counter() - t0))
+            t0 = time.perf_counter()
+            checkpoint.load_tree(path, tree)
+            torch.cuda.synchronize()
+            load_ms.append(1e3 * (time.perf_counter() - t0))
+        dist = _ckpt_dist(torch, os.path.join(tmp, "adag"))
+    repeat = _same_bits(leaves(straight[0]), leaves(straight[1]))
+    same = _same_bits(leaves(resumed), leaves(straight[0]))
+    losses_same = _same_bits(resumed.get_history(),
+                             straight[0].get_history()[1:])
+    check(repeat, "ckpt: two straight runs of the probe differ")
+    check(same and losses_same, "ckpt: 1 epoch + resume differs from 3 "
+          "straight epochs")
+
+    # the model blob, deserialized onto the card, serving
+    blob = resumed.serialize()
+    model, variables = serde.deserialize_model(blob)
+    model.init(0)
+    load_jax_variables(model, variables)
+    check(_same_bits(tree_leaves(to_numpy_variables(model)),
+                     tree_leaves(resumed.trained_variables)),
+          "ckpt: the deserialized model's weights differ from the trained")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, LM["vocab_size"], size=n)
+               for n in PROMPT_LENS[:4]]
+    registry, reqs, wall, _, served, served_kernels = serve_traffic(
+        model, prompts)
+    mismatches = _answers_match(torch, resumed.model, prompts,
+                                [r.result() for r in reqs])
+    joins = int(registry.snapshot()["serve.joins"]["value"])
+    check(joins == len(prompts) and served == LM["num_blocks"] * joins,
+          f"ckpt serve: flash_fwd launches {served} != "
+          f"{LM['num_blocks']} x {joins} joins")
+    row = {"phase": "ckpt", "model": LM, "batch_size": batch,
+           "steps_per_epoch": steps, "epochs": epochs,
+           "compute_dtype": "bfloat16", "optimizer": "sgd",
+           "straight_repeats_bit_identical": repeat,
+           "resumed_bit_identical": same,
+           "resumed_losses_bit_identical": losses_same,
+           "epoch_mean_loss": straight[0].get_averaged_history().tolist(),
+           "checkpoint_bytes": ckpt_bytes,
+           "parameters": sum(int(a.size) for a in leaves(resumed)),
+           "save_ms": save_ms, "load_ms": load_ms,
+           "launches": {"straight": straight_launches[0][0],
+                        "first_epoch": first_launches[0],
+                        "resumed": resumed_launches[0]},
+           "kernel_launches": straight_launches[0][1],
+           "kernel_launches_resumed": _sum_launches(first_launches[1],
+                                                    resumed_launches[1]),
+           "blob_bytes": len(blob),
+           "serve": {"requests": len(reqs), "joins": joins,
+                     "launches": served, "kernel_launches": served_kernels,
+                     "wall_s": wall, "mismatches": mismatches},
+           "dist": dist}
+    emit(row)
+    return row
+
+
+def _stream_run(torch, cfg, source, epochs=None):
+    """Train ``cfg`` from ``source`` (a ShardedFileDataset); returns the
+    trainer, its wall seconds, its peak memory and the bytes live before
+    it, and the stream counters' change over the run."""
+    from distkeras_tpu_torch.data.streaming import DEPTH_BUCKETS
+    from distkeras_tpu_torch.obs import default_registry
+    reg = default_registry()
+    names = ("stream.batches", "stream.stall_seconds",
+             "stream.producer_leaks")
+    before = {n: reg.counter(n).value for n in names}
+    depth = reg.histogram("stream.prefetch_depth", DEPTH_BUCKETS)
+    depth0 = depth.snapshot()
+    over = {} if epochs is None else {"num_epoch": epochs}
+    t = _dist_trainer(cfg["trainer"], cfg, **over)
+    live = _reset_peak(torch)
+    t0 = time.perf_counter()
+    t.train(source)
+    wall = time.perf_counter() - t0
+    counters = {n: reg.counter(n).value - before[n] for n in names}
+    depth1 = depth.snapshot()
+    n = depth1["count"] - depth0["count"]
+    counters["prefetch_depth_mean"] = \
+        (depth1["sum"] - depth0["sum"]) / n if n else None
+    return t, wall, (torch.cuda.max_memory_allocated(), live), counters
+
+
+def phase_stream(torch):
+    """configs/bench_all.yaml's two stream-from-disk configs as
+    configured (``STREAM_CONFIGS``), each reading shards written to a
+    temporary directory from ``load_imagenet_subset``'s rows: samples/s
+    of the last epoch, the stream's stall seconds, the prefetch queue's
+    mean depth at a hand-over over the run, and peak memory; then the
+    same configured run again under the profiler, from the same shards,
+    for the busy share of its last epoch (and the time the trace takes
+    to read); the loss falls.  Then one epoch of the
+    SingleTrainer config from RAM and from disk on the same data order
+    (cuDNN deterministic): parameters within rtol 2e-5, atol 2e-6
+    (tests/test_streaming_data.py:114-131), bit-identical expected."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from distkeras_tpu_torch.data import ShardedFileDataset
+    rows = []
+    tmp = tempfile.mkdtemp(prefix="dkt_stream_")
+    try:
+        for name, cfg in STREAM_CONFIGS.items():
+            ds = _dist_data(cfg)
+            t0 = time.perf_counter()
+            src = ShardedFileDataset.write(ds, os.path.join(tmp, "full"),
+                                           rows_per_shard=cfg["streaming"])
+            spill_s = time.perf_counter() - t0
+            t, wall, peak, counters = _stream_run(torch, cfg, src)
+            hist = t.get_averaged_history()
+            check(all(bool(np.isfinite(h).all()) for h in t.get_history()),
+                  f"{name}: a training loss is not finite")
+            check(hist[-1] < hist[0], f"{name}: the loss did not fall: "
+                  f"{hist}")
+            check(counters["stream.producer_leaks"] == 0,
+                  f"{name}: a prefetch thread outlived its join")
+            rec = [r for r in t.metrics.records if r["event"] == "epoch"][-1]
+            # the busy share: the configured run again, under the profiler
+            pt = _dist_trainer(cfg["trainer"], cfg)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                pt.train(src)
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            window_us, busy_us, _ = last_epoch_on_device(prof, len(hist))
+            read_s = time.perf_counter() - t0
+            prec = [r for r in pt.metrics.records
+                    if r["event"] == "epoch"][-1]
+            del prof
+            row = {"phase": "stream", "config": name,
+                   "trainer": cfg["trainer"],
+                   "workers": getattr(t, "num_workers", 1),
+                   "rows_per_shard": cfg["streaming"],
+                   "shards": len(src.shards), "spill_s": spill_s,
+                   "epochs": len(hist), "epoch_mean_loss": hist.tolist(),
+                   "wall_s": wall, "last_epoch_s": rec["epoch_seconds"],
+                   "samples_per_s": rec["samples_per_sec"],
+                   "stall_s": counters["stream.stall_seconds"],
+                   "stall_share": counters["stream.stall_seconds"] / wall,
+                   "batches": counters["stream.batches"],
+                   "prefetch_depth_mean": counters["prefetch_depth_mean"],
+                   "producer_leaks": counters["stream.producer_leaks"],
+                   "peak_memory_bytes": peak[0],
+                   "live_before_bytes": peak[1],
+                   "profiled": {"last_epoch_s": prec["epoch_seconds"],
+                                "samples_per_s": prec["samples_per_sec"],
+                                "window_s": window_us / 1e6,
+                                "device_busy_share": busy_us / window_us,
+                                "trace_read_s": read_s}}
+            if cfg["trainer"] == "SingleTrainer":
+                row["ram_vs_disk"] = _ram_vs_disk(torch, cfg, ds, src)
+            emit(row)
+            rows.append(row)
+            shutil.rmtree(os.path.join(tmp, "full"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rows
+
+
+def _ram_vs_disk(torch, cfg, ds, src):
+    """One epoch of ``cfg`` from RAM and from disk, unshuffled (the same
+    batches in the same order), cuDNN deterministic: the largest
+    parameter difference, held to rtol 2e-5, atol 2e-6."""
+    import numpy as np
+    from distkeras_tpu_torch.utils.tree import tree_leaves
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = []
+        for data in (ds, src):
+            t = _dist_trainer(cfg["trainer"], cfg, num_epoch=1)
+            t.train(data)
+            out.append([np.asarray(a, np.float64)
+                        for a in tree_leaves(t.trained_variables)])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    ram, disk = out
+    err = max(float(np.max(np.abs(a - b))) for a, b in zip(disk, ram))
+    ok = all(bool(np.all(np.abs(a - b) <= 2e-6 + 2e-5 * np.abs(b)))
+             for a, b in zip(disk, ram))
+    check(ok, f"stream: RAM vs disk parameters differ by {err}")
+    return {"max_abs_diff": err, "bit_identical": err == 0.0}
+
+
 #: K1's and K2/K3's CUDA kernels, one entry each in the ``kernels`` line:
 #: (name, as the wrappers count it (``flash_attention.KERNELS``), source
 #: under distkeras_tpu_torch/ops/csrc, the line of
@@ -2014,7 +2470,7 @@ CUDA_KERNELS = (
 
 
 def kernels_line(k1, sl, tr, lm128, lm256, dist_kernels, past256, bwd_rows,
-                 bwd_timed):
+                 bwd_timed, later_paths=()):
     """The ``kernels`` line: one entry per CUDA kernel, with its launches
     on the main paths (each path's counts were set to 0 just before it ran
     and read just after, each launch counted under the kernel its C entry
@@ -2030,7 +2486,8 @@ def kernels_line(k1, sl, tr, lm128, lm256, dist_kernels, past256, bwd_rows,
     # (path, [kernel, dtype, head dim, launches] rows): served traffic,
     # the bf16 probe, its f32 parity run, the Dh 128 model, distributed
     # ADAG, lm256's bf16 training, f32 parity and serving, and the Dh 320
-    # op through autograd (the CUDA-core K3's one path)
+    # op through autograd (the CUDA-core K3's one path); then
+    # ``later_paths``, (path, rows) pairs of the later phases
     paths = (
         ("serve", sl["kernel_launches"]),
         ("train", tr["kernel_launches"]),
@@ -2040,7 +2497,7 @@ def kernels_line(k1, sl, tr, lm128, lm256, dist_kernels, past256, bwd_rows,
         ("lm256_train", lm256["train"]["kernel_launches"]),
         ("lm256_train_f32", lm256["parity_f32"]["kernel_launches"]),
         ("lm256_serve", lm256["serve"]["kernel_launches"]),
-        ("past256", past256))
+        ("past256", past256), *later_paths)
     kernels = []
     for name, src, line in CUDA_KERNELS:
         wrapper = next(fn for fn, ns in KERNELS.items() if name in ns)
@@ -2125,8 +2582,16 @@ def main() -> int:
         phase_conv(torch)
         phase_models(torch)
         _, _, dist_kernels = phase_dist(torch)
+        yl = phase_yaml_lm(torch)
+        ck = phase_ckpt(torch)
+        phase_stream(torch)
+        later = [(f"yaml_lm_{r['variant']}", r["kernel_launches"])
+                 for r in yl]
+        later += [("ckpt_straight", ck["kernel_launches"]),
+                  ("ckpt_resumed", ck["kernel_launches_resumed"]),
+                  ("ckpt_serve", ck["serve"]["kernel_launches"])]
         kernels = kernels_line(k1, sl, tr, lm128, lm256, dist_kernels,
-                               past256, bwd_rows, bwd_timed)
+                               past256, bwd_rows, bwd_timed, later)
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1

@@ -12,7 +12,9 @@ loaders, transformers, ``ModelPredictor`` and the evaluators around it;
 ``python -m distkeras_tpu_torch.bench``, the headline benchmark; and the
 sync distributed trainers (``ADAG``, ``DOWNPOUR``, ``DynSGD``,
 ``AEASGD``, ``EAMSGD``, ``AveragingTrainer``, ``EnsembleTrainer``), their
-workers stepped one after another on one card.
+workers stepped one after another on one card; serde, checkpoints and
+resume, and disk streaming (``ShardedFileDataset``,
+``StreamingPredictor``), in the JAX package's byte formats.
 """
 
 __version__ = "0.3.0"
@@ -20,8 +22,14 @@ __version__ = "0.3.0"
 from .utils.device import default_device  # noqa: F401
 from . import data, models, obs, ops, parallel, serve, utils  # noqa: F401
 from . import evaluators, predictors  # noqa: F401
-from .data import Dataset  # noqa: F401
+from .data import Dataset, ShardedFileDataset  # noqa: F401
 from .models import Model, generate_tokens, zoo  # noqa: F401
+from .predictors import (  # noqa: F401
+    ModelPredictor,
+    Predictor,
+    StreamingPredictor,
+)
+from .utils.checkpoint import CheckpointManager  # noqa: F401
 from .trainers import (  # noqa: F401
     ADAG,
     AEASGD,

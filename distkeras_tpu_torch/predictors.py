@@ -6,7 +6,8 @@
 output per row.  The rows go through the model in eval mode under
 ``torch.no_grad()``, in batches of one fixed size (the last padded by
 repeating its final row, as the JAX package pads), on the model's
-device.  ``StreamingPredictor`` comes with the streaming slice.
+device.  ``StreamingPredictor.predict_stream`` maps the model over a
+stream of rows and batches, in micro-batches of one padded shape.
 """
 
 from __future__ import annotations
@@ -90,3 +91,53 @@ class ModelPredictor(Predictor):
             self.model.train(was_training)
         preds = torch.cat(outs).cpu().numpy()[:n]
         return dataset.with_column(self.output_col, preds)
+
+
+class StreamingPredictor(Predictor):
+    """Online prediction over an unbounded stream (parity: the
+    reference's Kafka + Spark-Streaming example, a trained model mapped
+    over a stream of feature rows).
+
+    ``predict_stream(feature_iter)`` takes any iterator of feature arrays,
+    single rows or batches in any mix, and yields one prediction per
+    input row, in order: a float32 tensor on the model's device.  Rows
+    are micro-batched to ``batch_size`` and a short last micro-batch is
+    padded (by repeating its final row), so the model sees one batch
+    shape; a second shape is counted as a retrace.
+    """
+
+    def __init__(self, keras_model: Model, variables: Optional[dict] = None,
+                 batch_size: int = 64):
+        super().__init__(keras_model, variables)
+        self.batch_size = int(batch_size)
+        self._sentinel = RetraceSentinel(f"{type(self).__name__}.predict")
+
+    def _predict_batch(self, rows: list) -> torch.Tensor:
+        x = _host_input(np.stack(rows))
+        k = x.shape[0]
+        if k < self.batch_size:  # pad to the one batch shape
+            x = np.concatenate(
+                [x, np.repeat(x[-1:], self.batch_size - k, axis=0)])
+        batch = torch.from_numpy(x).to(self.model.device)
+        self._sentinel.observe((batch,))
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            with torch.no_grad():
+                return self.model(batch).float()[:k]
+        finally:
+            self.model.train(was_training)
+
+    def predict_stream(self, feature_iter):
+        buf: list = []
+        for item in feature_iter:
+            item = np.asarray(item)
+            if item.ndim == len(self.model.input_shape):  # a single row
+                buf.append(item)
+            else:  # a batch
+                buf.extend(item)
+            while len(buf) >= self.batch_size:
+                batch, buf = buf[: self.batch_size], buf[self.batch_size:]
+                yield from self._predict_batch(batch)
+        if buf:
+            yield from self._predict_batch(buf)

@@ -1,8 +1,9 @@
 """Training orchestration — the port of ``distkeras_tpu.trainers``'
 ``Trainer``, ``SingleTrainer`` and the sync distributed trainers
 (``DistributedTrainer``, ``AveragingTrainer``, ``EnsembleTrainer`` and
-``ADAG`` / ``DOWNPOUR`` / ``DynSGD`` / ``AEASGD`` / ``EAMSGD``), on the
-in-memory path.
+``ADAG`` / ``DOWNPOUR`` / ``DynSGD`` / ``AEASGD`` / ``EAMSGD``), on an
+in-memory ``Dataset`` or streamed from disk (``ShardedFileDataset``),
+with checkpoints and resume.
 
 The dist-keras surface is unchanged: ``SingleTrainer(model, optimizer,
 loss, ...).train(dataset) -> trained model``, with ``get_history()``,
@@ -15,11 +16,18 @@ epoch.  A distributed trainer's epoch is ``parallel.sync.SyncEngine``'s:
 W workers on one device, each on its partition, with the algorithm's
 rule at every window edge; its history rows are (workers, steps).
 
-Not ported yet, and raising where asked for: ``checkpoint_dir`` /
-``resume=True`` and ``serialize()`` (serde and checkpoints), ROADMAP
-Queue 1 item 3; a disk-streaming dataset, item 4; ``mode="async"`` (the
-parameter server), item 5; a ``mesh`` (workers across cards), item 8.
-The trainers run on the card unless the caller passes ``device="cpu"``.
+A ``ShardedFileDataset`` streams window by window from disk: the host
+stacks the next window (a prefetch thread reads the shards) and copies
+it to the device, where the previous window's work may still run.
+``checkpoint_dir`` saves the trainer's state after every epoch, in the
+JAX trainers' leaf order (``utils.checkpoint``), and ``train(resume=
+True)`` restarts after the latest saved epoch, from a file either
+package wrote.  ``serialize()`` is the ``utils.serde`` model blob.
+
+Not ported yet, and raising where asked for: ``mode="async"`` (the
+parameter server), ROADMAP Queue 1 item 5; a ``mesh`` (workers across
+cards), item 8.  The trainers run on the card unless the caller passes
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -32,9 +40,12 @@ import numpy as np
 import torch
 
 from .data.dataset import Dataset
+from .data.streaming import (ShardedFileDataset, worker_window_factory,
+                             worker_windows_per_epoch)
 from .models.layers import Activation, Dense, Sequential
 from .models.model import Model
 from .obs import ProfileConfig, RetraceSentinel, SpanTracer, observe_memory
+from .obs.logging import get_logger
 from .obs.registry import default_registry
 from .ops.losses import get_loss, probs_loss_variant
 from .ops.optimizers import get_optimizer, sgd
@@ -42,12 +53,12 @@ from .parallel.sync import (AdagSync, DownpourSync, DynSgdSync, EasgdSync,
                             NoCommSync, SyncEngine, _inexact, make_window_fn,
                             model_params, replicate, stack_trees, tmap,
                             variables_of)
+from .utils import checkpoint, serde
 from .utils.device import DeviceLike, default_device
 from .utils.metrics import MetricsLogger
-from .utils.weights import to_numpy_variables
+from .utils.weights import jax_leaf_names, to_numpy_variables
 
-_CHECKPOINT_ITEM = "ROADMAP Queue 1 item 3 (serde and checkpoints)"
-_STREAMING_ITEM = "ROADMAP Queue 1 item 4 (disk-streaming data)"
+_LOG = "trainers"
 
 
 class _EpochPipeline:
@@ -164,10 +175,6 @@ class Trainer:
                  compute_dtype=None, remat: bool = False,
                  aux_weight: float = 0.0, profile=None,
                  device: DeviceLike = None):
-        if checkpoint_dir:
-            raise NotImplementedError(
-                f"checkpoint_dir (mid-training checkpoints) is not ported "
-                f"yet: {_CHECKPOINT_ITEM}")
         self.model = keras_model
         self.worker_optimizer = worker_optimizer
         self.loss = loss
@@ -219,10 +226,9 @@ class Trainer:
         return np.array([float(np.mean(h)) for h in self.history])
 
     def serialize(self) -> bytes:
-        """Parity: reference ``Trainer.serialize`` — not ported yet."""
-        raise NotImplementedError(
-            f"Trainer.serialize (the msgpack model blob) is not ported "
-            f"yet: {_CHECKPOINT_ITEM}")
+        """Parity: reference ``Trainer.serialize`` (pickled model blob) —
+        the ``utils.serde`` model + variables blob."""
+        return serde.serialize_model(self.model, self.trained_variables)
 
     # -- shared plumbing ----------------------------------------------------
     def _resolve(self):
@@ -293,11 +299,11 @@ class Trainer:
 
     def train(self, dataset: Dataset, shuffle: bool = False,
               resume: bool = False) -> Model:
-        """Parity: reference ``Trainer.train(dataframe, shuffle)``."""
-        if resume:
-            raise NotImplementedError(
-                f"resume=True (restart from a checkpoint) is not ported "
-                f"yet: {_CHECKPOINT_ITEM}")
+        """Parity: reference ``Trainer.train(dataframe, shuffle)``.
+
+        ``resume=True`` restarts after the latest checkpoint in
+        ``checkpoint_dir``, if there is one."""
+        self._resume = bool(resume)
         t0 = time.time()
         try:
             with self.tracer.span("train", trainer=type(self).__name__,
@@ -308,6 +314,52 @@ class Trainer:
 
     def _train(self, dataset: Dataset, shuffle: bool) -> Model:
         raise NotImplementedError
+
+    # -- checkpoint plumbing -------------------------------------------------
+    def _ckpt_manager(self) -> Optional[checkpoint.CheckpointManager]:
+        if not self.checkpoint_dir:
+            return None
+        return checkpoint.CheckpointManager(self.checkpoint_dir,
+                                            keep=self.checkpoint_keep)
+
+    def _state_tree(self, opt_state):
+        """The trainer's state in the JAX trainer's tree (its leaves: the
+        live tensors, not copies)."""
+        raise NotImplementedError
+
+    def _adopt_state(self, like, tree, opt_state):
+        """Copy a restored ``tree`` (shaped like ``like``, the
+        ``_state_tree``) into the live tensors; returns the optimizer
+        state."""
+        raise NotImplementedError
+
+    def _generators(self) -> list:
+        return [self.generator]
+
+    def _save(self, ckpt, epoch: int, opt_state) -> None:
+        """Checkpoint after ``epoch`` (its reads wait for the device)."""
+        ckpt.save(epoch, self._state_tree(opt_state),
+                  {"epoch": epoch, checkpoint.GENERATORS:
+                   checkpoint.generator_meta(self._generators())})
+
+    def _maybe_restore(self, ckpt, opt_state):
+        """``(opt_state, start_epoch)``: the latest checkpoint's state
+        copied into the live tensors iff resume was asked for and one
+        exists, else ``opt_state`` as it is and epoch 0.  The generators
+        take the saved states; a file without them (written by the JAX
+        package) leaves them seeded as a fresh ``train()`` seeds them."""
+        if ckpt is None or not getattr(self, "_resume", False) \
+                or ckpt.latest_step() is None:
+            return opt_state, 0
+        like = self._state_tree(opt_state)
+        tree, meta = ckpt.restore(like)
+        opt_state = self._adopt_state(like, tree, opt_state)
+        if not checkpoint.restore_generators(self._generators(), meta):
+            get_logger(_LOG).info(
+                "checkpoint in %s holds no generator states for this "
+                "trainer's device; its generators are seeded as a fresh "
+                "train() seeds them", self.checkpoint_dir)
+        return opt_state, int(meta.get("epoch", -1)) + 1
 
     def _epoch_metrics(self, epoch: int, losses: np.ndarray, dt: float,
                        samples: int) -> None:
@@ -323,17 +375,62 @@ class Trainer:
                          **extra)
 
 
+def _variables_leaves(tree, names) -> list:
+    """A ``{"params": {name: t}, "state": {name: t}}`` tree's leaves in
+    the JAX ``variables`` tree's order (``names``: ``jax_leaf_names``)."""
+    return [tree["params"][n] for n in names[0]] + \
+        [tree["state"][n] for n in names[1]]
+
+
+def _copy_into(dsts, srcs) -> None:
+    with torch.no_grad():
+        for d, s in zip(dsts, srcs):
+            d.copy_(s)
+
+
+def _to_device(batches, i: int, device) -> torch.Tensor:
+    """Column ``i`` of host batch tuples, stacked, on ``device``."""
+    return torch.from_numpy(np.stack([b[i] for b in batches])).to(device)
+
+
 class SingleTrainer(Trainer):
     """Single-worker baseline (reference ``SingleTrainer``): the whole
     dataset on one device, one window loop over its batches per epoch.
-    The conformance anchor the distributed trainers are compared with."""
+    The conformance anchor the distributed trainers are compared with.
+
+    A ``ShardedFileDataset`` streams from disk instead, ``stream_window``
+    batches a window loop call, with bounded host memory."""
+
+    #: batches per window loop call on the streaming path
+    stream_window = 8
+
+    def _state_tree(self, opt_state):
+        names = jax_leaf_names(self.model)
+        return (_variables_leaves(variables_of(self.model), names),
+                checkpoint.opt_state_leaves(opt_state, names[0]),
+                checkpoint.rng_key(self.seed + 1))
+
+    def _adopt_state(self, like, tree, opt_state):
+        _copy_into(like[0], tree[0])
+        return checkpoint.opt_state_from_leaves(
+            opt_state, tree[1], jax_leaf_names(self.model)[0])
+
+    def _start(self, optimizer):
+        """Initialise from ``seed`` and restore a checkpoint if asked:
+        ``(params, opt_state, ckpt, start_epoch)``."""
+        self.model.init(self.seed, device=self.device)
+        params = model_params(self.model)
+        self.generator.manual_seed(self.seed + 1)
+        ckpt = self._ckpt_manager()
+        opt_state, start = self._maybe_restore(ckpt, optimizer.init(params))
+        return params, opt_state, ckpt, start
 
     def _train(self, dataset: Dataset, shuffle: bool) -> Model:
+        if isinstance(dataset, ShardedFileDataset):
+            return self._train_stream(dataset, shuffle)
         if not isinstance(dataset, Dataset):
-            raise NotImplementedError(
-                f"SingleTrainer trains an in-memory Dataset; the "
-                f"disk-streaming path ({type(dataset).__name__}) is not "
-                f"ported yet: {_STREAMING_ITEM}")
+            raise TypeError(f"SingleTrainer trains a Dataset or a "
+                            f"ShardedFileDataset, got {type(dataset)}")
         if shuffle:
             dataset = dataset.shuffle(self.seed)
         run, optimizer = self._window_run()
@@ -345,16 +442,54 @@ class SingleTrainer(Trainer):
         xs = torch.from_numpy(stacked[self.features_col][0]).to(self.device)
         ys = torch.from_numpy(stacked[self.label_col][0]).to(self.device)
 
-        self.model.init(self.seed, device=self.device)
-        params = model_params(self.model)
-        opt_state = optimizer.init(params)
-        self.generator.manual_seed(self.seed + 1)
-
+        params, opt_state, ckpt, start = self._start(optimizer)
         samples = int(xs.shape[0]) * self.batch_size
         pipe = _EpochPipeline(self, samples, self.device)
-        for epoch in range(self.num_epoch):
+        for epoch in range(start, self.num_epoch):
             params, opt_state, losses = run(params, opt_state, xs, ys)
             pipe.push(epoch, losses)
+            if ckpt is not None:
+                self._save(ckpt, epoch, opt_state)
+        pipe.flush()
+        return self._finish()
+
+    def _train_stream(self, source: ShardedFileDataset,
+                      shuffle: bool) -> Model:
+        """Epochs streamed from disk: each window's batches are stacked on
+        the host and copied to the device; the epoch takes the first
+        ``steps // w`` whole windows (``w = stream_window``), and epoch
+        e of a shuffled run reads in the order of seed ``seed + 1000 +
+        e``."""
+        run, optimizer = self._window_run()
+        bs = self.batch_size
+        steps = source.steps_per_epoch(bs)
+        if steps == 0:
+            raise ValueError(f"batch_size {bs} exceeds dataset rows "
+                             f"{source.num_rows}")
+        w = max(1, min(int(self.stream_window), steps))
+        n_windows = steps // w
+
+        params, opt_state, ckpt, start = self._start(optimizer)
+        cols = [self.features_col, self.label_col]
+        pipe = _EpochPipeline(self, n_windows * w * bs, self.device)
+        for epoch in range(start, self.num_epoch):
+            seed = (self.seed + 1000 + epoch) if shuffle else None
+            it = source.batches(cols, bs, seed=seed)
+            losses = []
+            try:
+                for _ in range(n_windows):
+                    window = [next(it) for _ in range(w)]
+                    params, opt_state, l = run(
+                        params, opt_state, _to_device(window, 0, self.device),
+                        _to_device(window, 1, self.device))
+                    losses.append(l)
+            finally:
+                # the epoch takes exactly n_windows * w batches: release
+                # the prefetch thread and its shard now
+                it.close()
+            pipe.push(epoch, torch.cat(losses))
+            if ckpt is not None:
+                self._save(ckpt, epoch, opt_state)
         pipe.flush()
         return self._finish()
 
@@ -412,8 +547,10 @@ class DistributedTrainer(Trainer):
     arguments (``async_workers``, ``comm_codec``, ``comm_down``,
     ``ps_shm``, ``pull_overlap``, ``ps_shards``, the heartbeat knobs) are
     validated and kept as the JAX package keeps them; ``mode="async"``
-    raises (ROADMAP Queue 1 item 5), as do a ``mesh`` (item 8) and a
-    disk-streaming dataset (item 4)."""
+    raises (ROADMAP Queue 1 item 5), as does a ``mesh`` (item 8).  A
+    ``ShardedFileDataset`` streams each worker's shard partition from
+    disk, one window of every worker at a time
+    (``SyncEngine.window_fn``)."""
 
     #: default window when the algorithm has no explicit one
     _default_window = 1
@@ -510,11 +647,12 @@ class DistributedTrainer(Trainer):
 
     # -- training -------------------------------------------------------------
     def _train(self, dataset: Dataset, shuffle: bool) -> Model:
+        if isinstance(dataset, ShardedFileDataset):
+            # every worker streams its own shard partition
+            return self._train_sync_stream(dataset, shuffle)
         if not isinstance(dataset, Dataset):
-            raise NotImplementedError(
-                f"{type(self).__name__} trains an in-memory Dataset; the "
-                f"disk-streaming path ({type(dataset).__name__}) is not "
-                f"ported yet: {_STREAMING_ITEM}")
+            raise TypeError(f"{type(self).__name__} trains a Dataset or a "
+                            f"ShardedFileDataset, got {type(dataset)}")
         if shuffle:
             dataset = dataset.shuffle(self.seed)
         return self._train_sync(dataset)
@@ -524,8 +662,9 @@ class DistributedTrainer(Trainer):
             self.num_workers, self.communication_window,
             getattr(self, "rho", None), getattr(self, "momentum", None))
 
-    def _engine_run(self):
-        """The cached engine and its epoch program, rebuilt when a
+    def _engine(self, program: str):
+        """The cached engine and its ``program`` ("epoch", or "window":
+        the streaming path's), instrumented; the cache is rebuilt when a
         hyperparameter changed between ``train()`` calls."""
         key = self._config_key()
         cached = getattr(self, "_engine_cache", None)
@@ -537,39 +676,109 @@ class DistributedTrainer(Trainer):
                                 compute_dtype=self.compute_dtype,
                                 remat=self.remat,
                                 aux_weight=self.aux_weight)
-            self._engine_cache = (key, engine, engine.epoch_fn())
-        _, engine, run = self._engine_cache
-        return engine, self._instrumented(run, "epoch")
+            self._engine_cache = (key, engine,
+                                  {"epoch": engine.epoch_fn(),
+                                   "window": engine.window_fn()})
+        _, engine, programs = self._engine_cache
+        return engine, self._instrumented(programs[program], program)
 
     def _init_variables(self):
         """(center, local): the model initialised from ``seed`` (its own
-        tensors are the center) and every worker starting from it."""
+        tensors are the center) and every worker starting from it.  Both
+        the in-memory and the streaming path start here (the JAX
+        package's ``_stream_locals``)."""
         self.model.init(self.seed, device=self.device)
         center = variables_of(self.model)
         return center, replicate(center, self.num_workers)
 
+    def _state_tree(self, opt_state):
+        names = jax_leaf_names(self.model)
+        return (_variables_leaves(self.center, names),
+                _variables_leaves(self.local, names),
+                checkpoint.stacked_opt_state_leaves(opt_state, names[0]),
+                checkpoint.rng_key(self.seed + 1, self.num_workers))
+
+    def _adopt_state(self, like, tree, opt_state):
+        _copy_into(like[0] + like[1], tree[0] + tree[1])
+        return checkpoint.unstacked_opt_states(
+            opt_state, tree[2], jax_leaf_names(self.model)[0])
+
+    def _generators(self) -> list:
+        return self._started_engine.rngs
+
+    def _start(self, engine):
+        """Initialise from ``seed`` and restore a checkpoint if asked:
+        ``(opt_state, ckpt, start_epoch)``.  ``self.center`` and
+        ``self.local`` are the (center, local) trees on the device, which
+        every window updates in place."""
+        self.center, self.local = self._init_variables()
+        self._started_engine = engine
+        engine.bind(self.local)
+        opt_state = engine.init_opt_state()
+        engine.seed(self.seed + 1)
+        ckpt = self._ckpt_manager()
+        opt_state, start = self._maybe_restore(ckpt, opt_state)
+        return opt_state, ckpt, start
+
     def _train_sync(self, dataset: Dataset):
-        engine, run = self._engine_run()
+        engine, run = self._engine("epoch")
         P = self.num_workers
 
         xs, ys, _ = self._stage_data(dataset, self.communication_window)
         xs = torch.from_numpy(xs).to(self.device)
         ys = torch.from_numpy(ys).to(self.device)
 
-        center, local = self._init_variables()
-        engine.bind(local)
-        opt_state = engine.init_opt_state()
-        engine.seed(self.seed + 1)
-
+        opt_state, ckpt, start = self._start(engine)
+        center, local = self.center, self.local
         samples = int(xs.shape[1]) * int(xs.shape[2]) * self.batch_size * P
         pipe = _EpochPipeline(self, samples, self.device)
-        for epoch in range(self.num_epoch):
+        for epoch in range(start, self.num_epoch):
             center, local, opt_state, losses = run(center, local, opt_state,
                                                    xs, ys)
             pipe.push(epoch, losses.reshape(P, -1))  # rows: (workers, steps)
+            if ckpt is not None:
+                self._save(ckpt, epoch, opt_state)
         pipe.flush()
-        #: the final (center, local) trees, on the device
-        self.center, self.local = center, local
+        return self._collect(center, local)
+
+    def _train_sync_stream(self, source: ShardedFileDataset,
+                           shuffle: bool) -> Model:
+        """Synchronous epochs streamed from disk: worker k reads only its
+        shard partition (``worker_window_factory``: its own prefetch
+        thread, the reference's per-worker seeds), and each step stacks
+        one window of every worker, (W, window, batch, …), on the host,
+        copies it to the device and runs it with the edge.  Host memory
+        stays O(W × window × batch), never the epoch."""
+        engine, run = self._engine("window")
+        P, w, bs = self.num_workers, self.communication_window, \
+            self.batch_size
+        n_windows = worker_windows_per_epoch(source, bs, P, w)
+
+        opt_state, ckpt, start = self._start(engine)
+        center, local = self.center, self.local
+        cols = [self.features_col, self.label_col]
+        factories = [worker_window_factory(source, cols, bs, k, P, w,
+                                           self.seed, shuffle)
+                     for k in range(P)]
+        pipe = _EpochPipeline(self, n_windows * w * bs * P, self.device)
+        for epoch in range(start, self.num_epoch):
+            its = [f(epoch) for f in factories]
+            losses = []
+            try:
+                for _ in range(n_windows):
+                    grp = [next(it) for it in its]
+                    center, local, opt_state, l = run(
+                        center, local, opt_state,
+                        _to_device(grp, 0, self.device),
+                        _to_device(grp, 1, self.device))
+                    losses.append(l)  # (workers, window) on the device
+            finally:
+                for it in its:
+                    it.close()
+            pipe.push(epoch, torch.cat(losses, 1))
+            if ckpt is not None:
+                self._save(ckpt, epoch, opt_state)
+        pipe.flush()
         return self._collect(center, local)
 
     def _collect(self, center, local):

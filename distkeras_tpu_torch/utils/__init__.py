@@ -1,14 +1,17 @@
 """Utility surface — the port of ``distkeras_tpu.utils``' helpers
 (parity with reference ``distkeras/utils.py``), device selection, cache
-trees and weights carried across from JAX."""
+trees, weights carried across from JAX, serde and checkpoints."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from . import checkpoint, serde  # noqa: F401
+from .checkpoint import CheckpointManager  # noqa: F401
 from .device import default_device  # noqa: F401
 from .tree import tree_map
+from .serde import deserialize_model, serialize_model  # noqa: F401
 from .weights import load_jax_variables, to_numpy_variables  # noqa: F401
 
 

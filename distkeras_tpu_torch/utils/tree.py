@@ -1,7 +1,8 @@
 """Minimal trees of tensors: nested dicts, lists and tuples with tensor
 (or None) leaves — the shape of the port's decode caches.  ``None``
 leaves are kept in place (a cache-free layer's slot) and skipped by
-``tree_leaves``, as JAX pytrees drop them."""
+``tree_leaves``, as JAX pytrees drop them.  ``tree_leaves`` visits dict
+keys sorted, in ``jax.tree_util.tree_leaves``' order."""
 
 from __future__ import annotations
 
@@ -24,11 +25,13 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
 
 
 def tree_leaves(tree: Any) -> List[Any]:
-    """The non-None leaves of ``tree``, depth first."""
+    """The non-None leaves of ``tree``, depth first, in
+    ``jax.tree_util.tree_leaves`` order: dict keys sorted, lists and
+    tuples in order."""
     if tree is None:
         return []
     if isinstance(tree, dict):
-        return [leaf for k in tree for leaf in tree_leaves(tree[k])]
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
         return [leaf for t in tree for leaf in tree_leaves(t)]
     return [tree]

@@ -7,18 +7,22 @@ leaf into the matching parameter (``params``) or buffer (``state``:
 BatchNorm's ``mean`` and ``var``) of a built port model, walking the
 layers in the order ``Sequential`` and ``Residual`` nest them.  Layouts
 are the JAX package's on both sides (a ``Dense.kernel`` is (in, out)),
-so leaves copy without transposes.  ``to_numpy_variables`` is the inverse: a round trip
-is bit-exact.
+so leaves copy without transposes.  ``to_numpy_variables`` is the
+inverse: a round trip is bit-exact.  A ``utils.serde`` blob's variables
+load the same way (its bfloat16 leaves are torch tensors).
+``jax_leaf_names`` gives the JAX package's leaf order of a model's
+parameters and buffers, which checkpoints and optax states follow.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, List, Tuple
 
 import numpy as np
 import torch
 
 from ..models.layers import Layer, Residual, Sequential
+from .tree import tree_leaves
 
 
 def _walk(layer: Layer, params: Any, state: Any, path: str,
@@ -63,34 +67,54 @@ def load_jax_variables(model, variables: dict) -> None:
     buffers in place (the model must be built: ``model.init(...)``
     first)."""
     def copy(path, param, arr):
-        arr = np.asarray(arr)
-        if tuple(arr.shape) != tuple(param.shape):
-            raise ValueError(f"{path}: shape {arr.shape} != "
+        # a leaf is a numpy array, or a torch tensor (serde's bfloat16)
+        src = arr.detach() if torch.is_tensor(arr) \
+            else torch.from_numpy(np.array(arr))
+        if tuple(src.shape) != tuple(param.shape):
+            raise ValueError(f"{path}: shape {tuple(src.shape)} != "
                              f"{tuple(param.shape)}")
         with torch.no_grad():
-            param.copy_(torch.from_numpy(np.array(arr)))
+            param.copy_(src)
 
     _walk(model.layer, variables["params"], variables["state"], "layer",
           copy)
 
 
+def _jax_tree(layer, leaf: Callable):
+    """``layer``'s (params, state) trees in the JAX package's shape, with
+    ``leaf(tensor)`` at each leaf and every dict's keys sorted, as
+    ``jax.tree_util`` orders (and rebuilds) them."""
+    if isinstance(layer, Sequential):
+        pairs = [_jax_tree(lyr, leaf) for lyr in layer.layers]
+        return [p for p, _ in pairs], [s for _, s in pairs]
+    if isinstance(layer, Residual):
+        params, state = {}, {}
+        for key in ("inner", "shortcut"):
+            sub = getattr(layer, key)
+            if sub is not None:
+                params[key], state[key] = _jax_tree(sub, leaf)
+        return params, state
+    return tuple({n: leaf(t) for n, t in sorted(it)}
+                 for it in (layer.named_parameters(recurse=False),
+                            layer.named_buffers(recurse=False)))
+
+
 def to_numpy_variables(model) -> dict:
     """``model``'s parameters and buffers as a JAX-shaped ``variables``
-    tree of numpy arrays (the inverse of :func:`load_jax_variables`)."""
-    def tree(layer):
-        if isinstance(layer, Sequential):
-            pairs = [tree(lyr) for lyr in layer.layers]
-            return [p for p, _ in pairs], [s for _, s in pairs]
-        if isinstance(layer, Residual):
-            params, state = {}, {}
-            for key in ("inner", "shortcut"):
-                sub = getattr(layer, key)
-                if sub is not None:
-                    params[key], state[key] = tree(sub)
-            return params, state
-        return tuple({n: t.detach().cpu().numpy().copy() for n, t in it}
-                     for it in (layer.named_parameters(recurse=False),
-                                layer.named_buffers(recurse=False)))
-
-    params, state = tree(model.layer)
+    tree of numpy arrays (the inverse of :func:`load_jax_variables`),
+    its dicts in sorted key order as the JAX trainers' trees."""
+    params, state = _jax_tree(
+        model.layer, lambda t: t.detach().cpu().numpy().copy())
     return {"params": params, "state": state}
+
+
+def jax_leaf_names(model) -> Tuple[List[str], List[str]]:
+    """The names (as ``named_parameters`` / ``named_buffers`` give them)
+    of ``model``'s parameters and of its buffers, each list in the order
+    ``jax.tree_util.tree_leaves`` visits the JAX package's ``params`` and
+    ``state`` trees: the leaf order of its checkpoints and its optax
+    states."""
+    names = {id(t): n for n, t in model.named_parameters()}
+    names.update({id(t): n for n, t in model.named_buffers()})
+    params, state = _jax_tree(model.layer, lambda t: names[id(t)])
+    return tree_leaves(params), tree_leaves(state)

@@ -1,8 +1,9 @@
 """The port's CUDA paths on the card: the flash-attention kernels (K1
 forward, K2/K3 backward) against their plain versions, the wrappers'
 refusals, the decode engine on a small model, a short flash-vs-dense
-``SingleTrainer`` run, and the sync distributed trainers (card against
-CPU, the window-edge rules on CUDA tensors, K1–K3 launches under ADAG).
+``SingleTrainer`` run, the sync distributed trainers (card against
+CPU, the window-edge rules on CUDA tensors, K1–K3 launches under ADAG),
+and checkpoints, resume and disk streaming on the card.
 Every test is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is False (the kernel has no CPU mode).
 
@@ -922,3 +923,74 @@ def test_adag_over_the_flash_lm_launches_each_kernel_per_worker_step():
         [4 * 4 * 2 * 2] * 3
     assert all(np.isfinite(h).all() and h.shape == (4, 4)
                for h in t.get_history())
+
+
+def _flash_lm_trainer(epochs, **kw):
+    cfg = dict(vocab_size=64, dim=64, num_heads=2, num_blocks=2, seq_len=128,
+               attention_impl="flash")
+    return SingleTrainer(zoo.gpt_lm(**cfg), "adam",
+                         "sparse_categorical_crossentropy", batch_size=8,
+                         num_epoch=epochs, learning_rate=0.01,
+                         compute_dtype="bfloat16", **kw)
+
+
+def test_a_card_trainers_checkpoint_restores_onto_the_card(tmp_path):
+    """A card trainer's checkpoint restores its state on the card: the
+    restored tensors are CUDA tensors, bit-identical to what was saved,
+    and the file holds the generator's CUDA state."""
+    from distkeras_tpu_torch.utils import checkpoint
+    ds = load_lm_corpus(n_train=32, seq_len=128, vocab_size=64)[0]
+    t = _flash_lm_trainer(1, checkpoint_dir=str(tmp_path))
+    t.train(ds)
+    mgr = checkpoint.CheckpointManager(str(tmp_path))
+    # the live state after the epoch: adam's count and moments on the card
+    names = dkt.utils.weights.jax_leaf_names(t.model)
+    opt = t._window_run()[1].init(dict(t.model.named_parameters()))
+    like = t._state_tree(opt)
+    tree, meta = mgr.restore(like)
+    assert meta["epoch"] == 0
+    assert meta[checkpoint.GENERATORS]["device"] == "cuda"
+    variables = tree[0]
+    assert all(x.is_cuda for x in variables + tree[1][1:])
+    for got, live in zip(variables, like[0]):
+        assert torch.equal(got, live.detach())
+    assert tree[1][0] == 4   # adam's step count: 4 steps of batch 8
+    assert len(tree[1]) == 1 + 2 * len(names[0])
+
+
+def test_resume_is_bit_identical_on_the_card(tmp_path):
+    """The flash LM in bf16 with adam: 3 epochs straight against 1 epoch
+    plus a resume to 3, on the card, bit for bit."""
+    ds = load_lm_corpus(n_train=32, seq_len=128, vocab_size=64)[0]
+    straight = _flash_lm_trainer(3)
+    straight.train(ds)
+    _flash_lm_trainer(1, checkpoint_dir=str(tmp_path)).train(ds)
+    resumed = _flash_lm_trainer(3, checkpoint_dir=str(tmp_path))
+    resumed.train(ds, resume=True)
+    for a, b in zip(resumed.get_history(), straight.get_history()[1:]):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(tree_leaves(resumed.trained_variables),
+                    tree_leaves(straight.trained_variables)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_single_trainer_streams_on_the_card(tmp_path):
+    """The flash LM streamed from disk shards on the card equals its
+    in-memory run on the same batches, and runs K1-K3 per block per
+    step."""
+    from distkeras_tpu_torch.data import ShardedFileDataset
+    ds = load_lm_corpus(n_train=64, seq_len=128, vocab_size=64)[0]
+    src = ShardedFileDataset.write(ds, str(tmp_path), rows_per_shard=20)
+    kernels = (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda)
+    runs = []
+    for data in (ds, src):
+        before = [k.launches for k in kernels]
+        t = _flash_lm_trainer(2)
+        model = t.train(data)
+        assert model.device.type == "cuda"
+        runs.append((t, [k.launches - b for k, b in zip(kernels, before)]))
+    (ram, ram_launches), (disk, disk_launches) = runs
+    assert disk_launches == ram_launches == [2 * 8 * 2] * 3
+    for a, b in zip(disk.get_history() + tree_leaves(disk.trained_variables),
+                    ram.get_history() + tree_leaves(ram.trained_variables)):
+        np.testing.assert_allclose(a, b, rtol=2e-5, atol=2e-6)

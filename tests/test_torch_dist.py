@@ -334,7 +334,7 @@ def test_window_fn_drives_the_epoch_one_window_at_a_time(data):
     ref = trainer()
     ref.train(data[1])
     t = trainer()
-    engine, _ = t._engine_run()
+    engine, _ = t._engine("epoch")
     xs, ys, n_windows = t._stage_data(data[1], WINDOW)
     center, local = t._init_variables()
     engine.bind(local)
@@ -423,23 +423,13 @@ def test_stage_data_refuses_a_window_past_the_steps_and_warns_on_a_rest(
         t._stage_data(data[1], 2)
 
 
-class ShardedFileDataset:
-    """A stand-in for the disk-streaming dataset (not ported)."""
-
-
 def test_unported_options_raise_naming_their_roadmap_item(data):
     model = Model.from_config(_jax_mlp().config())
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         dkt.ADAG(model, mode="async", device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         dkt.DOWNPOUR(model, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        dkt.ADAG(model, checkpoint_dir="ckpt", device="cpu")
     t = dkt.ADAG(model, device="cpu", **COMMON)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        t.train(ShardedFileDataset())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        t.train(data[1], resume=True)
     with pytest.raises(RuntimeError, match="no live async run"):
         t.add_worker()
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
@@ -498,18 +488,28 @@ def test_batchnorm_axis_name_points_at_the_multi_card_item():
 
 
 def test_chip_smoke_dist_configs_are_the_yaml_files():
-    """``chip_smoke.DIST_CONFIGS`` (hard-coded: the card's machine has no
-    yaml) against ``configs/bench_all.yaml``."""
+    """``chip_smoke.DIST_CONFIGS``, ``YAML_LM_CONFIGS`` and
+    ``STREAM_CONFIGS`` (hard-coded: the card's machine has no yaml)
+    against ``configs/bench_all.yaml``, ``quick`` and ``streaming``
+    included where a config has them."""
     yaml = pytest.importorskip("yaml")
     with open("configs/bench_all.yaml") as f:
         cfgs = {c["name"]: c for c in yaml.safe_load(f)["configs"]}
-    assert set(chip_smoke.DIST_CONFIGS) <= set(cfgs)
-    for name, mine in chip_smoke.DIST_CONFIGS.items():
+    mine_all = {**chip_smoke.DIST_CONFIGS, **chip_smoke.YAML_LM_CONFIGS,
+                **chip_smoke.STREAM_CONFIGS}
+    assert len(mine_all) == len(chip_smoke.DIST_CONFIGS) + 3
+    assert set(mine_all) <= set(cfgs)
+    for name, mine in mine_all.items():
         ref = cfgs[name]
         for key in ("trainer", "model", "dataset", "onehot",
                     "dataset_kwargs", "trainer_kwargs"):
             assert mine[key] == ref.get(key), (name, key)
         assert mine["model_kwargs"] == ref.get("model_kwargs", {}), name
+        for key in ("quick", "streaming"):
+            if key in mine:
+                assert mine[key] == ref[key], (name, key)
+    assert all(c.get("streaming") for c in chip_smoke.STREAM_CONFIGS.values())
+    assert "quick" in chip_smoke.YAML_LM_CONFIGS["GPT-LM flash T=256 (bf16)"]
     runs = {trainer for trainer, _ in chip_smoke.DIST_RUNS}
     assert runs == {"ADAG", "DOWNPOUR", "AEASGD", "EAMSGD", "DynSGD",
                     "AveragingTrainer", "EnsembleTrainer"}

@@ -365,16 +365,6 @@ def test_load_lm_corpus_matches_jax():
 
 def test_unported_trainer_options_raise():
     model = zoo.gpt_lm(**LM)
-    ds = load_lm_corpus(n_train=32, seq_len=SEQ, vocab_size=VOCAB)[0]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3 "):
-        dkt.SingleTrainer(model, checkpoint_dir="ckpt", device="cpu")
-    t = dkt.SingleTrainer(model, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3 "):
-        t.serialize()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3 "):
-        t.train(ds, resume=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4 "):
-        t.train(object())
     for profile in ("trace", {"step_split": True}):
         with pytest.raises(NotImplementedError, match="Queue 1 item 7 "):
             dkt.SingleTrainer(model, profile=profile, device="cpu")
