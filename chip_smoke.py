@@ -144,6 +144,25 @@ Phases, one JSON line each:
    the run, peak memory; the busy share of the last epoch of the same
    configured run repeated under the profiler; the loss falls.  One epoch of the SingleTrainer config from RAM and from
    disk: parameters within rtol 2e-5, atol 2e-6.
+15. ``async`` — the asynchronous parameter server (on the host, over
+   loopback TCP) with ``mode="async"``: ``DOWNPOUR``, ``ADAG``,
+   ``DynSGD``, ``AEASGD`` and ``EAMSGD`` on the probe LM (full width,
+   bf16) with 4 thread workers of batch 8, each at its default window
+   for 2 windows (``ASYNC_RULES``); DOWNPOUR again under each wire
+   option (``ASYNC_WIRE``: the int8, bf16 and top-k 1% commit codecs,
+   int8 DOWN pulls, the shared-memory ring sized to the center,
+   dispatch-ahead pulls); ADAG ConvNet/CIFAR-10 at ``DIST_WORKERS``
+   async workers beside the sync ``dist`` figure; 2 process workers on
+   the yaml's flash LM; a commit reset (``SocketFaults``), a stalled
+   worker evicted and respawned (``ThreadStall``), an ``add_worker``
+   join, and a PS checkpoint then an exact resume.  Per run: samples/s,
+   commits a worker, commit and pull round trips p50/p99, bytes per
+   commit and pull, codec bytes, DynSGD's staleness p50/p99, the first
+   and last window's mean loss, the PS's accounting (``requests ==
+   applied + dropped + tombstoned`` checked) and K1–K3 launches, checked
+   exactly (workers x windows x steps x blocks; a worker process's
+   launches folded into the parent's).  Each run is a path of the
+   ``kernels`` line (``async_downpour``, ..., ``async_processes``).
 
 ``k1`` and ``k2k3`` also hold head dims 16, 48 and 96 (which bf16 K1
 and K2/K3 run zero-padded to 32, 64 and 128, and the f32 K1 reads
@@ -2446,6 +2465,394 @@ def _ram_vs_disk(torch, cfg, ds, src):
     return {"max_abs_diff": err, "bit_identical": err == 0.0}
 
 
+# ---------------------------------------------------------------------------
+# async: the parameter server, its wire and mode="async"
+# ---------------------------------------------------------------------------
+
+#: the async rules on the probe LM: (trainer, its own arguments, learning
+#: rate); each runs at its default communication window.  EAMSGD's
+#: Nesterov momentum 0.9 multiplies its step tenfold, so it steps at a
+#: fifth of the others' rate
+ASYNC_RULES = (("DOWNPOUR", {}, 0.1), ("ADAG", {}, 0.1),
+               ("DynSGD", {}, 0.1), ("AEASGD", {"rho": 1.0}, 0.1),
+               ("EAMSGD", {"rho": 1.0}, 0.02))
+#: thread workers and each one's batch on the probe LM
+ASYNC_WORKERS, ASYNC_BATCH = 4, 8
+#: the wire options, each on DOWNPOUR beside its plain run (``plain``:
+#: the rules' DOWNPOUR run again, warm, as their baseline)
+ASYNC_WIRE = (("plain", {}),
+              ("codec_int8", {"comm_codec": "int8"}),
+              ("codec_bf16", {"comm_codec": "bf16"}),
+              ("codec_topk0.01", {"comm_codec": "topk0.01"}),
+              ("down_int8", {"comm_down": "int8"}),
+              ("shm", {"ps_shm": True}),
+              ("pull_overlap", {"pull_overlap": True}))
+
+
+def _span_registry(records):
+    """A registry holding the run's worker spans as the tracers' own
+    histograms (``span.<name>.seconds``, ``TIME_BUCKETS``): the
+    ``ps.pull`` and ``ps.commit`` round trips every worker saw, thread
+    or process (a worker process's spans are folded into the trainer's
+    records)."""
+    from distkeras_tpu_torch.obs import TIME_BUCKETS, Registry
+    reg = Registry()
+    for r in records:
+        if r["event"] == "span" and r["name"] in ("ps.pull", "ps.commit"):
+            reg.histogram(f"span.{r['name']}.seconds",
+                          TIME_BUCKETS).observe(r["seconds"])
+    return reg.snapshot()
+
+
+def _quantiles(snap) -> dict:
+    from distkeras_tpu_torch.obs import snapshot_quantile
+    if snap is None or snap["count"] == 0:
+        return {"p50": None, "p99": None, "mean": None, "count": 0}
+    return {"p50": snapshot_quantile(snap, 0.5),
+            "p99": snapshot_quantile(snap, 0.99),
+            "mean": snap["sum"] / snap["count"], "count": snap["count"]}
+
+
+def _accounting(snap) -> dict:
+    """The PS's commit accounting; fails unless ``requests == applied +
+    dropped + tombstoned``."""
+    val = lambda n: int(snap.get(n, {}).get("value", 0))  # noqa: E731
+    acc = {"requests": val("ps.commit_requests"),
+           "applied": val("ps.commits"),
+           "dropped": val("ps.commits_dropped"),
+           "tombstoned": val("ps.commits_tombstoned"),
+           "evictions": val("ps.evictions"), "respawns": val("ps.respawns"),
+           "joins": val("ps.joins")}
+    check(acc["requests"] == acc["applied"] + acc["dropped"]
+          + acc["tombstoned"], f"PS accounting broken: {acc}")
+    return acc
+
+
+def _async_lm_trainer(name, lr=0.1, workers=None, batch=None, epochs=1,
+                      **kw):
+    """``name`` in async mode over the probe LM (bf16, sgd) at its default
+    window; ``ASYNC_WORKERS`` workers of batch ``ASYNC_BATCH`` unless
+    given."""
+    import distkeras_tpu_torch as dkt
+    from distkeras_tpu_torch.models import zoo
+    return getattr(dkt, name)(zoo.gpt_lm(**LM), "sgd", SCE, mode="async",
+                              num_workers=workers or ASYNC_WORKERS,
+                              batch_size=batch or ASYNC_BATCH,
+                              learning_rate=lr, compute_dtype="bfloat16",
+                              num_epoch=epochs, **kw)
+
+
+def _lm_rows(n):
+    from distkeras_tpu_torch.data import load_lm_corpus
+    return load_lm_corpus(n_train=n, seq_len=LM["seq_len"],
+                          vocab_size=LM["vocab_size"])[0]
+
+
+def _async_run(torch, t, ds, path, resume=False):
+    """Train ``t`` (async) on ``ds``, its K1-K3 counts set to 0 just
+    before and read just after (worker processes' launches folded in);
+    returns the run's row: samples/s, windows and commits a worker,
+    commit and pull round trips (``_span_registry``),
+    bytes per commit and pull, staleness, the first and last window's
+    mean loss and the PS accounting."""
+    import numpy as np
+    from distkeras_tpu_torch.obs import default_registry
+    from distkeras_tpu_torch.ops.flash_attention import reset_launches
+    before = default_registry().snapshot()
+    reset_launches()
+    t0 = time.perf_counter()
+    t.train(ds, resume=resume)
+    wall = time.perf_counter() - t0
+    launches, by_kernel = _launch_counts(), kernel_launches()
+    after = default_registry().snapshot()
+    snap = t.ps_stats["registry"]
+    acc = _accounting(snap)
+    beats = sorted((r for r in t.metrics.records
+                    if r["event"] == "heartbeat"), key=lambda r: r["ts"])
+    by_window: dict = {}
+    for r in beats:
+        by_window.setdefault(r["window"], []).append(r["mean_loss"])
+    first, last = min(by_window), max(by_window)
+    hist = t.get_history()
+    check(all(bool(np.isfinite(np.concatenate(
+        [np.ravel(x) for x in (h if isinstance(h, list) else [h])])).all())
+        for h in hist), f"{path}: a training loss is not finite")
+    val = lambda n: snap.get(n, {}).get("value", 0)  # noqa: E731
+    spans = _span_registry(t.metrics.records)
+    samples = len(beats) * t.communication_window * t.batch_size
+    row = {"phase": "async", "path": path, "trainer": type(t).__name__,
+           "workers": t.num_workers, "placement": t.async_workers,
+           "window": t.communication_window, "batch_size": t.batch_size,
+           "windows_trained": len(beats),
+           "commits_by_worker": {str(k): v for k, v in sorted(
+               t.ps_stats["commits_by_worker"].items())},
+           "wall_s": wall, "samples_per_s": samples / wall,
+           "commit_rtt_s": _quantiles(spans.get("span.ps.commit.seconds")),
+           "pull_rtt_s": _quantiles(spans.get("span.ps.pull.seconds")),
+           "bytes_per_commit": val("ps.wire.bytes_up")
+           / max(1, acc["requests"]),
+           "bytes_per_pull": val("ps.wire.bytes_down")
+           / max(1, val("ps.pulls")),
+           "codec_bytes_raw": val("ps.codec.bytes_raw"),
+           "codec_bytes_encoded": val("ps.codec.bytes_encoded"),
+           "down_bytes_raw": val("ps.down.bytes_raw"),
+           "down_bytes_encoded": val("ps.down.bytes_encoded"),
+           "shm_bytes": after.get("net.bytes_shm", {}).get("value", 0)
+           - before.get("net.bytes_shm", {}).get("value", 0),
+           "staleness": _quantiles(snap.get("ps.staleness")),
+           "first_window_mean_loss": float(np.mean(by_window[first])),
+           "last_window_mean_loss": float(np.mean(by_window[last])),
+           "accounting": acc, "launches": launches,
+           "kernel_launches": by_kernel}
+    return row
+
+
+def _check_launches(row, windows, steps):
+    """K1, K2 and K3 each launched exactly ``windows`` x ``steps`` x
+    blocks times."""
+    want = windows * steps * LM["num_blocks"]
+    check(all(n == want for n in row["launches"].values()),
+          f"{row['path']}: launches {row['launches']} != {want} each")
+
+
+def _async_faults(torch):
+    """Short DOWNPOUR runs on the probe LM (2 thread workers, window 5,
+    batch 4, 2 windows each): a commit reset by ``SocketFaults``
+    (evicted, respawned at its committed window, one window trained
+    twice), a ``ThreadStall`` evicted past ``heartbeat_hard_s`` and
+    respawned (its late commit tombstones), an ``add_worker`` join, and
+    ``checkpoint_dir`` then ``train(resume=True)``: every worker resumes
+    at its ``commits_by_worker`` window.  The accounting identity holds
+    in each."""
+    import tempfile
+    import threading
+    from distkeras_tpu_torch import chaos
+    from distkeras_tpu_torch.ps import workers as workers_mod
+    w, batch = 5, 4
+    ds = _lm_rows(2 * batch * 2 * w)
+    rows = []
+
+    def wait(cond, what, timeout=120.0):
+        end = time.monotonic() + timeout
+        while not cond():
+            check(time.monotonic() < end, f"timed out waiting for {what}")
+            time.sleep(0.05)
+
+    # a commit send reset: the worker dies, is respawned at its window
+    t = _async_lm_trainer("DOWNPOUR", workers=2, batch=batch)
+    with chaos.SocketFaults({"send:commit": [3]}) as faults:
+        row = _async_run(torch, t, ds, "async_fault_reset")
+    row["injected"] = faults.injected
+    acc = row["accounting"]
+    check(faults.injected == 1 and acc["evictions"] == 1
+          and acc["respawns"] == 1 and acc["applied"] == 4,
+          f"socket reset: {acc}, injected {faults.injected}")
+    # the reset window trained, was lost, and trained again
+    _check_launches(row, 5, w)
+    rows.append(row)
+
+    # a stalled thread: evicted, respawned, its late commit tombstoned
+    t = _async_lm_trainer("DOWNPOUR", workers=2, batch=batch,
+                          heartbeat_hard_s=5.0, startup_grace_s=300.0)
+    out = {}
+    with chaos.ThreadStall(workers_mod.PullCommitWorker, worker_id=1,
+                           stall_after=1) as stall:
+        th = threading.Thread(
+            target=lambda: out.update(row=_async_run(
+                torch, t, ds, "async_fault_stall")), daemon=True)
+        th.start()
+        check(stall.wait_stalled(300), "worker 1 never stalled")
+        wait(lambda: t._supervisor is not None, "the supervisor")
+        sup = t._supervisor
+        wait(lambda: sup.ps.registry.counter("ps.evictions").value >= 1,
+             "the stalled worker's eviction")
+        stall.resume()
+        th.join(300)
+    check("row" in out, "the stalled run did not finish")
+    acc = out["row"]["accounting"]
+    check(acc["evictions"] == 1 and acc["respawns"] == 1
+          and acc["tombstoned"] >= 1 and acc["applied"] == 4,
+          f"thread stall: {acc}")
+    rows.append(out["row"])
+
+    # an elastic join into the live run
+    t = _async_lm_trainer("DOWNPOUR", workers=2, batch=batch)
+    out = {}
+    with chaos.ThreadStall(workers_mod.PullCommitWorker, worker_id=0,
+                           stall_after=1) as stall:
+        th = threading.Thread(
+            target=lambda: out.update(row=_async_run(
+                torch, t, ds, "async_join")), daemon=True)
+        th.start()
+        check(stall.wait_stalled(300), "worker 0 never stalled")
+        wait(lambda: t._supervisor is not None, "the supervisor")
+        sup = t._supervisor
+        joined = t.add_worker()
+        wait(lambda: sup.ps.commits_by_worker.get(joined, 0) >= 1,
+             "the joined worker's first commit")
+        stall.resume()
+        th.join(300)
+    check("row" in out, "the join run did not finish")
+    acc = out["row"]["accounting"]
+    check(acc["joins"] == 1 and acc["applied"] == 6
+          and out["row"]["commits_by_worker"] == {"0": 2, "1": 2, "2": 2},
+          f"join: {acc}, {out['row']['commits_by_worker']}")
+    _check_launches(out["row"], 6, w)
+    rows.append(out["row"])
+
+    # checkpoints of the center, then an exact per-worker resume
+    with tempfile.TemporaryDirectory() as tmp:
+        t = _async_lm_trainer("DOWNPOUR", workers=2, batch=batch,
+                              checkpoint_dir=tmp)
+        first = _async_run(torch, t, ds, "async_ckpt")
+        t = _async_lm_trainer("DOWNPOUR", workers=2, batch=batch, epochs=2,
+                              checkpoint_dir=tmp)
+        resumed = _async_run(torch, t, ds, "async_resumed", resume=True)
+    check(first["commits_by_worker"] == {"0": 2, "1": 2}
+          and resumed["commits_by_worker"] == {"0": 4, "1": 4}
+          and resumed["windows_trained"] == 4,
+          f"resume: {first['commits_by_worker']} then "
+          f"{resumed['commits_by_worker']}, "
+          f"{resumed['windows_trained']} windows trained")
+    _check_launches(first, 4, w)
+    _check_launches(resumed, 4, w)
+    rows += [first, resumed]
+    for r in rows:
+        emit(r)
+    return rows
+
+
+def _async_processes(torch):
+    """DOWNPOUR with 2 process workers on configs/bench_all.yaml's flash
+    LM (``YAML_LM_CONFIGS``: Dh 32, bf16, batch 64): each child holds its
+    own CUDA context and loads the kernel library the parent built; the
+    children's launches fold into the parent's counts."""
+    import distkeras_tpu_torch as dkt
+    from distkeras_tpu_torch.models import zoo
+    cfg = next(iter(YAML_LM_CONFIGS.values()))
+    kw, mk = dict(cfg["trainer_kwargs"]), cfg["model_kwargs"]
+    kw.pop("label_col")
+    ds = _dist_data(cfg)
+    t = dkt.DOWNPOUR(zoo.gpt_lm(**mk), "sgd", num_workers=2,
+                     mode="async", async_workers="processes",
+                     label_col="label", **kw)
+    row = _async_run(torch, t, ds, "async_processes")
+    steps = ds.num_rows // 2 // kw["batch_size"]
+    windows = 2 * (steps // t.communication_window) * kw["num_epoch"]
+    want = windows * t.communication_window * mk["num_blocks"]
+    check(row["accounting"]["applied"] == windows,
+          f"processes: {row['accounting']} for {windows} windows")
+    check(all(n == want for n in row["launches"].values()),
+          f"processes: launches {row['launches']} != {want} each")
+    row["model"] = mk
+    emit(row)
+    return row
+
+
+def phase_async(torch, dist_rows=()):
+    """The async parameter server on the card (the PS on the host over
+    loopback TCP, the workers' windows on the card):
+
+    1. each rule (``ASYNC_RULES``) on the probe LM at full width, bf16,
+       ``ASYNC_WORKERS`` thread workers of batch ``ASYNC_BATCH``, at its
+       default window, 2 windows a worker: K1, K2 and K3 each launched
+       exactly workers x windows x steps x blocks times, every window
+       committed once, the accounting identity, the loss fell;
+    2. the wire options (``ASYNC_WIRE``) on DOWNPOUR at the same size:
+       bytes raw against encoded, commit round trips and samples/s
+       beside the plain run's;
+    3. ADAG ConvNet/CIFAR-10 (``DIST_CONFIGS``) at the ``dist`` phase's
+       ``DIST_WORKERS`` workers in async mode, samples/s beside the sync
+       figure;
+    4. 2 process workers (``_async_processes``);
+    5. faults, a join and a resume (``_async_faults``).
+
+    Returns the rows."""
+    import numpy as np
+    rows = []
+    for name, kw, lr in ASYNC_RULES:
+        import distkeras_tpu_torch as dkt
+        w = getattr(dkt, name)._default_window
+        ds = _lm_rows(ASYNC_WORKERS * ASYNC_BATCH * 2 * w)
+        t = _async_lm_trainer(name, lr=lr, **kw)
+        row = _async_run(torch, t, ds, f"async_{name.lower()}")
+        row["learning_rate"] = lr
+        check(row["accounting"]["applied"] == ASYNC_WORKERS * 2
+              and row["windows_trained"] == ASYNC_WORKERS * 2,
+              f"{name}: {row['accounting']}")
+        _check_launches(row, ASYNC_WORKERS * 2, w)
+        check(row["last_window_mean_loss"] < row["first_window_mean_loss"],
+              f"{name}: the loss did not fall")
+        if name == "DynSGD":
+            check(row["staleness"]["count"] == ASYNC_WORKERS * 2,
+                  "DynSGD: staleness was not recorded per commit")
+        emit(row)
+        rows.append(row)
+    plain = rows[0]
+    w = plain["window"]
+    for path, kw in ASYNC_WIRE:
+        ds = _lm_rows(ASYNC_WORKERS * ASYNC_BATCH * 2 * w)
+        ring_mb = None
+        if kw.get("ps_shm"):
+            # each client's two rings must hold a whole center (a message
+            # that does not fit travels on TCP): size them to the plain
+            # run's pull, within what /dev/shm has free
+            ring_mb = int(plain["bytes_per_pull"] / 2 ** 20) + 8
+            need = 2 * ASYNC_WORKERS * ring_mb * 2 ** 20
+            st = os.statvfs("/dev/shm")
+            check(st.f_bavail * st.f_frsize >= need,
+                  f"shm: /dev/shm has {st.f_bavail * st.f_frsize} bytes "
+                  f"free, the rings need {need}")
+            os.environ["DKTPU_SHM_MB"] = str(ring_mb)
+        try:
+            row = _async_run(torch, _async_lm_trainer("DOWNPOUR", **kw), ds,
+                             f"async_{path}")
+        finally:
+            os.environ.pop("DKTPU_SHM_MB", None)
+        row["shm_ring_mb"] = ring_mb
+        if path == "plain":
+            plain = row
+        row["option"] = kw
+        row["plain_samples_per_s"] = plain["samples_per_s"]
+        row["plain_commit_rtt_s"] = plain["commit_rtt_s"]
+        check(row["accounting"]["applied"] == ASYNC_WORKERS * 2,
+              f"{path}: {row['accounting']}")
+        _check_launches(row, ASYNC_WORKERS * 2, w)
+        check(row["last_window_mean_loss"] < row["first_window_mean_loss"],
+              f"{path}: the loss did not fall")
+        if "comm_codec" in kw:
+            check(0 < row["codec_bytes_encoded"] < row["codec_bytes_raw"],
+                  f"{path}: the codec saved no bytes")
+        if "comm_down" in kw:
+            check(0 < row["down_bytes_encoded"] < row["down_bytes_raw"],
+                  f"{path}: the DOWN codec saved no bytes")
+        if kw.get("ps_shm"):
+            check(row["shm_bytes"] > 0, "shm: no bytes crossed the ring")
+        emit(row)
+        rows.append(row)
+
+    cfg_name = "ADAG ConvNet/CIFAR-10 (auto-w)"
+    cfg = DIST_CONFIGS[cfg_name]
+    t = _dist_trainer("ADAG", cfg, mode="async")
+    row = _async_run(torch, t, _dist_data(cfg), "async_adag_convnet")
+    hist = t.get_averaged_history()
+    check(hist[-1] < hist[0], f"async ADAG ConvNet: the loss did not fall: "
+          f"{hist}")
+    sync = [r for r in dist_rows if r["config"] == cfg_name
+            and r["trainer"] == "ADAG"]
+    row.update(config=cfg_name, epoch_mean_loss=hist.tolist(),
+               sync_samples_per_s=sync[0]["samples_per_s"] if sync
+               else None)
+    emit(row)
+    rows.append(row)
+
+    rows.append(_async_processes(torch))
+    rows += _async_faults(torch)
+    check(all(bool(np.isfinite(r["last_window_mean_loss"])) for r in rows),
+          "an async run's loss is not finite")
+    return rows
+
+
 #: K1's and K2/K3's CUDA kernels, one entry each in the ``kernels`` line:
 #: (name, as the wrappers count it (``flash_attention.KERNELS``), source
 #: under distkeras_tpu_torch/ops/csrc, the line of
@@ -2581,15 +2988,17 @@ def main() -> int:
         lm256 = phase_lm256(torch)
         phase_conv(torch)
         phase_models(torch)
-        _, _, dist_kernels = phase_dist(torch)
+        dist_rows, _, dist_kernels = phase_dist(torch)
         yl = phase_yaml_lm(torch)
         ck = phase_ckpt(torch)
         phase_stream(torch)
+        asy = phase_async(torch, dist_rows)
         later = [(f"yaml_lm_{r['variant']}", r["kernel_launches"])
                  for r in yl]
         later += [("ckpt_straight", ck["kernel_launches"]),
                   ("ckpt_resumed", ck["kernel_launches_resumed"]),
                   ("ckpt_serve", ck["serve"]["kernel_launches"])]
+        later += [(r["path"], r["kernel_launches"]) for r in asy]
         kernels = kernels_line(k1, sl, tr, lm128, lm256, dist_kernels,
                                past256, bwd_rows, bwd_timed, later)
     except CheckFailed as e:

@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from collections import Counter
 from typing import Optional, Tuple
 
@@ -227,6 +228,10 @@ KERNELS = {
 #: each counted where its launch returned, under the kernel the C entry
 #: point reports it ran; ``reset_launches`` sets them to 0
 KERNEL_LAUNCHES: Counter = Counter()
+#: guards every count: async thread workers launch kernels from several
+#: Python threads at once (ctypes drops the GIL inside the launch), and
+#: neither ``+=`` on an attribute nor on a ``Counter`` item is atomic
+_COUNT_LOCK = threading.Lock()
 
 
 def _launch(fn: str, *args, device) -> str:
@@ -244,8 +249,9 @@ def _launch(fn: str, *args, device) -> str:
 
 def _count(wrapper, kernel: str, dtype: torch.dtype, dh: int) -> None:
     """One launch of ``kernel`` through ``wrapper`` at head dim ``dh``."""
-    wrapper.launches += 1
-    KERNEL_LAUNCHES[(kernel, str(dtype).removeprefix("torch."), dh)] += 1
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+        KERNEL_LAUNCHES[(kernel, str(dtype).removeprefix("torch."), dh)] += 1
 
 
 def flash_fwd_cuda(q, k, v, causal: bool, scale: float):
@@ -302,12 +308,39 @@ def flash_bwd_dkv_cuda(q, k, v, lse, do, dvec, causal: bool, scale: float):
     return _unpad(dk, dh), _unpad(dv, dh)
 
 
+def _wrappers() -> dict:
+    return {w.__name__: w for w in (flash_fwd_cuda, flash_bwd_dq_cuda,
+                                    flash_bwd_dkv_cuda)}
+
+
 def reset_launches() -> None:
     """Set every launch count to 0: each wrapper's ``launches`` and
     ``KERNEL_LAUNCHES``."""
-    for wrapper in (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda):
-        wrapper.launches = 0
-    KERNEL_LAUNCHES.clear()
+    with _COUNT_LOCK:
+        for wrapper in _wrappers().values():
+            wrapper.launches = 0
+        KERNEL_LAUNCHES.clear()
+
+
+def launch_counts() -> dict:
+    """Every launch count as plain data — ``{"wrappers": {name: n},
+    "kernels": [[kernel, dtype, dh, n], ...]}`` — what a worker process
+    reports to its parent (``add_launches``)."""
+    with _COUNT_LOCK:
+        return {"wrappers": {n: w.launches for n, w in _wrappers().items()},
+                "kernels": [[k, d, h, n] for (k, d, h), n in
+                            sorted(KERNEL_LAUNCHES.items())]}
+
+
+def add_launches(counts: dict) -> None:
+    """Add another process's ``launch_counts()`` into this process's
+    counts (the async runner folds its worker processes' launches)."""
+    wrappers = _wrappers()
+    with _COUNT_LOCK:
+        for name, n in (counts.get("wrappers") or {}).items():
+            wrappers[name].launches += int(n)
+        for k, d, h, n in counts.get("kernels") or []:
+            KERNEL_LAUNCHES[(str(k), str(d), int(h))] += int(n)
 
 
 reset_launches()

@@ -24,10 +24,16 @@ JAX trainers' leaf order (``utils.checkpoint``), and ``train(resume=
 True)`` restarts after the latest saved epoch, from a file either
 package wrote.  ``serialize()`` is the ``utils.serde`` model blob.
 
-Not ported yet, and raising where asked for: ``mode="async"`` (the
-parameter server), ROADMAP Queue 1 item 5; a ``mesh`` (workers across
-cards), item 8.  The trainers run on the card unless the caller passes
-``device="cpu"``.
+``mode="async"`` on ``DOWNPOUR``, ``ADAG``, ``DynSGD``, ``AEASGD`` and
+``EAMSGD`` trains against the host parameter server (``ps.runner``):
+thread or process workers, each with its own model replica on the
+trainer's device, pull the center, train a window and commit, with
+checkpoints of the center and exact per-worker resume.
+
+Not ported yet, and raising where asked for: ``ps_shards > 1`` (the
+sharded parameter server), ROADMAP Queue 1 item 5; a ``mesh`` (workers
+across cards), item 8.  The trainers run on the card unless the caller
+passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from .obs.logging import get_logger
 from .obs.registry import default_registry
 from .ops.losses import get_loss, probs_loss_variant
 from .ops.optimizers import get_optimizer, sgd
+from .ps import codecs
 from .parallel.sync import (AdagSync, DownpourSync, DynSgdSync, EasgdSync,
                             NoCommSync, SyncEngine, _inexact, make_window_fn,
                             model_params, replicate, stack_trees, tmap,
@@ -498,59 +505,21 @@ class SingleTrainer(Trainer):
 # the sync distributed trainers
 # ---------------------------------------------------------------------------
 
-def _codec_name(spec) -> str:
-    """A ``comm_codec`` spec's canonical name (the JAX package's
-    ``ps.codecs.get_codec`` rules): ``"none"``/None, ``"int8"``,
-    ``"bf16"``/``"bfloat16"``, ``"topk<frac>"`` with 0 < frac ≤ 1."""
-    if spec is None or spec == "none":
-        return "none"
-    if spec == "int8":
-        return "int8"
-    if spec in ("bf16", "bfloat16"):
-        return "bf16"
-    if isinstance(spec, str) and spec.startswith("topk"):
-        try:
-            frac = float(spec[4:])
-        except ValueError as e:
-            raise ValueError(
-                f"bad comm_codec {spec!r}: topk needs a fraction suffix, "
-                f"e.g. 'topk0.01' ({e})") from e
-        if not 0.0 < frac <= 1.0:
-            raise ValueError(f"topk fraction must be in (0, 1], got {frac}")
-        return f"topk{frac:g}"
-    raise ValueError(f"unknown comm_codec {spec!r} "
-                     f"(known: none, int8, bf16, topk<frac>)")
-
-
-def _down_spec(spec) -> str:
-    """Normalize a ``comm_down`` spec (``ps.codecs.validate_down_spec``):
-    ``"none"``/None, ``"adaptive"``, or any non-identity codec spec."""
-    if spec is None or spec == "none":
-        return "none"
-    if spec == "adaptive":
-        return "adaptive"
-    name = _codec_name(spec)
-    if name == "none":
-        raise ValueError(f"comm_down {spec!r} is an identity codec; use "
-                         f"'none' to disable DOWN compression")
-    return name
-
-
 class DistributedTrainer(Trainer):
     """Base for multi-worker trainers (reference ``DistributedTrainer``):
     owns ``num_workers``, partitions the dataset one partition per worker
     and drives the epoch program.  Subclasses pick the communication
     rule.
 
-    Sync mode only: W workers run on the trainer's device, one after
-    another, through ``parallel.sync.SyncEngine``.  The async-mode
-    arguments (``async_workers``, ``comm_codec``, ``comm_down``,
-    ``ps_shm``, ``pull_overlap``, ``ps_shards``, the heartbeat knobs) are
-    validated and kept as the JAX package keeps them; ``mode="async"``
-    raises (ROADMAP Queue 1 item 5), as does a ``mesh`` (item 8).  A
-    ``ShardedFileDataset`` streams each worker's shard partition from
-    disk, one window of every worker at a time
-    (``SyncEngine.window_fn``)."""
+    Sync mode: W workers run on the trainer's device, one after another,
+    through ``parallel.sync.SyncEngine``.  ``mode="async"`` (the
+    asynchronous family) runs ``ps.runner.run_async_training``: the
+    async-mode arguments (``async_workers``, ``comm_codec``,
+    ``comm_down``, ``ps_shm``, ``pull_overlap``, the heartbeat knobs) act
+    as in the JAX package; ``ps_shards > 1`` raises (ROADMAP Queue 1
+    item 5), as does a ``mesh`` (item 8).  A ``ShardedFileDataset``
+    streams each worker's shard partition from disk (sync: one window of
+    every worker at a time, ``SyncEngine.window_fn``)."""
 
     #: default window when the algorithm has no explicit one
     _default_window = 1
@@ -574,8 +543,18 @@ class DistributedTrainer(Trainer):
                          label_col, num_epoch, batch_size, learning_rate, seed,
                          **kw)
         self.num_workers = int(num_workers)
+        #: fleet self-healing knobs (async mode): a worker whose
+        #: commits/pulls stop reaching the PS for ``heartbeat_hard_s`` is
+        #: evicted and respawned; ``startup_grace_s`` applies instead
+        #: until an incarnation's first commit
         self.heartbeat_hard_s = float(heartbeat_hard_s)
         self.startup_grace_s = float(startup_grace_s)
+        #: live fleet supervisor, set only while an async run is in
+        #: flight — the ``add_worker`` elastic-join seam
+        self._supervisor = None
+        #: the PS's final counters and registry snapshot after an async
+        #: run (``ps.runner``)
+        self.ps_stats: Optional[dict] = None
         self.communication_window = int(
             communication_window if communication_window is not None
             else self._default_window)
@@ -590,15 +569,16 @@ class DistributedTrainer(Trainer):
         self.ps_shards = int(ps_shards)
         if self.ps_shards < 1:
             raise ValueError(f"ps_shards must be >= 1, got {ps_shards}")
-        _codec_name(comm_codec)  # validate the spec at construction time
+        codecs.get_codec(comm_codec)  # validate the spec at construction
         self.comm_codec = comm_codec
-        self.comm_down = _down_spec(comm_down)
+        self.comm_down = codecs.validate_down_spec(comm_down)
         self.ps_shm = bool(ps_shm)
         self.pull_overlap = bool(pull_overlap)
-        if mode == "async":
+        if self.ps_shards > 1:
             raise NotImplementedError(
-                "mode='async' (the host parameter server and its wire) is "
-                "not ported yet: ROADMAP Queue 1 item 5")
+                "ps_shards > 1 (the sharded parameter server) is not "
+                "ported yet: ROADMAP Queue 1 item 5 (ps/shard, "
+                "ps/cluster.py)")
         if mesh is not None:
             raise NotImplementedError(
                 "DistributedTrainer(mesh=...) (workers across cards) is not "
@@ -606,15 +586,26 @@ class DistributedTrainer(Trainer):
 
     # -- fleet elasticity -----------------------------------------------------
     def add_worker(self, worker_id=None) -> int:
-        """Elastic join of a worker into a live async run — which the port
-        never has: async mode is ROADMAP Queue 1 item 5."""
-        raise RuntimeError(
-            "no live async run to join — add_worker() is valid only "
-            "while train(mode='async') is in flight")
+        """Elastic join: add a worker to the LIVE async run (``train()``
+        currently blocking on another thread).  The new worker pulls the
+        current center and starts committing, fully accounted by the PS
+        (``ps.joins``).  With no id, the next unused one is picked.
+        Returns the worker id."""
+        sup = self._supervisor
+        if sup is None:
+            raise RuntimeError(
+                "no live async run to join — add_worker() is valid only "
+                "while train(mode='async') is in flight")
+        return sup.add_worker(worker_id)
 
     # -- algorithm hooks ------------------------------------------------------
     def _sync_algorithm(self):
         raise NotImplementedError
+
+    def _ps_factory(self):
+        """Async-mode parameter-server class; see ``ps.servers``."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no async parameter-server mode")
 
     # -- data staging ---------------------------------------------------------
     def _stage_data(self, dataset: Dataset, window: int):
@@ -649,13 +640,22 @@ class DistributedTrainer(Trainer):
     def _train(self, dataset: Dataset, shuffle: bool) -> Model:
         if isinstance(dataset, ShardedFileDataset):
             # every worker streams its own shard partition
+            if self.mode == "async":
+                return self._train_async(dataset, stream_shuffle=shuffle)
             return self._train_sync_stream(dataset, shuffle)
         if not isinstance(dataset, Dataset):
             raise TypeError(f"{type(self).__name__} trains a Dataset or a "
                             f"ShardedFileDataset, got {type(dataset)}")
         if shuffle:
             dataset = dataset.shuffle(self.seed)
+        if self.mode == "async":
+            return self._train_async(dataset)
         return self._train_sync(dataset)
+
+    def _train_async(self, dataset, stream_shuffle: Optional[bool] = None):
+        from .ps.runner import run_async_training
+        return run_async_training(self, dataset,
+                                  stream_shuffle=stream_shuffle)
 
     def _config_key(self) -> tuple:
         return super()._config_key() + (
@@ -851,17 +851,22 @@ class EnsembleTrainer(DistributedTrainer):
 class AsynchronousDistributedTrainer(DistributedTrainer):
     """Base for the asynchronous algorithm family (reference
     ``AsynchronousDistributedTrainer``).  In sync mode these run their
-    synchronous limit; ``mode='async'`` (faithful staleness through the
-    host parameter server) is ROADMAP Queue 1 item 5."""
+    synchronous limit; ``mode='async'`` gives faithful staleness semantics
+    via the host PS."""
 
 
 class DOWNPOUR(AsynchronousDistributedTrainer):
     """DOWNPOUR SGD (Dean et al. 2012; reference ``DOWNPOUR`` trainer)."""
 
     _default_window = 5
+    _async_mode = "pull_commit"
 
     def _sync_algorithm(self):
         return DownpourSync()
+
+    def _ps_factory(self):
+        from .ps.servers import DeltaParameterServer
+        return DeltaParameterServer
 
 
 class ADAG(AsynchronousDistributedTrainer):
@@ -870,9 +875,14 @@ class ADAG(AsynchronousDistributedTrainer):
     synchronous limit is allreduce-mean windowed SGD."""
 
     _default_window = 12
+    _async_mode = "pull_commit"
 
     def _sync_algorithm(self):
         return AdagSync()
+
+    def _ps_factory(self):
+        from .ps.servers import ADAGParameterServer
+        return ADAGParameterServer
 
 
 class DynSGD(AsynchronousDistributedTrainer):
@@ -880,9 +890,14 @@ class DynSGD(AsynchronousDistributedTrainer):
     ``DynSGDParameterServer``): commits scaled by 1/(staleness+1)."""
 
     _default_window = 5
+    _async_mode = "staleness"
 
     def _sync_algorithm(self):
         return DynSgdSync()
+
+    def _ps_factory(self):
+        from .ps.servers import DynSGDParameterServer
+        return DynSGDParameterServer
 
 
 class AEASGD(AsynchronousDistributedTrainer):
@@ -891,6 +906,7 @@ class AEASGD(AsynchronousDistributedTrainer):
     elastic alpha is ``rho * learning_rate`` as in the reference."""
 
     _default_window = 32
+    _async_mode = "elastic"
 
     def __init__(self, keras_model, worker_optimizer="sgd",
                  loss="categorical_crossentropy", num_workers: int = 2,
@@ -905,6 +921,10 @@ class AEASGD(AsynchronousDistributedTrainer):
 
     def _sync_algorithm(self):
         return EasgdSync(self.alpha)
+
+    def _ps_factory(self):
+        from .ps.servers import DeltaParameterServer
+        return DeltaParameterServer
 
 
 class EAMSGD(AEASGD):

@@ -35,3 +35,44 @@ def tree_leaves(tree: Any) -> List[Any]:
     if isinstance(tree, (list, tuple)):
         return [leaf for t in tree for leaf in tree_leaves(t)]
     return [tree]
+
+
+def tree_flatten(tree: Any, is_leaf: Callable = None):
+    """``(leaves, unflatten)``: the non-None leaves of ``tree`` in
+    ``tree_leaves`` order, and a function building the same structure
+    around a new list of leaves — with every dict's keys sorted, as
+    ``jax.tree_util.tree_unflatten`` builds them.  ``is_leaf(node)``
+    True stops the walk at ``node`` (a codec stub dict)."""
+    leaves: List[Any] = []
+
+    def walk(t):
+        if is_leaf is not None and is_leaf(t):
+            leaves.append(t)
+            return None, 1
+        if t is None:
+            return None, 0
+        if isinstance(t, dict):
+            return ("dict", [(k, walk(t[k])) for k in sorted(t)]), None
+        if isinstance(t, (list, tuple)):
+            return (type(t), [walk(x) for x in t]), None
+        leaves.append(t)
+        return None, 1
+
+    spec = walk(tree)
+
+    def unflatten(new_leaves):
+        it = iter(new_leaves)
+
+        def build(node):
+            kind, leaf = node
+            if leaf == 1:
+                return next(it)
+            if kind is None:
+                return None
+            if kind[0] == "dict":
+                return {k: build(sub) for k, sub in kind[1]}
+            return kind[0](build(sub) for sub in kind[1])
+
+        return build(spec)
+
+    return leaves, unflatten

@@ -8,7 +8,8 @@ BatchNorm's ``mean`` and ``var``) of a built port model, walking the
 layers in the order ``Sequential`` and ``Residual`` nest them.  Layouts
 are the JAX package's on both sides (a ``Dense.kernel`` is (in, out)),
 so leaves copy without transposes.  ``to_numpy_variables`` is the
-inverse: a round trip is bit-exact.  A ``utils.serde`` blob's variables
+inverse: a round trip is bit-exact; ``jax_variables`` is the same tree
+over the live tensors.  A ``utils.serde`` blob's variables
 load the same way (its bfloat16 leaves are torch tensors).
 ``jax_leaf_names`` gives the JAX package's leaf order of a model's
 parameters and buffers, which checkpoints and optax states follow.
@@ -105,6 +106,14 @@ def to_numpy_variables(model) -> dict:
     its dicts in sorted key order as the JAX trainers' trees."""
     params, state = _jax_tree(
         model.layer, lambda t: t.detach().cpu().numpy().copy())
+    return {"params": params, "state": state}
+
+
+def jax_variables(model) -> dict:
+    """``model``'s live parameters and buffers (the tensors themselves,
+    not copies) in the JAX ``variables`` tree's shape — the tree an async
+    worker pulls the center into and reads its window's result from."""
+    params, state = _jax_tree(model.layer, lambda t: t)
     return {"params": params, "state": state}
 
 

@@ -3,7 +3,9 @@ forward, K2/K3 backward) against their plain versions, the wrappers'
 refusals, the decode engine on a small model, a short flash-vs-dense
 ``SingleTrainer`` run, the sync distributed trainers (card against
 CPU, the window-edge rules on CUDA tensors, K1–K3 launches under ADAG),
-and checkpoints, resume and disk streaming on the card.
+checkpoints, resume and disk streaming on the card, and the async
+parameter server's thread and process workers on the card (exact
+K1–K3 launch counts).
 Every test is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is False (the kernel has no CPU mode).
 
@@ -994,3 +996,53 @@ def test_single_trainer_streams_on_the_card(tmp_path):
     for a, b in zip(disk.get_history() + tree_leaves(disk.trained_variables),
                     ram.get_history() + tree_leaves(ram.trained_variables)):
         np.testing.assert_allclose(a, b, rtol=2e-5, atol=2e-6)
+
+
+# -- the async parameter server on the card ----------------------------------
+
+def _async_lm(name, **kw):
+    cfg = dict(vocab_size=64, dim=64, num_heads=2, num_blocks=2, seq_len=128,
+               attention_impl="flash")
+    return getattr(dkt, name)(zoo.gpt_lm(**cfg), "sgd",
+                              "sparse_categorical_crossentropy",
+                              batch_size=2, communication_window=2,
+                              num_epoch=2, learning_rate=0.1,
+                              compute_dtype="bfloat16", mode="async", **kw)
+
+
+@pytest.mark.parametrize("name", ["DOWNPOUR", "DynSGD", "EAMSGD"])
+def test_async_thread_workers_on_the_card_count_launches_exactly(name):
+    """``mode="async"`` with 4 thread workers over a 2-block flash LM in
+    bf16, window 2, 2 epochs of 4 steps a worker, each worker its own
+    replica on the card: every window commits once, K1, K2 and K3
+    launch exactly W x steps x blocks times each (the counts are kept
+    under a lock, so threads launching at once lose none), the PS's
+    accounting identity holds and the loss is finite."""
+    ds = load_lm_corpus(n_train=4 * 2 * 4, seq_len=128, vocab_size=64)[0]
+    kernels = (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda)
+    before = [k.launches for k in kernels]
+    kw = dict(rho=1.0) if name == "EAMSGD" else {}
+    t = _async_lm(name, num_workers=4, **kw)
+    model = t.train(ds)
+    assert model.device.type == "cuda"
+    assert [k.launches - b for k, b in zip(kernels, before)] == \
+        [4 * 4 * 2 * 2] * 3
+    assert t.ps_stats["num_updates"] == 4 * 2 * 2
+    snap = t.ps_stats["registry"]
+    assert snap["ps.commit_requests"]["value"] == \
+        snap["ps.commits"]["value"] == 16
+    assert all(np.isfinite(h).all() and h.shape == (4, 4)
+               for h in t.get_history())
+
+
+def test_async_process_workers_on_the_card_fold_their_launches():
+    """Two process workers, each with its own CUDA context: their K1-K3
+    launches come back into the parent's counts."""
+    ds = load_lm_corpus(n_train=2 * 2 * 4, seq_len=128, vocab_size=64)[0]
+    kernels = (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda)
+    before = [k.launches for k in kernels]
+    t = _async_lm("DOWNPOUR", num_workers=2, async_workers="processes")
+    t.train(ds)
+    assert [k.launches - b for k, b in zip(kernels, before)] == \
+        [2 * 4 * 2 * 2] * 3
+    assert t.ps_stats["num_updates"] == 2 * 2 * 2

@@ -186,11 +186,48 @@ def all_cores():
     above.  oneDNN's f32 conv weight gradient splits its batch reduction
     over the pool's threads, and how it splits sets its error: against
     float64, ResNet-20's first conv kernel after two ADAG windows reads
-    3.3e-7 with 8 threads and 9.6e-5 with 1 or 2."""
+    3.3e-7 with 8 threads and 9.6e-5 with 1 or 2.  Yields the capped
+    pool size the test was given, for work whose result does not depend
+    on the split (float64 convs: see the test below)."""
     before = torch.get_num_threads()
     torch.set_num_threads(os.cpu_count())
-    yield
+    yield before
     torch.set_num_threads(before)
+
+
+def test_float64_conv_gradients_do_not_depend_on_the_thread_count(
+        all_cores):
+    """Why the float64 witness below may run in the capped pool and the
+    f32 run may not: the conv weight gradient at ResNet-20 width 4's
+    shapes (batch 8) is bit-identical at 1 thread and on every core in
+    float64, while in f32 (oneDNN splits the batch reduction over the
+    pool) it is not, which an 8-core host shows (up to 4e-4 apart)."""
+    shapes = ((3, 32, 4), (4, 32, 4), (8, 16, 8), (16, 8, 16))
+    rng = np.random.default_rng(0)
+    cases = []
+    for c, h, k in shapes:
+        cases.append((rng.uniform(0, 1, (8, c, h, h)),
+                      rng.normal(size=(k, c, 3, 3)) * 0.1,
+                      rng.normal(size=(8, k, h, h))))
+
+    def weight_grads(threads, dtype):
+        torch.set_num_threads(threads)
+        out = []
+        for x, w, g in cases:
+            w = torch.tensor(w, dtype=dtype, requires_grad=True)
+            y = torch.nn.functional.conv2d(torch.tensor(x, dtype=dtype), w,
+                                           padding=1)
+            out.append(torch.autograd.grad(
+                y, w, torch.tensor(g, dtype=dtype))[0].numpy().tobytes())
+        return out
+
+    # ``all_cores`` restores the capped pool afterwards
+    assert weight_grads(1, torch.float64) == \
+        weight_grads(os.cpu_count(), torch.float64)
+    if os.cpu_count() >= 8:
+        # the control: the f32 split shows on 8 threads
+        assert weight_grads(1, torch.float32) != \
+            weight_grads(os.cpu_count(), torch.float32)
 
 
 def test_adag_moves_batchnorm_state_through_the_rule(all_cores):
@@ -202,7 +239,14 @@ def test_adag_moves_batchnorm_state_through_the_rule(all_cores):
     witness; read 1.6e-7), and within ``JAX_F32_WITNESS_ATOL`` of the JAX
     trainer's, whose f32 BatchNorm statistics stray from the witness by
     1.3e-4 here (up to 3e-3 at batch 4 or lr 0.05); losses within rtol
-    1e-4 of JAX's."""
+    1e-4 of JAX's.
+
+    The float64 witness runs in the capped pool (``all_cores`` yields
+    it): float64 convs take torch's own kernels, not oneDNN's split
+    (``test_float64_conv_gradients_do_not_depend_on_the_thread_count``),
+    and its trained variables read bit-identical at 1 and 8 threads,
+    while 8 threads beside five busy workers took it from 2.7 s to
+    117 s."""
     jm = jax_zoo.resnet20(width=4)
     pm0 = Model.from_config(jm.config()).init(0, device="cpu")
     jv = jax.tree_util.tree_map(jnp.asarray, to_numpy_variables(pm0))
@@ -220,8 +264,13 @@ def test_adag_moves_batchnorm_state_through_the_rule(all_cores):
     build = m64.init
     m64.init = lambda seed=0, device=None: build(seed, device).double()
     wt = dkt.ADAG(m64, device="cpu", **kw)
-    wt.train(dkt.Dataset({"features": x.astype(np.float64),
-                          "label_onehot": y.astype(np.float64)}))
+    capped = all_cores
+    torch.set_num_threads(capped)
+    try:
+        wt.train(dkt.Dataset({"features": x.astype(np.float64),
+                              "label_onehot": y.astype(np.float64)}))
+    finally:
+        torch.set_num_threads(os.cpu_count())
     got = pt.trained_variables
     for kind in ("params", "state"):
         for a, b, c in zip(_leaves(got[kind]),
@@ -426,12 +475,9 @@ def test_stage_data_refuses_a_window_past_the_steps_and_warns_on_a_rest(
 def test_unported_options_raise_naming_their_roadmap_item(data):
     model = Model.from_config(_jax_mlp().config())
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        dkt.ADAG(model, mode="async", device="cpu")
+        dkt.ADAG(model, mode="async", ps_shards=2, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         dkt.DOWNPOUR(model, mesh=object(), device="cpu")
-    t = dkt.ADAG(model, device="cpu", **COMMON)
-    with pytest.raises(RuntimeError, match="no live async run"):
-        t.add_worker()
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         sync.SyncEngine(model, None, None, sync.AdagSync(), 2, 2,
                         mesh=object())
