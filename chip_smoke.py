@@ -49,6 +49,35 @@ Phases, one JSON line each:
    per cold join, (d) ``jit.retraces == 0`` after warmup.
 5. ``profile`` — the same traffic under a ``torch.profiler`` trace: the
    card's busy share and the top kernels.
+   Then the serving plane on that model (f32, full width):
+   ``fleet`` — 2 ``ServeServer``s over prefix-cached engines (4 slots,
+   ``prefix_block`` 16, 512 MB) behind a ``ServeRouter`` with the KV
+   fabric (``affinity_block`` 16, ``max_inflight`` 4), driven by
+   ``ServeClient``s over loopback (``FLEET``): a serialized cold pass of
+   4 prompt groups (a 256-token shared prefix, 16-token tails, 16 new
+   tokens), 3 warm requests a group at once (twice, the second under the
+   profiler for the busy share), a forced spill a group (the owner pinned
+   at ``max_inflight``: it lands cold, seeds a replication, and a second
+   spill lands warm on the replica), a planned drain of one engine (its
+   hot KV migrates; a follow-up a group lands warm), a fleet promote
+   while it is out (it is scaled up and rolled forward; a ``kv_push``
+   stamped with the old version is refused) and 8 sampled requests
+   (temperature 0.8, top-k 50) that each end at 16 tokens.  Checks:
+   greedy answers equal ``generate_tokens``, the router's requests ==
+   completed + rejected + timeouts with none rejected, prefix misses and
+   hits as the passes dictate, replications, no stale join, and K1
+   launched exactly 4 x the engines' cold joins (``serve.prefix.misses``)
+   — none in a warm join or a decode step.  Printed: TTFT p50 cold,
+   warm, spill-cold and spill-warm, the warm pass's tokens/s, the
+   fabric's bytes, the busy share.  ``spec`` — 8 greedy requests of
+   32–96 tokens, 32 new tokens, through a plain engine and two
+   ``spec_k=4`` engines: draft = the probe itself (accept rate 1.0) and
+   ``gpt_lm(dim 128, 2 heads, 2 blocks)`` (accepts below 1); answers equal
+   ``generate_tokens``, K1 (target + draft blocks) x joins; K1 checked
+   at the draft's join shapes.  ``beam`` — ``generate_beam`` over 2
+   prompts of 64 tokens, 4 beams, 16 steps, against the dense twin:
+   equal tokens, scores within 1e-4, K1 once per block (checked at the
+   prefill's shape, B·H 64).
 6. ``k2k3``   — the backward kernels K2 (dQ) and K3 (dK, dV) against
    their plain version (``flash_bwd_plain``, which rounds P and dS to
    bf16 for bf16 inputs as the reference does) on the card: f32 and
@@ -110,7 +139,11 @@ Phases, one JSON line each:
    and EAMSGD LSTM, DynSGD ResNet-50, AveragingTrainer and
    EnsembleTrainer MLP; per run samples/s, ms a window, ms of the window
    edge alone (CUDA events), peak memory and the epochs' mean losses.
-   Checks: every loss falls, and after one more window the edge obeys its
+   Checks: every loss is finite and falls (DynSGD's, which rises over its
+   3 epochs, excepted: its first 2 windows are held instead to a float64
+   twin of the same windows on the card within ``F64_LOSS_TOL`` and
+   ``F64_CENTER_REL``, and a control with one center leaf moved must fail
+   that check), and after one more window the edge obeys its
    rule on the stacked tensors, computed in float64 (each worker model's
    parameters views into the stack).  Then ADAG over the probe LM in bf16
    (8 workers of batch 8, window 2): K1, K2 and K3 launched exactly
@@ -328,12 +361,32 @@ DIST_RUNS = (
     ("EnsembleTrainer", "SingleTrainer MLP/MNIST"),
 )
 #: the two LSTM runs (about 14 s an epoch on an H100: the LSTM steps
-#: its 200 positions from Python) are cut from 3 epochs to 2.  DynSGD's
-#: loss rises over the config's 3 epochs (5.83, 6.26, 6.37 on an H100; the
-#: JAX package's own DynSGD on the CPU at 32 px rises alike: 8 workers'
-#: deltas summed in full at lr 0.005), and has fallen by the tenth (4.73),
-#: so it runs 10 epochs
-DIST_EPOCHS = {"AEASGD": 2, "EAMSGD": 2, "DynSGD": 10}
+#: its 200 positions from Python) are cut from 3 epochs to 2
+DIST_EPOCHS = {"AEASGD": 2, "EAMSGD": 2}
+#: runs whose loss need not fall over the configured epochs.  DynSGD's
+#: rises over its 3 (5.83, 6.26, 6.37 on an H100; the JAX package's own
+#: DynSGD on the CPU at 32 px rises alike: 8 workers' deltas summed in full
+#: at lr 0.005), and whether its tenth epoch is below its first depends on
+#: cuDNN's nondeterministic backward (5.816 -> 5.865 and 5.840 -> 4.920 on
+#: one tree).  It is held instead to a float64 twin of its first windows
+#: (``_windows_f64_reading``)
+NO_DIRECTION_CHECK = ("DynSGD",)
+#: the float64-twin check of DynSGD's first ``F64_WINDOWS`` windows
+#: (``_windows_f64_ok``): the per-step losses' largest abs error
+#: (``F64_FIRST_LOSS_TOL`` for each worker's first step, whose weights are
+#: the same initial ones in both runs), and ``center_rel``, the error of
+#: the center's change Δ from the initial weights over all its leaves at
+#: once, ||Δ32 − Δ64|| / ||Δ64||.  The f32 gradient of this BatchNorm
+#: ResNet-50 at its initial weights is 2.3% from float64's (median over
+#: leaves, one batch on the CPU), and the dynamics amplify it: on the CPU
+#: the port read losses 0.24 apart by the fourth step and center_rel
+#: 0.123 (cosine 0.992), each leaf's own change no closer than its size.
+#: On an H100 (700 W) the card read 6.0e-5 on the first step, 0.333 over
+#: all 4, and center_rel 0.121; the bounds sit at about twice that
+F64_WINDOWS = 2
+F64_FIRST_LOSS_TOL = 1e-3
+F64_LOSS_TOL = 0.7
+F64_CENTER_REL = 0.25
 #: configs/bench_all.yaml:97-117, the flash LM (Dh 32) and its ``quick``
 #: variant (Dh 16, which the bf16 kernels run zero-padded to 32), as data
 #: (tests/test_torch_dist.py holds them against the file)
@@ -1007,14 +1060,15 @@ def phase_slice(torch, model, prompts):
     return row
 
 
-def _answers_match(torch, model, prompts, answers):
+def _answers_match(torch, model, prompts, answers, news=MAX_NEW):
     """Each served answer against the port's ``generate_tokens`` on the
-    card (``MAX_NEW`` tokens a request): a mismatch is allowed only where
-    the reference's top-2 logit gap is < 1e-4.  Returns the mismatches."""
+    card (``news`` tokens a request, ``MAX_NEW`` by default): a mismatch
+    is allowed only where the reference's top-2 logit gap is < 1e-4.
+    Returns the mismatches."""
     import numpy as np
     from distkeras_tpu_torch.models import generate_tokens
     mismatches = []
-    for i, (p, m, got) in enumerate(zip(prompts, MAX_NEW, answers)):
+    for i, (p, m, got) in enumerate(zip(prompts, news, answers)):
         ref = generate_tokens(model, p[None, :], m)[0, len(p):].cpu().numpy()
         check(got.shape == ref.shape, f"request {i}: {got.shape} tokens, "
               f"expected {ref.shape}")
@@ -1053,6 +1107,433 @@ def phase_profile(torch, model, prompts):
                            for e in top]}
     emit(row)
     return row
+
+
+#: the ``fleet`` phase: 2 ServeServers over prefix-cached engines behind a
+#: ServeRouter with the KV fabric, 4 prompt groups of a 256-token shared
+#: prefix and 16-token tails, 16 new tokens a request
+FLEET = dict(engines=2, slots=4, prefix_block=16, prefix_cache_mb=512,
+             max_inflight=4, groups=4, prefix=256, tail=16, max_new=16,
+             warm_per_group=3, sampled=8)
+#: the ``spec`` phase: 8 greedy requests of 32-96 tokens, 32 new tokens,
+#: ``spec_k`` 4; the narrow draft is gpt_lm(dim 128, 2 heads of Dh 64, 2
+#: blocks)
+SPEC_PROMPT_LENS = (32, 40, 48, 56, 64, 72, 80, 96)
+SPEC_NEW, SPEC_K = 32, 4
+SPEC_DRAFT = dict(LM, dim=128, num_heads=2, num_blocks=2)
+#: the ``beam`` phase: 2 prompts of 64 tokens, 4 beams, 16 steps
+BEAM = dict(batch=2, prompt=64, num_beams=4, steps=16)
+
+
+def _k1_at(torch, seed, bh, t, dh, causal=True):
+    """K1 (f32) against its plain version at one shape a later path
+    launches it at, on inputs from ``seed``; the row for the ``kernels``
+    line."""
+    from distkeras_tpu_torch.ops.flash_attention import (flash_fwd_cuda,
+                                                         flash_fwd_plain)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn((bh, t, dh), generator=gen, device="cuda")
+               for _ in range(3))
+    (o, lse), kernel = launched(lambda: flash_fwd_cuda(q, k, v, causal,
+                                                       dh ** -0.5))
+    torch.cuda.synchronize()
+    row = _k1_check(torch, flash_fwd_plain(q, k, v, causal, dh ** -0.5),
+                    (o, lse), "float32", causal, bh, t, t, dh)
+    row["kernel"] = kernel
+    return row
+
+
+def _concurrently(fn, args):
+    """``fn(arg)`` for every arg on its own thread; the results in order
+    (a failure in any call is raised here)."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=len(args)) as pool:
+        return list(pool.map(fn, args))
+
+
+def _busy_us(prof):
+    """The union of the device's intervals in ``prof``'s trace, µs."""
+    busy, reached = 0.0, 0.0
+    for start, end, _ in sorted(device_events(prof)):
+        busy += max(0.0, end - max(start, reached))
+        reached = max(reached, end)
+    return busy
+
+
+def phase_fleet(torch, model):
+    """The serving plane on the card: ``FLEET["engines"]`` ServeServers
+    over prefix-cached engines (copies of the probe ``model``, f32)
+    behind a ServeRouter with the KV fabric, driven by ServeClients over
+    loopback.  Traffic: a serialized cold pass (one request a group), 3
+    warm requests a group at once (then the same under the profiler, for
+    the busy share), a forced spill a group (the owner pinned at
+    ``max_inflight``: the spill lands cold and seeds a replication; a
+    second spill lands warm on the replica), a planned drain of one
+    engine (its hot KV migrates; a follow-up a group lands warm), a fleet
+    promote while that engine is out (then it is scaled up and rolled
+    forward, and a kv_push stamped with the old version is refused), and
+    8 sampled requests.  Checks: greedy answers equal ``generate_tokens``,
+    router accounting exact, prefix hits and misses as the passes
+    dictate, replications happened, no stale join, K1 launched exactly
+    ``num_blocks`` x cold joins (the engines' ``serve.prefix.misses``)."""
+    import copy
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from distkeras_tpu_torch.models import zoo
+    from distkeras_tpu_torch.obs import Registry
+    from distkeras_tpu_torch.ops.flash_attention import (
+        flash_fwd_cuda, reset_launches)
+    from distkeras_tpu_torch.serve import (
+        DecodeEngine, RouterConfig, ServeClient, ServeConfig, ServeRouter,
+        ServeServer)
+    from distkeras_tpu_torch.utils import to_numpy_variables
+
+    f = FLEET
+    cfg = ServeConfig(slots=f["slots"], prefix_cache=True,
+                      prefix_block=f["prefix_block"],
+                      prefix_cache_mb=f["prefix_cache_mb"])
+    servers = [ServeServer(DecodeEngine(copy.deepcopy(model), cfg,
+                                        registry=Registry()).warmup())
+               .start() for _ in range(f["engines"])]
+    router = ServeRouter(
+        [("127.0.0.1", srv.port) for srv in servers],
+        config=RouterConfig(affinity_block=f["prefix_block"],
+                            max_inflight=f["max_inflight"])).start()
+    rng = np.random.default_rng(14)
+    vocab = LM["vocab_size"]
+    shared = [rng.integers(0, vocab, f["prefix"]) for _ in range(f["groups"])]
+
+    def prompt(g):
+        return np.concatenate([shared[g], rng.integers(0, vocab, f["tail"])])
+
+    def generate(p, **kw):
+        with ServeClient("127.0.0.1", router.port) as c:
+            reply = c.generate(p, f["max_new"], **kw)
+        check(reply.get("ok"), f"fleet request failed: {reply}")
+        return reply
+
+    def prefix_counts():
+        snaps = [srv.engine.registry.snapshot() for srv in servers]
+        return tuple(int(sum(sn[f"serve.prefix.{n}"]["value"]
+                             for sn in snaps)) for n in ("misses", "hits"))
+
+    greedy = []                          # (prompt, reply), pre-promote
+    row = {"phase": "fleet", "model": LM, **f}
+    # the main path: counts set to 0 just before, read just after
+    reset_launches()
+    client = ServeClient("127.0.0.1", router.port)
+    try:
+        # 1) a serialized cold pass: one request a group
+        owners, cold_ttft = [], []
+        for g in range(f["groups"]):
+            p = prompt(g)
+            reply = client.generate(p, f["max_new"])
+            check(reply.get("ok") and reply["warm"] is False,
+                  f"cold pass, group {g}: {reply}")
+            greedy.append((p, reply))
+            owners.append(reply["engine"])
+            cold_ttft.append(reply["ttft_s"])
+        check(prefix_counts() == (f["groups"], 0),
+              f"prefix (misses, hits) after the cold pass: "
+              f"{prefix_counts()}")
+        # 2) the warm pass: each group's requests at once, on its owner
+        warm_ttft, t0 = [], time.perf_counter()
+        for g in range(f["groups"]):
+            ps = [prompt(g) for _ in range(f["warm_per_group"])]
+            for p, reply in zip(ps, _concurrently(generate, ps)):
+                check(reply["warm"] is True and reply["engine"] == owners[g],
+                      f"warm pass, group {g}: {reply}")
+                greedy.append((p, reply))
+                warm_ttft.append(reply["ttft_s"])
+        warm_wall = time.perf_counter() - t0
+        n_warm = f["groups"] * f["warm_per_group"]
+        check(prefix_counts() == (f["groups"], n_warm),
+              f"prefix (misses, hits) after the warm pass: "
+              f"{prefix_counts()}")
+        # the same pass again under the profiler: the card's busy share
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        with prof:
+            t0 = time.perf_counter()
+            for g in range(f["groups"]):
+                ps = [prompt(g) for _ in range(f["warm_per_group"])]
+                for p, reply in zip(ps, _concurrently(generate, ps)):
+                    greedy.append((p, reply))
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        busy_us = _busy_us(prof)
+        check(busy_us > 0, "the fleet trace holds no device time")
+        check(prefix_counts() == (f["groups"], 2 * n_warm),
+              f"prefix (misses, hits) after the profiled pass: "
+              f"{prefix_counts()}")
+        # 3) a forced spill a group: cold, replicated, then warm
+        spill_cold, spill_warm = [], []
+        for g in range(f["groups"]):
+            owner = next(b for b in router.backends if b.addr == owners[g])
+            with router._lock:
+                owner.inflight += f["max_inflight"]
+            try:
+                p = prompt(g)
+                first = client.generate(p, f["max_new"])
+                check(first.get("ok") and first["warm"] is False
+                      and first["engine"] != owners[g],
+                      f"spill {g} did not land cold elsewhere: {first}")
+                greedy.append((p, first))
+                spill_cold.append(first["ttft_s"])
+                t_end = time.monotonic() + 60
+                while router.registry.counter(
+                        "serve.router.kv_replications").value < g + 1:
+                    check(time.monotonic() < t_end,
+                          f"group {g}: no replication within 60 s")
+                    time.sleep(0.01)
+                p = prompt(g)
+                second = client.generate(p, f["max_new"])
+                check(second.get("ok") and second["warm"] is True
+                      and second["engine"] == first["engine"],
+                      f"spill {g} did not land warm on the replica: "
+                      f"{second}")
+                greedy.append((p, second))
+                spill_warm.append(second["ttft_s"])
+            finally:
+                with router._lock:
+                    owner.inflight -= f["max_inflight"]
+        n = f["groups"]
+        check(prefix_counts() == (2 * n, 2 * n_warm + n),
+              f"prefix (misses, hits) after the spills: {prefix_counts()}")
+        # 4) a planned drain of one engine: its hot KV migrates first
+        keep, victim = servers[0], servers[1]
+        with ServeClient("127.0.0.1", keep.port) as c0:
+            stale_doc = c0.kv_fetch(prompt=greedy[0][0])
+        check(stale_doc.get("found") and stale_doc["version"] == 0,
+              "no exportable entry for the stale-push check")
+        drained = client.drain(engine=f"127.0.0.1:{victim.port}")
+        check(drained.get("ok") and drained.get("drained")
+              and drained.get("migrated", 0) >= 1,
+              f"planned drain: {drained}")
+        for g in range(f["groups"]):
+            p = prompt(g)
+            reply = client.generate(p, f["max_new"])
+            check(reply.get("ok") and reply["warm"] is True
+                  and reply["engine"] == f"127.0.0.1:{keep.port}",
+                  f"after the drain, group {g}: {reply}")
+            greedy.append((p, reply))
+        check(prefix_counts() == (2 * n, 2 * n_warm + 2 * n),
+              f"prefix (misses, hits) after the drain: {prefix_counts()}")
+        # 5) a fleet promote while the victim is out, then scale it up:
+        # it is rolled forward; a push stamped with the old version is
+        # refused
+        new_vars = to_numpy_variables(zoo.gpt_lm(**LM).init(1,
+                                                            device="cpu"))
+        promoted = client.promote(new_vars)
+        check(promoted["promoted"] == 1 and promoted["failed"] == 1,
+              f"fleet promote: {promoted}")
+        t_end = time.monotonic() + 30
+        while keep.engine.kv_version != 1:
+            check(time.monotonic() < t_end, "promotion never adopted")
+            time.sleep(0.01)
+        with ServeClient("127.0.0.1", keep.port) as c0:
+            pushed = c0.kv_push(stale_doc["entries"], stale_doc["version"])
+        check(pushed["joined"] == 0 and pushed["refused_stale"] == 1,
+              f"a stale kv_push was not refused: {pushed}")
+        up = client.undrain(engine=f"127.0.0.1:{victim.port}")
+        check(up.get("ok"), f"scale-up of the drained engine: {up}")
+        check(router.registry.counter(
+            "serve.router.promote_rollforwards").value == 1,
+            "the rejoining engine was not rolled forward")
+        t_end = time.monotonic() + 30
+        while victim.engine.kv_version != 1:
+            check(time.monotonic() < t_end, "roll-forward never adopted")
+            time.sleep(0.01)
+        # 6) sampled requests through the router, each to max_new tokens
+        ps = [rng.integers(0, vocab, 100) for _ in range(f["sampled"])]
+        sampled = _concurrently(
+            lambda p: generate(p, temperature=0.8, top_k=50), ps)
+        check(all(len(r["tokens"]) == f["max_new"] for r in sampled),
+              "a sampled request ended short")
+        torch.cuda.synchronize()
+        served = flash_fwd_cuda.launches
+        row["kernel_launches"] = kernel_launches()
+        misses, hits = prefix_counts()
+        snap = router.registry.snapshot()
+        fleet_stats = client.stats()
+    finally:
+        client.close()
+        router.stop()
+        for srv in servers:
+            srv.stop()
+    val = lambda name: int(snap[name]["value"])  # noqa: E731
+    check(misses == 2 * n + f["sampled"],
+          f"cold joins {misses} != {2 * n + f['sampled']}")
+    check(served == LM["num_blocks"] * misses,
+          f"flash_fwd launches {served} != {LM['num_blocks']} x {misses} "
+          f"cold joins")
+    accounting = {"requests": val("serve.router.requests"),
+                  "completed": val("serve.router.completed"),
+                  "rejected": val("serve.router.rejected"), "timeouts": 0}
+    check(accounting["requests"] == accounting["completed"]
+          + accounting["rejected"] + accounting["timeouts"]
+          and accounting["rejected"] == 0,
+          f"router accounting broken: {accounting}")
+    check(val("serve.router.kv_replications") >= n,
+          f"replications: {val('serve.router.kv_replications')}")
+    check(val("serve.router.kv_refused_stale") == 0,
+          "the fabric pushed stale KV")
+    mismatches = _answers_match(torch, model, [p for p, _ in greedy],
+                                [np.asarray(r["tokens"]) for _, r in greedy],
+                                news=[f["max_new"]] * len(greedy))
+    tokens = f["max_new"] * n_warm
+    row.update({
+        "requests": accounting["requests"], "accounting": accounting,
+        "greedy_checked": len(greedy), "mismatches": mismatches,
+        "prefix_cache": {"misses": misses, "hits": hits},
+        "cold_joins": misses, "k1_launches": served,
+        "ttft_ms_p50": {"cold": 1e3 * float(np.median(cold_ttft)),
+                        "warm": 1e3 * float(np.median(warm_ttft)),
+                        "spill_cold": 1e3 * float(np.median(spill_cold)),
+                        "spill_warm": 1e3 * float(np.median(spill_warm))},
+        "warm_pass_tokens_per_s": tokens / warm_wall,
+        "warm_pass_wall_s": warm_wall,
+        "device_busy_share": busy_us / 1e6 / prof_wall,
+        "profiled_wall_s": prof_wall,
+        "kv_replications": val("serve.router.kv_replications"),
+        "kv_migrations": val("serve.router.kv_migrations"),
+        "kv_push_bytes": val("serve.router.kv_push_bytes"),
+        "migrated_on_drain": drained["migrated"],
+        "stale_push": pushed, "stale_joins": pushed["joined"],
+        "promote_rollforwards": val("serve.router.promote_rollforwards"),
+        "affinity_secondary_hits": val(
+            "serve.router.affinity_secondary_hits"),
+        "engines_alive": fleet_stats["engines_alive"],
+        "jit_retraces": int(fleet_stats["stats"]["jit.retraces"]["value"])})
+    check(row["jit_retraces"] == 0,
+          f"jit.retraces == {row['jit_retraces']} in the fleet")
+    emit(row)
+    return row
+
+
+def phase_spec(torch, model):
+    """Speculative decoding on the card: the same 8 greedy requests
+    (``SPEC_PROMPT_LENS``, ``SPEC_NEW`` new tokens) through a plain
+    engine, a ``spec_k=4`` engine whose draft is the probe itself
+    (accept rate 1.0) and one whose draft is ``SPEC_DRAFT`` (accepts
+    below 1).  Every answer equals ``generate_tokens``; K1 launches are
+    (target blocks + draft blocks) x cold joins.  Returns the row and
+    the K1 checks at the draft's join shapes."""
+    from collections import Counter
+    import numpy as np
+    from distkeras_tpu_torch.models import zoo
+    from distkeras_tpu_torch.obs import Registry
+    from distkeras_tpu_torch.ops.flash_attention import (
+        flash_fwd_cuda, reset_launches)
+    from distkeras_tpu_torch.serve import DecodeEngine, ServeConfig
+
+    rng = np.random.default_rng(15)
+    prompts = [rng.integers(0, LM["vocab_size"], n)
+               for n in SPEC_PROMPT_LENS]
+    narrow = zoo.gpt_lm(**SPEC_DRAFT).init(seed=2)
+    runs, spec_rows = {}, Counter()
+    for name, draft, draft_blocks in (
+            ("plain", None, 0), ("self_draft", model, LM["num_blocks"]),
+            ("narrow_draft", narrow, SPEC_DRAFT["num_blocks"])):
+        registry = Registry()
+        cfg = ServeConfig(slots=4, spec_k=0 if draft is None else SPEC_K)
+        engine = DecodeEngine(model, cfg, registry=registry,
+                              draft_model=draft).warmup()
+        # this path: counts set to 0 just before, read just after
+        reset_launches()
+        t0 = time.perf_counter()
+        with engine:
+            reqs = [engine.submit(p, SPEC_NEW) for p in prompts]
+            answers = [r.result(timeout=300) for r in reqs]
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = flash_fwd_cuda.launches
+        if draft is not None:
+            # both spec runs make the ``spec`` path of the kernels line
+            spec_rows.update({tuple(r[:3]): r[3] for r in kernel_launches()})
+        snap = registry.snapshot()
+        joins = int(snap["serve.joins"]["value"])
+        blocks = LM["num_blocks"] + draft_blocks
+        check(joins == len(prompts) and launches == blocks * joins,
+              f"spec {name}: flash_fwd launches {launches} != {blocks} x "
+              f"{joins} joins")
+        mismatches = _answers_match(torch, model, prompts, answers,
+                                    news=[SPEC_NEW] * len(prompts))
+        tokens = int(snap["serve.tokens_out"]["value"])
+        runs[name] = {"tokens_per_s": tokens / wall, "wall_s": wall,
+                      "steps": int(snap["serve.steps"]["value"]),
+                      "accept_rate": snap["serve.spec.accept_rate"]["value"],
+                      "proposed": int(snap["serve.spec.proposed"]["value"]),
+                      "accepted": int(snap["serve.spec.accepted"]["value"]),
+                      "k1_launches": launches, "blocks_per_join": blocks,
+                      "mismatches": mismatches,
+                      "jit_retraces": int(snap["jit.retraces"]["value"])}
+        check(runs[name]["jit_retraces"] == 0,
+              f"spec {name}: jit.retraces != 0")
+    check(runs["self_draft"]["accept_rate"] == 1.0,
+          f"self-draft accept rate {runs['self_draft']['accept_rate']}")
+    check(runs["narrow_draft"]["accept_rate"] < 1.0,
+          "the narrow draft accepted everything")
+    # K1 at the narrow draft's joins (B*H 2, Dh 64, the buckets these
+    # prompts take)
+    dh = SPEC_DRAFT["dim"] // SPEC_DRAFT["num_heads"]
+    checks = [_k1_at(torch, 15, SPEC_DRAFT["num_heads"], t, dh)
+              for t in sorted({ServeConfig().bucket_for(n, LM["seq_len"])
+                               for n in SPEC_PROMPT_LENS})]
+    row = {"phase": "spec", "model": LM, "draft": SPEC_DRAFT,
+           "spec_k": SPEC_K, "requests": len(prompts),
+           "max_new": SPEC_NEW, **runs,
+           "k1_checks": [{k: r[k] for k in ("kernel", "bh", "tq", "dh",
+                                            "max_abs_err")}
+                         for r in checks]}
+    emit(row)
+    return row, [[*key, n] for key, n in sorted(spec_rows.items())], checks
+
+
+def phase_beam(torch, model):
+    """``generate_beam`` on the probe (flash, f32) against its dense twin
+    (the same weights): ``BEAM`` prompts and beams, equal tokens, scores
+    within 1e-4; K1 once per block for the prefill.  Returns the row and
+    the K1 check at the prefill's shape."""
+    import numpy as np
+    from distkeras_tpu_torch.models import generate_beam, zoo
+    from distkeras_tpu_torch.ops.flash_attention import (
+        flash_fwd_cuda, reset_launches)
+
+    b = BEAM
+    x = np.random.default_rng(16).integers(0, LM["vocab_size"],
+                                           (b["batch"], b["prompt"]))
+    # the main path: counts set to 0 just before, read just after
+    reset_launches()
+    t0 = time.perf_counter()
+    out, scores = generate_beam(model, x, b["steps"],
+                                num_beams=b["num_beams"], return_scores=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_fwd_cuda.launches
+    by_kernel = kernel_launches()
+    check(launches == LM["num_blocks"],
+          f"beam: flash_fwd launches {launches} != {LM['num_blocks']}")
+    dense = zoo.gpt_lm(**{**LM, "attention_impl": "dense"}).init(seed=1)
+    dense.load_state_dict(model.state_dict())
+    ref, ref_scores = generate_beam(dense, x, b["steps"],
+                                    num_beams=b["num_beams"],
+                                    return_scores=True)
+    score_err = (scores - ref_scores).abs().max().item()
+    check(torch.equal(out, ref), "beam tokens differ from the dense twin's")
+    check(score_err <= 1e-4, f"beam scores differ by {score_err}")
+    check(out.shape == (b["batch"], b["prompt"] + b["steps"]),
+          f"beam output shape {tuple(out.shape)}")
+    rows = b["batch"] * b["num_beams"]
+    k1 = _k1_at(torch, 16, rows * LM["num_heads"], LM["seq_len"],
+                LM["dim"] // LM["num_heads"])
+    row = {"phase": "beam", "model": LM, **b, "wall_s": wall,
+           "tokens_per_s": b["batch"] * b["steps"] / wall,
+           "scores": scores.tolist(), "score_err_vs_dense": score_err,
+           "k1_launches": launches, "kernel_launches": by_kernel,
+           "k1_check": {k: k1[k] for k in ("kernel", "bh", "tq", "dh",
+                                           "max_abs_err")}}
+    emit(row)
+    return row, [k1]
 
 
 def _max_err(got, ref):
@@ -1861,6 +2342,86 @@ def _edge_ms(torch, t, reps=20):
     return start.elapsed_time(end) / reps
 
 
+def _windows_f64_reading(torch, name, cfg, ds, perturb=False, runs=None):
+    """``name`` over ``cfg``'s first ``F64_WINDOWS`` windows on the card
+    (each worker's first rows of ``ds``, in the order the full run reads
+    them; the same initial weights and generator states) in f32 against
+    the same windows in float64, cuDNN deterministic and TF32 off.
+    Returns the losses' errors and ``center_rel`` (see ``F64_CENTER_REL``)
+    beside the runs.  ``perturb``: the live control — the f32 center's
+    most-moving leaf moved along its float64 change by 3 x
+    ``F64_CENTER_REL`` of the whole change's norm, which must fail."""
+    import numpy as np
+    from distkeras_tpu_torch.data import Dataset
+    from distkeras_tpu_torch.models import zoo
+    from distkeras_tpu_torch.utils import to_numpy_variables
+    from distkeras_tpu_torch.utils.tree import tree_leaves
+    kw = cfg["trainer_kwargs"]
+    per = ds.num_rows // DIST_WORKERS
+    take = F64_WINDOWS * kw["communication_window"] * kw["batch_size"]
+    idx = np.concatenate([np.arange(k * per, k * per + take)
+                          for k in range(DIST_WORKERS)])
+    if runs is None:
+        runs = {}
+        prev = (torch.backends.cudnn.deterministic,
+                torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        try:
+            for key, dtype in (("float32", None),
+                               ("float64", torch.float64)):
+                cols = {c: ds[c][idx] for c in ("features", "label_onehot")}
+                if dtype is not None:
+                    cols["features"] = cols["features"].astype(np.float64)
+                t = _dist_trainer(name, cfg, num_epoch=1)
+                if dtype is not None:
+                    build = t.model.init
+                    t.model.init = lambda seed=0, device=None: build(
+                        seed, device=device).to(dtype)
+                t.train(Dataset(cols))
+                runs[key] = (np.stack(t.get_history()[0]).astype(
+                                 np.float64).reshape(DIST_WORKERS, -1),
+                             [np.asarray(a, np.float64) for a in
+                              tree_leaves(t.trained_variables)])
+                del t
+        finally:
+            torch.backends.cudnn.deterministic, \
+                torch.backends.cudnn.benchmark = prev
+        runs["init"] = [np.asarray(a, np.float64) for a in tree_leaves(
+            to_numpy_variables(getattr(zoo, cfg["model"])(
+                **cfg["model_kwargs"]).init(0, device="cpu")))]
+    (l32, c32), (l64, c64) = runs["float32"], runs["float64"]
+    init = runs["init"]
+    d64 = [b - i for b, i in zip(c64, init)]
+    norm64 = float(np.sqrt(sum(np.sum(d * d) for d in d64)))
+    if perturb:
+        j = int(np.argmax([np.linalg.norm(d) for d in d64]))
+        c32 = list(c32)
+        c32[j] = c32[j] + 3 * F64_CENTER_REL * norm64 * d64[j] / \
+            np.linalg.norm(d64[j])
+    err = float(np.sqrt(sum(np.sum((a - b) ** 2)
+                            for a, b in zip(c32, c64))))
+    leaf_rel = [float(np.linalg.norm(a - b) / np.linalg.norm(d))
+                for a, b, d in zip(c32, c64, d64) if np.linalg.norm(d) > 0]
+    loss_err = np.abs(l32 - l64)
+    return {"windows": F64_WINDOWS, "steps_per_worker": l32.shape[1],
+            "first_step_loss_max_abs_err": float(loss_err[:, 0].max()),
+            "loss_max_abs_err_by_step": loss_err.max(0).tolist(),
+            "loss_max_abs_err": float(loss_err.max()),
+            "center_rel": err / norm64,
+            "leaf_rel_median": float(np.median(leaf_rel)),
+            "losses_float64": l64.tolist(), "perturbed": perturb,
+            "tol": {"first_step_loss": F64_FIRST_LOSS_TOL,
+                    "loss": F64_LOSS_TOL, "center_rel": F64_CENTER_REL},
+            "runs": runs}
+
+
+def _windows_f64_ok(reading) -> bool:
+    return (reading["first_step_loss_max_abs_err"] <= F64_FIRST_LOSS_TOL
+            and reading["loss_max_abs_err"] <= F64_LOSS_TOL
+            and reading["center_rel"] <= F64_CENTER_REL)
+
+
 def _dist_parity_run(torch, name, ds, device, **kw):
     """(losses, trained leaves as float64, eval forward of the first 16
     rows) of ``name`` at ``DIST_WORKERS`` workers on ``device``."""
@@ -1880,7 +2441,8 @@ def phase_dist(torch):
     """The sync distributed trainers at ``DIST_WORKERS`` workers on the
     card: every ``DIST_RUNS`` entry (samples/s, ms a window, ms of the
     edge alone, peak memory, first and last epoch's mean loss; the loss
-    falls and the edge holds its rule), ADAG over the flash LM in bf16
+    falls — for ``NO_DIRECTION_CHECK``'s DynSGD, its first windows meet
+    their float64 twin instead — and the edge holds its rule), ADAG over the flash LM in bf16
     (K1–K3 launched exactly W x steps x blocks times, and held at its
     shape), and two card-vs-CPU checks: the f32 toy ADAG within rtol 1e-5
     (plus 1e-6 of the largest |value|), and DOWNPOUR's BatchNorm model by
@@ -1913,7 +2475,9 @@ def phase_dist(torch):
         hist = t.get_averaged_history()
         check(all(bool(np.isfinite(h).all()) for h in t.get_history()),
               f"{name}: a training loss is not finite")
-        check(hist[-1] < hist[0], f"{name}: the loss did not fall: {hist}")
+        if name not in NO_DIRECTION_CHECK:
+            check(hist[-1] < hist[0],
+                  f"{name}: the loss did not fall: {hist}")
         recs = [r for r in t.metrics.records if r["event"] == "epoch"]
         steps = t.get_history()[-1].shape[1]
         n_windows = steps // t.communication_window
@@ -1932,9 +2496,25 @@ def phase_dist(torch):
                "wall_s": wall, "peak_memory_bytes": peak,
                "edge_rule_max_err": _edge_identities(torch, t, ds),
                "edge_ms": _edge_ms(torch, t)}
+        del t
+        if name in NO_DIRECTION_CHECK:
+            reading = _windows_f64_reading(torch, name, cfg, ds)
+            perturbed = _windows_f64_reading(torch, name, cfg, ds,
+                                             perturb=True,
+                                             runs=reading["runs"])
+            row["float64_twin"] = {k: v for k, v in reading.items()
+                                   if k != "runs"}
+            row["float64_twin_control"] = {k: v for k, v in
+                                           perturbed.items() if k != "runs"}
+            check(_windows_f64_ok(reading),
+                  f"{name}: the f32 windows differ from their float64 "
+                  f"twin: {row['float64_twin']}")
+            check(not _windows_f64_ok(perturbed),
+                  f"{name}: a perturbed center leaf passed the float64 "
+                  f"check: {row['float64_twin_control']}")
         emit(row)
         rows.append(row)
-        del t, ds
+        del ds
 
     # ADAG over the flash LM, bf16: the distributed path through K1-K3
     kernels = {"flash_fwd": flash_fwd_cuda,
@@ -2981,6 +3561,10 @@ def main() -> int:
                    for n in PROMPT_LENS]
         sl = phase_slice(torch, model, prompts)
         phase_profile(torch, model, prompts)
+        fleet = phase_fleet(torch, model)
+        spec, spec_launches, spec_k1 = phase_spec(torch, model)
+        beam, beam_k1 = phase_beam(torch, model)
+        k1 = k1 + spec_k1 + beam_k1
         del model
         bwd_rows, bwd_timed = phase_k2k3(torch)
         tr = phase_train(torch)
@@ -2999,6 +3583,9 @@ def main() -> int:
                   ("ckpt_resumed", ck["kernel_launches_resumed"]),
                   ("ckpt_serve", ck["serve"]["kernel_launches"])]
         later += [(r["path"], r["kernel_launches"]) for r in asy]
+        later += [("fleet", fleet["kernel_launches"]),
+                  ("spec", spec_launches),
+                  ("beam", beam["kernel_launches"])]
         kernels = kernels_line(k1, sl, tr, lm128, lm256, dist_kernels,
                                past256, bwd_rows, bwd_timed, later)
     except CheckFailed as e:

@@ -25,4 +25,4 @@ from .layers import (  # noqa: F401
 )
 from .model import Model  # noqa: F401
 from . import zoo  # noqa: F401
-from .generation import generate_tokens  # noqa: F401
+from .generation import generate_beam, generate_tokens  # noqa: F401

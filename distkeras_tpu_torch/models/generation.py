@@ -1,5 +1,7 @@
 """Autoregressive generation for causal LMs (the port of
-``distkeras_tpu.models.generation``; ``generate_beam`` is not ported yet).
+``distkeras_tpu.models.generation``: ``generate_tokens``, ``generate_beam``
+and the per-row sampling and decode-window helpers the serving engine
+uses).
 
 Two decode strategies, as in the JAX package:
 
@@ -12,7 +14,9 @@ Two decode strategies, as in the JAX package:
 PyTorch runs eagerly, so the JAX package's one compiled ``lax.scan`` is a
 Python loop here.  Caches and the token buffer are updated in place.
 
-Sampling draws come from an explicit ``torch.Generator`` seeded with
+Beam search is deterministic: its tokens equal the JAX package's and its
+scores agree within float rounding.  Sampling draws come from an
+explicit ``torch.Generator`` seeded with
 ``seed``; they are not ``jax.random``'s draws, so sampled continuations
 differ from the JAX package's while their distributions
 (``rowwise_dist``) and every greedy continuation agree.
@@ -24,7 +28,7 @@ import numpy as np
 import torch
 
 from ..utils.device import DeviceLike, default_device
-from ..utils.tree import tree_leaves
+from ..utils.tree import tree_leaves, tree_map
 from .layers import Layer
 
 _NEG = -1e30
@@ -246,3 +250,140 @@ def generate_tokens(model, prompt, num_steps: int,
             nxt, done = sample(model(buf)[rows, pos], done)
             _write_at(buf, nxt, pos + 1, t)
     return buf[:, :p + num_steps]
+
+
+@torch.no_grad()
+def generate_beam(model, prompt, num_steps: int, num_beams: int = 4,
+                  eos_id=None, length_penalty: float = 0.0,
+                  use_cache=None, return_scores: bool = False,
+                  prompt_lengths=None, device: DeviceLike = None):
+    """Deterministic beam search: ``num_beams`` hypotheses per row, the
+    highest-(length-normalized)-log-probability continuation returned.
+
+    Beams flatten into the batch dimension (B·K rows), so both decode
+    strategies work unchanged — the KV cache is per-row and beam
+    reindexing is a batch gather of every cache leaf.  ``eos_id`` freezes
+    a hypothesis at its first EOS (its score stops accumulating);
+    ``length_penalty`` α divides final scores by (generated length)^α.
+    ``prompt_lengths``: (B,) true lengths of RIGHT-padded ragged prompts —
+    each row's hypotheses extend from its own length.  The cached path
+    prefills the B·K rows in one ``apply_prefill`` (on the card, one
+    flash-attention launch per attention layer).  ``device`` (default:
+    the card) must be where the model lives.  Returns an int64
+    (B, P + num_steps) tensor on ``device``, plus the (B,) float32 best
+    scores when ``return_scores``."""
+    device = default_device(device)
+    if model.device != device:
+        raise ValueError(f"the model lives on {model.device}, not {device}")
+    t = int(model.input_shape[0])
+    prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.long)
+    if prompt.ndim != 2:
+        raise ValueError(f"prompt must be (B, P), got {tuple(prompt.shape)}")
+    b, p = prompt.shape
+    num_steps = int(num_steps)
+    k_beams = int(num_beams)
+    if k_beams < 1:
+        raise ValueError(f"num_beams must be >= 1, got {num_beams}")
+    if num_steps < 0:
+        raise ValueError(f"num_steps must be >= 0, got {num_steps}")
+    if not 1 <= p <= t - num_steps:
+        raise ValueError(f"prompt length {p} + {num_steps} steps exceeds "
+                         f"the model's seq_len {t}")
+    lens = None
+    if prompt_lengths is not None:
+        lengths = np.asarray(prompt_lengths, np.int64)
+        if lengths.shape != (b,):
+            raise ValueError(f"prompt_lengths shape {lengths.shape} != "
+                             f"({b},)")
+        if lengths.min() < 1 or lengths.max() > p:
+            raise ValueError(f"prompt_lengths must lie in [1, {p}]")
+        if int(lengths.max()) + num_steps > t:
+            raise ValueError(
+                f"longest prompt {int(lengths.max())} + {num_steps} steps "
+                f"exceeds the model's seq_len {t}")
+        if (lengths != lengths.max()).any() or int(lengths.max()) != p:
+            # lens is constant within a row's beam group, so beam
+            # regathering never changes it
+            lens = torch.as_tensor(lengths).repeat_interleave(
+                k_beams).to(device)
+    prompt = prompt.to(device)
+    if num_steps == 0:
+        return (prompt, torch.zeros((b,), dtype=torch.float32,
+                                    device=device)) \
+            if return_scores else prompt
+
+    bk = b * k_beams
+    cache = _model_cache(model, bk) if use_cache in (None, True) else None
+    if use_cache is True and cache is None:
+        raise ValueError(
+            "use_cache=True but the cached decode path is unsupported "
+            "here (see generate_tokens); use use_cache=False")
+
+    buf = torch.zeros((bk, t), dtype=torch.long, device=device)
+    buf[:, :p] = prompt.repeat_interleave(k_beams, dim=0)
+    rows_all = torch.arange(bk, device=device)
+    group = torch.arange(b, device=device)[:, None] * k_beams
+
+    def expand(scores, done, gen_len, logits_prev):
+        """One selection: (B·K, V) logits → per-row top-K of the K·V
+        continuations → (scores, done, gen_len, tokens, source rows)."""
+        logp = torch.log_softmax(logits_prev.float(), dim=-1)
+        v = logp.shape[-1]
+        if eos_id is not None:
+            # finished beams may only "continue" with EOS at no cost: the
+            # hypothesis is frozen but stays selectable
+            frozen = torch.full_like(logp, _NEG)
+            frozen[:, int(eos_id)] = 0.0
+            logp = torch.where(done[:, None], frozen, logp)
+        total = (scores[:, None] + logp).reshape(b, k_beams * v)
+        # a stable descending sort: ties keep the lower index first, as
+        # lax.top_k orders them
+        idx = torch.sort(total, dim=-1, descending=True,
+                         stable=True).indices[:, :k_beams]
+        top = torch.gather(total, 1, idx)
+        rows = (group + idx // v).reshape(-1)
+        tok = (idx % v).reshape(-1)
+        new_done = done[rows]
+        new_len = gen_len[rows] + (~new_done).to(gen_len.dtype)
+        if eos_id is not None:
+            new_done = new_done | (tok == int(eos_id))
+        return top.reshape(-1), new_done, new_len, tok, rows
+
+    # beam 0 live, beams 1..K-1 at -inf so the FIRST expansion takes the
+    # top-K tokens of the prompt row, not K duplicates
+    scores = torch.full((b, k_beams), _NEG, device=device)
+    scores[:, 0] = 0.0
+    scores = scores.reshape(-1)
+    done = torch.zeros((bk,), dtype=torch.bool, device=device)
+    gen_len = torch.zeros((bk,), dtype=torch.long, device=device)
+
+    if cache is not None:
+        y, cache = model.layer.apply_prefill(buf, cache)
+        logits = y[:, p - 1] if lens is None else y[rows_all, lens - 1]
+        for i in range(num_steps - 1):
+            scores, done, gen_len, tok, rows = expand(scores, done,
+                                                      gen_len, logits)
+            pos = (p + i) if lens is None else (lens + i)
+            buf = _write_at(buf[rows], tok, pos, t)
+            cache = tree_map(lambda c: c[rows], cache)
+            logits, cache = model.layer.apply_decode(tok, cache, pos)
+        scores, done, gen_len, tok, rows = expand(scores, done, gen_len,
+                                                  logits)
+        buf = _write_at(buf[rows], tok, (p + num_steps - 1) if lens is None
+                        else (lens + num_steps - 1), t)
+    else:
+        for i in range(num_steps):
+            out = model(buf)
+            logits = out[:, p - 1 + i] if lens is None \
+                else out[rows_all, lens - 1 + i]
+            scores, done, gen_len, tok, rows = expand(scores, done,
+                                                      gen_len, logits)
+            pos = (p + i) if lens is None else (lens + i)
+            buf = _write_at(buf[rows], tok, pos, t)
+
+    if length_penalty:
+        scores = scores / gen_len.float().clamp(min=1.0) ** length_penalty
+    scores = scores.reshape(b, k_beams)
+    best = torch.argmax(scores, dim=-1)
+    out = buf[torch.arange(b, device=device) * k_beams + best][:, :p + num_steps]
+    return (out, scores.max(dim=-1).values) if return_scores else out

@@ -1,8 +1,9 @@
 """Telemetry for the port: instruments and registry (labeled, mergeable),
 logging, spans, the retrace sentinel, the trainers' profile knobs and the
-straggler and link-quality detectors — the parts of ``distkeras_tpu.obs``
-the serving, training and parameter-server slices record through, with
-the same metric names and record formats."""
+straggler and link-quality detectors, and the telemetry store the serve
+router's health poll feeds — the parts of ``distkeras_tpu.obs`` the
+serving, training and parameter-server slices record through, with the
+same metric names and record formats."""
 
 from .registry import (  # noqa: F401
     COUNT_BUCKETS,
@@ -28,3 +29,5 @@ from .stragglers import (  # noqa: F401
     LinkQuality,
     StragglerDetector,
 )
+from .drift import snapshot_delta  # noqa: F401
+from .timeseries import TelemetryShipper, TimeSeriesStore  # noqa: F401

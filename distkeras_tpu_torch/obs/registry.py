@@ -11,8 +11,9 @@ either package reads the same (and travels over the PS wire as a
 
 Labeled instruments live under their flat name (``flat_name``:
 ``("ps.staleness", {"worker": 3})`` is ``"ps.staleness.worker3"``).
-Folding snapshots across processes (``merge_snapshots``) is not ported
-yet: ROADMAP Queue 1 item 7.  A ``Registry``
+``Registry.merge_snapshots`` folds plain-data snapshots together
+(counters and histograms add, gauges take the later value): the serve
+router's fleet view and the telemetry store's totals.  A ``Registry``
 is a name → instrument map with get-or-create semantics; the
 process-wide ``default_registry()`` serves call sites with no better
 home (networking byte counts, the trainers' ``jit.*`` counters), while
@@ -267,6 +268,35 @@ class Registry:
                 e["name"] = inst.base_name
                 e["labels"] = dict(inst.labels)
             out[name] = e
+        return out
+
+    @staticmethod
+    def merge_snapshots(*snaps: dict) -> dict:
+        """Fold plain-data snapshots: counters and histograms add, gauges
+        keep the last value seen (there is no meaningful sum of levels)."""
+        out: dict = {}
+        for snap in snaps:
+            for name, s in snap.items():
+                cur = out.get(name)
+                if cur is None:
+                    out[name] = {**s, "counts": list(s["counts"])} \
+                        if s["type"] == "histogram" else dict(s)
+                    continue
+                if cur["type"] != s["type"]:
+                    raise TypeError(f"instrument {name!r}: cannot merge "
+                                    f"{s['type']} into {cur['type']}")
+                if s["type"] == "counter":
+                    cur["value"] += s["value"]
+                elif s["type"] == "gauge":
+                    cur["value"] = s["value"]
+                else:
+                    if list(cur["bounds"]) != list(s["bounds"]):
+                        raise ValueError(
+                            f"histogram {name!r}: bucket bounds differ")
+                    cur["counts"] = [a + b for a, b in
+                                     zip(cur["counts"], s["counts"])]
+                    cur["sum"] += s["sum"]
+                    cur["count"] += s["count"]
         return out
 
 

@@ -893,6 +893,11 @@ class FrameServer:
         self._conns: list = []
         self._conn_lock = threading.Lock()
         self._running = threading.Event()
+        #: the push-telemetry aggregator (``telemetry`` frames and the
+        #: serve router's health poll feed it); lazy, so a server nobody
+        #: ships to carries no store at all
+        self.telemetry = None
+        self._plane_lock = threading.Lock()
         self._g_conns = registry.gauge(f"{self.metric_prefix}.connections")
         self._g_inflight = registry.gauge(f"{self.metric_prefix}.inflight")
         #: transient accept-loop errors survived (EMFILE under fd
@@ -923,20 +928,37 @@ class FrameServer:
         where in-flight work drains so replies still flush."""
 
     # -- telemetry plane --------------------------------------------------
-    #: where the push-telemetry aggregator and the alert engine (the
-    #: ``telemetry`` / ``alerts`` actions) are ported
-    PLANE_ITEM = "ROADMAP Queue 1 item 7 (obs timeseries and alerts)"
+    #: where the alert engine (the ``alerts`` action) is ported
+    ALERTS_ITEM = "ROADMAP Queue 1 item 7 (obs alerts)"
+
+    def enable_telemetry(self, store=None):
+        """Attach (or lazily create) the push-telemetry aggregator.
+        Idempotent; also called implicitly by the first ``telemetry``
+        frame, so shippers need no out-of-band setup handshake."""
+        with self._plane_lock:
+            if self.telemetry is None:
+                if store is None:
+                    from ..obs.timeseries import TimeSeriesStore
+                    store = TimeSeriesStore(registry=self.registry)
+                self.telemetry = store
+            return self.telemetry
 
     def _handle_plane(self, action, msg: dict):
-        """The ``telemetry``/``alerts`` actions every JAX front-end
-        answers — tried before the subclass's unknown-action fallback.
-        Their aggregator is not ported yet: they answer an error that
-        names where it is, on the same connection.  ``None`` for other
+        """The ``telemetry``/``alerts`` actions every front-end answers —
+        tried before the subclass's unknown-action fallback.  A
+        ``telemetry`` frame folds into the aggregator; the alert engine
+        is not ported yet, so ``alerts`` answers an error that names
+        where it is, on the same connection.  ``None`` for other
         actions."""
-        if action in ("telemetry", "alerts"):
+        if action == "telemetry":
+            store = self.telemetry or self.enable_telemetry()
+            n = store.ingest_delta(str(msg.get("source") or "unknown"),
+                                   msg.get("delta"))
+            return {"ok": True, "accepted": n}
+        if action == "alerts":
             return {"ok": False,
-                    "error": f"the {action!r} action needs the telemetry "
-                             f"plane, not ported yet: {self.PLANE_ITEM}"}
+                    "error": f"the 'alerts' action needs the alert "
+                             f"engine, not ported yet: {self.ALERTS_ITEM}"}
         return None
 
     # -- lifecycle ----------------------------------------------------------

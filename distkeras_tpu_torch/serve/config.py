@@ -9,10 +9,9 @@ smallest bucket that holds it, so the service runs ``len(buckets) + 1``
 distinct program signatures and, after ``warmup()``, never a new one
 (``jit.retraces == 0``).
 
-The decode accelerators — ``prefix_cache`` (and with it ``kv_fabric``)
-and ``spec_k > 0`` — are not ported yet: asking for either raises
-``NotImplementedError`` here, at construction, instead of serving
-without the feature.
+The decode accelerators are knobs here too: ``prefix_cache`` (and with
+it the fleet ``kv_fabric``) and ``spec_k > 0`` (speculative decoding,
+which needs a draft model passed to ``DecodeEngine``).
 """
 
 from __future__ import annotations
@@ -57,11 +56,15 @@ class ServeConfig:
     * ``drain_timeout_s`` — graceful-drain bound: how long ``drain()``
       waits for in-flight requests before aborting them (aborts are
       recorded as rejections — nothing drops silently).
-    * ``prefix_cache`` / ``prefix_cache_mb`` / ``prefix_block`` /
-      ``kv_fabric`` — the prefix KV cache and the fleet KV fabric (not
-      ported yet: ``prefix_cache=True`` raises).
-    * ``spec_k`` — speculative decoding, 0 disables (not ported yet:
-      ``spec_k > 0`` raises).
+    * ``prefix_cache`` / ``prefix_cache_mb`` / ``prefix_block`` — the
+      prefix KV cache (``serve/prefix.py``): a byte-bounded LRU of
+      admitted prompts' single-row KV, block-aligned lookup, flushed on
+      ``promote()``.
+    * ``kv_fabric`` — with the prefix cache on, answer the fleet KV
+      fabric's ``kv_fetch`` / ``kv_push`` RPCs (``serve/kvfabric.py``).
+    * ``spec_k`` — speculative decoding: the draft proposes ``spec_k``
+      tokens per row, the target verifies them in one window; 0
+      disables.
     """
 
     slots: int = 4
@@ -109,14 +112,6 @@ class ServeConfig:
         if int(self.spec_k) < 0:
             raise ValueError(f"spec_k must be >= 0 (0 disables "
                              f"speculative decode), got {self.spec_k}")
-        if self.prefix_cache:
-            raise NotImplementedError(
-                "prefix_cache=True (the prefix KV cache and KV fabric) is "
-                "ported with a later serving slice")
-        if int(self.spec_k) > 0:
-            raise NotImplementedError(
-                "spec_k > 0 (speculative decoding) is ported with a later "
-                "serving slice")
 
     def resolved_buckets(self, seq_len: int) -> Tuple[int, ...]:
         """The ascending prefill-bucket lengths for a ``seq_len`` model:

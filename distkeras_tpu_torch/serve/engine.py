@@ -1,6 +1,6 @@
-"""Continuous-batching decode engine, plain mode (the port of
-``distkeras_tpu.serve.engine.DecodeEngine``; the prefix cache, the KV
-fabric and speculative decoding come with later slices).
+"""Continuous-batching decode engine (the port of
+``distkeras_tpu.serve.engine.DecodeEngine``, with its prefix KV cache,
+speculative decoding, dispatch-ahead and KV-fabric seam).
 
 One decode state for ``slots`` concurrent requests — token buffer
 (B, T), KV cache (B rows), per-row position and logits, and an
@@ -17,20 +17,38 @@ Programs, each behind its own ``RetraceSentinel``
 (``jit.compiles``/``jit.retraces`` in the service registry):
 
 * ``serve.join.l<L>`` — per prefill bucket L: the single-row prefill of
-  the (1, L) padded prompt + the write into slot ``row``.
+  the (1, L) padded prompt + the write into slot ``row``.  With the
+  prefix cache on, the join also RETURNS the single-row full-length KV
+  it just computed, so the host caches it for later prompts sharing the
+  prefix.  With speculative decode on, the draft prefills its own cache
+  for the row too.
+* ``serve.sjoin.s<S>`` — per suffix bucket S (prefix cache on): admit a
+  prompt whose longest prefix is already cached by replaying only its
+  suffix over a copy of the cached KV with ``decode_window`` (the JAX
+  package's algorithm: one cached decode per suffix token, no prefill
+  kernel) + the same row write.  The JAX program replays the suffix
+  padded to S because its shapes are static; here only the real suffix
+  tokens run — the padded positions are never attended, so every kept
+  logit is the same.
 * ``serve.step`` — every active row takes its next token from its
   carried logits (argmax when every row is greedy, ``sample_rowwise``
   when any row samples — decided from the host-side per-row
   temperatures, so the branch costs no device sync), writes it at its
   own position and runs one cached decode forward.  Inactive rows are
   masked no-ops.
+* ``serve.spec_step`` (``spec_k > 0``, replaces ``serve.step``) — the
+  draft proposes k tokens per row, the target verifies all k in one
+  window, up to k+1 tokens emitted per dispatch (``serve/spec.py``;
+  greedy output equals ``generate_tokens``).
 
 PyTorch runs eagerly, so a program's "compile" is the first call with a
-given argument signature; ``warmup()`` calls every bucket's join and the
-step once, and steady-state serving then holds ``jit.retraces == 0``.
+given argument signature; ``warmup()`` calls every bucket's join (and,
+with the prefix cache, every suffix bucket's warm join) and the step
+once, and steady-state serving then holds ``jit.retraces == 0``.
 
 **Dispatch-ahead**: the decode loop dispatches step k+1 BEFORE doing step
-k's host bookkeeping.  Each dispatch copies its tokens to pinned host
+k's host bookkeeping.  Each dispatch copies its tokens (and, in spec
+mode, the per-row emitted counts, in the same copy) to pinned host
 memory without blocking and records a CUDA event; retiring a step waits
 on that event only, so the host's readback, detokenize, retire and SLO
 work overlaps the next step on the card.  Each dispatch snapshots its
@@ -43,14 +61,15 @@ Scheduling is host-side and single-threaded: one decode thread owns the
 device state and the slot table; ``submit()`` (any thread) only touches
 the bounded admission queue.  Metrics, all in the service registry, keep
 the JAX package's names: ``serve.queue_wait_seconds``,
-``serve.ttft_seconds`` (and its ``_warm``/``_cold`` split),
+``serve.ttft_seconds`` (split ``serve.ttft_warm_seconds`` /
+``serve.ttft_cold_seconds`` by prefix-cache outcome),
 ``serve.per_token_seconds``, ``serve.e2e_seconds``,
 ``serve.step_seconds``, ``serve.host_seconds``, ``serve.join_seconds``,
 counters ``serve.requests`` / ``admitted`` / ``completed`` /
 ``tokens_out`` / ``steps`` / ``joins`` / ``promotions`` / ``rejected``
 (split by reason), gauges ``serve.queue_depth`` / ``serve.active_slots``,
 and the accelerator counters ``serve.prefix.*`` / ``serve.spec.*``,
-created at zero so a snapshot carries the same names.
+created at zero so a snapshot always carries the same names.
 """
 
 from __future__ import annotations
@@ -58,18 +77,21 @@ from __future__ import annotations
 import collections
 import threading
 import time
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..models.generation import _model_cache, _write_at, sample_rowwise
+from ..models.generation import (_model_cache, _write_at, decode_window,
+                                 sample_rowwise)
 from ..obs import Registry, TIME_BUCKETS
 from ..obs.logging import get_logger
 from ..obs.profile import RetraceSentinel
 from ..utils.device import DeviceLike, default_device
-from ..utils.tree import tree_map
+from ..utils.tree import tree_flatten, tree_map
 from .config import ServeConfig
+from .prefix import PrefixCache, PrefixEntry
+from .spec import build_spec_step, validate_draft
 
 _LOG = "serve.engine"
 
@@ -92,13 +114,15 @@ class ServeRequest:
 
     ``wait(timeout)`` blocks until completion; ``result()`` returns the
     GENERATED token ids (eos included when sampled) as int32, raising
-    ``ServeRejected`` if the engine aborted the request.  ``temperature``
-    / ``top_k`` / ``top_p`` are the request's resolved sampling params
-    (``top_k == 0`` and ``top_p == 1.0`` disable those filters)."""
+    ``ServeRejected`` if the engine aborted the request.  ``warm``
+    records the prefix-cache outcome at admission (None when the cache is
+    disabled).  ``temperature`` / ``top_k`` / ``top_p`` are the request's
+    resolved sampling params (``top_k == 0`` and ``top_p == 1.0`` disable
+    those filters)."""
 
     __slots__ = ("prompt", "length", "max_new", "tokens", "error",
                  "submit_t", "admit_t", "first_token_t", "done_t",
-                 "temperature", "top_k", "top_p", "_done")
+                 "warm", "temperature", "top_k", "top_p", "_done")
 
     def __init__(self, prompt: np.ndarray, max_new: int,
                  temperature: float = 0.0, top_k: int = 0,
@@ -115,6 +139,7 @@ class ServeRequest:
         self.admit_t: Optional[float] = None
         self.first_token_t: Optional[float] = None
         self.done_t: Optional[float] = None
+        self.warm: Optional[bool] = None
         self._done = threading.Event()
 
     @property
@@ -143,9 +168,10 @@ class _Slot:
 
 class _Pending:
     """One dispatched-but-not-yet-retired step: its tokens (a host
-    buffer filled by a non-blocking copy), the event that marks the copy
-    done (None on the CPU), and the dispatch-time slot->request
-    snapshot."""
+    buffer filled by a non-blocking copy: (B,) in plain mode, (B, k+2) in
+    spec mode — the k+1 emitted tokens, then the row's count), the event
+    that marks the copy done (None on the CPU), and the dispatch-time
+    slot->request snapshot."""
 
     __slots__ = ("reqs", "tokens", "event", "t0")
 
@@ -156,17 +182,25 @@ class _Pending:
         self.t0 = t0
 
 
+def _dtype_name(x) -> str:
+    return str(x.dtype).removeprefix("torch.")
+
+
 class DecodeEngine:
     """The scheduler/batcher.  ``start()`` spawns the decode thread;
     ``submit()`` is thread-safe; ``drain()`` stops admission and waits
     for in-flight work; ``stop()`` is drain + shutdown (hard stop after
     ``drain_timeout_s``, aborted requests recorded as rejections).
 
-    ``device`` (default: the card) must be where ``model`` lives."""
+    ``device`` (default: the card) must be where ``model`` lives.
+    ``draft_model`` (required iff ``config.spec_k > 0``, on the same
+    device): the small proposal model for speculative decoding —
+    validated here, at construction, never discovered by the decode
+    thread."""
 
     def __init__(self, model, config: Optional[ServeConfig] = None,
                  registry: Optional[Registry] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, draft_model=None):
         device = default_device(device)
         if model.device != device:
             raise ValueError(f"the model lives on {model.device}, not "
@@ -189,8 +223,20 @@ class DecodeEngine:
                 "(init_cache protocol, no mesh-attached attention, no "
                 "time-mixing layer without a decode rule)")
         self._vocab = int(model.output_shape[-1])
+
+        # -- speculative decode: draft model, validated now --
+        self._spec_k = int(self.config.spec_k)
+        self.draft_model = draft_model
+        if self._spec_k > 0:
+            validate_draft(model, draft_model, self._b, self._spec_k)
+        elif draft_model is not None:
+            raise ValueError(
+                "draft_model passed but spec_k == 0 — speculative decode "
+                "would silently never run; set ServeConfig(spec_k=K) or "
+                "drop the draft")
         self._init_state(cache)
 
+        self._step_fn = None
         self._sentinels: dict = {}
         # pre-created so a snapshot taken before any traffic carries 0
         self.registry.counter("jit.compiles")
@@ -223,12 +269,28 @@ class DecodeEngine:
         self._c_rej_abort = reg.counter("serve.rejected_aborted")
         self._g_queue = reg.gauge("serve.queue_depth")
         self._g_active = reg.gauge("serve.active_slots")
-        for name in ("spec.proposed", "spec.accepted", "prefix.hits",
-                     "prefix.misses", "prefix.inserts",
-                     "prefix.remote_inserts", "prefix.evictions"):
-            reg.counter(f"serve.{name}")
-        for name in ("spec.accept_rate", "prefix.bytes", "prefix.entries"):
-            reg.gauge(f"serve.{name}")
+        # accelerator metrics are ALWAYS pre-created — a disabled
+        # engine's snapshot carries explicit zeros, not missing metrics
+        self._c_spec_proposed = reg.counter("serve.spec.proposed")
+        self._c_spec_accepted = reg.counter("serve.spec.accepted")
+        self._g_accept_rate = reg.gauge("serve.spec.accept_rate")
+        for name in ("hits", "misses", "inserts", "remote_inserts",
+                     "evictions"):
+            reg.counter(f"serve.prefix.{name}")
+        reg.gauge("serve.prefix.bytes")
+        reg.gauge("serve.prefix.entries")
+        self._prefix = None
+        if self.config.prefix_cache:
+            self._prefix = PrefixCache(
+                int(float(self.config.prefix_cache_mb) * 1024 * 1024),
+                reg, block=int(self.config.prefix_block))
+        #: KV checkpoint version: bumped by the DECODE thread at
+        #: promotion adoption — the moment the weights that compute new
+        #: cache entries actually change — so a fabric export/import
+        #: double-reading it around a cache touch can prove which weight
+        #: generation an entry belongs to (``kv_export``,
+        #: ``serve.kvfabric.admit_remote_entry``)
+        self._kv_version = 0
 
         #: admission queue + flags — the ONLY state shared across threads;
         #: every touch goes through _lock (slot table and device state are
@@ -264,6 +326,23 @@ class DecodeEngine:
         self._temp = torch.zeros((b,), dtype=torch.float32, device=dev)
         self._topk = torch.zeros((b,), dtype=torch.long, device=dev)
         self._topp = torch.ones((b,), dtype=torch.float32, device=dev)
+        if self._spec_k > 0:
+            self._dcache = _model_cache(self.draft_model, b)
+            self._dlogits = torch.zeros((b, self._vocab),
+                                        dtype=torch.float32, device=dev)
+        else:
+            self._dcache = None
+            self._dlogits = None
+
+    def _single_row_cache(self, batch_cache):
+        """A zeroed single-row, full-length cache tree shaped like one
+        row of ``batch_cache`` — the warmup stand-in for a prefix-cache
+        entry, and the template a peer's exported entry is checked
+        against."""
+        return tree_map(lambda c: torch.zeros((1,) + tuple(c.shape[1:]),
+                                              dtype=c.dtype,
+                                              device=c.device),
+                        batch_cache)
 
     # -- programs -----------------------------------------------------------
     def _sentinel(self, name: str) -> RetraceSentinel:
@@ -273,37 +352,119 @@ class DecodeEngine:
                 f"serve.{name}", registry=lambda: self.registry)
         return s
 
+    def _write_row(self, batch_tree, row_tree, row: int) -> None:
+        """Write single-row, full-length ``row_tree`` into slot ``row`` of
+        ``batch_tree`` (the join's scatter, in place)."""
+        def write(c, c1):
+            c[row] = c1[0].to(c.dtype)
+        tree_map(write, batch_tree, row_tree)
+
+    def _prefill_row(self, layer, batch_cache, prompt, length):
+        """Single-row bucket prefill of ``prompt`` (1, L) -> (last logits
+        (1, V), its full-length single-row cache tree)."""
+        cap = int(prompt.shape[1])
+        y, cache1 = layer.apply_prefill(prompt, layer.init_cache(1, (cap,)))
+
+        def pad_full(c1, c):
+            full = torch.zeros((1,) + tuple(c.shape[1:]), dtype=c.dtype,
+                               device=c.device)
+            full[:, :cap] = c1.to(c.dtype)
+            return full
+
+        return y[:, length - 1], tree_map(pad_full, cache1, batch_cache)
+
     def _join_args(self, prompt, length, row):
         """The cold join's observed-arg tuple — one function shared by
         warmup and _admit, so their signatures cannot drift apart."""
-        return (self._buf, self._cache, self._pos, self._logits, prompt,
-                int(length), int(row))
+        return (self._buf, self._cache, self._pos, self._logits,
+                self._dcache, self._dlogits, prompt, int(length), int(row))
 
-    def _join(self, prompt, length: int, row: int) -> None:
+    def _join(self, prompt, length: int, row: int):
         """Single-row prefill of ``prompt`` (1, L) (L = the bucket) and the
         write of its row — tokens, L-long K/V then zeros, position,
-        last-token logits — into slot ``row``."""
-        cap = int(prompt.shape[1])
-        layer = self.model.layer
-        y, cache1 = layer.apply_prefill(prompt, layer.init_cache(1, (cap,)))
-
-        def write_row(c, c1):
-            c[row, :cap] = c1[0].to(c.dtype)
-            c[row, cap:] = 0
-
-        tree_map(write_row, self._cache, cache1)
-        self._buf[row] = 0
-        self._buf[row, :cap] = prompt[0]
+        last-token logits — into slot ``row``; the draft's row too with
+        spec on.  With the prefix cache on, returns the captured entry
+        arrays (token row, cache, draft cache), else None."""
+        logits0, c1 = self._prefill_row(self.model.layer, self._cache,
+                                        prompt, length)
+        self._write_row(self._cache, c1, row)
+        prow = torch.zeros((1, self._t), dtype=torch.int32,
+                           device=self.device)
+        prow[0, :prompt.shape[1]] = prompt[0]
+        self._buf[row] = prow[0]
         self._pos[row] = length
-        self._logits[row] = y[0, length - 1].to(self._logits.dtype)
+        self._logits[row] = logits0[0].to(self._logits.dtype)
+        dc1 = None
+        if self._spec_k > 0:
+            dlogits0, dc1 = self._prefill_row(self.draft_model.layer,
+                                              self._dcache, prompt, length)
+            self._write_row(self._dcache, dc1, row)
+            self._dlogits[row] = dlogits0[0].to(self._dlogits.dtype)
+        if self._prefix is None:
+            return None
+        return prow, c1, dc1
+
+    def _sjoin_args(self, entry_tokens, entry_cache, entry_dcache, plen,
+                    suffix, slen, row):
+        return (self._buf, self._cache, self._pos, self._logits,
+                self._dcache, self._dlogits, entry_tokens, entry_cache,
+                entry_dcache, int(plen), suffix, int(slen), int(row))
+
+    def _sjoin(self, entry_tokens, entry_cache, entry_dcache, plen: int,
+               suffix, slen: int, row: int):
+        """The warm join: replay the suffix (``suffix[:, :slen]``) over a
+        copy of the cached single-row prefix KV with ``decode_window``,
+        then the same row write the cold join does.  Returns the
+        advanced entry arrays (token row, cache, draft cache) for the
+        host to cache under the full prompt."""
+        t = self._t
+        tokens = suffix[:, :slen]
+
+        def replay(layer, pcache):
+            # a copy: decode_window writes in place, and the entry stays
+            # the cache's until it is evicted
+            pcache = tree_map(torch.clone, pcache)
+            win, pcache = decode_window(layer, tokens, pcache, plen,
+                                        limit=t)
+            return win[:, slen - 1], pcache
+
+        logits0, pc = replay(self.model.layer, entry_cache)
+        prow = entry_tokens.clone()
+        prow[0, plen:plen + slen] = tokens[0].to(prow.dtype)
+        self._write_row(self._cache, pc, row)
+        self._buf[row] = prow[0]
+        self._pos[row] = plen + slen
+        self._logits[row] = logits0[0].to(self._logits.dtype)
+        pdc = None
+        if self._spec_k > 0:
+            dlogits0, pdc = replay(self.draft_model.layer, entry_dcache)
+            self._write_row(self._dcache, pdc, row)
+            self._dlogits[row] = dlogits0[0].to(self._dlogits.dtype)
+        return prow, pc, pdc
 
     def _step_args(self):
-        return (self._buf, self._cache, self._pos, self._logits,
+        args = (self._buf, self._cache, self._pos, self._logits,
                 self._active, self._temp, self._topk, self._topp)
+        if self._spec_k > 0:
+            args += (self._dcache, self._dlogits)
+        return args
 
     def _step(self):
-        """One decode step for every active row; returns the (B,) tokens."""
-        if (self._row_temp > 0.0).any():
+        """One decode step for every active row; returns the (B,) tokens
+        (plain) or the (B, k+2) emitted tokens and counts (spec)."""
+        sampled = bool((self._row_temp > 0.0).any())
+        if self._spec_k > 0:
+            if self._step_fn is None:
+                self._step_fn = build_spec_step(self.model,
+                                                self.draft_model,
+                                                self._spec_k)
+            (self._cache, self._dcache, self._pos, self._logits,
+             self._dlogits, emitted, counts) = self._step_fn(
+                self._buf, self._cache, self._dcache, self._pos,
+                self._logits, self._dlogits, self._active, self._temp,
+                self._topk, self._topp, self._gen, sampled)
+            return torch.cat([emitted, counts[:, None]], dim=1)
+        if sampled:
             nxt = sample_rowwise(self._gen, self._logits, self._temp,
                                  self._topk, self._topp)
         else:
@@ -320,6 +481,10 @@ class DecodeEngine:
         self._pos += self._active.to(self._pos.dtype)
         return nxt
 
+    @property
+    def _step_name(self) -> str:
+        return "spec_step" if self._spec_k > 0 else "step"
+
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> "DecodeEngine":
         if self._thread is not None:
@@ -329,25 +494,39 @@ class DecodeEngine:
         self._thread.start()
         return self
 
-    def _prompt_tensor(self, prompt: np.ndarray) -> torch.Tensor:
-        """Host prompt → device, without blocking the host on the card."""
-        x = torch.from_numpy(prompt)
+    def _host_tensor(self, host: np.ndarray) -> torch.Tensor:
+        """Host array → device, without blocking the host on the card."""
+        x = torch.from_numpy(host)
         if self.device.type == "cuda":
             return x.pin_memory().to(self.device, non_blocking=True)
         return x.to(self.device)
 
     @torch.no_grad()
     def warmup(self) -> "DecodeEngine":
-        """Run every bucket's join and the step once against throwaway
-        state (recording each program's signature), then reset the decode
-        state: afterwards any new signature is a real bucketing bug
-        (``jit.retraces`` stays 0).  Call before ``start()``."""
+        """Run every bucket's join, every suffix bucket's warm join when
+        the prefix cache is on, and the (spec) step once against
+        throwaway state (recording each program's signature), then reset
+        the decode state: afterwards any new signature is a real
+        bucketing bug (``jit.retraces`` stays 0).  Call before
+        ``start()``."""
         for bucket in self._buckets:
-            prompt = self._prompt_tensor(np.zeros((1, bucket), np.int64))
+            prompt = self._host_tensor(np.zeros((1, bucket), np.int64))
             self._sentinel(f"join.l{bucket}").observe(
                 self._join_args(prompt, 1, 0))
             self._join(prompt, 1, 0)
-        self._sentinel("step").observe(self._step_args())
+        if self._prefix is not None:
+            etoks = torch.zeros((1, self._t), dtype=torch.int32,
+                                device=self.device)
+            ecache = self._single_row_cache(self._cache)
+            edcache = self._single_row_cache(self._dcache) \
+                if self._spec_k > 0 else None
+            for bucket in self._buckets:
+                suffix = self._host_tensor(np.zeros((1, bucket), np.int64))
+                args = self._sjoin_args(etoks, ecache, edcache, 1, suffix,
+                                        1, 0)
+                self._sentinel(f"sjoin.s{bucket}").observe(args)
+                self._sjoin(etoks, ecache, edcache, 1, suffix, 1, 0)
+        self._sentinel(self._step_name).observe(self._step_args())
         self._step()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -384,8 +563,9 @@ class DecodeEngine:
         return self._idle_evt.wait(timeout)
 
     def undrain(self) -> bool:
-        """Re-open admission on a drained-but-running engine.  Raises
-        ``RuntimeError`` on a stopped engine."""
+        """Re-open admission on a drained-but-running engine (the
+        scale-up primitive: its decode thread, programs and KV cache stay
+        parked).  Raises ``RuntimeError`` on a stopped engine."""
         if self._stop_evt.is_set() or (
                 self._thread is not None and not self._thread.is_alive()):
             raise RuntimeError("cannot undrain a stopped engine")
@@ -440,7 +620,13 @@ class DecodeEngine:
         array, the model's ``state_dict()`` keys) is validated HERE, on
         the caller's thread, and adopted by the decode thread at its next
         loop turn; in-flight requests continue under the new weights.  A
-        key, shape or dtype mismatch raises ``ValueError``."""
+        key, shape or dtype mismatch raises ``ValueError``.
+
+        **The prefix cache is flushed**: cached KV is a pure function of
+        (tokens, weights).  Flushed here AND again when the decode thread
+        adopts the weights — an admit racing between the two could insert
+        one more old-weight entry, and the adoption-time flush drops
+        it."""
         cur = self.model.state_dict()
         if set(state_dict) != set(cur):
             raise ValueError("promoted state dict keys do not match the "
@@ -454,6 +640,11 @@ class DecodeEngine:
                              f"model (shape/dtype: {'; '.join(bad[:3])}"
                              f"{' ...' if len(bad) > 3 else ''})")
         new = {k: v.to(self.device) for k, v in new.items()}
+        # flush BEFORE publishing: were the order reversed, the decode
+        # thread could adopt + flush + insert a valid NEW-weight entry in
+        # the window before this thread's flush, which would then drop it
+        if self._prefix is not None:
+            self._prefix.flush()
         with self._lock:
             self._pending_state = new
             self._work.notify_all()
@@ -464,7 +655,132 @@ class DecodeEngine:
             new = self._pending_state
             self._pending_state = None
         if new is not None:
+            if self._prefix is not None:
+                # any entry a concurrent admit inserted under the OLD
+                # weights after the caller-side flush dies here
+                self._prefix.flush()
+            # flush -> bump -> swap, all on the decode thread (the only
+            # inserter), is what makes the KV version stamp exact: an
+            # entry visible while _kv_version reads v was computed under
+            # generation v's weights
+            self._kv_version += 1
             self.model.load_state_dict(new)
+
+    # -- KV fabric seam: cached prefix KV as a fleet resource ---------------
+    @property
+    def kv_version(self) -> int:
+        """The serving checkpoint generation KV transfers are stamped
+        with — bumped at promotion ADOPTION (see ``_adopt_promotion``)."""
+        return int(self._kv_version)
+
+    def _entry_doc(self, entry: PrefixEntry) -> dict:
+        """One cache entry as a host-side wire document: ``host_tokens``
+        int32, ``cache`` (and ``draft_cache``) trees of (1, T, KV, Dh)
+        arrays — the JAX package's document."""
+        def host(x):
+            return x.detach().cpu().numpy()
+        doc = {"host_tokens": np.asarray(entry.host_tokens, np.int32),
+               "cache": tree_map(host, entry.cache)}
+        if entry.draft_cache is not None:
+            doc["draft_cache"] = tree_map(host, entry.draft_cache)
+        return doc
+
+    def kv_export(self, prompt) -> Optional[dict]:
+        """The longest cached prefix entry for ``prompt`` as a wire doc
+        ``{"entries": [...], "version": v}`` — what the ``kv_fetch`` RPC
+        answers a replication-on-spill request with.  Returns ``None``
+        when the cache is off/cold for this prompt, or when a promotion
+        raced the export: the version is read before AND after the cache
+        probe, and a mismatch means the entry's weight generation is
+        ambiguous."""
+        if self._prefix is None:
+            return None
+        v0 = self._kv_version
+        hit = self._prefix.peek(np.asarray(prompt, np.int32).reshape(-1))
+        if hit is None:
+            return None
+        entry, _ = hit
+        doc = {"entries": [self._entry_doc(entry)], "version": int(v0)}
+        if self._kv_version != v0:
+            return None
+        return doc
+
+    def kv_export_hottest(self, max_entries: int,
+                          budget_bytes: int) -> Optional[dict]:
+        """The MRU-side working set as a wire doc — what a draining
+        engine answers a migration ``kv_fetch`` with (hottest first,
+        entry- and byte-bounded by the CALLER's budget).  Same
+        double-read promotion refusal as :meth:`kv_export`."""
+        if self._prefix is None:
+            return None
+        v0 = self._kv_version
+        entries = self._prefix.hottest(max_entries, budget_bytes)
+        if not entries:
+            return None
+        doc = {"entries": [self._entry_doc(e) for e in entries],
+               "version": int(v0)}
+        if self._kv_version != v0:
+            return None
+        return doc
+
+    def kv_import(self, doc: dict, version: int) -> Tuple[bool, str]:
+        """Admit ONE peer-exported cache entry (an ``_entry_doc``, from
+        either package) stamped with checkpoint ``version``; returns
+        ``(joined, reason)``.  The tree's leaves, in
+        ``jax.tree_util``'s order, are checked against this engine's own
+        single-row cache template HERE, so the decode thread never trips
+        over a foreign-model tree.  The stale-version refusal itself
+        (checked before and after the insert) lives in the
+        ``serve.kvfabric`` seam, the only ``insert_remote`` caller."""
+        from .kvfabric import admit_remote_entry
+
+        if self._prefix is None:
+            return False, "prefix cache disabled"
+        # copy out of the receive arena: a retained view would pin the
+        # pooled receive buffer for the lifetime of the cache entry
+        host_tokens = np.array(doc.get("host_tokens"),
+                               np.int32).reshape(-1)
+        length = int(host_tokens.shape[0])
+        if not 1 <= length <= self._t:
+            return False, f"entry length {length} outside [1, {self._t}]"
+
+        def device_tree(got, template, what):
+            tleaves, unflatten = tree_flatten(template)
+            leaves = [np.asarray(leaf) for leaf in tree_flatten(got)[0]]
+            if len(leaves) != len(tleaves):
+                raise ValueError(f"{what}: {len(leaves)} leaves != "
+                                 f"{len(tleaves)} expected")
+            bad = [f"{g.shape}/{g.dtype} != {tuple(t.shape)}/"
+                   f"{_dtype_name(t)}" for g, t in zip(leaves, tleaves)
+                   if g.shape != tuple(t.shape)
+                   or g.dtype.name != _dtype_name(t)]
+            if bad:
+                raise ValueError(f"{what} leaf mismatch: "
+                                 f"{'; '.join(bad[:3])}"
+                                 f"{' ...' if len(bad) > 3 else ''}")
+            return unflatten([torch.from_numpy(np.array(leaf)).to(
+                self.device) for leaf in leaves])
+
+        try:
+            cache = device_tree(doc.get("cache"),
+                                self._single_row_cache(self._cache),
+                                "cache")
+            if self._spec_k > 0:
+                if doc.get("draft_cache") is None:
+                    return False, "draft cache missing (spec_k > 0)"
+                draft_cache = device_tree(
+                    doc.get("draft_cache"),
+                    self._single_row_cache(self._dcache), "draft cache")
+            else:
+                draft_cache = None
+        except (ValueError, TypeError) as e:
+            return False, str(e)
+        tokens = np.zeros((1, self._t), np.int32)
+        tokens[0, :length] = host_tokens
+        entry = PrefixEntry(host_tokens,
+                            torch.from_numpy(tokens).to(self.device),
+                            cache, draft_cache)
+        return admit_remote_entry(self, entry, int(version))
 
     # -- admission ----------------------------------------------------------
     def submit(self, prompt, max_new_tokens: Optional[int] = None,
@@ -532,17 +848,31 @@ class DecodeEngine:
     def _active_count(self) -> int:
         return sum(1 for s in self._slots if s.request is not None)
 
-    def _join_cold(self, req: ServeRequest, row: int) -> None:
+    def _join_cold(self, req: ServeRequest, row: int):
         bucket = self.config.bucket_for(req.length, self._t)
         host = np.zeros((1, bucket), np.int64)
         host[0, :req.length] = req.prompt
-        prompt = self._prompt_tensor(host)
+        prompt = self._host_tensor(host)
         self._sentinel(f"join.l{bucket}").observe(
             self._join_args(prompt, req.length, row))
-        self._join(prompt, req.length, row)
+        return self._join(prompt, req.length, row)
+
+    def _join_warm(self, req: ServeRequest, row: int,
+                   entry: PrefixEntry, plen: int):
+        s = req.length - plen
+        bucket = self.config.bucket_for(s, self._t)
+        host = np.zeros((1, bucket), np.int64)
+        host[0, :s] = req.prompt[plen:]
+        suffix = self._host_tensor(host)
+        args = self._sjoin_args(entry.tokens, entry.cache,
+                                entry.draft_cache, plen, suffix, s, row)
+        self._sentinel(f"sjoin.s{bucket}").observe(args)
+        return self._sjoin(entry.tokens, entry.cache, entry.draft_cache,
+                           plen, suffix, s, row)
 
     def _admit(self) -> int:
-        """Move queued requests into free slots (prefill + row write).
+        """Move queued requests into free slots (prefill + row write — or,
+        on a prefix-cache hit, a suffix replay over the cached KV).
         Decode-thread only; the queue pop is the one locked touch."""
         admitted = 0
         while True:
@@ -557,7 +887,17 @@ class DecodeEngine:
             req.admit_t = time.perf_counter()
             self._h_queue_wait.observe(req.admit_t - req.submit_t)
             t0 = time.perf_counter()
-            self._join_cold(req, row)
+            if self._prefix is not None:
+                hit = self._prefix.lookup(req.prompt)
+                if hit is not None:
+                    req.warm = True
+                    captured = self._join_warm(req, row, *hit)
+                else:
+                    req.warm = False
+                    captured = self._join_cold(req, row)
+                self._prefix.insert(PrefixEntry(req.prompt, *captured))
+            else:
+                self._join_cold(req, row)
             self._h_join.observe(time.perf_counter() - t0)
             # the row adopts the request's sampling params
             self._row_temp[row] = req.temperature
@@ -587,21 +927,22 @@ class DecodeEngine:
         waits for them, overlapped with the NEXT dispatched step."""
         reqs = [s.request for s in self._slots]
         t0 = time.perf_counter()
-        self._sentinel("step").observe(self._step_args())
-        nxt = self._step()
+        self._sentinel(self._step_name).observe(self._step_args())
+        out = self._step()
         if self.device.type == "cuda":
-            host = torch.empty(nxt.shape, dtype=nxt.dtype, pin_memory=True)
-            host.copy_(nxt, non_blocking=True)
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self.device))
         else:
-            host, event = nxt.clone(), None
+            host, event = out.clone(), None
         return _Pending(reqs, host, event, t0)
 
     def _drain_certain(self, pending: Optional[_Pending]) -> bool:
         """True when the un-retired ``pending`` step is guaranteed to
-        retire EVERY currently-active row, so dispatching another step
-        now would be pure waste."""
+        retire EVERY currently-active row (each needs at most the one
+        token every step emits), so dispatching another step now would
+        be pure waste."""
         if pending is None:
             return False
         for row, slot in enumerate(self._slots):
@@ -625,25 +966,49 @@ class DecodeEngine:
         self._h_step.observe(dt)
         self._c_steps.inc()
         eos = self.config.eos_id
+        k = self._spec_k
         for row, req in enumerate(pending.reqs):
             if req is None or req.done:
                 continue
-            tok = int(tokens[row])
-            req.tokens.append(tok)
-            self._c_tokens.inc()
-            self._h_per_token.observe(dt)
-            if req.first_token_t is None:
-                req.first_token_t = now
-                self._h_ttft.observe(now - req.submit_t)
-            if len(req.tokens) >= req.max_new or \
-                    (eos is not None and tok == int(eos)):
-                self._finish(row, now)
+            if k == 0:
+                emitted = [int(tokens[row])]
+            else:
+                count = int(tokens[row, -1])
+                emitted = [int(v) for v in tokens[row, :count]]
+                self._c_spec_proposed.inc(k)
+                self._c_spec_accepted.inc(count - 1)
+            for tok in emitted:
+                req.tokens.append(tok)
+                self._c_tokens.inc()
+                self._h_per_token.observe(dt)
+                if req.first_token_t is None:
+                    req.first_token_t = now
+                    self._h_ttft.observe(now - req.submit_t)
+                    if req.warm is True:
+                        self._h_ttft_warm.observe(now - req.submit_t)
+                    elif req.warm is False:
+                        self._h_ttft_cold.observe(now - req.submit_t)
+                if len(req.tokens) >= req.max_new or \
+                        (eos is not None and tok == int(eos)):
+                    # tokens past the stop condition (possible inside a
+                    # speculative window) are discarded — the slot's
+                    # device state is replaced wholesale at re-join
+                    self._finish(row, now)
+                    break
+        if k > 0:
+            prop = self._c_spec_proposed.value
+            if prop:
+                self._g_accept_rate.set(
+                    self._c_spec_accepted.value / prop)
         self._g_active.set(self._active_count())
         self._h_host.observe(time.perf_counter() - now)
 
     def _loop(self) -> None:
         pending: Optional[_Pending] = None
         try:
+            if self.device.type == "cuda":
+                # a fresh thread's current device is 0: launch on ours
+                torch.cuda.set_device(self.device)
             with torch.no_grad():
                 while True:
                     # a hard stop exits immediately; the graceful path

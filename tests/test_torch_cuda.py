@@ -1,6 +1,8 @@
 """The port's CUDA paths on the card: the flash-attention kernels (K1
 forward, K2/K3 backward) against their plain versions, the wrappers'
-refusals, the decode engine on a small model, a short flash-vs-dense
+refusals, the decode engine on a small model, the serving fleet
+(prefix cache, router, KV fabric), speculative decoding and beam
+search, a short flash-vs-dense
 ``SingleTrainer`` run, the sync distributed trainers (card against
 CPU, the window-edge rules on CUDA tensors, K1–K3 launches under ADAG),
 checkpoints, resume and disk streaming on the card, and the async
@@ -15,6 +17,7 @@ a machine that has only PyTorch:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import time
 from collections import Counter
 
 import numpy as np
@@ -822,6 +825,114 @@ def test_engine_on_the_card_matches_generate_tokens():
         ref = generate_tokens(model, p[None], len(got))[0, len(p):]
         np.testing.assert_array_equal(got, ref.cpu().numpy())
     assert registry.counter("jit.retraces").value == 0
+
+
+def _card_lm(seed=3, impl="flash"):
+    return zoo.gpt_lm(vocab_size=64, dim=64, num_heads=2, num_blocks=2,
+                      seq_len=64, attention_impl=impl).init(seed)
+
+
+def test_fleet_on_the_card_serves_warm_and_counts_cold_joins():
+    """Two prefix-cached engines on the card behind a ``ServeRouter``
+    with the KV fabric, over loopback: every answer equals
+    ``generate_tokens``, a forced spill replicates and the repeat spill
+    lands warm, and K1 ran exactly once per block per cold join (counted
+    from the engines' own ``serve.prefix.misses``), never in a warm
+    join."""
+    from distkeras_tpu_torch.ops.flash_attention import reset_launches
+    from distkeras_tpu_torch.serve import (RouterConfig, ServeClient,
+                                           ServeRouter, ServeServer)
+    model = _card_lm()
+    cfg = ServeConfig(slots=2, max_new_tokens=8, prefill_buckets=(16, 32),
+                      prefix_cache=True, prefix_block=8)
+    servers = [ServeServer(DecodeEngine(model, cfg,
+                                        registry=Registry()).warmup())
+               .start() for _ in range(2)]
+    router = ServeRouter([("127.0.0.1", s.port) for s in servers],
+                         config=RouterConfig(affinity_block=8,
+                                             max_inflight=2,
+                                             stats_interval_s=30.0)).start()
+    rng = np.random.default_rng(1)
+    groups = [rng.integers(0, 64, 16) for _ in range(2)]
+    reset_launches()
+    replies = []
+    try:
+        with ServeClient("127.0.0.1", router.port) as client:
+            for g in groups:
+                for _ in range(2):
+                    p = np.concatenate([g, rng.integers(0, 64, 4)])
+                    replies.append((p, client.generate(p, 6)))
+            owner = router.backends[0]
+            with router._lock:
+                owner.inflight = 2
+            p = np.concatenate([groups[0], rng.integers(0, 64, 4)])
+            first = client.generate(p, 6)
+            replies.append((p, first))
+            t_end = time.monotonic() + 30
+            while router.registry.counter(
+                    "serve.router.kv_replications").value < 1:
+                assert time.monotonic() < t_end
+                time.sleep(0.02)
+            p = np.concatenate([groups[0], rng.integers(0, 64, 4)])
+            second = client.generate(p, 6)
+            replies.append((p, second))
+            with router._lock:
+                owner.inflight = 0
+        torch.cuda.synchronize()
+        served_launches = flash_fwd_cuda.launches
+        misses = sum(s.engine.registry.counter("serve.prefix.misses").value
+                     for s in servers)
+    finally:
+        router.stop()
+        for s in servers:
+            s.stop()
+    assert first["warm"] is False and second["warm"] is True
+    assert served_launches == 2 * misses and misses == 3
+    for p, reply in replies:
+        assert reply["ok"], reply
+        ref = generate_tokens(model, p[None], 6)[0, len(p):]
+        np.testing.assert_array_equal(reply["tokens"], ref.cpu().numpy())
+
+
+def test_spec_and_beam_on_the_card():
+    """Speculative decoding with a narrow draft on the card equals
+    ``generate_tokens`` (K1 once per block of target and draft per cold
+    join), and ``generate_beam`` on the flash model equals its dense
+    twin's (one K1 launch per block for the prefill)."""
+    from distkeras_tpu_torch.models import generate_beam
+    model = _card_lm()
+    # a flash draft (``draft_lm`` builds dense attention): its joins run K1
+    draft = zoo.gpt_lm(vocab_size=64, dim=32, num_heads=1, num_blocks=1,
+                       seq_len=64, attention_impl="flash").init(7)
+    registry = Registry()
+    engine = DecodeEngine(model, ServeConfig(slots=2, max_new_tokens=8,
+                                             prefill_buckets=(16, 32),
+                                             spec_k=3),
+                          registry=registry, draft_model=draft).warmup()
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 64, n) for n in (5, 20, 40)]
+    launches = flash_fwd_cuda.launches
+    with engine:
+        answers = [r.result(timeout=120) for r in
+                   [engine.submit(p, 8) for p in prompts]]
+    torch.cuda.synchronize()
+    assert flash_fwd_cuda.launches == launches + 3 * len(prompts)
+    for p, got in zip(prompts, answers):
+        ref = generate_tokens(model, p[None], 8)[0, len(p):]
+        np.testing.assert_array_equal(got, ref.cpu().numpy())
+    assert registry.counter("serve.spec.proposed").value > 0
+    dense = _card_lm(impl="dense")
+    dense.load_state_dict(model.state_dict())
+    x = rng.integers(0, 64, (2, 12))
+    launches = flash_fwd_cuda.launches
+    out, scores = generate_beam(model, x, 8, num_beams=3,
+                                return_scores=True)
+    torch.cuda.synchronize()
+    assert flash_fwd_cuda.launches == launches + 2
+    ref, ref_scores = generate_beam(dense, x, 8, num_beams=3,
+                                    return_scores=True)
+    np.testing.assert_array_equal(out.cpu().numpy(), ref.cpu().numpy())
+    assert (scores - ref_scores).abs().max().item() <= 1e-4
 
 
 def test_single_trainer_flash_matches_dense_on_the_card():

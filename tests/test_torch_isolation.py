@@ -38,10 +38,14 @@ print(" ".join(names))
 #: modules the walk must reach (the slices' entry points among them)
 _MUST_WALK = ("bench", "chaos", "data.datasets", "data.streaming",
               "data.transformers", "evaluators", "models.layers",
-              "models.zoo", "obs.stragglers", "parallel.sync",
+              "models.generation", "models.zoo", "obs.drift",
+              "obs.stragglers", "obs.timeseries", "parallel.sync",
               "predictors", "ps", "ps.client", "ps.codecs",
               "ps.networking", "ps.runner", "ps.servers", "ps.state",
-              "ps.worker_main", "ps.workers", "serve.engine", "trainers",
+              "ps.worker_main", "ps.workers", "serve.client",
+              "serve.config", "serve.engine", "serve.kvfabric",
+              "serve.prefix", "serve.router", "serve.server",
+              "serve.spec", "trainers",
               "utils.checkpoint", "utils.native", "utils.serde",
               "utils.weights")
 

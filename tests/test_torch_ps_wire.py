@@ -14,7 +14,10 @@ on the CPU:
   ``SocketParameterServer`` and the reverse give bit-identical centers
   under codec ``none`` at wire v1, v2, with the shared-memory ring and
   with streamed pulls, and the same centers under every codec and
-  ``comm_down``.
+  ``comm_down``;
+* the telemetry plane: ``telemetry`` frames from either package's client
+  fold into the port server's ``TimeSeriesStore``, which matches the JAX
+  package's store on one feed; ``alerts`` answers an error.
 """
 
 import numpy as np
@@ -278,10 +281,83 @@ def test_codecs_and_down_interoperate(spec):
 
 
 def test_unported_telemetry_actions_answer_an_error():
+    """The alert engine is not ported: ``alerts`` answers an error that
+    names where it is, and the connection keeps serving."""
     ps = psrv.DeltaParameterServer(_center())
     with psrv.SocketParameterServer(ps) as srv:
         with pcli.PSClient("127.0.0.1", srv.port) as c:
             with pytest.raises(RuntimeError, match="Queue 1 item 7"):
-                c._raise_on_error("telemetry", c.ship_telemetry(
-                    {}, source="w0"))
+                c._raise_on_error("alerts", c._rpc({"action": "alerts"}))
             assert c.stats()["num_updates"] == 0
+
+
+def _telemetry_frames():
+    """Cumulative snapshots of one live registry, then a garbage entry."""
+    from distkeras_tpu_torch.obs import Registry
+    reg = Registry()
+    frames = []
+    for i in range(4):
+        reg.counter("ps.commits").inc(3 + i)
+        reg.gauge("ps.queue").set(i)
+        reg.histogram("ps.commit_seconds").observe(0.01 * (i + 1))
+        frames.append(reg.snapshot())
+    return frames
+
+
+@pytest.mark.parametrize("client_pkg", ["torch", "jax"])
+def test_telemetry_frames_fold_into_the_servers_store(client_pkg):
+    """A shipped ``telemetry`` frame (from a client of either package)
+    folds into the port server's lazily created ``TimeSeriesStore``,
+    bad entries rejected one by one, as the JAX front-ends do."""
+    from distkeras_tpu.obs.drift import snapshot_delta
+    cls = pcli.PSClient if client_pkg == "torch" else jcli.PSClient
+    frames = _telemetry_frames()
+    ps = psrv.DeltaParameterServer(_center())
+    with psrv.SocketParameterServer(ps) as srv:
+        assert srv.telemetry is None
+        with cls("127.0.0.1", srv.port) as c:
+            prev = {}
+            for snap in frames:
+                reply = c.ship_telemetry(snapshot_delta(prev, snap),
+                                         source="w0")
+                assert reply == {"ok": True, "accepted": 3}
+                prev = snap
+            bad = c.ship_telemetry({"x": {"type": "counter",
+                                          "value": float("nan")}},
+                                   source="w1")
+            assert bad["accepted"] == 0
+        store = srv.telemetry
+        assert sorted(store.summary()["sources"]) == ["w0", "w1"]
+        latest = store.latest()
+        assert latest["ps.commits"]["value"] == frames[-1][
+            "ps.commits"]["value"]
+        assert latest["ps.commit_seconds"]["count"] == 4
+        assert srv.registry.snapshot()["obs.telemetry.rejected"][
+            "value"] == 1
+
+
+def test_time_series_store_matches_jax():
+    """One feed (deltas, cumulative totals with a restart, a hostile
+    entry) into both packages' stores at fixed timestamps: the same
+    merged totals, windowed deltas, series and summaries."""
+    from distkeras_tpu.obs.timeseries import TimeSeriesStore as JStore
+    from distkeras_tpu_torch.obs.timeseries import TimeSeriesStore
+    frames = _telemetry_frames()
+    feeds = [("ingest_total", "e0", f, 10.0 + i)
+             for i, f in enumerate(frames)]
+    feeds.append(("ingest_total", "e0", frames[0], 20.0))   # a restart
+    feeds.append(("ingest_delta", "w1",
+                  {"ok": {"type": "counter", "value": 2},
+                   "bad": {"type": "histogram", "bounds": [1, 0],
+                           "counts": [0, 0, 0], "sum": 0, "count": 0}},
+                  21.0))
+    out = {}
+    for name, cls in (("jax", JStore), ("torch", TimeSeriesStore)):
+        store = cls(clock=lambda: 22.0)
+        accepted = [getattr(store, fn)(src, doc, ts=ts)
+                    for fn, src, doc, ts in feeds]
+        out[name] = (accepted, store.latest(), store.names(),
+                     [store.window_delta(n, 5.0) for n in store.names()],
+                     [store.series(n) for n in store.names()],
+                     store.summary())
+    assert out["torch"] == out["jax"]

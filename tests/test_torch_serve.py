@@ -3,8 +3,9 @@ greedy answers against the JAX package's ``generate_tokens`` on the same
 weights (the ground truth ``tests/test_serve.py`` holds the JAX engine
 to), with prompts over every prefill bucket and requests joining
 mid-decode; admission control; the zero-retrace contract after
-``warmup()``; the accelerators that are not ported yet; and the refusal
-to drift onto the CPU when no device is named."""
+``warmup()``; and the refusal to drift onto the CPU when no device is
+named.  The accelerators' tests are ``tests/test_torch_serve_prefix.py``
+and ``tests/test_torch_serve_spec.py``."""
 
 import os
 
@@ -138,12 +139,6 @@ def test_promote_validates_and_swaps_weights(lm):
         engine.stop()
     ref = generate_tokens(tm, np.arange(7)[None], 4, device="cpu")
     np.testing.assert_array_equal(got, ref[0, 7:].numpy())
-
-
-@pytest.mark.parametrize("knob", [{"prefix_cache": True}, {"spec_k": 1}])
-def test_unported_accelerators_raise(knob):
-    with pytest.raises(NotImplementedError, match="later serving slice"):
-        ServeConfig(**knob)
 
 
 def test_no_device_and_no_card_raises(lm):
