@@ -3074,12 +3074,15 @@ def _span_registry(records):
     histograms (``span.<name>.seconds``, ``TIME_BUCKETS``): the
     ``ps.pull`` and ``ps.commit`` round trips every worker saw, thread
     or process (a worker process's spans are folded into the trainer's
-    records)."""
+    records); a sharded client's whole fan-out (``ps.shard.pull``,
+    ``ps.shard.commit``) counts as its round trip."""
     from distkeras_tpu_torch.obs import TIME_BUCKETS, Registry
     reg = Registry()
+    names = {"ps.pull": "ps.pull", "ps.commit": "ps.commit",
+             "ps.shard.pull": "ps.pull", "ps.shard.commit": "ps.commit"}
     for r in records:
-        if r["event"] == "span" and r["name"] in ("ps.pull", "ps.commit"):
-            reg.histogram(f"span.{r['name']}.seconds",
+        if r["event"] == "span" and r["name"] in names:
+            reg.histogram(f"span.{names[r['name']]}.seconds",
                           TIME_BUCKETS).observe(r["seconds"])
     return reg.snapshot()
 
@@ -3433,6 +3436,431 @@ def phase_async(torch, dist_rows=()):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the sharded parameter server and the switch-MoE LM on the card
+# ---------------------------------------------------------------------------
+
+#: the async rules a sharded fleet runs (their ``ps/servers.py`` rules
+#: are the ones a shard hosts), at ``SHARDS`` shards
+SHARD_RULES = ("DOWNPOUR", "ADAG", "DynSGD")
+SHARDS = 4
+#: the switch-MoE probe: the probe LM with each FF block a switch-MoE of
+#: 8 experts of the dense FF's width (``zoo._ff_block``)
+MOE_LM = dict(LM, moe_experts=8)
+#: the MoE runs' aux-loss weight
+MOE_AUX_WEIGHT = 0.01
+
+
+def _per_shard(row, t, windows):
+    """Every shard applied each of the run's ``windows`` commits once and
+    holds ``requests == applied + dropped + tombstoned``; the per-shard
+    counts go into ``row``."""
+    shards = []
+    for i, snap in enumerate(t.ps_stats["shards"]):
+        acc = _accounting(snap)
+        check(acc["applied"] == windows,
+              f"{row['path']}: shard {i} applied {acc['applied']} of "
+              f"{windows} windows")
+        shards.append({"accounting": acc,
+                       "staleness": _quantiles(snap.get("ps.staleness")),
+                       "bytes_up": snap.get("ps.wire.bytes_up", {}).get(
+                           "value", 0)})
+    row["shards"] = shards
+    row["plan_digest"] = t.ps_stats["plan"]["digest"]
+    row["shard_bytes"] = [s["bytes"] for s in t.ps_stats["plan"]["shards"]]
+
+
+def _wait_workers_gone(timeout=120.0):
+    """No async worker thread is left running (a stalled one resumed into
+    a dead fleet exits on its failed pull, before any window)."""
+    import threading
+    end = time.monotonic() + timeout
+    while any(th.name.startswith("worker-") and th.is_alive()
+              for th in threading.enumerate()):
+        check(time.monotonic() < end, "an async worker thread outlived "
+              "its run")
+        time.sleep(0.05)
+
+
+def _read(path) -> str:
+    with open(path) as f:
+        return f.read()
+
+
+def _shard_processes(torch):
+    """``ProcessShardFleet``: 4 shard processes (``shard_main``, the card
+    hidden from them) and 2 DOWNPOUR thread workers of the probe LM on the
+    card, driven through the runner's own worker parts; K1-K3 launch
+    exactly, every shard's accounting holds over the wire."""
+    from distkeras_tpu_torch.ops.flash_attention import reset_launches
+    from distkeras_tpu_torch.ps import runner
+    from distkeras_tpu_torch.ps.shard import (ProcessShardFleet,
+                                              ShardedPSClient)
+    from distkeras_tpu_torch.ps.workers import PullCommitWorker
+    from distkeras_tpu_torch.utils import to_numpy_variables
+    workers = 2
+    t = _async_lm_trainer("DOWNPOUR", workers=workers)
+    w = t.communication_window
+    ds = _lm_rows(workers * ASYNC_BATCH * 2 * w)
+    xs, ys, _ = t._stage_data(ds, w)
+    t.model.init(t.seed, device=t.device)
+    center = to_numpy_variables(t.model)
+    loss_fn, optimizer = t._resolve()
+    t0 = time.perf_counter()
+    with ProcessShardFleet(center, SHARDS, ps_class="delta",
+                           num_workers=workers) as fleet:
+        start_s = time.perf_counter() - t0
+        # no shard process loaded JAX: jaxlib's extension would be mapped
+        jax_mapped = [p.pid for p in fleet.procs
+                      if "jaxlib" in _read(f"/proc/{p.pid}/maps")]
+        check(not jax_mapped, f"shard_processes: processes {jax_mapped} "
+              f"loaded jaxlib")
+        ws = []
+        reset_launches()
+        t1 = time.perf_counter()
+        for k in range(workers):
+            window, variables, opt_state, gen = runner.worker_parts(
+                runner._replica(t, center), loss_fn, optimizer,
+                runner._worker_seed(t, k, 0), t.device, t.compute_dtype)
+            wk = PullCommitWorker(k, window, variables, opt_state, gen,
+                                  "127.0.0.1", list(fleet.ports), 1,
+                                  device=t.device)
+            wk.set_data(xs[k], ys[k])
+            wk.start()
+            ws.append(wk)
+        for wk in ws:
+            wk.join(600)
+        wall = time.perf_counter() - t1
+        launches, by_kernel = _launch_counts(), kernel_launches()
+        for wk in ws:
+            check(not wk.is_alive() and wk.error is None,
+                  f"shard_processes: worker {wk.worker_id} failed: "
+                  f"{wk.error!r}")
+        with ShardedPSClient(fleet.addrs(), center, worker_id=99) as cl:
+            stats = cl.stats()
+    check(stats["commits_by_worker"] == {0: 2, 1: 2},
+          f"shard_processes: commits {stats['commits_by_worker']}")
+    accs = [_accounting(r["stats"]) for r in stats["shards"]]
+    check(all(a["applied"] == workers * 2 for a in accs),
+          f"shard_processes: per-shard accounting {accs}")
+    want = workers * 2 * w * LM["num_blocks"]
+    check(all(n == want for n in launches.values()),
+          f"shard_processes: launches {launches} != {want} each")
+    losses = [float(l.mean()) for wk in ws for _, l in wk.window_losses]
+    row = {"phase": "shard", "path": "shard_processes", "shards": SHARDS,
+           "workers": workers, "fleet_start_s": start_s, "wall_s": wall,
+           "samples_per_s": workers * 2 * w * ASYNC_BATCH / wall,
+           "accounting": accs, "window_mean_losses": losses,
+           "launches": launches, "kernel_launches": by_kernel}
+    emit(row)
+    return row
+
+
+def _shard_dead(torch):
+    """A shard stopped mid-run: ``train()`` raises ``ShardFleetError``
+    naming it (worker 0 stalled after its first window meanwhile)."""
+    import threading
+    from distkeras_tpu_torch import chaos
+    from distkeras_tpu_torch.ps import workers as workers_mod
+    from distkeras_tpu_torch.ps.shard import ShardFleetError
+    t = _async_lm_trainer("DOWNPOUR", workers=2, ps_shards=SHARDS)
+    ds = _lm_rows(2 * ASYNC_BATCH * 2 * t.communication_window)
+    out = {}
+
+    def run():
+        try:
+            t.train(ds)
+        except BaseException as e:  # noqa: BLE001 — the phase's reading
+            out["err"] = e
+
+    t0 = time.perf_counter()
+    with chaos.ThreadStall(workers_mod.PullCommitWorker, worker_id=0,
+                           stall_after=1) as stall:
+        th = threading.Thread(target=run, daemon=True)
+        th.start()
+        check(stall.wait_stalled(300), "shard_dead: worker 0 never stalled")
+        end = time.monotonic() + 60
+        while t._supervisor is None:
+            check(time.monotonic() < end, "shard_dead: no supervisor")
+            time.sleep(0.05)
+        t_stop = time.perf_counter()
+        t._supervisor.ps.servers[2].stop()   # shard 2 dies mid-run
+        th.join(120)
+        raised_s = time.perf_counter() - t_stop
+    _wait_workers_gone()
+    err = out.get("err")
+    check(not th.is_alive() and isinstance(err, ShardFleetError)
+          and f"shard 2/{SHARDS}" in str(err),
+          f"shard_dead: the run did not raise ShardFleetError naming "
+          f"shard 2: {err!r}")
+    row = {"phase": "shard", "path": "shard_dead", "raised": repr(err),
+           "raised_after_stop_s": raised_s,
+           "wall_s": time.perf_counter() - t0}
+    emit(row)
+    return row
+
+
+def phase_shard(torch, async_rows=()):
+    """The sharded parameter server on the card (the shards on the host
+    over loopback, the workers' windows on the card), the bf16 probe LM:
+
+    1. DOWNPOUR, ADAG and DynSGD at ``SHARDS`` shards, ``ASYNC_WORKERS``
+       thread workers of batch ``ASYNC_BATCH``, 2 windows each: K1-K3
+       launch exactly, every shard applies each window once with its
+       accounting identity, the loss falls, DynSGD records staleness per
+       shard; samples/s and round trips beside ``async``'s single server;
+    2. one worker at 2 shards against 1 shard: bit-identical centers;
+    3. ``ProcessShardFleet`` (``_shard_processes``);
+    4. a dead shard (``_shard_dead``);
+    5. DOWNPOUR over the shards on the MoE LM: the plan holds the
+       ``aux_loss`` leaves, its digest is ``ShardPlan``'s of the
+       variables tree.
+    Returns the rows."""
+    import distkeras_tpu_torch as dkt
+    from distkeras_tpu_torch.models import zoo
+    from distkeras_tpu_torch.ops.flash_attention import reset_launches
+    from distkeras_tpu_torch.ps.shard import ShardPlan
+    from distkeras_tpu_torch.utils import to_numpy_variables
+    from distkeras_tpu_torch.utils.tree import tree_leaves
+    t_phase = time.perf_counter()
+    rows = []
+    single = {r["trainer"]: r for r in async_rows
+              if r["path"] in ("async_downpour", "async_adag",
+                               "async_dynsgd")}
+    for name in SHARD_RULES:
+        w = getattr(dkt, name)._default_window
+        ds = _lm_rows(ASYNC_WORKERS * ASYNC_BATCH * 2 * w)
+        t = _async_lm_trainer(name, ps_shards=SHARDS)
+        row = _async_run(torch, t, ds, f"shard_{name.lower()}")
+        row["phase"], row["ps_shards"] = "shard", SHARDS
+        windows = ASYNC_WORKERS * 2
+        check(row["windows_trained"] == windows
+              and row["accounting"]["applied"] == SHARDS * windows,
+              f"shard {name}: {row['accounting']}")
+        _per_shard(row, t, windows)
+        _check_launches(row, windows, w)
+        check(row["last_window_mean_loss"] < row["first_window_mean_loss"],
+              f"shard {name}: the loss did not fall")
+        if name == "DynSGD":
+            check(all(s["staleness"]["count"] == windows
+                      for s in row["shards"]),
+                  "shard DynSGD: staleness was not recorded per shard")
+        ref = single.get(name)
+        row["single_server"] = None if ref is None else {
+            "samples_per_s": ref["samples_per_s"],
+            "commit_rtt_s_p50": ref["commit_rtt_s"]["p50"],
+            "pull_rtt_s_p50": ref["pull_rtt_s"]["p50"]}
+        emit(row)
+        rows.append(row)
+
+    # one deterministic worker: 2 shards against 1, bit for bit
+    ds = _lm_rows(ASYNC_BATCH * 2 * 5)
+    reset_launches()
+    runs = {}
+    for shards in (1, 2):
+        t = _async_lm_trainer("DOWNPOUR", workers=1, ps_shards=shards)
+        t.train(ds)
+        runs[shards] = _leaves(t.trained_variables) + tree_leaves(
+            t.trained_variables["state"])
+    launches, by_kernel = _launch_counts(), kernel_launches()
+    check(_same_bits(runs[1], runs[2]),
+          "shard_bit_identical: 2 shards differ from 1 server")
+    want = 2 * 2 * 5 * LM["num_blocks"]
+    check(all(n == want for n in launches.values()),
+          f"shard_bit_identical: launches {launches} != {want} each")
+    row = {"phase": "shard", "path": "shard_bit_identical",
+           "leaves": len(runs[1]), "bit_identical": True,
+           "launches": launches, "kernel_launches": by_kernel}
+    emit(row)
+    rows.append(row)
+
+    rows.append(_shard_processes(torch))
+    _shard_dead(torch)
+
+    # DOWNPOUR over the shards on the MoE LM
+    ds = _lm_rows(2 * ASYNC_BATCH * 2 * 5)
+    t = dkt.DOWNPOUR(
+        zoo.gpt_lm(**MOE_LM), "sgd", SCE, mode="async", num_workers=2,
+        batch_size=ASYNC_BATCH, learning_rate=0.1, compute_dtype="bfloat16",
+        aux_weight=MOE_AUX_WEIGHT, ps_shards=SHARDS)
+    row = _async_run(torch, t, ds, "shard_moe")
+    row["phase"], row["ps_shards"], row["model"] = "shard", SHARDS, MOE_LM
+    _per_shard(row, t, 4)
+    _check_launches(row, 4, 5)
+    plan = t.ps_stats["plan"]
+    aux_paths = sorted(p for s in plan["shards"] for p in s["paths"]
+                       if p.endswith("/aux_loss"))
+    check(len(aux_paths) == MOE_LM["num_blocks"],
+          f"shard_moe: the plan's aux_loss leaves {aux_paths}")
+    fresh = zoo.gpt_lm(**MOE_LM).init(t.seed)
+    digest = ShardPlan.build(to_numpy_variables(fresh), SHARDS).digest
+    check(plan["digest"] == digest,
+          f"shard_moe: plan digest {plan['digest']} != {digest}")
+    del fresh
+    row["aux_leaves"] = aux_paths
+    emit(row)
+    rows.append(row)
+    emit({"phase": "shard", "seconds": time.perf_counter() - t_phase})
+    return rows
+
+
+def _moe_f32_run(torch, device, batch, steps, tf32=False):
+    """The MoE LM from seed 0 in f32 on ``device``: (eval logits of 2
+    sequences at init, the losses of ``steps`` SGD steps at lr 0.1 with
+    the aux weight, the trained leaves, the initial leaves, the launches
+    counted by kernel)."""
+    import numpy as np
+    from distkeras_tpu_torch import SingleTrainer
+    from distkeras_tpu_torch.models import zoo
+    from distkeras_tpu_torch.ops.flash_attention import reset_launches
+    from distkeras_tpu_torch.utils import to_numpy_variables
+    from distkeras_tpu_torch.utils.tree import tree_leaves
+    ds = _lm_rows(batch * steps)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        model = zoo.gpt_lm(**MOE_LM).init(0, device=device)
+        init = [np.asarray(a, np.float64)
+                for a in tree_leaves(to_numpy_variables(model))]
+        x = torch.from_numpy(ds["features"][:2]).long().to(device)
+        with torch.no_grad():
+            logits = model(x).double().cpu().numpy()
+        del model
+        t = SingleTrainer(zoo.gpt_lm(**MOE_LM), "sgd", SCE,
+                          batch_size=batch, num_epoch=1, learning_rate=0.1,
+                          aux_weight=MOE_AUX_WEIGHT, device=device)
+        reset_launches()
+        t.train(ds)
+        by_kernel = kernel_launches()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    return (logits, np.concatenate(t.get_history()),
+            [np.asarray(a, np.float64) for a in tree_leaves(
+                t.trained_variables)], init, by_kernel)
+
+
+def _moe_f32_reading(run, ref):
+    import numpy as np
+    (la, loss_a, va, init, _), (lb, loss_b, vb, _, _) = run, ref
+    return {"forward_max_abs_err": float(np.max(np.abs(la - lb))),
+            "loss_max_rel_err": float(np.max(np.abs(loss_a - loss_b)
+                                             / np.abs(loss_b))),
+            "param_max_abs_err": max(float(np.max(np.abs(a - b)))
+                                     for a, b in zip(va, vb)),
+            "step_rel": max(float(np.linalg.norm(a - b)
+                                  / max(np.linalg.norm(b - i), 1e-30))
+                            for a, b, i in zip(va, vb, init))}
+
+
+def moe_f32_ok(reading) -> bool:
+    """The card's f32 MoE LM agrees with the CPU's within the ``train``
+    phase's f32 bounds (losses rtol 1e-4, every parameter atol 1e-4) and
+    the ``conv`` phase's forward bound (atol 1e-4)."""
+    return (reading["forward_max_abs_err"] <= 1e-4
+            and reading["loss_max_rel_err"] <= 1e-4
+            and reading["param_max_abs_err"] <= 1e-4)
+
+
+def phase_moe(torch):
+    """``gpt_lm(**LM, moe_experts=8)`` at full width on the card:
+
+    1. ``SingleTrainer`` in bf16, batch 16, 2 epochs of 4 steps,
+       ``aux_weight`` 0.01: K1-K3 once per block per step, the loss falls,
+       the aux state finite;
+    2. f32 on the card against the same run on the CPU (batch 4, 2 steps)
+       within ``moe_f32_ok``, and the same run on the card with TF32 on,
+       which must miss it;
+    3. the f32 model served by ``DecodeEngine`` (plain), 4 greedy
+       requests: every answer equals ``generate_tokens``, K1 once per
+       block per cold join.
+    Returns (row, [(path, kernel_launches)])."""
+    import numpy as np
+    from distkeras_tpu_torch import SingleTrainer
+    from distkeras_tpu_torch.models import zoo
+    from distkeras_tpu_torch.ops.flash_attention import reset_launches
+    from distkeras_tpu_torch.utils.tree import tree_leaves
+    t_phase = time.perf_counter()
+    blocks = MOE_LM["num_blocks"]
+    batch, steps, epochs = 16, 4, 2
+    ds = _lm_rows(batch * steps)
+    t = SingleTrainer(zoo.gpt_lm(**MOE_LM), "sgd", SCE, batch_size=batch,
+                      learning_rate=0.1, compute_dtype="bfloat16",
+                      num_epoch=epochs, aux_weight=MOE_AUX_WEIGHT)
+    _reset_peak(torch)
+    reset_launches()
+    t.train(ds)
+    launches, train_kernels = _launch_counts(), kernel_launches()
+    hist = t.get_averaged_history()
+    aux = [float(a) for a in tree_leaves(t.trained_variables["state"])]
+    check(all(bool(np.isfinite(h).all()) for h in t.get_history()),
+          "moe_train: a training loss is not finite")
+    check(hist[-1] < hist[0], f"moe_train: the loss did not fall: {hist}")
+    check(len(aux) == blocks and all(np.isfinite(a) and a > 0 for a in aux),
+          f"moe_train: the aux state {aux}")
+    want = blocks * steps * epochs
+    check(all(n == want for n in launches.values()),
+          f"moe_train: launches {launches} != {want} each")
+    rec = [r for r in t.metrics.records if r["event"] == "epoch"][-1]
+    train = {"batch_size": batch, "steps_per_epoch": steps,
+             "epochs": epochs, "compute_dtype": "bfloat16",
+             "aux_weight": MOE_AUX_WEIGHT, "epoch_mean_loss": hist.tolist(),
+             "aux_loss": aux, "step_ms": 1e3 * rec["epoch_seconds"] / steps,
+             "samples_per_s": rec["samples_per_sec"],
+             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+             "launches": launches, "kernel_launches": train_kernels}
+    del t
+
+    # f32: the card against the CPU, and the TF32-on control
+    f32_batch, f32_steps = 4, 2
+    t0 = time.perf_counter()
+    cpu = _moe_f32_run(torch, "cpu", f32_batch, f32_steps)
+    cpu_s = time.perf_counter() - t0
+    card = _moe_f32_run(torch, "cuda", f32_batch, f32_steps)
+    control = _moe_f32_run(torch, "cuda", f32_batch, f32_steps, tf32=True)
+    reading = _moe_f32_reading(card, cpu)
+    control_reading = _moe_f32_reading(control, cpu)
+    check(moe_f32_ok(reading), f"moe_train_f32: card vs CPU {reading}")
+    check(not moe_f32_ok(control_reading),
+          f"moe_train_f32: the TF32-on control met the f32 bound "
+          f"{control_reading}; the check is not live")
+    f32_kernels = card[4]
+    check(all(n == blocks * f32_steps for _, _, _, n in f32_kernels)
+          and len(f32_kernels) == 3,
+          f"moe_train_f32: launches {f32_kernels}")
+    f32 = {"batch_size": f32_batch, "steps": f32_steps,
+           "losses_cuda": card[1].tolist(), "losses_cpu": cpu[1].tolist(),
+           "cuda_vs_cpu": reading, "cuda_tf32_vs_cpu": control_reading,
+           "cpu_run_s": cpu_s, "kernel_launches": f32_kernels}
+    del cpu, card, control
+
+    # f32 serving: 4 greedy requests against generate_tokens
+    model = zoo.gpt_lm(**MOE_LM).init(seed=0)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, MOE_LM["vocab_size"], size=n)
+               for n in PROMPT_LENS[:4]]
+    registry, reqs, wall, _, served, served_kernels = serve_traffic(
+        model, prompts)
+    mismatches = _answers_match(torch, model, prompts,
+                                [r.result() for r in reqs])
+    joins = int(registry.snapshot()["serve.joins"]["value"])
+    check(joins == len(prompts) and served == blocks * joins,
+          f"moe_serve: flash_fwd launches {served} != {blocks} x {joins} "
+          f"joins")
+    tokens = int(registry.snapshot()["serve.tokens_out"]["value"])
+    serve = {"requests": len(reqs), "joins": joins, "launches": served,
+             "kernel_launches": served_kernels, "wall_s": wall,
+             "tokens_per_s": tokens / wall, "mismatches": mismatches,
+             "ttft_ms_p50": 1e3 * float(np.median(
+                 [r.first_token_t - r.submit_t for r in reqs]))}
+    del model
+    row = {"phase": "moe", "model": MOE_LM, "train": train,
+           "train_f32": f32, "serve": serve,
+           "seconds": time.perf_counter() - t_phase}
+    emit(row)
+    return row, [("moe_train", train_kernels), ("moe_train_f32", f32_kernels),
+                 ("moe_serve", served_kernels)]
+
+
 #: K1's and K2/K3's CUDA kernels, one entry each in the ``kernels`` line:
 #: (name, as the wrappers count it (``flash_attention.KERNELS``), source
 #: under distkeras_tpu_torch/ops/csrc, the line of
@@ -3577,6 +4005,8 @@ def main() -> int:
         ck = phase_ckpt(torch)
         phase_stream(torch)
         asy = phase_async(torch, dist_rows)
+        shard = phase_shard(torch, asy)
+        _, moe_paths = phase_moe(torch)
         later = [(f"yaml_lm_{r['variant']}", r["kernel_launches"])
                  for r in yl]
         later += [("ckpt_straight", ck["kernel_launches"]),
@@ -3586,6 +4016,8 @@ def main() -> int:
         later += [("fleet", fleet["kernel_launches"]),
                   ("spec", spec_launches),
                   ("beam", beam["kernel_launches"])]
+        later += [(r["path"], r["kernel_launches"]) for r in shard]
+        later += moe_paths
         kernels = kernels_line(k1, sl, tr, lm128, lm256, dist_kernels,
                                past256, bwd_rows, bwd_timed, later)
     except CheckFailed as e:

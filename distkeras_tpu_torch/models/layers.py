@@ -488,7 +488,7 @@ class BatchNorm(Layer):
         self.momentum = float(momentum)
         self.epsilon = float(epsilon)
         self.axis_name = axis_name
-        self.new_state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self.new_state: Optional[dict] = None
 
     def build(self, in_shape, gen):
         c = in_shape[-1]
@@ -507,9 +507,9 @@ class BatchNorm(Layer):
             mean2 = torch.mean(x.square(), dim=dims, dtype=acc)
             var = torch.clamp(mean2 - mean.square(), min=0.0)
             m = self.momentum
-            self.new_state = (
-                (m * self.mean + (1 - m) * mean).detach(),
-                (m * self.var + (1 - m) * var).detach())
+            self.new_state = {
+                "mean": (m * self.mean + (1 - m) * mean).detach(),
+                "var": (m * self.var + (1 - m) * var).detach()}
         else:
             mean, var = self.mean, self.var
         scale = self.scale.to(acc)
@@ -605,14 +605,18 @@ def set_generator(model: nn.Module, gen: Optional[torch.Generator]) -> None:
 
 def commit_state(model: nn.Module) -> None:
     """Copy the state each layer recorded in its last training forward
-    (``new_state``) into its buffers, and clear the record."""
+    (``new_state``: {buffer name: value}) into its buffers, and clear the
+    record, with any ``live_aux_loss`` a remat recompute in the backward
+    wrote again after ``parallel.sync.aux_losses`` took the first."""
     with torch.no_grad():
         for lyr in model.modules():
             new = getattr(lyr, "new_state", None)
             if new is not None:
-                lyr.mean.copy_(new[0])
-                lyr.var.copy_(new[1])
+                for name, value in new.items():
+                    getattr(lyr, name).copy_(value)
                 lyr.new_state = None
+            if getattr(lyr, "live_aux_loss", None) is not None:
+                lyr.live_aux_loss = None
 
 
 # ---------------------------------------------------------------------------

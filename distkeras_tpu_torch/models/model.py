@@ -66,7 +66,8 @@ class Model(nn.Module):
 
     @classmethod
     def from_config(cls, cfg: dict) -> "Model":
-        from ..ops import attention  # noqa: F401  (registers its layers)
+        # registers their layers
+        from ..ops import attention, moe  # noqa: F401
         return cls(layer_from_config(cfg["layer"]),
                    input_shape=cfg["input_shape"],
                    name=cfg.get("name", "model"))

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from ..ops.attention import (GlobalAvgPool1D, LayerNorm, MultiHeadAttention,
                              PositionalEmbedding)
+from ..ops.moe import MoEDense
 from .layers import (LSTM, Activation, BatchNorm, Conv2D, Dense, Dropout,
                      Embedding, Flatten, GlobalAvgPool2D, MaxPool2D,
                      Residual, Sequential, SpaceToDepth)
@@ -154,12 +155,13 @@ def lstm_imdb(vocab_size: int = 20000, embed_dim: int = 128,
 
 
 def _ff_block(dim: int, ff_mult: int, moe_experts: int):
-    """Transformer FF block: pre-LN residual around dense-gelu-dense."""
+    """Transformer FF block: pre-LN residual around dense-gelu-dense, or a
+    switch-MoE FF (``ops.moe.MoEDense``) when ``moe_experts > 0``."""
     if moe_experts:
-        raise NotImplementedError(
-            "moe_experts > 0 (the switch-MoE FF block) is not ported yet")
-    return Residual(Sequential([LayerNorm(), Dense(dim * ff_mult, "gelu"),
-                                Dense(dim)]))
+        ff: list = [MoEDense(moe_experts, d_hidden=dim * ff_mult)]
+    else:
+        ff = [Dense(dim * ff_mult, "gelu"), Dense(dim)]
+    return Residual(Sequential([LayerNorm(), *ff]))
 
 
 def transformer_classifier(vocab_size: int = 20000, dim: int = 128,
@@ -188,7 +190,9 @@ def gpt_lm(vocab_size: int = 256, dim: int = 128, num_heads: int = 4,
     """Decoder-only causal language model (GPT-style): pre-LN blocks of
     causal ``MultiHeadAttention`` + gelu FF, ending in a vocab-logits
     Dense.  ``attention_impl='flash'`` runs attention through
-    ``ops.flash_attention`` (the CUDA kernel on the card)."""
+    ``ops.flash_attention`` (the CUDA kernel on the card);
+    ``moe_experts > 0`` swaps each dense FF block for a switch-MoE FF
+    (``ops.moe.MoEDense``)."""
     if positional not in ("learned", "rope"):
         raise ValueError(f"positional must be 'learned' or 'rope', got "
                          f"{positional!r}")

@@ -1,4 +1,5 @@
-"""Attention ops and the flash-attention kernel's wrapper."""
+"""Attention ops, the flash-attention kernel's wrapper and the switch-MoE
+feed-forward (``ops.moe``)."""
 
 from .flash_attention import flash_attention, flash_attention_lse  # noqa: F401
 from .attention import (  # noqa: F401

@@ -102,10 +102,18 @@ def model_params(model) -> Params:
 
 
 def aux_losses(model) -> list:
-    """Every ``aux_loss`` a layer of ``model`` recorded in its last forward
-    (the JAX package's MoE router losses; no port layer records one yet)."""
-    return [lyr.aux_loss for lyr in model.iter_layers()
-            if getattr(lyr, "aux_loss", None) is not None]
+    """Every auxiliary loss a layer of ``model`` recorded in its last
+    training forward (``live_aux_loss``: the switch-MoE router's
+    load-balance loss, ``ops.moe.MoEDense``), live in the autograd graph
+    — the JAX package's ``aux_loss`` leaves of the new state.  The records
+    are taken: each layer's is cleared, so no graph outlives its step."""
+    out = []
+    for lyr in model.iter_layers():
+        aux = getattr(lyr, "live_aux_loss", None)
+        if aux is not None:
+            out.append(aux)
+            lyr.live_aux_loss = None
+    return out
 
 
 def _replay(gen: Optional[torch.Generator]):
@@ -167,10 +175,9 @@ def make_local_step(model, loss_fn: Callable, optimizer,
                              context_fn=lambda: _replay(generator)) \
                 if remat else forward(x)
             loss = loss_fn(out, y)
-            if aux_weight:
-                aux = aux_losses(model)
-                if aux:
-                    loss = loss + aux_weight * sum(aux)
+            aux = aux_losses(model)
+            if aux_weight and aux:
+                loss = loss + aux_weight * sum(aux)
             grads = torch.autograd.grad(loss, [params[n] for n in names],
                                         allow_unused=True)
         # an unused parameter's gradient is zero, as JAX gives it

@@ -9,9 +9,9 @@ own pace.  This package provides it: a host-side TCP parameter server
 structurally the reference's ``distkeras/parameter_servers.py`` +
 ``distkeras/networking.py``) speaking the JAX package's length-prefixed
 **msgpack** wire byte for byte, with workers running the window loop on
-the card between pulls and commits.  The sharded PS (``ps/shard``) and
-the multi-host runner (``ps/cluster.py``) are not ported yet: ROADMAP
-Queue 1 item 5.
+the card between pulls and commits.  ``ps.shard`` partitions the center
+across a fleet of shard servers with consistent-cut pulls.  The
+multi-host runner (``ps.cluster``) raises: ROADMAP Queue 1 item 8.
 """
 
 from .networking import (  # noqa: F401

@@ -75,6 +75,17 @@ WIRE_VERSION = 2
 _IOV_CHUNK = 256
 
 
+def repo_env() -> dict:
+    """This process's environment with the repo root on ``PYTHONPATH`` —
+    what a PS child process (a worker or a shard, started as
+    ``python -m distkeras_tpu_torch...``) needs to import the package."""
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
 # ---------------------------------------------------------------------------
 # fault-injection seam (the chaos harness's socket-level hook)
 # ---------------------------------------------------------------------------
@@ -991,11 +1002,17 @@ class FrameServer:
             except OSError:
                 pass
         self._before_close_connections()
-        # close live connections so handlers blocked in recv unblock
+        # shut live connections down so handlers blocked in recv unblock
+        # (a bare close() leaves another thread's recv blocked on Linux),
+        # then close them
         with self._conn_lock:
             conns = list(self._conns)
             threads = list(self._threads)
         for c in conns:
+            try:
+                c.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
             try:
                 c.close()
             except OSError:

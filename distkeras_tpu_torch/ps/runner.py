@@ -21,6 +21,13 @@ A ``FleetSupervisor`` watches every incarnation during the run: a worker
 that dies or goes silent past ``heartbeat_hard_s`` is evicted (its late
 commits tombstone) and respawned at the exact window its commits
 reached; ``add_worker`` joins a new one into the live run.
+
+``ps_shards > 1`` hosts the center as a fleet of shard servers
+(``ps.shard``), each with its own lock, accept loop and registry; the
+workers then connect to the list of shard ports through a
+``ShardedPSClient``, and the supervisor polls the fleet's health, so a
+dead shard fails the run by name.  A sharded run does not checkpoint its
+center.
 """
 
 from __future__ import annotations
@@ -44,7 +51,9 @@ from ..parallel.sync import make_window_fn, model_params
 from ..utils import serde
 from ..utils.weights import jax_variables, load_jax_variables, \
     to_numpy_variables
+from .networking import repo_env
 from .servers import SocketParameterServer
+from .shard import ShardedParameterServer
 from .workers import ElasticWorker, PullCommitWorker, StalenessWorker
 
 _WORKER_CLASSES = {
@@ -52,9 +61,6 @@ _WORKER_CLASSES = {
     "staleness": StalenessWorker,
     "elastic": ElasticWorker,
 }
-
-#: where the sharded parameter server is ported
-SHARD_ITEM = "ROADMAP Queue 1 item 5 (ps/shard, ps/cluster.py)"
 
 #: the record a worker process writes its kernel launch counts into
 LAUNCH_EVENT = "kernel_launches"
@@ -165,9 +171,14 @@ class FleetSupervisor:
     def __init__(self, ps, server, spawn, *, heartbeat_hard_s: float = 30.0,
                  startup_grace_s: float = 300.0, poll_s: float = 0.05,
                  max_attempts: int = 2, timeout: Optional[float] = None,
-                 metrics=None):
+                 metrics=None, shard_watch=None):
         self.ps = ps
         self.server = server
+        #: sharded-center health probe: called once per poll; raises
+        #: ``ShardFleetError`` naming the dead shard (index, address, last
+        #: commit counter), so the run fails at once instead of workers
+        #: spinning in reconnect backoff.  None for the single server.
+        self.shard_watch = shard_watch
         #: spawn(worker_id, start_window, generation, attempt) -> handle;
         #: the placement-specific closure (thread worker / worker process)
         self.spawn = spawn
@@ -185,8 +196,11 @@ class FleetSupervisor:
         self._handles: list = []    # every handle ever spawned (cleanup)
         self._log = get_logger("ps.fleet")
         #: self-healing latency: eviction -> the replacement's FIRST
-        #: commit landing, per recovery
-        self._h_recovery = ps.registry.histogram("ps.recovery_seconds")
+        #: commit landing, per recovery.  The sharded facade's registry is
+        #: a read-only merged view with no instruments to write into, so
+        #: a sharded fleet records no such histogram
+        self._h_recovery = ps.registry.histogram("ps.recovery_seconds") \
+            if hasattr(ps.registry, "histogram") else None
         self._evicted_at: dict = {}   # worker_id -> eviction monotonic
         self._recovering: dict = {}   # worker_id -> (t_evict, start_window)
 
@@ -304,6 +318,10 @@ class FleetSupervisor:
         deadline = None if self.timeout is None \
             else time.monotonic() + float(self.timeout)
         while True:
+            if self.shard_watch is not None:
+                # a dead center shard is fatal for every worker at once:
+                # surface it here, with its name
+                self.shard_watch()
             with self._lock:
                 live = dict(self.live)
             if not live:
@@ -337,7 +355,7 @@ class FleetSupervisor:
 
     def _poll_recovery(self) -> None:
         """Close any open eviction->first-commit recovery windows."""
-        if not self._recovering:
+        if not self._recovering or self._h_recovery is None:
             return
         now = time.monotonic()
         with self._lock:
@@ -423,15 +441,13 @@ def run_async_training(trainer, dataset, fault_injector=None,
     shape (``utils.weights.to_numpy_variables``), so it, the wire and
     the PS checkpoints are the JAX package's.  ``dataset`` may be a
     disk-backed ``ShardedFileDataset`` — workers then stream their shard
-    partitions instead of receiving staged arrays.
+    partitions instead of receiving staged arrays.  ``trainer.ps_shards >
+    1`` hosts the center on a ``ShardedParameterServer``.
     """
     from ..data.streaming import ShardedFileDataset
     mode = getattr(trainer, "_async_mode", "pull_commit")
     placement = getattr(trainer, "async_workers", "threads")
-    if int(getattr(trainer, "ps_shards", 1)) > 1:
-        raise NotImplementedError(
-            f"ps_shards > 1 (the sharded parameter server) is not ported "
-            f"yet: {SHARD_ITEM}")
+    ps_shards = int(getattr(trainer, "ps_shards", 1))
 
     if isinstance(dataset, ShardedFileDataset):
         stream, xs, ys = _StreamPlan(trainer, dataset,
@@ -445,28 +461,44 @@ def run_async_training(trainer, dataset, fault_injector=None,
     center = to_numpy_variables(trainer.model)
     ps_kwargs = {}
     ckpt = trainer._ckpt_manager()
-    if ckpt is not None:
+    if ckpt is not None and ps_shards == 1:
         # checkpoint the center roughly once per worker round of commits
         ps_kwargs = {"checkpoint_manager": ckpt,
                      "checkpoint_every": trainer.num_workers}
     num_epoch = trainer.num_epoch
     start_windows = [0] * trainer.num_workers
-    ps = trainer._ps_factory()(center, num_workers=trainer.num_workers,
-                               **ps_kwargs)
-    if ckpt is not None and getattr(trainer, "_resume", False):
-        if ps.restore(ckpt):
-            # EXACT resume: one commit per communication window, so the
-            # snapshot's per-worker commit count IS the global window
-            # index each worker continues from — mid-epoch included
-            start_windows = [ps.commits_by_worker.get(k, 0)
-                             for k in range(trainer.num_workers)]
-            center = ps.get_model()  # workers start from the restored
-    # server-side tracer shares the trainer's JSONL sink: every commit's
-    # ``ps.apply`` span adopts the committing worker's trace context;
-    # span durations also land in the PS registry
-    server = SocketParameterServer(
-        ps, fault_injector=fault_injector,
-        tracer=SpanTracer(trainer.metrics, registry=ps.registry)).start()
+    if ps_shards > 1:
+        if ckpt is not None:
+            get_logger("ps.shard").warning(
+                "sharded PS (%d shards) does not checkpoint or restore the "
+                "center; this run is checkpoint-free", ps_shards)
+        # one update-rule server and front-end PER SHARD; every shard's
+        # tracer shares the trainer's JSONL sink, so apply spans still
+        # link to the worker windows that caused them
+        ps = ShardedParameterServer(
+            center, ps_shards, trainer._ps_factory(),
+            num_workers=trainer.num_workers, fault_injector=fault_injector,
+            tracer_factory=lambda reg: SpanTracer(trainer.metrics,
+                                                  registry=reg))
+        server = ps.start()
+    else:
+        ps = trainer._ps_factory()(center, num_workers=trainer.num_workers,
+                                   **ps_kwargs)
+        if ckpt is not None and getattr(trainer, "_resume", False):
+            if ps.restore(ckpt):
+                # EXACT resume: one commit per communication window, so
+                # the snapshot's per-worker commit count IS the global
+                # window index each worker continues from — mid-epoch
+                # included
+                start_windows = [ps.commits_by_worker.get(k, 0)
+                                 for k in range(trainer.num_workers)]
+                center = ps.get_model()  # workers start from the restored
+        # server-side tracer shares the trainer's JSONL sink: every
+        # commit's ``ps.apply`` span adopts the committing worker's trace
+        # context; span durations also land in the PS registry
+        server = SocketParameterServer(
+            ps, fault_injector=fault_injector,
+            tracer=SpanTracer(trainer.metrics, registry=ps.registry)).start()
     t_run0 = time.time()  # heartbeats at/after this instant belong to THIS run
 
     try:
@@ -509,6 +541,11 @@ def run_async_training(trainer, dataset, fault_injector=None,
                         "staleness_seen": list(getattr(ps, "staleness_seen",
                                                        [])),
                         "registry": ps.registry.snapshot()}
+    if ps_shards > 1:
+        # per-shard accounting and the plan the fleet served
+        trainer.ps_stats["shards"] = [s.registry.snapshot()
+                                      for s in ps.shards]
+        trainer.ps_stats["plan"] = ps.plan.doc()
     # final telemetry record into the run's JSONL stream: the registry
     # snapshot (staleness/apply-latency histograms, wire bytes, commit/pull
     # counters)
@@ -519,14 +556,24 @@ def run_async_training(trainer, dataset, fault_injector=None,
     return trainer._finish()
 
 
+def _endpoint(server):
+    """Worker-facing PS endpoint: the single server's port, or the shard
+    fleet's port LIST (workers then build a ``ShardedPSClient``)."""
+    ports = getattr(server, "ports", None)
+    return list(ports) if ports is not None else server.port
+
+
 def _supervisor_for(trainer, ps, server, spawn,
                     timeout: Optional[float] = None) -> FleetSupervisor:
-    """Build the fleet supervisor from the trainer's knobs."""
+    """Build the fleet supervisor from the trainer's knobs; a sharded
+    center also wires its health probe in, so a dead shard fails the run
+    by name."""
     return FleetSupervisor(
         ps, server, spawn, timeout=timeout,
         heartbeat_hard_s=getattr(trainer, "heartbeat_hard_s", 30.0),
         startup_grace_s=getattr(trainer, "startup_grace_s", 300.0),
-        metrics=trainer.metrics)
+        metrics=trainer.metrics,
+        shard_watch=getattr(server, "raise_if_unhealthy", None))
 
 
 def _supervise(trainer, sup: FleetSupervisor, start_windows) -> list:
@@ -604,7 +651,8 @@ def _run_thread_workers(trainer, ps, server, mode, center, xs, ys, num_epoch,
             trainer.compute_dtype, trainer.remat, trainer.aux_weight)
         w = worker_cls(
             k, trainer._instrumented(window, "async_window"), variables,
-            opt_state, gen, "127.0.0.1", server.port, num_epoch, device=device,
+            opt_state, gen, "127.0.0.1", _endpoint(server), num_epoch,
+            device=device,
             start_window=start_window, metrics=trainer.metrics,
             comm_codec=getattr(trainer, "comm_codec", "none"),
             comm_down=getattr(trainer, "comm_down", "none"),
@@ -629,21 +677,13 @@ def _run_thread_workers(trainer, ps, server, mode, center, xs, ys, num_epoch,
 # process placement (one OS process per worker — ps.worker_main)
 # ---------------------------------------------------------------------------
 
-def _worker_env() -> dict:
-    env = dict(os.environ)
-    root = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
-    return env
-
-
 def _spawn(spec: dict, td: str, k: int) -> subprocess.Popen:
     spec_path = os.path.join(td, f"worker_{k}_{spec['attempt']}.spec")
     with open(spec_path, "wb") as f:
         f.write(serde.tree_to_bytes(spec))
     return subprocess.Popen(
         [sys.executable, "-m", "distkeras_tpu_torch.ps.worker_main",
-         spec_path], env=_worker_env())
+         spec_path], env=repo_env())
 
 
 def _uses_flash(model) -> bool:
@@ -715,7 +755,7 @@ def _run_process_workers(trainer, ps, server, mode, center, xs, ys,
             "pull_overlap": bool(getattr(trainer, "pull_overlap", False)),
             "profile_memory": bool(trainer.profile.memory),
             "alpha": float(getattr(trainer, "alpha", 0.0)),
-            "worker_id": k, "host": "127.0.0.1", "port": server.port,
+            "worker_id": k, "host": "127.0.0.1", "port": _endpoint(server),
             "num_epoch": num_epoch, "seed": seed,
             "device": str(trainer.device),
             "torch_threads": threads,

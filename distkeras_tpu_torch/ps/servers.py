@@ -245,6 +245,17 @@ class ParameterServer:
         with self.mutex:
             return self.center, self.num_updates
 
+    def pull_versioned(self) -> tuple:
+        """``(center, num_updates, commits_by_worker)`` captured under ONE
+        mutex hold — the shard front-end's pull source: the per-worker
+        commit counts are the **version vector** a sharded client compares
+        across shards to detect a torn cut, so they must be atomic with
+        the center they describe."""
+        self._c_pulls.inc()
+        with self.mutex:
+            return (self.center, self.num_updates,
+                    {int(k): int(v) for k, v in self.commits_by_worker.items()})
+
     def stats(self) -> dict:
         """Registry snapshot + ground-truth counters — the payload the
         socket front-end returns for a ``stats`` request."""

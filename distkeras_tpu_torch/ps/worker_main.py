@@ -16,7 +16,7 @@ The spec is a ``utils.serde`` tree:
      "mode": "pull_commit"|"staleness"|"elastic",
      "comm_codec": str, "comm_down": str, "ps_shm": bool,
      "pull_overlap": bool, "alpha": float,
-     "worker_id": int, "host": str, "port": int,
+     "worker_id": int, "host": str, "port": int or [int] (shard ports),
      "num_epoch": int, "seed": int,
      "device": str ("cuda", "cpu", ...; absent means the card, which
      must exist — ``utils.device.default_device``),
@@ -84,9 +84,14 @@ def run_spec(spec_path: str) -> None:
     if spec.get("metrics_jsonl"):
         from ..utils.metrics import MetricsLogger
         metrics = MetricsLogger(spec["metrics_jsonl"])
+    # a LIST of ports is a shard fleet: the worker builds a
+    # ShardedPSClient and fans its windows across every shard
+    port = spec["port"]
+    port = [int(p) for p in port] if isinstance(port, (list, tuple)) \
+        else int(port)
     worker = worker_cls(
         int(spec["worker_id"]), window_fn, variables, opt_state, gen,
-        spec["host"], int(spec["port"]), int(spec["num_epoch"]),
+        spec["host"], port, int(spec["num_epoch"]),
         device=device, start_window=int(spec.get("start_window", 0)),
         comm_codec=spec.get("comm_codec", "none"), metrics=metrics,
         comm_down=spec.get("comm_down", "none"),

@@ -48,6 +48,7 @@ from ..obs.spans import SpanTracer
 from ..parallel.sync import _inexact
 from ..utils.tree import tree_flatten
 from .client import PSClient, WorkerEvicted
+from .shard import ShardedPSClient
 
 Tree = Any
 
@@ -186,12 +187,18 @@ class AsyncWorker(threading.Thread):
         return t.to(self.device) if self.device is not None else t
 
     def _make_client(self):
-        """One PS connection (a LIST of shard ports is the sharded PS,
-        not ported yet)."""
+        """One PS connection — or, when ``port`` is a LIST of shard
+        ports, a ``ShardedPSClient`` fanning this worker's traffic across
+        the fleet with consistent-cut pulls (its plan derived from the
+        replica's own tensors).  Either way the worker loop drives the
+        same pull/commit surface."""
         if isinstance(self.ps_port, (list, tuple)):
-            raise NotImplementedError(
-                "a sharded parameter server (ps/shard) is not ported yet: "
-                "ROADMAP Queue 1 item 5 (ps/shard, ps/cluster.py)")
+            return ShardedPSClient(
+                [(self.ps_host, p) for p in self.ps_port],
+                template=self.variables, worker_id=self.worker_id,
+                codec=self.comm_codec, tracer=self.tracer,
+                generation=self.generation, down=self.comm_down,
+                shm=self.shm or None)
         return PSClient(self.ps_host, self.ps_port, self.worker_id,
                         codec=self.comm_codec, tracer=self.tracer,
                         generation=self.generation, down=self.comm_down,
@@ -227,9 +234,16 @@ class AsyncWorker(threading.Thread):
 
     @staticmethod
     def _link_ewma(client) -> Optional[float]:
-        """The client's link RTT EWMA."""
+        """The client's link RTT EWMA — the largest across a sharded
+        client's connections (the slowest link gates the fan-out)."""
         link = getattr(client, "link", None)
-        return link.ewma if link is not None else None
+        if link is not None:
+            return link.ewma
+        subs = getattr(client, "clients", None)
+        if subs:
+            ewmas = [c.link.ewma for c in subs if c.link.ewma is not None]
+            return max(ewmas) if ewmas else None
+        return None
 
     def _train(self, client: PSClient):
         self._client = client

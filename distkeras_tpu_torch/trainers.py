@@ -28,12 +28,14 @@ package wrote.  ``serialize()`` is the ``utils.serde`` model blob.
 ``EAMSGD`` trains against the host parameter server (``ps.runner``):
 thread or process workers, each with its own model replica on the
 trainer's device, pull the center, train a window and commit, with
-checkpoints of the center and exact per-worker resume.
+checkpoints of the center and exact per-worker resume; ``ps_shards > 1``
+partitions the center across a fleet of shard servers (``ps.shard``).
+``aux_weight`` folds the layers' auxiliary losses (the switch-MoE
+router's, ``ops.moe.MoEDense``) into every trainer's objective.
 
-Not ported yet, and raising where asked for: ``ps_shards > 1`` (the
-sharded parameter server), ROADMAP Queue 1 item 5; a ``mesh`` (workers
-across cards), item 8.  The trainers run on the card unless the caller
-passes ``device="cpu"``.
+Not ported yet, and raising where asked for: a ``mesh`` (workers across
+cards), ROADMAP Queue 1 item 8.  The trainers run on the card unless the
+caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -515,9 +517,9 @@ class DistributedTrainer(Trainer):
     through ``parallel.sync.SyncEngine``.  ``mode="async"`` (the
     asynchronous family) runs ``ps.runner.run_async_training``: the
     async-mode arguments (``async_workers``, ``comm_codec``,
-    ``comm_down``, ``ps_shm``, ``pull_overlap``, the heartbeat knobs) act
-    as in the JAX package; ``ps_shards > 1`` raises (ROADMAP Queue 1
-    item 5), as does a ``mesh`` (item 8).  A ``ShardedFileDataset``
+    ``comm_down``, ``ps_shm``, ``pull_overlap``, ``ps_shards``, the
+    heartbeat knobs) act as in the JAX package; a ``mesh`` raises
+    (ROADMAP Queue 1 item 8).  A ``ShardedFileDataset``
     streams each worker's shard partition from disk (sync: one window of
     every worker at a time, ``SyncEngine.window_fn``)."""
 
@@ -574,11 +576,6 @@ class DistributedTrainer(Trainer):
         self.comm_down = codecs.validate_down_spec(comm_down)
         self.ps_shm = bool(ps_shm)
         self.pull_overlap = bool(pull_overlap)
-        if self.ps_shards > 1:
-            raise NotImplementedError(
-                "ps_shards > 1 (the sharded parameter server) is not "
-                "ported yet: ROADMAP Queue 1 item 5 (ps/shard, "
-                "ps/cluster.py)")
         if mesh is not None:
             raise NotImplementedError(
                 "DistributedTrainer(mesh=...) (workers across cards) is not "

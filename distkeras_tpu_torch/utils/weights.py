@@ -50,17 +50,20 @@ def _walk(layer: Layer, params: Any, state: Any, path: str,
             _walk(getattr(layer, key), params[key], state[key],
                   f"{path}.{key}", leaf)
         return
-    for kind, tree, names in (
-            ("params", params,
-             sorted(n for n, _ in layer.named_parameters(recurse=False))),
-            ("state", state,
-             sorted(n for n, _ in layer.named_buffers(recurse=False)))):
-        if not isinstance(tree, dict) or sorted(tree) != names:
+
+    def pair(want, tree, where, kind):
+        if not isinstance(tree, dict) or sorted(tree) != sorted(want):
             got = sorted(tree) if isinstance(tree, dict) else type(tree)
-            raise ValueError(f"{path} ({type(layer).__name__}): {kind} "
-                             f"{got} != {names}")
-        for name in names:
-            leaf(f"{path}.{name}", getattr(layer, name), tree[name])
+            raise ValueError(f"{where} ({type(layer).__name__}): {kind} "
+                             f"{got} != {sorted(want)}")
+        for name in sorted(want):
+            if isinstance(want[name], dict):
+                pair(want[name], tree[name], f"{where}.{name}", kind)
+            else:
+                leaf(f"{where}.{name}", want[name], tree[name])
+
+    for kind, tree in (("params", params), ("state", state)):
+        pair(_module_tree(layer, kind, lambda t: t), tree, path, kind)
 
 
 def load_jax_variables(model, variables: dict) -> None:
@@ -81,6 +84,22 @@ def load_jax_variables(model, variables: dict) -> None:
           copy)
 
 
+def _module_tree(module, kind: str, leaf: Callable) -> dict:
+    """A leaf layer's ``params`` (or ``state``) dict: its own parameters
+    (buffers) and, nested under their names, those of its child modules
+    (the MoE layer's ``router`` and ``experts``), keys sorted; a child
+    without any is left out, as the JAX layer's trees have no entry for
+    it."""
+    own = module.named_parameters(recurse=False) if kind == "params" \
+        else module.named_buffers(recurse=False)
+    out = {n: leaf(t) for n, t in own}
+    for name, child in module.named_children():
+        sub = _module_tree(child, kind, leaf)
+        if sub:
+            out[name] = sub
+    return dict(sorted(out.items()))
+
+
 def _jax_tree(layer, leaf: Callable):
     """``layer``'s (params, state) trees in the JAX package's shape, with
     ``leaf(tensor)`` at each leaf and every dict's keys sorted, as
@@ -95,9 +114,8 @@ def _jax_tree(layer, leaf: Callable):
             if sub is not None:
                 params[key], state[key] = _jax_tree(sub, leaf)
         return params, state
-    return tuple({n: leaf(t) for n, t in sorted(it)}
-                 for it in (layer.named_parameters(recurse=False),
-                            layer.named_buffers(recurse=False)))
+    return (_module_tree(layer, "params", leaf),
+            _module_tree(layer, "state", leaf))
 
 
 def to_numpy_variables(model) -> dict:

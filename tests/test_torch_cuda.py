@@ -7,7 +7,8 @@ search, a short flash-vs-dense
 CPU, the window-edge rules on CUDA tensors, K1–K3 launches under ADAG),
 checkpoints, resume and disk streaming on the card, and the async
 parameter server's thread and process workers on the card (exact
-K1–K3 launch counts).
+K1–K3 launch counts), the sharded parameter server and the switch-MoE
+LM trained and served on the card.
 Every test is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is False (the kernel has no CPU mode).
 
@@ -1146,14 +1147,86 @@ def test_async_thread_workers_on_the_card_count_launches_exactly(name):
                for h in t.get_history())
 
 
-def test_async_process_workers_on_the_card_fold_their_launches():
+@pytest.mark.parametrize("ps_shards", [1, 2])
+def test_async_process_workers_on_the_card_fold_their_launches(ps_shards):
     """Two process workers, each with its own CUDA context: their K1-K3
-    launches come back into the parent's counts."""
+    launches come back into the parent's counts.  Over 2 shards each
+    worker is handed the shard ports as a list and every shard applies
+    each window once."""
     ds = load_lm_corpus(n_train=2 * 2 * 4, seq_len=128, vocab_size=64)[0]
     kernels = (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda)
     before = [k.launches for k in kernels]
-    t = _async_lm("DOWNPOUR", num_workers=2, async_workers="processes")
+    t = _async_lm("DOWNPOUR", num_workers=2, async_workers="processes",
+                  ps_shards=ps_shards)
     t.train(ds)
     assert [k.launches - b for k, b in zip(kernels, before)] == \
         [2 * 4 * 2 * 2] * 3
     assert t.ps_stats["num_updates"] == 2 * 2 * 2
+    assert t.ps_stats["commits_by_worker"] == {0: 4, 1: 4}
+    assert t.ps_stats["registry"]["ps.commits"]["value"] == \
+        ps_shards * 2 * 2 * 2
+
+
+def test_sharded_async_run_on_the_card_counts_launches_exactly():
+    """DOWNPOUR over 3 PS shards with 2 thread workers on the card: K1, K2
+    and K3 launch exactly W x steps x blocks times each, every shard
+    applies each window once, its accounting identity holds, and one
+    worker's run is bit-identical on 1 and on 2 shards."""
+    ds = load_lm_corpus(n_train=2 * 2 * 4, seq_len=128, vocab_size=64)[0]
+    kernels = (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda)
+    before = [k.launches for k in kernels]
+    t = _async_lm("DOWNPOUR", num_workers=2, ps_shards=3)
+    assert t.train(ds).device.type == "cuda"
+    assert [k.launches - b for k, b in zip(kernels, before)] == \
+        [2 * 4 * 2 * 2] * 3
+    snap = t.ps_stats["registry"]
+    assert snap["ps.commits"]["value"] == 3 * 2 * 2 * 2
+    assert snap["ps.commit_requests"]["value"] == \
+        snap["ps.commits"]["value"] + snap["ps.commits_dropped"]["value"] \
+        + snap["ps.commits_tombstoned"]["value"]
+    assert t.ps_stats["commits_by_worker"] == {0: 4, 1: 4}
+    ds1 = load_lm_corpus(n_train=2 * 4, seq_len=128, vocab_size=64)[0]
+    runs = []
+    for shards in (1, 2):
+        t = _async_lm("DOWNPOUR", num_workers=1, ps_shards=shards)
+        t.train(ds1)
+        runs.append(tree_leaves(t.trained_variables))
+    assert all(np.array_equal(a, b) for a, b in zip(*runs))
+
+
+def test_moe_lm_trains_in_bf16_and_serves_in_f32_on_the_card():
+    """``gpt_lm(moe_experts=4)`` on the card: 2 bf16 ``SingleTrainer``
+    steps with ``aux_weight`` launch K1-K3 once per block per step, the
+    loss and the aux state are finite; served in f32 by ``DecodeEngine``,
+    every answer equals ``generate_tokens`` and K1 runs once per block per
+    cold join."""
+    cfg = dict(vocab_size=64, dim=64, num_heads=2, num_blocks=2,
+               seq_len=64, attention_impl="flash", moe_experts=4)
+    kernels = (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda)
+    before = [k.launches for k in kernels]
+    t = SingleTrainer(zoo.gpt_lm(**cfg), "sgd",
+                      "sparse_categorical_crossentropy", batch_size=4,
+                      learning_rate=0.1, compute_dtype="bfloat16",
+                      aux_weight=0.01)
+    t.train(load_lm_corpus(n_train=8, seq_len=64, vocab_size=64)[0])
+    assert [k.launches - b for k, b in zip(kernels, before)] == [2 * 2] * 3
+    assert all(np.isfinite(h).all() for h in t.get_history())
+    aux = tree_leaves(t.trained_variables["state"])
+    assert len(aux) == 2 and all(np.isfinite(a) and a > 0 for a in aux)
+    model = zoo.gpt_lm(**cfg).init(5)
+    engine = DecodeEngine(model, ServeConfig(slots=2, max_new_tokens=6,
+                                             prefill_buckets=(16, 32)),
+                          registry=Registry()).warmup()
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 64, n) for n in (7, 20, 31)]
+    launches = flash_fwd_cuda.launches
+    engine.start()
+    try:
+        answers = [r.result(timeout=120) for r in
+                   [engine.submit(p, max_new_tokens=6) for p in prompts]]
+    finally:
+        engine.stop()
+    assert flash_fwd_cuda.launches == launches + 2 * len(prompts)
+    for p, got in zip(prompts, answers):
+        ref = generate_tokens(model, p[None], len(got))[0, len(p):]
+        np.testing.assert_array_equal(got, ref.cpu().numpy())

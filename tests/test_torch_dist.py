@@ -46,6 +46,7 @@ from distkeras_tpu_torch.models import Model, zoo
 from distkeras_tpu_torch.models.layers import BatchNorm
 from distkeras_tpu_torch.parallel import sync
 from distkeras_tpu_torch.predictors import ModelPredictor
+from distkeras_tpu_torch.ps.cluster import run_cluster_async_training
 from distkeras_tpu_torch.utils import load_jax_variables, to_numpy_variables
 
 # pytest-xdist's workers share the cores: an intra-op pool of the
@@ -230,7 +231,68 @@ def test_float64_conv_gradients_do_not_depend_on_the_thread_count(
             weight_grads(os.cpu_count(), torch.float32)
 
 
-def test_adag_moves_batchnorm_state_through_the_rule(all_cores):
+#: the f32 half of ``test_adag_moves_batchnorm_state_through_the_rule``,
+#: run in a process of its own (argv: the pickled inputs, the pickled
+#: outputs)
+_F32_EVERY_CORE = """
+import os, pickle, sys
+import torch
+import distkeras_tpu_torch as dkt
+from distkeras_tpu_torch.models import Model
+from distkeras_tpu_torch.utils import load_jax_variables
+
+torch.set_num_threads(os.cpu_count())
+with open(sys.argv[1], "rb") as f:
+    cfg, variables, x, y, kw = pickle.load(f)
+model = Model.from_config(cfg)
+build = model.init
+
+
+def init(seed=0, device=None):
+    build(seed, device=device)
+    load_jax_variables(model, variables)
+    return model
+
+
+model.init = init
+pt = dkt.ADAG(model, device="cpu", **kw)
+pt.train(dkt.Dataset({"features": x, "label_onehot": y}))
+# every worker holds the center after the edge
+held = all(torch.equal(stack, pt.center["state"][n].expand_as(stack))
+           for n, stack in pt.local["state"].items())
+with open(sys.argv[2], "wb") as f:
+    pickle.dump((pt.trained_variables, pt.get_history()[0], held), f)
+"""
+
+
+def _adag_f32_on_every_core(cfg, variables, x, y, kw, tmp_path):
+    """``ADAG`` over the model of ``cfg`` holding ``variables``, f32, with
+    torch's pool on every core, in a child process whose OpenMP threads
+    sleep at a barrier instead of spinning (``OMP_WAIT_POLICY=PASSIVE``,
+    read only when OpenMP starts): beside five busy pytest-xdist workers
+    the spinning pool took this run from about 1 s to 35-80 s.  The wait
+    policy does not change how oneDNN splits its sums.  Returns (trained
+    variables, the first epoch's losses, whether every worker's state
+    equals the center's)."""
+    import pickle
+    import subprocess
+    import sys
+    src, out = tmp_path / "f32_in.pkl", tmp_path / "f32_out.pkl"
+    with open(src, "wb") as f:
+        pickle.dump((cfg, variables, x, y, kw), f)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, OMP_WAIT_POLICY="PASSIVE",
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    res = subprocess.run([sys.executable, "-c", _F32_EVERY_CORE, str(src),
+                          str(out)], cwd=root, env=env, capture_output=True,
+                         text=True, timeout=600)
+    assert res.returncode == 0, res.stderr
+    with open(out, "rb") as f:
+        return pickle.load(f)
+
+
+def test_adag_moves_batchnorm_state_through_the_rule(all_cores, tmp_path):
     """ADAG on ``resnet20(width=4)``: BatchNorm's running statistics are
     float leaves of ``state`` and go through the mean at every edge.  From
     the same weights (the port's init, handed to JAX), 1 epoch of 2
@@ -246,7 +308,8 @@ def test_adag_moves_batchnorm_state_through_the_rule(all_cores):
     (``test_float64_conv_gradients_do_not_depend_on_the_thread_count``),
     and its trained variables read bit-identical at 1 and 8 threads,
     while 8 threads beside five busy workers took it from 2.7 s to
-    117 s."""
+    117 s.  The f32 run takes every core in a child process whose
+    threads do not spin (``_adag_f32_on_every_core``)."""
     jm = jax_zoo.resnet20(width=4)
     pm0 = Model.from_config(jm.config()).init(0, device="cpu")
     jv = jax.tree_util.tree_map(jnp.asarray, to_numpy_variables(pm0))
@@ -258,8 +321,9 @@ def test_adag_moves_batchnorm_state_through_the_rule(all_cores):
               learning_rate=0.01, communication_window=2)
     jt = dk.ADAG(jm, **kw)
     jt.train(dk.Dataset({"features": x, "label_onehot": y}))
-    pt = dkt.ADAG(_port_twin(jm), device="cpu", **kw)
-    pt.train(dkt.Dataset({"features": x, "label_onehot": y}))
+    # the f32 run on every core (see ``all_cores``), in a child process
+    got, losses, held = _adag_f32_on_every_core(
+        jm.config(), to_numpy_variables(pm0), x, y, kw, tmp_path)
     m64 = _port_twin(jm)
     build = m64.init
     m64.init = lambda seed=0, device=None: build(seed, device).double()
@@ -271,7 +335,6 @@ def test_adag_moves_batchnorm_state_through_the_rule(all_cores):
                               "label_onehot": y.astype(np.float64)}))
     finally:
         torch.set_num_threads(os.cpu_count())
-    got = pt.trained_variables
     for kind in ("params", "state"):
         for a, b, c in zip(_leaves(got[kind]),
                            _leaves(jt.trained_variables[kind]),
@@ -279,14 +342,12 @@ def test_adag_moves_batchnorm_state_through_the_rule(all_cores):
             _close(a, c, rtol=0.0, atol_of_max=0.0, atol=1e-5)
             _close(a, b, rtol=0.0, atol_of_max=0.0,
                    atol=JAX_F32_WITNESS_ATOL)
-    np.testing.assert_allclose(pt.get_history()[0], jt.get_history()[0],
-                               rtol=1e-4)
+    np.testing.assert_allclose(losses, jt.get_history()[0], rtol=1e-4)
     # the state moved, and every worker holds the center after the edge
     init_state = _leaves(to_numpy_variables(pm0)["state"])
     assert all(not np.allclose(a, b) for a, b in
                zip(_leaves(got["state"]), init_state))
-    for name, stack in pt.local["state"].items():
-        assert torch.equal(stack, pt.center["state"][name].expand_as(stack))
+    assert held
 
 
 # -- the rules ----------------------------------------------------------------
@@ -474,8 +535,12 @@ def test_stage_data_refuses_a_window_past_the_steps_and_warns_on_a_rest(
 
 def test_unported_options_raise_naming_their_roadmap_item(data):
     model = Model.from_config(_jax_mlp().config())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        dkt.ADAG(model, mode="async", ps_shards=2, device="cpu")
+    # the sharded PS is ported; the multi-host async runner is item 8's
+    dkt.ADAG(model, mode="async", ps_shards=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        run_cluster_async_training(
+            dkt.DOWNPOUR(model, mode="async", device="cpu"), data[1],
+            ps_address=("127.0.0.1", 0))
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         dkt.DOWNPOUR(model, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):

@@ -40,8 +40,10 @@ _MUST_WALK = ("bench", "chaos", "data.datasets", "data.streaming",
               "data.transformers", "evaluators", "models.layers",
               "models.generation", "models.zoo", "obs.drift",
               "obs.stragglers", "obs.timeseries", "parallel.sync",
-              "predictors", "ps", "ps.client", "ps.codecs",
-              "ps.networking", "ps.runner", "ps.servers", "ps.state",
+              "ops.moe", "predictors", "ps", "ps.client", "ps.cluster",
+              "ps.codecs", "ps.networking", "ps.runner", "ps.servers",
+              "ps.shard", "ps.shard.client", "ps.shard.plan",
+              "ps.shard.server", "ps.shard.shard_main", "ps.state",
               "ps.worker_main", "ps.workers", "serve.client",
               "serve.config", "serve.engine", "serve.kvfabric",
               "serve.prefix", "serve.router", "serve.server",

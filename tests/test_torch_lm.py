@@ -209,8 +209,15 @@ def test_load_rejects_mismatched_trees():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="MoE"):
-        zoo.gpt_lm(moe_experts=2)
+    # the switch-MoE FF block is ported; a mesh on it is item 8's
+    moe_lm = zoo.gpt_lm(vocab_size=VOCAB, dim=DIM, num_heads=4,
+                        num_blocks=1, seq_len=SEQ,
+                        moe_experts=2).init(0, device="cpu")
+    moe_layer = [lyr for lyr in moe_lm.iter_layers()
+                 if type(lyr).__name__ == "MoEDense"][0]
+    moe_layer.mesh = object()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        moe_lm(torch.zeros((1, SEQ), dtype=torch.long))
     model = zoo.gpt_lm(vocab_size=VOCAB, dim=DIM, num_heads=4, num_blocks=1,
                        seq_len=SEQ).init(0, device="cpu")
     mha = [lyr for lyr in model.iter_layers()
