@@ -174,9 +174,10 @@ Phases, one JSON line each:
    256-row shards for 4 epochs, ADAG at 8 workers from 128-row shards
    for 3), from shards written to a temporary directory: samples/s of
    the last epoch, stall seconds, the prefetch queue's mean depth over
-   the run, peak memory; the busy share of the last epoch of the same
-   configured run repeated under the profiler; the loss falls.  One epoch of the SingleTrainer config from RAM and from
-   disk: parameters within rtol 2e-5, atol 2e-6.
+   the run, peak memory and the busy share of its last epoch, each
+   config run once, under the profiler; the loss falls.  One epoch of the SingleTrainer
+   config from RAM and from disk: parameters within rtol 2e-5, atol
+   2e-6.
 15. ``async`` — the asynchronous parameter server (on the host, over
    loopback TCP) with ``mode="async"``: ``DOWNPOUR``, ``ADAG``,
    ``DynSGD``, ``AEASGD`` and ``EAMSGD`` on the probe LM (full width,
@@ -196,6 +197,18 @@ Phases, one JSON line each:
    exactly (workers x windows x steps x blocks; a worker process's
    launches folded into the parent's).  Each run is a path of the
    ``kernels`` line (``async_downpour``, ..., ``async_processes``).
+16. ``continual`` — ``ContinualTrainer`` over the bf16 probe with the JAX
+   bench's cadence and a drift at interval 10, a live f32 engine as its
+   deploy target (``phase_continual``): exact K1–K3 launches on
+   training and serving, deploys equal to their checkpoints and served
+   as ``generate_tokens`` of them, the drift rejected as dirty, a crash
+   restarted at its batch offset, an f32 twin against the CPU.
+17. ``scenario`` — ``smoke``, ``diurnal`` and ``chaos`` fired open-loop
+   at a router fleet of the f32 probe under ``OBS_BASELINE.json``'s
+   alert rules and the autoscaler (``phase_scenario``).
+18. ``obs`` — the bf16 probe trained with ``profile={"trace_dir",
+   "step_split"}``: the trace names K1–K3, the step split, the Chrome
+   export and the Prometheus text (``phase_obs``).
 
 ``k1`` and ``k2k3`` also hold head dims 16, 48 and 96 (which bf16 K1
 and K2/K3 run zero-padded to 32, 64 and 128, and the f32 K1 reads
@@ -1061,21 +1074,23 @@ def phase_slice(torch, model, prompts):
 
 
 def _answers_match(torch, model, prompts, answers, news=MAX_NEW):
-    """Each served answer against the port's ``generate_tokens`` on the
-    card (``news`` tokens a request, ``MAX_NEW`` by default): a mismatch
-    is allowed only where the reference's top-2 logit gap is < 1e-4.
-    Returns the mismatches."""
+    """Each served answer against the port's ``generate_tokens`` of
+    ``model`` on its device (``news`` tokens a request, ``MAX_NEW`` by
+    default): a mismatch is allowed only where the reference's top-2
+    logit gap is < 1e-4.  Returns the mismatches."""
     import numpy as np
     from distkeras_tpu_torch.models import generate_tokens
     mismatches = []
     for i, (p, m, got) in enumerate(zip(prompts, news, answers)):
-        ref = generate_tokens(model, p[None, :], m)[0, len(p):].cpu().numpy()
+        ref = generate_tokens(model, p[None, :], m, device=model.device)[
+            0, len(p):].cpu().numpy()
         check(got.shape == ref.shape, f"request {i}: {got.shape} tokens, "
               f"expected {ref.shape}")
         diff = np.nonzero(got != ref)[0]
         if diff.size:
             step = int(diff[0])
-            seq = torch.as_tensor(np.concatenate([p, ref]))[None].cuda()
+            seq = torch.as_tensor(np.concatenate([p, ref]))[None].to(
+                model.device)
             with torch.no_grad():
                 logits = model(seq)[0, len(p) - 1 + step]
             top2 = torch.topk(logits, 2).values
@@ -2947,12 +2962,11 @@ def _stream_run(torch, cfg, source, epochs=None):
 def phase_stream(torch):
     """configs/bench_all.yaml's two stream-from-disk configs as
     configured (``STREAM_CONFIGS``), each reading shards written to a
-    temporary directory from ``load_imagenet_subset``'s rows: samples/s
-    of the last epoch, the stream's stall seconds, the prefetch queue's
-    mean depth at a hand-over over the run, and peak memory; then the
-    same configured run again under the profiler, from the same shards,
-    for the busy share of its last epoch (and the time the trace takes
-    to read); the loss falls.  Then one epoch of the
+    temporary directory from ``load_imagenet_subset``'s rows, once, under
+    the profiler: samples/s of the last epoch, the stream's stall
+    seconds, the prefetch queue's mean depth at a hand-over over the run,
+    peak memory, and the busy share of its last epoch (and the time the
+    trace takes to read); the loss falls.  Then one epoch of the
     SingleTrainer config from RAM and from disk on the same data order
     (cuDNN deterministic): parameters within rtol 2e-5, atol 2e-6
     (tests/test_streaming_data.py:114-131), bit-identical expected."""
@@ -2970,7 +2984,10 @@ def phase_stream(torch):
             src = ShardedFileDataset.write(ds, os.path.join(tmp, "full"),
                                            rows_per_shard=cfg["streaming"])
             spill_s = time.perf_counter() - t0
-            t, wall, peak, counters = _stream_run(torch, cfg, src)
+            # the busy share: the configured run under the profiler
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t, wall, peak, counters = _stream_run(torch, cfg, src)
+                torch.cuda.synchronize()
             hist = t.get_averaged_history()
             check(all(bool(np.isfinite(h).all()) for h in t.get_history()),
                   f"{name}: a training loss is not finite")
@@ -2979,16 +2996,9 @@ def phase_stream(torch):
             check(counters["stream.producer_leaks"] == 0,
                   f"{name}: a prefetch thread outlived its join")
             rec = [r for r in t.metrics.records if r["event"] == "epoch"][-1]
-            # the busy share: the configured run again, under the profiler
-            pt = _dist_trainer(cfg["trainer"], cfg)
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                pt.train(src)
-                torch.cuda.synchronize()
             t0 = time.perf_counter()
             window_us, busy_us, _ = last_epoch_on_device(prof, len(hist))
             read_s = time.perf_counter() - t0
-            prec = [r for r in pt.metrics.records
-                    if r["event"] == "epoch"][-1]
             del prof
             row = {"phase": "stream", "config": name,
                    "trainer": cfg["trainer"],
@@ -3005,8 +3015,8 @@ def phase_stream(torch):
                    "producer_leaks": counters["stream.producer_leaks"],
                    "peak_memory_bytes": peak[0],
                    "live_before_bytes": peak[1],
-                   "profiled": {"last_epoch_s": prec["epoch_seconds"],
-                                "samples_per_s": prec["samples_per_sec"],
+                   "profiled": {"last_epoch_s": rec["epoch_seconds"],
+                                "samples_per_s": rec["samples_per_sec"],
                                 "window_s": window_us / 1e6,
                                 "device_busy_share": busy_us / window_us,
                                 "trace_read_s": read_s}}
@@ -3865,6 +3875,550 @@ def phase_moe(torch):
 #: (name, as the wrappers count it (``flash_attention.KERNELS``), source
 #: under distkeras_tpu_torch/ops/csrc, the line of
 #: distkeras_tpu/ops/pallas_attention.py it replaces)
+# ---------------------------------------------------------------------------
+# the continual loop, the scenario harness and the obs plane
+# ---------------------------------------------------------------------------
+
+#: the f32 card-vs-CPU twin of the continual loop: 2 intervals of 2
+#: windows of 2 batches of 2 (the CPU runs the probe too)
+CONTINUAL_TWIN = dict(intervals=2, batch=2, window=2, snapshot_every=2,
+                      history=2, min_history=1, drift_interval=None)
+CONTINUAL_TWIN_DEVICES = ("cuda", "cpu")
+#: prompts served by the deploy target after each deploy and after the run
+CONTINUAL_PROMPTS = (20, 40, 64, 100)
+CONTINUAL_NEW = 8
+SCENARIOS = ("smoke", "diurnal", "chaos")
+#: the obs phase: the bf16 probe, 2 epochs of 4 steps of batch 16
+OBS = dict(epochs=2, steps=4, batch=16)
+#: each kernel the obs phase's bf16 Dh-64 training runs, by the symbol
+#: of its CUDA function (what the trace names)
+OBS_KERNEL_SYMBOLS = {"flash_fwd": "flash_fwd_wgmma_kernel",
+                      "flash_bwd_dq": "flash_bwd_dq_wgmma_kernel",
+                      "flash_bwd_dkv": "flash_bwd_dkv_wgmma_kernel"}
+
+
+def _by_dtype(rows, dtype):
+    return [r for r in rows if r[1] == dtype]
+
+
+def _launch_total(rows, kernel_prefix=None):
+    return sum(n for k, _, _, n in rows
+               if kernel_prefix is None or k.startswith(kernel_prefix))
+
+
+def _check_train_launches(rows, steps, what):
+    """K1, K2 and K3 each launched exactly ``num_blocks`` x ``steps``."""
+    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        got = _launch_total(rows, k)
+        check(got == LM["num_blocks"] * steps,
+              f"{what}: {k}* launched {got} times for {steps} steps, "
+              f"expected {LM['num_blocks'] * steps}")
+
+
+def _variable_leaves(variables):
+    """A JAX-shaped ``variables`` tree's leaves in the checkpoints' order."""
+    from distkeras_tpu_torch.utils.tree import tree_leaves
+    return tree_leaves(variables["params"]) + tree_leaves(variables["state"])
+
+
+def _checkpoint_leaves(directory, step):
+    """The leaves of checkpoint ``step`` in ``directory``, as written."""
+    import numpy as np
+    from distkeras_tpu_torch.utils import serde
+    from distkeras_tpu_torch.utils.checkpoint import CheckpointManager
+    with open(CheckpointManager(directory).path(step), "rb") as f:
+        return [np.asarray(x) for x in
+                serde.tree_from_bytes(f.read())["leaves"]]
+
+
+def _served(engine, prompts):
+    reqs = [engine.submit(p, max_new_tokens=CONTINUAL_NEW) for p in prompts]
+    return [r.result(timeout=300) for r in reqs]
+
+
+def _continual_run(torch, ckdir, intervals, drift_interval, deploy=True,
+                   resume=False, offset=0):
+    """One bounded continual run of the bf16 probe on the card
+    (``bench.continual_parts``), its deploy target (with ``deploy``) a
+    live f32 engine serving greedy requests from a thread while training
+    runs; each deploy is held to its interval's checkpoint (bit for bit)
+    and the engine's answers right after it to ``generate_tokens`` of a
+    CPU model loaded with the deployed tree.  The run is traced
+    (``torch.profiler``, CUDA) for the device's busy share; the launch
+    counts are set to 0 just before it and read just after."""
+    import threading
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from distkeras_tpu_torch import bench
+    from distkeras_tpu_torch.models import zoo
+    from distkeras_tpu_torch.obs import Registry
+    from distkeras_tpu_torch.ops.flash_attention import reset_launches
+    from distkeras_tpu_torch.utils.weights import load_jax_variables
+
+    reg = Registry()
+    trainer, engine, feed, c = bench.continual_parts(
+        LM, checkpoint_dir=ckdir, registry=reg, deploy=deploy,
+        drift_interval=drift_interval, intervals=intervals)
+    rng = np.random.default_rng(16)
+    prompts = [rng.integers(0, LM["vocab_size"], size=n)
+               for n in CONTINUAL_PROMPTS]
+    ref = zoo.gpt_lm(**LM).init(0, device="cpu")
+    deploys = []
+    promote = trainer._promote
+
+    def checked_promote(host_vars):
+        promote(host_vars)
+        # the trainer records an exception here as a failed deploy and
+        # trains on: a failed check is kept and raised after the run
+        step = trainer.intervals_done - 1
+        entry = {"interval": step}
+        deploys.append(entry)
+        t0 = time.perf_counter()
+        try:
+            mine = _variable_leaves(host_vars)
+            entry["equals_checkpoint"] = _same_bits(
+                mine, _checkpoint_leaves(ckdir, step)[:len(mine)])
+            check(entry["equals_checkpoint"], f"interval {step}: the "
+                  f"deployed tree is not its checkpoint's")
+            load_jax_variables(ref, host_vars)
+            entry["answers_mismatch_near_ties"] = _answers_match(
+                torch, ref, prompts, _served(engine, prompts),
+                [CONTINUAL_NEW] * len(prompts))
+        except Exception as e:
+            entry["failed"] = repr(e)[:1000]
+        entry["check_s"] = time.perf_counter() - t0
+
+    trainer._promote = checked_promote
+    stop = threading.Event()
+    traffic = {"served": 0}
+
+    def serve_loop():
+        i = 0
+        while not stop.is_set():
+            engine.submit(prompts[i % len(prompts)],
+                          max_new_tokens=CONTINUAL_NEW).result(timeout=300)
+            traffic["served"] += 1
+            i += 1
+            stop.wait(0.05)  # a steady light load beside the training
+
+    thread = threading.Thread(target=serve_loop, daemon=True) \
+        if deploy else None
+    joins0 = reg.counter("serve.joins").value
+    torch.cuda.synchronize()
+    # the main path: counts set to 0 just before, read just after
+    reset_launches()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if thread is not None:
+                thread.start()
+            trainer.run(feed(offset), intervals=intervals, resume=resume)
+            stop.set()
+            if thread is not None:
+                thread.join(300)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        stop.set()
+    rows = kernel_launches()
+    failed = [d for d in deploys if "failed" in d]
+    check(not failed, f"continual deploy checks failed: {failed}")
+    t0 = time.perf_counter()
+    busy = _busy_us(prof) / (wall * 1e6)
+    return {"trainer": trainer, "engine": engine, "ref": ref, "feed": feed,
+            "prompts": prompts, "deploys": deploys, "wall_s": wall,
+            "busy": busy, "trace_read_s": time.perf_counter() - t0,
+            "served_in_background": traffic["served"],
+            "joins": int(reg.counter("serve.joins").value - joins0),
+            "launches": rows, "registry": reg}
+
+
+def _continual_crash(ckdir):
+    """A crash inside interval 1 of a 3-interval run started with
+    ``max_restarts=1``: the loop restarts from interval 0's checkpoint,
+    its feed rebuilt at the recorded batch offset, and ends at interval
+    3."""
+    from distkeras_tpu_torch import bench
+    trainer, _, feed, c = bench.continual_parts(
+        LM, checkpoint_dir=ckdir, deploy=False, drift_interval=None,
+        intervals=3)
+    calls = {"n": 0}
+    run_fn = trainer._run_fn
+
+    def flaky(*a):
+        calls["n"] += 1
+        if calls["n"] == c["snapshot_every"] + 2:
+            raise RuntimeError("injected continual crash")
+        return run_fn(*a)
+
+    trainer._run_fn = flaky
+    offsets = []
+
+    def factory(offset):
+        offsets.append(offset)
+        return feed(offset)
+
+    trainer.start(feed(), intervals=3, max_restarts=1, feed_factory=factory)
+    trainer._thread.join(600)
+    check(not trainer._thread.is_alive(), "the restarted loop never ended")
+    reg = trainer.registry
+    per = c["snapshot_every"] * c["window"]
+    row = {"restarts": reg.counter("continual.restarts").value,
+           "offsets": offsets, "intervals_done": trainer.intervals_done,
+           "intervals": reg.counter("continual.intervals").value}
+    check(row["restarts"] == 1 and offsets == [per]
+          and trainer.intervals_done == 3,
+          f"continual restart did not resume at batch {per} and end at "
+          f"interval 3: {row}")
+    return row
+
+
+def _continual_twin(torch):
+    """The loop in f32 on the card and on the CPU from the same weights
+    (``CONTINUAL_TWIN``): per-window losses within rtol 1e-4 (TF32 off)
+    and the same gate decisions."""
+    import numpy as np
+    from distkeras_tpu_torch import bench
+    out = {}
+    for device in CONTINUAL_TWIN_DEVICES:
+        trainer, _, feed, c = bench.continual_parts(
+            LM, device=device, compute_dtype=None, deploy=False,
+            **CONTINUAL_TWIN)
+        losses = []
+        run_fn = trainer._run_fn
+
+        def record(*a, run_fn=run_fn, losses=losses):
+            res = run_fn(*a)
+            losses.append(res[2].detach().cpu().numpy().copy())
+            return res
+
+        trainer._run_fn = record
+        trainer.run(feed(), intervals=c["intervals"])
+        out[device] = (np.concatenate(losses),
+                       [(e["kind"], e["deploy"])
+                        for e in trainer.gate.history_log()])
+    (lc, dc), (lh, dh) = (out[d] for d in CONTINUAL_TWIN_DEVICES)
+    rel = float(np.max(np.abs(lc - lh) / np.abs(lh)))
+    row = {"losses_card": lc.tolist(), "losses_cpu": lh.tolist(),
+           "max_rel": rel, "decisions_card": dc, "decisions_cpu": dh}
+    check(rel <= 1e-4, f"continual f32 twin: card and CPU losses differ "
+          f"by {rel} (rtol 1e-4)")
+    check(dc == dh, f"continual f32 twin: gate decisions differ {dc} "
+          f"vs {dh}")
+    return row
+
+
+def _continual_row(run):
+    """The bench row's numbers of one run, and its decisions."""
+    from distkeras_tpu_torch import bench
+    t = run["trainer"]
+    snap = run["registry"].snapshot()
+    s = bench.continual_summary(snap, run["wall_s"], t.intervals_done)
+    s.update(steps=int(snap["continual.steps"]["value"]),
+             wall_s=run["wall_s"], busy=run["busy"],
+             trace_read_s=run["trace_read_s"],
+             served_in_background=run["served_in_background"],
+             engine_joins=run["joins"], deploy_checks=run["deploys"],
+             verdict_log=[{k: e[k] for k in ("interval", "kind", "deploy",
+                                             "deployed", "reason")}
+                          for e in t.gate.history_log()])
+    return s
+
+
+def phase_continual(torch):
+    """``ContinualTrainer`` on the card: the probe (``LM``, full width),
+    bf16 compute, adam at lr 1e-2, over ``synthetic_lm_feed(4000, 512,
+    16)`` with the JAX bench's cadence (``bench.CONTINUAL``: window 4,
+    ``snapshot_every`` 4, history 3, ``min_history`` 2, 16 intervals, an
+    abrupt drift at interval 10), checkpointing every interval, its
+    deploy target a live f32 ``DecodeEngine`` of the probe on the same
+    registry, serving greedy requests from a thread while training runs.
+    If no interval before the drift deploys (the loss still trending), a
+    warm run of 16 intervals without target or drift checkpoints, and a
+    second run resumes from it (``resume=True``, the feed fast-forwarded
+    to ``batches_consumed``) for 16 more with the engine and the drift at
+    interval 26.  Checks: K1, K2 and K3 (bf16) each launched exactly 4 x
+    the steps, K1 (f32) 4 x the engine's joins; ``jit.retraces == 0``; at
+    least one deploy before the drift and a recorded dirty verdict from
+    it on; each deployed tree equal to its checkpoint bit for bit and the
+    engine's answers after each deploy equal to ``generate_tokens`` of a
+    CPU model loaded with it; after the run, one more interval trained
+    (resumed, no target) leaves the served weights the deployed ones; a
+    crash with ``max_restarts=1`` resuming at the recorded offset; the
+    f32 twin."""
+    import shutil
+    import tempfile
+    from distkeras_tpu_torch import bench
+    from distkeras_tpu_torch.utils import to_numpy_variables
+
+    c0 = bench.CONTINUAL
+    tmp = tempfile.mkdtemp(prefix="dkt_continual_")
+    row = {"phase": "continual", "model": LM, "cadence": c0,
+           "nvidia_smi": smi_line()}
+    t_phase = time.perf_counter()
+    try:
+        drift = c0["drift_interval"]
+        run = _continual_run(torch, os.path.join(tmp, "one"),
+                             c0["intervals"], drift)
+        log = run["trainer"].gate.history_log()
+        if any(e["deployed"] and e["interval"] < drift for e in log):
+            row["runs_needed"] = "one"
+        else:
+            # the probe still trends at the drift: warm it up first, then
+            # resume (the exact-resume path) with the target and the drift
+            run["engine"].stop()
+            row["runs_needed"] = "two (warm, then resume)"
+            row["first_attempt"] = _continual_row(run)
+            emit({"phase": "continual_first_attempt",
+                  **row["first_attempt"]})
+            ck = os.path.join(tmp, "two")
+            warm = _continual_run(torch, ck, c0["intervals"], None,
+                                  deploy=False)
+            row["warm"] = _continual_row(warm)
+            emit({"phase": "continual_warm", **row["warm"]})
+            drift += c0["intervals"]
+            run = _continual_run(torch, ck, c0["intervals"], drift,
+                                 resume=True,
+                                 offset=warm["trainer"].batches_consumed)
+            log = run["trainer"].gate.history_log()
+            check(log and log[0]["interval"] == c0["intervals"],
+                  f"the resumed run did not continue at interval "
+                  f"{c0['intervals']}: {log[:1]}")
+        t, engine = run["trainer"], run["engine"]
+        try:
+            s = _continual_row(run)
+            rows = run["launches"]
+            train_rows = _by_dtype(rows, "bfloat16")
+            serve_rows = _by_dtype(rows, "float32")
+            _check_train_launches(train_rows, s["steps"], "continual")
+            check(_launch_total(serve_rows) == LM["num_blocks"] * run["joins"]
+                  and _launch_total(serve_rows, "flash_bwd") == 0,
+                  f"continual serving: {serve_rows} for {run['joins']} "
+                  f"joins, expected K1 x {LM['num_blocks']} a join")
+            check(s["jit_retraces"] == 0,
+                  f"continual: jit.retraces = {s['jit_retraces']}")
+            before = [e for e in log if e["deployed"]
+                      and e["interval"] < drift]
+            dirty = [e for e in log if e["interval"] >= drift
+                     and e["reason"].startswith("drift-dirty")]
+            check(before, f"continual: no deploy before the drift at "
+                  f"interval {drift}: "
+                  f"{[(e['kind'], e['reason']) for e in log]}")
+            check(dirty, "continual: the drift produced no recorded "
+                  "dirty rejection")
+            check(all(e["kind"] == "stable" for e in log if e["deployed"]),
+                  "continual: a deploy from a non-stable window")
+            # one more trained interval, with no deploy target (and the
+            # trainer's own promote): the served weights are still the
+            # last deployed tree, and answer as it does
+            deployed = _variable_leaves(t.deployed)
+            t.deploy_to = None
+            del t._promote
+            t.run(run["feed"](t.batches_consumed), intervals=1,
+                  resume=True)
+            check(_same_bits(_variable_leaves(
+                to_numpy_variables(engine.model)), deployed),
+                "continual: the served weights moved after the deploy")
+            check(not _same_bits(_variable_leaves(t.variables), deployed),
+                  "continual: the interval after the run trained nothing")
+            s["served_after_run_mismatch_near_ties"] = _answers_match(
+                torch, run["ref"], run["prompts"],
+                _served(engine, run["prompts"]),
+                [CONTINUAL_NEW] * len(run["prompts"]))
+        finally:
+            engine.stop()
+        s["deploys_before_drift"] = len(before)
+        s["dirty_rejections_from_drift"] = len(dirty)
+        s["drift_interval"] = drift
+        row["run"] = s
+        row["kernel_launches"] = {"continual_train": train_rows,
+                                  "continual_serve": serve_rows}
+        row["crash_restart"] = _continual_crash(os.path.join(tmp, "crash"))
+        row["f32_twin"] = _continual_twin(torch)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(row)
+    return row
+
+
+def _fleet_misses(servers) -> int:
+    return int(sum(s.engine.registry.snapshot()["serve.prefix.misses"]
+                   ["value"] for s in servers))
+
+
+def phase_scenario(torch):
+    """The scenario harness on the card (``bench.scenario_run``): the
+    probe in f32 behind a ``ServeRouter`` fleet shaped by
+    ``SCENARIO_FLEET`` (in-process engines of 1 slot, queue 12, 24 new
+    tokens, prefix block 8 over a 16 MB cache, prefill buckets 16 and 48,
+    fabric off) with ``OBS_BASELINE.json``'s alert rules on the router,
+    under ``SCENARIO_TRACES``' ``smoke``, ``diurnal`` (autoscaled from 1
+    of 3 engines) and ``chaos`` (one engine stopped at 2.5 s), the traces
+    as configured.  After a trace has drained, the autoscaler keeps
+    ticking on the idle fleet for up to ``bench.SCENARIO_IDLE_TAIL_S``.
+    Checks, per scenario: dispatched == completed + rejected + timeouts
+    (the runner raises otherwise), ``jit.retraces == 0``, K1 launched
+    exactly 4 x the fleet's cold joins (``serve.prefix.misses``) and
+    nothing else, the alert engine evaluated; in ``diurnal`` a scale-up
+    and a scale-down (the events' times say whether it came in the trace
+    or in the idle tail); in ``chaos`` one recovery.  Attainment, shed
+    and scale events are recorded as they come, not gated."""
+    from distkeras_tpu_torch import bench
+    from distkeras_tpu_torch.models import zoo
+    from distkeras_tpu_torch.obs import snapshot_quantile
+    from distkeras_tpu_torch.ops.flash_attention import reset_launches
+    from distkeras_tpu_torch.scenario import SLOTarget
+
+    model = zoo.gpt_lm(**LM).init(seed=0)
+    target = SLOTarget(**bench.SCENARIO_SLO)
+    out = {"phase": "scenario", "model": LM,
+           "fleet": {k: list(v) if isinstance(v, tuple) else v
+                     for k, v in bench.SCENARIO_FLEET.items()},
+           "slo": bench.SCENARIO_SLO, "nvidia_smi": smi_line(),
+           "scenarios": {}}
+    paths = []
+    for name in SCENARIOS:
+        state = {}
+
+        def before_traffic(servers, state=state):
+            state["misses0"] = _fleet_misses(servers)
+            # the main path: counts set to 0 just before the traffic
+            reset_launches()
+
+        t0 = time.perf_counter()
+        row, part, servers = bench.scenario_run(
+            name, model, target, before_traffic=before_traffic)
+        launches = kernel_launches()
+        misses = _fleet_misses(servers) - state["misses0"]
+        retraces = sum(int(s.engine.registry.snapshot()["jit.retraces"]
+                           ["value"]) for s in servers)
+        check(_launch_total(launches) == LM["num_blocks"] * misses
+              and _launch_total(launches, "flash_bwd") == 0,
+              f"scenario {name}: {launches} for {misses} cold joins, "
+              f"expected K1 x {LM['num_blocks']} a cold join")
+        cnt = row["counts"]
+        check(cnt["dispatched"] == cnt["completed"] + cnt["rejected"]
+              + cnt["timeouts"], f"scenario {name}: accounting {cnt}")
+        check(retraces == 0 and row["jit_retraces"] == 0,
+              f"scenario {name}: jit.retraces = {retraces}")
+        check(row["alert_rules_evaluated"],
+              f"scenario {name}: the router's alert engine never ran")
+        skew = part.get("scenario.dispatch_skew_seconds", {})
+        srow = {
+            "arrivals": row["arrivals"], "wall_s": row["wall_s"],
+            "phase_s": time.perf_counter() - t0, "counts": cnt,
+            "phases": [{k: p[k] for k in ("phase", "offered", "completed",
+                                          "rejected", "attainment",
+                                          "shed_rate", "goodput_tps",
+                                          "ttft_p50", "e2e_p50",
+                                          "e2e_p99")}
+                       for p in row["phases"]],
+            "goodput_tokens": cnt["goodput_tokens"],
+            "dispatch_skew_p99_s": snapshot_quantile(skew, 0.99)
+            if skew.get("count") else None,
+            "scale_up": row["scale_up"], "scale_down": row["scale_down"],
+            "scale_events": row["scale_events"],
+            "idle_tail_s": row["idle_tail_s"], "shed": row["shed"],
+            "recoveries": row["recoveries"],
+            "recovery_s_p50": row["recovery_s_p50"],
+            "alerts": row["alerts"], "cold_joins": misses,
+            "kernel_launches": launches}
+        out["scenarios"][name] = srow
+        paths.append((f"scenario_{name}", launches))
+        if name == "diurnal":
+            check(row["scale_up"] >= 1 and row["scale_down"] >= 1,
+                  f"scenario diurnal: scale_up {row['scale_up']}, "
+                  f"scale_down {row['scale_down']}: {srow}")
+        if name == "chaos":
+            n_rec = part.get("scenario.recovery_seconds", {}).get("count")
+            check(n_rec == 1, f"scenario chaos: {n_rec} recoveries")
+    emit(out)
+    return out, paths
+
+
+def phase_obs(torch):
+    """The obs plane on the card: ``SingleTrainer`` trains the bf16 probe
+    (``OBS``: 2 epochs of 4 steps of batch 16, sgd) with ``profile={
+    "trace_dir": <tmp>, "step_split": True}``.  Checks: epoch 0's
+    ``torch.profiler`` trace names K1's, K2's and K3's CUDA functions;
+    ``step.host_seconds`` / ``step.device_seconds`` hold one observation
+    per warm window call (epochs - 1: the cold call runs under its
+    ``jit_compile`` span, as in the JAX trainers) and their sums stay
+    within the training's wall time; ``write_chrome_trace`` of the run's
+    records loads as JSON; ``to_prometheus_text`` of the registry parses
+    line by line; K1-K3 launched exactly 4 x the steps."""
+    import re
+    import shutil
+    import tempfile
+    from distkeras_tpu_torch import SingleTrainer
+    from distkeras_tpu_torch.models import zoo
+    from distkeras_tpu_torch.obs import (Registry, to_prometheus_text,
+                                         write_chrome_trace)
+    from distkeras_tpu_torch.obs.profile import TRACE_FILE
+    from distkeras_tpu_torch.ops.flash_attention import reset_launches
+
+    tmp = tempfile.mkdtemp(prefix="dkt_obs_")
+    try:
+        t = SingleTrainer(zoo.gpt_lm(**LM), "sgd", SCE,
+                          num_epoch=OBS["epochs"], batch_size=OBS["batch"],
+                          learning_rate=0.1, compute_dtype="bfloat16",
+                          profile={"trace_dir": os.path.join(tmp, "trace"),
+                                   "step_split": True})
+        reg = Registry()
+        t.tracer.registry = reg
+        ds = _lm_rows(OBS["steps"] * OBS["batch"])
+        # the main path: counts set to 0 just before, read just after
+        reset_launches()
+        t.train(ds)
+        launches = kernel_launches()
+        steps = OBS["epochs"] * OBS["steps"]
+        _check_train_launches(launches, steps, "obs")
+        path = os.path.join(tmp, "trace", "epoch0", TRACE_FILE)
+        with open(path) as f:
+            text = f.read()
+        json.loads(text)
+        named = {k: sym in text for k, sym in OBS_KERNEL_SYMBOLS.items()}
+        check(all(named.values()), f"obs: the epoch-0 trace names "
+              f"{named}")
+        snap = reg.snapshot()
+        host, dev = snap["step.host_seconds"], snap["step.device_seconds"]
+        warm = OBS["epochs"] - 1
+        check(host["count"] == dev["count"] == warm,
+              f"obs: step split holds {host['count']}/{dev['count']} "
+              f"observations, expected {warm}")
+        wall = t.get_training_time()
+        check(host["sum"] + dev["sum"] <= wall,
+              f"obs: host {host['sum']} + device {dev['sum']} s exceed "
+              f"the training's {wall} s")
+        doc = write_chrome_trace(t.metrics.records,
+                                 os.path.join(tmp, "records.json"))
+        with open(os.path.join(tmp, "records.json")) as f:
+            check(json.load(f) == json.loads(json.dumps(doc)),
+                  "obs: the exported trace does not load back")
+        prom = to_prometheus_text(reg)
+        line_re = re.compile(r"^(# TYPE [A-Za-z_:][A-Za-z0-9_:]* "
+                             r"(counter|gauge|histogram)|[A-Za-z_:]"
+                             r"[A-Za-z0-9_:]*(\{le=\"[^\"]+\"\})? "
+                             r"[-+0-9.eE]+|[A-Za-z_:][A-Za-z0-9_:]*"
+                             r"\{le=\"\+Inf\"\} [0-9]+)$")
+        bad = [ln for ln in prom.splitlines() if not line_re.match(ln)]
+        check(prom and not bad, f"obs: unparsable exposition lines {bad[:3]}")
+        row = {"phase": "obs", "model": LM, **OBS,
+               "trace_bytes": len(text), "trace_names": named,
+               "step_host_s": host["sum"], "step_device_s": dev["sum"],
+               "train_wall_s": wall,
+               "epoch_seconds": [r["epoch_seconds"] for r in
+                                 t.metrics.records if r["event"] == "epoch"],
+               "chrome_events": len(doc["traceEvents"]),
+               "prometheus_lines": len(prom.splitlines()),
+               "kernel_launches": launches, "nvidia_smi": smi_line()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(row)
+    return row
+
+
 CUDA_KERNELS = (
     ("flash_fwd", "flash_fwd_sm90.cu", 83),
     ("flash_fwd_wgmma_wide", "flash_fwd_sm90.cu", 83),
@@ -3976,37 +4530,50 @@ def main() -> int:
               file=sys.stderr)
         return 1
     import distkeras_tpu_torch  # noqa: F401  (fails here when run alone)
+    seconds = {}
+    t_start = time.perf_counter()
+
+    def timed(name, phase, *args):
+        t0 = time.perf_counter()
+        try:
+            return phase(*args)
+        finally:
+            seconds[name] = time.perf_counter() - t0
+
     try:
-        env = phase_env(torch)
-        phase_build()
-        k1 = phase_k1(torch)
-        past256 = phase_past256(torch)
+        env = timed("env", phase_env, torch)
+        timed("build", phase_build)
+        k1 = timed("k1", phase_k1, torch)
+        past256 = timed("past256", phase_past256, torch)
         import numpy as np
         from distkeras_tpu_torch.models import zoo
         model = zoo.gpt_lm(**LM).init(seed=0)
         rng = np.random.default_rng(0)
         prompts = [rng.integers(0, LM["vocab_size"], size=n)
                    for n in PROMPT_LENS]
-        sl = phase_slice(torch, model, prompts)
-        phase_profile(torch, model, prompts)
-        fleet = phase_fleet(torch, model)
-        spec, spec_launches, spec_k1 = phase_spec(torch, model)
-        beam, beam_k1 = phase_beam(torch, model)
+        sl = timed("slice", phase_slice, torch, model, prompts)
+        timed("profile", phase_profile, torch, model, prompts)
+        fleet = timed("fleet", phase_fleet, torch, model)
+        spec, spec_launches, spec_k1 = timed("spec", phase_spec, torch, model)
+        beam, beam_k1 = timed("beam", phase_beam, torch, model)
         k1 = k1 + spec_k1 + beam_k1
         del model
-        bwd_rows, bwd_timed = phase_k2k3(torch)
-        tr = phase_train(torch)
-        lm128 = phase_lm128(torch)
-        lm256 = phase_lm256(torch)
-        phase_conv(torch)
-        phase_models(torch)
-        dist_rows, _, dist_kernels = phase_dist(torch)
-        yl = phase_yaml_lm(torch)
-        ck = phase_ckpt(torch)
-        phase_stream(torch)
-        asy = phase_async(torch, dist_rows)
-        shard = phase_shard(torch, asy)
-        _, moe_paths = phase_moe(torch)
+        bwd_rows, bwd_timed = timed("k2k3", phase_k2k3, torch)
+        tr = timed("train", phase_train, torch)
+        lm128 = timed("lm128", phase_lm128, torch)
+        lm256 = timed("lm256", phase_lm256, torch)
+        timed("conv", phase_conv, torch)
+        timed("models", phase_models, torch)
+        dist_rows, _, dist_kernels = timed("dist", phase_dist, torch)
+        yl = timed("yaml_lm", phase_yaml_lm, torch)
+        ck = timed("ckpt", phase_ckpt, torch)
+        timed("stream", phase_stream, torch)
+        asy = timed("async", phase_async, torch, dist_rows)
+        shard = timed("shard", phase_shard, torch, asy)
+        _, moe_paths = timed("moe", phase_moe, torch)
+        cont = timed("continual", phase_continual, torch)
+        _, scenario_paths = timed("scenario", phase_scenario, torch)
+        obs = timed("obs", phase_obs, torch)
         later = [(f"yaml_lm_{r['variant']}", r["kernel_launches"])
                  for r in yl]
         later += [("ckpt_straight", ck["kernel_launches"]),
@@ -4018,11 +4585,17 @@ def main() -> int:
                   ("beam", beam["kernel_launches"])]
         later += [(r["path"], r["kernel_launches"]) for r in shard]
         later += moe_paths
+        later += list(cont["kernel_launches"].items())
+        later += scenario_paths
+        later += [("obs_train", obs["kernel_launches"])]
         kernels = kernels_line(k1, sl, tr, lm128, lm256, dist_kernels,
                                past256, bwd_rows, bwd_timed, later)
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
+        print(json.dumps({"phase_seconds": seconds}), file=sys.stderr)
         return 1
+    emit({"phase": "timing", "seconds": seconds,
+          "total_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(env["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

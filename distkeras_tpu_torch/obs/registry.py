@@ -141,7 +141,8 @@ class Gauge:
 class Histogram:
     """Fixed-bucket histogram: ``buckets`` are ascending upper bounds
     (cumulative ``le`` semantics à la Prometheus; an implicit +Inf bucket
-    catches the tail)."""
+    catches the tail).  Mergeable: two histograms with identical bounds
+    add elementwise (``merge``)."""
 
     __slots__ = ("name", "base_name", "labels", "bounds", "counts",
                  "_sum", "_count", "_lock")
@@ -182,6 +183,20 @@ class Histogram:
         holding the q-th observation (the standard fixed-bucket estimate;
         exact enough for run summaries)."""
         return _snapshot_quantile(self.snapshot(), q)
+
+    def merge(self, other: Union["Histogram", dict]) -> None:
+        """Add ``other`` (a Histogram or a histogram snapshot) into this
+        one; bucket bounds must match."""
+        snap = other.snapshot() if isinstance(other, Histogram) else other
+        if tuple(snap["bounds"]) != self.bounds:
+            raise ValueError(
+                f"histogram {self.name}: cannot merge bounds "
+                f"{tuple(snap['bounds'])} into {self.bounds}")
+        with self._lock:
+            for i, c in enumerate(snap["counts"]):
+                self.counts[i] += c
+            self._sum += snap["sum"]
+            self._count += snap["count"]
 
     def snapshot(self) -> dict:
         with self._lock:

@@ -329,3 +329,25 @@ class StragglerDetector:
                     if len(ewma) > 1 else 0.0
                     for w in sorted(ewma)},
                 "stragglers": flagged}
+
+
+def detect_from_heartbeats(records, k: float = 3.0, alpha: float = 0.25,
+                           min_workers: int = 2,
+                           min_gap_s: float = 1e-3) -> dict:
+    """Replay a recorded heartbeat stream through the detector — the
+    offline half (``obsview`` run files).  ``records`` are JSONL dicts;
+    only ``event == "heartbeat"`` entries carrying ``gap_s`` count (old
+    streams without ``gap_s`` yield an empty fleet, never a crash)."""
+    det = StragglerDetector(k=k, alpha=alpha, min_workers=min_workers,
+                            min_gap_s=min_gap_s)
+    for r in records:
+        if r.get("event") != "heartbeat" or r.get("gap_s") is None:
+            continue
+        w = r.get("worker_id", r.get("worker"))
+        if w is not None:
+            det.record(w, r["gap_s"])
+            if r.get("link_rtt_s") is not None:
+                # the heartbeat-borne link half replays too
+                det.record_link(w, r["link_rtt_s"],
+                                r.get("link_downshifts"))
+    return det.snapshot()

@@ -905,9 +905,11 @@ class FrameServer:
         self._conn_lock = threading.Lock()
         self._running = threading.Event()
         #: the push-telemetry aggregator (``telemetry`` frames and the
-        #: serve router's health poll feed it); lazy, so a server nobody
-        #: ships to carries no store at all
+        #: serve router's health poll feed it) and the live alert engine
+        #: over it (``enable_alerts``); lazy, so a server nobody ships to
+        #: carries no store at all
         self.telemetry = None
+        self.alerts = None
         self._plane_lock = threading.Lock()
         self._g_conns = registry.gauge(f"{self.metric_prefix}.connections")
         self._g_inflight = registry.gauge(f"{self.metric_prefix}.inflight")
@@ -939,9 +941,6 @@ class FrameServer:
         where in-flight work drains so replies still flush."""
 
     # -- telemetry plane --------------------------------------------------
-    #: where the alert engine (the ``alerts`` action) is ported
-    ALERTS_ITEM = "ROADMAP Queue 1 item 7 (obs alerts)"
-
     def enable_telemetry(self, store=None):
         """Attach (or lazily create) the push-telemetry aggregator.
         Idempotent; also called implicitly by the first ``telemetry``
@@ -954,22 +953,50 @@ class FrameServer:
                 self.telemetry = store
             return self.telemetry
 
+    def enable_alerts(self, rules, *, events=None, self_ingest=True,
+                      eval_interval_s=0.25):
+        """Attach a live :class:`~distkeras_tpu_torch.obs.alerts.
+        AlertEngine` over this server's aggregator.  ``self_ingest``
+        folds the server's OWN registry into the store each evaluation,
+        so a standalone server (no pushing workers yet) is still
+        alertable on its local metrics.  ``rules`` takes parsed
+        :class:`~distkeras_tpu_torch.obs.alerts.AlertRule` objects or the
+        raw ``OBS_BASELINE.json`` ``alerts`` form (a list of dicts, or a
+        dict with an ``alerts`` key)."""
+        from ..obs.alerts import AlertEngine, AlertRule, parse_rules
+        if not (isinstance(rules, (list, tuple))
+                and all(isinstance(r, AlertRule) for r in rules)):
+            rules = parse_rules(rules)
+        store = self.enable_telemetry()
+        with self._plane_lock:
+            if self.alerts is None:
+                self.alerts = AlertEngine(
+                    store, rules, registry=self.registry, events=events,
+                    source_registry=self.registry if self_ingest else None,
+                    eval_interval_s=eval_interval_s)
+            return self.alerts
+
     def _handle_plane(self, action, msg: dict):
-        """The ``telemetry``/``alerts`` actions every front-end answers —
-        tried before the subclass's unknown-action fallback.  A
-        ``telemetry`` frame folds into the aggregator; the alert engine
-        is not ported yet, so ``alerts`` answers an error that names
-        where it is, on the same connection.  ``None`` for other
-        actions."""
+        """The ``telemetry``/``alerts`` actions every front-end answers
+        (PS, shard, engine, router) — tried before the subclass's
+        unknown-action fallback.  Returns ``None`` for other actions."""
         if action == "telemetry":
             store = self.telemetry or self.enable_telemetry()
             n = store.ingest_delta(str(msg.get("source") or "unknown"),
                                    msg.get("delta"))
+            if self.alerts is not None:
+                # evaluation rides the ingest path, rate-limited inside
+                # the engine — no dedicated alert thread anywhere
+                self.alerts.evaluate()
             return {"ok": True, "accepted": n}
         if action == "alerts":
-            return {"ok": False,
-                    "error": f"the 'alerts' action needs the alert "
-                             f"engine, not ported yet: {self.ALERTS_ITEM}"}
+            alerts_doc = None
+            if self.alerts is not None:
+                self.alerts.evaluate()
+                alerts_doc = self.alerts.state_doc()
+            return {"ok": True, "alerts": alerts_doc,
+                    "telemetry": self.telemetry.summary()
+                    if self.telemetry is not None else None}
         return None
 
     # -- lifecycle ----------------------------------------------------------

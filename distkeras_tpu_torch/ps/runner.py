@@ -190,6 +190,7 @@ class FleetSupervisor:
         self.metrics = metrics
         self._lock = threading.Lock()
         self.live: dict = {}        # worker_id -> current incarnation
+        self.spawning: set = set()  # worker ids whose spawn is under way
         self.attempts: dict = {}    # worker_id -> incarnations used
         self.finished: dict = {}    # worker_id -> [retired handles]
         self.zombies: list = []     # evicted-but-alive old incarnations
@@ -207,8 +208,19 @@ class FleetSupervisor:
     # -- spawning -----------------------------------------------------------
     def _spawn_into_live(self, k: int, start_window: int, generation: int,
                          attempt: int):
-        h = self.spawn(k, start_window, generation, attempt)
+        """Spawn incarnation ``attempt`` of worker ``k``.  The id stays
+        reserved in ``spawning`` until its handle is live, so a concurrent
+        ``add_worker`` never picks an id a slow spawn is about to take."""
         with self._lock:
+            self.spawning.add(k)
+        try:
+            h = self.spawn(k, start_window, generation, attempt)
+        except BaseException:
+            with self._lock:
+                self.spawning.discard(k)
+            raise
+        with self._lock:
+            self.spawning.discard(k)
             self.live[k] = h
             self.attempts[k] = self.attempts.get(k, 0) + 1
             self._handles.append(h)
@@ -225,14 +237,21 @@ class FleetSupervisor:
         """Elastic join: add a worker to the LIVE run.  With no id, picks
         the next unused one.  Returns the worker id."""
         with self._lock:
-            known = set(self.live) | set(self.finished) | set(self.attempts)
+            known = set(self.live) | set(self.finished) | \
+                set(self.attempts) | self.spawning
             if worker_id is None:
                 worker_id = max(known) + 1 if known else 0
             k = int(worker_id)
-            if k in self.live:
+            if k in self.live or k in self.spawning:
                 raise ValueError(f"worker {k} is already live")
             attempt = self.attempts.get(k, 0)
-        window, gen = self.ps.register_join(k)
+            self.spawning.add(k)
+        try:
+            window, gen = self.ps.register_join(k)
+        except BaseException:
+            with self._lock:
+                self.spawning.discard(k)
+            raise
         self._log.info("elastic join: worker %d enters at window %d "
                        "(generation %d)", k, window, gen)
         self._event("join", k, window=window)
@@ -580,10 +599,12 @@ def _supervise(trainer, sup: FleetSupervisor, start_windows) -> list:
     """Start the configured fleet, watch it to completion, return the
     per-worker merged epoch losses (sorted by worker id — elastic joins
     append after the configured ids)."""
-    trainer._supervisor = sup
     try:
         for k in range(trainer.num_workers):
             sup.add_initial(k, start_windows[k])
+        # published once the configured fleet holds its ids: an elastic
+        # join before that could pick a configured worker's id
+        trainer._supervisor = sup
         merged = sup.run()
     finally:
         trainer._supervisor = None

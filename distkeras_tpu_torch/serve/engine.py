@@ -554,7 +554,12 @@ class DecodeEngine:
 
     def drain(self, timeout: Optional[float] = None) -> bool:
         """Stop admitting, wait for queue + slots to empty.  Returns True
-        when fully drained within the timeout."""
+        when fully drained within the timeout.  A stopped engine has
+        nothing left to drain (its stop aborted what was outstanding):
+        it returns at once, so a server stopped twice does not wait out
+        ``drain_timeout_s``."""
+        if self._stop_evt.is_set():
+            return True
         with self._lock:
             self._draining = True
             self._work.notify_all()

@@ -83,7 +83,9 @@ histograms ``serve.router.e2e_seconds`` / ``route_seconds`` /
 ``serve.router.engines_alive`` / ``affinity_entries`` /
 ``affinity_hit_rate`` (the fleet-wide engine-measured prefix hit rate).
 Every health-poll reply also folds into the router's telemetry store
-(``FrameServer.enable_telemetry``) as source ``engine:<host:port>``.
+(``FrameServer.enable_telemetry``) as source ``engine:<host:port>``;
+with ``enable_alerts(rules)`` the router's alert engine (``alerts``)
+evaluates after each poll.
 """
 
 from __future__ import annotations
@@ -669,6 +671,8 @@ class ServeRouter(FrameServer):
                 store = self.telemetry or self.enable_telemetry()
                 store.ingest_total(f"engine:{be.addr}", stats)
             self._rollforward(be)
+        if self.alerts is not None:
+            self.alerts.evaluate()
 
     def _poll_loop(self) -> None:
         while not self._poll_stop.wait(float(self.config.stats_interval_s)):

@@ -40,6 +40,7 @@ caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
+import os
 import time
 import warnings
 from typing import Optional
@@ -53,6 +54,7 @@ from .data.streaming import (ShardedFileDataset, worker_window_factory,
 from .models.layers import Activation, Dense, Sequential
 from .models.model import Model
 from .obs import ProfileConfig, RetraceSentinel, SpanTracer, observe_memory
+from .obs import profile as obs_profile
 from .obs.logging import get_logger
 from .obs.registry import default_registry
 from .ops.losses import get_loss, probs_loss_variant
@@ -274,17 +276,37 @@ class Trainer:
             sentinel = self._sentinels[key] = RetraceSentinel(
                 f"{type(self).__name__}.{kind}",
                 registry=self._obs_registry, sink=self.metrics)
+        step = obs_profile.step_split(run, registry=self._obs_registry,
+                                      device=self.device) \
+            if self.profile.step_split else run
 
         def wrapped(*args):
             state = sentinel.observe(args)
             if state == "warm":
-                return run(*args)
+                return step(*args)
+            # first calls bypass the step split, as the JAX trainers'
+            # compile calls do: the kernels build at first use inside them
             with self.tracer.span("jit_compile", kind=kind,
                                   trainer=type(self).__name__,
                                   **({"retrace": True}
                                      if state == "retrace" else {})):
                 return run(*args)
         return wrapped
+
+    def _profiled_run(self, run, epoch: int, *args):
+        """One epoch-program call, under a per-epoch ``device_trace``
+        capture when ``profile.trace_dir`` / ``trace_epochs`` ask for this
+        epoch.  The capture waits for the card before stopping, so the
+        trace holds THIS epoch's device work; the other epochs keep their
+        no-sync dispatch."""
+        if not self.profile.trace_epoch(epoch):
+            return run(*args)
+        with obs_profile.device_trace(
+                os.path.join(self.profile.trace_dir, f"epoch{epoch}")):
+            out = run(*args)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        return out
 
     def _window_run(self):
         """The cached window program and its optimizer — rebuilt when a
@@ -455,7 +477,8 @@ class SingleTrainer(Trainer):
         samples = int(xs.shape[0]) * self.batch_size
         pipe = _EpochPipeline(self, samples, self.device)
         for epoch in range(start, self.num_epoch):
-            params, opt_state, losses = run(params, opt_state, xs, ys)
+            params, opt_state, losses = self._profiled_run(
+                run, epoch, params, opt_state, xs, ys)
             pipe.push(epoch, losses)
             if ckpt is not None:
                 self._save(ckpt, epoch, opt_state)
@@ -730,8 +753,8 @@ class DistributedTrainer(Trainer):
         samples = int(xs.shape[1]) * int(xs.shape[2]) * self.batch_size * P
         pipe = _EpochPipeline(self, samples, self.device)
         for epoch in range(start, self.num_epoch):
-            center, local, opt_state, losses = run(center, local, opt_state,
-                                                   xs, ys)
+            center, local, opt_state, losses = self._profiled_run(
+                run, epoch, center, local, opt_state, xs, ys)
             pipe.push(epoch, losses.reshape(P, -1))  # rows: (workers, steps)
             if ckpt is not None:
                 self._save(ckpt, epoch, opt_state)

@@ -86,44 +86,80 @@ def _header(n: int, fix: Optional[int], fix_max: int, codes: bytes,
     raise ValueError(f"{what} of {n} entries is too large for msgpack")
 
 
+#: the one-byte encodings of the ints -32..127 (fixints)
+_FIXINT = {n: _b.pack(n) if n < 0 else _B.pack(n) for n in range(-32, 128)}
+_D_TAG = b"\xcb"
+_TAGGED_D = struct.Struct(">Bd")
+
+
 def packb(obj: Any, default: Optional[Callable] = None) -> bytes:
-    """``obj`` in msgpack's byte format (see the module docstring)."""
+    """``obj`` in msgpack's byte format (see the module docstring).
+
+    Written for speed in pure Python (every wire message of the port
+    goes through it): the exact types of the common leaves (``float``,
+    small ``int``, ``str``, ``dict``, ``list``) take a direct path, and
+    everything else the general one."""
     out: List[bytes] = []
+    append = out.append
+    pack_d = _d.pack
+    fixint = _FIXINT
 
     def pack(o, default_used=False):
-        if o is None:
-            out.append(b"\xc0")
+        t = type(o)
+        if t is float:
+            append(_D_TAG + pack_d(o))
+        elif t is int and -32 <= o < 128:
+            append(fixint[o])
+        elif t is str:
+            data = o.encode("utf-8")
+            n = len(data)
+            append(_B.pack(0xA0 | n) if n < 32 else
+                   _header(n, 0xA0, 32, b"\xd9\xda\xdb", "str"))
+            append(data)
+        elif t is dict:
+            n = len(o)
+            append(_B.pack(0x80 | n) if n < 16 else
+                   _header(n, 0x80, 16, b"\x00\xde\xdf", "map"))
+            for k, v in o.items():
+                pack(k)
+                pack(v)
+        elif t is list or t is tuple:
+            n = len(o)
+            append(_B.pack(0x90 | n) if n < 16 else
+                   _header(n, 0x90, 16, b"\x00\xdc\xdd", "array"))
+            # a run of floats (histogram bounds) in one C-level pass
+            if n > 2 and type(o[0]) is float and \
+                    all(type(v) is float for v in o):
+                append(b"".join([_TAGGED_D.pack(0xCB, v) for v in o]))
+            else:
+                for v in o:
+                    pack(v)
+        elif o is None:
+            append(b"\xc0")
         elif o is True:
-            out.append(b"\xc3")
+            append(b"\xc3")
         elif o is False:
-            out.append(b"\xc2")
-        elif isinstance(o, int) and not isinstance(o, bool):
+            append(b"\xc2")
+        elif isinstance(o, int):
             if not _pack_int(int(o), out):
                 if default is None or default_used:
                     raise OverflowError("Integer value out of range")
                 pack(default(o), True)
         elif isinstance(o, float):
-            out.append(b"\xcb" + _d.pack(o))
+            append(_D_TAG + pack_d(o))
         elif isinstance(o, (bytes, bytearray)):
-            out.append(_header(len(o), None, 0, b"\xc4\xc5\xc6", "bin"))
-            out.append(bytes(o))
+            append(_header(len(o), None, 0, b"\xc4\xc5\xc6", "bin"))
+            append(bytes(o))
         elif isinstance(o, str):
-            data = o.encode("utf-8")
-            out.append(_header(len(data), 0xA0, 32, b"\xd9\xda\xdb", "str"))
-            out.append(data)
+            pack(str(o))
         elif isinstance(o, dict):
-            out.append(_header(len(o), 0x80, 16, b"\x00\xde\xdf", "map"))
-            for k, v in o.items():
-                pack(k)
-                pack(v)
+            pack(dict(o))
         elif isinstance(o, (list, tuple)):
-            out.append(_header(len(o), 0x90, 16, b"\x00\xdc\xdd", "array"))
-            for v in o:
-                pack(v)
+            pack(list(o))
         elif isinstance(o, memoryview):
             data = o.tobytes()
-            out.append(_header(len(data), None, 0, b"\xc4\xc5\xc6", "bin"))
-            out.append(data)
+            append(_header(len(data), None, 0, b"\xc4\xc5\xc6", "bin"))
+            append(data)
         elif default is not None and not default_used:
             pack(default(o), True)
         else:
@@ -134,87 +170,113 @@ def packb(obj: Any, default: Optional[Callable] = None) -> bytes:
     return b"".join(out)
 
 
-class _Reader:
-    """A cursor over the input; every read checks the bytes are there."""
-
-    __slots__ = ("data", "pos", "hook")
-
-    def __init__(self, data, hook):
-        self.data = memoryview(data).cast("B")
-        self.pos = 0
-        self.hook = hook
-
-    def take(self, n: int) -> memoryview:
-        end = self.pos + n
-        if end > len(self.data):
-            raise ValueError("msgpack data is truncated")
-        chunk = self.data[self.pos:end]
-        self.pos = end
-        return chunk
-
-    def num(self, st: struct.Struct):
-        return st.unpack(self.take(st.size))[0]
-
-    def read(self):
-        code = self.num(_B)
-        if code <= 0x7F:
-            return code
-        if code >= 0xE0:
-            return code - 0x100
-        if 0xA0 <= code <= 0xBF:
-            return self._str(code & 0x1F)
-        if 0x90 <= code <= 0x9F:
-            return self._array(code & 0x0F)
-        if 0x80 <= code <= 0x8F:
-            return self._map(code & 0x0F)
-        if code == 0xC0:
-            return None
-        if code == 0xC2:
-            return False
-        if code == 0xC3:
-            return True
-        if code in _BIN:
-            return bytes(self.take(self.num(_BIN[code])))
-        if code in _STR:
-            return self._str(self.num(_STR[code]))
-        if code in _ARRAY:
-            return self._array(self.num(_ARRAY[code]))
-        if code in _MAP:
-            return self._map(self.num(_MAP[code]))
-        if code in _NUM:
-            return self.num(_NUM[code])
-        if 0xC7 <= code <= 0xC9 or 0xD4 <= code <= 0xD8:
-            raise ValueError(f"msgpack ext type (0x{code:02x}) is not "
-                             f"supported")
-        raise ValueError(f"invalid msgpack byte 0x{code:02x}")
-
-    def _str(self, n: int) -> str:
-        return str(self.take(n), "utf-8")
-
-    def _array(self, n: int) -> list:
-        return [self.read() for _ in range(n)]
-
-    def _map(self, n: int):
-        d = {}
-        for _ in range(n):
-            k = self.read()
-            d[k] = self.read()
-        return d if self.hook is None else self.hook(d)
-
-
 _BIN = {0xC4: _B, 0xC5: _H, 0xC6: _I}
 _STR = {0xD9: _B, 0xDA: _H, 0xDB: _I}
 _ARRAY = {0xDC: _H, 0xDD: _I}
 _MAP = {0xDE: _H, 0xDF: _I}
 _NUM = {0xCA: _f, 0xCB: _d, 0xCC: _B, 0xCD: _H, 0xCE: _I, 0xCF: _Q,
         0xD0: _b, 0xD1: _h, 0xD2: _i, 0xD3: _q}
+_TRUNCATED = "msgpack data is truncated"
+
+
+def _reader(data, hook):
+    """``read(pos) -> (object, next pos)`` over ``data``; every read
+    checks the bytes are there."""
+    mv = memoryview(data).cast("B")
+    size = len(mv)
+    d_unpack = _d.unpack_from
+
+    def length(st, pos):
+        end = pos + st.size
+        if end > size:
+            raise ValueError(_TRUNCATED)
+        return st.unpack_from(mv, pos)[0], end
+
+    def chunk(pos, n):
+        end = pos + n
+        if end > size:
+            raise ValueError(_TRUNCATED)
+        return mv[pos:end], end
+
+    def read(pos):
+        if pos >= size:
+            raise ValueError(_TRUNCATED)
+        code = mv[pos]
+        pos += 1
+        if code <= 0x7F:
+            return code, pos
+        if code >= 0xE0:
+            return code - 0x100, pos
+        if code == 0xCB:
+            if pos + 8 > size:
+                raise ValueError(_TRUNCATED)
+            return d_unpack(mv, pos)[0], pos + 8
+        kind = code & 0xF0
+        if kind == 0x80:
+            return read_map(code & 0x0F, pos)
+        if kind == 0x90:
+            return read_array(code & 0x0F, pos)
+        if 0xA0 <= code <= 0xBF:
+            raw, pos = chunk(pos, code & 0x1F)
+            return str(raw, "utf-8"), pos
+        if code == 0xC0:
+            return None, pos
+        if code == 0xC2:
+            return False, pos
+        if code == 0xC3:
+            return True, pos
+        if code in _BIN:
+            n, pos = length(_BIN[code], pos)
+            raw, pos = chunk(pos, n)
+            return bytes(raw), pos
+        if code in _STR:
+            n, pos = length(_STR[code], pos)
+            raw, pos = chunk(pos, n)
+            return str(raw, "utf-8"), pos
+        if code in _ARRAY:
+            n, pos = length(_ARRAY[code], pos)
+            return read_array(n, pos)
+        if code in _MAP:
+            n, pos = length(_MAP[code], pos)
+            return read_map(n, pos)
+        if code in _NUM:
+            return length(_NUM[code], pos)
+        if 0xC7 <= code <= 0xC9 or 0xD4 <= code <= 0xD8:
+            raise ValueError(f"msgpack ext type (0x{code:02x}) is not "
+                             f"supported")
+        raise ValueError(f"invalid msgpack byte 0x{code:02x}")
+
+    def read_array(n, pos):
+        if n > 2:
+            # an array of positive fixints, or of float64s, in one call
+            end = pos + n
+            if end <= size and max(mv[pos:end]) < 0x80:
+                return list(mv[pos:end]), end
+            end = pos + 9 * n
+            if end <= size and mv[pos:end:9] == _D_TAG * n:
+                return list(struct.unpack_from(">" + "xd" * n, mv, pos)), \
+                    end
+        items = []
+        append = items.append
+        for _ in range(n):
+            v, pos = read(pos)
+            append(v)
+        return items, pos
+
+    def read_map(n, pos):
+        d = {}
+        for _ in range(n):
+            k, pos = read(pos)
+            d[k], pos = read(pos)
+        return (d if hook is None else hook(d)), pos
+
+    return read, size
 
 
 def unpackb(data, object_hook: Optional[Callable] = None) -> Any:
     """The one object ``data`` holds (see the module docstring)."""
-    reader = _Reader(data, object_hook)
-    obj = reader.read()
-    if reader.pos != len(reader.data):
-        raise ValueError(f"{len(reader.data) - reader.pos} bytes after the "
-                         f"msgpack object")
+    read, size = _reader(data, object_hook)
+    obj, pos = read(0)
+    if pos != size:
+        raise ValueError(f"{size - pos} bytes after the msgpack object")
     return obj

@@ -1,6 +1,7 @@
-"""Structured metrics — the port's copy of ``distkeras_tpu.utils.metrics``
-(``json_safe`` and the ``MetricsLogger`` JSONL sink; ``profile_trace``
-and ``StepTimer`` come with the profiler readings).
+"""Structured metrics — the port's copy of ``distkeras_tpu.utils.metrics``:
+``json_safe``, the ``MetricsLogger`` JSONL sink, ``profile_trace`` (an
+alias of the ``obs.profile.device_trace`` capture seam) and
+``StepTimer``.
 
 The trainers emit per-epoch records (loss, samples/sec, epoch seconds)
 and their spans into one ``MetricsLogger``, with the JAX package's record
@@ -10,6 +11,7 @@ fields.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import math
 import threading
@@ -125,3 +127,41 @@ class MetricsLogger:
 
     def __exit__(self, *exc):
         self.close()
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str):
+    """Capture a ``torch.profiler`` trace of the wrapped region into
+    ``log_dir`` (open it in ``ui.perfetto.dev``)::
+
+        with profile_trace("/tmp/trace"):
+            trainer.train(ds)
+
+    Thin alias for ``obs.profile.device_trace`` — the one start/stop seam:
+    the output dir is announced once via ``obs.logging`` and the capture
+    is stopped on exception paths too."""
+    from ..obs.profile import device_trace
+    with device_trace(log_dir):
+        yield
+
+
+class StepTimer:
+    """Honest step timing: ``mark()`` between steps; ``rate(samples)``
+    reports samples/sec.  Callers are responsible for a hard sync (e.g. a
+    scalar readback, or ``torch.cuda.synchronize()``) before ``mark``."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.laps: list = []
+
+    def mark(self) -> float:
+        t = time.perf_counter()
+        lap = t - self.t0
+        self.t0 = t
+        self.laps.append(lap)
+        return lap
+
+    def rate(self, samples_per_lap: int) -> float:
+        if not self.laps:
+            return 0.0
+        return samples_per_lap * len(self.laps) / sum(self.laps)

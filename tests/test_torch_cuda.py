@@ -8,7 +8,8 @@ CPU, the window-edge rules on CUDA tensors, K1–K3 launches under ADAG),
 checkpoints, resume and disk streaming on the card, and the async
 parameter server's thread and process workers on the card (exact
 K1–K3 launch counts), the sharded parameter server and the switch-MoE
-LM trained and served on the card.
+LM trained and served on the card, the profiler readings (step split,
+device trace) and a continual run held against the CPU.
 Every test is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is False (the kernel has no CPU mode).
 
@@ -1230,3 +1231,83 @@ def test_moe_lm_trains_in_bf16_and_serves_in_f32_on_the_card():
     for p, got in zip(prompts, answers):
         ref = generate_tokens(model, p[None], len(got))[0, len(p):]
         np.testing.assert_array_equal(got, ref.cpu().numpy())
+
+
+def test_step_split_and_device_trace_on_the_card(tmp_path):
+    """``profile={"trace_dir", "step_split"}`` on the card: epoch 0's
+    ``torch.profiler`` trace names the bf16 K1, K2 and K3 CUDA functions,
+    the split holds one observation per warm window call (host dispatch
+    and the CUDA-event device span, each within the training's wall),
+    and ``device_trace`` around a kernel call writes its name."""
+    import json
+    import os
+    from distkeras_tpu_torch.obs import device_trace
+    lm = dict(vocab_size=64, dim=64, num_heads=2, num_blocks=1, seq_len=64,
+              attention_impl="flash")
+    ds = load_lm_corpus(n_train=64, seq_len=64, vocab_size=64)[0]
+    t = SingleTrainer(zoo.gpt_lm(**lm), "sgd",
+                      "sparse_categorical_crossentropy", num_epoch=3, batch_size=16, learning_rate=0.1,
+                      compute_dtype="bfloat16",
+                      profile={"trace_dir": str(tmp_path / "tr"),
+                               "step_split": True})
+    reg = Registry()
+    t.tracer.registry = reg
+    t.train(ds)
+    with open(tmp_path / "tr" / "epoch0" / "trace.json") as f:
+        text = f.read()
+    json.loads(text)
+    for sym in ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                "flash_bwd_dkv_wgmma_kernel"):
+        assert sym in text, sym
+    assert not os.path.exists(tmp_path / "tr" / "epoch1")
+    snap = reg.snapshot()
+    host, dev = snap["step.host_seconds"], snap["step.device_seconds"]
+    assert host["count"] == dev["count"] == 2
+    assert 0 < dev["sum"] <= t.get_training_time()
+    assert 0 < host["sum"] <= t.get_training_time()
+    q, k, v = _qkv(1, 64, 2, 64, torch.float32)
+    with device_trace(str(tmp_path / "one")):
+        flash_attention_lse(q, k, v, True)
+        torch.cuda.synchronize()
+    with open(tmp_path / "one" / "trace.json") as f:
+        assert "flash_fwd_kernel" in f.read()
+
+
+def test_continual_run_on_the_card_matches_the_cpu():
+    """Two intervals of ``ContinualTrainer`` in f32 on the card and on the
+    CPU from the same weights: per-window losses within rtol 1e-4, the
+    same gate decisions, K1–K3 once per block per step on the card."""
+    from distkeras_tpu_torch.continual import (ContinualConfig,
+                                               ContinualTrainer,
+                                               synthetic_lm_feed)
+    from distkeras_tpu_torch.ops.flash_attention import reset_launches
+    lm = dict(vocab_size=64, dim=64, num_heads=2, num_blocks=2, seq_len=64,
+              attention_impl="flash")
+    out = {}
+    for device in ("cuda", "cpu"):
+        cfg = ContinualConfig(batch_size=4, window_steps=2, snapshot_every=2,
+                              history=2, min_history=1)
+        t = ContinualTrainer(zoo.gpt_lm(**lm), "adam",
+                             "sparse_categorical_crossentropy", config=cfg,
+                             learning_rate=1e-2, device=device)
+        losses, run = [], t._run_fn
+
+        def record(*a, run=run, losses=losses):
+            res = run(*a)
+            losses.append(res[2].cpu().numpy())
+            return res
+
+        t._run_fn = record
+        reset_launches()
+        t.run(synthetic_lm_feed(64, 64, 4, seed=0), intervals=2)
+        counts = [w.launches for w in (flash_fwd_cuda, flash_bwd_dq_cuda,
+                                       flash_bwd_dkv_cuda)]
+        out[device] = (np.concatenate(losses),
+                       [(e["kind"], e["deploy"])
+                        for e in t.gate.history_log()], counts)
+        assert t.registry.counter("jit.retraces").value == 0
+    (lc, dc, kc), (lh, dh, kh) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(lc, lh, rtol=1e-4)
+    assert dc == dh
+    steps = 2 * 2 * 2  # intervals x windows x batches
+    assert kc == [lm["num_blocks"] * steps] * 3 and kh == [0, 0, 0]

@@ -36,15 +36,19 @@ print(" ".join(names))
 """
 
 #: modules the walk must reach (the slices' entry points among them)
-_MUST_WALK = ("bench", "chaos", "data.datasets", "data.streaming",
-              "data.transformers", "evaluators", "models.layers",
-              "models.generation", "models.zoo", "obs.drift",
+_MUST_WALK = ("bench", "chaos", "continual", "continual.config",
+              "continual.gate", "continual.trainer", "data.datasets",
+              "data.streaming", "data.transformers", "evaluators",
+              "models.layers", "models.generation", "models.zoo",
+              "obs.alerts", "obs.drift", "obs.export", "obs.exposition",
               "obs.stragglers", "obs.timeseries", "parallel.sync",
               "ops.moe", "predictors", "ps", "ps.client", "ps.cluster",
               "ps.codecs", "ps.networking", "ps.runner", "ps.servers",
               "ps.shard", "ps.shard.client", "ps.shard.plan",
               "ps.shard.server", "ps.shard.shard_main", "ps.state",
-              "ps.worker_main", "ps.workers", "serve.client",
+              "ps.worker_main", "ps.workers", "scenario",
+              "scenario.autoscale", "scenario.runner", "scenario.slo",
+              "scenario.traces", "serve.client",
               "serve.config", "serve.engine", "serve.kvfabric",
               "serve.prefix", "serve.router", "serve.server",
               "serve.spec", "trainers",

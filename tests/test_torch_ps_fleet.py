@@ -243,6 +243,44 @@ def test_add_worker_joins_the_live_run(data):
         t.add_worker()
 
 
+def test_concurrent_joins_take_distinct_worker_ids():
+    """Joins racing a slow spawn: while one worker's spawn is under way
+    its id stays reserved, so joins that pick the next id concurrently
+    take distinct ones and an explicit id being spawned is refused."""
+    from distkeras_tpu_torch.obs import Registry
+    from distkeras_tpu_torch.ps.runner import FleetSupervisor
+
+    class PS:
+        registry = Registry()
+        mutex = threading.Lock()
+        generations = {}
+
+        def register_join(self, k):
+            return 0, 0
+
+    gate = threading.Event()
+
+    def slow_spawn(k, window, gen, attempt):
+        gate.wait(30)
+        return ("handle", k)
+
+    sup = FleetSupervisor(PS(), None, slow_spawn)
+    ids = []
+    threads = [threading.Thread(target=lambda: ids.append(sup.add_worker()))
+               for _ in range(3)]
+    for t in threads:
+        t.start()
+    _wait(lambda: len(sup.spawning) == 3, 30, "three reserved spawns")
+    with pytest.raises(ValueError, match="already live"):
+        sup.add_worker(1)
+    gate.set()
+    for t in threads:
+        t.join(30)
+    assert not any(t.is_alive() for t in threads)
+    assert sorted(ids) == [0, 1, 2] and sorted(sup.live) == [0, 1, 2]
+    assert not sup.spawning
+
+
 # ---------------------------------------------------------------------------
 # PS checkpoints and exact resume, across the packages
 # ---------------------------------------------------------------------------

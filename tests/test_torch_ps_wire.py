@@ -17,7 +17,8 @@ on the CPU:
   ``comm_down``;
 * the telemetry plane: ``telemetry`` frames from either package's client
   fold into the port server's ``TimeSeriesStore``, which matches the JAX
-  package's store on one feed; ``alerts`` answers an error.
+  package's store on one feed; ``alerts`` answers the alert engine's
+  state document.
 """
 
 import numpy as np
@@ -281,13 +282,27 @@ def test_codecs_and_down_interoperate(spec):
 
 
 def test_unported_telemetry_actions_answer_an_error():
-    """The alert engine is not ported: ``alerts`` answers an error that
-    names where it is, and the connection keeps serving."""
+    """The ``alerts`` action, an error before the alert engine was ported,
+    now answers: no engine and no store before ``enable_alerts``, then the
+    engine's state document (the committed rules) and the store; the
+    connection keeps serving."""
+    import json
+    import os
+    with open(os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "OBS_BASELINE.json")) as f:
+        rules = json.load(f)["alerts"]
     ps = psrv.DeltaParameterServer(_center())
     with psrv.SocketParameterServer(ps) as srv:
         with pcli.PSClient("127.0.0.1", srv.port) as c:
-            with pytest.raises(RuntimeError, match="Queue 1 item 7"):
-                c._raise_on_error("alerts", c._rpc({"action": "alerts"}))
+            assert c._rpc({"action": "alerts"}) == \
+                {"ok": True, "alerts": None, "telemetry": None}
+            srv.enable_alerts(rules)
+            doc = c._rpc({"action": "alerts"})
+            assert doc["ok"]
+            assert [r["name"] for r in doc["alerts"]["rules"]] == \
+                [r["name"] for r in rules]
+            assert doc["alerts"]["counts"]["fired"] == 0
+            assert "_local" in doc["telemetry"]["sources"]
             assert c.stats()["num_updates"] == 0
 
 

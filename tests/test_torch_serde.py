@@ -70,6 +70,11 @@ BOUNDARY_CASES = {
     "bin": [b"y" * n for n in _LENGTHS] + [bytearray(b"ab"),
                                            memoryview(b"abc")],
     "array": [list(range(n)) for n in _COUNTS] + [(1, "a", None)],
+    # the codec's one-pass runs: float64s, and fixints on the way back
+    "runs": [[0.5] * 3, [float("nan"), -0.0, 1.7976931348623157e308,
+                         5e-324], [i / 7 for i in range(40)], (1.0, 2.0, 3.0),
+             [1.0, 2, 3.5], [1.5, np.float64(2.5), 3.5], [1, 2, 127],
+             [1, 2, 128], [0, -1, 5], [1.5, 2.5, None], list(range(128))],
     "map": [{str(i): i for i in range(n)} for n in _COUNTS]
     + [{1: "int key", "s": [1.5, {"nested": b"z"}]}],
 }

@@ -361,13 +361,25 @@ def test_load_lm_corpus_matches_jax():
             assert a[c].dtype == b[c].dtype
 
 
-# -- what is not ported yet --------------------------------------------------------------
+# -- the profile knobs, once unported --------------------------------------------------------
 
-def test_unported_trainer_options_raise():
-    model = zoo.gpt_lm(**LM)
-    for profile in ("trace", {"step_split": True}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7 "):
-            dkt.SingleTrainer(model, profile=profile, device="cpu")
+def test_unported_trainer_options_raise(tmp_path):
+    """The ``profile`` options that raised before the profiler readings
+    were ported now work: a trace dir captures epoch 0, the step split
+    records one observation per warm window call."""
+    from distkeras_tpu_torch.obs import Registry
+    from distkeras_tpu_torch.obs.profile import TRACE_FILE
+    for profile in (str(tmp_path / "trace"), {"step_split": True}):
+        t = dkt.SingleTrainer(zoo.gpt_lm(**LM), "sgd", SCE, num_epoch=2,
+                              batch_size=4, profile=profile, device="cpu")
+        reg = Registry()
+        t.tracer.registry = reg
+        t.train(load_lm_corpus(n_train=8, seq_len=SEQ, vocab_size=VOCAB)[0])
+        if isinstance(profile, str):
+            assert os.path.exists(os.path.join(profile, "epoch0",
+                                               TRACE_FILE))
+        else:
+            assert reg.snapshot()["step.host_seconds"]["count"] == 1
 
 
 def test_trainer_needs_a_card_or_an_explicit_device():
