@@ -51,6 +51,7 @@ import subprocess
 import sys
 import threading
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -362,7 +363,8 @@ def scenario_spec(name: str, sc: dict):
     raise ValueError(f"unknown trace kind {kind!r}")
 
 
-def scenario_run(name: str, model, target, before_traffic=None):
+def scenario_run(name: str, model, target, before_traffic=None,
+                 trace: Optional[dict] = None):
     """One named scenario end to end: a fresh fleet of ``sc["engines"]``
     in-process servers over copies of ``model`` (``SCENARIO_FLEET``,
     fabric off), the spares parked, the router's alert engine on
@@ -374,10 +376,11 @@ def scenario_run(name: str, model, target, before_traffic=None):
     trace has drained, the autoscaler keeps ticking on the idle fleet
     until it is back at ``min_engines``, for up to
     ``SCENARIO_IDLE_TAIL_S`` (the JAX package's harness stops it at the
-    drain).  Returns ``(row, part, servers)``."""
+    drain).  ``trace`` overrides settings of the named trace (a shorter
+    ``period_s``, say).  Returns ``(row, part, servers)``."""
     import copy
 
-    sc = SCENARIO_TRACES[name]
+    sc = {**SCENARIO_TRACES[name], **(trace or {})}
     spec = scenario_spec(name, sc)
     f = SCENARIO_FLEET
     servers, router, scaler, killer, stats_client = [], None, None, None, \

@@ -474,17 +474,19 @@ class BatchNorm(Layer):
     for f64 activations, so a model in float64 is a float64 witness), and
     records ``momentum · old + (1 − momentum) · batch`` in ``new_state``
     for ``commit_state``; eval uses the buffers.  The affine folds into
-    x·a + b with a and b cast to x's dtype."""
+    x·a + b with a and b cast to x's dtype.
+
+    ``axis_name`` shares the batch statistics across the ranks of that
+    axis of the current mesh (``with mesh:``; the sync trainers enter
+    theirs): ``mean`` and ``mean2`` are ``pmean``ed, whose transpose is
+    ``pmean``, as the JAX layer's ``lax.pmean`` inside ``shard_map``.  It
+    runs where each rank holds one slot of the axis, and raises where a
+    rank holds several (those workers step one after another and cannot
+    share statistics mid-forward)."""
 
     def __init__(self, momentum: float = 0.9, epsilon: float = 1e-5,
                  axis_name: Optional[str] = None):
         super().__init__()
-        if axis_name is not None:
-            raise NotImplementedError(
-                "BatchNorm(axis_name=...) (statistics summed across "
-                "replicas) needs workers that run in lockstep, one per "
-                "card; the one-card sync trainers step their workers one "
-                "after another: ROADMAP Queue 1 item 8")
         self.momentum = float(momentum)
         self.epsilon = float(epsilon)
         self.axis_name = axis_name
@@ -505,6 +507,12 @@ class BatchNorm(Layer):
             dims = tuple(range(x.ndim - 1))
             mean = torch.mean(x, dim=dims, dtype=acc)
             mean2 = torch.mean(x.square(), dim=dims, dtype=acc)
+            if self.axis_name is not None:
+                from ..parallel.mesh import active_mesh, pmean
+                mesh = active_mesh(f"BatchNorm(axis_name="
+                                   f"{self.axis_name!r})")
+                mean = pmean(mean, self.axis_name, mesh)
+                mean2 = pmean(mean2, self.axis_name, mesh)
             var = torch.clamp(mean2 - mean.square(), min=0.0)
             m = self.momentum
             self.new_state = {

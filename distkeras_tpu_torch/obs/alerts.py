@@ -342,17 +342,16 @@ class AlertEngine:
 
     def attainment_signal(self) -> Optional[float]:
         """The min short-window attainment across burn-rate rules with
-        evidence at the latest evaluation — the alert-plane replacement
-        for the autoscaler's own interval-delta poll math.  ``None`` with
-        no evidence.  (The JAX package's returns a rule's last measured
-        attainment even after its windows emptied, so an idle fleet kept
-        reading the attainment of its last busy seconds and never looked
-        slack to the autoscaler.)"""
+        evidence — the alert-plane replacement for the autoscaler's own
+        interval-delta poll math.  ``None`` with no evidence.  A rule
+        keeps its last measured attainment after its windows empty, as
+        the JAX package's does: an idle fleet reads the attainment of its
+        last busy seconds."""
         with self._lock:
             vals = [s.measure["attainment_short"]
                     for r in self.rules
                     for s in (self._state[r.name],)
-                    if r.kind == "burn_rate" and s.evidence
+                    if r.kind == "burn_rate"
                     and "attainment_short" in s.measure]
         return min(vals) if vals else None
 

@@ -9,8 +9,10 @@
 * ``LayerNorm`` / ``PositionalEmbedding`` / ``GlobalAvgPool1D``.
 
 ``impl="flash"`` runs ``ops.flash_attention`` (the hand-written CUDA
-kernel on the card, its plain version on the CPU).  Sequence-parallel
-ring attention (a set ``mesh``) is not ported yet and raises.
+kernel on the card, its plain version on the CPU).  A ``mesh`` attached
+to a ``MultiHeadAttention`` runs its attention as sequence-parallel ring
+attention over the mesh's ``sp`` axis (``parallel.ring``); the rest of the
+model stays whole on every rank.
 """
 
 from __future__ import annotations
@@ -23,7 +25,31 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..models.layers import Layer, glorot_uniform, register, uniform_scale
+from ..obs.logging import get_logger
 from .flash_attention import flash_attention
+
+#: minimum sequence length for a causal mesh-attached layer to pick the
+#: zigzag ring layout on its own: zigzag halves the causal ring's work,
+#: but every call pays a shuffle and an unshuffle of its activations — a
+#: net loss at small T.  Pin ``layer.ring_layout`` to override either way.
+ZIGZAG_AUTO_MIN_T = 256
+
+#: layout decisions already logged (once per distinct choice)
+_LAYOUT_LOGGED: set = set()
+
+
+def _log_layout_choice(layout: str, t: int, sp: int) -> None:
+    key = (layout, t, sp)
+    if key in _LAYOUT_LOGGED:
+        return
+    _LAYOUT_LOGGED.add(key)
+    why = (f"T={t} >= ZIGZAG_AUTO_MIN_T={ZIGZAG_AUTO_MIN_T}"
+           if layout == "zigzag" else
+           f"T={t} below ZIGZAG_AUTO_MIN_T={ZIGZAG_AUTO_MIN_T} or "
+           f"not divisible by 2*|sp|={2 * sp}")
+    get_logger("ops.attention").info(
+        "causal ring auto-selected %r layout (%s); zigzag pays a per-call "
+        "shuffle/unshuffle; pin layer.ring_layout to override", layout, why)
 
 
 def dot_product_attention(q, k, v, *, causal: bool = False):
@@ -116,9 +142,20 @@ class MultiHeadAttention(Layer):
                     f"{num_kv_heads}")
         self.causal = bool(causal)
         self.impl = impl
-        #: runtime attachment for sequence-parallel ring attention in the
-        #: JAX package; not ported yet, so a set mesh raises
-        self.mesh = None
+        self.mesh = None        # runtime attachment → ring attention
+        self.ring_axis = "sp"
+        self.batch_axis = None  # optional dp axis for dp×sp composition
+        #: ring hop compute: None → follow ``impl`` (a flash layer rings
+        #: with ``flash_attention_lse`` per hop, K1 on the card); or
+        #: "blockwise" / "flash" / "ulysses" explicitly
+        self.ring_impl = None
+        #: sequence layout for the causal ring: None → "zigzag" when
+        #: causal, T divides 2·|sp| and T >= ZIGZAG_AUTO_MIN_T; or pin
+        #: "contiguous" / "zigzag"
+        self.ring_layout = None
+        #: activations arrive already zigzag-striped (the per-call
+        #: shuffle/unshuffle is skipped)
+        self.ring_pre_shuffled = False
 
     @property
     def _kv(self) -> int:
@@ -157,23 +194,44 @@ class MultiHeadAttention(Layer):
         g = self.num_heads // self._kv
         return k if g == 1 else torch.repeat_interleave(k, g, dim=2)
 
-    def _check_mesh(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "ring attention (a mesh-attached MultiHeadAttention) is not "
-                "ported yet; detach the mesh")
+    def _ring(self, q, k, v, t):
+        from ..parallel.ring import ring_attention_sharded
+        ring_impl = self.ring_impl or (
+            "flash" if self.impl == "flash" else "blockwise")
+        layout = self.ring_layout
+        if self.ring_pre_shuffled:
+            layout = "zigzag"
+        elif layout is None and ring_impl != "ulysses":
+            sp = self.mesh.shape[self.ring_axis]
+            layout = ("zigzag" if self.causal and t % (2 * sp) == 0
+                      and t >= ZIGZAG_AUTO_MIN_T else "contiguous")
+            if self.causal:
+                _log_layout_choice(layout, t, sp)
+        return ring_attention_sharded(self.mesh, q, k, v,
+                                      axis=self.ring_axis,
+                                      batch_axis=self.batch_axis,
+                                      causal=self.causal, impl=ring_impl,
+                                      layout=layout or "contiguous",
+                                      pre_shuffled=self.ring_pre_shuffled)
 
     def forward(self, x):
-        self._check_mesh()
         b, t, d = x.shape
         q, k, v = self._project(x)
         if self.rope:
+            if self.mesh is not None:
+                raise ValueError(
+                    "rope=True with a mesh-attached (sequence-sharded) "
+                    "layer is not supported: per-shard positions need "
+                    "global offsets; detach the mesh or use the learned "
+                    "PositionalEmbedding")
             pos = torch.arange(t, device=x.device)
             q = apply_rope(q, pos)
             k = apply_rope(k, pos)
         k = self._expand_kv(k)
         v = self._expand_kv(v)
-        if self.impl == "flash":
+        if self.mesh is not None:
+            o = self._ring(q, k, v, t)
+        elif self.impl == "flash":
             o = _flash_with_blocking(q, k, v, self.causal, t)
         else:
             o = dot_product_attention(q, k, v, causal=self.causal)
@@ -194,7 +252,6 @@ class MultiHeadAttention(Layer):
         (KV, G) grouped einsum, so the cache is never expanded."""
         if not self.causal:
             raise ValueError("cached decode requires causal=True attention")
-        self._check_mesh()
         b, d = x.shape
         h, kv = self.num_heads, self._kv
         g = h // kv
@@ -232,7 +289,6 @@ class MultiHeadAttention(Layer):
         that returns every position's K/V as the cache."""
         if not self.causal:
             raise ValueError("cached decode requires causal=True attention")
-        self._check_mesh()
         b, t, d = x.shape
         q, k, v = self._project(x)
         if self.rope:

@@ -22,11 +22,15 @@ its update.
 The window-edge communication rules (``AdagSync`` and the rest) and
 ``SyncEngine`` are the sync distributed trainers' share.  JAX runs the W
 workers as one program over a ``workers`` mesh axis and communicates with
-``lax.pmean``/``lax.psum``; on one card the port keeps every variable
-leaf of the W workers as one stacked (W, …) tensor, steps W worker
+``lax.pmean``/``lax.psum``; the port keeps every variable leaf of a
+process's workers as one stacked (workers, …) tensor, steps those worker
 models (each one's parameters and state buffers are views into that
 stack) one after another through the window loop above, and applies the
 rule at the window edge as a mean or sum over dim 0, one op per leaf.
+With a ``mesh`` (``parallel.mesh``) the W workers are spread over the
+processes of the ``workers`` axis, each holding its slots' workers, and
+the edge's sum is the local stack's sum followed by a ``psum`` over the
+axis (``WorkerAxis``): the center ends up the same on every rank.
 Center and local trees hold the parameters **and** the state (BatchNorm's
 running statistics), as the reference's ``get_weights()`` does; the rules
 act on floating leaves only.
@@ -228,20 +232,51 @@ def _pull(center: Tree, local: Tree) -> Tree:
              center, local), local)
 
 
+class WorkerAxis:
+    """The reduction over the workers of a window edge, for a process
+    that holds every worker: the stack's dim 0."""
+
+    def sum(self, x):
+        return x.sum(0)
+
+    def mean(self, x):
+        return x.mean(0)
+
+
+#: every worker in this process (no mesh)
+STACK = WorkerAxis()
+
+
+class MeshWorkerAxis(WorkerAxis):
+    """The reduction over the workers of a mesh's ``axis``: this rank's
+    stack summed over dim 0, then ``psum`` over the axis's ranks."""
+
+    def __init__(self, mesh, axis: str = "workers"):
+        self.mesh, self.axis = mesh, axis
+
+    def sum(self, x):
+        from .mesh import sum_slots
+        return sum_slots(x, self.axis, self.mesh)
+
+    def mean(self, x):
+        return self.sum(x) / self.mesh.shape[self.axis]
+
+
 class SyncAlgorithm:
     """Window-edge communication rule.
 
-    ``communicate(center, local)`` takes the center tree and the workers'
-    tree, whose every leaf carries a leading worker axis (W, …), and
-    returns ``(new_center, new_local)`` shaped as they are.  It runs
-    under ``torch.no_grad()`` and reads nothing back to the host; where
-    the JAX package's ``lax.pmean``/``lax.psum`` reduce over the mesh's
-    ``workers`` axis, the port reduces over dim 0.
+    ``communicate(center, local, axis)`` takes the center tree and the
+    workers' tree, whose every leaf carries a leading worker axis
+    (workers, …), and returns ``(new_center, new_local)`` shaped as they
+    are.  It runs under ``torch.no_grad()`` and reads nothing back to the
+    host; where the JAX package's ``lax.pmean``/``lax.psum`` reduce over
+    the mesh's ``workers`` axis, the port reduces with ``axis``
+    (``STACK``: dim 0; ``MeshWorkerAxis``: dim 0, then over the mesh).
     """
 
     name = "base"
 
-    def communicate(self, center: Tree, local: Tree):
+    def communicate(self, center: Tree, local: Tree, axis=STACK):
         raise NotImplementedError
 
 
@@ -252,7 +287,7 @@ class NoCommSync(SyncAlgorithm):
 
     name = "none"
 
-    def communicate(self, center, local):
+    def communicate(self, center, local, axis=STACK):
         return center, local
 
 
@@ -265,8 +300,8 @@ class AdagSync(SyncAlgorithm):
 
     name = "adag"
 
-    def communicate(self, center, local):
-        new_center = tmap(lambda c, l: l.mean(0) if _inexact(l) else c,
+    def communicate(self, center, local, axis=STACK):
+        new_center = tmap(lambda c, l: axis.mean(l) if _inexact(l) else c,
                           center, local)
         return new_center, _pull(new_center, local)
 
@@ -279,9 +314,9 @@ class DownpourSync(SyncAlgorithm):
 
     name = "downpour"
 
-    def communicate(self, center, local):
+    def communicate(self, center, local, axis=STACK):
         new_center = tmap(
-            lambda c, l: c + (l - c).sum(0) if _inexact(l) else c,
+            lambda c, l: c + axis.sum(l - c) if _inexact(l) else c,
             center, local)
         return new_center, _pull(new_center, local)
 
@@ -295,11 +330,11 @@ class DynSgdSync(SyncAlgorithm):
     name = "dynsgd"
     staleness = 0
 
-    def communicate(self, center, local):
+    def communicate(self, center, local, axis=STACK):
         scale = 1.0 / (self.staleness + 1)
         new_center = tmap(
-            lambda c, l: c + ((l - c) * scale).sum(0) if _inexact(l) else c,
-            center, local)
+            lambda c, l: c + axis.sum((l - c) * scale) if _inexact(l)
+            else c, center, local)
         return new_center, _pull(new_center, local)
 
 
@@ -319,9 +354,9 @@ class EasgdSync(SyncAlgorithm):
     def __init__(self, alpha: float):
         self.alpha = float(alpha)
 
-    def communicate(self, center, local):
+    def communicate(self, center, local, axis=STACK):
         new_center = tmap(
-            lambda c, l: c + (self.alpha * (l - c)).sum(0)
+            lambda c, l: c + axis.sum(self.alpha * (l - c))
             if _inexact(l) else c, center, local)
         new_local = tmap(
             lambda c, l: l - self.alpha * (l - c) if _inexact(l) else l,
@@ -381,29 +416,37 @@ def _bind(model, local: Tree, k: int) -> None:
 
 
 class SyncEngine:
-    """The synchronous epoch over W workers on one device, for a (model,
-    loss, optimizer, algorithm) tuple.
+    """The synchronous epoch over W workers, for a (model, loss,
+    optimizer, algorithm) tuple.
 
-    The W worker models are built from ``model.config()`` at the first
-    call, on the device of the ``local`` tree they are handed, and bound
-    to it (``_bind``): worker k trains slice k of every stacked leaf in
-    place.  Each worker has its own ``torch.Generator`` on that device
-    (``rngs``), which feeds its Dropout draws: ``seed(s)`` seeds worker
-    k's with ``s + k·2³²``, so worker 0 draws what a ``SingleTrainer``
-    seeded with ``s`` draws.  A window runs the workers one after another
-    through ``make_window_fn``, then the rule at the edge; nothing in the
-    window reads a value back to the host.  ``mesh`` (workers across
-    cards) is not ported yet: ROADMAP Queue 1 item 8.
+    This process's workers — all W, or with a ``mesh`` the slots of its
+    ``axis`` this rank holds (``local_workers``) — are built from
+    ``model.config()`` at the first call, on the device of the ``local``
+    tree they are handed, and bound to it (``_bind``): worker k trains
+    slice k of every stacked leaf in place.  Each worker has its own
+    ``torch.Generator`` on that device (``rngs``), which feeds its
+    Dropout draws: ``seed(s)`` seeds global worker g's with ``s + g·2³²``,
+    so worker 0 draws what a ``SingleTrainer`` seeded with ``s`` draws.
+    A window runs the workers one after another through
+    ``make_window_fn`` (with the mesh current, for the layers that
+    communicate inside a forward), then the rule at the edge; nothing in
+    the window reads a value back to the host.
     """
 
     def __init__(self, model, loss_fn: Callable, optimizer,
                  algo: SyncAlgorithm, num_workers: int, window: int,
                  mesh=None, axis: str = "workers", compute_dtype=None,
                  remat: bool = False, aux_weight: float = 0.0):
-        if mesh is not None:
-            raise NotImplementedError(
-                "SyncEngine(mesh=...) (workers across cards) is not ported "
-                "yet: ROADMAP Queue 1 item 8")
+        if mesh is not None and mesh.shape.get(axis) != int(num_workers):
+            raise ValueError(
+                f"mesh axis {axis!r} holds {mesh.shape.get(axis)} slots, "
+                f"not the {num_workers} workers")
+        self.mesh = mesh
+        self.local_workers = int(num_workers) if mesh is None \
+            else mesh.slots(axis)
+        self.first_worker = 0 if mesh is None else mesh.axis_index(axis)
+        self.worker_axis = STACK if mesh is None \
+            else MeshWorkerAxis(mesh, axis)
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
@@ -424,7 +467,7 @@ class SyncEngine:
     def _build(self, device) -> None:
         cfg = self.model.config()
         self.workers, self.rngs, self._runs = [], [], []
-        for _ in range(self.num_workers):
+        for _ in range(self.local_workers):
             worker = type(self.model).from_config(cfg).init(0, device=device)
             gen = torch.Generator(device=device)
             self.workers.append(worker)
@@ -446,9 +489,9 @@ class SyncEngine:
         self._bound = local
 
     def seed(self, seed: int) -> None:
-        """Seed worker k's generator with ``seed + k·2³²``."""
+        """Seed global worker g's generator with ``seed + g·2³²``."""
         for k, gen in enumerate(self.rngs):
-            gen.manual_seed(int(seed) + (k << 32))
+            gen.manual_seed(int(seed) + ((self.first_worker + k) << 32))
 
     def init_opt_state(self) -> list:
         """A fresh optimizer state per worker (``jax.vmap(optimizer.init)``
@@ -460,7 +503,8 @@ class SyncEngine:
         """The rule at the window edge, written into ``center`` and
         ``local`` in place."""
         with torch.no_grad():
-            new_center, new_local = self.algo.communicate(center, local)
+            new_center, new_local = self.algo.communicate(
+                center, local, self.worker_axis)
             _assign(center, new_center)
             _assign(local, new_local)
 
@@ -471,10 +515,11 @@ class SyncEngine:
         losses, (workers, window) on the device."""
         self.bind(local)
         losses = []
-        for k, run in enumerate(self._runs):
-            _, opt_state[k], l = run(self._params[k], opt_state[k], wx[k],
-                                     wy[k])
-            losses.append(l)
+        with self.mesh if self.mesh is not None else contextlib.nullcontext():
+            for k, run in enumerate(self._runs):
+                _, opt_state[k], l = run(self._params[k], opt_state[k],
+                                         wx[k], wy[k])
+                losses.append(l)
         return torch.stack(losses)
 
     def _window(self, center, local, opt_state, wx, wy) -> torch.Tensor:

@@ -10,8 +10,9 @@ structurally the reference's ``distkeras/parameter_servers.py`` +
 ``distkeras/networking.py``) speaking the JAX package's length-prefixed
 **msgpack** wire byte for byte, with workers running the window loop on
 the card between pulls and commits.  ``ps.shard`` partitions the center
-across a fleet of shard servers with consistent-cut pulls.  The
-multi-host runner (``ps.cluster``) raises: ROADMAP Queue 1 item 8.
+across a fleet of shard servers with consistent-cut pulls.
+``ps.cluster`` runs one async worker per process of a
+``torch.distributed`` group, the PS on process 0.
 """
 
 from .networking import (  # noqa: F401

@@ -33,9 +33,13 @@ partitions the center across a fleet of shard servers (``ps.shard``).
 ``aux_weight`` folds the layers' auxiliary losses (the switch-MoE
 router's, ``ops.moe.MoEDense``) into every trainer's objective.
 
-Not ported yet, and raising where asked for: a ``mesh`` (workers across
-cards), ROADMAP Queue 1 item 8.  The trainers run on the card unless the
-caller passes ``device="cpu"``.
+A ``mesh`` (``parallel.mesh.make_mesh``) spreads the sync trainers' W
+workers over the processes of a ``torch.distributed`` group: each rank
+feeds and steps only its own workers' partitions, the window edge sums
+over the mesh, the history gathers to (W, …) on every rank, the trained
+center is the same on every rank and ``checkpoint_dir`` gets every
+worker's leaves from every rank.  The trainers run on the card (the
+mesh's device, with a mesh) unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ from .obs.registry import default_registry
 from .ops.losses import get_loss, probs_loss_variant
 from .ops.optimizers import get_optimizer, sgd
 from .ps import codecs
+from .parallel import mesh as mesh_lib
 from .parallel.sync import (AdagSync, DownpourSync, DynSgdSync, EasgdSync,
                             NoCommSync, SyncEngine, _inexact, make_window_fn,
                             model_params, replicate, stack_trees, tmap,
@@ -537,12 +542,13 @@ class DistributedTrainer(Trainer):
     rule.
 
     Sync mode: W workers run on the trainer's device, one after another,
-    through ``parallel.sync.SyncEngine``.  ``mode="async"`` (the
-    asynchronous family) runs ``ps.runner.run_async_training``: the
-    async-mode arguments (``async_workers``, ``comm_codec``,
-    ``comm_down``, ``ps_shm``, ``pull_overlap``, ``ps_shards``, the
-    heartbeat knobs) act as in the JAX package; a ``mesh`` raises
-    (ROADMAP Queue 1 item 8).  A ``ShardedFileDataset``
+    through ``parallel.sync.SyncEngine``; with a ``mesh`` this rank runs
+    only the workers of its slots (``mesh.local_slots()``).
+    ``mode="async"`` (the asynchronous family) runs
+    ``ps.runner.run_async_training``: the async-mode arguments
+    (``async_workers``, ``comm_codec``, ``comm_down``, ``ps_shm``,
+    ``pull_overlap``, ``ps_shards``, the heartbeat knobs) act as in the
+    JAX package.  A ``ShardedFileDataset``
     streams each worker's shard partition from disk (sync: one window of
     every worker at a time, ``SyncEngine.window_fn``)."""
 
@@ -564,6 +570,8 @@ class DistributedTrainer(Trainer):
                  ps_shards: int = 1,
                  heartbeat_hard_s: float = 30.0,
                  startup_grace_s: float = 300.0, **kw):
+        if mesh is not None and kw.get("device") is None:
+            kw["device"] = mesh.device
         super().__init__(keras_model, worker_optimizer, loss, features_col,
                          label_col, num_epoch, batch_size, learning_rate, seed,
                          **kw)
@@ -599,10 +607,22 @@ class DistributedTrainer(Trainer):
         self.comm_down = codecs.validate_down_spec(comm_down)
         self.ps_shm = bool(ps_shm)
         self.pull_overlap = bool(pull_overlap)
-        if mesh is not None:
-            raise NotImplementedError(
-                "DistributedTrainer(mesh=...) (workers across cards) is not "
-                "ported yet: ROADMAP Queue 1 item 8")
+
+    @property
+    def _slots(self) -> range:
+        """The workers this process steps: all, or its mesh slots."""
+        return range(self.num_workers) if self.mesh is None \
+            else self.mesh.local_slots()
+
+    def _gather(self, x):
+        """This rank's per-worker stack (a tensor, or numpy for a scalar
+        field of an optimizer state) → every worker's, (W, …)."""
+        if self.mesh is None:
+            return x
+        if torch.is_tensor(x):
+            return mesh_lib.gather_slots(x, mesh=self.mesh)
+        return mesh_lib.gather_slots(torch.from_numpy(np.asarray(x)),
+                                     mesh=self.mesh).numpy()
 
     # -- fleet elasticity -----------------------------------------------------
     def add_worker(self, worker_id=None) -> int:
@@ -679,6 +699,7 @@ class DistributedTrainer(Trainer):
 
     def _config_key(self) -> tuple:
         return super()._config_key() + (
+            id(self.mesh) if self.mesh is not None else None,
             self.num_workers, self.communication_window,
             getattr(self, "rho", None), getattr(self, "momentum", None))
 
@@ -692,7 +713,7 @@ class DistributedTrainer(Trainer):
             loss_fn, optimizer = self._resolve()
             engine = SyncEngine(self.model, loss_fn, optimizer,
                                 self._sync_algorithm(), self.num_workers,
-                                self.communication_window,
+                                self.communication_window, mesh=self.mesh,
                                 compute_dtype=self.compute_dtype,
                                 remat=self.remat,
                                 aux_weight=self.aux_weight)
@@ -709,19 +730,26 @@ class DistributedTrainer(Trainer):
         package's ``_stream_locals``)."""
         self.model.init(self.seed, device=self.device)
         center = variables_of(self.model)
-        return center, replicate(center, self.num_workers)
+        return center, replicate(center, len(self._slots))
 
     def _state_tree(self, opt_state):
         names = jax_leaf_names(self.model)
         return (_variables_leaves(self.center, names),
-                _variables_leaves(self.local, names),
-                checkpoint.stacked_opt_state_leaves(opt_state, names[0]),
+                [self._gather(t)
+                 for t in _variables_leaves(self.local, names)],
+                [self._gather(t) for t in
+                 checkpoint.stacked_opt_state_leaves(opt_state, names[0])],
                 checkpoint.rng_key(self.seed + 1, self.num_workers))
 
     def _adopt_state(self, like, tree, opt_state):
-        _copy_into(like[0] + like[1], tree[0] + tree[1])
+        names = jax_leaf_names(self.model)
+        rows = self._slots
+        local = [t[rows.start:rows.stop] for t in tree[1]]
+        _copy_into(like[0] + _variables_leaves(self.local, names),
+                   tree[0] + local)
         return checkpoint.unstacked_opt_states(
-            opt_state, tree[2], jax_leaf_names(self.model)[0])
+            opt_state, [t[rows.start:rows.stop] for t in tree[2]],
+            names[0])
 
     def _generators(self) -> list:
         return self._started_engine.rngs
@@ -745,8 +773,10 @@ class DistributedTrainer(Trainer):
         P = self.num_workers
 
         xs, ys, _ = self._stage_data(dataset, self.communication_window)
-        xs = torch.from_numpy(xs).to(self.device)
-        ys = torch.from_numpy(ys).to(self.device)
+        # this rank's workers' partitions only
+        rows = self._slots
+        xs = torch.from_numpy(xs[rows.start:rows.stop]).to(self.device)
+        ys = torch.from_numpy(ys[rows.start:rows.stop]).to(self.device)
 
         opt_state, ckpt, start = self._start(engine)
         center, local = self.center, self.local
@@ -755,7 +785,8 @@ class DistributedTrainer(Trainer):
         for epoch in range(start, self.num_epoch):
             center, local, opt_state, losses = self._profiled_run(
                 run, epoch, center, local, opt_state, xs, ys)
-            pipe.push(epoch, losses.reshape(P, -1))  # rows: (workers, steps)
+            # rows: (workers, steps), every worker's on every rank
+            pipe.push(epoch, self._gather(losses.reshape(len(rows), -1)))
             if ckpt is not None:
                 self._save(ckpt, epoch, opt_state)
         pipe.flush()
@@ -779,7 +810,7 @@ class DistributedTrainer(Trainer):
         cols = [self.features_col, self.label_col]
         factories = [worker_window_factory(source, cols, bs, k, P, w,
                                            self.seed, shuffle)
-                     for k in range(P)]
+                     for k in self._slots]
         pipe = _EpochPipeline(self, n_windows * w * bs * P, self.device)
         for epoch in range(start, self.num_epoch):
             its = [f(epoch) for f in factories]
@@ -795,7 +826,7 @@ class DistributedTrainer(Trainer):
             finally:
                 for it in its:
                     it.close()
-            pipe.push(epoch, torch.cat(losses, 1))
+            pipe.push(epoch, self._gather(torch.cat(losses, 1)))
             if ckpt is not None:
                 self._save(ckpt, epoch, opt_state)
         pipe.flush()
@@ -823,8 +854,14 @@ class AveragingTrainer(DistributedTrainer):
 
     def _collect(self, center, local) -> Model:
         with torch.no_grad():
-            tmap(lambda c, l: c.copy_(l.mean(0)) if _inexact(l)
-                 else c.copy_(l[0]), center, local)
+            if self.mesh is None:
+                tmap(lambda c, l: c.copy_(l.mean(0)) if _inexact(l)
+                     else c.copy_(l[0]), center, local)
+            else:
+                tmap(lambda c, l: c.copy_(
+                    mesh_lib.sum_slots(l, mesh=self.mesh)
+                    / self.num_workers) if _inexact(l)
+                    else c.copy_(l[0]), center, local)
         return self._finish()
 
 
@@ -848,7 +885,7 @@ class EnsembleTrainer(DistributedTrainer):
         # member i from init(seed + i); each init makes new tensors, so
         # the earlier members' stay as they were
         inits = []
-        for i in range(self.num_workers):
+        for i in self._slots:
             self.model.init(self.seed + i, device=self.device)
             inits.append(variables_of(self.model))
         local = stack_trees(inits)
@@ -857,6 +894,8 @@ class EnsembleTrainer(DistributedTrainer):
         return variables_of(self.model), local
 
     def _collect(self, center, local):
+        # every member on every rank
+        local = tmap(self._gather, local)
         models = []
         for i in range(self.num_workers):
             m = type(self.model).from_config(self.model.config()).init(

@@ -74,6 +74,10 @@ def load_jax_variables(model, variables: dict) -> None:
         # a leaf is a numpy array, or a torch tensor (serde's bfloat16)
         src = arr.detach() if torch.is_tensor(arr) \
             else torch.from_numpy(np.array(arr))
+        rows = getattr(param, "_ep_rows", None)
+        if rows is not None and src.shape[0] == rows[2]:
+            # a mesh-attached MoE layer keeps its rank's experts
+            src = src[rows[0]:rows[1]]
         if tuple(src.shape) != tuple(param.shape):
             raise ValueError(f"{path}: shape {tuple(src.shape)} != "
                              f"{tuple(param.shape)}")

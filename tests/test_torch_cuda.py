@@ -9,7 +9,10 @@ checkpoints, resume and disk streaming on the card, and the async
 parameter server's thread and process workers on the card (exact
 K1–K3 launch counts), the sharded parameter server and the switch-MoE
 LM trained and served on the card, the profiler readings (step split,
-device trace) and a continual run held against the CPU.
+device trace) and a continual run held against the CPU, and two gloo
+ranks sharing the card (``tests/test_torch_mesh_child.py``): each
+collective's route on CUDA tensors, and a two-rank ring forward against
+K1 over the whole T.
 Every test is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is False (the kernel has no CPU mode).
 
@@ -1311,3 +1314,51 @@ def test_continual_run_on_the_card_matches_the_cpu():
     assert dc == dh
     steps = 2 * 2 * 2  # intervals x windows x batches
     assert kc == [lm["num_blocks"] * steps] * 3 and kh == [0, 0, 0]
+
+
+@pytest.fixture(scope="module")
+def card_ranks():
+    """Two gloo ranks on ``cuda:0`` (NCCL takes one rank a card), spawned
+    once for the mesh cases below."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from test_torch_mesh_child import run_ranks
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2, 4, 3)).astype(np.float32)
+    qkv = [rng.normal(size=(2, 256, 4, 64)).astype(np.float32)
+           for _ in range(3)]
+    cases = [("collectives", "card_collectives", dict(x=x))]
+    cases += [(f"ring-{layout}-{int(causal)}", "card_ring",
+               dict(q=qkv[0], k=qkv[1], v=qkv[2], causal=causal,
+                    layout=layout))
+              for layout, causal in (("contiguous", True),
+                                     ("contiguous", False),
+                                     ("zigzag", True))]
+    return run_ranks(2, cases, device="cuda")
+
+
+@pytest.mark.parametrize("op", ["psum", "all_gather", "all_to_all",
+                                "ppermute", "broadcast"])
+def test_collective_routes_on_cuda_tensors_over_gloo(card_ranks, op):
+    """gloo runs all_reduce, broadcast, all_gather and all_to_all on CUDA
+    tensors and refuses send/recv: ppermute alone goes through a host
+    copy, counted; every result equals the CPU collective's."""
+    for res in card_ranks:
+        got = res["collectives"]
+        assert got["ops"][op] == {"device": "cuda:0", "equal": True}
+        assert got["routes"]["ppermute"] == "host"
+        assert all(got["routes"][k] == "direct" for k in
+                   ("all_reduce", "broadcast", "all_gather", "all_to_all"))
+        host = got["stats"]["host_calls"]
+        assert host == {"ppermute": 1}, host
+
+
+@pytest.mark.parametrize("case,launches", [
+    ("ring-contiguous-1", (1, 2)), ("ring-contiguous-0", (2, 2)),
+    ("ring-zigzag-1", (4, 4))])
+def test_two_rank_ring_forward_matches_k1_over_the_whole_t(card_ranks, case,
+                                                         launches):
+    for r, res in enumerate(card_ranks):
+        got = res[case]
+        assert got["max_abs_err"] <= 1e-5 * max(1.0, got["ref_max"]), got
+        assert got["launches"] == launches[r]

@@ -534,18 +534,31 @@ def test_stage_data_refuses_a_window_past_the_steps_and_warns_on_a_rest(
 
 
 def test_unported_options_raise_naming_their_roadmap_item(data):
+    """The options ROADMAP Queue 1 item 8 ported now run (the name is
+    kept from when they raised): the cluster runner in a one-process
+    group, a ``mesh`` on the trainers and on ``SyncEngine``; what is
+    still refused raises as before."""
+    from distkeras_tpu_torch.parallel.mesh import make_mesh
     model = Model.from_config(_jax_mlp().config())
-    # the sharded PS is ported; the multi-host async runner is item 8's
     dkt.ADAG(model, mode="async", ps_shards=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    t = dkt.DOWNPOUR(model, num_workers=1, device="cpu",
+                     label_col="label_onehot", communication_window=4)
+    run_cluster_async_training(t, data[1], ps_address=("127.0.0.1", 0))
+    assert t.ps_stats["commits_by_worker"] == {0: 4}
+    with pytest.raises(ValueError, match="must equal the group's process"):
         run_cluster_async_training(
-            dkt.DOWNPOUR(model, mode="async", device="cpu"), data[1],
+            dkt.DOWNPOUR(model, num_workers=2, device="cpu"), data[1],
             ps_address=("127.0.0.1", 0))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        dkt.DOWNPOUR(model, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        sync.SyncEngine(model, None, None, sync.AdagSync(), 2, 2,
-                        mesh=object())
+    mesh = make_mesh(2, devices="cpu")
+    t = dkt.DOWNPOUR(model, mesh=mesh, label_col="label_onehot",
+                     communication_window=4)
+    assert t.device == torch.device("cpu") and t.mesh is mesh
+    t.train(data[1])
+    assert t.get_history()[0].shape == (2, 8)
+    sync.SyncEngine(model, None, None, sync.AdagSync(), 2, 2, mesh=mesh)
+    with pytest.raises(ValueError, match="not the 4 workers"):
+        sync.SyncEngine(model, None, None, sync.AdagSync(), 4, 2,
+                        mesh=mesh)
     for bad, match in ((dict(mode="spmd"), "mode must be"),
                        (dict(async_workers="fibers"), "async_workers"),
                        (dict(ps_shards=0), "ps_shards must be >= 1"),
@@ -594,8 +607,23 @@ def test_model_predictor_keeps_its_devices_argument():
 
 
 def test_batchnorm_axis_name_points_at_the_multi_card_item():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        BatchNorm(axis_name="workers")
+    """``BatchNorm(axis_name=...)`` is built now (ROADMAP Queue 1 item 8
+    ported it; the name is kept from when it raised): its training forward
+    needs a current mesh holding one worker a rank, and says so; over one
+    rank it is the plain layer."""
+    from distkeras_tpu_torch.parallel.mesh import make_mesh
+    bn, plain = BatchNorm(axis_name="workers"), BatchNorm()
+    for layer in (bn, plain):
+        layer.build((3,), None)
+        layer.train(True)
+    x = torch.arange(6.0).reshape(2, 3)
+    with pytest.raises(RuntimeError, match="needs a current mesh"):
+        bn(x)
+    with make_mesh(2, devices="cpu"):
+        with pytest.raises(ValueError, match="holds 2 slots"):
+            bn(x)
+    with make_mesh(1, devices="cpu"):
+        assert torch.equal(bn(x), plain(x))
 
 
 def test_chip_smoke_dist_configs_are_the_yaml_files():

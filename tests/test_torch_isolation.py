@@ -41,7 +41,8 @@ _MUST_WALK = ("bench", "chaos", "continual", "continual.config",
               "data.streaming", "data.transformers", "evaluators",
               "models.layers", "models.generation", "models.zoo",
               "obs.alerts", "obs.drift", "obs.export", "obs.exposition",
-              "obs.stragglers", "obs.timeseries", "parallel.sync",
+              "obs.stragglers", "obs.timeseries", "parallel.mesh",
+              "parallel.multihost", "parallel.ring", "parallel.sync",
               "ops.moe", "predictors", "ps", "ps.client", "ps.cluster",
               "ps.codecs", "ps.networking", "ps.runner", "ps.servers",
               "ps.shard", "ps.shard.client", "ps.shard.plan",

@@ -209,22 +209,36 @@ def test_load_rejects_mismatched_trees():
 
 
 def test_unported_options_raise():
-    # the switch-MoE FF block is ported; a mesh on it is item 8's
+    """A mesh on ``MoEDense`` and on ``MultiHeadAttention`` runs now (the
+    name is kept from when it raised): on a one-rank ``ep`` / ``sp`` mesh
+    each gives the mesh-free model's output; rope with a mesh is refused
+    as the JAX layer refuses it."""
+    from distkeras_tpu_torch.parallel.mesh import make_mesh
+    x = torch.from_numpy(np.random.default_rng(0).integers(
+        0, VOCAB, size=(2, SEQ)))
     moe_lm = zoo.gpt_lm(vocab_size=VOCAB, dim=DIM, num_heads=4,
                         num_blocks=1, seq_len=SEQ,
                         moe_experts=2).init(0, device="cpu")
     moe_layer = [lyr for lyr in moe_lm.iter_layers()
                  if type(lyr).__name__ == "MoEDense"][0]
-    moe_layer.mesh = object()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        moe_lm(torch.zeros((1, SEQ), dtype=torch.long))
-    model = zoo.gpt_lm(vocab_size=VOCAB, dim=DIM, num_heads=4, num_blocks=1,
-                       seq_len=SEQ).init(0, device="cpu")
-    mha = [lyr for lyr in model.iter_layers()
-           if type(lyr).__name__ == "MultiHeadAttention"][0]
-    mha.mesh = object()
-    with pytest.raises(NotImplementedError, match="ring attention"):
-        model(torch.zeros((1, SEQ), dtype=torch.long))
+    moe_layer.capacity_factor = 64.0  # nothing drops: the dense formula
+    want = moe_lm(x)
+    moe_layer.mesh = make_mesh(axis_names=("ep",), shape=(1,),
+                               devices="cpu")
+    torch.testing.assert_close(moe_lm(x), want, rtol=1e-5, atol=1e-6)
+    for positional in ("learned", "rope"):
+        model = zoo.gpt_lm(vocab_size=VOCAB, dim=DIM, num_heads=4,
+                           num_blocks=1, seq_len=SEQ,
+                           positional=positional).init(0, device="cpu")
+        mha = [lyr for lyr in model.iter_layers()
+               if type(lyr).__name__ == "MultiHeadAttention"][0]
+        want = model(x)
+        mha.mesh = make_mesh(axis_names=("sp",), shape=(1,), devices="cpu")
+        if positional == "rope":
+            with pytest.raises(ValueError, match="rope=True with a mesh"):
+                model(x)
+            continue
+        torch.testing.assert_close(model(x), want, rtol=1e-5, atol=1e-6)
 
 
 def test_init_is_seeded_and_needs_a_device():

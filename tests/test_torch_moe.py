@@ -295,12 +295,26 @@ def test_checkpoint_leaf_order_with_the_aux_state(trained):
 
 
 def test_moe_with_a_mesh_raises_naming_item_8():
+    """A mesh on the layer, and ``switch_moe_sharded``, run now (ROADMAP
+    Queue 1 item 8 ported them; the name is kept from when they raised):
+    over a one-rank ``ep`` mesh with room for every token they are the
+    dense formula, and the sharded block is its one-process reference."""
+    from distkeras_tpu_torch.parallel.mesh import make_mesh
     model = zoo.gpt_lm(vocab_size=VOCAB, dim=16, num_heads=2, num_blocks=1,
                        seq_len=8, moe_experts=2).init(0, device="cpu")
     layer = next(lyr for lyr in model.iter_layers()
                  if isinstance(lyr, moe.MoEDense))
-    layer.mesh = object()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        model(torch.zeros((1, 8), dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        moe.switch_moe_sharded(object(), {}, torch.zeros(4, 16))
+    x = torch.arange(8).reshape(1, 8) % VOCAB
+    want = model(x)
+    layer.capacity_factor = 64.0
+    mesh = make_mesh(axis_names=("ep",), shape=(1,), devices="cpu")
+    layer.mesh = mesh
+    torch.testing.assert_close(model(x), want, rtol=1e-5, atol=1e-6)
+    params = moe.init_moe_params(torch.Generator().manual_seed(0), 4, 16, 8)
+    tokens = torch.randn(12, 16, generator=torch.Generator().manual_seed(1))
+    out, aux = moe.switch_moe_sharded(mesh, params, tokens,
+                                      capacity_factor=1.0)
+    ref, ref_aux = moe.switch_moe_reference(params, tokens, 1,
+                                            capacity_factor=1.0)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(aux, ref_aux)

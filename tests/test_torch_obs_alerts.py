@@ -380,11 +380,11 @@ def test_alert_engine_matches_jax(name):
         assert got[1]["obs.alerts.fired"]["value"] == 1
 
 
-def test_attainment_signal_reads_only_current_evidence():
-    """The port's one difference from the JAX engine: once a burn-rate
-    rule's windows hold too few samples, ``attainment_signal`` has no
-    evidence (None) instead of the last busy window's attainment, so an
-    idle fleet reads as slack to the autoscaler."""
+def test_attainment_signal_keeps_the_last_measured_attainment():
+    """Once a burn-rate rule's windows hold too few samples,
+    ``attainment_signal`` still returns the last busy window's
+    attainment in both packages: an idle fleet reads the attainment of
+    its last busy seconds."""
     rules, script = _SCRIPTS["burn_rate_fires_and_resolves"]
     results = {}
     for mod, store_cls in ((jalerts, JStore), (palerts, PStore)):
@@ -399,7 +399,7 @@ def test_attainment_signal_reads_only_current_evidence():
         eng.evaluate(force=True)
         results[mod] = (busy, eng.attainment_signal())
     assert results[jalerts] == (0.125, 0.125)
-    assert results[palerts] == (0.125, None)
+    assert results[palerts] == (0.125, 0.125)
 
 
 @pytest.mark.parametrize("bound", [0.0, 0.5, 1.0, 1.5, 2.0, 99.0])
