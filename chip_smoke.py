@@ -219,7 +219,16 @@ Phases, one JSON line each:
    probe on an ``ep`` mesh of 2 and DOWNPOUR's async cluster, each held
    against a one-process oracle on the card; the backend and why, each
    collective's route and the bytes through the host, step ms a rank
-   beside the oracle's.
+   beside the oracle's.  Then the probe trained by ``SpmdTrainer`` on
+   dp × mp (``mesh_spmd``: mp 2 in f32 and bf16, dp 2 in f32; every
+   parameter block, optimizer state and gradient on the card, the split
+   leaves' per-device bytes under their global bytes, K1–K3 launches a
+   rank equal to the oracle's) and by ``PipelineTrainer`` on pp 2
+   (``mesh_pipe``, M 4: each rank half the stack, K1–K3 exactly (M + S
+   − 1) × 2 a step), both against a one-process ``SingleTrainer``
+   oracle; ``zigzag_wrap`` of the ring LM (``mesh_zigzag``) against the
+   unwrapped zigzag ring, the stripe paid once a batch; and, on rank 0,
+   ``fold_batchnorm`` of a ResNet-20 against its unfolded eval forward.
 
 ``k1`` and ``k2k3`` also hold head dims 16, 48 and 96 (which bf16 K1
 and K2/K3 run zero-padded to 32, 64 and 128, and the f32 K1 reads
@@ -3926,6 +3935,21 @@ MESH_BF16_LOSS_RTOL = 2e-2
 #: (its E[x²] − E[x]² statistics round in f32: on an H100 at 700 W the
 #: first mesh run read a leaf 2.5% off at its largest |value|)
 MESH_F64_LEAF_OF_MAX = 1e-9
+#: ``mesh_spmd`` / ``mesh_pipe``: the probe LM at full width trained by
+#: ``SpmdTrainer`` (``SPMD_MESHES``) and ``PipelineTrainer`` (pp 2, M =
+#: ``PIPE_M``: 2 stages of 2 blocks) against a one-process
+#: ``SingleTrainer`` oracle on the card: Adam at lr ``SPMD_LR``, batch 8,
+#: 2 epochs of 2 steps, f32 and bf16 (the bounds above)
+SPMD = dict(batch=8, steps=2, epochs=2, lr=1e-3)
+#: (run, mesh shape, compute dtype): mp 2 in both dtypes, dp 2 in f32
+SPMD_MESHES = (("mp2_float32", {"dp": 1, "mp": 2}, None),
+               ("mp2_bfloat16", {"dp": 1, "mp": 2}, "bfloat16"),
+               ("dp2_float32", {"dp": 2, "mp": 1}, None))
+PIPE_M = 4
+#: the runs of a mesh rank, in order (``seconds_by_run``; ``fold`` runs on
+#: rank 0 alone)
+MESH_RUNS = ("ring", "sync", "bn", "moe", "spmd", "pipe", "zigzag", "fold",
+             "cluster")
 
 
 def _mesh_leaf_err(got, ref) -> float:
@@ -4093,7 +4117,45 @@ def _mesh_oracle(torch, dev):
         moe.dense_moe = dense
     out["moe"] = {"logits": logits, "loss": loss, "grads": grads}
     del model
+    # mesh_spmd and mesh_pipe: the probe LM trained in one process
+    from distkeras_tpu_torch.ops.flash_attention import reset_launches
+    out["spmd"] = {}
+    init = zoo.gpt_lm(**LM).init(0, device=dev)
+    for dtype in ("float32", "bfloat16"):
+        reset_launches()
+        t = _spmd_oracle_trainer(torch, dev, dtype)
+        t.train(_lm_rows(SPMD["batch"] * SPMD["steps"]))
+        rec = [r for r in t.metrics.records if r["event"] == "epoch"][-1]
+        out["spmd"][dtype] = {
+            "losses": np.concatenate(t.get_history()),
+            "params": {n: p.detach().clone()
+                       for n, p in t.model.named_parameters()},
+            "init": {n: p.detach().clone()
+                     for n, p in init.named_parameters()},
+            "launches": _launches_by_k(kernel_launches())}
+        ms[f"spmd_{dtype}"] = 1e3 * rec["epoch_seconds"] / SPMD["steps"]
+        del t
     return out, ms
+
+
+def _spmd_oracle_trainer(torch, dev, dtype):
+    import distkeras_tpu_torch as dkt
+    from distkeras_tpu_torch.models import zoo
+    return dkt.SingleTrainer(
+        zoo.gpt_lm(**LM), "adam", SCE, batch_size=SPMD["batch"],
+        learning_rate=SPMD["lr"], num_epoch=SPMD["epochs"],
+        compute_dtype=None if dtype == "float32" else dtype, device=dev)
+
+
+def _launches_by_k(rows) -> dict:
+    """[kernel, dtype, Dh, n] rows summed into K1 (``fwd``), K2 (``dq``)
+    and K3 (``dkv``) launches, whichever kernel ran each."""
+    counts = {"fwd": 0, "dq": 0, "dkv": 0}
+    for k, _, _, n in rows:
+        key = "dq" if k.startswith("flash_bwd_dq") else \
+            "dkv" if k.startswith("flash_bwd_dkv") else "fwd"
+        counts[key] += n
+    return counts
 
 
 def _mesh_attach(model, mesh, layout):
@@ -4319,6 +4381,198 @@ def _mesh_cluster_rank(torch, port, rank, dev):
     return row
 
 
+def _trainer_readings(torch, t, ref, dtype):
+    """A mesh trainer's losses and, in f32, its largest trained-leaf error
+    against the oracle ``ref``, and its ms a step (last epoch)."""
+    import numpy as np
+    losses = np.concatenate(t.get_history())
+    rec = [r for r in t.metrics.records if r["event"] == "epoch"][-1]
+    row = {"losses": losses.tolist(), "losses_ref": ref["losses"].tolist(),
+           "step_ms": 1e3 * rec["epoch_seconds"] / SPMD["steps"]}
+    if dtype == "float32":
+        got = dict(t.model.named_parameters())
+        row["params"] = max(_mesh_leaf_err(p.detach(), ref["params"][n])
+                            for n, p in got.items())
+        row["params_step_rel"] = max(
+            float((got[n].detach() - ref["params"][n]).norm()
+                  / (ref["params"][n] - p0).norm().clamp_min(1e-30))
+            for n, p0 in ref["init"].items())
+    return row
+
+
+def _device_spy(t, seen: set):
+    """Wrap ``t._start`` so that every parameter block it trains, every
+    optimizer-state tensor and every gradient that reaches a parameter
+    records its device type in ``seen``."""
+    start = t._start
+
+    def spy(optimizer):
+        params, opt_state, ckpt, first = start(optimizer)
+        for p in params.values():
+            seen.add(p.device.type)
+            p.register_hook(lambda g: seen.add(g.device.type))
+        for v in opt_state.values():
+            if isinstance(v, dict):
+                seen.update(x.device.type for x in v.values())
+        return params, opt_state, ckpt, first
+    t._start = spy
+
+
+def _mesh_spmd_rank(torch, oracle, rank, dev):
+    from distkeras_tpu_torch import SpmdTrainer
+    from distkeras_tpu_torch.models import zoo
+    ds = _lm_rows(SPMD["batch"] * SPMD["steps"])
+    out = {}
+    for run_name, shape, dtype in SPMD_MESHES:
+        key = dtype or "float32"
+        seen = set()
+
+        def run():
+            t = SpmdTrainer(zoo.gpt_lm(**LM), "adam", SCE, mesh_shape=shape,
+                            batch_size=SPMD["batch"],
+                            learning_rate=SPMD["lr"],
+                            num_epoch=SPMD["epochs"], compute_dtype=dtype)
+            _device_spy(t, seen)
+            t.train(ds)
+            row = _trainer_readings(torch, t, oracle["spmd"][key], key)
+            rep = t.sharding_report
+            row.update(global_bytes=rep["global_bytes"],
+                       per_device_bytes=rep["per_device_bytes"])
+            return row
+        row, launches, stats = _mesh_path(torch, run)
+        row.update(kernel_launches=launches, collectives=stats,
+                   devices=sorted(seen), dtype=key,
+                   launches_ref=oracle["spmd"][key]["launches"])
+        out[run_name] = row
+    return out
+
+
+def _mesh_pipe_rank(torch, oracle, rank, dev):
+    from distkeras_tpu_torch import PipelineTrainer
+    from distkeras_tpu_torch.models import zoo
+    ds = _lm_rows(SPMD["batch"] * SPMD["steps"])
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        seen = set()
+
+        def run():
+            t = PipelineTrainer(
+                zoo.gpt_lm(**LM), "adam", SCE, mesh_shape={"pp": 2},
+                num_microbatches=PIPE_M, batch_size=SPMD["batch"],
+                learning_rate=SPMD["lr"], num_epoch=SPMD["epochs"],
+                compute_dtype=None if dtype == "float32" else dtype)
+            t.train(ds)
+            row = _trainer_readings(torch, t, oracle["spmd"][dtype], dtype)
+            stage = sum(t._params[k].numel() * t._params[k].element_size()
+                        for k in t._stage_keys)
+            seen.update(p.device.type for p in t._params.values())
+            layers = t.model.layer.layers
+            a = 2  # [Emb, Pos, (Res, FF) × blocks, LN, Dense]
+            stack = sum(p.numel() * p.element_size()
+                        for lyr in layers[a:a + 2 * LM["num_blocks"]]
+                        for p in lyr.parameters())
+            row.update(stage_bytes=stage, stack_bytes=stack)
+            return row
+        row, launches, stats = _mesh_path(torch, run)
+        row.update(kernel_launches=launches, collectives=stats,
+                   devices=sorted(seen))
+        out[dtype] = row
+    return out
+
+
+def _mesh_zigzag_rank(torch, oracle, rank, dev):
+    """``zigzag_wrap`` of the ring LM on sp 2 against the unwrapped
+    zigzag ring (each attention layer striping its own inputs): logits,
+    gradients, stripe passes (``_take_chunks`` calls) and launches."""
+    from distkeras_tpu_torch.models import zigzag_wrap, zoo
+    from distkeras_tpu_torch.parallel import mesh as M
+    from distkeras_tpu_torch.parallel import ring
+    lm = _mesh_ring_lm()
+    mesh = M.make_mesh(axis_names=("sp",), shape=(MESH["ranks"],))
+    x, y = _mesh_tokens(torch, lm, MESH["ring_batch"], 21, dev)
+    model = zoo.gpt_lm(**lm).init(0, device=dev)
+    take, stripes = ring._take_chunks, [0]
+
+    def counted(*a):
+        stripes[0] += 1
+        return take(*a)
+    ring._take_chunks = counted
+    try:
+        wrapped, pos = zigzag_wrap(model, mesh)
+
+        def run():
+            stripes[0] = 0
+            t0 = time.perf_counter()
+            logits, loss, grads = _mesh_fwd_grad(torch, wrapped, x, y)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            return logits, loss, grads, stripes[0], \
+                1e3 * (time.perf_counter() - t0)
+        (logits, loss, grads, wrapped_stripes, ms), launches, stats = \
+            _mesh_path(torch, run)
+        # the wrapped stack's parameters are the original's, under names
+        # shifted by the stripe layers
+        name = {id(p): n for n, p in model.named_parameters()}
+        grads = {name[id(p)]: grads[n]
+                 for n, p in wrapped.named_parameters()}
+        _mesh_attach(model, mesh, "zigzag")
+        stripes[0] = 0
+        t0 = time.perf_counter()
+        ref_logits, ref_loss, ref_grads = _mesh_fwd_grad(torch, model, x, y)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        ref_ms = 1e3 * (time.perf_counter() - t0)
+        ring_stripes = stripes[0]
+    finally:
+        ring._take_chunks = take
+    return {"logits": _mesh_close(logits, ref_logits, MESH_F32["rtol"],
+                                  MESH_F32["atol_of_max"]),
+            "loss": float(loss), "loss_ref": float(ref_loss),
+            "grads": max(_mesh_leaf_err(grads[n], ref_grads[n])
+                         for n in grads),
+            "positions": list(pos), "stripes": wrapped_stripes,
+            "ring_stripes": ring_stripes, "step_ms": ms,
+            "ring_step_ms": ref_ms, "kernel_launches": launches,
+            "collectives": stats}
+
+
+def _mesh_fold_rank(torch, dev):
+    """``fold_batchnorm`` of a ResNet-20 (its BatchNorm statistics moved
+    off their init) against its unfolded forward, eval mode, f32, and
+    both forwards' ms at batch ``MESH["bn_batch"]``."""
+    import numpy as np
+    from distkeras_tpu_torch.models import fold_batchnorm, zoo
+    from distkeras_tpu_torch.models.layers import BatchNorm
+    model = zoo.resnet20().init(0, device=dev)
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for lyr in model.iter_layers():
+            if isinstance(lyr, BatchNorm):
+                c = lyr.mean.shape[0]
+                lyr.mean.copy_(0.2 * torch.randn(c, generator=gen))
+                lyr.var.copy_(0.5 + torch.rand(c, generator=gen))
+                lyr.bias.add_(0.05 * torch.randn(c, generator=gen).to(dev))
+    folded = fold_batchnorm(model)
+    x, _ = _mesh_bn_data(torch, dev)
+    x = x[:MESH["bn_batch"]]
+    times = {}
+    with torch.no_grad():
+        for name, m in (("unfolded", model), ("folded", folded)):
+            m(x)
+            torch.cuda.synchronize(dev) if dev.type == "cuda" else None
+            t0 = time.perf_counter()
+            y = m(x)
+            torch.cuda.synchronize(dev) if dev.type == "cuda" else None
+            times[name] = (y, 1e3 * (time.perf_counter() - t0))
+    (y0, ms0), (y1, ms1) = times["unfolded"], times["folded"]
+    return {"out": _mesh_close(y1, y0, MESH_F32["rtol"],
+                               MESH_F32["atol_of_max"]),
+            "batchnorms_left": sum(isinstance(lyr, BatchNorm)
+                                   for lyr in folded.iter_layers()),
+            "finite": bool(np.isfinite(y1.cpu().numpy()).all()),
+            "ms": ms1, "unfolded_ms": ms0}
+
+
 def _mesh_rank(workdir: str, rank: int) -> int:
     """One rank of the ``mesh`` phase (``chip_smoke.py --mesh-rank DIR
     R``): forms the gloo group, runs every run against the oracles the
@@ -4348,10 +4602,16 @@ def _mesh_rank(workdir: str, rank: int) -> int:
                       for op in ("all_reduce", "broadcast", "all_gather",
                                  "all_to_all", "ppermute")}}
     for name, fn in (("ring", _mesh_ring_rank), ("sync", _mesh_sync_rank),
-                     ("bn", _mesh_bn_rank), ("moe", _mesh_moe_rank)):
+                     ("bn", _mesh_bn_rank), ("moe", _mesh_moe_rank),
+                     ("spmd", _mesh_spmd_rank), ("pipe", _mesh_pipe_rank),
+                     ("zigzag", _mesh_zigzag_rank)):
         t1 = time.perf_counter()
         out[name] = fn(torch, oracle, rank, dev)
         out[f"{name}_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    if rank == 0:  # one rank: no collective
+        out["fold"] = _mesh_fold_rank(torch, dev)
+    out["fold_s"] = time.perf_counter() - t1
     t1 = time.perf_counter()
     out["cluster"] = _mesh_cluster_rank(torch, spec["cluster_port"], rank,
                                         dev)
@@ -4371,6 +4631,75 @@ def _free_port() -> int:
     port = s.getsockname()[1]
     s.close()
     return port
+
+
+def _mesh_losses_ok(what, row, dtype):
+    tol = MESH_F32["rtol"] if dtype == "float32" else MESH_BF16_LOSS_RTOL
+    got, want = row["losses"], row["losses_ref"]
+    check(len(got) == len(want) and all(abs(a - b) <= tol * abs(b)
+                                        for a, b in zip(got, want)),
+          f"{what}: {dtype} losses {got} vs {want}")
+    if dtype == "float32":
+        # Adam normalises each update, so a gradient component near 0
+        # moves its parameter by ~lr whatever its f32 rounding: a run whose
+        # K1 takes another kernel than the oracle's (dp 2's batch 4 and
+        # pp's microbatch 2 fall under the 3xTF32 grid rule, onto CUDA
+        # cores) read 1.2e-3 and 1.4e-3 of a leaf's largest |value|
+        # elementwise at equal losses on an H100 at 700 W.  So the f32
+        # trained leaves are held in norm, each leaf's change within
+        # F32_STEP_REL of the oracle's; the elementwise reading is reported
+        check(row["params_step_rel"] <= F32_STEP_REL,
+              f"{what}: trained f32 parameters' change "
+              f"{row['params_step_rel']} (elementwise {row['params']})")
+
+
+def _mesh_trainer_checks(r, res):
+    """``mesh_spmd``, ``mesh_pipe`` and ``mesh_zigzag`` on rank ``r``."""
+    dev = res["device"].split(":")[0]
+    for run, shape, _ in SPMD_MESHES:
+        row = res["spmd"][run]
+        what = f"mesh_spmd {run} rank {r}"
+        _mesh_losses_ok(what, row, row["dtype"])
+        split = row["per_device_bytes"] < row["global_bytes"]
+        check(split == (shape["mp"] > 1),
+              f"{what}: per-device bytes {row['per_device_bytes']} of "
+              f"{row['global_bytes']}")
+        check(row["devices"] == [dev],
+              f"{what}: parameter blocks, optimizer state and gradients "
+              f"on {row['devices']}, not {dev}")
+        got = _launches_by_k(row["kernel_launches"])
+        check(got == row["launches_ref"],
+              f"{what}: launches {got}, the oracle's "
+              f"{row['launches_ref']}")
+    steps = SPMD["epochs"] * SPMD["steps"]
+    stages = 2
+    ticks = PIPE_M + stages - 1
+    for dtype, row in res["pipe"].items():
+        what = f"mesh_pipe {dtype} rank {r}"
+        _mesh_losses_ok(what, row, dtype)
+        check(row["stage_bytes"] * stages == row["stack_bytes"],
+              f"{what}: stage {row['stage_bytes']} of the stack's "
+              f"{row['stack_bytes']} bytes")
+        check(row["devices"] == [dev], f"{what}: on {row['devices']}")
+        want = ticks * LM["num_blocks"] // stages * steps
+        got = _launches_by_k(row["kernel_launches"])
+        check(got == {"fwd": want, "dq": want, "dkv": want},
+              f"{what}: launches {got}, want {want} each of K1, K2, K3 "
+              f"((M + S − 1) × blocks a stage × steps)")
+    zz = res["zigzag"]
+    what = f"mesh_zigzag rank {r}"
+    check(zz["logits"] <= 1.0 and zz["grads"] <= MESH_F32["leaf_of_max"]
+          and abs(zz["loss"] - zz["loss_ref"])
+          <= MESH_F32["rtol"] * abs(zz["loss_ref"]),
+          f"{what}: against the unwrapped zigzag ring {zz}")
+    check(zz["stripes"] == 2 and zz["ring_stripes"]
+          == 4 * LM["num_blocks"],
+          f"{what}: stripe passes {zz['stripes']} (the unwrapped ring's "
+          f"{zz['ring_stripes']})")
+    want = LM["num_blocks"] * RING_K1["zigzag"][r]
+    got = _launches_by_k(zz["kernel_launches"])
+    check(got == {"fwd": want, "dq": want, "dkv": want},
+          f"{what}: launches {got}, want {want} each")
 
 
 def _mesh_checks(ranks):
@@ -4425,9 +4754,13 @@ def _mesh_checks(ranks):
         moe = res["moe"]
         check(moe["logits"] <= 1.0 and moe["grads"] <= MESH_F32[
             "leaf_of_max"], f"mesh_moe rank {r}: {moe}")
+        _mesh_trainer_checks(r, res)
     for name in ("ADAG", "DOWNPOUR"):
         check(len({res["sync"][name]["center_digest"] for res in ranks}) == 1,
               f"mesh_sync {name}: the ranks' centers differ")
+    fold = ranks[0]["fold"]
+    check(fold["out"] <= 1.0 and fold["finite"]
+          and fold["batchnorms_left"] == 0, f"mesh_fold: {fold}")
     check(len({res["cluster"]["center_digest"] for res in ranks}) == 1,
           "mesh_cluster: the ranks returned different centers")
     want = MESH["cluster_windows"]
@@ -4445,10 +4778,13 @@ def phase_mesh(torch, device="cuda"):
     rank as the schedule says), ``mesh_sync`` (ADAG and DOWNPOUR at 4
     workers, 2 a rank), ``mesh_bn`` (ResNet-20 with BatchNorm over the
     workers axis, one worker a rank), ``mesh_moe`` (the MoE probe on an
-    ep mesh of 2) and ``mesh_cluster`` (DOWNPOUR's async cluster, the PS
-    on rank 0).  Every multi-rank result is held against a one-process
-    computation on the card (the oracle), computed first.  Returns (row,
-    [(path, kernel_launches)])."""
+    ep mesh of 2), ``mesh_spmd`` (``SpmdTrainer`` on mp 2 and dp 2),
+    ``mesh_pipe`` (``PipelineTrainer`` on pp 2), ``mesh_zigzag``
+    (``zigzag_wrap`` against the unwrapped zigzag ring), ``mesh_fold``
+    (``fold_batchnorm`` on rank 0) and ``mesh_cluster`` (DOWNPOUR's async
+    cluster, the PS on rank 0).  Every multi-rank result is held against
+    a one-process computation on the card (the oracle), computed first.
+    Returns (row, [(path, kernel_launches)])."""
     import shutil
     import tempfile
     t_phase = time.perf_counter()
@@ -4513,7 +4849,13 @@ def phase_mesh(torch, device="cuda"):
                   for n in res["sync"]},
                **{f"bn_{d}": res["bn"][d]["step_ms"]
                   for d in ("float32", "float64")},
-               "moe": res["moe"]["step_ms"]}
+               "moe": res["moe"]["step_ms"],
+               **{f"spmd_{n}": res["spmd"][n]["step_ms"]
+                  for n in res["spmd"]},
+               **{f"pipe_{d}": res["pipe"][d]["step_ms"]
+                  for d in res["pipe"]},
+               "zigzag": res["zigzag"]["step_ms"],
+               "zigzag_unwrapped": res["zigzag"]["ring_step_ms"]}
                for r, res in enumerate(ranks)},
            "readings": {f"rank{r}": {
                "ring": {layout: {k: res["ring"][layout][k]
@@ -4530,18 +4872,28 @@ def phase_mesh(torch, device="cuda"):
                "moe": {k: res["moe"][k] for k in ("logits", "grads",
                                                   "loss", "loss_ref")},
                "cluster": {k: v for k, v in res["cluster"].items()
-                           if k not in ("kernel_launches", "collectives")}}
+                           if k not in ("kernel_launches", "collectives")},
+               "spmd": {n: {k: v for k, v in row.items()
+                            if k not in ("kernel_launches", "collectives")}
+                        for n, row in res["spmd"].items()},
+               "pipe": {d: {k: v for k, v in row.items()
+                            if k not in ("kernel_launches", "collectives")}
+                        for d, row in res["pipe"].items()},
+               "zigzag": {k: v for k, v in res["zigzag"].items()
+                          if k not in ("kernel_launches", "collectives")}}
                for r, res in enumerate(ranks)},
+           "fold": ranks[0]["fold"],
            "collectives": {f"rank{r}": {
                name: (res[name]["collectives"] if name in ("bn", "moe",
                                                            "cluster")
                       else {k: v["collectives"]
                             for k, v in res[name].items()})
-               for name in ("ring", "sync", "bn", "moe", "cluster")}
+               for name in ("ring", "sync", "bn", "moe", "cluster", "spmd",
+                            "pipe")}
+               | {"zigzag": res["zigzag"]["collectives"]}
                for r, res in enumerate(ranks)},
            "seconds_by_run": {f"rank{r}": {k: res[f"{k}_s"] for k in
-                                            ("ring", "sync", "bn", "moe",
-                                             "cluster")}
+                                            MESH_RUNS}
                               for r, res in enumerate(ranks)},
            "oracle_s": oracle_s, "ranks_s": ranks_s,
            "seconds": time.perf_counter() - t_phase}
@@ -4556,6 +4908,11 @@ def phase_mesh(torch, device="cuda"):
                    res["sync"][n]["kernel_launches"]) for n in res["sync"]]
         paths += [(f"mesh_moe_r{r}", res["moe"]["kernel_launches"]),
                   (f"mesh_cluster_r{r}", res["cluster"]["kernel_launches"])]
+        paths += [(f"mesh_spmd_{n}_r{r}", res["spmd"][n]["kernel_launches"])
+                  for n in res["spmd"]]
+        paths += [(f"mesh_pipe_{d}_r{r}", res["pipe"][d]["kernel_launches"])
+                  for d in res["pipe"]]
+        paths += [(f"mesh_zigzag_r{r}", res["zigzag"]["kernel_launches"])]
     return row, paths
 
 
@@ -5270,7 +5627,9 @@ def main() -> int:
         cont = timed("continual", phase_continual, torch)
         _, scenario_paths = timed("scenario", phase_scenario, torch)
         obs = timed("obs", phase_obs, torch)
-        _, mesh_paths = timed("mesh", phase_mesh, torch)
+        mesh_row, mesh_paths = timed("mesh", phase_mesh, torch)
+        seconds.update({f"mesh.{k}": v for k, v in
+                        mesh_row["seconds_by_run"]["rank0"].items()})
         later = [(f"yaml_lm_{r['variant']}", r["kernel_launches"])
                  for r in yl]
         later += [("ckpt_straight", ck["kernel_launches"]),

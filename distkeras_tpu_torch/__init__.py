@@ -14,7 +14,10 @@ sync distributed trainers (``ADAG``, ``DOWNPOUR``, ``DynSGD``,
 ``AEASGD``, ``EAMSGD``, ``AveragingTrainer``, ``EnsembleTrainer``), their
 workers stepped one after another on one card; serde, checkpoints and
 resume, and disk streaming (``ShardedFileDataset``,
-``StreamingPredictor``), in the JAX package's byte formats.
+``StreamingPredictor``), in the JAX package's byte formats; and training
+across the processes of a ``torch.distributed`` group: the sync
+trainers over a mesh, ``SpmdTrainer`` (dp × mp) and ``PipelineTrainer``
+(GPipe over pp, with dp).
 """
 
 __version__ = "0.3.0"
@@ -39,6 +42,8 @@ from .trainers import (  # noqa: F401
     DistributedTrainer,
     DynSGD,
     EnsembleTrainer,
+    PipelineTrainer,
     SingleTrainer,
+    SpmdTrainer,
     Trainer,
 )

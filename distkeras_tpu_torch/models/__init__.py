@@ -23,6 +23,7 @@ from .layers import (  # noqa: F401
     register,
     set_generator,
 )
-from .model import Model  # noqa: F401
+from .model import Model, num_params  # noqa: F401
+from .optimize import ZigzagStripe, fold_batchnorm, zigzag_wrap  # noqa: F401
 from . import zoo  # noqa: F401
 from .generation import generate_beam, generate_tokens  # noqa: F401

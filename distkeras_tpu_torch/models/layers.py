@@ -490,6 +490,10 @@ class BatchNorm(Layer):
         self.momentum = float(momentum)
         self.epsilon = float(epsilon)
         self.axis_name = axis_name
+        #: runtime attachment (not in the config): the mesh axis the batch
+        #: is split over, whose statistics are shared when ``axis_name``
+        #: is None (``parallel.spmd`` sets it to ``dp`` for its forward)
+        self.batch_axis: Optional[str] = None
         self.new_state: Optional[dict] = None
 
     def build(self, in_shape, gen):
@@ -507,12 +511,13 @@ class BatchNorm(Layer):
             dims = tuple(range(x.ndim - 1))
             mean = torch.mean(x, dim=dims, dtype=acc)
             mean2 = torch.mean(x.square(), dim=dims, dtype=acc)
-            if self.axis_name is not None:
+            axis = self.axis_name if self.axis_name is not None \
+                else self.batch_axis
+            if axis is not None:
                 from ..parallel.mesh import active_mesh, pmean
-                mesh = active_mesh(f"BatchNorm(axis_name="
-                                   f"{self.axis_name!r})")
-                mean = pmean(mean, self.axis_name, mesh)
-                mean2 = pmean(mean2, self.axis_name, mesh)
+                mesh = active_mesh(f"BatchNorm(axis_name={axis!r})")
+                mean = pmean(mean, axis, mesh)
+                mean2 = pmean(mean2, axis, mesh)
             var = torch.clamp(mean2 - mean.square(), min=0.0)
             m = self.momentum
             self.new_state = {

@@ -12,12 +12,14 @@ here.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..utils.device import DeviceLike, default_device
+from ..utils.tree import tree_leaves
 from .layers import Layer, Sequential, layer_from_config
 
 
@@ -71,3 +73,14 @@ class Model(nn.Module):
         return cls(layer_from_config(cfg["layer"]),
                    input_shape=cfg["input_shape"],
                    name=cfg.get("name", "model"))
+
+
+def num_params(variables: Union[nn.Module, dict]) -> int:
+    """The number of parameters: of a model's ``parameters()``, or of the
+    ``params`` of a JAX-shaped ``variables`` tree (numpy or tensor
+    leaves, as ``utils.to_numpy_variables`` gives it), as the JAX
+    package's ``num_params(variables)`` counts them."""
+    if isinstance(variables, nn.Module):
+        return sum(p.numel() for p in variables.parameters())
+    return sum(int(x.numel()) if torch.is_tensor(x) else int(np.size(x))
+               for x in tree_leaves(variables["params"]))

@@ -1,7 +1,8 @@
 """Training steps, the sync engine and parallelism across processes: the
 local minibatch step, the window loop, the window-edge rules and
 ``SyncEngine`` (``sync``); the mesh and its collectives (``mesh``),
-multi-process bring-up (``multihost``) and ring attention (``ring``)."""
+multi-process bring-up (``multihost``), ring attention (``ring``), dp ×
+mp training (``spmd``) and the GPipe pipeline (``pipeline``)."""
 
 from .mesh import (Mesh, P, PartitionSpec, make_mesh,  # noqa: F401
                    shard_map)

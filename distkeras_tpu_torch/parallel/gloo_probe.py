@@ -4,8 +4,12 @@
 
 For each collective, two fresh processes on ``cuda:0`` form a gloo group
 and call it directly on CUDA tensors (no host copy), then check the
-result.  Each collective gets its own pair, so one that crashes or hangs
-costs only its own row.  Prints one JSON line per collective —
+result: the ``torch.distributed`` calls, the functional collectives
+DTensor issues (``funcol_*``), and a DTensor Megatron pair (``dtensor``:
+a column- then a row-sharded kernel on a ``"cuda"`` DeviceMesh at mp 2
+and at dp 2, loss and gradients against the dense ones).  Each
+collective gets its own pair, so one that crashes or hangs costs only
+its own row.  Prints one JSON line per collective —
 ``{"collective", "result": "direct" | "refused" | "wrong" | "timeout",
 "detail"}`` — and a last line with the set that ran directly, which
 ``mesh.GLOO_CUDA_DIRECT`` records.  Needs a card.
@@ -21,7 +25,9 @@ import subprocess
 import sys
 
 COLLECTIVES = ("all_reduce", "broadcast", "all_gather", "all_to_all",
-               "send_recv", "reduce_scatter")
+               "send_recv", "reduce_scatter", "all_gather_into_tensor",
+               "funcol_all_reduce", "funcol_all_gather",
+               "funcol_reduce_scatter", "funcol_all_to_all", "dtensor")
 
 _CHILD = r"""
 import sys, datetime, json
@@ -60,6 +66,58 @@ try:
         out = torch.empty(2, device=dev)
         dist.reduce_scatter_tensor(out, x)
         ok = out.tolist() == ([10.0, 12.0] if rank == 0 else [14.0, 16.0])
+    elif op == "all_gather_into_tensor":
+        out = torch.empty(8, device=dev)
+        dist.all_gather_into_tensor(out, x)
+        ok = out.tolist() == [0.0, 1, 2, 3, 10, 11, 12, 13]
+    elif op.startswith("funcol_"):
+        # the functional collectives DTensor issues for its redistributions
+        import torch.distributed._functional_collectives as funcol
+        world = dist.group.WORLD
+        if op == "funcol_all_reduce":
+            out, want = funcol.all_reduce(x, "sum", world), [10.0, 12, 14, 16]
+        elif op == "funcol_all_gather":
+            out = funcol.all_gather_tensor(x, 0, world)
+            want = [0.0, 1, 2, 3, 10, 11, 12, 13]
+        elif op == "funcol_reduce_scatter":
+            out = funcol.reduce_scatter_tensor(x, "sum", 0, world)
+            want = [10.0, 12.0] if rank == 0 else [14.0, 16.0]
+        else:
+            out = funcol.all_to_all_single(x, None, None, world)
+            want = [0.0, 1, 10, 11] if rank == 0 else [2.0, 3, 12, 13]
+        out = funcol.wait_tensor(out)
+        ok = out.is_cuda and out.tolist() == want
+    elif op == "dtensor":
+        # a Megatron pair on a "cuda" DeviceMesh over this gloo group, at
+        # mp 2 and at dp 2: loss and gradients against the dense ones,
+        # every local shard on the card
+        from torch.distributed.device_mesh import DeviceMesh
+        from torch.distributed.tensor import (Replicate, Shard,
+                                              distribute_tensor)
+        g = torch.Generator().manual_seed(0)
+        w1, w2, xb = (torch.randn(*s, generator=g).to(dev)
+                      for s in ((16, 32), (32, 4), (8, 16)))
+        r1, r2 = w1.clone().requires_grad_(), w2.clone().requires_grad_()
+        ref = (torch.relu(xb @ r1) @ r2).square().mean()
+        ref.backward()
+        ok = True
+        for shape in ((1, 2), (2, 1)):
+            mesh = DeviceMesh("cuda", torch.arange(2).reshape(shape),
+                              mesh_dim_names=("dp", "mp"))
+            put = lambda t, pl: distribute_tensor(t, mesh, pl,
+                                                  src_data_rank=None)
+            d1 = torch.nn.Parameter(put(w1, [Replicate(), Shard(1)]))
+            d2 = torch.nn.Parameter(put(w2, [Replicate(), Shard(0)]))
+            xd = put(xb, [Shard(0), Replicate()])
+            loss = (torch.relu(xd @ d1) @ d2).square().mean()
+            loss.backward()
+            g1 = d1.grad.redistribute(mesh, d1.placements).full_tensor()
+            g2 = d2.grad.redistribute(mesh, d2.placements).full_tensor()
+            ok = ok and bool(abs(loss.full_tensor() - ref) < 1e-4 * ref) \
+                and all(torch.allclose(a, b.grad, rtol=1e-4, atol=1e-5)
+                        for a, b in ((g1, r1), (g2, r2))) \
+                and all(t.to_local().is_cuda
+                        for t in (d1, d2, d1.grad, d2.grad))
     torch.cuda.synchronize()
     print(json.dumps({"result": "direct" if ok else "wrong"}))
 except Exception as e:  # noqa: BLE001 - the refusal is the finding

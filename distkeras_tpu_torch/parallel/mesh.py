@@ -60,9 +60,15 @@ WORKERS = "workers"
 #: collectives gloo runs on CUDA tensors directly, as ``python -m
 #: distkeras_tpu_torch.parallel.gloo_probe`` found them on an H100 with
 #: torch 2.11 (cu128): send/recv refused, the rest right; on a gloo group
-#: a CUDA tensor's ``ppermute`` (send/recv) goes through a host copy
+#: a CUDA tensor's ``ppermute`` (send/recv) goes through a host copy.  Of
+#: the functional collectives DTensor issues, all_reduce, reduce_scatter
+#: and all_to_all run; its all-gather and a DTensor Megatron pair end the
+#: process (SIGSEGV), so ``parallel.spmd`` runs on these collectives
+#: rather than on DTensor
 GLOO_CUDA_DIRECT = frozenset({"all_reduce", "broadcast", "all_gather",
-                              "all_to_all", "reduce_scatter"})
+                              "all_to_all", "reduce_scatter",
+                              "all_gather_into_tensor", "funcol_all_reduce",
+                              "funcol_reduce_scatter", "funcol_all_to_all"})
 
 
 # ---------------------------------------------------------------------------

@@ -51,6 +51,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch import nn
+from torch.func import functional_call
 
 from .data.dataset import Dataset
 from .data.streaming import (ShardedFileDataset, worker_window_factory,
@@ -65,6 +67,7 @@ from .ops.losses import get_loss, probs_loss_variant
 from .ops.optimizers import get_optimizer, sgd
 from .ps import codecs
 from .parallel import mesh as mesh_lib
+from .parallel import multihost, spmd
 from .parallel.sync import (AdagSync, DownpourSync, DynSgdSync, EasgdSync,
                             NoCommSync, SyncEngine, _inexact, make_window_fn,
                             model_params, replicate, stack_trees, tmap,
@@ -72,7 +75,8 @@ from .parallel.sync import (AdagSync, DownpourSync, DynSgdSync, EasgdSync,
 from .utils import checkpoint, serde
 from .utils.device import DeviceLike, default_device
 from .utils.metrics import MetricsLogger
-from .utils.weights import jax_leaf_names, to_numpy_variables
+from .utils.tree import tree_leaves
+from .utils.weights import _jax_tree, jax_leaf_names, to_numpy_variables
 
 _LOG = "trainers"
 
@@ -451,6 +455,10 @@ class SingleTrainer(Trainer):
         return checkpoint.opt_state_from_leaves(
             opt_state, tree[1], jax_leaf_names(self.model)[0])
 
+    def _batches(self, a: np.ndarray) -> torch.Tensor:
+        """Host batches (steps, batch, …) on the device."""
+        return torch.from_numpy(a).to(self.device)
+
     def _start(self, optimizer):
         """Initialise from ``seed`` and restore a checkpoint if asked:
         ``(params, opt_state, ckpt, start_epoch)``."""
@@ -475,8 +483,8 @@ class SingleTrainer(Trainer):
         stacked, steps = ds.stacked([self.features_col, self.label_col],
                                     self.batch_size)
         # the epoch's batches move to the device once
-        xs = torch.from_numpy(stacked[self.features_col][0]).to(self.device)
-        ys = torch.from_numpy(stacked[self.label_col][0]).to(self.device)
+        xs = self._batches(stacked[self.features_col][0])
+        ys = self._batches(stacked[self.label_col][0])
 
         params, opt_state, ckpt, start = self._start(optimizer)
         samples = int(xs.shape[0]) * self.batch_size
@@ -517,8 +525,9 @@ class SingleTrainer(Trainer):
                 for _ in range(n_windows):
                     window = [next(it) for _ in range(w)]
                     params, opt_state, l = run(
-                        params, opt_state, _to_device(window, 0, self.device),
-                        _to_device(window, 1, self.device))
+                        params, opt_state,
+                        self._batches(np.stack([b[0] for b in window])),
+                        self._batches(np.stack([b[1] for b in window])))
                     losses.append(l)
             finally:
                 # the epoch takes exactly n_windows * w batches: release
@@ -528,6 +537,376 @@ class SingleTrainer(Trainer):
             if ckpt is not None:
                 self._save(ckpt, epoch, opt_state)
         pipe.flush()
+        return self._finish()
+
+
+class SpmdTrainer(SingleTrainer):
+    """Multi-axis trainer over a dp × mp mesh of processes (JAX
+    ``SpmdTrainer``): every rank of the ``torch.distributed`` group runs
+    this trainer on the same model, data and seed; the batch is split
+    over ``dp`` and large kernels, with their optimizer state, over
+    ``mp`` (``parallel.spmd``), and every rank returns the same trained
+    model.  One process is a mesh of one rank.
+
+    ``mesh_shape``: e.g. ``{"dp": 2, "mp": 2}``, its product the number
+    of processes (default: every process on ``dp``).  A
+    ``ShardedFileDataset`` streams window by window, each window's
+    batches split over ``dp``.  ``sharding_report`` is filled by each
+    ``train()``.  ``compiled_step`` stays None: the JAX trainer keeps
+    its ahead-of-time compiled window program there for tests to read
+    its collectives, and eager PyTorch compiles no program — the port's
+    collectives are counted by ``parallel.mesh.collective_stats()``.
+    A checkpoint holds the whole tree of the JAX trainer's
+    ``(variables, opt_state, rng)`` (split leaves gathered), written by
+    every rank into its ``checkpoint_dir``."""
+
+    def __init__(self, keras_model: Model, worker_optimizer="sgd",
+                 loss="categorical_crossentropy",
+                 mesh_shape: Optional[dict] = None, **kw):
+        if kw.get("device") is None:
+            kw["device"] = multihost.rank_device()
+        super().__init__(keras_model, worker_optimizer, loss, **kw)
+        self.mesh_shape = mesh_shape
+        #: per-leaf spec, global and per-device bytes, by each ``train()``
+        #: (``spmd.sharding_report``): the evidence that mp split
+        self.sharding_report: Optional[dict] = None
+        #: always None in the port (see the class docstring)
+        self.compiled_step = None
+        #: each parameter's spec by name, for the current ``train()``
+        self._specs: dict = {}
+
+    def _config_key(self) -> tuple:
+        return super()._config_key() + (
+            tuple(sorted(self.mesh_shape.items())) if self.mesh_shape
+            else None,)
+
+    def _window_run(self):
+        """The window loop over the mesh's forward
+        (``spmd.constrained_model``), its losses averaged over ``dp``
+        (the global batch's), and the optimizer; rebuilt when a
+        hyperparameter changed, the mesh only with ``mesh_shape``."""
+        key = self._config_key()
+        cached = getattr(self, "_run_cache", None)
+        if cached is None or cached[0] != key:
+            loss_fn, optimizer = self._resolve()
+            shape = self.mesh_shape or {"dp": multihost.process_count()}
+            mesh = getattr(self, "_mesh", None)
+            if mesh is None or mesh.shape != dict(shape):
+                mesh = self._mesh = mesh_lib.make_mesh(
+                    axis_names=tuple(shape), shape=tuple(shape.values()),
+                    devices=self.device)
+            self._dp = "dp" if "dp" in mesh.shape else mesh.axis_names[0]
+            proxy = spmd.constrained_model(
+                self.model, mesh, self._dp, self._specs,
+                compute_dtype=self.compute_dtype)
+            inner = make_window_fn(proxy, loss_fn, optimizer,
+                                   remat=self.remat,
+                                   aux_weight=self.aux_weight,
+                                   generator=self.generator)
+
+            def run(params, opt_state, xs, ys):
+                params, opt_state, losses = inner(params, opt_state, xs, ys)
+                with torch.no_grad():
+                    return params, opt_state, mesh_lib.pmean(
+                        losses, self._dp, self._mesh)
+            self._run_cache = (key, run, optimizer)
+        _, run, optimizer = self._run_cache
+        return self._instrumented(run), optimizer
+
+    def _batches(self, a: np.ndarray) -> torch.Tensor:
+        """This rank's block of (steps, batch, …) host batches: the batch
+        split over ``dp`` (a batch that does not split raises)."""
+        return spmd.put(a, self._mesh,
+                        spmd.batch_sharding(self._mesh, self._dp, 1))
+
+    def _start(self, optimizer):
+        """Initialise from ``seed`` on every rank, keep this rank's block
+        of each split parameter, and restore a checkpoint if asked."""
+        mesh = self._mesh
+        self.model.init(self.seed, device=self.device)
+        params = model_params(self.model)
+        specs = spmd.infer_param_specs(params, mesh)
+        self._specs.clear()
+        self._specs.update(specs)
+        spmd.shard_model(self.model, mesh, specs)
+        names = {id(t): n for n, t in self.model.named_parameters()}
+        layout = _jax_tree(self.model.layer, lambda t: t)[0]
+        self.sharding_report = spmd.sharding_report(
+            layout, spmd._tmap(lambda t: specs[names[id(t)]], layout), mesh)
+        params = model_params(self.model)
+        self.generator.manual_seed(self.seed + 1)
+        ckpt = self._ckpt_manager()
+        opt_state, start = self._maybe_restore(ckpt, optimizer.init(params))
+        return params, opt_state, ckpt, start
+
+    def _whole(self, name: str, t):
+        return spmd.gather_whole(t, self._specs.get(name, spmd.P()),
+                                 self._mesh)
+
+    def _state_tree(self, opt_state):
+        names = jax_leaf_names(self.model)
+        variables = variables_of(self.model)
+        variables["params"] = {n: self._whole(n, t)
+                               for n, t in variables["params"].items()}
+        whole = {k: ({n: self._whole(n, t) for n, t in v.items()}
+                     if isinstance(v, dict) else v)
+                 for k, v in opt_state.items()}
+        return (_variables_leaves(variables, names),
+                checkpoint.opt_state_leaves(whole, names[0]),
+                checkpoint.rng_key(self.seed + 1))
+
+    def _adopt_state(self, like, tree, opt_state):
+        names = jax_leaf_names(self.model)
+        block = lambda n, t: spmd._block(t, self._specs.get(n, spmd.P()),
+                                         self._mesh)
+        live = variables_of(self.model)
+        _copy_into(_variables_leaves(live, names),
+                   [block(n, t) for n, t in zip(names[0], tree[0])]
+                   + tree[0][len(names[0]):])
+        restored = checkpoint.opt_state_from_leaves(opt_state, tree[1],
+                                                    names[0])
+        return {k: ({n: block(n, t).clone() for n, t in v.items()}
+                    if isinstance(v, dict) else v)
+                for k, v in restored.items()}
+
+    def _finish(self) -> Model:
+        spmd.unshard_model(self.model, self._mesh, self._specs)
+        return super()._finish()
+
+
+class _PipelinedSequential(nn.Module):
+    """A ``Sequential``'s forward split into pre → S pipeline stages →
+    post, the stage segment running GPipe over the ``pp`` axis
+    (``parallel.pipeline.pipeline_apply_sharded``) on this rank's stage
+    only; pre and post run on the whole batch on every rank.  The module
+    the window loop steps (``make_window_fn``).  The stage layers are
+    stateless and draw no random numbers (``PipelineTrainer`` refuses
+    others), so they run alike in train and eval mode, as the JAX
+    package's stages run ``train=False``."""
+
+    def __init__(self, pre, stage_layers, post, mesh, num_microbatches,
+                 axis="pp", dp_axis=None):
+        super().__init__()
+        self.pre = nn.ModuleList(pre)
+        self.stage_layers = nn.ModuleList(stage_layers)
+        self.post = nn.ModuleList(post)
+        self.pp_mesh = mesh
+        self.num_microbatches = int(num_microbatches)
+        self.axis = axis
+        self.dp_axis = dp_axis
+
+    def iter_layers(self):
+        for lyr in (*self.pre, *self.stage_layers, *self.post):
+            yield from lyr.iter_layers()
+
+    def _stage_fn(self, sp, t):
+        for lyr, p in zip(self.stage_layers, sp):
+            t = functional_call(lyr, p, (t,))
+        return t
+
+    def forward(self, x):
+        from .parallel.pipeline import pipeline_apply_sharded
+        for lyr in self.pre:
+            x = lyr(x)
+        # this rank's stage, (1, …) leaves: the shard_map boundary sums
+        # their gradients over the ranks that hold the same stage (dp)
+        sp = [{n: p.unsqueeze(0) for n, p in lyr.named_parameters()}
+              for lyr in self.stage_layers]
+        x = pipeline_apply_sharded(
+            self.pp_mesh, self._stage_fn, sp, x,
+            num_microbatches=self.num_microbatches, axis=self.axis,
+            dp_axis=self.dp_axis, local_stages=True)
+        for lyr in self.post:
+            x = lyr(x)
+        return x
+
+
+class PipelineTrainer(Trainer):
+    """Pipeline-parallel trainer (GPipe; JAX ``PipelineTrainer``) over a
+    mesh of processes.  The model's homogeneous block segment
+    (``parallel.pipeline.find_stage_segment``: ``zoo.gpt_lm``'s repeated
+    transformer blocks) is laid out one group a rank along ``pp``; the
+    layers before and after it run on every rank.  M microbatches
+    (``num_microbatches``, default S) flow through the schedule in each
+    step; ``mesh_shape={"pp": S, "dp": D}`` composes with data
+    parallelism (each dp replica pipelines its slice of every
+    microbatch).  GPipe reorders the compute and changes no math: the
+    losses follow ``SingleTrainer``'s on the same data and seed.
+
+    Each rank holds only its own stage's parameters and optimizer state
+    (the other stages' parameters are released after the init every
+    rank runs from the seed); ``train`` ends by gathering the stages, so
+    every rank returns the same trained model.  A checkpoint holds the
+    whole tree of the JAX trainer's ``(variables, opt_state, rng)``,
+    the stage leaves stacked (S, …), written by every rank into its
+    ``checkpoint_dir``."""
+
+    def __init__(self, keras_model: Model, worker_optimizer="sgd",
+                 loss="categorical_crossentropy",
+                 mesh_shape: Optional[dict] = None,
+                 num_microbatches: Optional[int] = None, **kw):
+        if kw.get("device") is None:
+            kw["device"] = multihost.rank_device()
+        super().__init__(keras_model, worker_optimizer, loss, **kw)
+        self.mesh_shape = dict(mesh_shape or
+                               {"pp": multihost.process_count()})
+        if "pp" not in self.mesh_shape:
+            raise ValueError(f"mesh_shape needs a 'pp' axis, got "
+                             f"{self.mesh_shape}")
+        self.num_microbatches = num_microbatches
+
+    def _config_key(self) -> tuple:
+        return super()._config_key() + (
+            tuple(sorted(self.mesh_shape.items())), self.num_microbatches)
+
+    def _split_model(self, mesh):
+        """Initialise the model from ``seed``, find its stage segment and
+        refuse what the schedule cannot run: ``(a, g, S)``, the segment
+        ``layers[a : a + S·g]`` in S groups of g layers."""
+        from .parallel.pipeline import find_stage_segment
+        layer = self.model.layer
+        if not isinstance(layer, Sequential):
+            raise ValueError("PipelineTrainer needs a Sequential model "
+                             f"(got {type(layer).__name__})")
+        S = mesh.procs("pp")
+        a, g = find_stage_segment(layer.layers, S,
+                                  input_shape=self.model.input_shape)
+        self.model.init(self.seed, device=self.device)
+        span = layer.layers[a:a + S * g]
+        if any(True for lyr in span for _ in lyr.buffers()):
+            raise ValueError(
+                "pipeline stages must be stateless (the GPipe schedule "
+                "cannot thread per-stage mutable state); the detected "
+                f"segment [{a}:{a + S * g}] carries state — train this "
+                "model with SpmdTrainer or the dp trainers instead")
+        rng_layers = [type(sub).__name__ for lyr in span[:g]
+                      for sub in lyr.iter_layers() if sub.rng_in_train]
+        if rng_layers:
+            raise ValueError(
+                f"pipeline stages contain rng-consuming layers "
+                f"{rng_layers} (Dropout): the GPipe schedule cannot thread "
+                f"per-layer rng, and running them eval-mode would silently "
+                f"train different math than SingleTrainer — remove them "
+                f"from the repeated blocks or train with SpmdTrainer")
+        return a, g, S
+
+    def _grouped(self, a, g, S, stage):
+        """``{key: parameter}`` of what this rank trains, keyed and ordered
+        as the leaves of the JAX trainer's regrouped ``{"pre", "stages",
+        "post"}`` params tree, its stage keys' set, and the state leaves
+        (``{"post", "pre"}``; the stages hold none)."""
+        layers = self.model.layer.layers
+        groups = {"pre": layers[:a], "stages": layers[a + stage * g:
+                                                      a + (stage + 1) * g],
+                  "post": layers[a + S * g:]}
+        params, stage_keys, state = {}, set(), []
+        for part in sorted(groups):
+            for i, lyr in enumerate(groups[part]):
+                p_tree, s_tree = _jax_tree(lyr, lambda t: t)
+                for j, t in enumerate(tree_leaves(p_tree)):
+                    key = f"{part}.{i}.{j}"
+                    params[key] = t
+                    if part == "stages":
+                        stage_keys.add(key)
+                if part != "stages":
+                    state += tree_leaves(s_tree)
+        return params, stage_keys, state
+
+    def _whole(self, key, t):
+        """A stage leaf stacked (S, …) over the pipeline; others as is."""
+        if key not in self._stage_keys:
+            return t
+        return mesh_lib.gather_slots(t.unsqueeze(0), "pp", self._mesh)
+
+    def _state_tree(self, opt_state):
+        whole = {k: ({n: self._whole(n, t) for n, t in v.items()}
+                     if isinstance(v, dict) else v)
+                 for k, v in opt_state.items()}
+        return ([self._whole(k, t) for k, t in self._params.items()]
+                + self._state_leaves,
+                checkpoint.opt_state_leaves(whole, list(self._params)),
+                checkpoint.rng_key(self.seed + 1))
+
+    def _adopt_state(self, like, tree, opt_state):
+        stage = self._mesh.coord("pp")
+        own = lambda k, t: t[stage] if k in self._stage_keys else t
+        keys = list(self._params)
+        _copy_into(list(self._params.values()) + self._state_leaves,
+                   [own(k, t) for k, t in zip(keys, tree[0])]
+                   + tree[0][len(keys):])
+        restored = checkpoint.opt_state_from_leaves(opt_state, tree[1], keys)
+        return {k: ({n: own(n, t).clone() for n, t in v.items()}
+                    if isinstance(v, dict) else v)
+                for k, v in restored.items()}
+
+    def _train(self, dataset: Dataset, shuffle: bool) -> Model:
+        if not isinstance(dataset, Dataset):
+            raise TypeError(f"PipelineTrainer trains a Dataset, got "
+                            f"{type(dataset)}")
+        if shuffle:
+            dataset = dataset.shuffle(self.seed)
+        mesh = getattr(self, "_mesh", None)
+        if mesh is None or mesh.shape != self.mesh_shape:
+            mesh = self._mesh = mesh_lib.make_mesh(
+                axis_names=tuple(self.mesh_shape),
+                shape=tuple(self.mesh_shape.values()), devices=self.device)
+        a, g, S = self._split_model(mesh)
+        stage = mesh.coord("pp")
+        layers = self.model.layer.layers
+        self._params, self._stage_keys, self._state_leaves = \
+            self._grouped(a, g, S, stage)
+        # this rank holds only its own stage: release the others
+        with torch.no_grad():
+            for i in range(S):
+                if i != stage:
+                    for lyr in layers[a + i * g:a + (i + 1) * g]:
+                        for p in lyr.parameters():
+                            p.data = p.data.new_empty(0)
+        proxy = _PipelinedSequential(
+            layers[:a], layers[a + stage * g:a + (stage + 1) * g],
+            layers[a + S * g:], mesh, self.num_microbatches or S,
+            dp_axis="dp" if "dp" in self.mesh_shape else None)
+        loss_fn, optimizer = self._resolve()
+        run = self._instrumented(make_window_fn(
+            proxy, loss_fn, optimizer, compute_dtype=self.compute_dtype,
+            remat=self.remat, aux_weight=self.aux_weight,
+            generator=self.generator))
+
+        ds = dataset.coalesce(1)
+        stacked, steps = ds.stacked([self.features_col, self.label_col],
+                                    self.batch_size)
+        xs = torch.from_numpy(stacked[self.features_col][0]).to(self.device)
+        ys = torch.from_numpy(stacked[self.label_col][0]).to(self.device)
+
+        params = self._params
+        self.generator.manual_seed(self.seed + 1)
+        ckpt = self._ckpt_manager()
+        opt_state, start = self._maybe_restore(ckpt, optimizer.init(params))
+        pipe = _EpochPipeline(self, int(xs.shape[0]) * self.batch_size,
+                              self.device)
+        for epoch in range(start, self.num_epoch):
+            params, opt_state, losses = self._profiled_run(
+                run, epoch, params, opt_state, xs, ys)
+            pipe.push(epoch, losses)
+            if ckpt is not None:
+                self._save(ckpt, epoch, opt_state)
+        pipe.flush()
+        return self._collect_pipeline(a, g, S)
+
+    def _collect_pipeline(self, a, g, S) -> Model:
+        """Every rank's stage gathered over ``pp`` back into the flat
+        ``Sequential``: every rank ends with the whole trained model."""
+        layers = self.model.layer.layers
+        stage = self._mesh.coord("pp")
+        with torch.no_grad():
+            for j in range(g):
+                own = layers[a + stage * g + j]
+                for name, p in own.named_parameters():
+                    stacked = mesh_lib.gather_slots(p.unsqueeze(0), "pp",
+                                                    self._mesh)
+                    for i in range(S):
+                        dst = layers[a + i * g + j].get_parameter(name)
+                        dst.data = stacked[i].clone()
         return self._finish()
 
 

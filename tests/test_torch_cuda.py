@@ -1334,6 +1334,7 @@ def card_ranks():
               for layout, causal in (("contiguous", True),
                                      ("contiguous", False),
                                      ("zigzag", True))]
+    cases.append(("trainers", "card_trainers", {}))
     return run_ranks(2, cases, device="cuda")
 
 
@@ -1362,3 +1363,28 @@ def test_two_rank_ring_forward_matches_k1_over_the_whole_t(card_ranks, case,
         got = res[case]
         assert got["max_abs_err"] <= 1e-5 * max(1.0, got["ref_max"]), got
         assert got["launches"] == launches[r]
+
+
+def test_spmd_leaves_and_gradients_sit_on_the_card(card_ranks):
+    """``SpmdTrainer`` on mp 2 over two gloo ranks on ``cuda:0``: every
+    parameter block, optimizer-state tensor and gradient is on the card,
+    the split leaves take less than their global bytes, and K1 runs once
+    a block a step (2 blocks × 2 steps)."""
+    for res in card_ranks:
+        got = res["trainers"]["spmd"]
+        assert got["devices"] == ["cuda:0"], got
+        assert got["split"]
+        assert got["launches"] == 2 * 2
+
+
+def test_neither_mesh_trainer_runs_the_plain_attention_on_the_card(
+        card_ranks):
+    """The plain versions never see a CUDA tensor in ``SpmdTrainer`` or
+    ``PipelineTrainer``; the pipeline's stage sits on the card and its K1
+    runs (M + S − 1) × 1 block a stage × 2 steps = 6 times a rank."""
+    for res in card_ranks:
+        got = res["trainers"]
+        assert got["plain_on_cuda"] == []
+        assert got["pipe"]["devices"] == ["cuda:0"]
+        assert got["pipe"]["launches"] == (2 + 2 - 1) * 1 * 2
+

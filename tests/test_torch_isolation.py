@@ -41,8 +41,10 @@ _MUST_WALK = ("bench", "chaos", "continual", "continual.config",
               "data.streaming", "data.transformers", "evaluators",
               "models.layers", "models.generation", "models.zoo",
               "obs.alerts", "obs.drift", "obs.export", "obs.exposition",
-              "obs.stragglers", "obs.timeseries", "parallel.mesh",
-              "parallel.multihost", "parallel.ring", "parallel.sync",
+              "obs.stragglers", "obs.timeseries", "parallel.gloo_probe",
+              "parallel.mesh", "parallel.multihost", "parallel.pipeline",
+              "parallel.ring", "parallel.spmd", "parallel.sync",
+              "models.optimize", "models.model",
               "ops.moe", "predictors", "ps", "ps.client", "ps.cluster",
               "ps.codecs", "ps.networking", "ps.runner", "ps.servers",
               "ps.shard", "ps.shard.client", "ps.shard.plan",

@@ -478,6 +478,291 @@ def case_card_ring(q, k, v, causal, layout):
             "launches": ring_launches}
 
 
+def _spmd_model(config, inits, double=False):
+    """The model of ``config`` whose ``init(seed)`` loads ``inits[seed]``
+    (cast to float64 with ``double``: the exactness witness)."""
+    from distkeras_tpu_torch.models import Model
+    model = _init_from(Model.from_config(config), inits)
+    if double:
+        init = model.init
+        model.init = lambda seed=0, device=None: init(seed, device).double()
+    return model
+
+
+def _cols(x, y):
+    import distkeras_tpu_torch as dkt
+    return dkt.Dataset({"features": x, "label": y})
+
+
+def _trained(t, model):
+    from distkeras_tpu_torch.utils import to_numpy_variables
+    return {"history": [np.asarray(h) for h in t.get_history()],
+            "variables": to_numpy_variables(model)}
+
+
+def case_spmd_train(config, inits, x, y, kw, mesh_shape, optimizer="sgd",
+                    ckpt=None, stream=None, spy=False, double=False):
+    """``SpmdTrainer`` on ``mesh_shape``: the history, the trained
+    variables, the sharding report, this rank's collective counts and,
+    with ``ckpt``, a run resumed after its first epoch beside the straight
+    one; with ``stream``, a run streamed from shard files; with ``spy``,
+    the types and shapes ``flash_fwd_plain`` / ``flash_bwd_plain`` saw;
+    and the calls of the column- and row-split ``Dense`` products."""
+    import importlib
+    from distkeras_tpu_torch.data.streaming import ShardedFileDataset
+    from distkeras_tpu_torch.parallel import mesh as mesh_lib
+    from distkeras_tpu_torch.trainers import SpmdTrainer
+    from distkeras_tpu_torch.parallel import spmd
+    fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
+    seen = []
+    products = {"column": 0, "row": 0}
+    split_dense = spmd._split_dense
+
+    def count_products(lyr, dim, *a):
+        products["column" if dim == 1 else "row"] += 1
+        return split_dense(lyr, dim, *a)
+    spmd._split_dense = count_products
+    if spy:
+        fwd, bwd = fa.flash_fwd_plain, fa.flash_bwd_plain
+
+        def fwd_spy(q, k, v, *a):
+            seen.append(("fwd", [type(t).__name__ for t in (q, k, v)],
+                         tuple(q.shape)))
+            return fwd(q, k, v, *a)
+
+        def bwd_spy(q, k, v, lse, do, dvec, *a):
+            seen.append(("bwd", [type(t).__name__ for t in (q, do)],
+                         tuple(q.shape)))
+            return bwd(q, k, v, lse, do, dvec, *a)
+        fa.flash_fwd_plain, fa.flash_bwd_plain = fwd_spy, bwd_spy
+    try:
+        model = _spmd_model(config, inits, double)
+        t = SpmdTrainer(model, optimizer, mesh_shape=mesh_shape,
+                        device="cpu", **kw)
+        mesh_lib.reset_collective_stats()
+        t.train(_cols(x, y))
+        res = _trained(t, model)
+        res["stats"] = mesh_lib.collective_stats()
+        res["report"] = t.sharding_report
+        res["compiled_step"] = t.compiled_step
+        res["seen"] = seen
+        res["products"] = products
+    finally:
+        spmd._split_dense = split_dense
+        if spy:
+            fa.flash_fwd_plain, fa.flash_bwd_plain = fwd, bwd
+    rank = t._mesh.rank
+    if ckpt is not None:
+        cdir = os.path.join(ckpt, f"rank{rank}")
+        first = SpmdTrainer(_spmd_model(config, inits), optimizer,
+                            mesh_shape=mesh_shape, device="cpu",
+                            **{**kw, "num_epoch": 1}, checkpoint_dir=cdir)
+        first.train(_cols(x, y))
+        m2 = _spmd_model(config, inits)
+        second = SpmdTrainer(m2, optimizer, mesh_shape=mesh_shape,
+                             device="cpu", **kw, checkpoint_dir=cdir)
+        second.train(_cols(x, y), resume=True)
+        res["resumed"] = _trained(second, m2)
+    if stream is not None:
+        src = ShardedFileDataset.write(
+            _cols(x, y), os.path.join(stream, f"shards{rank}"),
+            rows_per_shard=48)
+        m3 = _spmd_model(config, inits)
+        st = SpmdTrainer(m3, optimizer, mesh_shape=mesh_shape, device="cpu",
+                         **kw)
+        st.train(src)
+        res["streamed"] = _trained(st, m3)
+        res["streamed_report"] = st.sharding_report
+    return res
+
+
+def _pipe_stage(params, x):
+    import torch
+    # the residual MLP block of tests/test_pipeline.py
+    return x + torch.tanh(x.to(params["w"].dtype) @ params["w"]
+                          + params["b"])
+
+
+def case_pipe_apply(w, b, x, ct, mesh_shape, axis_names, num_microbatches,
+                    dp_axis=None, bf16=False):
+    """``pipeline_apply_sharded`` over the whole (S, …) stage stack:
+    the output and the gradients of ``sum(out · ct)`` with respect to
+    the stack and the input, and this rank's ``ppermute`` count."""
+    import torch
+    from distkeras_tpu_torch.parallel import mesh as mesh_lib
+    from distkeras_tpu_torch.parallel.pipeline import pipeline_apply_sharded
+    mesh = _mesh(mesh_shape, axis_names)
+    params = {"w": _t(w, True), "b": _t(b, True)}
+    xt = _t(x)
+    if bf16:
+        xt = xt.to(torch.bfloat16)
+    xt.requires_grad_(True)
+    mesh_lib.reset_collective_stats()
+    out = pipeline_apply_sharded(mesh, _pipe_stage, params, xt,
+                                 num_microbatches=num_microbatches,
+                                 dp_axis=dp_axis)
+    gw, gb, gx = torch.autograd.grad((out * _t(ct).to(out.dtype)).sum(),
+                                     [params["w"], params["b"], xt])
+    return {"out": _np(out.float()), "dw": _np(gw), "db": _np(gb),
+            "dx": _np(gx.float()), "dtype": str(out.dtype),
+            "ppermutes": mesh_lib.collective_stats()["calls"].get(
+                "ppermute", 0)}
+
+
+def case_pipe_train(config, inits, x, y, kw, mesh_shape, optimizer="adam",
+                    num_microbatches=None, ckpt=None):
+    """``PipelineTrainer`` on ``mesh_shape``: the history, the trained
+    variables, the bytes of this rank's stage parameters, the calls of
+    the attention's plain forward and backward, and, with ``ckpt``, a
+    run resumed after its first epoch (the checkpoint directory by
+    rank)."""
+    import importlib
+    from distkeras_tpu_torch.trainers import PipelineTrainer
+    fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
+    calls = {"fwd": 0, "bwd": 0}
+    fwd, bwd = fa.flash_fwd_plain, fa.flash_bwd_plain
+
+    def fwd_count(*a):
+        calls["fwd"] += 1
+        return fwd(*a)
+
+    def bwd_count(*a):
+        calls["bwd"] += 1
+        return bwd(*a)
+    fa.flash_fwd_plain, fa.flash_bwd_plain = fwd_count, bwd_count
+    try:
+        model = _spmd_model(config, inits)
+        t = PipelineTrainer(model, optimizer, mesh_shape=mesh_shape,
+                            num_microbatches=num_microbatches,
+                            device="cpu", **kw)
+        t.train(_cols(x, y))
+        res = _trained(t, model)
+        res["calls"] = dict(calls)
+        res["stage_bytes"] = sum(
+            t._params[k].numel() * t._params[k].element_size()
+            for k in t._stage_keys)
+        res["params_dtypes"] = sorted({str(p.dtype)
+                                       for p in model.parameters()})
+    finally:
+        fa.flash_fwd_plain, fa.flash_bwd_plain = fwd, bwd
+    if ckpt is not None:
+        cdir = os.path.join(ckpt, f"pipe_rank{t._mesh.rank}")
+        PipelineTrainer(_spmd_model(config, inits), optimizer,
+                        mesh_shape=mesh_shape,
+                        num_microbatches=num_microbatches, device="cpu",
+                        **{**kw, "num_epoch": 1},
+                        checkpoint_dir=cdir).train(_cols(x, y))
+        m2 = _spmd_model(config, inits)
+        second = PipelineTrainer(m2, optimizer, mesh_shape=mesh_shape,
+                                 num_microbatches=num_microbatches,
+                                 device="cpu", **kw, checkpoint_dir=cdir)
+        second.train(_cols(x, y), resume=True)
+        res["resumed"] = _trained(second, m2)
+        res["ckpt_dir"] = cdir
+    return res
+
+
+def case_zigzag_wrap(config, inits, x, ct, mesh_shape, axis_names):
+    """``zigzag_wrap`` of a causal LM on an ``sp`` mesh: the wrapped
+    model's logits and the gradients of sum(logits · ct) by parameter
+    name, its insert positions, the original's attention flags after the
+    wrap, and the same of the unwrapped zigzag ring (each attention
+    layer on the mesh, striping its own inputs)."""
+    import torch
+
+    from distkeras_tpu_torch.models import Model, zigzag_wrap
+    from distkeras_tpu_torch.ops.attention import MultiHeadAttention
+    mesh = _mesh(mesh_shape, axis_names)
+    model = _init_from(Model.from_config(config), inits).init(0, "cpu")
+    names = [n for n, _ in model.named_parameters()]
+
+    def run(m):
+        out = m(_t(x))
+        grads = torch.autograd.grad((out * _t(ct)).sum(),
+                                    [p for _, p in model.named_parameters()])
+        return _np(out), dict(zip(names, _np(grads)))
+
+    wrapped, pos = zigzag_wrap(model, mesh)
+    logits, grads = run(wrapped)
+    mhas = [lyr for lyr in model.iter_layers()
+            if isinstance(lyr, MultiHeadAttention)]
+    flags = [(lyr.mesh is None, lyr.ring_pre_shuffled) for lyr in mhas]
+    for lyr in mhas:
+        lyr.mesh = mesh
+        lyr.ring_layout = "zigzag"
+    ring_logits, ring_grads = run(model)
+    return {"logits": logits, "grads": grads, "positions": list(pos),
+            "original_flags": flags, "ring_logits": ring_logits,
+            "ring_grads": ring_grads}
+
+
+def case_card_trainers():
+    """``SpmdTrainer`` on ``{"dp": 1, "mp": 2}`` and ``PipelineTrainer`` on
+    ``{"pp": 2}`` training a small flash LM on the card: the device types
+    of every parameter block, optimizer-state tensor and gradient the
+    SPMD run held, of the pipeline's stage, the plain attention's calls
+    on CUDA tensors (none may run) and each run's K1–K3 launches."""
+    import importlib
+
+    import torch
+
+    import distkeras_tpu_torch as dkt
+    from distkeras_tpu_torch.models import zoo
+    fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
+    plain_on_cuda = []
+    fwd, bwd = fa.flash_fwd_plain, fa.flash_bwd_plain
+
+    def spy(fn, name):
+        def call(*a):
+            if any(torch.is_tensor(t) and t.is_cuda for t in a):
+                plain_on_cuda.append(name)
+            return fn(*a)
+        return call
+    fa.flash_fwd_plain = spy(fwd, "fwd")
+    fa.flash_bwd_plain = spy(bwd, "bwd")
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 64, size=(16, 128)).astype(np.int32)
+    ds = dkt.Dataset({"features": x, "label": np.roll(x, -1, axis=1)})
+    lm = dict(vocab_size=64, dim=128, num_heads=2, num_blocks=2,
+              seq_len=128, attention_impl="flash")
+    kw = dict(loss="sparse_categorical_crossentropy", batch_size=8,
+              learning_rate=1e-3, num_epoch=1)
+    out = {}
+    try:
+        seen = set()
+        t = dkt.SpmdTrainer(zoo.gpt_lm(**lm), "adam",
+                            mesh_shape={"dp": 1, "mp": 2}, **kw)
+        start = t._start
+
+        def spy_start(optimizer):
+            params, opt_state, ckpt, first = start(optimizer)
+            for p in params.values():
+                seen.add(str(p.device))
+                p.register_hook(lambda g: seen.add(str(g.device)))
+            for v in opt_state.values():
+                if isinstance(v, dict):
+                    seen.update(str(a.device) for a in v.values())
+            return params, opt_state, ckpt, first
+        t._start = spy_start
+        fa.reset_launches()
+        t.train(ds)
+        out["spmd"] = {"devices": sorted(seen),
+                       "split": t.sharding_report["per_device_bytes"]
+                       < t.sharding_report["global_bytes"],
+                       "launches": fa.flash_fwd_cuda.launches}
+        fa.reset_launches()
+        p = dkt.PipelineTrainer(zoo.gpt_lm(**lm), "adam",
+                                mesh_shape={"pp": 2}, **kw)
+        p.train(ds)
+        out["pipe"] = {"devices": sorted({str(a.device)
+                                          for a in p._params.values()}),
+                       "launches": fa.flash_fwd_cuda.launches}
+    finally:
+        fa.flash_fwd_plain, fa.flash_bwd_plain = fwd, bwd
+    out["plain_on_cuda"] = plain_on_cuda
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the rank's main
 # ---------------------------------------------------------------------------
