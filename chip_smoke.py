@@ -69,7 +69,9 @@ Phases, one JSON line each:
    launched exactly 4 x the engines' cold joins (``serve.prefix.misses``)
    — none in a warm join or a decode step.  Printed: TTFT p50 cold,
    warm, spill-cold and spill-warm, the warm pass's tokens/s, the
-   fabric's bytes, the busy share.  ``spec`` — 8 greedy requests of
+   fabric's bytes, the busy share.  ``fleet_racecheck`` runs it all again
+   under the port's race checker, which must record no violation (a
+   ``racecheck`` row: both runs' seconds).  ``spec`` — 8 greedy requests of
    32–96 tokens, 32 new tokens, through a plain engine and two
    ``spec_k=4`` engines: draft = the probe itself (accept rate 1.0) and
    ``gpt_lm(dim 128, 2 heads, 2 blocks)`` (accepts below 1); answers equal
@@ -154,11 +156,18 @@ Phases, one JSON line each:
    over ResNet-20 (width 16, 2 windows of 2 steps at batch 8) against
    the CPU by ``f32_parity_ok``, with a TF32-on control that must fail.
 
-12. ``yaml_lm`` — configs/bench_all.yaml's flash LM (``YAML_LM_CONFIGS``:
-   dim 128, 4 heads of Dh 32, bf16, 4 epochs of 32 steps at batch 64) as
-   configured, then its ``quick`` variant (Dh 16, zero-padded to 32 by
-   the bf16 kernels): K1, K2 and K3 launched exactly once per block per
-   step, the loss falls.
+12. ``config`` — configs/bench_all.yaml through the port's config layer
+   (``phase_config``): its flash LM (``YAML_LM``: dim 128, 4 heads of Dh
+   32, bf16, 4 epochs of 32 steps at batch 64) as configured, by
+   ``config.run(cfg, repeat=2)``, then its ``quick`` variant (Dh 16,
+   zero-padded to 32 by the bf16 kernels): K1, K2 and K3 launched exactly
+   once per block per step, the loss falls, the rows printed as
+   ``config.main`` prints them; ``config.main([file, "--quick"])`` over
+   every config of the file (the stream-from-disk ones spilled and
+   streamed); the flash LM as a ``Job`` run by ``job_runner`` in a child
+   process on the card, its launches folded into the parent's and
+   checked, its parameters bit-identical to the in-process run's
+   (``JOB_PARAM_TOL``).
 13. ``ckpt`` — the bf16 probe LM (``train``'s part (b)) trained 3 epochs
    straight (twice: the run repeats bit for bit) and 1 epoch with
    ``checkpoint_dir`` then resumed to 3: parameters and the resumed
@@ -197,6 +206,11 @@ Phases, one JSON line each:
    exactly (workers x windows x steps x blocks; a worker process's
    launches folded into the parent's).  Each run is a path of the
    ``kernels`` line (``async_downpour``, ..., ``async_processes``).
+   The wire phase's plain DOWNPOUR run runs again right after it under
+   the port's race checker (``async_racecheck``,
+   ``distkeras_tpu_torch.analysis.racecheck``), which must record no
+   violation; a ``racecheck`` row puts the two runs' seconds side by
+   side.
 16. ``continual`` — ``ContinualTrainer`` over the bf16 probe with the JAX
    bench's cadence and a drift at interval 10, a live f32 engine as its
    deploy target (``phase_continual``): exact K1–K3 launches on
@@ -326,51 +340,30 @@ LM = dict(vocab_size=4000, dim=512, num_heads=8, num_blocks=4, seq_len=512,
 LM128 = dict(LM, dim=1024)
 #: scripts/mfu.py's --dim 2048 probe: 8 heads of Dh = 256
 LM256 = dict(LM, dim=2048)
-#: the sync distributed configs of configs/bench_all.yaml:18-92 and the
-#: SingleTrainer MLP/MNIST config (:6-16) that AveragingTrainer and
-#: EnsembleTrainer run, as data (the card's machine has no yaml;
-#: tests/test_torch_dist.py holds these against the file).  Unset keys
-#: take the file's defaults (distkeras_tpu/config.py:40-42): loss
-#: categorical_crossentropy, features "features", labels "label_onehot".
-DIST_CONFIGS = {
-    "SingleTrainer MLP/MNIST": dict(
-        trainer="SingleTrainer", model="mlp_mnist", model_kwargs={},
-        dataset="load_mnist", dataset_kwargs={"n_train": 16384}, onehot=10,
-        trainer_kwargs={"num_epoch": 5, "batch_size": 128,
-                        "learning_rate": 0.05}),
-    "ADAG ConvNet/CIFAR-10 (auto-w)": dict(
-        trainer="ADAG", model="convnet_cifar10", model_kwargs={},
-        dataset="load_cifar10", dataset_kwargs={"n_train": 8192}, onehot=10,
-        trainer_kwargs={"num_workers": "auto", "communication_window": 4,
-                        "num_epoch": 5, "batch_size": 64,
-                        "learning_rate": 0.05}),
-    "DOWNPOUR ResNet-20/CIFAR-10 (auto-w)": dict(
-        trainer="DOWNPOUR", model="resnet20", model_kwargs={},
-        dataset="load_cifar10", dataset_kwargs={"n_train": 8192}, onehot=10,
-        trainer_kwargs={"num_workers": "auto", "communication_window": 2,
-                        "num_epoch": 3, "batch_size": 64,
-                        "learning_rate": 0.01}),
-    "AEASGD LSTM/IMDB (auto-w)": dict(
-        trainer="AEASGD", model="lstm_imdb",
-        model_kwargs={"vocab_size": 4000, "embed_dim": 64,
-                      "lstm_units": 64, "seq_len": 200},
-        dataset="load_imdb",
-        dataset_kwargs={"n_train": 4096, "seq_len": 200,
-                        "vocab_size": 4000}, onehot=None,
-        trainer_kwargs={"num_workers": "auto", "communication_window": 4,
-                        "rho": 1.0, "loss": "binary_crossentropy",
-                        "label_col": "label", "num_epoch": 3,
-                        "batch_size": 32, "learning_rate": 0.05}),
-    "DynSGD ResNet-50/96px (auto-w)": dict(
-        trainer="DynSGD", model="resnet50",
-        model_kwargs={"num_classes": 100, "input_size": 96},
-        dataset="load_imagenet_subset",
-        dataset_kwargs={"n_train": 1024, "num_classes": 100,
-                        "image_size": 96}, onehot=100,
-        trainer_kwargs={"num_workers": "auto", "communication_window": 2,
-                        "num_epoch": 3, "batch_size": 16,
-                        "learning_rate": 0.005}),
-}
+#: configs/bench_all.yaml, which the runs below read through the port's
+#: config layer (``distkeras_tpu_torch.config.load_file``, the port's own
+#: YAML reader: the card's machine has no yaml)
+BENCH_YAML = os.path.join(ROOT, "configs", "bench_all.yaml")
+
+
+def yaml_configs(*names):
+    """The named configs of ``BENCH_YAML``, each as a dict of its
+    ``RunConfig`` fields.  Unset keys take the file's defaults
+    (``config.py``'s ``_DEFAULT_TRAINER_KW``: loss
+    categorical_crossentropy, features "features", labels
+    "label_onehot")."""
+    import dataclasses
+    from distkeras_tpu_torch.config import load_file
+    cfgs = {c.name: dataclasses.asdict(c) for c in load_file(BENCH_YAML)}
+    return {n: cfgs[n] for n in names}
+
+
+#: the sync distributed configs and the SingleTrainer MLP/MNIST config
+#: that AveragingTrainer and EnsembleTrainer run
+DIST_CONFIGS = yaml_configs(
+    "SingleTrainer MLP/MNIST", "ADAG ConvNet/CIFAR-10 (auto-w)",
+    "DOWNPOUR ResNet-20/CIFAR-10 (auto-w)", "AEASGD LSTM/IMDB (auto-w)",
+    "DynSGD ResNet-50/96px (auto-w)")
 #: ``num_workers: auto`` on one card: the cap distkeras_tpu/config.py:
 #: 114-119 gives it, the reference examples' worker count
 DIST_WORKERS = 8
@@ -420,52 +413,14 @@ F64_WINDOWS = 2
 F64_FIRST_LOSS_TOL = 1e-3
 F64_LOSS_TOL = 0.7
 F64_CENTER_REL = 0.25
-#: configs/bench_all.yaml:97-117, the flash LM (Dh 32) and its ``quick``
-#: variant (Dh 16, which the bf16 kernels run zero-padded to 32), as data
-#: (tests/test_torch_dist.py holds them against the file)
-YAML_LM_CONFIGS = {
-    "GPT-LM flash T=256 (bf16)": dict(
-        trainer="SingleTrainer", model="gpt_lm",
-        model_kwargs={"vocab_size": 64, "dim": 128, "num_heads": 4,
-                      "num_blocks": 2, "seq_len": 256,
-                      "attention_impl": "flash"},
-        dataset="load_lm_corpus",
-        dataset_kwargs={"n_train": 2048, "seq_len": 256, "vocab_size": 64},
-        onehot=None,
-        trainer_kwargs={"loss": SCE, "label_col": "label", "num_epoch": 4,
-                        "batch_size": 64, "learning_rate": 0.003,
-                        "compute_dtype": "bfloat16"},
-        quick={"model_kwargs": {"vocab_size": 64, "dim": 32,
-                                "num_heads": 2, "num_blocks": 1,
-                                "seq_len": 64, "attention_impl": "flash"},
-               "dataset_kwargs": {"n_train": 256, "seq_len": 64,
-                                  "vocab_size": 64},
-               "trainer_kwargs": {"num_epoch": 1}}),
-}
-#: configs/bench_all.yaml:124-170, the two stream-from-disk configs, as
-#: data: ``streaming`` is rows a shard, spilled by
-#: ``ShardedFileDataset.write`` (distkeras_tpu/config.py:122-150)
-STREAM_CONFIGS = {
-    "ResNet-50/96px stream-from-disk": dict(
-        trainer="SingleTrainer", model="resnet50",
-        model_kwargs={"num_classes": 100, "input_size": 96},
-        dataset="load_imagenet_subset",
-        dataset_kwargs={"n_train": 1024, "num_classes": 100,
-                        "image_size": 96}, onehot=100, streaming=256,
-        trainer_kwargs={"num_epoch": 4, "batch_size": 16,
-                        "learning_rate": 0.005,
-                        "compute_dtype": "bfloat16"}),
-    "ADAG ResNet-50/96px stream-from-disk (auto-w)": dict(
-        trainer="ADAG", model="resnet50",
-        model_kwargs={"num_classes": 100, "input_size": 96},
-        dataset="load_imagenet_subset",
-        dataset_kwargs={"n_train": 1024, "num_classes": 100,
-                        "image_size": 96}, onehot=100, streaming=128,
-        trainer_kwargs={"num_workers": "auto", "communication_window": 2,
-                        "num_epoch": 3, "batch_size": 16,
-                        "learning_rate": 0.005,
-                        "compute_dtype": "bfloat16"}),
-}
+#: the yaml's flash LM (dim 128, 4 heads of Dh 32, bf16) — its ``quick``
+#: variant has Dh 16, which the bf16 kernels run zero-padded to 32
+YAML_LM = "GPT-LM flash T=256 (bf16)"
+#: the two stream-from-disk configs: ``streaming`` is rows a shard,
+#: spilled by ``ShardedFileDataset.write`` (``config.build``)
+STREAM_CONFIGS = yaml_configs(
+    "ResNet-50/96px stream-from-disk",
+    "ADAG ResNet-50/96px stream-from-disk (auto-w)")
 #: the stream-from-disk configs cut from the yaml's 4 and 3 epochs to 2
 #: each, for the run's time limit (the loss still has two epochs to fall)
 STREAM_EPOCHS = 2
@@ -2704,16 +2659,6 @@ def phase_dist(torch):
     return rows, parity, flash["kernel_launches"]
 
 
-def _with_quick(cfg):
-    """A config with its ``quick`` overrides (distkeras_tpu/config.py:
-    74-87: dicts merge, scalars replace)."""
-    out = {k: v for k, v in cfg.items() if k != "quick"}
-    for k, v in cfg.get("quick", {}).items():
-        out[k] = {**out[k], **v} if isinstance(v, dict) and \
-            isinstance(out.get(k), dict) else v
-    return out
-
-
 def _reset_peak(torch) -> int:
     """Collect the earlier phases' garbage (trainers hold reference
     cycles, so their tensors outlive them until a collection), then
@@ -2750,47 +2695,161 @@ def _same_bits(a, b) -> bool:
         for x, y in zip(a, b))
 
 
-def phase_yaml_lm(torch):
-    """configs/bench_all.yaml's flash LM (Dh 32) as configured, then its
-    ``quick`` variant (Dh 16, zero-padded to 32 by the bf16 kernels):
-    losses finite, the configured run's falling, K1, K2 and K3 launched
-    exactly once per block per step.  Returns the rows."""
+class _Builds:
+    """Records the trainer of every ``config.build`` call inside it (the
+    trainer ``config.run`` trained), to read its history and model."""
+
+    def __enter__(self):
+        from distkeras_tpu_torch import config
+        self._real = real = config.build
+        self.trainers = []
+
+        def build(*args, **kw):
+            out = real(*args, **kw)
+            self.trainers.append(out[0])
+            return out
+
+        config.build = build
+        return self
+
+    def __exit__(self, *exc):
+        from distkeras_tpu_torch import config
+        config.build = self._real
+
+
+#: the job's parameters against the in-process ``config.run``'s, in
+#: largest abs difference over the leaves: bit-identical is expected
+#: (the same seed, data, kernels and cuBLAS calls in a fresh process)
+JOB_PARAM_TOL = 0.0
+
+
+def phase_config(torch):
+    """configs/bench_all.yaml through the port's config layer on the card:
+
+    1. the flash LM (``YAML_LM``: dim 128, 4 heads of Dh 32, bf16, 4 epochs
+       of 32 steps at batch 64) as configured, by ``config.run(cfg,
+       repeat=2)``, then its ``quick`` variant (Dh 16, zero-padded to 32
+       by the bf16 kernels): every loss finite, each call's falling, K1,
+       K2 and K3 launched exactly once per block per step; the rows
+       printed as ``config.main`` prints them;
+    2. ``config.main([file, "--quick"])``: every config of the file built
+       and trained on the card (the stream-from-disk ones spilled to
+       shards and streamed), the table printed;
+    3. the flash LM as a ``Job`` (``config.to_job``): ``Job.run()``
+       spawns ``job_runner`` in a child process on the card, whose K1–K3
+       launches fold into this process's counts (exactly steps x blocks,
+       one worker); its trained parameters against the in-process run of
+       part 1 (``JOB_PARAM_TOL``), its wall beside ``config.run``'s.
+
+    Returns ``(rows, paths)``: paths are (name, launch rows) pairs of the
+    ``kernels`` line."""
     import numpy as np
+    from distkeras_tpu_torch import config
     from distkeras_tpu_torch.ops.flash_attention import reset_launches
-    rows = []
-    for name, base in YAML_LM_CONFIGS.items():
-        for variant, cfg in (("config", base), ("quick", _with_quick(base))):
-            ds = _dist_data(cfg)
-            t = _dist_trainer(cfg["trainer"], cfg)
-            kw, mk = cfg["trainer_kwargs"], cfg["model_kwargs"]
-            steps = ds.num_rows // kw["batch_size"]
-            live = _reset_peak(torch)
-            # this path: counts set to 0 just before, read just after
+    from distkeras_tpu_torch.utils.weights import to_numpy_variables
+    base = {c.name: c for c in config.load_file(BENCH_YAML)}[YAML_LM]
+    rows, paths, table = [], [], list(config.TABLE_HEADER)
+    trained = None
+    for variant, cfg in (("config", base), ("quick", base.with_quick())):
+        kw, mk = cfg.trainer_kwargs, cfg.model_kwargs
+        steps = cfg.dataset_kwargs["n_train"] // kw["batch_size"]
+        live = _reset_peak(torch)
+        # this path: counts set to 0 just before, read just after
+        with _Builds() as builds:
             reset_launches()
-            t.train(ds)
+            got = config.run(cfg, repeat=2)
             launches, by_kernel = _launch_counts(), kernel_launches()
-            hist = t.get_averaged_history()
-            check(all(bool(np.isfinite(h).all()) for h in t.get_history()),
-                  f"{name} ({variant}): a training loss is not finite")
-            if len(hist) > 1:
-                check(hist[-1] < hist[0],
-                      f"{name} ({variant}): the loss did not fall: {hist}")
-            want = mk["num_blocks"] * steps * kw["num_epoch"]
-            check(all(n == want for n in launches.values()),
-                  f"{name} ({variant}): launches {launches} != {want} each")
-            rec = [r for r in t.metrics.records if r["event"] == "epoch"][-1]
-            row = {"phase": "yaml_lm", "config": name, "variant": variant,
-                   "model": mk, "head_dim": mk["dim"] // mk["num_heads"],
-                   "steps_per_epoch": steps, "epochs": kw["num_epoch"],
-                   "epoch_mean_loss": hist.tolist(),
-                   "samples_per_s": rec["samples_per_sec"],
-                   "step_ms": 1e3 * rec["epoch_seconds"] / steps,
-                   "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-                   "live_before_bytes": live,
-                   "launches": launches, "kernel_launches": by_kernel}
-            emit(row)
-            rows.append(row)
-    return rows
+        t = builds.trainers[0]
+        hist = [float(np.mean(h)) for h in t.get_history()]
+        check(all(bool(np.isfinite(h).all()) for h in t.get_history()),
+              f"{cfg.name} ({variant}): a training loss is not finite")
+        epochs = kw["num_epoch"]
+        for call in (hist[:epochs], hist[epochs:]):
+            if len(call) > 1:
+                check(call[-1] < call[0], f"{cfg.name} ({variant}): the "
+                      f"loss did not fall: {call}")
+        want = 2 * mk["num_blocks"] * steps * epochs
+        check(all(n == want for n in launches.values()),
+              f"{cfg.name} ({variant}): launches {launches} != {want} each")
+        if variant == "config":
+            trained = to_numpy_variables(t.model)
+            run_walls = got["wall_seconds"]
+        rec = [r for r in t.metrics.records if r["event"] == "epoch"][-1]
+        row = {"phase": "config", "config": cfg.name, "variant": variant,
+               "model": mk, "head_dim": mk["dim"] // mk["num_heads"],
+               "steps_per_epoch": steps, "epochs": epochs, "calls": 2,
+               "epoch_mean_loss": hist, "run": got,
+               "step_ms": 1e3 * rec["epoch_seconds"] / steps,
+               "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+               "live_before_bytes": live,
+               "launches": launches, "kernel_launches": by_kernel}
+        emit(row)
+        rows.append(row)
+        paths.append((f"config_{variant}", by_kernel))
+        table.append(config.format_row(got))
+    for line in table:
+        print(line, flush=True)
+
+    t0 = time.perf_counter()
+    reset_launches()
+    check(config.main([BENCH_YAML, "--quick"]) == 0,
+          "config.main --quick failed")
+    by_kernel = kernel_launches()
+    main_row = {"phase": "config", "variant": "main --quick",
+                "configs": len(config.load_file(BENCH_YAML)),
+                "wall_s": time.perf_counter() - t0,
+                "launches": _launch_counts(), "kernel_launches": by_kernel}
+    emit(main_row)
+    rows.append(main_row)
+    paths.append(("config_main_quick", by_kernel))
+
+    job = config.to_job(base)
+    kw, mk = base.trainer_kwargs, base.model_kwargs
+    reset_launches()
+    t0 = time.perf_counter()
+    model = job.run(timeout=600)
+    job_wall = time.perf_counter() - t0
+    launches, by_kernel = _launch_counts(), kernel_launches()
+    want = mk["num_blocks"] * (base.dataset_kwargs["n_train"]
+                               // kw["batch_size"]) * kw["num_epoch"]
+    check(all(n == want for n in launches.values()),
+          f"job: launches {launches} != {want} each (folded from the "
+          f"child)")
+    check(model.device.type == "cuda", f"job: the model is on "
+          f"{model.device}")
+    got = to_numpy_variables(model)
+    diffs = [float(np.max(np.abs(a.astype(np.float64) - b)))
+             for a, b in zip(_leaves(got), _leaves(trained))]
+    err = max(diffs)
+    check(err <= JOB_PARAM_TOL, f"job: parameters {err} from the "
+          f"in-process run")
+    job_row = {"phase": "config", "variant": "job", "config": base.name,
+               "child": "python -m distkeras_tpu_torch.job_runner",
+               "job_wall_s": job_wall, "child_training_s":
+               job.result_training_time,
+               "config_run_two_calls_wall_s": run_walls,
+               "max_abs_param_diff": err, "bit_identical": err == 0.0,
+               "leaves": len(diffs), "epoch_mean_loss": [
+                   float(np.mean(h)) for h in job.result_history],
+               "launches": launches, "kernel_launches": by_kernel}
+    emit(job_row)
+    rows.append(job_row)
+    paths.append(("job", by_kernel))
+    return rows, paths
+
+
+def _under_racecheck(fn, *args):
+    """``fn(*args)`` under the port's ``racecheck.enabled()``: any
+    unguarded concurrent write, lock-order cycle or write-after-publish
+    it records fails the run."""
+    from distkeras_tpu_torch.analysis import racecheck
+    with racecheck.enabled() as violations:
+        out = fn(*args)
+        found = list(violations)
+    check(not found, f"racecheck: {len(found)} violation(s) in "
+          f"{fn.__name__}: " + "; ".join(
+              f"{v['dict']}[{v['key']!r}] via {v['op']}" for v in found[:5]))
+    return out
 
 
 def _ckpt_dist(torch, tmp):
@@ -3342,12 +3401,12 @@ def _async_faults(torch):
 
 def _async_processes(torch):
     """DOWNPOUR with 2 process workers on configs/bench_all.yaml's flash
-    LM (``YAML_LM_CONFIGS``: Dh 32, bf16, batch 64): each child holds its
+    LM (``YAML_LM``: Dh 32, bf16, batch 64): each child holds its
     own CUDA context and loads the kernel library the parent built; the
     children's launches fold into the parent's counts."""
     import distkeras_tpu_torch as dkt
     from distkeras_tpu_torch.models import zoo
-    cfg = next(iter(YAML_LM_CONFIGS.values()))
+    cfg = yaml_configs(YAML_LM)[YAML_LM]
     kw, mk = dict(cfg["trainer_kwargs"]), cfg["model_kwargs"]
     kw.pop("label_col")
     ds = _dist_data(cfg)
@@ -3448,6 +3507,19 @@ def phase_async(torch, dist_rows=()):
             check(row["shm_bytes"] > 0, "shm: no bytes crossed the ring")
         emit(row)
         rows.append(row)
+        if path == "plain":
+            # the same run again, under the port's race checker
+            rc = _under_racecheck(_async_run, torch,
+                                  _async_lm_trainer("DOWNPOUR"), ds,
+                                  "async_racecheck")
+            check(rc["accounting"]["applied"] == ASYNC_WORKERS * 2,
+                  f"racecheck: {rc['accounting']}")
+            _check_launches(rc, ASYNC_WORKERS * 2, w)
+            emit({"phase": "racecheck", "run": "async_downpour",
+                  "workers": ASYNC_WORKERS, "violations": 0,
+                  "seconds_with": rc["wall_s"],
+                  "seconds_without": row["wall_s"]})
+            rows.append(rc)
 
     cfg_name = "ADAG ConvNet/CIFAR-10 (auto-w)"
     cfg = DIST_CONFIGS[cfg_name]
@@ -5607,6 +5679,11 @@ def main() -> int:
         sl = timed("slice", phase_slice, torch, model, prompts)
         timed("profile", phase_profile, torch, model, prompts)
         fleet = timed("fleet", phase_fleet, torch, model)
+        # the same run under the port's race checker
+        timed("fleet_racecheck", _under_racecheck, phase_fleet, torch, model)
+        emit({"phase": "racecheck", "run": "fleet", "violations": 0,
+              "seconds_with": seconds["fleet_racecheck"],
+              "seconds_without": seconds["fleet"]})
         spec, spec_launches, spec_k1 = timed("spec", phase_spec, torch, model)
         beam, beam_k1 = timed("beam", phase_beam, torch, model)
         k1 = k1 + spec_k1 + beam_k1
@@ -5618,7 +5695,7 @@ def main() -> int:
         timed("conv", phase_conv, torch)
         timed("models", phase_models, torch)
         dist_rows, _, dist_kernels = timed("dist", phase_dist, torch)
-        yl = timed("yaml_lm", phase_yaml_lm, torch)
+        _, config_paths = timed("config", phase_config, torch)
         ck = timed("ckpt", phase_ckpt, torch)
         timed("stream", phase_stream, torch)
         asy = timed("async", phase_async, torch, dist_rows)
@@ -5630,8 +5707,7 @@ def main() -> int:
         mesh_row, mesh_paths = timed("mesh", phase_mesh, torch)
         seconds.update({f"mesh.{k}": v for k, v in
                         mesh_row["seconds_by_run"]["rank0"].items()})
-        later = [(f"yaml_lm_{r['variant']}", r["kernel_launches"])
-                 for r in yl]
+        later = list(config_paths)
         later += [("ckpt_straight", ck["kernel_launches"]),
                   ("ckpt_resumed", ck["kernel_launches_resumed"]),
                   ("ckpt_serve", ck["serve"]["kernel_launches"])]

@@ -60,7 +60,7 @@ from .continual import ContinualConfig, ContinualTrainer, synthetic_lm_feed
 from .data import Dataset, load_mnist
 from .evaluators import AccuracyEvaluator
 from .models import zoo
-from .obs import Registry, snapshot_quantile
+from .obs import Registry, emit, snapshot_quantile
 from .predictors import ModelPredictor
 from .scenario import (AutoscalePolicy, AutoScaler, LengthModel, PrefixMix,
                        ScenarioRunner, SLOTarget, diurnal_trace,
@@ -533,7 +533,7 @@ def main(argv=None) -> int:
         ap.error("--mnist, --continual and --scenario are mutually "
                  "exclusive")
     if not torch.cuda.is_available():
-        print("bench: no CUDA device", file=sys.stderr)
+        emit("bench: no CUDA device", err=True)
         return 1
     t0 = time.perf_counter()
     if args.scenario:
@@ -553,7 +553,7 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             f.write(line + "\n")
     else:
-        print(line, flush=True)
+        emit(line)
     return 0 if row.get("value", 0) is not None else 1
 
 

@@ -254,7 +254,7 @@ def _count(wrapper, kernel: str, dtype: torch.dtype, dh: int) -> None:
         KERNEL_LAUNCHES[(kernel, str(dtype).removeprefix("torch."), dh)] += 1
 
 
-def flash_fwd_cuda(q, k, v, causal: bool, scale: float):
+def flash_fwd_cuda(q, k, v, causal: bool, scale: float):  # dklint: hot
     """Launch the CUDA forward kernel (K1).  Same contract as
     ``flash_fwd_plain``; raises on what the kernel does not take.
     ``flash_fwd_cuda.launches`` counts the launches (and
@@ -266,13 +266,13 @@ def flash_fwd_cuda(q, k, v, causal: bool, scale: float):
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
     kernel = _launch("dkt_flash_fwd", q.data_ptr(), k.data_ptr(),
                      v.data_ptr(), o.data_ptr(), lse.data_ptr(), bh, tq, tk,
-                     size, int(bool(causal)), ctypes.c_float(scale),
+                     size, 1 if causal else 0, ctypes.c_float(scale),
                      _DTYPE_CODES[q.dtype], device=q.device)
     _count(flash_fwd_cuda, kernel, q.dtype, dh)
     return _unpad(o, dh), lse
 
 
-def flash_bwd_dq_cuda(q, k, v, lse, do, dvec, causal: bool, scale: float):
+def flash_bwd_dq_cuda(q, k, v, lse, do, dvec, causal: bool, scale: float):  # dklint: hot
     """Launch K2: dQ, like ``flash_bwd_plain``'s first output.
     ``flash_bwd_dq_cuda.launches`` counts the launches (and
     ``KERNEL_LAUNCHES`` each by the kernel that ran)."""
@@ -284,13 +284,13 @@ def flash_bwd_dq_cuda(q, k, v, lse, do, dvec, causal: bool, scale: float):
     kernel = _launch("dkt_flash_bwd_dq", q.data_ptr(), k.data_ptr(),
                      v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                      dvec.data_ptr(), dq.data_ptr(), bh, tq, tk, size,
-                     int(bool(causal)), ctypes.c_float(scale),
+                     1 if causal else 0, ctypes.c_float(scale),
                      _DTYPE_CODES[q.dtype], device=q.device)
     _count(flash_bwd_dq_cuda, kernel, q.dtype, dh)
     return _unpad(dq, dh)
 
 
-def flash_bwd_dkv_cuda(q, k, v, lse, do, dvec, causal: bool, scale: float):
+def flash_bwd_dkv_cuda(q, k, v, lse, do, dvec, causal: bool, scale: float):  # dklint: hot
     """Launch K3: (dK, dV), like ``flash_bwd_plain``'s last two outputs.
     ``flash_bwd_dkv_cuda.launches`` counts the launches (and
     ``KERNEL_LAUNCHES`` each by the kernel that ran)."""
@@ -302,7 +302,7 @@ def flash_bwd_dkv_cuda(q, k, v, lse, do, dvec, causal: bool, scale: float):
     kernel = _launch("dkt_flash_bwd_dkv", q.data_ptr(), k.data_ptr(),
                      v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                      dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, tq,
-                     tk, size, int(bool(causal)), ctypes.c_float(scale),
+                     tk, size, 1 if causal else 0, ctypes.c_float(scale),
                      _DTYPE_CODES[q.dtype], device=q.device)
     _count(flash_bwd_dkv_cuda, kernel, q.dtype, dh)
     return _unpad(dk, dh), _unpad(dv, dh)

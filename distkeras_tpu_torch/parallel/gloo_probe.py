@@ -165,18 +165,20 @@ def main(argv=None) -> int:
     ap.add_argument("--timeout", type=float, default=60.0)
     args = ap.parse_args(argv)
     import torch
+
+    from ..obs.logging import emit
     if not torch.cuda.is_available():
-        print("gloo_probe: no CUDA device", file=sys.stderr)
+        emit("gloo_probe: no CUDA device", err=True)
         return 1
     direct = []
     for op in COLLECTIVES:
         row = probe(op, args.timeout)
-        print(json.dumps(row), flush=True)
+        emit(json.dumps(row))
         if row["result"] == "direct":
             direct.append(op)
-    print(json.dumps({"gloo_cuda_direct": direct,
-                      "device": torch.cuda.get_device_name(0),
-                      "torch": torch.__version__}), flush=True)
+    emit(json.dumps({"gloo_cuda_direct": direct,
+                     "device": torch.cuda.get_device_name(0),
+                     "torch": torch.__version__}))
     return 0
 
 

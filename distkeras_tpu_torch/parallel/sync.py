@@ -141,7 +141,7 @@ def _replay(gen: Optional[torch.Generator]):
     return contextlib.nullcontext(), recompute()
 
 
-def make_local_step(model, loss_fn: Callable, optimizer,
+def make_local_step(model, loss_fn: Callable, optimizer,  # dklint: hot
                     compute_dtype=None, remat: bool = False,
                     aux_weight: float = 0.0,
                     generator: Optional[torch.Generator] = None):
@@ -196,7 +196,7 @@ def make_local_step(model, loss_fn: Callable, optimizer,
     return step
 
 
-def make_window_fn(model, loss_fn, optimizer, compute_dtype=None,
+def make_window_fn(model, loss_fn, optimizer, compute_dtype=None,  # dklint: hot
                    remat: bool = False, aux_weight: float = 0.0,
                    generator: Optional[torch.Generator] = None):
     """The window loop: ``run(params, opt_state, xs, ys) -> (params,

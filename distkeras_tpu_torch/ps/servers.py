@@ -129,7 +129,7 @@ class ParameterServer:
             "ps.lock_wait_seconds", TIME_BUCKETS)
 
     # -- update rule (subclass responsibility) ------------------------------
-    def apply_commit(self, delta: Tree, meta: dict) -> None:
+    def apply_commit(self, delta: Tree, meta: dict) -> None:  # dklint: holds=mutex
         """Apply one commit to the center.  Contract: ``handle_commit``
         calls this with ``self.mutex`` held — implementations read and
         replace shared state without re-locking.  Implementations fold
@@ -138,7 +138,7 @@ class ParameterServer:
         raise NotImplementedError
 
     @staticmethod
-    def _commit_scale(meta: dict) -> float:
+    def _commit_scale(meta: dict) -> float:  # dklint: holds=mutex
         """Flag-aware down-weighting multiplier the front-end attached
         (``commit_weight`` — 1.0 for healthy workers); every update rule
         multiplies its own scale by this."""
@@ -220,7 +220,7 @@ class ParameterServer:
         self._c_joins.inc()
         return out
 
-    def fleet_snapshot(self) -> dict:
+    def fleet_snapshot(self) -> dict:  # dklint: holds=mutex
         """Plain-data fleet lifecycle state; caller holds ``mutex``."""
         return {"generations": dict(self.generations),
                 "tombstoned_by_worker": dict(self.tombstoned_by_worker),
@@ -281,7 +281,7 @@ class DeltaParameterServer(ParameterServer):
     i.e. θ_after − θ_pulled) and the EASGD family (delta = elastic force E).
     Parity: reference ``DeltaParameterServer``."""
 
-    def apply_commit(self, delta, meta):
+    def apply_commit(self, delta, meta):  # dklint: holds=mutex
         self.center = _tree_fused_add(self.center, delta,
                                       self._commit_scale(meta))
 
@@ -291,7 +291,7 @@ class ADAGParameterServer(ParameterServer):
     normalized by worker count (parity: reference ``ADAGParameterServer``;
     upstream README's recommended algorithm)."""
 
-    def apply_commit(self, delta, meta):
+    def apply_commit(self, delta, meta):  # dklint: holds=mutex
         self.center = _tree_fused_add(self.center, delta,
                                       self._commit_scale(meta)
                                       / self.num_workers)
@@ -322,7 +322,7 @@ class DynSGDParameterServer(ParameterServer):
         #: skips the registry's name-format + lock on every commit
         self._h_by_worker: dict = {}
 
-    def _worker_hist(self, w: int):
+    def _worker_hist(self, w: int):  # dklint: holds=mutex
         h = self._h_by_worker.get(w)
         if h is None:
             # labeled per-worker series; flattens to the
@@ -331,7 +331,7 @@ class DynSGDParameterServer(ParameterServer):
                 "ps.staleness", COUNT_BUCKETS, labels={"worker": w})
         return h
 
-    def apply_commit(self, delta, meta):
+    def apply_commit(self, delta, meta):  # dklint: holds=mutex
         staleness = max(0, self.num_updates - int(meta.get("last_update", 0)))
         self.staleness_seen.append(staleness)
         self._h_staleness.observe(staleness)

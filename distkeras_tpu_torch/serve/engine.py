@@ -449,10 +449,11 @@ class DecodeEngine:
             args += (self._dcache, self._dlogits)
         return args
 
-    def _step(self):
+    def _step(self):  # dklint: hot
         """One decode step for every active row; returns the (B,) tokens
         (plain) or the (B, k+2) emitted tokens and counts (spec)."""
-        sampled = bool((self._row_temp > 0.0).any())
+        # the host mirror of the rows' temperatures (numpy): no sync
+        sampled = bool((self._row_temp > 0.0).any())  # dklint: disable=hot-path-purity
         if self._spec_k > 0:
             if self._step_fn is None:
                 self._step_fn = build_spec_step(self.model,

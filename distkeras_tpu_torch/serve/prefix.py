@@ -320,7 +320,7 @@ class PrefixCache:
             self._g_bytes.set(self._bytes)
             self._g_entries.set(len(self._entries))
 
-    def _evict_lru(self) -> None:  # caller holds _lock
+    def _evict_lru(self) -> None:  # dklint: holds=_lock
         old_primary, old = self._entries.popitem(last=False)
         self._bytes -= old.nbytes
         for key in old.all_keys:

@@ -172,7 +172,18 @@ def _resolve_dtype(dtype) -> Optional[torch.dtype]:
 def _ends_in_prob_activation(model) -> bool:
     """Reference models end in a softmax (or sigmoid, for binary heads)
     layer and train with crossentropy on probabilities (Keras semantics).
-    Detect that so the loss can use the on-probs variant."""
+    Detect that so the loss can use the on-probs variant.  Works for
+    native models and ingested Keras-3 models."""
+    kmodel = getattr(model, "keras_model", None)
+    if kmodel is not None:
+        try:
+            last = kmodel.layers[-1]
+            if type(last).__name__ in ("Softmax", "Sigmoid"):
+                return True
+            act = getattr(last, "activation", None)
+            return getattr(act, "__name__", None) in ("softmax", "sigmoid")
+        except (IndexError, AttributeError):
+            return False
     layer = model.layer
     while isinstance(layer, Sequential) and len(layer.layers):
         layer = layer.layers[-1]
@@ -469,7 +480,7 @@ class SingleTrainer(Trainer):
         opt_state, start = self._maybe_restore(ckpt, optimizer.init(params))
         return params, opt_state, ckpt, start
 
-    def _train(self, dataset: Dataset, shuffle: bool) -> Model:
+    def _train(self, dataset: Dataset, shuffle: bool) -> Model:  # dklint: hot
         if isinstance(dataset, ShardedFileDataset):
             return self._train_stream(dataset, shuffle)
         if not isinstance(dataset, Dataset):
@@ -498,7 +509,7 @@ class SingleTrainer(Trainer):
         pipe.flush()
         return self._finish()
 
-    def _train_stream(self, source: ShardedFileDataset,
+    def _train_stream(self, source: ShardedFileDataset,  # dklint: hot
                       shuffle: bool) -> Model:
         """Epochs streamed from disk: each window's batches are stacked on
         the host and copied to the device; the epoch takes the first
@@ -511,7 +522,8 @@ class SingleTrainer(Trainer):
         if steps == 0:
             raise ValueError(f"batch_size {bs} exceeds dataset rows "
                              f"{source.num_rows}")
-        w = max(1, min(int(self.stream_window), steps))
+        # a class constant, not a tensor: nothing is read from the card
+        w = max(1, min(int(self.stream_window), steps))  # dklint: disable=hot-path-purity
         n_windows = steps // w
 
         params, opt_state, ckpt, start = self._start(optimizer)
@@ -1262,14 +1274,16 @@ class EnsembleTrainer(DistributedTrainer):
 
     def _init_variables(self):
         # member i from init(seed + i); each init makes new tensors, so
-        # the earlier members' stay as they were
+        # the earlier members' stay as they were.  A Keras adapter keeps
+        # init() as its pretrained snapshot: its members take reinit()
+        fresh = getattr(self.model, "reinit", self.model.init)
         inits = []
         for i in self._slots:
-            self.model.init(self.seed + i, device=self.device)
+            fresh(self.seed + i, device=self.device)
             inits.append(variables_of(self.model))
         local = stack_trees(inits)
         # the center is member 0's init, as the reference's
-        self.model.init(self.seed, device=self.device)
+        fresh(self.seed, device=self.device)
         return variables_of(self.model), local
 
     def _collect(self, center, local):

@@ -150,14 +150,13 @@ def serialize_model(model, variables: Any = None) -> bytes:
 
 
 def model_from_config(cfg: dict):
-    """Rebuild a model from its config dict.  An ingested Keras-3 config
-    (its ``keras_json`` key) needs the Keras adapter, which is not
-    ported yet."""
-    from ..models.model import Model
+    """Rebuild a model from its config dict: an ingested Keras-3 model's
+    (its ``keras_json`` key) through ``KerasAdapter``, any other through
+    ``Model``."""
     if "keras_json" in cfg:
-        raise NotImplementedError(
-            "a Keras-3 model config (keras_json) needs the Keras adapter, "
-            "not ported yet: ROADMAP Queue 1 item 9")
+        from ..models.keras_adapter import KerasAdapter
+        return KerasAdapter.from_config(cfg)
+    from ..models.model import Model
     return Model.from_config(cfg)
 
 

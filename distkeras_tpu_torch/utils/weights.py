@@ -30,6 +30,16 @@ def _walk(layer: Layer, params: Any, state: Any, path: str,
           leaf: Callable) -> None:
     """Visit ``layer``'s parameters and buffers beside the JAX trees'
     leaves, raising on any structure mismatch."""
+    if hasattr(layer, "jax_tree"):  # an ingested Keras model's layer
+        want = layer.jax_tree(lambda t: t)
+        for kind, ts, tree in (("params", want[0], params),
+                               ("state", want[1], state)):
+            if not isinstance(tree, (list, tuple)) or len(tree) != len(ts):
+                raise ValueError(f"{path}: expected a {len(ts)}-entry "
+                                 f"{kind} list")
+            for i, (t, arr) in enumerate(zip(ts, tree)):
+                leaf(f"{path}.{kind}[{i}]", t, arr)
+        return
     if isinstance(layer, Sequential):
         n = len(layer.layers)
         if not isinstance(params, (list, tuple)) or len(params) != n \
@@ -108,6 +118,8 @@ def _jax_tree(layer, leaf: Callable):
     """``layer``'s (params, state) trees in the JAX package's shape, with
     ``leaf(tensor)`` at each leaf and every dict's keys sorted, as
     ``jax.tree_util`` orders (and rebuilds) them."""
+    if hasattr(layer, "jax_tree"):  # an ingested Keras model's layer
+        return layer.jax_tree(leaf)
     if isinstance(layer, Sequential):
         pairs = [_jax_tree(lyr, leaf) for lyr in layer.layers]
         return [p for p, _ in pairs], [s for _, s in pairs]

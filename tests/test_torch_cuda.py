@@ -9,8 +9,9 @@ checkpoints, resume and disk streaming on the card, and the async
 parameter server's thread and process workers on the card (exact
 K1–K3 launch counts), the sharded parameter server and the switch-MoE
 LM trained and served on the card, the profiler readings (step split,
-device trace) and a continual run held against the CPU, and two gloo
-ranks sharing the card (``tests/test_torch_mesh_child.py``): each
+device trace) and a continual run held against the CPU, the yaml's
+flash LM through ``config.run`` and as a ``Job`` in a child process
+(exact K1–K3 launches), and two gloo ranks sharing the card (``tests/test_torch_mesh_child.py``): each
 collective's route on CUDA tensors, and a two-rank ring forward against
 K1 over the whole T.
 Every test is marked ``cuda`` and skips where
@@ -1388,3 +1389,51 @@ def test_neither_mesh_trainer_runs_the_plain_attention_on_the_card(
         assert got["pipe"]["devices"] == ["cuda:0"]
         assert got["pipe"]["launches"] == (2 + 2 - 1) * 1 * 2
 
+
+
+# -- the config layer and jobs on the card ----------------------------------
+
+def _yaml_lm_quick(rows=256):
+    """configs/bench_all.yaml's flash LM, ``quick`` (Dh 16, bf16), read by
+    the port's own reader."""
+    import dataclasses
+    import os
+    from distkeras_tpu_torch import config
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "configs", "bench_all.yaml")
+    cfg = {c.name: c for c in config.load_file(path)}[
+        "GPT-LM flash T=256 (bf16)"].with_quick()
+    return dataclasses.replace(
+        cfg, dataset_kwargs={**cfg.dataset_kwargs, "n_train": rows})
+
+
+def test_config_run_of_the_yaml_lm_launches_each_kernel_per_block_step():
+    """``config.run`` of the yaml's flash LM (``quick``) on the card, twice
+    (``repeat=2``): K1, K2 and K3 each once a block a step."""
+    from distkeras_tpu_torch import config
+    cfg = _yaml_lm_quick()
+    kernels = (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda)
+    before = [k.launches for k in kernels]
+    row = config.run(cfg, repeat=2)
+    steps = 256 // cfg.trainer_kwargs["batch_size"]
+    want = 2 * cfg.model_kwargs["num_blocks"] * steps * \
+        cfg.trainer_kwargs["num_epoch"]
+    assert [k.launches - b for k, b in zip(kernels, before)] == [want] * 3
+    assert row["samples_per_sec"] > 0 and len(row["rates"]) == 2
+
+
+def test_a_job_runs_on_the_card_in_a_child_process():
+    """``Job.run()`` with no device: the runner trains on the card in its
+    own process, its K1-K3 launches fold into this process's counts, and
+    the trained model comes back onto the card."""
+    from distkeras_tpu_torch import config
+    cfg = _yaml_lm_quick(rows=128)
+    job = config.to_job(cfg)
+    kernels = (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda)
+    before = [k.launches for k in kernels]
+    model = job.run(timeout=600)
+    want = cfg.model_kwargs["num_blocks"] * (128 // 64) * \
+        cfg.trainer_kwargs["num_epoch"]
+    assert [k.launches - b for k, b in zip(kernels, before)] == [want] * 3
+    assert model.device.type == "cuda"
+    assert len(job.result_history) == cfg.trainer_kwargs["num_epoch"]

@@ -627,28 +627,32 @@ def test_batchnorm_axis_name_points_at_the_multi_card_item():
 
 
 def test_chip_smoke_dist_configs_are_the_yaml_files():
-    """``chip_smoke.DIST_CONFIGS``, ``YAML_LM_CONFIGS`` and
-    ``STREAM_CONFIGS`` (hard-coded: the card's machine has no yaml)
-    against ``configs/bench_all.yaml``, ``quick`` and ``streaming``
-    included where a config has them."""
+    """``chip_smoke.py`` reads ``DIST_CONFIGS``, ``STREAM_CONFIGS`` and
+    its flash LM (``YAML_LM``) from ``configs/bench_all.yaml`` through the
+    port's ``config.load_file``: every run it names is a config the file
+    holds, each equal to ``yaml.safe_load``'s entry, ``quick`` and
+    ``streaming`` included where a config has them."""
+    import dataclasses
+    from distkeras_tpu_torch.config import load_file
     yaml = pytest.importorskip("yaml")
     with open("configs/bench_all.yaml") as f:
-        cfgs = {c["name"]: c for c in yaml.safe_load(f)["configs"]}
-    mine_all = {**chip_smoke.DIST_CONFIGS, **chip_smoke.YAML_LM_CONFIGS,
-                **chip_smoke.STREAM_CONFIGS}
+        ref = {c["name"]: c for c in yaml.safe_load(f)["configs"]}
+    found = {c.name: dataclasses.asdict(c)
+             for c in load_file("configs/bench_all.yaml")}
+    assert set(found) == set(ref)
+    mine_all = {**chip_smoke.DIST_CONFIGS, **chip_smoke.STREAM_CONFIGS,
+                **chip_smoke.yaml_configs(chip_smoke.YAML_LM)}
     assert len(mine_all) == len(chip_smoke.DIST_CONFIGS) + 3
-    assert set(mine_all) <= set(cfgs)
     for name, mine in mine_all.items():
-        ref = cfgs[name]
+        assert mine == found[name], name
         for key in ("trainer", "model", "dataset", "onehot",
                     "dataset_kwargs", "trainer_kwargs"):
-            assert mine[key] == ref.get(key), (name, key)
-        assert mine["model_kwargs"] == ref.get("model_kwargs", {}), name
+            assert mine[key] == ref[name].get(key), (name, key)
+        assert mine["model_kwargs"] == ref[name].get("model_kwargs", {})
         for key in ("quick", "streaming"):
-            if key in mine:
-                assert mine[key] == ref[key], (name, key)
-    assert all(c.get("streaming") for c in chip_smoke.STREAM_CONFIGS.values())
-    assert "quick" in chip_smoke.YAML_LM_CONFIGS["GPT-LM flash T=256 (bf16)"]
+            assert mine[key] == ref[name].get(key, mine[key]), (name, key)
+    assert all(c["streaming"] for c in chip_smoke.STREAM_CONFIGS.values())
+    assert found[chip_smoke.YAML_LM]["quick"]
     runs = {trainer for trainer, _ in chip_smoke.DIST_RUNS}
     assert runs == {"ADAG", "DOWNPOUR", "AEASGD", "EAMSGD", "DynSGD",
                     "AveragingTrainer", "EnsembleTrainer"}

@@ -48,6 +48,7 @@ from distkeras_tpu_torch.data import load_lm_corpus
 from distkeras_tpu_torch.data.transformers import OneHotTransformer
 from distkeras_tpu_torch.models import Model
 from distkeras_tpu_torch.utils import load_jax_variables
+from tests.test_torch_racecheck import racecheck_module
 
 fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
 
@@ -56,6 +57,9 @@ fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
 if os.environ.get("PYTEST_XDIST_WORKER_COUNT"):
     torch.set_num_threads(max(1, os.cpu_count()
                               // int(os.environ["PYTEST_XDIST_WORKER_COUNT"])))
+
+#: the port's race checker over this file's PS / fleet threads
+_port_racecheck = racecheck_module()
 
 ALGOS = {"DOWNPOUR": {}, "ADAG": {}, "DynSGD": {},
          "AEASGD": dict(rho=1.0), "EAMSGD": dict(rho=1.0)}

@@ -38,12 +38,16 @@ from distkeras_tpu_torch.data.transformers import OneHotTransformer
 from distkeras_tpu_torch.models import Model
 from distkeras_tpu_torch.ps import workers as workers_mod
 from distkeras_tpu_torch.utils import load_jax_variables
+from tests.test_torch_racecheck import racecheck_module
 
 # pytest-xdist's workers share the cores: an intra-op pool of the
 # workers' share each, not one of every core per worker
 if os.environ.get("PYTEST_XDIST_WORKER_COUNT"):
     torch.set_num_threads(max(1, os.cpu_count()
                               // int(os.environ["PYTEST_XDIST_WORKER_COUNT"])))
+
+#: the port's race checker over this file's PS / fleet threads
+_port_racecheck = racecheck_module()
 
 #: 512 rows over 2 workers at batch 32 and window 4: 2 windows a worker
 #: an epoch, 8 commits in 2 epochs

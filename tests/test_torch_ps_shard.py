@@ -59,12 +59,16 @@ from distkeras_tpu_torch.ps.shard import (ProcessShardFleet,
 from distkeras_tpu_torch.utils import load_jax_variables
 from distkeras_tpu_torch.utils.weights import (jax_variables,
                                                to_numpy_variables)
+from tests.test_torch_racecheck import racecheck_module
 
 # pytest-xdist's workers share the cores: an intra-op pool of the
 # workers' share each, not one of every core per worker
 if os.environ.get("PYTEST_XDIST_WORKER_COUNT"):
     torch.set_num_threads(max(1, os.cpu_count()
                               // int(os.environ["PYTEST_XDIST_WORKER_COUNT"])))
+
+#: the port's race checker over this file's PS / fleet threads
+_port_racecheck = racecheck_module()
 
 SIZES = (2048, 1024, 512, 256)
 COMMON = dict(loss="categorical_crossentropy", features_col="features",

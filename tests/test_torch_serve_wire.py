@@ -26,12 +26,16 @@ from distkeras_tpu_torch.obs import Registry
 from distkeras_tpu_torch.serve import (DecodeEngine, ServeClient,
                                        ServeConfig, ServeServer)
 from distkeras_tpu_torch.utils.weights import load_jax_variables
+from tests.test_torch_racecheck import racecheck_module
 
 # pytest-xdist's workers share the cores: an intra-op pool of the
 # workers' share each, not one of every core per worker
 if os.environ.get("PYTEST_XDIST_WORKER_COUNT"):
     torch.set_num_threads(max(1, os.cpu_count()
                               // int(os.environ["PYTEST_XDIST_WORKER_COUNT"])))
+
+#: the port's race checker over this file's PS / fleet threads
+_port_racecheck = racecheck_module()
 
 VOCAB, SEQ = 64, 64
 CFG = dict(slots=2, max_queue=8, max_new_tokens=8,
