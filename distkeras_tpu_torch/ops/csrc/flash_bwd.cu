@@ -2,8 +2,7 @@
 // both dtypes.  The kernels live beside it: up to head dim 256 on
 // Hopper's tensor cores (sm_90a), f32 as 3xTF32 on mma.sync in
 // flash_bwd_tf32_sm90.cu (32, 64, 128 and any in 129-256) and bf16 on
-// wgmma and TMA in flash_bwd_sm90.cu (32, 64, 128 and multiples of 8 in
-// 129-256); past 256 both dtypes on CUDA cores in flash_bwd_wide.cu.
+// wgmma and TMA in flash_bwd_sm90.cu (multiples of 8 up to 256); past 256 both dtypes on CUDA cores in flash_bwd_wide.cu.
 // This file checks the arguments, sets the device and picks the kernel
 // for (dtype, head dim).
 //
@@ -25,8 +24,8 @@
 #include "launched.h"
 
 // the f32 kernels (flash_bwd_tf32_sm90.cu) and the bf16 ones
-// (flash_bwd_sm90.cu); head_dim 32, 64 or 128, and also 129-256 (for
-// bf16 a multiple of 8)
+// (flash_bwd_sm90.cu); f32 head_dim 32, 64 or 128, and any in 129-256;
+// bf16 a multiple of 8 up to 256
 cudaError_t flash_bwd_dq_f32(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* dvec, void* dq, int bh, int tq,
@@ -81,16 +80,16 @@ cudaError_t launch_dkv_f32(const BwdArgs& a, cudaStream_t stream) {
                            a.bh, a.tq, a.tk, D, a.causal, a.scale, stream);
 }
 
-template <int D>
+// bf16 K2 and K3 on wgmma (the runtime head dim picks the tile)
 cudaError_t launch_dq_bf16(const BwdArgs& a, cudaStream_t stream) {
   return flash_bwd_dq_bf16(a.q, a.k, a.v, a.dout, a.lse, a.dvec, a.dq, a.bh,
-                           a.tq, a.tk, D, a.causal, a.scale, stream);
+                           a.tq, a.tk, a.head_dim, a.causal, a.scale, stream);
 }
 
-template <int D>
 cudaError_t launch_dkv_bf16(const BwdArgs& a, cudaStream_t stream) {
   return flash_bwd_dkv_bf16(a.q, a.k, a.v, a.dout, a.lse, a.dvec, a.dk, a.dv,
-                            a.bh, a.tq, a.tk, D, a.causal, a.scale, stream);
+                            a.bh, a.tq, a.tk, a.head_dim, a.causal, a.scale,
+                            stream);
 }
 
 cudaError_t launch_dq_wide(const BwdArgs& a, cudaStream_t stream) {
@@ -105,19 +104,7 @@ cudaError_t launch_dkv_wide(const BwdArgs& a, cudaStream_t stream) {
                             a.dtype, stream);
 }
 
-// bf16 K2 and K3 at 129 <= head_dim <= 256 on wgmma, f32 K2 and K3 there
-// as 3xTF32 (the runtime head dim)
-cudaError_t launch_dq_bf16_wide(const BwdArgs& a, cudaStream_t stream) {
-  return flash_bwd_dq_bf16(a.q, a.k, a.v, a.dout, a.lse, a.dvec, a.dq, a.bh,
-                           a.tq, a.tk, a.head_dim, a.causal, a.scale, stream);
-}
-
-cudaError_t launch_dkv_bf16_wide(const BwdArgs& a, cudaStream_t stream) {
-  return flash_bwd_dkv_bf16(a.q, a.k, a.v, a.dout, a.lse, a.dvec, a.dk, a.dv,
-                            a.bh, a.tq, a.tk, a.head_dim, a.causal, a.scale,
-                            stream);
-}
-
+// f32 K2 and K3 at 129 <= head_dim <= 256 as 3xTF32 (the runtime head dim)
 cudaError_t launch_dq_f32_wide(const BwdArgs& a, cudaStream_t stream) {
   return flash_bwd_dq_f32(a.q, a.k, a.v, a.dout, a.lse, a.dvec, a.dq, a.bh,
                           a.tq, a.tk, a.head_dim, a.causal, a.scale, stream);
@@ -138,29 +125,27 @@ struct Pick {
 };
 
 // The launcher for (dtype, head_dim); f is nullptr for what no kernel
-// takes.  Order of `table`: (f32, 32), (f32, 64), (f32, 128), (bf16, 32),
-// (bf16, 64), (bf16, 128); at 129-256 `f32_wide` takes any head dim and
-// `bf16_wide` a multiple of 8 (its TMA row stride); `wide` takes
-// head_dim > 256 in either dtype.
-Pick pick(const Launcher (&table)[6], Launcher wide, Launcher bf16_wide,
-          Launcher f32_wide, int dtype, int head_dim) {
+// takes.  `f32` holds the f32 launchers at 32, 64 and 128 and `f32_wide`
+// takes any head dim in 129-256; `bf16` takes a multiple of 8 (its TMA
+// row stride) up to 256; `wide` takes head_dim > 256 in either dtype.
+Pick pick(const Launcher (&f32)[3], Launcher f32_wide, Launcher bf16,
+          Launcher wide, int dtype, int head_dim) {
   if (dtype != 0 && dtype != 1) return {nullptr, kCudaCores};
   if (head_dim > 256) return {wide, kCudaCores};
-  if (head_dim > 128) {
-    if (dtype == 0) return {f32_wide, kTf32Wide};
-    return {head_dim % 8 == 0 ? bf16_wide : nullptr, kWgmmaWide};
-  }
+  if (dtype == 1)
+    return {head_dim % 8 == 0 ? bf16 : nullptr,
+            head_dim <= 128 ? kWgmma : kWgmmaWide};
+  if (head_dim > 128) return {f32_wide, kTf32Wide};
   const int d = head_dim == 32 ? 0 : head_dim == 64 ? 1 : head_dim == 128 ? 2
                                                                           : -1;
-  return {d < 0 ? nullptr : table[3 * dtype + d],
-          dtype == 0 ? kTf32 : kWgmma};
+  return {d < 0 ? nullptr : f32[d], kTf32};
 }
 
 int run(Pick p, const BwdArgs& a, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (p.f == nullptr || a.bh < 1 || a.tq < 1 || a.tk < 1 ||
-      (a.causal && a.tq != a.tk))
+      a.head_dim < 1 || (a.causal && a.tq != a.tk))
     return (int)cudaErrorInvalidValue;
   dkt_set_last_kernel(p.kernel);
   return (int)p.f(a, static_cast<cudaStream_t>(stream));
@@ -170,9 +155,9 @@ int run(Pick p, const BwdArgs& a, int device, void* stream) {
 
 // q and dout: (bh, tq, head_dim); k and v: (bh, tk, head_dim); all
 // contiguous and 16-byte aligned (the tensor-core kernels load tiles by
-// cp.async or TMA), of dtype 0 (float32) or 1 (bfloat16); head_dim 32, 64,
-// 128 or any past 128, but bf16 in 129-256 a multiple of 8; lse and dvec:
-// (bh, tq) float32.  dq is written like q.
+// cp.async or TMA), of dtype 0 (float32) or 1 (bfloat16); head_dim: f32
+// 32, 64, 128 or any past 128; bf16 a multiple of 8 up to 256 or any past
+// 256; lse and dvec: (bh, tq) float32.  dq is written like q.
 // Launches on `stream` of `device` and returns cudaGetLastError() after the
 // launch (0 on success).
 extern "C" int dkt_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -180,13 +165,12 @@ extern "C" int dkt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dvec, void* dq, int bh, int tq,
                                 int tk, int head_dim, int causal, float scale,
                                 int dtype, int device, void* stream) {
-  static const Launcher table[6] = {
-      launch_dq_f32<32>,  launch_dq_f32<64>,  launch_dq_f32<128>,
-      launch_dq_bf16<32>, launch_dq_bf16<64>, launch_dq_bf16<128>};
+  static const Launcher f32[3] = {launch_dq_f32<32>, launch_dq_f32<64>,
+                                  launch_dq_f32<128>};
   const BwdArgs a{q, k, v, dout, lse, dvec, dq, nullptr, nullptr,
                   bh, tq, tk, head_dim, causal, scale, dtype};
-  return run(pick(table, launch_dq_wide, launch_dq_bf16_wide,
-                  launch_dq_f32_wide, dtype, head_dim),
+  return run(pick(f32, launch_dq_f32_wide, launch_dq_bf16, launch_dq_wide,
+                  dtype, head_dim),
              a, device, stream);
 }
 
@@ -197,12 +181,11 @@ extern "C" int dkt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  int tq, int tk, int head_dim, int causal,
                                  float scale, int dtype, int device,
                                  void* stream) {
-  static const Launcher table[6] = {
-      launch_dkv_f32<32>,  launch_dkv_f32<64>,  launch_dkv_f32<128>,
-      launch_dkv_bf16<32>, launch_dkv_bf16<64>, launch_dkv_bf16<128>};
+  static const Launcher f32[3] = {launch_dkv_f32<32>, launch_dkv_f32<64>,
+                                  launch_dkv_f32<128>};
   const BwdArgs a{q, k, v, dout, lse, dvec, nullptr, dk, dv,
                   bh, tq, tk, head_dim, causal, scale, dtype};
-  return run(pick(table, launch_dkv_wide, launch_dkv_bf16_wide,
-                  launch_dkv_f32_wide, dtype, head_dim),
+  return run(pick(f32, launch_dkv_f32_wide, launch_dkv_bf16,
+                  launch_dkv_wide, dtype, head_dim),
              a, device, stream);
 }

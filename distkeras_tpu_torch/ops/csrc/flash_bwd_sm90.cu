@@ -1,5 +1,5 @@
 // Flash-attention backward in bf16 on Hopper's tensor cores (sm_90a):
-// K2 (dQ) and K3 (dK, dV) at head dims 32, 64 and 128, and at 129-256.
+// K2 (dQ) and K3 (dK, dV) at head dims that are a multiple of 8 up to 256.
 // Called from flash_bwd.cu's C interface (dkt_flash_bwd_dq,
 // dkt_flash_bwd_dkv) for dtype 1; bf16 past 256 runs on CUDA cores
 // (flash_bwd_wide.cu).
@@ -42,14 +42,24 @@
 // The resident tiles (Q and dO for K2, K and V for K3) and a two-stage
 // ring of streamed tiles (K and V, or Q and dO) arrive by TMA on mbarriers
 // from 3-D tensor maps (Dh, T, B*H), so a ragged last tile reads zeros,
-// never the next head.  The swizzle is 128 B for Dh = 64 and 64 B for
-// Dh = 32 (one tile row), the same in the tensor map and the wgmma
-// descriptor; a block holds six 64-row tiles, 48 KB at Dh = 64.  At
-// Dh = 128 a tile is two 64-column panels (a swizzled TMA box is at most
+// never the next head.  The swizzle is 128 B on a 64-wide tile and 64 B
+// on a 32-wide one (one tile row), the same in the tensor map and the
+// wgmma descriptor; a block holds six 64-row tiles, 48 KB at D = 64.  At
+// D = 128 a tile is two 64-column panels (a swizzled TMA box is at most
 // one swizzle row wide), one box each, and the products step across them
 // (sm90.cuh); K3 runs two warpgroups, each forming the whole S^T and
 // dP^T but holding the dK and dV of one panel, since one warpgroup's
 // 2 x 64 accumulator registers a thread would spill.
+//
+// Head dims below 128 (Dh % 8 == 0) run on the least of the 32-, 64- and
+// 128-wide tiles that holds Dh, from unpadded rows: the tensor maps take
+// box and swizzle from the tile, width and row stride from Dh (sm90.cuh:
+// make_map), so TMA zero-fills the columns past Dh and shared memory keeps
+// the layout the descriptors read.  S and dP (S^T and dP^T) then sum real
+// columns only, the outputs' columns past Dh are exactly 0, and they are
+// stored masked at Dh; in K3 at D = 128 warpgroup 1's panel holds columns
+// 64 to Dh.  Dh 32, 64 and 128 fill their tiles and keep the full-row
+// stores.
 //
 // K2 and K3 at Dh 129-256 (the reference's BlockSpecs span any Dh) are
 // the same kernels on 256-wide tiles of four panels, read from unpadded
@@ -109,7 +119,9 @@ constexpr int dq_threads() {
   return kThreads * dq_groups<D>();
 }
 
-template <int D>
+// kPartial: rows of dh < D columns, the outputs stored masked at dh (as
+// they always are past D = 128)
+template <int D, bool kPartial>
 __global__ void __launch_bounds__(dq_threads<D>())
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
@@ -230,7 +242,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       tma_load_tile<D>(vs, &tm_v, &bars[1 + s], k0 + 2 * kBlock, bh);
     }
   }
-  if constexpr (D > 128) {  // rows of dh columns
+  if constexpr (D > 128 || kPartial) {  // rows of dh columns
     store_rows_masked<kN>(dq + (size_t)bh * tq * dh + wg * kN, acc, r0, tq,
                           c0, dh, dh - wg * kN);
   } else {
@@ -255,7 +267,7 @@ constexpr int dkv_threads() {
   return kThreads * dkv_groups<D>();
 }
 
-template <int D>
+template <int D, bool kPartial>
 __global__ void __launch_bounds__(dkv_threads<D>())
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
@@ -402,7 +414,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       tma_load_tile<D>(dos, &tm_do, &bars[1 + s], q0 + 2 * kBlock, bh);
     }
   }
-  if constexpr (D > 128) {  // rows of dh columns
+  if constexpr (D > 128 || kPartial) {  // rows of dh columns
     const size_t col = (size_t)bh * tk * dh + wg * kN;
     store_rows_masked<kN>(dk + col, acc_k, r0, tk, c0, dh, dh - wg * kN);
     store_rows_masked<kN>(dv + col, acc_v, r0, tk, c0, dh, dh - wg * kN);
@@ -421,13 +433,15 @@ struct Maps {
   CUtensorMap q, k, v, dout;
 };
 
+// the four inputs' maps, rows of dh columns read in tiles of width D
+template <int D>
 cudaError_t make_maps(Maps* m, const void* q, const void* k, const void* v,
-                      const void* dout, int bh, int tq, int tk, int d) {
+                      const void* dout, int bh, int tq, int tk, int dh) {
   cudaError_t err;
-  if ((err = make_map(&m->q, q, bh, tq, d)) != cudaSuccess) return err;
-  if ((err = make_map(&m->k, k, bh, tk, d)) != cudaSuccess) return err;
-  if ((err = make_map(&m->v, v, bh, tk, d)) != cudaSuccess) return err;
-  return make_map(&m->dout, dout, bh, tq, d);
+  if ((err = make_map<D>(&m->q, q, bh, tq, dh)) != cudaSuccess) return err;
+  if ((err = make_map<D>(&m->k, k, bh, tk, dh)) != cudaSuccess) return err;
+  if ((err = make_map<D>(&m->v, v, bh, tk, dh)) != cudaSuccess) return err;
+  return make_map<D>(&m->dout, dout, bh, tq, dh);
 }
 
 // six tiles and the slack to align them
@@ -436,69 +450,86 @@ constexpr size_t smem_bytes() {
   return 6 * Tile<D>::kBytes + 1024;
 }
 
-template <int D>
-cudaError_t launch_dq(const Maps& m, const float* lse, const float* dvec,
-                      void* dq, int bh, int tq, int tk, int dh, int causal,
-                      float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_wgmma_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+struct Args {
+  const void *q, *k, *v, *dout;
+  const float *lse, *dvec;
+  int bh, tq, tk, dh, causal;
+  float scale;
+};
+
+template <int D, bool kPartial>
+cudaError_t launch_dq(const Args& a, void* dq, cudaStream_t stream) {
+  Maps m;
+  cudaError_t err =
+      make_maps<D>(&m, a.q, a.k, a.v, a.dout, a.bh, a.tq, a.tk, a.dh);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (tq + kBlock - 1) / kBlock);
-  flash_bwd_dq_wgmma_kernel<D><<<grid, dq_threads<D>(), smem, stream>>>(
-      m.q, m.k, m.v, m.dout, lse, dvec, static_cast<__nv_bfloat16*>(dq), tq,
-      tk, dh, causal, scale);
+  constexpr size_t smem = smem_bytes<D>();
+  err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<D, kPartial>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.bh, (a.tq + kBlock - 1) / kBlock);
+  flash_bwd_dq_wgmma_kernel<D, kPartial>
+      <<<grid, dq_threads<D>(), smem, stream>>>(
+      m.q, m.k, m.v, m.dout, a.lse, a.dvec, static_cast<__nv_bfloat16*>(dq),
+      a.tq, a.tk, a.dh, a.causal, a.scale);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_dkv(const Maps& m, const float* lse, const float* dvec,
-                       void* dk, void* dv, int bh, int tq, int tk, int dh,
-                       int causal, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_wgmma_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int D, bool kPartial>
+cudaError_t launch_dkv(const Args& a, void* dk, void* dv,
+                       cudaStream_t stream) {
+  Maps m;
+  cudaError_t err =
+      make_maps<D>(&m, a.q, a.k, a.v, a.dout, a.bh, a.tq, a.tk, a.dh);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (tk + kBlock - 1) / kBlock);
-  flash_bwd_dkv_wgmma_kernel<D><<<grid, dkv_threads<D>(), smem, stream>>>(
-      m.q, m.k, m.v, m.dout, lse, dvec, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), tq, tk, dh, causal, scale);
+  constexpr size_t smem = smem_bytes<D>();
+  err = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<D, kPartial>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.bh, (a.tk + kBlock - 1) / kBlock);
+  flash_bwd_dkv_wgmma_kernel<D, kPartial>
+      <<<grid, dkv_threads<D>(), smem, stream>>>(
+      m.q, m.k, m.v, m.dout, a.lse, a.dvec, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), a.tq, a.tk, a.dh, a.causal, a.scale);
   return cudaGetLastError();
+}
+
+// Dh 32, 64 and 128 fill their tiles and keep the full-row stores; a
+// narrower Dh runs the tile's partial-row instance
+template <int D>
+cudaError_t launch_dq_tile(const Args& a, void* dq, cudaStream_t stream) {
+  return a.dh == D ? launch_dq<D, false>(a, dq, stream)
+                   : launch_dq<D, true>(a, dq, stream);
+}
+
+template <int D>
+cudaError_t launch_dkv_tile(const Args& a, void* dk, void* dv,
+                            cudaStream_t stream) {
+  return a.dh == D ? launch_dkv<D, false>(a, dk, dv, stream)
+                   : launch_dkv<D, true>(a, dk, dv, stream);
 }
 
 }  // namespace
 
 // The bf16 entry points behind dkt_flash_bwd_dq / dkt_flash_bwd_dkv
 // (flash_bwd.cu, which checks the arguments and sets the device): q, k,
-// v, dout contiguous bf16, 16-byte aligned; head_dim 32, 64 or 128, or a
-// multiple of 8 in 129-256.
+// v, dout contiguous bf16, 16-byte aligned; head_dim a multiple of 8 up
+// to 256, run on the least tile of 32, 64, 128 and 256 columns that
+// holds it.
 cudaError_t flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* dvec, void* dq, int bh, int tq,
                               int tk, int head_dim, int causal, float scale,
                               cudaStream_t stream) {
-  Maps m;
-  cudaError_t err = make_maps(&m, q, k, v, dout, bh, tq, tk, head_dim);
-  if (err != cudaSuccess) return err;
-  const auto* l = static_cast<const float*>(lse);
-  const auto* d = static_cast<const float*>(dvec);
-  const int dh = head_dim;
-  switch (head_dim) {
-    case 32:
-      return launch_dq<32>(m, l, d, dq, bh, tq, tk, dh, causal, scale,
-                           stream);
-    case 64:
-      return launch_dq<64>(m, l, d, dq, bh, tq, tk, dh, causal, scale,
-                           stream);
-    case 128:
-      return launch_dq<128>(m, l, d, dq, bh, tq, tk, dh, causal, scale,
-                            stream);
-    default:  // 129-256
-      return launch_dq<256>(m, l, d, dq, bh, tq, tk, dh, causal, scale,
-                            stream);
-  }
+  const Args a{q, k, v, dout, static_cast<const float*>(lse),
+               static_cast<const float*>(dvec), bh, tq, tk, head_dim, causal,
+               scale};
+  if (head_dim <= 32) return launch_dq_tile<32>(a, dq, stream);
+  if (head_dim <= 64) return launch_dq_tile<64>(a, dq, stream);
+  if (head_dim <= 128) return launch_dq_tile<128>(a, dq, stream);
+  return launch_dq<256, false>(a, dq, stream);
 }
 
 cudaError_t flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
@@ -506,24 +537,11 @@ cudaError_t flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                const void* dvec, void* dk, void* dv, int bh,
                                int tq, int tk, int head_dim, int causal,
                                float scale, cudaStream_t stream) {
-  Maps m;
-  cudaError_t err = make_maps(&m, q, k, v, dout, bh, tq, tk, head_dim);
-  if (err != cudaSuccess) return err;
-  const auto* l = static_cast<const float*>(lse);
-  const auto* d = static_cast<const float*>(dvec);
-  const int dh = head_dim;
-  switch (head_dim) {
-    case 32:
-      return launch_dkv<32>(m, l, d, dk, dv, bh, tq, tk, dh, causal, scale,
-                            stream);
-    case 64:
-      return launch_dkv<64>(m, l, d, dk, dv, bh, tq, tk, dh, causal, scale,
-                            stream);
-    case 128:
-      return launch_dkv<128>(m, l, d, dk, dv, bh, tq, tk, dh, causal, scale,
-                             stream);
-    default:  // 129-256
-      return launch_dkv<256>(m, l, d, dk, dv, bh, tq, tk, dh, causal, scale,
-                             stream);
-  }
+  const Args a{q, k, v, dout, static_cast<const float*>(lse),
+               static_cast<const float*>(dvec), bh, tq, tk, head_dim, causal,
+               scale};
+  if (head_dim <= 32) return launch_dkv_tile<32>(a, dk, dv, stream);
+  if (head_dim <= 64) return launch_dkv_tile<64>(a, dk, dv, stream);
+  if (head_dim <= 128) return launch_dkv_tile<128>(a, dk, dv, stream);
+  return launch_dkv<256, false>(a, dk, dv, stream);
 }

@@ -15,10 +15,10 @@
 // Tq == Tk; non-causal takes Tq != Tk.
 //
 // Which kernel runs (dkt_flash_fwd), by dtype, head dim and grid:
-//   - bf16, Dh 32, 64 or 128: the wgmma kernel (the wrapper pads other
-//     Dh up to 128 to the next of those); bf16, Dh 129-256 and a multiple
-//     of 8: the wgmma kernel on 192- or 256-wide tiles (the wrapper pads
-//     other Dh there to the next multiple of 8);
+//   - bf16, Dh a multiple of 8 up to 256: the wgmma kernel on the least
+//     tile of 32, 64, 128, 192 or 256 columns that holds Dh, read from
+//     unpadded rows (the wrapper pads other Dh to the next multiple of 8,
+//     the TMA row stride);
 //   - f32, Dh <= 128, where 64-row query tiles give at least two blocks an
 //     SM (the training shapes): the 3xTF32 kernel;
 //   - f32, Dh <= 128, where they do not (the serving shapes, B*H = 8 and
@@ -79,8 +79,8 @@
 
 #include "launched.h"
 
-// the bf16 kernel (flash_fwd_sm90.cu); head_dim 32, 64, 128 or a
-// multiple of 8 in 129-256
+// the bf16 kernel (flash_fwd_sm90.cu); head_dim a multiple of 8 up to
+// 256
 cudaError_t flash_fwd_bf16(const void* q, const void* k, const void* v,
                            void* out, void* lse, int bh, int tq, int tk,
                            int head_dim, int causal, float scale,
@@ -377,8 +377,8 @@ cudaError_t launch_rows(int rows, const void* q, const void* k,
 // q: (bh, tq, head_dim), k and v: (bh, tk, head_dim), contiguous, from
 // 16-byte aligned addresses (the tensor-core kernels load by TMA or
 // cp.async), of dtype 0 (float32) or 1 (bfloat16); o: like q; lse:
-// (bh, tq) float32.  head_dim: float32 any >= 1; bfloat16 32, 64, 128,
-// a multiple of 8 in 129-256, or any past 256.  Launches on `stream` of
+// (bh, tq) float32.  head_dim: float32 any >= 1; bfloat16 a multiple of
+// 8 up to 256, or any past 256.  Launches on `stream` of
 // `device` and returns cudaGetLastError() after the launch (0 on
 // success).
 extern "C" int dkt_flash_fwd(const void* q, const void* k, const void* v,
@@ -387,13 +387,10 @@ extern "C" int dkt_flash_fwd(const void* q, const void* k, const void* v,
                              int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  // bf16 up to Dh 256 runs on wgmma, at the widths it is built for
+  // bf16 up to Dh 256 runs on wgmma, from rows of a 16-byte multiple
   const bool wgmma = dtype == 1 && head_dim <= 256;
-  const bool wgmma_dim = head_dim == 32 || head_dim == 64 ||
-                         head_dim == 128 ||
-                         (head_dim > 128 && head_dim % 8 == 0);
   if (bh < 1 || tq < 1 || tk < 1 || head_dim < 1 || (causal && tq != tk) ||
-      (dtype != 0 && dtype != 1) || (wgmma && !wgmma_dim))
+      (dtype != 0 && dtype != 1) || (wgmma && head_dim % 8 != 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (wgmma) {

@@ -30,8 +30,8 @@
 // diagonal.  Q is resident; K and V stream through a two-stage ring.
 // All arrive by TMA on mbarriers from 3-D tensor maps (Dh, T, B*H), so a
 // ragged last tile reads zeros, never the next head; the swizzle is 128 B
-// at Dh = 64 and 128 and 64 B at Dh = 32, the same in the map and the
-// wgmma descriptor.  A swizzled box is at most one swizzle row wide, so a
+// on tiles 64 and 128 wide and 64 B on 32-wide ones, the same in the map
+// and the wgmma descriptor.  A swizzled box is at most one swizzle row wide, so a
 // Dh = 128 tile is two 64-column panels, one box each, and the products
 // step across them (sm90.cuh: Tile, desc_k, and wgmma_rs<D>, one
 // m64n64k16 per panel of V).  Per key tile:
@@ -66,6 +66,18 @@
 // registers, beside S (32) and P (16): at 128 threads that fits ptxas's
 // 255 (the build phase reports registers and spills).  Q and the K/V
 // ring take 5 tiles, 120 or 160 KB: one block an SM.
+//
+// Head dims below 128 (Dh % 8 == 0): the least of the 32-, 64- and
+// 128-wide tiles that holds Dh, so Dh 32, 64 and 128 fill theirs and any
+// other Dh runs from unpadded rows, as at 129-256.  The tensor maps take
+// their box and swizzle from the tile and their width and row stride from
+// Dh (sm90.cuh: make_map), so TMA zero-fills the columns past Dh -- a
+// 64-wide tile's last k-step at Dh 48, part of a 128-wide tile's second
+// panel at Dh 72-120 -- and shared memory keeps the layout the wgmma
+// descriptors read.  S then sums real columns only, O's columns past Dh
+// are exactly 0, and O is stored masked at Dh.  The products over the
+// zero columns are wasted tensor-core work (a quarter of it at Dh 96),
+// which a kernel bound by its bytes has to spare.
 //
 // Later work: a producer warp with setmaxnreg and two consumer
 // warpgroups on 128-row tiles, and TMA stores.
@@ -126,7 +138,9 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2],
   }
 }
 
-template <int D>
+// kPartial: rows of dh < D columns, O stored masked at dh (as it always
+// is past D = 128)
+template <int D, bool kPartial>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
@@ -257,7 +271,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   // O / l, then lse = m + log(l) (m is in base 2)
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] /= l[(i >> 1) & 1];
-  if constexpr (D > 128)  // rows of dh columns
+  if constexpr (D > 128 || kPartial)  // rows of dh columns
     store_rows_masked<D>(out + (size_t)bh * tq * dh, acc, r0, tq, c0, dh,
                          dh);
   else
@@ -278,55 +292,59 @@ constexpr size_t smem_bytes() {
   return 5 * Tile<D>::kBytes + 1024;
 }
 
-template <int D>
-cudaError_t launch(const CUtensorMap& q, const CUtensorMap& k,
-                   const CUtensorMap& v, void* out, float* lse, int bh,
-                   int tq, int tk, int dh, int causal, float scale,
-                   cudaStream_t stream) {
+struct Args {
+  const void *q, *k, *v;
+  void* out;
+  float* lse;
+  int bh, tq, tk, dh, causal;
+  float scale;
+};
+
+template <int D, bool kPartial>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  cudaError_t err;
+  if ((err = make_map<D>(&mq, a.q, a.bh, a.tq, a.dh)) != cudaSuccess)
+    return err;
+  if ((err = make_map<D>(&mk, a.k, a.bh, a.tk, a.dh)) != cudaSuccess)
+    return err;
+  if ((err = make_map<D>(&mv, a.v, a.bh, a.tk, a.dh)) != cudaSuccess)
+    return err;
   constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D, kPartial>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (tq + kBlock - 1) / kBlock);
-  flash_fwd_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
-      q, k, v, static_cast<__nv_bfloat16*>(out), lse, tq, tk, dh, causal,
-      scale);
+  const dim3 grid(a.bh, (a.tq + kBlock - 1) / kBlock);
+  flash_fwd_wgmma_kernel<D, kPartial><<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(a.out), a.lse, a.tq, a.tk,
+      a.dh, a.causal, a.scale);
   return cudaGetLastError();
+}
+
+// Dh 32, 64 and 128 fill their tiles and keep the full-row store; a
+// narrower Dh runs the tile's partial-row instance
+template <int D>
+cudaError_t launch_tile(const Args& a, cudaStream_t stream) {
+  return a.dh == D ? launch<D, false>(a, stream) : launch<D, true>(a, stream);
 }
 
 }  // namespace
 
 // The bf16 entry point behind dkt_flash_fwd (flash_fwd.cu, which checks
 // the arguments and sets the device): q (bh, tq, head_dim), k and v (bh,
-// tk, head_dim), contiguous bf16, 16-byte aligned; head_dim 32, 64, 128
-// or a multiple of 8 in 129-256; out like q, lse (bh, tq) f32.
+// tk, head_dim), contiguous bf16, 16-byte aligned; head_dim a multiple of
+// 8 up to 256, run on the least tile of 32, 64, 128, 192 and 256 columns
+// that holds it; out like q, lse (bh, tq) f32.
 cudaError_t flash_fwd_bf16(const void* q, const void* k, const void* v,
                            void* out, void* lse, int bh, int tq, int tk,
                            int head_dim, int causal, float scale,
                            cudaStream_t stream) {
-  CUtensorMap mq, mk, mv;
-  cudaError_t err;
-  if ((err = make_map(&mq, q, bh, tq, head_dim)) != cudaSuccess) return err;
-  if ((err = make_map(&mk, k, bh, tk, head_dim)) != cudaSuccess) return err;
-  if ((err = make_map(&mv, v, bh, tk, head_dim)) != cudaSuccess) return err;
-  auto* l = static_cast<float*>(lse);
-  const int d = head_dim;
-  switch (head_dim) {
-    case 32:
-      return launch<32>(mq, mk, mv, out, l, bh, tq, tk, d, causal, scale,
-                        stream);
-    case 64:
-      return launch<64>(mq, mk, mv, out, l, bh, tq, tk, d, causal, scale,
-                        stream);
-    case 128:
-      return launch<128>(mq, mk, mv, out, l, bh, tq, tk, d, causal, scale,
-                         stream);
-    default:
-      return head_dim <= 192
-                 ? launch<192>(mq, mk, mv, out, l, bh, tq, tk, d, causal,
-                               scale, stream)
-                 : launch<256>(mq, mk, mv, out, l, bh, tq, tk, d, causal,
-                               scale, stream);
-  }
+  const Args a{q, k, v, out, static_cast<float*>(lse), bh, tq, tk,
+               head_dim, causal, scale};
+  if (head_dim <= 32) return launch_tile<32>(a, stream);
+  if (head_dim <= 64) return launch_tile<64>(a, stream);
+  if (head_dim <= 128) return launch_tile<128>(a, stream);
+  if (head_dim <= 192) return launch<192, false>(a, stream);
+  return launch<256, false>(a, stream);
 }

@@ -92,12 +92,13 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// Tile geometry for head dim D: a (kBlock, D) bf16 tile is stored as
-// D / kCols panels of kCols columns, each panel a (kBlock, kCols) tile
-// of its own whose rows are one swizzle row (128 B at kCols = 64, 64 B
-// at D = 32); eight rows form one swizzle atom.  A swizzled TMA box is at
-// most one swizzle row wide, so Dh = 128 is two panels of 64, 192 three
-// and 256 four.
+// Tile geometry for tile width D (32, 64, 128, 192 or 256; a row of Dh
+// <= D columns fills it from the left, zeros past Dh): a (kBlock, D)
+// bf16 tile is stored as D / kCols panels of kCols columns, each panel a
+// (kBlock, kCols) tile of its own whose rows are one swizzle row (128 B
+// at kCols = 64, 64 B at D = 32); eight rows form one swizzle atom.  A
+// swizzled TMA box is at most one swizzle row wide, so D = 128 is two
+// panels of 64, 192 three and 256 four.
 template <int D>
 struct Tile {
   static constexpr int kCols = D < 64 ? D : 64;
@@ -290,8 +291,9 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out,
 
 // store a (64 x N) f32 accumulator as bf16 rows r0 and r0 + 8 of `out`
 // (row stride ld), rows at or past n and columns at or past `cols`
-// skipped (ld and cols even): the kernels at Dh 129-256 store Dh columns
-// of a 192- or 256-wide tile
+// skipped (ld and cols multiples of 8, so a thread's column pair is
+// stored whole or not at all): the kernels store a row of Dh columns from
+// a tile wider than Dh so
 template <int N>
 __device__ __forceinline__ void store_rows_masked(__nv_bfloat16* out,
                                                   const float (&acc)[N / 2],
@@ -347,24 +349,30 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A contiguous (bh, t, d) bf16 tensor as a 3-D map (d, t, bh) with
-// (kBlock, min(d, 64)) boxes, one per panel of a tile (Tile<D>); rows
-// past t, and columns past d of a tile wider than d, read as zeros.
-// `base` must be 16-byte aligned (the wrapper checks) and d * 2 bytes a
-// multiple of 16 (d % 8 == 0; the C interface checks).
+// A contiguous (bh, t, dh) bf16 tensor as a 3-D map (dh, t, bh) read in
+// the panels of a tile of width D (Tile<D>): (kBlock, kCols) boxes with
+// the tile's swizzle, so shared memory is laid out as the wgmma
+// descriptors read it whatever the row width.  The global dim and row
+// stride come from dh, the box and swizzle from D: columns of a box past
+// dh (a row narrower than the tile, or a panel wholly past it) and rows
+// past t read as zeros.  `base` must be 16-byte aligned (the wrapper
+// checks) and dh * 2 bytes a multiple of 16 (dh % 8 == 0; the C
+// interface checks).
+template <int D>
 inline cudaError_t make_map(CUtensorMap* map, const void* base, int bh,
-                            int t, int d) {
+                            int t, int dh) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)t * d * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)(d < 64 ? d : 64),
-                             (cuuint32_t)kBlock, 1};
+  const cuuint64_t dims[3] = {(cuuint64_t)dh, (cuuint64_t)t, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)dh * 2, (cuuint64_t)t * dh * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)Tile<D>::kCols, (cuuint32_t)kBlock,
+                             1};
   const cuuint32_t step[3] = {1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
       strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      d >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      Tile<D>::kLayout == 1 ? CU_TENSOR_MAP_SWIZZLE_128B
+                            : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -23,16 +23,18 @@ runs or the call raises.
 
 Head dims: the f32 forward and the CUDA-core kernels read rows of the
 caller's Dh and mask the columns past it in their tiles.  The bf16
-forward and both backward dtypes up to 128 are instantiated for 32, 64
-and 128 (``HEAD_DIMS``, the widths of their TMA or cp.async tiles); the
-wrappers take any other Dh up to 128 by zero-padding q, k, v (and dO)
-along Dh to the next of those (``pad_head_dim``), running that kernel
-with the caller's ``scale`` and slicing the outputs back.  That is the
-same function: zero columns add nothing to QKᵀ, O's and the gradients'
-padded columns are products with zeros, and D = rowsum(dO∘O) does not
-see them.  The bf16 kernels at 129–256 read unpadded rows whose byte
-stride TMA needs a multiple of 16 (Dh % 8 == 0): the wrappers pad other
-Dh there to the next multiple of 8 the same way.
+kernels (K1, K2 and K3 on wgmma, up to ``WGMMA_MAX``) read rows of the
+caller's Dh into the least tile of 32, 64, 128, 192 or 256 columns that
+holds it, TMA zero-filling the columns past Dh, and store their outputs
+at Dh; TMA needs the rows' byte stride a multiple of 16 (Dh % 8 == 0),
+so the wrappers zero-pad q, k, v (and dO) along Dh to the next multiple
+of 8 at any other Dh (``pad_head_dim``), run the kernel with the
+caller's ``scale`` and slice the outputs back.  The f32 K2 and K3 up to
+128 are instantiated for 32, 64 and 128 (``HEAD_DIMS``, the widths of
+their cp.async tiles), and the wrappers pad any other Dh up to 128 to
+the next of those the same way.  A pad is the same function: zero
+columns add nothing to QKᵀ, O's and the gradients' padded columns are
+products with zeros, and D = rowsum(dO∘O) does not see them.
 """
 
 from __future__ import annotations
@@ -129,26 +131,29 @@ def flash_bwd_plain(q, k, v, lse, do, dvec, causal: bool, scale: float):
 
 #: dtype codes of the C interface (the ``dtype`` argument)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims the tensor-core kernels are instantiated for up to 128
+#: head dims the f32 K2 and K3 are instantiated for up to 128 (the other
+#: tensor-core kernels read any Dh there: the f32 K1 unpadded, the bf16
+#: ones a multiple of 8)
 HEAD_DIMS = (32, 64, 128)
-#: the widest head dim of the bf16 wgmma kernels past 128
-WGMMA_WIDE_MAX = 256
+#: the widest head dim of the bf16 wgmma kernels
+WGMMA_MAX = 256
 
 
 def kernel_head_dim(dh: int, dtype: torch.dtype, kernel: str) -> int:
     """The head dim the CUDA ``kernel`` ("fwd", "dq" or "dkv") runs a Dh
     of ``dtype`` as, the rows the wrapper hands it — the padding half of
     the routing, whose other half is the C entry points' choice of kernel
-    (they refuse a width this does not give them): the f32 forward reads
-    any Dh; the bf16 kernels at 129–``WGMMA_WIDE_MAX`` (wgmma, TMA rows
-    of a 16-byte multiple) the next multiple of 8; the rest up to 128 the
-    least of ``HEAD_DIMS`` that holds it, past 128 Dh itself (the f32 K2
-    and K3 at 129–256 and the CUDA-core kernels mask the columns past Dh
-    and take any Dh)."""
+    (they refuse a width this does not give them): the bf16 kernels up to
+    ``WGMMA_MAX`` (wgmma, TMA rows of a 16-byte multiple) the next
+    multiple of 8, so a Dh of a multiple of 8 crosses unpadded; the f32
+    forward any Dh; the f32 K2 and K3 up to 128 the least of
+    ``HEAD_DIMS`` that holds it; past those Dh itself (the f32 K2 and K3
+    at 129–256 and the CUDA-core kernels mask the columns past Dh and take
+    any Dh)."""
+    if dtype == torch.bfloat16 and dh <= WGMMA_MAX:
+        return -(-dh // 8) * 8
     if kernel == "fwd" and dtype == torch.float32:
         return dh
-    if dtype == torch.bfloat16 and HEAD_DIMS[-1] < dh <= WGMMA_WIDE_MAX:
-        return -(-dh // 8) * 8
     return next((size for size in HEAD_DIMS if dh <= size), dh)
 
 
@@ -212,7 +217,7 @@ def _check(name: str, q, k, v, causal: bool, stats=(), do=None):
 
 #: the kernel each C entry point reports it ran
 #: (``dkt_flash_last_kernel``), by its code in ``csrc/launched.h``: bf16
-#: on wgmma at head dim 32/64/128, bf16 on wgmma at 129–256, f32 as
+#: on wgmma up to head dim 128, bf16 on wgmma at 129–256, f32 as
 #: 3xTF32 up to 128, CUDA cores, f32 as 3xTF32 at 129–256
 KERNELS = {
     "dkt_flash_fwd": ("flash_fwd", "flash_fwd_wgmma_wide", "flash_fwd_f32",

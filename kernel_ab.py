@@ -10,6 +10,14 @@ turns (other, this, this, other).
     git archive <commit> | tar -x -C _proof/parent
     python3 kernel_ab.py _proof/parent [192,256]     # optional: these Dh
 
+    python3 kernel_ab.py --turns 16,32               # this tree alone
+
+``--turns`` times this tree's bf16 K1, K2 and K3 at the given head dims
+(B*H 256, T 512, causal) in turns, 4 rounds whose order alternates
+(16, 32, 32, 16, ...), one line per kernel with every reading: a
+difference between head dims that stays below the spread of one head
+dim's own readings is not a difference.
+
 Each tree's build prints one line first: per kernel, its registers,
 spill-store bytes and whether its wgmma products were serialized, as
 ptxas reported them.  Both trees must have
@@ -80,11 +88,46 @@ def run(torch, lib, kernel, q, k, v, lse, do, dvec):
     return outs
 
 
+def turns(torch, dims, rounds: int = 4) -> None:
+    """This tree's bf16 K1, K2 and K3 at ``dims`` (B*H 256, T 512,
+    causal), timed in turns: round r runs the head dims in order, or
+    reversed when r is odd; one line per kernel with each head dim's
+    readings and median."""
+    import statistics
+    import chip_smoke
+    from distkeras_tpu_torch.ops.flash_attention import flash_fwd_plain
+    lib = library(ROOT, "this")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    args = {}
+    for dh in dims:
+        q, k, v, do = (torch.randn((256, 512, dh), generator=gen,
+                                   device="cuda").to(torch.bfloat16)
+                       for _ in range(4))
+        o, lse = flash_fwd_plain(q, k, v, True, dh ** -0.5)
+        args[dh] = (q, k, v, lse, do, (do.float() * o.float()).sum(-1))
+    for kernel in ("fwd", "dq", "dkv"):
+        ms = {dh: [] for dh in dims}
+        for r in range(rounds):
+            for dh in (dims if r % 2 == 0 else dims[::-1]):
+                ms[dh].append(chip_smoke.device_ms(
+                    lambda: run(torch, lib, kernel, *args[dh])))
+        print(json.dumps({"kernel": kernel, "dtype": "bfloat16", "bh": 256,
+                          "t": 512, "causal": True, "ms": ms,
+                          "median_ms": {dh: statistics.median(m)
+                                        for dh, m in ms.items()}}),
+              flush=True)
+    print(chip_smoke.smi_line(), flush=True)
+
+
 def main() -> int:
     import torch
+    if torch.cuda.is_available() and sys.argv[1:2] == ["--turns"] \
+            and len(sys.argv) == 3:
+        turns(torch, [int(d) for d in sys.argv[2].split(",")])
+        return 0
     if not torch.cuda.is_available() or len(sys.argv) not in (2, 3):
-        print("usage: kernel_ab.py OTHER_TREE [DH,DH,...] (on a machine "
-              "with a card)", file=sys.stderr)
+        print("usage: kernel_ab.py OTHER_TREE [DH,DH,...] | --turns "
+              "DH,DH,... (on a machine with a card)", file=sys.stderr)
         return 1
     dims = ({int(d) for d in sys.argv[2].split(",")} if len(sys.argv) == 3
             else None)

@@ -23,6 +23,7 @@ a machine that has only PyTorch:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import importlib
 import time
 from collections import Counter
 
@@ -249,31 +250,61 @@ def test_kernels_at_a_head_dim_128_training_shape(dtype):
         _close(g, r, dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("causal,t,tk", [(True, 100, 100), (False, 64, 130)])
-@pytest.mark.parametrize("dh", [16, 48, 96])
-def test_kernels_at_head_dims_between_the_instantiated_ones(dtype, causal,
-                                                            t, tk, dh):
-    """A head dim the kernels are not instantiated for runs as the next
-    instantiated one (zero-padded): K1, K2 and K3 against the plain
-    versions on the unpadded inputs, one launch each, within ``_close``'s
-    bound, the outputs contiguous and of the caller's Dh."""
+#: each wrapper's C entry point and its kernel's name in
+#: ``kernel_head_dim``
+_C_CALLS = {"dkt_flash_fwd": "fwd", "dkt_flash_bwd_dq": "dq",
+            "dkt_flash_bwd_dkv": "dkv"}
+
+
+def _between_case(monkeypatch, dtype, causal, t, tk, dh):
+    """K1, K2 and K3 at a head dim between the tile widths, through the
+    wrappers with their C calls recorded: each kernel is handed the
+    caller's own tensors, or copies padded to ``kernel_head_dim``
+    where that differs from Dh (f32 K2/K3); each launch is counted at the
+    caller's Dh; the outputs match the plain versions within ``_close``'s
+    bound, contiguous and of the caller's Dh.  Returns the kernels that
+    ran."""
+    # the module (the package's ``flash_attention`` is the function)
+    fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
+    calls = []
+    real = fa._launch
+
+    def spy(fn, *args, device):
+        calls.append((fn, args))
+        return real(fn, *args, device=device)
+
+    monkeypatch.setattr(fa, "_launch", spy)
     gen = torch.Generator(device="cuda").manual_seed(dh)
     q, do = (torch.randn((6, t, dh), generator=gen, device="cuda").to(dtype)
              for _ in range(2))
     k, v = (torch.randn((6, tk, dh), generator=gen, device="cuda").to(dtype)
             for _ in range(2))
     scale = dh ** -0.5
-    counts = (flash_fwd_cuda.launches, flash_bwd_dq_cuda.launches,
-              flash_bwd_dkv_cuda.launches)
+    before = Counter(KERNEL_LAUNCHES)
     o, lse = flash_fwd_cuda(q, k, v, causal, scale)
     o_ref, lse_ref = flash_fwd_plain(q, k, v, causal, scale)
     dvec = (do.float() * o_ref.float()).sum(-1)
     args = (q, k, v, lse_ref, do, dvec, causal, scale)
-    got = (o, lse, flash_bwd_dq_cuda(*args), *flash_bwd_dkv_cuda(*args))
+    dq = flash_bwd_dq_cuda(*args)
+    dk, dv = flash_bwd_dkv_cuda(*args)
     torch.cuda.synchronize()
-    assert (flash_fwd_cuda.launches, flash_bwd_dq_cuda.launches,
-            flash_bwd_dkv_cuda.launches) == tuple(c + 1 for c in counts)
+    assert [fn for fn, _ in calls] == list(_C_CALLS)
+    # the pointer arguments each call leads with (inputs, then outputs),
+    # after which come bh, tq, tk and the head dim
+    ptrs = {"dkt_flash_fwd": (q, k, v, o, lse),
+            "dkt_flash_bwd_dq": (q, k, v, do, lse_ref, dvec, dq),
+            "dkt_flash_bwd_dkv": (q, k, v, do, lse_ref, dvec, dk, dv)}
+    for fn, c_args in calls:
+        size = fa.kernel_head_dim(dh, dtype, _C_CALLS[fn])
+        n = len(ptrs[fn])
+        assert c_args[n + 3] == size
+        assert (c_args[:n] == tuple(x.data_ptr() for x in ptrs[fn])) \
+            == (size == dh), (fn, size, dh)
+    ran = Counter(KERNEL_LAUNCHES) - before
+    assert sorted(n for n in ran.values()) == [1, 1, 1]
+    assert {(d, h) for _, d, h in ran} == \
+        {(str(dtype).removeprefix("torch."), dh)}
+    got = (o, lse, dq, dk, dv)
     for g, r in zip(got, (o_ref, lse_ref, *flash_bwd_plain(*args))):
         assert g.shape == r.shape and g.is_contiguous()
         assert bool(torch.isfinite(g).all())
@@ -281,6 +312,36 @@ def test_kernels_at_head_dims_between_the_instantiated_ones(dtype, causal,
             assert (g - r).abs().max() <= 1e-5
         else:
             _close(g, r, dtype)
+    return {k for k, _, _ in ran}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal,t,tk", [(True, 100, 100), (False, 64, 130)])
+@pytest.mark.parametrize("dh", [16, 48, 80, 96, 112])
+def test_kernels_at_head_dims_between_the_instantiated_ones(
+        monkeypatch, dtype, causal, t, tk, dh):
+    """A head dim between the tile widths: the bf16 K1, K2 and K3 run on
+    their wgmma kernels from the caller's unpadded rows (the tile's
+    columns past Dh zero-filled by TMA), the f32 K1 reads them unpadded
+    too and the f32 K2 and K3 take copies zero-padded to 32, 64 or 128
+    (``_between_case``); each launch counted at the caller's Dh, the
+    outputs within ``_close``'s bound of the plain versions."""
+    ran = _between_case(monkeypatch, dtype, causal, t, tk, dh)
+    if dtype == torch.bfloat16:
+        assert ran == {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"}
+
+
+@pytest.mark.parametrize("causal,t,tk", [(True, 257, 257), (False, 100, 257)])
+@pytest.mark.parametrize("dh", [48, 96])
+def test_bf16_kernels_read_unpadded_rows_at_ragged_lengths(monkeypatch,
+                                                           causal, t, tk, dh):
+    """Ragged T beside a ragged Dh, both zero-filled by TMA in one box: the
+    bf16 K1, K2 and K3 at Dh 48 (a 64-wide tile whose last k-step is all
+    zeros) and 96 (a 128-wide tile whose second panel is half real), T 257
+    causal and the ring hop's non-causal 100 x 257, on the caller's
+    unpadded rows, within ``_close``'s bound of the plain versions."""
+    assert _between_case(monkeypatch, torch.bfloat16, causal, t, tk, dh) \
+        == {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"}
 
 
 #: B·H of f32 forward cases that take the 3xTF32 kernel: 64-row query

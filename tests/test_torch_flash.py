@@ -543,18 +543,24 @@ def _plain_against_jax_kernels(dtype, causal, t, tk, dh):
                                        atol=atol)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("dh", [1, 16, 48, 96])
+@pytest.mark.parametrize("dtype,dh", [
+    ("float32", 1), ("float32", 16), ("float32", 48), ("float32", 96),
+    ("bfloat16", 1), ("bfloat16", 5), ("bfloat16", 42), ("bfloat16", 127)])
 def test_zero_padded_head_dim_is_the_same_function(dtype, dh):
-    """What the CUDA wrappers do at a head dim they are not instantiated
-    for: the plain versions on inputs zero-padded to ``kernel_head_dim``,
-    sliced back, equal the plain versions on the unpadded inputs (the
-    caller's scale kept), and the padded columns of O, dQ, dK and dV are
-    exactly 0.  f32 within 1e-6 relative to the largest |value| (the
-    products' summation length differs); bf16 within one bf16 ulp."""
+    """What the CUDA wrappers do at a head dim their kernels do not read
+    as it is — the f32 K2 and K3 at a Dh up to 128 other than 32, 64 and
+    128, the bf16 kernels at a Dh not a multiple of 8 (their TMA row
+    stride): the plain versions on inputs zero-padded to
+    ``kernel_head_dim``, sliced back, equal the plain versions on the
+    unpadded inputs (the caller's scale kept), and the padded columns of
+    O, dQ, dK and dV are exactly 0.  f32 within 1e-6 relative to the
+    largest |value| (the products' summation length differs); bf16 within
+    one bf16 ulp."""
     tdt = getattr(torch, dtype)
     size = kernel_head_dim(dh, tdt, "dq")
-    assert size in (32, 64, 128) and size >= dh
+    want = next(s for s in (32, 64, 128) if dh <= s) \
+        if dtype == "float32" else -(-dh // 8) * 8
+    assert size == want and size > dh
     rng = np.random.default_rng(dh)
     q, k, v, do = (torch.from_numpy(rng.normal(size=(3, 40, dh)).astype(
         np.float32)).to(tdt) for _ in range(4))
@@ -575,23 +581,24 @@ def test_zero_padded_head_dim_is_the_same_function(dtype, dh):
         rtol = 1e-6 if dtype == "float32" or got is plse else 2 ** -7
         np.testing.assert_allclose(got.float().numpy(), ref, rtol=rtol,
                                    atol=1e-6 * np.abs(ref).max())
-    # past 128 the kernels take Dh itself, at any width (the CUDA-core
-    # kernels in 256-column panels past 256); the bf16 K1, K2 and K3 on
-    # wgmma (129-256) read rows of a multiple of 8 columns, the rest
-    # unpadded
-    bf16 = torch.bfloat16
-    assert [kernel_head_dim(d, dt, "dq") for dt in (bf16, torch.float32)
+    # the bf16 K1, K2 and K3 (wgmma, up to 256) read rows of a multiple of
+    # 8 columns as they are, and pad other Dh to the next multiple of 8;
+    # the f32 K1 reads any Dh up to 256, the f32 K2 and K3 past 128 too;
+    # past 256 every kernel takes Dh itself (the CUDA-core kernels in
+    # 256-column panels)
+    bf16, f32 = torch.bfloat16, torch.float32
+    kinds = ("fwd", "dq", "dkv")
+    assert all(kernel_head_dim(d, bf16, k) == d
+               for d in range(8, 257, 8) for k in kinds)
+    assert [kernel_head_dim(d, bf16, k) for d in (1, 5, 127, 129, 130, 255)
+            for k in kinds] == [d for d in (8, 8, 128, 136, 136, 256)
+                                for _ in kinds]
+    assert [kernel_head_dim(d, dt, "dq") for dt in (bf16, f32)
             for d in (129, 256, 257, 320, 512)] == \
         [136, 256, 257, 320, 512, 129, 256, 257, 320, 512]
-    assert [kernel_head_dim(d, bf16, "fwd") for d in (130, 136, 200, 256,
-                                                      257, 320)] == \
-        [136, 136, 200, 256, 257, 320]
-    assert [kernel_head_dim(130, bf16, k) for k in ("dq", "dkv")] == \
-        [136, 136]
-    assert [kernel_head_dim(130, torch.float32, k)
-            for k in ("fwd", "dq", "dkv")] == [130, 130, 130]
-    assert kernel_head_dim(96, bf16, "fwd") == 128
-    assert kernel_head_dim(96, torch.float32, "fwd") == 96
+    assert [kernel_head_dim(d, f32, k) for d in (16, 48, 96)
+            for k in kinds] == [16, 32, 32, 48, 64, 64, 96, 128, 128]
+    assert [kernel_head_dim(130, f32, k) for k in kinds] == [130, 130, 130]
 
 
 @pytest.mark.parametrize("dh,size", [(130, 136), (200, 200)])
@@ -637,7 +644,17 @@ def test_flash_attention_layer_at_head_dim_320_matches_jax():
     _flash_layer_against_jax(640)
 
 
-def _flash_layer_against_jax(dim):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_layer_at_head_dim_96_matches_jax(dtype):
+    """As the Dh 256 test at dim 192 with 2 heads: Dh 96, GPT-NeoX-20B's
+    and Phi-3-mini's head dim, which the bf16 kernels read unpadded into
+    a 128-wide tile.  In bf16 (the input, and so every product, in bf16
+    on both sides) within the bf16 bound of the repo's flash checks
+    (rtol 1e-2, atol 1e-2 of the reference's largest |value|)."""
+    _flash_layer_against_jax(192, dtype)
+
+
+def _flash_layer_against_jax(dim, dtype="float32"):
     jm = JaxModel(ja.MultiHeadAttention(2, causal=True, impl="flash"),
                   input_shape=(16, dim))
     v = jax.tree_util.tree_map(np.asarray, jm.init(5))
@@ -647,19 +664,29 @@ def _flash_layer_against_jax(dim):
     rng = np.random.default_rng(6)
     x = rng.normal(size=(2, 16, dim)).astype(np.float32)
     g = rng.normal(size=(2, 16, dim)).astype(np.float32)
+    # the layer computes in its input's dtype on both sides
+    jx = jnp.asarray(x, getattr(jnp, dtype))
+
+    def close(a, b, tol):
+        a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+        if dtype == "float32":
+            np.testing.assert_allclose(a, b, **tol)
+        else:
+            np.testing.assert_allclose(a, b, rtol=1e-2,
+                                       atol=1e-2 * np.abs(b).max())
 
     def loss(params, xs):
         return jnp.sum(jm.apply({**v, "params": params}, xs)[0] * g)
-    ref = np.asarray(jm.apply(v, jnp.asarray(x))[0])
+    ref = jm.apply(v, jx)[0]
     ref_gp, ref_gx = jax.jit(jax.grad(loss, argnums=(0, 1)))(
-        v["params"], jnp.asarray(x))
+        v["params"], jx)
 
-    tx = torch.from_numpy(x).requires_grad_()
+    tx = torch.from_numpy(x).to(getattr(torch, dtype)).requires_grad_()
     out = model(tx)
+    assert out.dtype == tx.dtype and ref.dtype == jx.dtype
     (out * torch.from_numpy(g)).sum().backward()
-    np.testing.assert_allclose(out.detach().numpy(), ref, **TOL)
-    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(ref_gx),
-                               **GRAD_TOL)
+    close(out.detach().float().numpy(), ref, TOL)
+    close(tx.grad.float().numpy(), ref_gx, GRAD_TOL)
     # the parameters' gradients in the JAX layout: write them over the
     # parameters and read the tree back
     with torch.no_grad():
@@ -670,7 +697,7 @@ def _flash_layer_against_jax(dim):
                      jax.tree_util.tree_leaves(ref_gp)))
     assert len(pairs) == len(jax.tree_util.tree_leaves(v["params"])) > 0
     for a, b in pairs:
-        np.testing.assert_allclose(a, np.asarray(b), **GRAD_TOL)
+        close(a, b, GRAD_TOL)
 
 
 def test_awkward_length_causal_pad_gradients_are_exact():
