@@ -15,9 +15,10 @@ Phases, one JSON line each:
    TMA), ``flash_bwd.cu`` (the backward's C interface),
    ``flash_bwd_tf32_sm90.cu`` (K2, K3 in f32 up to 256, as 3xTF32 on
    mma.sync), ``flash_bwd_sm90.cu`` (K2, K3 in bf16 up to 256, on wgmma
-   and TMA) and ``flash_bwd_wide.cu`` (K2, K3 past 256 on CUDA cores, in
-   256-column panels; the ``_sm90`` files include ``sm90.cuh``, the
-   ``_tf32_`` ones
+   and TMA), ``flash_bwd_panels_sm90.cu`` (K2, K3 in bf16 past 256, on
+   wgmma and TMA in 256-column output panels) and ``flash_bwd_wide.cu``
+   (K2, K3 in f32 past 256 on CUDA cores, in 256-column panels; the
+   ``_sm90`` files include ``sm90.cuh``, the ``_tf32_`` ones
    ``tf32.cuh``), are built
    with nvcc for sm_90a if stale (seconds;
    each kernel's registers, shared memory and spills as ptxas reports
@@ -261,9 +262,10 @@ reads unpadded and the f32 K2 and K3 run zero-padded to 32, 64 and 128),
 the f32 K1 unpadded on both its kernels), 136,
 192, 200 and 256 (bf16 K1, K2 and K3 on wgmma, f32 K1, K2 and K3 as
 3xTF32 at every grid; f32 also at 130, 193 and 255, read by 4-byte
-loads) and 320 (CUDA cores, two 256-column panels), and
-time 16 and 96 beside 32 and 128 at B*H 256 and 192, 256, 320 and 512
-at B*H 128 (T 512).  Where an f32 kernel's output reads an error of
+loads) and 320 (two 256-column panels: bf16 K2 and K3 on wgmma, f32 on
+CUDA cores; bf16 K2 and K3 also at 264, 300 padded to 304, and 512),
+and time 16 and 96 beside 32 and 128 at B*H 256 and 192, 256, 320 and
+512 at B*H 128 (T 512).  Where an f32 kernel's output reads an error of
 exactly 0 against the plain version, ``k2k3`` also shows the check is
 live: a copy with its smallest value moved by 1e-4 must fail it.
 ``k1_tf32_control``: on Q and K with a common offset, the f32 K1 on
@@ -276,7 +278,9 @@ K2 and K3 past Dh 256 can equal their plain version bit for bit.
 ``past256``: K1, K2 and K3 at Dh 320 in both
 dtypes through the differentiable op (``flash_attention_lse`` and
 autograd) against the plain versions, one launch each: the one path of
-the CUDA-core K3, counted as the other paths are.
+the CUDA-core K2 and K3 (f32) and of the bf16 K2 and K3 on wgmma past
+Dh 256 (``flash_bwd_dq_wgmma_past256``, ``flash_bwd_dkv_wgmma_past256``),
+counted as the other paths are.
 
 Then the ``kernels`` line (one entry per CUDA kernel: its launches on
 the main paths, counted by the wrappers under the kernel each C entry
@@ -334,9 +338,13 @@ WIDE_HEAD_DIMS = (136, 192, 200, 256)
 #: head dims past 128 that are not a multiple of 4: the f32 kernels read
 #: their rows unpadded by 4-byte loads
 WIDE_ODD_HEAD_DIMS = (130, 193, 255)
-#: head dims past 256, which K1, K2 and K3 take on CUDA cores in
-#: 256-column panels: checked at 320, timed at 320 and 512 (B*H 128)
+#: head dims past 256, in 256-column panels: K1, and f32 K2 and K3, on
+#: CUDA cores, bf16 K2 and K3 on wgmma; checked at 320, timed at 320 and
+#: 512 (B*H 128)
 PAST_HEAD_DIM = 320
+#: more bf16 head dims past 256 for K2 and K3 on wgmma: 264 (a last panel
+#: of 8 columns), 300 (padded to 304) and 512 (two full panels)
+PAST_BF16_HEAD_DIMS = (264, 300, 512)
 PAST_TIMED_HEAD_DIMS = (320, 512)
 #: a head-dim-256 training shape: gpt_lm(dim=2048, num_heads=8) at batch
 #: 16 (B*H = 128), T = 512
@@ -570,8 +578,9 @@ def ptxas_report(log):
 
     def short(mangled):
         # the kernel's name and template arguments, still mangled
-        name = re.search(r"flash_(fwd|bwd_dq|bwd_dkv)(_wgmma|_tf32|_wide)?"
-                         r"_kernelI\w*?E(?=E)", mangled)
+        name = re.search(r"flash_(fwd|bwd_dq|bwd_dkv)"
+                         r"(_wgmma|_tf32|_wide|_panels)?"
+                         r"_kernel(I\w*?E(?=E))?", mangled)
         return name.group(0) if name else mangled
 
     rows, cur = [], None
@@ -903,9 +912,10 @@ def _exact_reading(torch):
 
 
 def phase_past256(torch):
-    """K1, K2 and K3 at Dh ``PAST_HEAD_DIM`` (320: two 256-column panels
-    on CUDA cores, as the reference's BlockSpecs span any head dim), in
-    both dtypes, through the differentiable op a model calls
+    """K1, K2 and K3 at Dh ``PAST_HEAD_DIM`` (320: two 256-column panels,
+    as the reference's BlockSpecs span any head dim; K1 and the f32 K2 and
+    K3 on CUDA cores, the bf16 K2 and K3 on wgmma), in both dtypes,
+    through the differentiable op a model calls
     (``flash_attention_lse``, then autograd with an lse cotangent),
     against the plain versions on the same inputs: one launch each, O and
     lse (f32 within 1e-5) and dQ, dK, dV within ``GRAD_TOL``.  Emits a
@@ -1626,7 +1636,9 @@ def phase_k2k3(torch):
               for causal in (True, False)]
     # head dims past 128 (bf16 K2, K3 on wgmma and f32 K2, K3 as 3xTF32 up
     # to 256; f32 also at Dh % 4 != 0, read by 4-byte loads) and past 256
-    # (CUDA cores, 256-column panels)
+    # (256-column panels: bf16 K2, K3 on wgmma, flash_bwd_dq_wgmma_past256
+    # and flash_bwd_dkv_wgmma_past256, also at PAST_BF16_HEAD_DIMS; f32 on
+    # CUDA cores)
     cases += [(dtype, causal, 8, 257, 257, dh)
               for dtype in ("float32", "bfloat16")
               for dh in (*WIDE_HEAD_DIMS, PAST_HEAD_DIM)
@@ -1634,6 +1646,10 @@ def phase_k2k3(torch):
     cases += [(dtype, False, 8, 100, 256, dh)
               for dtype in ("float32", "bfloat16")
               for dh in (*WIDE_HEAD_DIMS, PAST_HEAD_DIM)]
+    cases += [("bfloat16", causal, 8, 257, 257, dh)
+              for dh in PAST_BF16_HEAD_DIMS for causal in (True, False)]
+    cases += [("bfloat16", False, 8, 100, 256, dh)
+              for dh in PAST_BF16_HEAD_DIMS]
     cases += [("float32", causal, 8, 257, 257, dh) for dh in WIDE_ODD_HEAD_DIMS
               for causal in (True, False)]
     cases += [("float32", False, 8, 100, 256, dh) for dh in WIDE_ODD_HEAD_DIMS]
@@ -5731,11 +5747,13 @@ CUDA_KERNELS = (
     ("flash_bwd_dq_f32", "flash_bwd_tf32_sm90.cu", 169),
     ("flash_bwd_dq_wide", "flash_bwd_wide.cu", 169),
     ("flash_bwd_dq_f32_wide", "flash_bwd_tf32_sm90.cu", 169),
+    ("flash_bwd_dq_wgmma_past256", "flash_bwd_panels_sm90.cu", 169),
     ("flash_bwd_dkv", "flash_bwd_sm90.cu", 200),
     ("flash_bwd_dkv_wgmma_wide", "flash_bwd_sm90.cu", 200),
     ("flash_bwd_dkv_f32", "flash_bwd_tf32_sm90.cu", 200),
     ("flash_bwd_dkv_f32_wide", "flash_bwd_tf32_sm90.cu", 200),
     ("flash_bwd_dkv_wide", "flash_bwd_wide.cu", 200),
+    ("flash_bwd_dkv_wgmma_past256", "flash_bwd_panels_sm90.cu", 200),
 )
 
 
@@ -5757,7 +5775,8 @@ def kernels_line(k1, sl, tr, lm128, lm256, lm96, dist_kernels, past256,
     # the bf16 probe, its f32 parity run, the Dh 128 model, distributed
     # ADAG, lm256's bf16 training, f32 parity and serving, lm96's bf16
     # training and f32 parity, and the Dh 320 op through autograd (the
-    # CUDA-core K3's one path); then
+    # one path of the f32 CUDA-core K2 and K3 and of the bf16 ones past
+    # Dh 256); then
     # ``later_paths``, (path, rows) pairs of the later phases
     paths = (
         ("serve", sl["kernel_launches"]),

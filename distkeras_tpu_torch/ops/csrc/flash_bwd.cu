@@ -1,8 +1,9 @@
 // Flash-attention backward, the C interface: K2 (dQ) and K3 (dK, dV) for
-// both dtypes.  The kernels live beside it: up to head dim 256 on
-// Hopper's tensor cores (sm_90a), f32 as 3xTF32 on mma.sync in
-// flash_bwd_tf32_sm90.cu (32, 64, 128 and any in 129-256) and bf16 on
-// wgmma and TMA in flash_bwd_sm90.cu (multiples of 8 up to 256); past 256 both dtypes on CUDA cores in flash_bwd_wide.cu.
+// both dtypes.  The kernels live beside it: f32 as 3xTF32 on mma.sync in
+// flash_bwd_tf32_sm90.cu (32, 64, 128 and any in 129-256) and on CUDA
+// cores past 256 in flash_bwd_wide.cu; bf16 on wgmma and TMA at any
+// multiple of 8, in flash_bwd_sm90.cu up to 256 and in 256-column output
+// panels past it in flash_bwd_panels_sm90.cu.
 // This file checks the arguments, sets the device and picks the kernel
 // for (dtype, head dim).
 //
@@ -46,17 +47,31 @@ cudaError_t flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                const void* dvec, void* dk, void* dv, int bh,
                                int tq, int tk, int head_dim, int causal,
                                float scale, cudaStream_t stream);
-// the CUDA-core kernels for head_dim > 256 (flash_bwd_wide.cu)
+// the bf16 kernels for head_dim > 256, a multiple of 8
+// (flash_bwd_panels_sm90.cu)
+cudaError_t flash_bwd_dq_bf16_panels(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const void* lse, const void* dvec,
+                                     void* dq, int bh, int tq, int tk,
+                                     int head_dim, int causal, float scale,
+                                     cudaStream_t stream);
+cudaError_t flash_bwd_dkv_bf16_panels(const void* q, const void* k,
+                                      const void* v, const void* dout,
+                                      const void* lse, const void* dvec,
+                                      void* dk, void* dv, int bh, int tq,
+                                      int tk, int head_dim, int causal,
+                                      float scale, cudaStream_t stream);
+// the f32 CUDA-core kernels for head_dim > 256 (flash_bwd_wide.cu)
 cudaError_t flash_bwd_dq_wide(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* dvec, void* dq, int bh, int tq,
                               int tk, int head_dim, int causal, float scale,
-                              int dtype, cudaStream_t stream);
+                              cudaStream_t stream);
 cudaError_t flash_bwd_dkv_wide(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* dvec, void* dk, void* dv, int bh,
                                int tq, int tk, int head_dim, int causal,
-                               float scale, int dtype, cudaStream_t stream);
+                               float scale, cudaStream_t stream);
 
 namespace {
 
@@ -65,7 +80,6 @@ struct BwdArgs {
   void *dq, *dk, *dv;
   int bh, tq, tk, head_dim, causal;
   float scale;
-  int dtype;
 };
 
 template <int D>
@@ -92,16 +106,28 @@ cudaError_t launch_dkv_bf16(const BwdArgs& a, cudaStream_t stream) {
                             stream);
 }
 
+// bf16 K2 and K3 past 256 on wgmma, in output panels
+cudaError_t launch_dq_bf16_panels(const BwdArgs& a, cudaStream_t stream) {
+  return flash_bwd_dq_bf16_panels(a.q, a.k, a.v, a.dout, a.lse, a.dvec, a.dq,
+                                  a.bh, a.tq, a.tk, a.head_dim, a.causal,
+                                  a.scale, stream);
+}
+
+cudaError_t launch_dkv_bf16_panels(const BwdArgs& a, cudaStream_t stream) {
+  return flash_bwd_dkv_bf16_panels(a.q, a.k, a.v, a.dout, a.lse, a.dvec,
+                                   a.dk, a.dv, a.bh, a.tq, a.tk, a.head_dim,
+                                   a.causal, a.scale, stream);
+}
+
 cudaError_t launch_dq_wide(const BwdArgs& a, cudaStream_t stream) {
   return flash_bwd_dq_wide(a.q, a.k, a.v, a.dout, a.lse, a.dvec, a.dq, a.bh,
-                           a.tq, a.tk, a.head_dim, a.causal, a.scale, a.dtype,
-                           stream);
+                           a.tq, a.tk, a.head_dim, a.causal, a.scale, stream);
 }
 
 cudaError_t launch_dkv_wide(const BwdArgs& a, cudaStream_t stream) {
   return flash_bwd_dkv_wide(a.q, a.k, a.v, a.dout, a.lse, a.dvec, a.dk, a.dv,
                             a.bh, a.tq, a.tk, a.head_dim, a.causal, a.scale,
-                            a.dtype, stream);
+                            stream);
 }
 
 // f32 K2 and K3 at 129 <= head_dim <= 256 as 3xTF32 (the runtime head dim)
@@ -125,16 +151,20 @@ struct Pick {
 };
 
 // The launcher for (dtype, head_dim); f is nullptr for what no kernel
-// takes.  `f32` holds the f32 launchers at 32, 64 and 128 and `f32_wide`
-// takes any head dim in 129-256; `bf16` takes a multiple of 8 (its TMA
-// row stride) up to 256; `wide` takes head_dim > 256 in either dtype.
-Pick pick(const Launcher (&f32)[3], Launcher f32_wide, Launcher bf16,
-          Launcher wide, int dtype, int head_dim) {
+// takes.  `f32` holds the f32 launchers at 32, 64 and 128, `f32_wide`
+// takes any head dim in 129-256 and `wide` any past 256; `bf16` takes a
+// multiple of 8 (its TMA row stride) up to 256 and `bf16_panels` one past
+// 256.
+Pick pick(const Launcher (&f32)[3], Launcher f32_wide, Launcher wide,
+          Launcher bf16, Launcher bf16_panels, int dtype, int head_dim) {
   if (dtype != 0 && dtype != 1) return {nullptr, kCudaCores};
+  if (dtype == 1) {
+    const Pick p = head_dim <= 128   ? Pick{bf16, kWgmma}
+                   : head_dim <= 256 ? Pick{bf16, kWgmmaWide}
+                                     : Pick{bf16_panels, kWgmmaPast256};
+    return {head_dim % 8 == 0 ? p.f : nullptr, p.kernel};
+  }
   if (head_dim > 256) return {wide, kCudaCores};
-  if (dtype == 1)
-    return {head_dim % 8 == 0 ? bf16 : nullptr,
-            head_dim <= 128 ? kWgmma : kWgmmaWide};
   if (head_dim > 128) return {f32_wide, kTf32Wide};
   const int d = head_dim == 32 ? 0 : head_dim == 64 ? 1 : head_dim == 128 ? 2
                                                                           : -1;
@@ -156,8 +186,8 @@ int run(Pick p, const BwdArgs& a, int device, void* stream) {
 // q and dout: (bh, tq, head_dim); k and v: (bh, tk, head_dim); all
 // contiguous and 16-byte aligned (the tensor-core kernels load tiles by
 // cp.async or TMA), of dtype 0 (float32) or 1 (bfloat16); head_dim: f32
-// 32, 64, 128 or any past 128; bf16 a multiple of 8 up to 256 or any past
-// 256; lse and dvec: (bh, tq) float32.  dq is written like q.
+// 32, 64, 128 or any past 128; bf16 a multiple of 8; lse and dvec: (bh,
+// tq) float32.  dq is written like q.
 // Launches on `stream` of `device` and returns cudaGetLastError() after the
 // launch (0 on success).
 extern "C" int dkt_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -168,9 +198,9 @@ extern "C" int dkt_flash_bwd_dq(const void* q, const void* k, const void* v,
   static const Launcher f32[3] = {launch_dq_f32<32>, launch_dq_f32<64>,
                                   launch_dq_f32<128>};
   const BwdArgs a{q, k, v, dout, lse, dvec, dq, nullptr, nullptr,
-                  bh, tq, tk, head_dim, causal, scale, dtype};
-  return run(pick(f32, launch_dq_f32_wide, launch_dq_bf16, launch_dq_wide,
-                  dtype, head_dim),
+                  bh, tq, tk, head_dim, causal, scale};
+  return run(pick(f32, launch_dq_f32_wide, launch_dq_wide, launch_dq_bf16,
+                  launch_dq_bf16_panels, dtype, head_dim),
              a, device, stream);
 }
 
@@ -184,8 +214,8 @@ extern "C" int dkt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   static const Launcher f32[3] = {launch_dkv_f32<32>, launch_dkv_f32<64>,
                                   launch_dkv_f32<128>};
   const BwdArgs a{q, k, v, dout, lse, dvec, nullptr, dk, dv,
-                  bh, tq, tk, head_dim, causal, scale, dtype};
-  return run(pick(f32, launch_dkv_f32_wide, launch_dkv_bf16,
-                  launch_dkv_wide, dtype, head_dim),
+                  bh, tq, tk, head_dim, causal, scale};
+  return run(pick(f32, launch_dkv_f32_wide, launch_dkv_wide,
+                  launch_dkv_bf16, launch_dkv_bf16_panels, dtype, head_dim),
              a, device, stream);
 }

@@ -1,8 +1,8 @@
 // Flash-attention backward in bf16 on Hopper's tensor cores (sm_90a):
 // K2 (dQ) and K3 (dK, dV) at head dims that are a multiple of 8 up to 256.
 // Called from flash_bwd.cu's C interface (dkt_flash_bwd_dq,
-// dkt_flash_bwd_dkv) for dtype 1; bf16 past 256 runs on CUDA cores
-// (flash_bwd_wide.cu).
+// dkt_flash_bwd_dkv) for dtype 1; bf16 past 256 runs in 256-column
+// output panels (flash_bwd_panels_sm90.cu).
 //
 // Replaces: distkeras_tpu/ops/pallas_attention.py:_bwd_dq_kernel (K2) and
 // _bwd_dkv_kernel (K3) under the bf16 branch of _dot/_dot_t.  With

@@ -1,7 +1,8 @@
 // Flash-attention backward on CUDA cores past head dim 256: K2 (dQ) and
-// K3 (dK, dV) in both dtypes.  Up to 256 both run on Hopper's tensor cores
-// (flash_bwd_tf32_sm90.cu in f32, flash_bwd_sm90.cu in bf16).  Called
-// from flash_bwd.cu's C interface (dkt_flash_bwd_dq, dkt_flash_bwd_dkv).
+// K3 (dK, dV) in f32.  Up to 256 f32 runs as 3xTF32 on Hopper's tensor
+// cores (flash_bwd_tf32_sm90.cu), and bf16 runs on wgmma at every head dim
+// (flash_bwd_sm90.cu, flash_bwd_panels_sm90.cu).  Called from
+// flash_bwd.cu's C interface (dkt_flash_bwd_dq, dkt_flash_bwd_dkv).
 //
 // Replaces: distkeras_tpu/ops/pallas_attention.py:_bwd_dq_kernel (K2,
 // :169) and _bwd_dkv_kernel (K3, :200), whose BlockSpecs span any head
@@ -10,12 +11,8 @@
 // dP = dO V^T and dS = scale * P o (dP - D),
 //   K2: dQ = dS K
 //   K3: dV = P^T dO,  dK = dS^T Q
-// f32 inputs are computed with f32 FMAs (the JAX package's HIGHEST
-// policy: exact products); bf16 inputs are read as bf16 and widened, with
-// f32 products, sums and statistics, and P and dS rounded to bf16 before
-// the second products, as the reference's kernels round them (dS is
-// formed from the unrounded P).  The outputs are written in the input
-// dtype.  Causal needs Tq == Tk; non-causal takes Tq != Tk; any T.
+// computed with f32 FMAs (the JAX package's HIGHEST policy: exact
+// products).  Causal needs Tq == Tk; non-causal takes Tq != Tk; any T.
 //
 // Tiles are D = 256 columns wide.  A block computes one 256-column panel
 // of its outputs (dQ; dK and dV), the grid's third dimension holding the
@@ -28,12 +25,12 @@
 //
 // What bounds them on this card: at B*H = 128, T = 512, Dh = 320, causal,
 // K2 does 6*Dh and K3 8*Dh FLOPs per unmasked (q, k) pair, 32.3 and 43.0
-// GFLOP: 0.196 and 0.261 ms at the 3xTF32 rate of 165 TFLOP/s (f32),
-// 0.033 and 0.043 ms at bf16's 989.  Operations bound both; f32 FMAs on
-// CUDA cores (67 TFLOP/s) cannot reach that, and these kernels, staging
-// every operand through shared memory, reach a fraction of the FMA rate
-// (12-20 ms at Dh 320 and 512 on an H100 at 700 W).  They are the simple
-// ones: no configuration or probe of the repo has heads past 256.
+// GFLOP: 0.196 and 0.261 ms at the 3xTF32 rate of 165 TFLOP/s.
+// Operations bound both; f32 FMAs on CUDA cores (67 TFLOP/s) cannot reach
+// that, and these kernels, staging every operand through shared memory,
+// reach a fraction of the FMA rate (12-15 ms at Dh 320 and 512 on an H100
+// at 700 W).  They are the simple ones: no configuration or probe of the
+// repo has heads past 256.
 //
 // An f32 output can equal the plain version (flash_bwd_plain) bit for
 // bit: cuBLAS's f32 products at these shapes sum in order with FMA, as
@@ -56,7 +53,6 @@
 // dV), no atomics.  Padded shared-memory strides keep warp accesses free
 // of bank conflicts.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -70,31 +66,17 @@ constexpr int kTx = 8;                 // threads across a tile's columns
 constexpr int kTy = kThreads / kTx;    // threads across its rows (16)
 constexpr int kRd = kD / kTx;          // output columns per thread (32)
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void narrow(float* p, float x) { *p = x; }
-__device__ __forceinline__ void narrow(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-// x as a second product reads it: itself in f32, rounded to bf16 in bf16
-__device__ __forceinline__ float as_operand(float x, float) { return x; }
-__device__ __forceinline__ float as_operand(float x, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
 // Rows [r0, r0 + ROWS), columns [c0, c0 + kD) of a contiguous (n, dh)
 // matrix into a padded f32 tile of kD columns; rows past n and columns
 // past dh read as 0.
-template <typename T, int ROWS>
-__device__ __forceinline__ void stage(float* dst, const T* src, int r0, int n,
-                                      int dh, int c0 = 0) {
+template <int ROWS>
+__device__ __forceinline__ void stage(float* dst, const float* src, int r0,
+                                      int n, int dh, int c0 = 0) {
 #pragma unroll 8
   for (int i = threadIdx.x; i < ROWS * kD; i += kThreads) {
     const int r = i / kD, c = i % kD;
     dst[r * kLd + c] = r0 + r < n && c0 + c < dh
-                           ? widen(src[(size_t)(r0 + r) * dh + c0 + c])
+                           ? src[(size_t)(r0 + r) * dh + c0 + c]
                            : 0.f;
   }
 }
@@ -156,18 +138,18 @@ __device__ __forceinline__ void accumulate(float (&acc)[kRm][kRd],
 
 // rows r0 + ty + kTy*i, columns [p0, p0 + kD) of a (n, dh) output from
 // acc, columns past dh and rows past n skipped
-template <typename T, int kRm>
-__device__ __forceinline__ void store(T* out, const float (&acc)[kRm][kRd],
-                                      int r0, int n, int dh, int p0, int tx,
-                                      int ty) {
+template <int kRm>
+__device__ __forceinline__ void store(float* out,
+                                      const float (&acc)[kRm][kRd], int r0,
+                                      int n, int dh, int p0, int tx, int ty) {
 #pragma unroll
   for (int i = 0; i < kRm; ++i) {
     const int r = r0 + ty + kTy * i;
     if (r >= n) continue;
-    T* row = out + (size_t)r * dh + p0;
+    float* row = out + (size_t)r * dh + p0;
 #pragma unroll
     for (int c = 0; c < kRd; ++c)
-      if (p0 + tx + kTx * c < dh) narrow(&row[tx + kTx * c], acc[i][c]);
+      if (p0 + tx + kTx * c < dh) row[tx + kTx * c] = acc[i][c];
   }
 }
 
@@ -183,13 +165,15 @@ constexpr size_t dq_smem_bytes() {
                           kDqRows * (kDqKeys + 8));
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_wide_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
                          const float* __restrict__ lse,
-                         const float* __restrict__ dvec, T* __restrict__ dq,
-                         int tq, int tk, int dh, int causal, float scale) {
+                         const float* __restrict__ dvec,
+                         float* __restrict__ dq, int tq, int tk, int dh,
+                         int causal, float scale) {
   constexpr int kRm = kDqRows / kTy;  // rows per thread (2)
   constexpr int kRn = kDqKeys / kTx;  // keys per thread (2)
   constexpr int kLdp = kDqKeys + 8;
@@ -204,10 +188,10 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.y * kDqRows;
   const int tx = threadIdx.x % kTx;
   const int ty = threadIdx.x / kTx;
-  const T* qb = q + (size_t)bh * tq * dh;
-  const T* db = dout + (size_t)bh * tq * dh;
-  const T* kb = k + (size_t)bh * tk * dh;
-  const T* vb = v + (size_t)bh * tk * dh;
+  const float* qb = q + (size_t)bh * tq * dh;
+  const float* db = dout + (size_t)bh * tq * dh;
+  const float* kb = k + (size_t)bh * tk * dh;
+  const float* vb = v + (size_t)bh * tk * dh;
   // this block's panel of dQ, and the chunks of Dh (> kD) that S and dP
   // sum
   const int p0 = blockIdx.z * kD;
@@ -234,17 +218,17 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int ch = 0; ch < n_chunks; ++ch) {
       // the last tile's (or chunk's) readers are done with the tiles
       __syncthreads();
-      stage<T, kDqRows>(qs, qb, q0, tq, dh, ch * kD);
-      stage<T, kDqRows>(dos, db, q0, tq, dh, ch * kD);
-      stage<T, kDqKeys>(ks, kb, k0, tk, dh, ch * kD);
-      stage<T, kDqKeys>(vs, vb, k0, tk, dh, ch * kD);
+      stage<kDqRows>(qs, qb, q0, tq, dh, ch * kD);
+      stage<kDqRows>(dos, db, q0, tq, dh, ch * kD);
+      stage<kDqKeys>(ks, kb, k0, tk, dh, ch * kD);
+      stage<kDqKeys>(vs, vb, k0, tk, dh, ch * kD);
       __syncthreads();
       scores<kRm, kRn>(s, qs, ks, tx, ty, ch > 0);
       scores<kRm, kRn>(dp, dos, vs, tx, ty, ch > 0);
     }
     if (p0 != (n_chunks - 1) * kD) {  // K's panel for dQ += dS K
       __syncthreads();
-      stage<T, kDqKeys>(ks, kb, k0, tk, dh, p0);
+      stage<kDqKeys>(ks, kb, k0, tk, dh, p0);
     }
 #pragma unroll
     for (int i = 0; i < kRm; ++i) {
@@ -257,14 +241,13 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const bool keep =
             q_pos < tq && k_pos < tk && (!causal || k_pos <= q_pos);
         const float p = keep ? expf(s[i][j] * scale - l_row[i]) : 0.f;
-        ps[row * kLdp + col] =
-            as_operand(p * (dp[i][j] - d_row[i]) * scale, T());
+        ps[row * kLdp + col] = p * (dp[i][j] - d_row[i]) * scale;
       }
     }
     __syncthreads();
     accumulate<kRm, kDqKeys>(acc, ps, ks, tx, ty);  // dQ += dS K
   }
-  store<T, kRm>(dq + (size_t)bh * tq * dh, acc, q0, tq, dh, p0, tx, ty);
+  store<kRm>(dq + (size_t)bh * tq * dh, acc, q0, tq, dh, p0, tx, ty);
 }
 
 // ---------------------------------------------------------------------------
@@ -279,14 +262,15 @@ constexpr size_t dkv_smem_bytes() {
                           kDkvKeys * (kDkvRows + 8) + 2 * kDkvRows);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_wide_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ dout,
                           const float* __restrict__ lse,
-                          const float* __restrict__ dvec, T* __restrict__ dk,
-                          T* __restrict__ dv, int tq, int tk, int dh,
-                          int causal, float scale) {
+                          const float* __restrict__ dvec,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          int tq, int tk, int dh, int causal, float scale) {
   constexpr int kRm = kDkvKeys / kTy;  // keys per thread (1)
   constexpr int kRn = kDkvRows / kTx;  // queries per thread (4)
   constexpr int kLdp = kDkvRows + 8;
@@ -303,10 +287,10 @@ flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = blockIdx.y * kDkvKeys;
   const int tx = threadIdx.x % kTx;
   const int ty = threadIdx.x / kTx;
-  const T* qb = q + (size_t)bh * tq * dh;
-  const T* db = dout + (size_t)bh * tq * dh;
-  const T* kb = k + (size_t)bh * tk * dh;
-  const T* vb = v + (size_t)bh * tk * dh;
+  const float* qb = q + (size_t)bh * tq * dh;
+  const float* db = dout + (size_t)bh * tq * dh;
+  const float* kb = k + (size_t)bh * tk * dh;
+  const float* vb = v + (size_t)bh * tk * dh;
   // this block's panel of dK and dV, and the chunks of Dh (> kD) that S
   // and dP sum
   const int p0 = blockIdx.z * kD;
@@ -331,10 +315,10 @@ flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int ch = 0; ch < n_chunks; ++ch) {
       // the last tile's (or chunk's) readers are done with the tiles
       __syncthreads();
-      stage<T, kDkvKeys>(ks, kb, k0, tk, dh, ch * kD);
-      stage<T, kDkvKeys>(vs, vb, k0, tk, dh, ch * kD);
-      stage<T, kDkvRows>(qs, qb, q0, tq, dh, ch * kD);
-      stage<T, kDkvRows>(dos, db, q0, tq, dh, ch * kD);
+      stage<kDkvKeys>(ks, kb, k0, tk, dh, ch * kD);
+      stage<kDkvKeys>(vs, vb, k0, tk, dh, ch * kD);
+      stage<kDkvRows>(qs, qb, q0, tq, dh, ch * kD);
+      stage<kDkvRows>(dos, db, q0, tq, dh, ch * kD);
       if (ch == 0) {
         stage_vec<kDkvRows>(ls, lse + (size_t)bh * tq, q0, tq);
         stage_vec<kDkvRows>(dls, dvec + (size_t)bh * tq, q0, tq);
@@ -345,11 +329,11 @@ flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     if (p0 != (n_chunks - 1) * kD) {  // Q's and dO's panel for dK, dV
       __syncthreads();
-      stage<T, kDkvRows>(qs, qb, q0, tq, dh, p0);
-      stage<T, kDkvRows>(dos, db, q0, tq, dh, p0);
+      stage<kDkvRows>(qs, qb, q0, tq, dh, p0);
+      stage<kDkvRows>(dos, db, q0, tq, dh, p0);
     }
 
-    // P^T = exp(scale * S^T - L) under the mask, kept unrounded for dS
+    // P^T = exp(scale * S^T - L) under the mask
 #pragma unroll
     for (int i = 0; i < kRm; ++i) {
       const int row = ty + kTy * i;
@@ -361,7 +345,7 @@ flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const bool keep =
             q_pos < tq && k_pos < tk && (!causal || k_pos <= q_pos);
         pt[i][j] = keep ? expf(pt[i][j] * scale - ls[col]) : 0.f;
-        ps[row * kLdp + col] = as_operand(pt[i][j], T());
+        ps[row * kLdp + col] = pt[i][j];
       }
     }
     __syncthreads();
@@ -375,77 +359,59 @@ flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < kRn; ++j) {
         const int col = tx + kTx * j;
-        ps[row * kLdp + col] =
-            as_operand(pt[i][j] * (dpt[i][j] - dls[col]) * scale, T());
+        ps[row * kLdp + col] = pt[i][j] * (dpt[i][j] - dls[col]) * scale;
       }
     }
     __syncthreads();
     accumulate<kRm, kDkvRows>(acc_k, ps, qs, tx, ty);  // dK += dS^T Q
   }
-  store<T, kRm>(dk + (size_t)bh * tk * dh, acc_k, k0, tk, dh, p0, tx, ty);
-  store<T, kRm>(dv + (size_t)bh * tk * dh, acc_v, k0, tk, dh, p0, tx, ty);
-}
-
-template <typename T>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const void* lse, const void* dvec,
-                      void* dq, int bh, int tq, int tk, int dh, int causal,
-                      float scale, cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_wide_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (tq + kDqRows - 1) / kDqRows, (dh + kD - 1) / kD);
-  flash_bwd_dq_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(dvec),
-      static_cast<T*>(dq), tq, tk, dh, causal, scale);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const void* lse, const void* dvec,
-                       void* dk, void* dv, int bh, int tq, int tk, int dh,
-                       int causal, float scale, cudaStream_t stream) {
-  constexpr size_t smem = dkv_smem_bytes();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_wide_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (tk + kDkvKeys - 1) / kDkvKeys, (dh + kD - 1) / kD);
-  flash_bwd_dkv_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(dvec),
-      static_cast<T*>(dk), static_cast<T*>(dv), tq, tk, dh, causal, scale);
-  return cudaGetLastError();
+  store<kRm>(dk + (size_t)bh * tk * dh, acc_k, k0, tk, dh, p0, tx, ty);
+  store<kRm>(dv + (size_t)bh * tk * dh, acc_v, k0, tk, dh, p0, tx, ty);
 }
 
 }  // namespace
 
-// The entry points behind dkt_flash_bwd_dq / dkt_flash_bwd_dkv on CUDA
-// cores (flash_bwd.cu, which checks the arguments and sets the device):
-// q, k, v, dout contiguous, of dtype 0 (float32) or 1 (bfloat16), rows of
-// head_dim > 256 values.
+// The entry points behind dkt_flash_bwd_dq / dkt_flash_bwd_dkv for f32 on
+// CUDA cores (flash_bwd.cu, which checks the arguments and sets the
+// device): q, k, v, dout contiguous float32, rows of head_dim > 256
+// values.
 cudaError_t flash_bwd_dq_wide(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* dvec, void* dq, int bh, int tq,
                               int tk, int head_dim, int causal, float scale,
-                              int dtype, cudaStream_t stream) {
-  auto f = dtype == 0 ? launch_dq<float> : launch_dq<__nv_bfloat16>;
-  return f(q, k, v, dout, lse, dvec, dq, bh, tq, tk, head_dim, causal, scale,
-           stream);
+                              cudaStream_t stream) {
+  constexpr size_t smem = dq_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (tq + kDqRows - 1) / kDqRows,
+                  (head_dim + kD - 1) / kD);
+  flash_bwd_dq_wide_kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(dvec),
+      static_cast<float*>(dq), tq, tk, head_dim, causal, scale);
+  return cudaGetLastError();
 }
 
 cudaError_t flash_bwd_dkv_wide(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* dvec, void* dk, void* dv, int bh,
                                int tq, int tk, int head_dim, int causal,
-                               float scale, int dtype, cudaStream_t stream) {
-  auto f = dtype == 0 ? launch_dkv<float> : launch_dkv<__nv_bfloat16>;
-  return f(q, k, v, dout, lse, dvec, dk, dv, bh, tq, tk, head_dim, causal,
-           scale, stream);
+                               float scale, cudaStream_t stream) {
+  constexpr size_t smem = dkv_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (tk + kDkvKeys - 1) / kDkvKeys,
+                  (head_dim + kD - 1) / kD);
+  flash_bwd_dkv_wide_kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(dvec),
+      static_cast<float*>(dk), static_cast<float*>(dv), tq, tk, head_dim,
+      causal, scale);
+  return cudaGetLastError();
 }

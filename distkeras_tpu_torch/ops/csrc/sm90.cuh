@@ -1,5 +1,6 @@
 // PTX and launch helpers shared by the Hopper (sm_90a) flash-attention
-// kernels in bf16: K1 (flash_fwd_sm90.cu) and K2/K3 (flash_bwd_sm90.cu).
+// kernels in bf16: K1 (flash_fwd_sm90.cu) and K2/K3 (flash_bwd_sm90.cu,
+// and past head dim 256 flash_bwd_panels_sm90.cu).
 // Shared memory and mbarriers, TMA loads from 3-D tensor maps, wgmma
 // (both operands in shared memory, or A in registers), the descriptors
 // and swizzles of 64-row bf16 tiles, the accumulator -> A-operand and

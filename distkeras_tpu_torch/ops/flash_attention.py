@@ -11,30 +11,31 @@ they run on tensor cores: in bf16 on wgmma and TMA
 as 3xTF32 on mma.sync (``ops/csrc/flash_fwd_tf32_sm90.cu``,
 ``ops/csrc/flash_bwd_tf32_sm90.cu``), and so from 129 to 256: the bf16
 kernels on 192- and 256-wide wgmma tiles, the f32 ones as 3xTF32 on
-192- and 256-wide tiles.  The f32 forward up to 128 at grids too small
-for 64-row tiles (the serving shapes) and every kernel past 256 run on
-CUDA cores
-(``ops/csrc/flash_fwd.cu``, ``ops/csrc/flash_bwd_wide.cu``), which take
-any head dim, as the reference's BlockSpecs do.  ``kernel_head_dim``
-names the width each kernel runs.  On CPU tensors they are
-``flash_fwd_plain`` and ``flash_bwd_plain``, the dense versions of the
-same functions.  A CUDA tensor never takes a plain version: the kernel
-runs or the call raises.
+192- and 256-wide tiles.  Past 256 the bf16 backward runs on wgmma in
+256-column output panels (``ops/csrc/flash_bwd_panels_sm90.cu``).  The
+f32 forward up to 128 at grids too small for 64-row tiles (the serving
+shapes), the forward past 256 and the f32 backward past 256 run on CUDA
+cores (``ops/csrc/flash_fwd.cu``, ``ops/csrc/flash_bwd_wide.cu``), which
+take any head dim, as the reference's BlockSpecs do.
+``kernel_head_dim`` names the width each kernel runs.  On CPU tensors
+they are ``flash_fwd_plain`` and ``flash_bwd_plain``, the dense versions
+of the same functions.  A CUDA tensor never takes a plain version: the
+kernel runs or the call raises.
 
 Head dims: the f32 forward and the CUDA-core kernels read rows of the
 caller's Dh and mask the columns past it in their tiles.  The bf16
-kernels (K1, K2 and K3 on wgmma, up to ``WGMMA_MAX``) read rows of the
-caller's Dh into the least tile of 32, 64, 128, 192 or 256 columns that
-holds it, TMA zero-filling the columns past Dh, and store their outputs
-at Dh; TMA needs the rows' byte stride a multiple of 16 (Dh % 8 == 0),
-so the wrappers zero-pad q, k, v (and dO) along Dh to the next multiple
-of 8 at any other Dh (``pad_head_dim``), run the kernel with the
-caller's ``scale`` and slice the outputs back.  The f32 K2 and K3 up to
-128 are instantiated for 32, 64 and 128 (``HEAD_DIMS``, the widths of
-their cp.async tiles), and the wrappers pad any other Dh up to 128 to
-the next of those the same way.  A pad is the same function: zero
-columns add nothing to QKᵀ, O's and the gradients' padded columns are
-products with zeros, and D = rowsum(dO∘O) does not see them.
+kernels on wgmma (K1, K2 and K3 up to 256, K2 and K3 past it) read rows
+of the caller's Dh into tiles of 32, 64, 128, 192 or 256 columns, or
+past 256 in 64-column chunks, TMA zero-filling the columns past Dh, and
+store their outputs at Dh; TMA needs the rows' byte stride a multiple of
+16 (Dh % 8 == 0), so the wrappers zero-pad bf16 q, k, v (and dO) along
+Dh to the next multiple of 8 at any other Dh (``pad_head_dim``), run the
+kernel with the caller's ``scale`` and slice the outputs back.  The f32
+K2 and K3 up to 128 are instantiated for 32, 64 and 128 (``HEAD_DIMS``,
+the widths of their cp.async tiles), and the wrappers pad any other Dh
+up to 128 to the next of those the same way.  A pad is the same
+function: zero columns add nothing to QKᵀ, O's and the gradients' padded
+columns are products with zeros, and D = rowsum(dO∘O) does not see them.
 """
 
 from __future__ import annotations
@@ -135,22 +136,20 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: tensor-core kernels read any Dh there: the f32 K1 unpadded, the bf16
 #: ones a multiple of 8)
 HEAD_DIMS = (32, 64, 128)
-#: the widest head dim of the bf16 wgmma kernels
-WGMMA_MAX = 256
 
 
 def kernel_head_dim(dh: int, dtype: torch.dtype, kernel: str) -> int:
     """The head dim the CUDA ``kernel`` ("fwd", "dq" or "dkv") runs a Dh
     of ``dtype`` as, the rows the wrapper hands it — the padding half of
     the routing, whose other half is the C entry points' choice of kernel
-    (they refuse a width this does not give them): the bf16 kernels up to
-    ``WGMMA_MAX`` (wgmma, TMA rows of a 16-byte multiple) the next
-    multiple of 8, so a Dh of a multiple of 8 crosses unpadded; the f32
-    forward any Dh; the f32 K2 and K3 up to 128 the least of
-    ``HEAD_DIMS`` that holds it; past those Dh itself (the f32 K2 and K3
-    at 129–256 and the CUDA-core kernels mask the columns past Dh and take
-    any Dh)."""
-    if dtype == torch.bfloat16 and dh <= WGMMA_MAX:
+    (they refuse a width this does not give them): bf16 the next multiple
+    of 8 (the wgmma kernels' TMA rows of a 16-byte multiple; K1 past 256,
+    on CUDA cores, takes it as any other Dh), so a Dh of a multiple of 8
+    crosses unpadded; the f32 forward any Dh; the f32 K2 and K3 up to 128
+    the least of ``HEAD_DIMS`` that holds it; past that Dh itself (the
+    f32 K2 and K3 at 129–256 and on CUDA cores past 256 mask the columns
+    past Dh and take any Dh)."""
+    if dtype == torch.bfloat16:
         return -(-dh // 8) * 8
     if kernel == "fwd" and dtype == torch.float32:
         return dh
@@ -218,16 +217,19 @@ def _check(name: str, q, k, v, causal: bool, stats=(), do=None):
 #: the kernel each C entry point reports it ran
 #: (``dkt_flash_last_kernel``), by its code in ``csrc/launched.h``: bf16
 #: on wgmma up to head dim 128, bf16 on wgmma at 129–256, f32 as
-#: 3xTF32 up to 128, CUDA cores, f32 as 3xTF32 at 129–256
+#: 3xTF32 up to 128, CUDA cores, f32 as 3xTF32 at 129–256, bf16 on wgmma
+#: past 256 (K2 and K3; K1 runs on CUDA cores there)
 KERNELS = {
     "dkt_flash_fwd": ("flash_fwd", "flash_fwd_wgmma_wide", "flash_fwd_f32",
-                      "flash_fwd_cuda_cores", "flash_fwd_f32_wide"),
+                      "flash_fwd_cuda_cores", "flash_fwd_f32_wide", None),
     "dkt_flash_bwd_dq": ("flash_bwd_dq", "flash_bwd_dq_wgmma_wide",
                          "flash_bwd_dq_f32", "flash_bwd_dq_wide",
-                         "flash_bwd_dq_f32_wide"),
+                         "flash_bwd_dq_f32_wide",
+                         "flash_bwd_dq_wgmma_past256"),
     "dkt_flash_bwd_dkv": ("flash_bwd_dkv", "flash_bwd_dkv_wgmma_wide",
                           "flash_bwd_dkv_f32", "flash_bwd_dkv_wide",
-                          "flash_bwd_dkv_f32_wide"),
+                          "flash_bwd_dkv_f32_wide",
+                          "flash_bwd_dkv_wgmma_past256"),
 }
 #: launches by (kernel of ``KERNELS``, dtype name, the caller's head dim),
 #: each counted where its launch returned, under the kernel the C entry

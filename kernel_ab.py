@@ -4,7 +4,10 @@ one card: each tree's kernels are built into their own library, the
 same inputs go through both, and each (kernel, shape) gives the largest
 difference of the two outputs, whether they agree within
 ``chip_smoke.GRAD_TOL`` of the dtype, and both device times, taken in
-turns (other, this, this, other).
+turns (other, this, this, other), with the time of the one PyTorch call
+that computes the same function beside them (``library_ms``:
+``scaled_dot_product_attention``'s forward for K1, its backward, dQ, dK
+and dV together, for K2 and K3).
 
     mkdir -p _proof/parent                           # a git-ignored dir
     git archive <commit> | tar -x -C _proof/parent
@@ -41,13 +44,13 @@ sys.path.insert(0, ROOT)
 #: (the probe's at Dh 64, and gpt_lm at dim 2048's joins at Dh 256), the
 #: training shape and its Dh = 32 twin, the Dh-128 training shape (gpt_lm
 #: at dim 1024), the Dh-256 one (dim 2048) with Dh 192 beside it, and Dh
-#: 320 past the 256-wide tile (causal throughout)
+#: 320 and 512 past the 256-wide tile (causal throughout)
 CASES = ([("fwd", "float32", 8, t, 64) for t in (64, 128, 256, 512)]
          + [("fwd", "float32", 8, t, 256)
             for t in (20, 64, 100, 128, 256, 512)]
          + [(k, d, bh, 512, dh)
             for bh, dh in ((512, 64), (512, 32), (256, 128), (128, 192),
-                           (128, 256), (128, 320))
+                           (128, 256), (128, 320), (128, 512))
             for d in ("bfloat16", "float32") for k in ("fwd", "dq", "dkv")])
 
 
@@ -86,6 +89,24 @@ def run(torch, lib, kernel, q, k, v, lse, do, dvec):
     if err:
         raise RuntimeError(f"{kernel}: CUDA error {err}")
     return outs
+
+
+def library_ms(torch, kernel, q, k, v, do) -> float:
+    """Device ms of ``scaled_dot_product_attention`` on (B*H / 8, 8, T,
+    Dh) views of the inputs, causal: its forward for ``kernel`` "fwd",
+    else its backward (one call computes dQ, dK and dV)."""
+    import chip_smoke
+    import torch.nn.functional as F
+    shape = (q.shape[0] // 8, 8, *q.shape[1:])
+    qs, ks, vs = (x.detach().view(shape).requires_grad_(kernel != "fwd")
+                  for x in (q, k, v))
+    if kernel == "fwd":
+        return chip_smoke.device_ms(
+            lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                   is_causal=True))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    return chip_smoke.device_ms(lambda: torch.autograd.grad(
+        out, (qs, ks, vs), do.view(shape), retain_graph=True))
 
 
 def turns(torch, dims, rounds: int = 4) -> None:
@@ -156,7 +177,8 @@ def main() -> int:
                 ms[n].append(chip_smoke.device_ms(
                     lambda: run(torch, libs[n], kernel, *args)))
         row = {"kernel": kernel, "dtype": dtype_name, "bh": bh, "t": t,
-               "dh": dh, "causal": True, "this_ms": ms["this"]}
+               "dh": dh, "causal": True, "this_ms": ms["this"],
+               "library_ms": library_ms(torch, kernel, q, k, v, do)}
         if outs["other"] is None:
             row["other"] = "refused"
         else:

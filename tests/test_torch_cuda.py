@@ -598,11 +598,12 @@ def test_f32_k1_at_head_dim_256_dispatches_by_grid_fill(bh, t, want):
 @pytest.mark.parametrize("causal,t,tk", [(True, 100, 100), (False, 64, 130)])
 @pytest.mark.parametrize("dh", [257, 300, 320, 512])
 def test_kernels_at_head_dims_past_256(dtype, causal, t, tk, dh):
-    """Head dims past 256, which the CUDA-core kernels take in 256-column
-    panels (S and dP summed over every chunk of Dh): K1, K2 and K3 against
-    the plain versions, one launch each, on CUDA cores; f32 O and lse
-    within 1e-5, the rest within ``_close``'s bound of the dtype (bf16 O
-    within ``_close_o``)."""
+    """Head dims past 256, which the kernels take in 256-column panels (S
+    and dP summed over every chunk of Dh): K1, K2 and K3 against the plain
+    versions, one launch each, K1 and the f32 K2 and K3 on CUDA cores,
+    the bf16 K2 and K3 on wgmma (Dh 257 and 300 padded to 264 and 304);
+    f32 O and lse within 1e-5, the rest within ``_close``'s bound of the
+    dtype (bf16 O within ``_close_o``)."""
     args, o_ref = _wide_inputs(4, t, tk, dh, dtype, causal, dh)
     q, k, v, lse_ref = args[:4]
     counts = (flash_fwd_cuda.launches, flash_bwd_dq_cuda.launches,
@@ -614,10 +615,12 @@ def test_kernels_at_head_dims_past_256(dtype, causal, t, tk, dh):
     assert (flash_fwd_cuda.launches, flash_bwd_dq_cuda.launches,
             flash_bwd_dkv_cuda.launches) == tuple(c + 1 for c in counts)
     name = str(dtype).removeprefix("torch.")
+    backward = (("flash_bwd_dq_wgmma_past256", "flash_bwd_dkv_wgmma_past256")
+                if dtype == torch.bfloat16 else
+                ("flash_bwd_dq_wide", "flash_bwd_dkv_wide"))
     assert KERNEL_LAUNCHES - before == Counter(
-        {(kernel, name, dh): 1 for kernel in (
-            "flash_fwd_cuda_cores", "flash_bwd_dq_wide",
-            "flash_bwd_dkv_wide")})
+        {(kernel, name, dh): 1
+         for kernel in ("flash_fwd_cuda_cores", *backward)})
     assert o.shape == q.shape and bool(torch.isfinite(o).all())
     if dtype == torch.float32:
         assert (o - o_ref).abs().max() <= 1e-5
@@ -629,6 +632,32 @@ def test_kernels_at_head_dims_past_256(dtype, causal, t, tk, dh):
         assert g.shape == r.shape and g.dtype == r.dtype
         assert bool(torch.isfinite(g).all())
         _close(g, r, dtype)
+
+
+@pytest.mark.parametrize("causal,t,tk", [(True, 200, 200), (False, 100, 130),
+                                         (False, 257, 100)])
+@pytest.mark.parametrize("dh", [264, 320, 512, 1024])
+def test_bf16_backward_on_wgmma_past_head_dim_256(causal, t, tk, dh):
+    """The bf16 K2 and K3 past head dim 256, on wgmma in 256-column output
+    panels (S and dP summed over 64-column chunks of Dh; at 264 a last
+    panel of 8 columns, at 1024 four full panels through the same shared
+    memory as at 264): against ``flash_bwd_plain`` at the caller's Dh,
+    causal and not, Tq ≠ Tk and ragged T, one launch each, counted under
+    the wgmma kernels, within ``_close``'s bf16 bound."""
+    args, _ = _wide_inputs(4, t, tk, dh, torch.bfloat16, causal, dh + t)
+    counts = (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches)
+    before = Counter(KERNEL_LAUNCHES)
+    got = (flash_bwd_dq_cuda(*args), *flash_bwd_dkv_cuda(*args))
+    torch.cuda.synchronize()
+    assert (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches) == \
+        tuple(c + 1 for c in counts)
+    assert KERNEL_LAUNCHES - before == Counter(
+        {(kernel, "bfloat16", dh): 1 for kernel in (
+            "flash_bwd_dq_wgmma_past256", "flash_bwd_dkv_wgmma_past256")})
+    for g, r in zip(got, flash_bwd_plain(*args)):
+        assert g.shape == r.shape and g.dtype == r.dtype
+        assert bool(torch.isfinite(g).all())
+        _close(g, r, torch.bfloat16)
 
 
 @pytest.mark.parametrize("t,dh", [(2048, 64), (2048, 128), (4096, 64),

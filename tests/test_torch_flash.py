@@ -581,30 +581,37 @@ def test_zero_padded_head_dim_is_the_same_function(dtype, dh):
         rtol = 1e-6 if dtype == "float32" or got is plse else 2 ** -7
         np.testing.assert_allclose(got.float().numpy(), ref, rtol=rtol,
                                    atol=1e-6 * np.abs(ref).max())
-    # the bf16 K1, K2 and K3 (wgmma, up to 256) read rows of a multiple of
-    # 8 columns as they are, and pad other Dh to the next multiple of 8;
-    # the f32 K1 reads any Dh up to 256, the f32 K2 and K3 past 128 too;
-    # past 256 every kernel takes Dh itself (the CUDA-core kernels in
-    # 256-column panels)
+    # the bf16 kernels read rows of a multiple of 8 columns as they are,
+    # and pad other Dh to the next multiple of 8 (K1, K2 and K3 on wgmma
+    # up to 256, K2 and K3 on wgmma past 256 in 256-column panels, K1 on
+    # CUDA cores there); the f32 K1 reads any Dh, the f32 K2 and K3 any
+    # past 128 (on CUDA cores past 256)
     bf16, f32 = torch.bfloat16, torch.float32
     kinds = ("fwd", "dq", "dkv")
     assert all(kernel_head_dim(d, bf16, k) == d
-               for d in range(8, 257, 8) for k in kinds)
+               for d in range(8, 1025, 8) for k in kinds)
     assert [kernel_head_dim(d, bf16, k) for d in (1, 5, 127, 129, 130, 255)
             for k in kinds] == [d for d in (8, 8, 128, 136, 136, 256)
                                 for _ in kinds]
     assert [kernel_head_dim(d, dt, "dq") for dt in (bf16, f32)
-            for d in (129, 256, 257, 320, 512)] == \
-        [136, 256, 257, 320, 512, 129, 256, 257, 320, 512]
+            for d in (129, 256, 257, 300, 320, 512)] == \
+        [136, 256, 264, 304, 320, 512, 129, 256, 257, 300, 320, 512]
+    assert [kernel_head_dim(d, bf16, k) for d in (257, 300, 1023)
+            for k in kinds] == [d for d in (264, 304, 1024) for _ in kinds]
+    assert [kernel_head_dim(d, f32, k) for d in (257, 300)
+            for k in kinds] == [d for d in (257, 300) for _ in kinds]
     assert [kernel_head_dim(d, f32, k) for d in (16, 48, 96)
             for k in kinds] == [16, 32, 32, 48, 64, 64, 96, 128, 128]
     assert [kernel_head_dim(130, f32, k) for k in kinds] == [130, 130, 130]
 
 
-@pytest.mark.parametrize("dh,size", [(130, 136), (200, 200)])
+@pytest.mark.parametrize("dh,size", [(130, 136), (200, 200), (257, 264),
+                                     (300, 304)])
 def test_bf16_dq_padding_past_128_is_the_same_function(dh, size):
-    """What the CUDA K2 wrapper does with a bf16 head dim in 129–256, whose
-    wgmma kernel reads TMA rows of a multiple of 8 columns: the plain
+    """What the CUDA K2 wrapper does with a bf16 head dim past 128 (in
+    129–256 the 192- or 256-wide wgmma tiles, past 256 the 256-column
+    output panels), whose wgmma kernel reads TMA rows of a multiple of 8
+    columns: the plain
     backward on inputs zero-padded to ``kernel_head_dim``, sliced back,
     equals it on the unpadded inputs (the caller's scale kept), and the
     padded columns of dQ, dK and dV are exactly 0.  Within one bf16 ulp
@@ -776,8 +783,9 @@ def test_kernel_names_follow_the_c_interface_codes():
     """``KERNELS`` names the kernel each C entry point reports it ran by
     its code in ``csrc/launched.h``, the one place the codes are defined;
     past head dim 128 all three kernels have a wgmma kernel (bf16) and a
-    3xTF32 one (f32); the launch counts start from 0 after
-    ``reset_launches``; and ``chip_smoke.CUDA_KERNELS`` lists every named
+    3xTF32 one (f32); past 256 K2 and K3 have a bf16 wgmma kernel and K1
+    none (it runs on CUDA cores there); the launch counts start from 0
+    after ``reset_launches``; and ``chip_smoke.CUDA_KERNELS`` lists every named
     kernel once."""
     import importlib
     import re
@@ -787,7 +795,8 @@ def test_kernel_names_follow_the_c_interface_codes():
     with open(os.path.join(csrc, "launched.h")) as f:
         codes = dict(re.findall(r"(k\w+) = (\d+),", f.read()))
     assert codes == {"kWgmma": "0", "kWgmmaWide": "1", "kTf32": "2",
-                     "kCudaCores": "3", "kTf32Wide": "4"}
+                     "kCudaCores": "3", "kTf32Wide": "4",
+                     "kWgmmaPast256": "5"}
     assert set(fa_mod.KERNELS) == set(_kernels.SIGNATURES) - {
         "dkt_flash_last_kernel", "dkt_error_string"}
     assert all(len(names) == len(codes) for names in fa_mod.KERNELS.values())
@@ -795,6 +804,8 @@ def test_kernel_names_follow_the_c_interface_codes():
     assert [names[4] for names in fa_mod.KERNELS.values()] == [
         "flash_fwd_f32_wide", "flash_bwd_dq_f32_wide",
         "flash_bwd_dkv_f32_wide"]
+    assert [names[5] for names in fa_mod.KERNELS.values()] == [
+        None, "flash_bwd_dq_wgmma_past256", "flash_bwd_dkv_wgmma_past256"]
     names = [n for ns in fa_mod.KERNELS.values() for n in ns if n]
     assert sorted(names) == sorted(n for n, _, _ in chip_smoke.CUDA_KERNELS)
     fa_mod.KERNEL_LAUNCHES[("flash_fwd", "float32", 64)] += 1
