@@ -7,12 +7,14 @@ Phases, one JSON line each:
 
 1. ``env``    — torch/CUDA versions, the card, TF32 switched off.
 2. ``build``  — the flash kernels, ``distkeras_tpu_torch/ops/csrc/
-   flash_fwd.cu`` (K1's C interface; K1 on CUDA cores: f32 up to head
-   dim 128 at grids too small for 64-row tiles, both dtypes past 256),
+   flash_fwd.cu`` (K1's C interface; K1 in f32 on CUDA cores: up to head
+   dim 128 at grids too small for 64-row tiles, and past 256),
    ``flash_fwd_tf32_sm90.cu`` (K1 in f32 as 3xTF32 on mma.sync, up to
    head dim 256),
    ``flash_fwd_sm90.cu`` (K1 in bf16 up to head dim 256, on wgmma and
-   TMA), ``flash_bwd.cu`` (the backward's C interface),
+   TMA), ``flash_fwd_panels_sm90.cu`` (K1 in bf16 past 256, on wgmma
+   and TMA in 256-column output panels), ``flash_bwd.cu`` (the
+   backward's C interface),
    ``flash_bwd_tf32_sm90.cu`` (K2, K3 in f32 up to 256, as 3xTF32 on
    mma.sync), ``flash_bwd_sm90.cu`` (K2, K3 in bf16 up to 256, on wgmma
    and TMA), ``flash_bwd_panels_sm90.cu`` (K2, K3 in bf16 past 256, on
@@ -262,8 +264,9 @@ reads unpadded and the f32 K2 and K3 run zero-padded to 32, 64 and 128),
 the f32 K1 unpadded on both its kernels), 136,
 192, 200 and 256 (bf16 K1, K2 and K3 on wgmma, f32 K1, K2 and K3 as
 3xTF32 at every grid; f32 also at 130, 193 and 255, read by 4-byte
-loads) and 320 (two 256-column panels: bf16 K2 and K3 on wgmma, f32 on
-CUDA cores; bf16 K2 and K3 also at 264, 300 padded to 304, and 512),
+loads) and 320 (two 256-column panels: bf16 K1, K2 and K3 on wgmma, f32
+on CUDA cores; bf16 K1, K2 and K3 also at 264, 300 padded to 304, and
+512),
 and time 16 and 96 beside 32 and 128 at B*H 256 and 192, 256, 320 and
 512 at B*H 128 (T 512).  Where an f32 kernel's output reads an error of
 exactly 0 against the plain version, ``k2k3`` also shows the check is
@@ -277,10 +280,11 @@ Dh 192 and 256 so (dQ, dK and dV against K2 and K3 in float64, within
 K2 and K3 past Dh 256 can equal their plain version bit for bit.
 ``past256``: K1, K2 and K3 at Dh 320 in both
 dtypes through the differentiable op (``flash_attention_lse`` and
-autograd) against the plain versions, one launch each: the one path of
-the CUDA-core K2 and K3 (f32) and of the bf16 K2 and K3 on wgmma past
-Dh 256 (``flash_bwd_dq_wgmma_past256``, ``flash_bwd_dkv_wgmma_past256``),
-counted as the other paths are.
+autograd) against the plain versions, one launch each of the kernel the
+dtype routes to: the one path of the f32 K1, K2 and K3 on CUDA cores
+past Dh 256 and of the bf16 ones on wgmma there
+(``flash_fwd_wgmma_past256``, ``flash_bwd_dq_wgmma_past256``,
+``flash_bwd_dkv_wgmma_past256``), counted as the other paths are.
 
 Then the ``kernels`` line (one entry per CUDA kernel: its launches on
 the main paths, counted by the wrappers under the kernel each C entry
@@ -338,12 +342,12 @@ WIDE_HEAD_DIMS = (136, 192, 200, 256)
 #: head dims past 128 that are not a multiple of 4: the f32 kernels read
 #: their rows unpadded by 4-byte loads
 WIDE_ODD_HEAD_DIMS = (130, 193, 255)
-#: head dims past 256, in 256-column panels: K1, and f32 K2 and K3, on
-#: CUDA cores, bf16 K2 and K3 on wgmma; checked at 320, timed at 320 and
+#: head dims past 256, in 256-column panels: f32 K1, K2 and K3 on CUDA
+#: cores, bf16 K1, K2 and K3 on wgmma; checked at 320, timed at 320 and
 #: 512 (B*H 128)
 PAST_HEAD_DIM = 320
-#: more bf16 head dims past 256 for K2 and K3 on wgmma: 264 (a last panel
-#: of 8 columns), 300 (padded to 304) and 512 (two full panels)
+#: more bf16 head dims past 256 for K1, K2 and K3 on wgmma: 264 (a last
+#: panel of 8 columns), 300 (padded to 304) and 512 (two full panels)
 PAST_BF16_HEAD_DIMS = (264, 300, 512)
 PAST_TIMED_HEAD_DIMS = (320, 512)
 #: a head-dim-256 training shape: gpt_lm(dim=2048, num_heads=8) at batch
@@ -665,7 +669,8 @@ def phase_k1(torch):
     cases += [("float32", False, 136, 100, 257, dh, False)
               for dh in (192, *WIDE_ODD_HEAD_DIMS)]
     # head dims past 128 at B*H 8 (bf16 on wgmma, f32 as 3xTF32, up to
-    # 256) and past 256 (CUDA cores, 256-column panels)
+    # 256) and past 256 (256-column panels: bf16 on wgmma, f32 on CUDA
+    # cores), bf16 also at PAST_BF16_HEAD_DIMS
     cases += [(dtype, causal, 8, t, t, dh, False)
               for dtype in ("bfloat16", "float32")
               for dh in (*WIDE_HEAD_DIMS, PAST_HEAD_DIM)
@@ -673,6 +678,12 @@ def phase_k1(torch):
     cases += [(dtype, False, 8, 100, 257, dh, False)
               for dtype in ("bfloat16", "float32")
               for dh in (*WIDE_HEAD_DIMS, PAST_HEAD_DIM)]
+    cases += [("bfloat16", causal, 8, t, t, dh, False)
+              for dh in PAST_BF16_HEAD_DIMS
+              for causal in (True, False) for t in (100, 257)]
+    cases += [("bfloat16", False, 8, tq, tk, dh, False)
+              for dh in PAST_BF16_HEAD_DIMS
+              for tq, tk in ((100, 257), (257, 100))]
     # the training shapes, checked and timed: the probe's (Dh 64), the
     # dim-1024 model's (Dh 128) and the dim-2048 model's (Dh 256, with
     # 192, 320 and 512 beside it), in both dtypes; at B*H 256 also Dh 16,
@@ -911,19 +922,29 @@ def _exact_reading(torch):
     emit(row)
 
 
+#: the kernels each dtype's K1, K2 and K3 run past Dh 256
+PAST256_KERNELS = {
+    "float32": ("flash_fwd_cuda_cores", "flash_bwd_dq_wide",
+                "flash_bwd_dkv_wide"),
+    "bfloat16": ("flash_fwd_wgmma_past256", "flash_bwd_dq_wgmma_past256",
+                 "flash_bwd_dkv_wgmma_past256")}
+
+
 def phase_past256(torch):
     """K1, K2 and K3 at Dh ``PAST_HEAD_DIM`` (320: two 256-column panels,
-    as the reference's BlockSpecs span any head dim; K1 and the f32 K2 and
-    K3 on CUDA cores, the bf16 K2 and K3 on wgmma), in both dtypes,
-    through the differentiable op a model calls
-    (``flash_attention_lse``, then autograd with an lse cotangent),
-    against the plain versions on the same inputs: one launch each, O and
-    lse (f32 within 1e-5) and dQ, dK, dV within ``GRAD_TOL``.  Emits a
+    as the reference's BlockSpecs span any head dim; f32 on CUDA cores,
+    bf16 on wgmma: ``PAST256_KERNELS``), in both dtypes, through the
+    differentiable op a model calls (``flash_attention_lse``, then
+    autograd with an lse cotangent), against the plain versions on the
+    same inputs: one launch each, of the kernels the dtype routes to, O
+    and lse (f32 within 1e-5) and dQ, dK, dV within ``GRAD_TOL``.  Emits a
     row per dtype; returns the path's launches by kernel (counts set to 0
     just before, read just after)."""
+    from collections import Counter
     from distkeras_tpu_torch.ops.flash_attention import (
-        _to_bh, flash_attention_lse, flash_bwd_dkv_cuda, flash_bwd_dq_cuda,
-        flash_bwd_plain, flash_fwd_cuda, flash_fwd_plain, reset_launches)
+        KERNEL_LAUNCHES, _to_bh, flash_attention_lse, flash_bwd_dkv_cuda,
+        flash_bwd_dq_cuda, flash_bwd_plain, flash_fwd_cuda, flash_fwd_plain,
+        reset_launches)
     kernels = (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda)
     gen = torch.Generator(device="cuda").manual_seed(5)
     b, t, h, dh = 2, 200, 4, PAST_HEAD_DIM
@@ -936,10 +957,12 @@ def phase_past256(torch):
         g_lse = torch.randn((b, h, t), generator=gen, device="cuda")
         q, k, v = (x.requires_grad_() for x in (q, k, v))
         before = [fn.launches for fn in kernels]
+        ran_before = Counter(KERNEL_LAUNCHES)
         out, lse = flash_attention_lse(q, k, v, True)
         grads = torch.autograd.grad((out, lse), (q, k, v), (g, g_lse))
         torch.cuda.synchronize()
         launches = [fn.launches - n for fn, n in zip(kernels, before)]
+        ran = sorted(n for n, _, _ in KERNEL_LAUNCHES - ran_before)
         qb, kb, vb, ob, gb = (_to_bh(x.detach()) for x in (q, k, v, out, g))
         scale = dh ** -0.5
         o_ref, lse_ref = flash_fwd_plain(qb, kb, vb, True, scale)
@@ -954,7 +977,8 @@ def phase_past256(torch):
                "lse_err": _max_err(lse.reshape(b * h, t), lse_ref),
                "dq_err": _max_err(got[0], refs[0]),
                "dk_err": _max_err(got[1], refs[1]),
-               "dv_err": _max_err(got[2], refs[2]), "tol": tol}
+               "dv_err": _max_err(got[2], refs[2]), "tol": tol,
+               "kernels": ran}
         emit(row)
         if dtype_name == "float32":
             fwd_ok = max(row["o_err"], row["lse_err"]) <= 1e-5
@@ -962,10 +986,12 @@ def phase_past256(torch):
             fwd_ok = all(_within(a, r, **tol) for a, r in (
                 (_to_bh(out), o_ref), (lse.reshape(b * h, t), lse_ref)))
         check(launches == [1, 1, 1] and fwd_ok and
+              ran == sorted(PAST256_KERNELS[dtype_name]) and
               all(bool(torch.isfinite(x.float()).all()) and
                   _within(x, r, **tol) for x, r in zip(got, refs)),
-              f"K1-K3 at head dim {dh} disagree with the plain versions "
-              f"or launched other than once each: {row}")
+              f"K1-K3 at head dim {dh} disagree with the plain versions, "
+              f"launched other than once each or other kernels than "
+              f"{PAST256_KERNELS[dtype_name]}: {row}")
     return kernel_launches()
 
 
@@ -5742,6 +5768,7 @@ CUDA_KERNELS = (
     ("flash_fwd_f32", "flash_fwd_tf32_sm90.cu", 83),
     ("flash_fwd_cuda_cores", "flash_fwd.cu", 83),
     ("flash_fwd_f32_wide", "flash_fwd_tf32_sm90.cu", 83),
+    ("flash_fwd_wgmma_past256", "flash_fwd_panels_sm90.cu", 83),
     ("flash_bwd_dq", "flash_bwd_sm90.cu", 169),
     ("flash_bwd_dq_wgmma_wide", "flash_bwd_sm90.cu", 169),
     ("flash_bwd_dq_f32", "flash_bwd_tf32_sm90.cu", 169),

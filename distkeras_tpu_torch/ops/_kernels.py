@@ -1,10 +1,11 @@
 """Build and load the flash-attention kernels: ``nvcc`` → one shared
 library with a plain C interface → ``ctypes``.
 
-``csrc/flash_fwd.cu`` (the C interface of K1 in both dtypes, and K1 on
-CUDA cores: f32 up to head dim 128 at small grids, both dtypes past 256),
-``csrc/flash_fwd_tf32_sm90.cu`` (K1 in
-f32, as 3xTF32 on mma.sync), ``csrc/flash_fwd_sm90.cu`` (K1 in bf16),
+``csrc/flash_fwd.cu`` (the C interface of K1 in both dtypes, and K1 in
+f32 on CUDA cores: up to head dim 128 at small grids, and past 256),
+``csrc/flash_fwd_tf32_sm90.cu`` (K1 in f32, as 3xTF32 on mma.sync),
+``csrc/flash_fwd_sm90.cu`` (K1 in bf16 up to head dim 256),
+``csrc/flash_fwd_panels_sm90.cu`` (K1 in bf16 past 256),
 ``csrc/flash_bwd.cu`` (the C interface of K2, K3),
 ``csrc/flash_bwd_tf32_sm90.cu`` (K2, K3 in f32, as 3xTF32 on mma.sync),
 ``csrc/flash_bwd_sm90.cu`` (K2, K3 in bf16 up to head dim 256),
@@ -36,7 +37,8 @@ from typing import Optional
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = tuple(os.path.join(_CSRC, f)
                 for f in ("flash_fwd.cu", "flash_fwd_tf32_sm90.cu",
-                          "flash_fwd_sm90.cu", "flash_bwd.cu",
+                          "flash_fwd_sm90.cu", "flash_fwd_panels_sm90.cu",
+                          "flash_bwd.cu",
                           "flash_bwd_tf32_sm90.cu", "flash_bwd_sm90.cu",
                           "flash_bwd_panels_sm90.cu", "flash_bwd_wide.cu"))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(

@@ -81,21 +81,7 @@
 namespace {
 
 using namespace sm90;
-
-constexpr int kPanel = 256;                      // output columns of a block
-constexpr int kHalf = 128;                       // ... of a warpgroup
-constexpr int kGroups = kPanel / kHalf;          // warpgroups of a block
-constexpr int kBlockThreads = kGroups * kThreads;
-constexpr int kChunk = 64;                       // columns of a box
-constexpr uint32_t kBox = Tile<kChunk>::kBytes;  // a 64 x 64 box, 8 KB
-constexpr uint32_t kStage = 4 * kBox;            // four boxes, 32 KB
-constexpr int kStages = 6;
-constexpr size_t kSmemBytes = kStages * kStage + 1024;  // + the alignment
-
-// the warpgroups of the block that own columns below dh
-__device__ __forceinline__ int live_groups(int p0, int dh) {
-  return min(kGroups, (dh - p0 + kHalf - 1) / kHalf);
-}
+using namespace sm90::panels;
 
 // this thread's lane, read again where it is used: K3 would otherwise
 // keep a value of it live across its loops, one register past its budget
@@ -103,23 +89,6 @@ __device__ __forceinline__ int lane_id() {
   int lane;
   asm volatile("mov.u32 %0, %%laneid;" : "=r"(lane));
   return lane;
-}
-
-// a barrier of the block's first `threads` threads (its live warpgroups)
-__device__ __forceinline__ void sync_groups(int threads) {
-  asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
-}
-
-// four boxes of rows [row, row + 64) of head bh, columns col + 64b, from
-// `maps[b]`, into one stage; completes the stage's transaction
-__device__ __forceinline__ void load_stage(uint8_t* dst, uint64_t* bar,
-                                           const CUtensorMap* const (&maps)[4],
-                                           const int (&rows)[4],
-                                           const int (&cols)[4], int bh) {
-  mbar_expect_tx(bar, kStage);
-#pragma unroll
-  for (int b = 0; b < 4; ++b)
-    tma_load(dst + b * kBox, maps[b], bar, rows[b], bh, cols[b]);
 }
 
 // ---------------------------------------------------------------------------
@@ -472,11 +441,6 @@ cudaError_t make_maps(Maps* m, const void* q, const void* k, const void* v,
   if ((err = make_map<kChunk>(&m->v, v, bh, tk, dh)) != cudaSuccess)
     return err;
   return make_map<kChunk>(&m->dout, dout, bh, tq, dh);
-}
-
-// one block per (panel, tile of t rows, batch*head)
-int n_blocks(int bh, int t, int dh) {
-  return (dh + kPanel - 1) / kPanel * ((t + kBlock - 1) / kBlock) * bh;
 }
 
 }  // namespace

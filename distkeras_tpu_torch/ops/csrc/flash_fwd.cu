@@ -1,8 +1,9 @@
 // Flash-attention forward for Hopper (sm_90a), with a plain C interface:
-// K1.  This file holds the entry point for both dtypes and the CUDA-core
-// kernel; the tensor-core kernels are beside it: f32 as 3xTF32 on
-// mma.sync (flash_fwd_tf32_sm90.cu), bf16 on wgmma and TMA
-// (flash_fwd_sm90.cu).
+// K1.  This file holds the entry point for both dtypes and the f32
+// CUDA-core kernel; the tensor-core kernels are beside it: f32 as 3xTF32
+// on mma.sync (flash_fwd_tf32_sm90.cu), bf16 on wgmma and TMA
+// (flash_fwd_sm90.cu up to head dim 256, flash_fwd_panels_sm90.cu past
+// it).
 //
 // Replaces: distkeras_tpu/ops/pallas_attention.py:_fwd_kernel, the Pallas
 // TPU kernel launched by _flash_fwd_raw.  Same function: for every
@@ -19,6 +20,9 @@
 //     tile of 32, 64, 128, 192 or 256 columns that holds Dh, read from
 //     unpadded rows (the wrapper pads other Dh to the next multiple of 8,
 //     the TMA row stride);
+//   - bf16, Dh a multiple of 8 past 256 (the reference's BlockSpecs span
+//     any head dim): the wgmma kernel in 256-column output panels, S from
+//     64-column chunks through a TMA ring (flash_fwd_panels_sm90.cu);
 //   - f32, Dh <= 128, where 64-row query tiles give at least two blocks an
 //     SM (the training shapes): the 3xTF32 kernel;
 //   - f32, Dh <= 128, where they do not (the serving shapes, B*H = 8 and
@@ -31,16 +35,14 @@
 //     (B*H = 8, T 20-128, Dh 256) it took 0.55-0.80x the CUDA-core
 //     kernel's time on an H100 (kernel_ab.py), and at its training shape
 //     0.31-0.33x;
-//   - past Dh 256 in both dtypes (the reference's BlockSpecs span any
-//     head dim): the CUDA-core kernel.
+//   - f32 past Dh 256: the CUDA-core kernel.
 // Both f32 kernels compute exact f32 products (the JAX package's HIGHEST
 // policy); both are held against the plain version on the card.
 //
-// The CUDA-core kernel: f32 FMAs; bf16 inputs are read as bf16 and
-// widened, with f32 products, sums and statistics.  Its tiles are D = 32,
-// 64, 128 (f32 at the serving grids) or 256 (past Dh 256) columns wide,
-// the columns past the caller's Dh zero-filled on load and never stored,
-// so any Dh runs on unpadded rows.  Past Dh 256 a block computes one
+// The CUDA-core kernel (f32 only): f32 FMAs, sums and statistics.  Its
+// tiles are D = 32, 64, 128 (at the serving grids) or 256 (past Dh 256)
+// columns wide, the columns past the caller's Dh zero-filled on load and
+// never stored, so any Dh runs on unpadded rows.  Past Dh 256 a block computes one
 // 256-column panel of O (the grid's third dimension holds the panels) and
 // forms S over the whole Dh by staging Q and K in 256-column chunks, in
 // order, so every panel's block sums S alike and holds the same P; panel
@@ -57,7 +59,7 @@
 // dim 2048, 8 heads, batch 16) it does 17.2 GFLOP: 0.104 ms at the 3xTF32
 // rate (f32), 0.017 ms at bf16's; operations bound it, and FMAs on CUDA
 // cores (67 TFLOP/s) cannot come near either, so both dtypes run there on
-// the tensor-core kernels.
+// the tensor-core kernels, as bf16 does past 256.
 //
 // Design: one block of 128 threads per (batch*head, query tile of BM
 // rows); a loop over K/V tiles (64 rows, 32 on the 256-wide tile) staged
@@ -72,19 +74,23 @@
 // the ends are masked, so any T works.  Padded shared-memory strides keep
 // every warp access free of bank conflicts.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "launched.h"
 
-// the bf16 kernel (flash_fwd_sm90.cu); head_dim a multiple of 8 up to
-// 256
+// the bf16 kernels: head_dim a multiple of 8, up to 256
+// (flash_fwd_sm90.cu) and past it (flash_fwd_panels_sm90.cu)
 cudaError_t flash_fwd_bf16(const void* q, const void* k, const void* v,
                            void* out, void* lse, int bh, int tq, int tk,
                            int head_dim, int causal, float scale,
                            cudaStream_t stream);
+cudaError_t flash_fwd_bf16_panels(const void* q, const void* k,
+                                  const void* v, void* out, void* lse,
+                                  int bh, int tq, int tk, int head_dim,
+                                  int causal, float scale,
+                                  cudaStream_t stream);
 // the f32 tensor-core kernels (flash_fwd_tf32_sm90.cu); 1 <= head_dim <= 256
 cudaError_t flash_fwd_f32(const void* q, const void* k, const void* v,
                           void* o, void* lse, int bh, int tq, int tk,
@@ -103,30 +109,16 @@ __host__ __device__ constexpr int block_n() {
   return D > 128 ? 32 : 64;
 }
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void narrow(float* p, float x) { *p = x; }
-__device__ __forceinline__ void narrow(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-// x as the P V product reads it: itself in f32, rounded to bf16 in bf16
-__device__ __forceinline__ float as_operand(float x, float) { return x; }
-__device__ __forceinline__ float as_operand(float x, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
 template <int D, int BM>
 constexpr size_t smem_bytes() {
   return sizeof(float) * ((BM + 2 * block_n<D>()) * (D + 1) +
                           BM * (block_n<D>() + 8));
 }
 
-template <typename T, int D, int BM, bool kChunked>
+template <int D, int BM, bool kChunked>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int tq, int tk, int dh, int causal,
                  float scale) {
   static_assert(D % kTx == 0, "head dim must be a multiple of 8");
@@ -148,9 +140,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int tx = tid % kTx;
   const int ty = tid / kTx;
-  const T* qb = q + (size_t)bh * tq * dh;
-  const T* kb = k + (size_t)bh * tk * dh;
-  const T* vb = v + (size_t)bh * tk * dh;
+  const float* qb = q + (size_t)bh * tq * dh;
+  const float* kb = k + (size_t)bh * tk * dh;
+  const float* vb = v + (size_t)bh * tk * dh;
 
   // kChunked (the 256-wide tile, Dh > D): the block computes O's columns
   // [p0, p0 + D) (a panel; gridDim.z panels in all) and forms S over the
@@ -166,7 +158,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = i / D, c = c0 + i % D;
       const int qr = q0 + r;
       qs[r * kLd + i % D] =
-          qr < tq && c < dh ? widen(qb[(size_t)qr * dh + c]) : 0.f;
+          qr < tq && c < dh ? qb[(size_t)qr * dh + c] : 0.f;
     }
   };
   if (n_chunks == 1) load_q(0);
@@ -201,8 +193,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int i = tid + kThreads * it;
       const int kr = t * kBlockN + i / D, c = i % D;
       const bool ok = kr < tk && c < dh;
-      kn[it] = ok ? widen(kb[(size_t)kr * dh + c]) : 0.f;
-      vn[it] = ok ? widen(vb[(size_t)kr * dh + c]) : 0.f;
+      kn[it] = ok ? kb[(size_t)kr * dh + c] : 0.f;
+      vn[it] = ok ? vb[(size_t)kr * dh + c] : 0.f;
     }
   };
   if (kPrefetch && n_tiles > 0) fetch(0);
@@ -232,13 +224,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll 8
         for (int i = tid; i < kBlockN * D; i += kThreads) {
           const int kr = k0 + i / D, c = i % D;
-          ks[(i / D) * kLd + c] = kr < tk && kc + c < dh
-                                      ? widen(kb[(size_t)kr * dh + kc + c])
-                                      : 0.f;
+          ks[(i / D) * kLd + c] =
+              kr < tk && kc + c < dh ? kb[(size_t)kr * dh + kc + c] : 0.f;
           if (last)
-            vs[(i / D) * kLd + c] = kr < tk && p0 + c < dh
-                                        ? widen(vb[(size_t)kr * dh + p0 + c])
-                                        : 0.f;
+            vs[(i / D) * kLd + c] =
+                kr < tk && p0 + c < dh ? vb[(size_t)kr * dh + p0 + c] : 0.f;
         }
       }
       __syncthreads();
@@ -284,7 +274,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < kRn; ++j) {
         const float p = expf(s[i][j] - m_ref);
-        ps[row * kLdp + tx + kTx * j] = as_operand(p, T());
+        ps[row * kLdp + tx + kTx * j] = p;
         rs += p;
       }
 #pragma unroll
@@ -316,32 +306,31 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < kRm; ++i) {
     const int r = q0 + ty + kTy * i;
     if (r < tq) {
-      T* orow = o + ((size_t)bh * tq + r) * dh + p0;
+      float* orow = o + ((size_t)bh * tq + r) * dh + p0;
 #pragma unroll
       for (int c = 0; c < kRd; ++c)
-        if (p0 + tx + kTx * c < dh)
-          narrow(&orow[tx + kTx * c], acc[i][c] / l[i]);
+        if (p0 + tx + kTx * c < dh) orow[tx + kTx * c] = acc[i][c] / l[i];
       if (tx == 0 && p0 == 0) lse[(size_t)bh * tq + r] = m[i] + logf(l[i]);
     }
   }
 }
 
 // the 256-wide tile runs only past Dh 256: panels and chunks
-template <typename T, int D, int BM, bool kChunked = D == 256>
+template <int D, int BM, bool kChunked = D == 256>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int bh, int tq, int tk, int dh, int causal,
                    float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D, BM>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D, BM, kChunked>,
+      flash_fwd_kernel<D, BM, kChunked>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   // one panel of D output columns a block along z
   const dim3 grid(bh, (tq + BM - 1) / BM, (dh + D - 1) / D);
-  flash_fwd_kernel<T, D, BM, kChunked><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      tq, tk, dh, causal, scale);
+  flash_fwd_kernel<D, BM, kChunked><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), tq, tk, dh, causal, scale);
   return cudaGetLastError();
 }
 
@@ -361,15 +350,15 @@ cudaError_t rows_per_block(int device, int bh, int tq, int* rows) {
 
 // the CUDA-core kernel at tile width D with `rows` (16, or 32 for more)
 // query rows a block
-template <typename T, int D>
+template <int D>
 cudaError_t launch_rows(int rows, const void* q, const void* k,
                         const void* v, void* o, void* lse, int bh, int tq,
                         int tk, int dh, int causal, float scale,
                         cudaStream_t stream) {
-  return rows == 16 ? launch<T, D, 16>(q, k, v, o, lse, bh, tq, tk, dh,
-                                       causal, scale, stream)
-                    : launch<T, D, 32>(q, k, v, o, lse, bh, tq, tk, dh,
-                                       causal, scale, stream);
+  return rows == 16 ? launch<D, 16>(q, k, v, o, lse, bh, tq, tk, dh, causal,
+                                    scale, stream)
+                    : launch<D, 32>(q, k, v, o, lse, bh, tq, tk, dh, causal,
+                                    scale, stream);
 }
 
 }  // namespace
@@ -378,21 +367,25 @@ cudaError_t launch_rows(int rows, const void* q, const void* k,
 // 16-byte aligned addresses (the tensor-core kernels load by TMA or
 // cp.async), of dtype 0 (float32) or 1 (bfloat16); o: like q; lse:
 // (bh, tq) float32.  head_dim: float32 any >= 1; bfloat16 a multiple of
-// 8 up to 256, or any past 256.  Launches on `stream` of
-// `device` and returns cudaGetLastError() after the launch (0 on
-// success).
+// 8.  Launches on `stream` of `device` and returns cudaGetLastError()
+// after the launch (0 on success).
 extern "C" int dkt_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int bh, int tq, int tk,
                              int head_dim, int causal, float scale,
                              int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  // bf16 up to Dh 256 runs on wgmma, from rows of a 16-byte multiple
-  const bool wgmma = dtype == 1 && head_dim <= 256;
+  // bf16 runs on wgmma at every head dim, from rows of a 16-byte multiple
+  const bool wgmma = dtype == 1;
   if (bh < 1 || tq < 1 || tk < 1 || head_dim < 1 || (causal && tq != tk) ||
       (dtype != 0 && dtype != 1) || (wgmma && head_dim % 8 != 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wgmma && head_dim > 256) {
+    dkt_set_last_kernel(kWgmmaPast256);
+    return (int)flash_fwd_bf16_panels(q, k, v, o, lse, bh, tq, tk, head_dim,
+                                      causal, scale, s);
+  }
   if (wgmma) {
     dkt_set_last_kernel(head_dim <= 128 ? kWgmma : kWgmmaWide);
     return (int)flash_fwd_bf16(q, k, v, o, lse, bh, tq, tk, head_dim, causal,
@@ -411,20 +404,16 @@ extern "C" int dkt_flash_fwd(const void* q, const void* k, const void* v,
   }
   dkt_set_last_kernel(kCudaCores);
   if (wide)  // past 256
-    return (int)(dtype == 0
-                     ? launch_rows<float, 256>(rows, q, k, v, o, lse, bh, tq,
-                                               tk, head_dim, causal, scale, s)
-                     : launch_rows<__nv_bfloat16, 256>(rows, q, k, v, o, lse,
-                                                       bh, tq, tk, head_dim,
-                                                       causal, scale, s));
+    return (int)launch_rows<256>(rows, q, k, v, o, lse, bh, tq, tk, head_dim,
+                                 causal, scale, s);
   if (head_dim <= 32)
-    return (int)launch_rows<float, 32>(rows, q, k, v, o, lse, bh, tq, tk,
-                                       head_dim, causal, scale, s);
+    return (int)launch_rows<32>(rows, q, k, v, o, lse, bh, tq, tk, head_dim,
+                                causal, scale, s);
   if (head_dim <= 64)
-    return (int)launch_rows<float, 64>(rows, q, k, v, o, lse, bh, tq, tk,
-                                       head_dim, causal, scale, s);
-  return (int)launch_rows<float, 128>(rows, q, k, v, o, lse, bh, tq, tk,
-                                      head_dim, causal, scale, s);
+    return (int)launch_rows<64>(rows, q, k, v, o, lse, bh, tq, tk, head_dim,
+                                causal, scale, s);
+  return (int)launch_rows<128>(rows, q, k, v, o, lse, bh, tq, tk, head_dim,
+                               causal, scale, s);
 }
 
 namespace {

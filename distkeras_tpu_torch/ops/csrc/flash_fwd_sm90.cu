@@ -1,6 +1,7 @@
 // Flash-attention forward in bf16 on Hopper's tensor cores (sm_90a): K1.
 // Called from flash_fwd.cu's C interface (dkt_flash_fwd) for dtype 1 up
-// to head dim 256; f32, and bf16 past 256, stay there.
+// to head dim 256; past 256 bf16 runs flash_fwd_panels_sm90.cu, and f32
+// runs the kernels of flash_fwd_tf32_sm90.cu and flash_fwd.cu.
 //
 // Replaces: distkeras_tpu/ops/pallas_attention.py:_fwd_kernel under the
 // bf16 branch of _dot/_dot_t.  For every (batch*head, query row) it
@@ -82,61 +83,11 @@
 // Later work: a producer warp with setmaxnreg and two consumer
 // warpgroups on 128-row tiles, and TMA stores.
 
-#include <math.h>
-
 #include "sm90.cuh"
 
 namespace {
 
 using namespace sm90;
-
-// The online softmax of key tile k0 on its S accumulator, rows r0 and
-// r0 + 8 of this thread (entry e belongs to row half (e >> 1) & 1 and
-// key k0 + c0 + 8 * (e >> 2) + (e & 1)): S is scaled to base 2 (scale2 =
-// scale * log2(e)) and masked by a select -- keys at or past tk, and
-// under `causal` keys past the row -- so a masked entry is exactly 0; the
-// running max m (base 2) and sum l (over the unrounded P) are updated,
-// and s holds P on return; corr rescales the rows' earlier O.  A row's
-// 64 columns lie in one quad of lanes, so its max and its sum take two
-// shuffles each.  A row with every key masked so far keeps m = -inf and
-// uses 0 as its reference, so p = 0 and corr = 0 instead of NaN.
-__device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2],
-                                             float (&l)[2], float (&corr)[2],
-                                             int r0, int k0, int c0, int tk,
-                                             int causal, float scale2) {
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int e = 0; e < 32; ++e) {
-    const int h = (e >> 1) & 1;
-    const int row = r0 + 8 * h;
-    const int col = k0 + 8 * (e >> 2) + c0 + (e & 1);
-    s[e] *= scale2;
-    if (col >= tk || (causal && col > row)) s[e] = -INFINITY;
-    mx[h] = fmaxf(mx[h], s[e]);
-  }
-  float ref[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-    const float m_new = fmaxf(m[h], mx[h]);
-    ref[h] = m_new == -INFINITY ? 0.f : m_new;
-    corr[h] = exp2f(m[h] - ref[h]);
-    m[h] = m_new;
-  }
-#pragma unroll
-  for (int e = 0; e < 32; ++e) {
-    const int h = (e >> 1) & 1;
-    s[e] = s[e] == -INFINITY ? 0.f : exp2f(s[e] - ref[h]);
-    rs[h] += s[e];
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
-    rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
-    l[h] = l[h] * corr[h] + rs[h];
-  }
-}
 
 // kPartial: rows of dh < D columns, O stored masked at dh (as it always
 // is past D = 128)

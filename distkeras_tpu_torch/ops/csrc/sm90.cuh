@@ -1,10 +1,13 @@
 // PTX and launch helpers shared by the Hopper (sm_90a) flash-attention
-// kernels in bf16: K1 (flash_fwd_sm90.cu) and K2/K3 (flash_bwd_sm90.cu,
-// and past head dim 256 flash_bwd_panels_sm90.cu).
+// kernels in bf16: K1 (flash_fwd_sm90.cu, and past head dim 256
+// flash_fwd_panels_sm90.cu) and K2/K3 (flash_bwd_sm90.cu, and past head
+// dim 256 flash_bwd_panels_sm90.cu).
 // Shared memory and mbarriers, TMA loads from 3-D tensor maps, wgmma
 // (both operands in shared memory, or A in registers), the descriptors
 // and swizzles of 64-row bf16 tiles, the accumulator -> A-operand and
-// accumulator -> global-row conversions, and the tensor-map encoder.
+// accumulator -> global-row conversions, K1's online softmax of one key
+// tile, the ring of the 256-column output panels past head dim 256, and
+// the tensor-map encoder.
 //
 // Everything here is inline or a template, so each .cu that includes it
 // keeps its own copy and the linked library has no duplicate symbols.
@@ -14,6 +17,7 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace sm90 {
@@ -318,6 +322,109 @@ __device__ __forceinline__ void store_rows_masked(__nv_bfloat16* out,
 __device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
   return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
 }
+
+// ---------------------------------------------------------------------------
+// K1's online softmax
+// ---------------------------------------------------------------------------
+
+// The online softmax of key tile k0 on its S accumulator, rows r0 and
+// r0 + 8 of this thread (entry e belongs to row half (e >> 1) & 1 and
+// key k0 + c0 + 8 * (e >> 2) + (e & 1)): S is scaled to base 2 (scale2 =
+// scale * log2(e)) and masked by a select -- keys at or past tk, and
+// under `causal` keys past the row -- so a masked entry is exactly 0; the
+// running max m (base 2) and sum l (over the unrounded P) are updated,
+// and s holds P on return; corr rescales the rows' earlier O.  A row's
+// 64 columns lie in one quad of lanes, so its max and its sum take two
+// shuffles each.  A row with every key masked so far keeps m = -inf and
+// uses 0 as its reference, so p = 0 and corr = 0 instead of NaN.
+__device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             int r0, int k0, int c0, int tk,
+                                             int causal, float scale2) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int h = (e >> 1) & 1;
+    const int row = r0 + 8 * h;
+    const int col = k0 + 8 * (e >> 2) + c0 + (e & 1);
+    s[e] *= scale2;
+    if (col >= tk || (causal && col > row)) s[e] = -INFINITY;
+    mx[h] = fmaxf(mx[h], s[e]);
+  }
+  float ref[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float m_new = fmaxf(m[h], mx[h]);
+    ref[h] = m_new == -INFINITY ? 0.f : m_new;
+    corr[h] = exp2f(m[h] - ref[h]);
+    m[h] = m_new;
+  }
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int h = (e >> 1) & 1;
+    s[e] = s[e] == -INFINITY ? 0.f : exp2f(s[e] - ref[h]);
+    rs[h] += s[e];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
+    rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
+    l[h] = l[h] * corr[h] + rs[h];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// past head dim 256: 256-column output panels fed by one ring of stages
+// ---------------------------------------------------------------------------
+
+// A block of the panel kernels (flash_fwd_panels_sm90.cu,
+// flash_bwd_panels_sm90.cu) owns kPanel columns of its outputs, kHalf
+// a warpgroup; it streams its items (64-column chunks of the inputs, and
+// the panel's columns of the second product's B) through kStages stages
+// of four 64 x 64 boxes each, 128B-swizzled (a swizzled box is one
+// swizzle row wide).
+namespace panels {
+
+constexpr int kPanel = 256;                      // output columns of a block
+constexpr int kHalf = 128;                       // ... of a warpgroup
+constexpr int kGroups = kPanel / kHalf;          // warpgroups of a block
+constexpr int kBlockThreads = kGroups * kThreads;
+constexpr int kChunk = 64;                       // columns of a box
+constexpr uint32_t kBox = Tile<kChunk>::kBytes;  // a 64 x 64 box, 8 KB
+constexpr uint32_t kStage = 4 * kBox;            // four boxes, 32 KB
+constexpr int kStages = 6;
+constexpr size_t kSmemBytes = kStages * kStage + 1024;  // + the alignment
+
+// the warpgroups of the block that own columns below dh
+__device__ __forceinline__ int live_groups(int p0, int dh) {
+  return min(kGroups, (dh - p0 + kHalf - 1) / kHalf);
+}
+
+// a barrier of the block's first `threads` threads (its live warpgroups)
+__device__ __forceinline__ void sync_groups(int threads) {
+  asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
+}
+
+// four boxes of rows [row, row + 64) of head bh, columns col + 64b, from
+// `maps[b]`, into one stage; completes the stage's transaction
+__device__ __forceinline__ void load_stage(uint8_t* dst, uint64_t* bar,
+                                           const CUtensorMap* const (&maps)[4],
+                                           const int (&rows)[4],
+                                           const int (&cols)[4], int bh) {
+  mbar_expect_tx(bar, kStage);
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    tma_load(dst + b * kBox, maps[b], bar, rows[b], bh, cols[b]);
+}
+
+// one block per (panel, tile of t rows, batch*head)
+inline int n_blocks(int bh, int t, int dh) {
+  return (dh + kPanel - 1) / kPanel * ((t + kBlock - 1) / kBlock) * bh;
+}
+
+}  // namespace panels
 
 // ---------------------------------------------------------------------------
 // tensor maps

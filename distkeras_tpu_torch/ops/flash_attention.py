@@ -11,12 +11,13 @@ they run on tensor cores: in bf16 on wgmma and TMA
 as 3xTF32 on mma.sync (``ops/csrc/flash_fwd_tf32_sm90.cu``,
 ``ops/csrc/flash_bwd_tf32_sm90.cu``), and so from 129 to 256: the bf16
 kernels on 192- and 256-wide wgmma tiles, the f32 ones as 3xTF32 on
-192- and 256-wide tiles.  Past 256 the bf16 backward runs on wgmma in
-256-column output panels (``ops/csrc/flash_bwd_panels_sm90.cu``).  The
-f32 forward up to 128 at grids too small for 64-row tiles (the serving
-shapes), the forward past 256 and the f32 backward past 256 run on CUDA
-cores (``ops/csrc/flash_fwd.cu``, ``ops/csrc/flash_bwd_wide.cu``), which
-take any head dim, as the reference's BlockSpecs do.
+192- and 256-wide tiles.  Past 256 the bf16 kernels run on wgmma in
+256-column output panels (``ops/csrc/flash_fwd_panels_sm90.cu``,
+``ops/csrc/flash_bwd_panels_sm90.cu``).  The f32 forward up to 128 at
+grids too small for 64-row tiles (the serving shapes), and the f32
+forward and backward past 256, run on CUDA cores
+(``ops/csrc/flash_fwd.cu``, ``ops/csrc/flash_bwd_wide.cu``), which take
+any head dim, as the reference's BlockSpecs do.
 ``kernel_head_dim`` names the width each kernel runs.  On CPU tensors
 they are ``flash_fwd_plain`` and ``flash_bwd_plain``, the dense versions
 of the same functions.  A CUDA tensor never takes a plain version: the
@@ -24,7 +25,7 @@ kernel runs or the call raises.
 
 Head dims: the f32 forward and the CUDA-core kernels read rows of the
 caller's Dh and mask the columns past it in their tiles.  The bf16
-kernels on wgmma (K1, K2 and K3 up to 256, K2 and K3 past it) read rows
+kernels on wgmma (K1, K2 and K3 at every head dim) read rows
 of the caller's Dh into tiles of 32, 64, 128, 192 or 256 columns, or
 past 256 in 64-column chunks, TMA zero-filling the columns past Dh, and
 store their outputs at Dh; TMA needs the rows' byte stride a multiple of
@@ -143,9 +144,8 @@ def kernel_head_dim(dh: int, dtype: torch.dtype, kernel: str) -> int:
     of ``dtype`` as, the rows the wrapper hands it — the padding half of
     the routing, whose other half is the C entry points' choice of kernel
     (they refuse a width this does not give them): bf16 the next multiple
-    of 8 (the wgmma kernels' TMA rows of a 16-byte multiple; K1 past 256,
-    on CUDA cores, takes it as any other Dh), so a Dh of a multiple of 8
-    crosses unpadded; the f32 forward any Dh; the f32 K2 and K3 up to 128
+    of 8 (the wgmma kernels' TMA rows of a 16-byte multiple, at every
+    Dh), so a Dh of a multiple of 8 crosses unpadded; the f32 forward any Dh; the f32 K2 and K3 up to 128
     the least of ``HEAD_DIMS`` that holds it; past that Dh itself (the
     f32 K2 and K3 at 129–256 and on CUDA cores past 256 mask the columns
     past Dh and take any Dh)."""
@@ -218,10 +218,11 @@ def _check(name: str, q, k, v, causal: bool, stats=(), do=None):
 #: (``dkt_flash_last_kernel``), by its code in ``csrc/launched.h``: bf16
 #: on wgmma up to head dim 128, bf16 on wgmma at 129–256, f32 as
 #: 3xTF32 up to 128, CUDA cores, f32 as 3xTF32 at 129–256, bf16 on wgmma
-#: past 256 (K2 and K3; K1 runs on CUDA cores there)
+#: past 256 (in 256-column output panels)
 KERNELS = {
     "dkt_flash_fwd": ("flash_fwd", "flash_fwd_wgmma_wide", "flash_fwd_f32",
-                      "flash_fwd_cuda_cores", "flash_fwd_f32_wide", None),
+                      "flash_fwd_cuda_cores", "flash_fwd_f32_wide",
+                      "flash_fwd_wgmma_past256"),
     "dkt_flash_bwd_dq": ("flash_bwd_dq", "flash_bwd_dq_wgmma_wide",
                          "flash_bwd_dq_f32", "flash_bwd_dq_wide",
                          "flash_bwd_dq_f32_wide",

@@ -600,8 +600,8 @@ def test_f32_k1_at_head_dim_256_dispatches_by_grid_fill(bh, t, want):
 def test_kernels_at_head_dims_past_256(dtype, causal, t, tk, dh):
     """Head dims past 256, which the kernels take in 256-column panels (S
     and dP summed over every chunk of Dh): K1, K2 and K3 against the plain
-    versions, one launch each, K1 and the f32 K2 and K3 on CUDA cores,
-    the bf16 K2 and K3 on wgmma (Dh 257 and 300 padded to 264 and 304);
+    versions, one launch each, f32 on CUDA cores, bf16 on wgmma (Dh 257
+    and 300 padded to 264 and 304);
     f32 O and lse within 1e-5, the rest within ``_close``'s bound of the
     dtype (bf16 O within ``_close_o``)."""
     args, o_ref = _wide_inputs(4, t, tk, dh, dtype, causal, dh)
@@ -615,12 +615,12 @@ def test_kernels_at_head_dims_past_256(dtype, causal, t, tk, dh):
     assert (flash_fwd_cuda.launches, flash_bwd_dq_cuda.launches,
             flash_bwd_dkv_cuda.launches) == tuple(c + 1 for c in counts)
     name = str(dtype).removeprefix("torch.")
-    backward = (("flash_bwd_dq_wgmma_past256", "flash_bwd_dkv_wgmma_past256")
-                if dtype == torch.bfloat16 else
-                ("flash_bwd_dq_wide", "flash_bwd_dkv_wide"))
+    ran = (("flash_fwd_wgmma_past256", "flash_bwd_dq_wgmma_past256",
+            "flash_bwd_dkv_wgmma_past256") if dtype == torch.bfloat16 else
+           ("flash_fwd_cuda_cores", "flash_bwd_dq_wide",
+            "flash_bwd_dkv_wide"))
     assert KERNEL_LAUNCHES - before == Counter(
-        {(kernel, name, dh): 1
-         for kernel in ("flash_fwd_cuda_cores", *backward)})
+        {(kernel, name, dh): 1 for kernel in ran})
     assert o.shape == q.shape and bool(torch.isfinite(o).all())
     if dtype == torch.float32:
         assert (o - o_ref).abs().max() <= 1e-5
@@ -632,6 +632,36 @@ def test_kernels_at_head_dims_past_256(dtype, causal, t, tk, dh):
         assert g.shape == r.shape and g.dtype == r.dtype
         assert bool(torch.isfinite(g).all())
         _close(g, r, dtype)
+
+
+@pytest.mark.parametrize("causal,t,tk", [(True, 200, 200), (False, 100, 130),
+                                         (False, 257, 100), (True, 1, 1)])
+@pytest.mark.parametrize("dh", [264, 300, 320, 512, 1024])
+def test_bf16_forward_on_wgmma_past_head_dim_256(causal, t, tk, dh):
+    """The bf16 K1 past head dim 256, on wgmma in 256-column output panels
+    (S summed over 64-column chunks of Dh, two a ring stage; at 264 a last
+    panel of 8 columns, at 1024 four full panels through the same shared
+    memory as at 264, at 300 the wrapper's pad to 304): against
+    ``flash_fwd_plain`` at the caller's Dh, causal and not, Tq ≠ Tk
+    (Tk < Tq, where no row is fully masked, and Tk > Tq), ragged T and a
+    causal row of one, one launch counted under the wgmma kernel, O
+    within ``_close_o`` and lse within ``_close``'s bf16 bound, all
+    finite, O of the caller's Dh (the pad's columns dropped)."""
+    args, o_ref = _wide_inputs(4, t, tk, dh, torch.bfloat16, causal, dh + t)
+    q, k, v, lse_ref = args[:4]
+    count = flash_fwd_cuda.launches
+    before = Counter(KERNEL_LAUNCHES)
+    o, lse = flash_fwd_cuda(q, k, v, causal, args[-1])
+    torch.cuda.synchronize()
+    assert flash_fwd_cuda.launches == count + 1
+    assert KERNEL_LAUNCHES - before == Counter(
+        {("flash_fwd_wgmma_past256", "bfloat16", dh): 1})
+    assert o.shape == q.shape and o.dtype == torch.bfloat16
+    assert lse.shape == lse_ref.shape and lse.dtype == torch.float32
+    assert bool(torch.isfinite(o.float()).all())
+    assert bool(torch.isfinite(lse).all())
+    _close_o(o, o_ref, v)
+    _close(lse, lse_ref, torch.bfloat16)
 
 
 @pytest.mark.parametrize("causal,t,tk", [(True, 200, 200), (False, 100, 130),

@@ -495,10 +495,20 @@ def test_plain_kernels_match_jax_kernels_at_odd_head_dims(dtype, causal, t,
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_kernels_match_jax_kernels_past_head_dim_256(dtype):
-    """Dh 320, which the CUDA kernels take in 256-column panels on CUDA
-    cores: the plain versions against the JAX package's Pallas kernels
-    (interpret mode), causal, at the bounds of the head-dim-128 test."""
+    """Dh 320, which the CUDA kernels take in 256-column panels (bf16 on
+    wgmma, f32 on CUDA cores): the plain versions against the JAX
+    package's Pallas kernels (interpret mode), causal, at the bounds of
+    the head-dim-128 test."""
     _plain_against_jax_kernels(dtype, True, 32, 32, 320)
+
+
+@pytest.mark.parametrize("dh", [264, 512])
+def test_bf16_plain_kernels_match_jax_kernels_at_more_head_dims_past_256(dh):
+    """Dh 264 (a last panel of 8 columns) and 512 (two full panels), where
+    the bf16 K1, K2 and K3 run on wgmma in 256-column output panels: the
+    plain versions against the JAX package's Pallas kernels (interpret
+    mode), causal, B·H 3, T 32, at the bounds of the head-dim-128 test."""
+    _plain_against_jax_kernels("bfloat16", True, 32, 32, dh)
 
 
 def _plain_against_jax_kernels(dtype, causal, t, tk, dh):
@@ -582,10 +592,9 @@ def test_zero_padded_head_dim_is_the_same_function(dtype, dh):
         np.testing.assert_allclose(got.float().numpy(), ref, rtol=rtol,
                                    atol=1e-6 * np.abs(ref).max())
     # the bf16 kernels read rows of a multiple of 8 columns as they are,
-    # and pad other Dh to the next multiple of 8 (K1, K2 and K3 on wgmma
-    # up to 256, K2 and K3 on wgmma past 256 in 256-column panels, K1 on
-    # CUDA cores there); the f32 K1 reads any Dh, the f32 K2 and K3 any
-    # past 128 (on CUDA cores past 256)
+    # and pad other Dh to the next multiple of 8 (K1, K2 and K3 on wgmma,
+    # past 256 in 256-column panels); the f32 K1 reads any Dh, the f32 K2
+    # and K3 any past 128 (on CUDA cores past 256)
     bf16, f32 = torch.bfloat16, torch.float32
     kinds = ("fwd", "dq", "dkv")
     assert all(kernel_head_dim(d, bf16, k) == d
@@ -783,9 +792,9 @@ def test_kernel_names_follow_the_c_interface_codes():
     """``KERNELS`` names the kernel each C entry point reports it ran by
     its code in ``csrc/launched.h``, the one place the codes are defined;
     past head dim 128 all three kernels have a wgmma kernel (bf16) and a
-    3xTF32 one (f32); past 256 K2 and K3 have a bf16 wgmma kernel and K1
-    none (it runs on CUDA cores there); the launch counts start from 0
-    after ``reset_launches``; and ``chip_smoke.CUDA_KERNELS`` lists every named
+    3xTF32 one (f32); past 256 all three have a bf16 wgmma kernel in
+    output panels; the launch counts start from 0 after
+    ``reset_launches``; and ``chip_smoke.CUDA_KERNELS`` lists every named
     kernel once."""
     import importlib
     import re
@@ -805,7 +814,8 @@ def test_kernel_names_follow_the_c_interface_codes():
         "flash_fwd_f32_wide", "flash_bwd_dq_f32_wide",
         "flash_bwd_dkv_f32_wide"]
     assert [names[5] for names in fa_mod.KERNELS.values()] == [
-        None, "flash_bwd_dq_wgmma_past256", "flash_bwd_dkv_wgmma_past256"]
+        "flash_fwd_wgmma_past256", "flash_bwd_dq_wgmma_past256",
+        "flash_bwd_dkv_wgmma_past256"]
     names = [n for ns in fa_mod.KERNELS.values() for n in ns if n]
     assert sorted(names) == sorted(n for n, _, _ in chip_smoke.CUDA_KERNELS)
     fa_mod.KERNEL_LAUNCHES[("flash_fwd", "float32", 64)] += 1
