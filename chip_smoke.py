@@ -16,11 +16,11 @@ Phases, one JSON line each:
    and TMA in 256-column output panels), ``flash_bwd.cu`` (the
    backward's C interface),
    ``flash_bwd_tf32_sm90.cu`` (K2, K3 in f32 up to 256, as 3xTF32 on
-   mma.sync), ``flash_bwd_sm90.cu`` (K2, K3 in bf16 up to 256, on wgmma
-   and TMA), ``flash_bwd_panels_sm90.cu`` (K2, K3 in bf16 past 256, on
-   wgmma and TMA in 256-column output panels) and ``flash_bwd_wide.cu``
-   (K2, K3 in f32 past 256 on CUDA cores, in 256-column panels; the
-   ``_sm90`` files include ``sm90.cuh``, the ``_tf32_`` ones
+   mma.sync), ``flash_bwd_tf32_panels_sm90.cu`` (K2, K3 in f32 past 256,
+   as 3xTF32 in 512-column output panels), ``flash_bwd_sm90.cu`` (K2, K3
+   in bf16 up to 256, on wgmma and TMA) and ``flash_bwd_panels_sm90.cu``
+   (K2, K3 in bf16 past 256, on wgmma and TMA in 256-column output
+   panels; the ``_sm90`` files include ``sm90.cuh``, the ``_tf32_`` ones
    ``tf32.cuh``), are built
    with nvcc for sm_90a if stale (seconds;
    each kernel's registers, shared memory and spills as ptxas reports
@@ -264,9 +264,10 @@ reads unpadded and the f32 K2 and K3 run zero-padded to 32, 64 and 128),
 the f32 K1 unpadded on both its kernels), 136,
 192, 200 and 256 (bf16 K1, K2 and K3 on wgmma, f32 K1, K2 and K3 as
 3xTF32 at every grid; f32 also at 130, 193 and 255, read by 4-byte
-loads) and 320 (two 256-column panels: bf16 K1, K2 and K3 on wgmma, f32
-on CUDA cores; bf16 K1, K2 and K3 also at 264, 300 padded to 304, and
-512),
+loads) and 320 (bf16 K1, K2 and K3 on wgmma and the f32 K1 on CUDA cores
+in two 256-column panels, the f32 K2, K3 as 3xTF32 in one of 512; bf16
+K1, K2 and K3 also at 264, 300 padded to 304, and 512; f32 K2, K3 also
+at 261, read by 4-byte loads),
 and time 16 and 96 beside 32 and 128 at B*H 256 and 192, 256, 320 and
 512 at B*H 128 (T 512).  Where an f32 kernel's output reads an error of
 exactly 0 against the plain version, ``k2k3`` also shows the check is
@@ -275,14 +276,14 @@ live: a copy with its smallest value moved by 1e-4 must fail it.
 tensor cores (at Dh 192 and 256 its eight-warp kernel) is within 1e-5
 of attention in float64 and one TF32 pass is not;
 ``k2_tf32_control`` and ``k3_tf32_control`` hold the f32 K2 and K3 at
-Dh 192 and 256 so (dQ, dK and dV against K2 and K3 in float64, within
-``GRAD_TOL``), and ``k2k3_exact_reading`` shows why the CUDA-core f32
-K2 and K3 past Dh 256 can equal their plain version bit for bit.
+Dh 192, 256, 320 and 512 so (dQ, dK and dV against K2 and K3 in
+float64, within ``GRAD_TOL``).
 ``past256``: K1, K2 and K3 at Dh 320 in both
 dtypes through the differentiable op (``flash_attention_lse`` and
 autograd) against the plain versions, one launch each of the kernel the
-dtype routes to: the one path of the f32 K1, K2 and K3 on CUDA cores
-past Dh 256 and of the bf16 ones on wgmma there
+dtype routes to: the one path of the f32 K1 on CUDA cores past Dh 256,
+of the f32 K2 and K3 in 3xTF32 panels there (``flash_bwd_dq_f32_past256``,
+``flash_bwd_dkv_f32_past256``) and of the bf16 ones on wgmma
 (``flash_fwd_wgmma_past256``, ``flash_bwd_dq_wgmma_past256``,
 ``flash_bwd_dkv_wgmma_past256``), counted as the other paths are.
 
@@ -291,7 +292,11 @@ the main paths, counted by the wrappers under the kernel each C entry
 point reports it ran; its largest error against the plain version over
 the checked cases it ran, every timed shape among them; its timed
 rows), the card's name and power limit as nvidia-smi prints them,
-and as the last line ``{"ok": true, "device": {...}}``.  Any
+and as the last line ``{"ok": true, "device": {...}}``.  A
+``torch.profiler`` trace that holds no device event is taken again a
+second later, three times at most; a time then comes from CUDA events
+and a busy share is null (not measured), each listed in the ``timing``
+line's ``profiler_gaps``.  Any
 failed check exits non-zero before that line; so does a machine without
 CUDA, and a directory holding this script without the package.
 """
@@ -342,10 +347,13 @@ WIDE_HEAD_DIMS = (136, 192, 200, 256)
 #: head dims past 128 that are not a multiple of 4: the f32 kernels read
 #: their rows unpadded by 4-byte loads
 WIDE_ODD_HEAD_DIMS = (130, 193, 255)
-#: head dims past 256, in 256-column panels: f32 K1, K2 and K3 on CUDA
-#: cores, bf16 K1, K2 and K3 on wgmma; checked at 320, timed at 320 and
-#: 512 (B*H 128)
+#: head dims past 256, in output panels: f32 K1 on CUDA cores and bf16 K1,
+#: K2 and K3 on wgmma (256 columns), f32 K2 and K3 as 3xTF32 (512
+#: columns); checked at 320, timed at 320 and 512 (B*H 128)
 PAST_HEAD_DIM = 320
+#: an f32 head dim past 256 that is not a multiple of 4: the f32 K2 and
+#: K3 read its rows by 4-byte loads, into a last 128-column chunk of 5
+PAST_F32_ODD_HEAD_DIM = 261
 #: more bf16 head dims past 256 for K1, K2 and K3 on wgmma: 264 (a last
 #: panel of 8 columns), 300 (padded to 304) and 512 (two full panels)
 PAST_BF16_HEAD_DIMS = (264, 300, 512)
@@ -501,19 +509,37 @@ def smi_line() -> str:
         timeout=60, check=True).stdout.strip()
 
 
+#: what the profiler did not deliver: a ``torch.profiler`` CUDA trace now
+#: and then comes back without a single device event (seen once in a
+#: dozen sessions of one process, and three times in a row in one ``k1``
+#: phase).  One entry per such trace and per measurement that was then
+#: taken otherwise or not at all; emitted with the phase times
+PROFILER_GAPS = []
+#: traces taken before a measurement falls back, and the seconds between
+#: a trace that held no device event and the next
+PROFILER_TRIES = 3
+PROFILER_RETRY_S = 1.0
+
+
+def _profiler_gap(what, outcome):
+    PROFILER_GAPS.append({"what": what, "outcome": outcome})
+
+
 def device_ms(fn, iters: int = 20) -> float:
     """Device time per call of ``fn``: the durations of the kernels (and
     copies) it ran, from a ``torch.profiler`` CUDA trace, summed — the
-    card's time without the host's launch overhead.  A trace that comes
-    back without device events (seen once in a dozen sessions of one
-    process) is taken again; fails the run when three traces in a row
-    hold no device time."""
+    card's time without the host's launch overhead.  A trace without
+    device events is taken again a second later; after three of them in
+    a row the calls are timed between two CUDA events instead (the
+    host's launch gaps included), and ``PROFILER_GAPS`` says so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    caller = sys._getframe(1)
+    what = f"device_ms at {caller.f_code.co_name}:{caller.f_lineno}"
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(PROFILER_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -521,7 +547,38 @@ def device_ms(fn, iters: int = 20) -> float:
         us = sum(e.self_device_time_total for e in prof.key_averages())
         if us > 0:
             return us / iters / 1e3
-    raise CheckFailed("the profiler trace holds no device time")
+        _profiler_gap(what, "trace taken again")
+        time.sleep(PROFILER_RETRY_S)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / iters
+    _profiler_gap(what, f"timed with CUDA events: {ms} ms")
+    return ms
+
+
+def traced(torch, run, what, **kw):
+    """``run()`` under a ``torch.profiler`` trace (CUDA only unless
+    ``kw`` says otherwise): (its result, the trace).  ``run`` must be
+    safe to call again: a trace that holds no device event is taken
+    again, a second later, up to ``PROFILER_TRIES`` traces in all; after
+    that the trace is None, and what it would have measured is not
+    measured."""
+    from torch.profiler import ProfilerActivity, profile
+    kw.setdefault("activities", [ProfilerActivity.CUDA])
+    for _ in range(PROFILER_TRIES):
+        with profile(**kw) as prof:
+            out = run()
+            torch.cuda.synchronize()
+        if device_events(prof):
+            return out, prof
+        _profiler_gap(what, "trace taken again")
+        time.sleep(PROFILER_RETRY_S)
+    _profiler_gap(what, "not measured")
+    return out, None
 
 
 def flash_bound(bh, tq, tk, dh, causal, itemsize):
@@ -583,7 +640,7 @@ def ptxas_report(log):
     def short(mangled):
         # the kernel's name and template arguments, still mangled
         name = re.search(r"flash_(fwd|bwd_dq|bwd_dkv)"
-                         r"(_wgmma|_tf32|_wide|_panels)?"
+                         r"(_wgmma|_tf32|_wide|_panels)*"
                          r"_kernel(I\w*?E(?=E))?", mangled)
         return name.group(0) if name else mangled
 
@@ -832,7 +889,8 @@ def dkv_float64(torch, *args):
 
 
 def _wide_bwd_tf32_control(torch):
-    """The f32 K2 and K3 at head dims 129-256 are 3xTF32, not one TF32
+    """The f32 K2 and K3 past head dim 128 (at 192 and 256 their eight-warp
+    kernels, at 320 and 512 their panels) are 3xTF32, not one TF32
     pass: on Q and K with a common offset of 1 their dQ (K2) and dK, dV
     (K3) are within ``GRAD_TOL``'s f32 bound of K2 and K3 computed in
     float64 (``dq_float64``, ``dkv_float64``), and the plain version with
@@ -847,7 +905,8 @@ def _wide_bwd_tf32_control(torch):
     tol = GRAD_TOL["float32"]
     rows = []
     for causal, tq, tk, dh in ((True, 200, 200, 192), (True, 200, 200, 256),
-                               (False, 64, 130, 256)):
+                               (False, 64, 130, 256), (True, 200, 200, 320),
+                               (True, 200, 200, 512), (False, 64, 130, 512)):
         q, do = (torch.randn((8, tq, dh), generator=gen, device="cuda")
                  for _ in range(2))
         k, v = (torch.randn((8, tk, dh), generator=gen, device="cuda")
@@ -863,13 +922,15 @@ def _wide_bwd_tf32_control(torch):
             torch.backends.cuda.matmul.allow_tf32 = False
         dq, dq_kernel = launched(lambda: flash_bwd_dq_cuda(*args))
         dkv, dkv_kernel = launched(lambda: flash_bwd_dkv_cuda(*args))
+        route = "wide" if dh <= 256 else "past256"
         # (phase, output names, their slice of (dQ, dK, dV), kernel ran,
         # outputs, float64 witness, kernel wanted)
         for phase, names, cut, kernel, got, exact, want in (
                 ("k2_tf32_control", ("dq",), slice(0, 1), dq_kernel, (dq,),
-                 (dq_float64(torch, *args),), "flash_bwd_dq_f32_wide"),
+                 (dq_float64(torch, *args),), f"flash_bwd_dq_f32_{route}"),
                 ("k3_tf32_control", ("dk", "dv"), slice(1, 3), dkv_kernel,
-                 dkv, dkv_float64(torch, *args), "flash_bwd_dkv_f32_wide")):
+                 dkv, dkv_float64(torch, *args),
+                 f"flash_bwd_dkv_f32_{route}")):
 
             def err(a):
                 return {n: _max_err(x, r)
@@ -889,51 +950,23 @@ def _wide_bwd_tf32_control(torch):
             emit(rows[-1])
     check(all(r["kernel"] == r["want"] and r["kernel_within"]
               and not r["one_tf32_pass_within"] for r in rows),
-          f"the f32 K2/K3 at Dh 129-256 are not held apart from one TF32 "
+          f"the f32 K2/K3 past Dh 128 are not held apart from one TF32 "
           f"pass: {rows}")
-
-
-def _exact_reading(torch):
-    """Why the CUDA-core f32 K2 and K3 (past Dh 256) can agree with their
-    plain version bit for bit: the plain version's f32 products (cuBLAS)
-    at these shapes against an in-order ``torch.addcmul`` chain over the
-    contracted dim (those kernels' FMA loops), and ``s * scale - L``
-    rounded twice (the plain version) against one fused ``addcmul`` (the
-    kernels' contracted FMA) at the scales 1/sqrt(320) and 1/sqrt(512).
-    (Up to Dh 256 every f32 kernel is 3xTF32, whose sums run in another
-    order.)  Emits the shares of equal values; checks nothing."""
-    gen = torch.Generator(device="cuda").manual_seed(11)
-    row = {"phase": "k2k3_exact_reading", "matmul_equals_fma_chain": {},
-           "scaled_minus_l_equals_fma": {}}
-    for dh in PAST_TIMED_HEAD_DIMS:
-        a, b = (torch.randn((8, 512, dh), generator=gen, device="cuda")
-                for _ in range(2))
-        mm = a @ b.transpose(1, 2)
-        chain = torch.zeros_like(mm)
-        for d in range(dh):
-            chain = torch.addcmul(chain, a[:, :, d, None], b[:, None, :, d])
-        row["matmul_equals_fma_chain"][dh] = (mm == chain).float().mean() \
-            .item()
-        lse = torch.randn((8, 512, 1), generator=gen, device="cuda")
-        scale = torch.full_like(mm, dh ** -0.5)
-        row["scaled_minus_l_equals_fma"][dh] = (
-            mm * dh ** -0.5 - lse == torch.addcmul(-lse, mm, scale)) \
-            .float().mean().item()
-    emit(row)
 
 
 #: the kernels each dtype's K1, K2 and K3 run past Dh 256
 PAST256_KERNELS = {
-    "float32": ("flash_fwd_cuda_cores", "flash_bwd_dq_wide",
-                "flash_bwd_dkv_wide"),
+    "float32": ("flash_fwd_cuda_cores", "flash_bwd_dq_f32_past256",
+                "flash_bwd_dkv_f32_past256"),
     "bfloat16": ("flash_fwd_wgmma_past256", "flash_bwd_dq_wgmma_past256",
                  "flash_bwd_dkv_wgmma_past256")}
 
 
 def phase_past256(torch):
     """K1, K2 and K3 at Dh ``PAST_HEAD_DIM`` (320: two 256-column panels,
-    as the reference's BlockSpecs span any head dim; f32 on CUDA cores,
-    bf16 on wgmma: ``PAST256_KERNELS``), in both dtypes, through the
+    as the reference's BlockSpecs span any head dim; f32 K1 on CUDA
+    cores and K2, K3 as 3xTF32, bf16 on wgmma: ``PAST256_KERNELS``), in
+    both dtypes, through the
     differentiable op a model calls (``flash_attention_lse``, then
     autograd with an lse cotangent), against the plain versions on the
     same inputs: one launch each, of the kernels the dtype routes to, O
@@ -1152,11 +1185,15 @@ def phase_profile(torch, model, prompts):
                                                   window=prof)
     events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in events)
+    if not events:
+        # served once (the serving state moves): not taken again
+        _profiler_gap("profile", "not measured")
     flash_us = sum(e.self_device_time_total for e in events
                    if "flash_fwd_" in e.key)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
-    row = {"phase": "profile", "wall_s": wall, "device_busy_s": busy_us / 1e6,
-           "device_busy_share": busy_us / 1e6 / wall,
+    row = {"phase": "profile", "wall_s": wall,
+           "device_busy_s": busy_us / 1e6 if events else None,
+           "device_busy_share": busy_us / 1e6 / wall if events else None,
            "flash_fwd_share_of_device": flash_us / busy_us if busy_us else None,
            "flash_fwd_launches": launches,
            "top_kernels": [{"name": e.key[:90], "count": e.count,
@@ -1317,8 +1354,13 @@ def phase_fleet(torch, model):
                     greedy.append((p, reply))
             torch.cuda.synchronize()
             prof_wall = time.perf_counter() - t0
-        busy_us = _busy_us(prof)
-        check(busy_us > 0, "the fleet trace holds no device time")
+        # the pass moves the prefix counts, so an empty trace is not taken
+        # again: the busy share is then not measured
+        busy_us = _busy_us(prof) if device_events(prof) else None
+        if busy_us is None:
+            _profiler_gap("fleet", "not measured")
+        else:
+            check(busy_us > 0, "the fleet trace holds no device time")
         check(prefix_counts() == (f["groups"], 2 * n_warm),
               f"prefix (misses, hits) after the profiled pass: "
               f"{prefix_counts()}")
@@ -1449,7 +1491,8 @@ def phase_fleet(torch, model):
                         "spill_warm": 1e3 * float(np.median(spill_warm))},
         "warm_pass_tokens_per_s": tokens / warm_wall,
         "warm_pass_wall_s": warm_wall,
-        "device_busy_share": busy_us / 1e6 / prof_wall,
+        "device_busy_share": (None if busy_us is None
+                              else busy_us / 1e6 / prof_wall),
         "profiled_wall_s": prof_wall,
         "kv_replications": val("serve.router.kv_replications"),
         "kv_migrations": val("serve.router.kv_migrations"),
@@ -1606,9 +1649,8 @@ def _within(got, ref, rtol, atol, atol_of_max) -> bool:
 def _check_is_live(got, ref, tol) -> bool:
     """Whether ``_within`` fails for a copy of ``got`` whose value at the
     smallest |reference| is moved by 1e-4: the check can see an error
-    there.  (An exact reading is no fault: cuBLAS's f32 products at these
-    shapes sum in order with FMA, as the CUDA-core K2 and K3 past Dh 256
-    do; PERF.md.)"""
+    there.  (An exact reading is no fault where a kernel and cuBLAS sum
+    alike.)"""
     moved = got.float().clone().reshape(-1)
     moved[ref.float().abs().reshape(-1).argmin()] += 1e-4
     return not _within(moved.reshape(got.shape), ref, **tol)
@@ -1663,8 +1705,9 @@ def phase_k2k3(torch):
     # head dims past 128 (bf16 K2, K3 on wgmma and f32 K2, K3 as 3xTF32 up
     # to 256; f32 also at Dh % 4 != 0, read by 4-byte loads) and past 256
     # (256-column panels: bf16 K2, K3 on wgmma, flash_bwd_dq_wgmma_past256
-    # and flash_bwd_dkv_wgmma_past256, also at PAST_BF16_HEAD_DIMS; f32 on
-    # CUDA cores)
+    # and flash_bwd_dkv_wgmma_past256, also at PAST_BF16_HEAD_DIMS; f32 as
+    # 3xTF32, flash_bwd_dq_f32_past256 and flash_bwd_dkv_f32_past256, also
+    # at PAST_F32_ODD_HEAD_DIM)
     cases += [(dtype, causal, 8, 257, 257, dh)
               for dtype in ("float32", "bfloat16")
               for dh in (*WIDE_HEAD_DIMS, PAST_HEAD_DIM)
@@ -1676,9 +1719,11 @@ def phase_k2k3(torch):
               for dh in PAST_BF16_HEAD_DIMS for causal in (True, False)]
     cases += [("bfloat16", False, 8, 100, 256, dh)
               for dh in PAST_BF16_HEAD_DIMS]
-    cases += [("float32", causal, 8, 257, 257, dh) for dh in WIDE_ODD_HEAD_DIMS
+    cases += [("float32", causal, 8, 257, 257, dh)
+              for dh in (*WIDE_ODD_HEAD_DIMS, PAST_F32_ODD_HEAD_DIM)
               for causal in (True, False)]
-    cases += [("float32", False, 8, 100, 256, dh) for dh in WIDE_ODD_HEAD_DIMS]
+    cases += [("float32", False, 8, 100, 256, dh)
+              for dh in (*WIDE_ODD_HEAD_DIMS, PAST_F32_ODD_HEAD_DIM)]
     def checked(dtype_name, causal, bh, tq, tk, dh, args):
         """K2 and K3 on ``args`` against the plain version; the row, with
         the kernel each launched."""
@@ -1711,7 +1756,6 @@ def phase_k2k3(torch):
                            causal))
             for dtype_name, causal, bh, tq, tk, dh in cases]
     _wide_bwd_tf32_control(torch)
-    _exact_reading(torch)
 
     # the training shapes, each checked as above and then timed: the
     # probe's (Dh 64) in both dtypes, then Dh 128 (bf16, the dim-1024
@@ -1771,13 +1815,20 @@ def device_events(prof):
     """The device's kernels and copies in ``prof``'s trace, as (start µs,
     end µs, name), read from kineto's own event list: ``prof.events()``
     builds a tree of every event first, which takes minutes for a few
-    epochs of ResNet-50."""
+    epochs of ResNet-50.  Read once a trace (seconds for two such epochs)
+    and kept on ``prof``, with the seconds the read took
+    (``prof.device_events_read_s``); not to be changed by the caller."""
     from torch.autograd import DeviceType
-    return [(e.start_ns() / 1e3, e.end_ns() / 1e3, e.name())
+    if not hasattr(prof, "_device_events"):
+        t0 = time.perf_counter()
+        prof._device_events = [
+            (e.start_ns() / 1e3, e.end_ns() / 1e3, e.name())
             for e in prof.profiler.kineto_results.events()
             if e.device_type() == DeviceType.CUDA
             and not e.is_user_annotation()
             and not getattr(e, "is_hidden_event", lambda: False)()]
+        prof.device_events_read_s = time.perf_counter() - t0
+    return prof._device_events
 
 
 def last_epoch_on_device(prof, epochs=2):
@@ -1810,7 +1861,6 @@ def phase_train(torch):
     parity, (b) the bf16 probe config with its launch counts, rates,
     memory and, from a profiled run's second epoch, its busy share."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
     from distkeras_tpu_torch import SingleTrainer
     from distkeras_tpu_torch.data import load_lm_corpus
     from distkeras_tpu_torch.models import zoo
@@ -1900,16 +1950,29 @@ def phase_train(torch):
 
     # two more epochs under the profiler (their launches are not counted);
     # the second is read on the device's timeline
-    pt = trainer(2)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    def profiled():
+        pt = trainer(2)
         pt.train(ds)
-        torch.cuda.synchronize()
-    window_us, busy_us, by_name = last_epoch_on_device(prof)
-    epoch_s = [r for r in pt.metrics.records
-               if r["event"] == "epoch"][-1]["epoch_seconds"]
-    share = {n: sum(us for name, us in by_name.items()
-                    if names[n] in name) / busy_us for n in kernels}
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+        return pt
+
+    pt, prof = traced(torch, profiled, "train")
+    profiled_epoch = None               # not measured
+    if prof is not None:
+        window_us, busy_us, by_name = last_epoch_on_device(prof)
+        epoch_s = [r for r in pt.metrics.records
+                   if r["event"] == "epoch"][-1]["epoch_seconds"]
+        share = {n: sum(us for name, us in by_name.items()
+                        if names[n] in name) / busy_us for n in kernels}
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+        profiled_epoch = {
+            # the second epoch's window on the trace's device timeline,
+            # and the trainer's own CUDA-event seconds for it
+            "window_s": window_us / 1e6, "epoch_s": epoch_s,
+            "device_busy_s": busy_us / 1e6,
+            "device_busy_share": busy_us / window_us,
+            "kernel_share_of_device": share,
+            "top_kernels": [{"name": name[:90], "device_ms": us / 1e3}
+                            for name, us in top]}
     row = {"phase": "train", "model": LM,
            "parity_f32": {"losses_flash": fl.tolist(),
                           "losses_dense": dl.tolist(),
@@ -1931,15 +1994,7 @@ def phase_train(torch):
            "step_ms": 1e3 * rec["epoch_seconds"] / steps,
            "peak_memory_bytes": peak, "launches": launches,
            "kernel_launches": by_kernel, "jit_retraces": retraces,
-           "profiled_epoch": {
-               # the second epoch's window on the trace's device timeline,
-               # and the trainer's own CUDA-event seconds for it
-               "window_s": window_us / 1e6, "epoch_s": epoch_s,
-               "device_busy_s": busy_us / 1e6,
-               "device_busy_share": busy_us / window_us,
-               "kernel_share_of_device": share,
-               "top_kernels": [{"name": name[:90], "device_ms": us / 1e3}
-                               for name, us in top]}}
+           "profiled_epoch": profiled_epoch}
     emit(row)
     return row
 
@@ -2128,7 +2183,7 @@ def phase_lm96(torch):
     twins from seed 0, 2 steps at batch 16: per-step losses within rtol
     1e-4 and every trained parameter within atol 1e-4."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     from distkeras_tpu_torch import SingleTrainer
     from distkeras_tpu_torch.data import load_lm_corpus
     from distkeras_tpu_torch.models import zoo
@@ -2174,11 +2229,11 @@ def phase_lm96(torch):
 
     # (b) a warm step under the profiler: 2 epochs of 1 step, the second
     # read between the epochs' loss readbacks to pinned memory
-    pt = bf16_trainer(batch, 2)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        pt.train(corpus(batch))
-        torch.cuda.synchronize()
+    _, prof = traced(
+        torch, lambda: bf16_trainer(batch, 2).train(corpus(batch)), "lm96",
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+        record_shapes=True)
+    check(prof is not None, "lm96: the profiler traces hold no device time")
     dev = sorted(device_events(prof))
     marks = sorted(end for _, end, name in dev if "Pinned" in name)
     check(len(marks) == 2, f"lm96: {len(marks)} loss readbacks in the "
@@ -2203,7 +2258,7 @@ def phase_lm96(torch):
     around = [[step[i - 1][:60] if i else None, step[i][:60],
                step[i + 1][:60] if i + 1 < len(step) else None]
               for i in flash]
-    del pt, prof
+    del prof
 
     # (c) f32, flash against dense: 2 steps of batch 16 from seed 0
     f32_batch = 16
@@ -2345,7 +2400,6 @@ def phase_conv(torch):
     finite and has moved, and ``f32_parity``: the card's f32 run agrees
     with the CPU's (``f32_parity_ok``) and the TF32 control does not."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
     from distkeras_tpu_torch import bench
     from distkeras_tpu_torch.models import zoo
     from distkeras_tpu_torch.utils import to_numpy_variables
@@ -2377,20 +2431,30 @@ def phase_conv(torch):
     # intervals (host-to-device copies of the data and weights, made
     # before the first epoch, left out) over the trainer's CUDA-event
     # seconds of both epochs
-    pt = bench.resnet20_trainer(2)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    def profiled():
+        pt = bench.resnet20_trainer(2)
         pt.train(ds)
-        torch.cuda.synchronize()
-    dev = sorted(e for e in device_events(prof) if "HtoD" not in e[2])
-    busy_us, reached, by_name = 0.0, 0.0, {}
-    for start, end, name in dev:
-        busy_us += max(0.0, end - max(start, reached))
-        reached = max(reached, end)
-        by_name[name] = by_name.get(name, 0.0) + end - start
-    window_us = 1e6 * sum(r["epoch_seconds"] for r in pt.metrics.records
-                          if r["event"] == "epoch")
-    check(busy_us > 0, "the conv profile holds no device time")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        return pt
+
+    pt, prof = traced(torch, profiled, "conv")
+    profiled_run = None                 # not measured
+    if prof is not None:
+        dev = sorted(e for e in device_events(prof) if "HtoD" not in e[2])
+        busy_us, reached, by_name = 0.0, 0.0, {}
+        for start, end, name in dev:
+            busy_us += max(0.0, end - max(start, reached))
+            reached = max(reached, end)
+            by_name[name] = by_name.get(name, 0.0) + end - start
+        window_us = 1e6 * sum(r["epoch_seconds"] for r in pt.metrics.records
+                              if r["event"] == "epoch")
+        check(busy_us > 0, "the conv profile holds no device time")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        profiled_run = {
+            "epochs": 2, "epoch_seconds": window_us / 1e6,
+            "device_busy_s": busy_us / 1e6,
+            "device_busy_share": busy_us / window_us,
+            "top_kernels": [{"name": n[:90], "device_ms": us / 1e3}
+                            for n, us in top]}
 
     parity = f32_parity(torch)
     check(f32_parity_ok(parity["cuda_vs_cpu"]),
@@ -2407,12 +2471,7 @@ def phase_conv(torch):
            "step_ms": 1e3 * rec["epoch_seconds"] / steps,
            "peak_memory_bytes": peak,
            "bn_state_leaves_moved": moved,
-           "profiled_run": {
-               "epochs": 2, "epoch_seconds": window_us / 1e6,
-               "device_busy_s": busy_us / 1e6,
-               "device_busy_share": busy_us / window_us,
-               "top_kernels": [{"name": n[:90], "device_ms": us / 1e3}
-                               for n, us in top]},
+           "profiled_run": profiled_run,
            "parity_f32": {"cudnn_deterministic": True,
                           "learning_rate": bench.LEARNING_RATE, "steps": 2,
                           "step_rel_limit": F32_STEP_REL, **parity}}
@@ -3268,7 +3327,6 @@ def phase_stream(torch):
     import shutil
     import tempfile
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
     from distkeras_tpu_torch.data import ShardedFileDataset
     rows = []
     tmp = tempfile.mkdtemp(prefix="dkt_stream_")
@@ -3280,10 +3338,9 @@ def phase_stream(torch):
                                            rows_per_shard=cfg["streaming"])
             spill_s = time.perf_counter() - t0
             # the busy share: the configured run under the profiler
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                t, wall, peak, counters = _stream_run(torch, cfg, src,
-                                                      STREAM_EPOCHS)
-                torch.cuda.synchronize()
+            (t, wall, peak, counters), prof = traced(
+                torch, lambda: _stream_run(torch, cfg, src, STREAM_EPOCHS),
+                f"stream {name}")
             hist = t.get_averaged_history()
             check(all(bool(np.isfinite(h).all()) for h in t.get_history()),
                   f"{name}: a training loss is not finite")
@@ -3292,9 +3349,16 @@ def phase_stream(torch):
             check(counters["stream.producer_leaks"] == 0,
                   f"{name}: a prefetch thread outlived its join")
             rec = [r for r in t.metrics.records if r["event"] == "epoch"][-1]
-            t0 = time.perf_counter()
-            window_us, busy_us, _ = last_epoch_on_device(prof, len(hist))
-            read_s = time.perf_counter() - t0
+            profiled = None             # not measured
+            if prof is not None:
+                t0 = time.perf_counter()
+                window_us, busy_us, _ = last_epoch_on_device(prof, len(hist))
+                profiled = {"last_epoch_s": rec["epoch_seconds"],
+                            "samples_per_s": rec["samples_per_sec"],
+                            "window_s": window_us / 1e6,
+                            "device_busy_share": busy_us / window_us,
+                            "trace_read_s": prof.device_events_read_s
+                            + time.perf_counter() - t0}
             del prof
             row = {"phase": "stream", "config": name,
                    "trainer": cfg["trainer"],
@@ -3311,11 +3375,7 @@ def phase_stream(torch):
                    "producer_leaks": counters["stream.producer_leaks"],
                    "peak_memory_bytes": peak[0],
                    "live_before_bytes": peak[1],
-                   "profiled": {"last_epoch_s": rec["epoch_seconds"],
-                                "samples_per_s": rec["samples_per_sec"],
-                                "window_s": window_us / 1e6,
-                                "device_busy_share": busy_us / window_us,
-                                "trace_read_s": read_s}}
+                   "profiled": profiled}
             if cfg["trainer"] == "SingleTrainer":
                 row["ram_vs_disk"] = _ram_vs_disk(torch, cfg, ds, src)
             emit(row)
@@ -5363,7 +5423,9 @@ def _continual_run(torch, ckdir, intervals, drift_interval, deploy=True,
     failed = [d for d in deploys if "failed" in d]
     check(not failed, f"continual deploy checks failed: {failed}")
     t0 = time.perf_counter()
-    busy = _busy_us(prof) / (wall * 1e6)
+    busy = _busy_us(prof) / (wall * 1e6) if device_events(prof) else None
+    if busy is None:
+        _profiler_gap("continual", "not measured")
     return {"trainer": trainer, "engine": engine, "ref": ref, "feed": feed,
             "prompts": prompts, "deploys": deploys, "wall_s": wall,
             "busy": busy, "trace_read_s": time.perf_counter() - t0,
@@ -5772,15 +5834,15 @@ CUDA_KERNELS = (
     ("flash_bwd_dq", "flash_bwd_sm90.cu", 169),
     ("flash_bwd_dq_wgmma_wide", "flash_bwd_sm90.cu", 169),
     ("flash_bwd_dq_f32", "flash_bwd_tf32_sm90.cu", 169),
-    ("flash_bwd_dq_wide", "flash_bwd_wide.cu", 169),
     ("flash_bwd_dq_f32_wide", "flash_bwd_tf32_sm90.cu", 169),
     ("flash_bwd_dq_wgmma_past256", "flash_bwd_panels_sm90.cu", 169),
+    ("flash_bwd_dq_f32_past256", "flash_bwd_tf32_panels_sm90.cu", 169),
     ("flash_bwd_dkv", "flash_bwd_sm90.cu", 200),
     ("flash_bwd_dkv_wgmma_wide", "flash_bwd_sm90.cu", 200),
     ("flash_bwd_dkv_f32", "flash_bwd_tf32_sm90.cu", 200),
     ("flash_bwd_dkv_f32_wide", "flash_bwd_tf32_sm90.cu", 200),
-    ("flash_bwd_dkv_wide", "flash_bwd_wide.cu", 200),
     ("flash_bwd_dkv_wgmma_past256", "flash_bwd_panels_sm90.cu", 200),
+    ("flash_bwd_dkv_f32_past256", "flash_bwd_tf32_panels_sm90.cu", 200),
 )
 
 
@@ -5802,8 +5864,7 @@ def kernels_line(k1, sl, tr, lm128, lm256, lm96, dist_kernels, past256,
     # the bf16 probe, its f32 parity run, the Dh 128 model, distributed
     # ADAG, lm256's bf16 training, f32 parity and serving, lm96's bf16
     # training and f32 parity, and the Dh 320 op through autograd (the
-    # one path of the f32 CUDA-core K2 and K3 and of the bf16 ones past
-    # Dh 256); then
+    # one path of the K2 and K3 past Dh 256 in both dtypes); then
     # ``later_paths``, (path, rows) pairs of the later phases
     paths = (
         ("serve", sl["kernel_launches"]),
@@ -5951,10 +6012,12 @@ def main() -> int:
                                past256, bwd_rows, bwd_timed, later)
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
-        print(json.dumps({"phase_seconds": seconds}), file=sys.stderr)
+        print(json.dumps({"phase_seconds": seconds,
+                          "profiler_gaps": PROFILER_GAPS}), file=sys.stderr)
         return 1
     emit({"phase": "timing", "seconds": seconds,
-          "total_s": time.perf_counter() - t_start})
+          "total_s": time.perf_counter() - t_start,
+          "profiler_gaps": PROFILER_GAPS})
     emit({"kernels": kernels})
     print(env["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -7,10 +7,11 @@ f32 on CUDA cores: up to head dim 128 at small grids, and past 256),
 ``csrc/flash_fwd_sm90.cu`` (K1 in bf16 up to head dim 256),
 ``csrc/flash_fwd_panels_sm90.cu`` (K1 in bf16 past 256),
 ``csrc/flash_bwd.cu`` (the C interface of K2, K3),
-``csrc/flash_bwd_tf32_sm90.cu`` (K2, K3 in f32, as 3xTF32 on mma.sync),
-``csrc/flash_bwd_sm90.cu`` (K2, K3 in bf16 up to head dim 256),
-``csrc/flash_bwd_panels_sm90.cu`` (K2, K3 in bf16 past 256) and
-``csrc/flash_bwd_wide.cu`` (K2 and K3 in f32 past 256, on CUDA cores; the
+``csrc/flash_bwd_tf32_sm90.cu`` (K2, K3 in f32 up to head dim 256, as
+3xTF32 on mma.sync), ``csrc/flash_bwd_tf32_panels_sm90.cu`` (K2, K3 in
+f32 past 256, as 3xTF32 in output panels),
+``csrc/flash_bwd_sm90.cu`` (K2, K3 in bf16 up to head dim 256) and
+``csrc/flash_bwd_panels_sm90.cu`` (K2, K3 in bf16 past 256; the
 ``_sm90`` files include ``csrc/sm90.cuh``, their shared PTX and
 tensor-map helpers, the ``_tf32_`` ones ``csrc/tf32.cuh``, the 3xTF32
 pieces, and the two C interfaces ``csrc/launched.h``, the codes of the
@@ -39,8 +40,9 @@ SOURCES = tuple(os.path.join(_CSRC, f)
                 for f in ("flash_fwd.cu", "flash_fwd_tf32_sm90.cu",
                           "flash_fwd_sm90.cu", "flash_fwd_panels_sm90.cu",
                           "flash_bwd.cu",
-                          "flash_bwd_tf32_sm90.cu", "flash_bwd_sm90.cu",
-                          "flash_bwd_panels_sm90.cu", "flash_bwd_wide.cu"))
+                          "flash_bwd_tf32_sm90.cu",
+                          "flash_bwd_tf32_panels_sm90.cu", "flash_bwd_sm90.cu",
+                          "flash_bwd_panels_sm90.cu"))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "_build")
 

@@ -1,9 +1,9 @@
 // Flash-attention backward, the C interface: K2 (dQ) and K3 (dK, dV) for
 // both dtypes.  The kernels live beside it: f32 as 3xTF32 on mma.sync in
-// flash_bwd_tf32_sm90.cu (32, 64, 128 and any in 129-256) and on CUDA
-// cores past 256 in flash_bwd_wide.cu; bf16 on wgmma and TMA at any
-// multiple of 8, in flash_bwd_sm90.cu up to 256 and in 256-column output
-// panels past it in flash_bwd_panels_sm90.cu.
+// flash_bwd_tf32_sm90.cu (32, 64, 128 and any in 129-256) and in
+// 512-column output panels past 256 in flash_bwd_tf32_panels_sm90.cu;
+// bf16 on wgmma and TMA at any multiple of 8, in flash_bwd_sm90.cu up to
+// 256 and in 256-column output panels past it in flash_bwd_panels_sm90.cu.
 // This file checks the arguments, sets the device and picks the kernel
 // for (dtype, head dim).
 //
@@ -61,17 +61,19 @@ cudaError_t flash_bwd_dkv_bf16_panels(const void* q, const void* k,
                                       void* dk, void* dv, int bh, int tq,
                                       int tk, int head_dim, int causal,
                                       float scale, cudaStream_t stream);
-// the f32 CUDA-core kernels for head_dim > 256 (flash_bwd_wide.cu)
-cudaError_t flash_bwd_dq_wide(const void* q, const void* k, const void* v,
-                              const void* dout, const void* lse,
-                              const void* dvec, void* dq, int bh, int tq,
-                              int tk, int head_dim, int causal, float scale,
-                              cudaStream_t stream);
-cudaError_t flash_bwd_dkv_wide(const void* q, const void* k, const void* v,
-                               const void* dout, const void* lse,
-                               const void* dvec, void* dk, void* dv, int bh,
-                               int tq, int tk, int head_dim, int causal,
-                               float scale, cudaStream_t stream);
+// the f32 kernels for head_dim > 256 (flash_bwd_tf32_panels_sm90.cu)
+cudaError_t flash_bwd_dq_f32_panels(const void* q, const void* k,
+                                    const void* v, const void* dout,
+                                    const void* lse, const void* dvec,
+                                    void* dq, int bh, int tq, int tk,
+                                    int head_dim, int causal, float scale,
+                                    cudaStream_t stream);
+cudaError_t flash_bwd_dkv_f32_panels(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const void* lse, const void* dvec,
+                                     void* dk, void* dv, int bh, int tq,
+                                     int tk, int head_dim, int causal,
+                                     float scale, cudaStream_t stream);
 
 namespace {
 
@@ -119,15 +121,17 @@ cudaError_t launch_dkv_bf16_panels(const BwdArgs& a, cudaStream_t stream) {
                                    a.causal, a.scale, stream);
 }
 
-cudaError_t launch_dq_wide(const BwdArgs& a, cudaStream_t stream) {
-  return flash_bwd_dq_wide(a.q, a.k, a.v, a.dout, a.lse, a.dvec, a.dq, a.bh,
-                           a.tq, a.tk, a.head_dim, a.causal, a.scale, stream);
+// f32 K2 and K3 past 256 as 3xTF32, in output panels
+cudaError_t launch_dq_f32_panels(const BwdArgs& a, cudaStream_t stream) {
+  return flash_bwd_dq_f32_panels(a.q, a.k, a.v, a.dout, a.lse, a.dvec, a.dq,
+                                 a.bh, a.tq, a.tk, a.head_dim, a.causal,
+                                 a.scale, stream);
 }
 
-cudaError_t launch_dkv_wide(const BwdArgs& a, cudaStream_t stream) {
-  return flash_bwd_dkv_wide(a.q, a.k, a.v, a.dout, a.lse, a.dvec, a.dk, a.dv,
-                            a.bh, a.tq, a.tk, a.head_dim, a.causal, a.scale,
-                            stream);
+cudaError_t launch_dkv_f32_panels(const BwdArgs& a, cudaStream_t stream) {
+  return flash_bwd_dkv_f32_panels(a.q, a.k, a.v, a.dout, a.lse, a.dvec,
+                                  a.dk, a.dv, a.bh, a.tq, a.tk, a.head_dim,
+                                  a.causal, a.scale, stream);
 }
 
 // f32 K2 and K3 at 129 <= head_dim <= 256 as 3xTF32 (the runtime head dim)
@@ -152,10 +156,10 @@ struct Pick {
 
 // The launcher for (dtype, head_dim); f is nullptr for what no kernel
 // takes.  `f32` holds the f32 launchers at 32, 64 and 128, `f32_wide`
-// takes any head dim in 129-256 and `wide` any past 256; `bf16` takes a
-// multiple of 8 (its TMA row stride) up to 256 and `bf16_panels` one past
-// 256.
-Pick pick(const Launcher (&f32)[3], Launcher f32_wide, Launcher wide,
+// takes any head dim in 129-256 and `f32_panels` any past 256; `bf16`
+// takes a multiple of 8 (its TMA row stride) up to 256 and `bf16_panels`
+// one past 256.
+Pick pick(const Launcher (&f32)[3], Launcher f32_wide, Launcher f32_panels,
           Launcher bf16, Launcher bf16_panels, int dtype, int head_dim) {
   if (dtype != 0 && dtype != 1) return {nullptr, kCudaCores};
   if (dtype == 1) {
@@ -164,7 +168,7 @@ Pick pick(const Launcher (&f32)[3], Launcher f32_wide, Launcher wide,
                                      : Pick{bf16_panels, kWgmmaPast256};
     return {head_dim % 8 == 0 ? p.f : nullptr, p.kernel};
   }
-  if (head_dim > 256) return {wide, kCudaCores};
+  if (head_dim > 256) return {f32_panels, kTf32Past256};
   if (head_dim > 128) return {f32_wide, kTf32Wide};
   const int d = head_dim == 32 ? 0 : head_dim == 64 ? 1 : head_dim == 128 ? 2
                                                                           : -1;
@@ -199,8 +203,8 @@ extern "C" int dkt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                   launch_dq_f32<128>};
   const BwdArgs a{q, k, v, dout, lse, dvec, dq, nullptr, nullptr,
                   bh, tq, tk, head_dim, causal, scale};
-  return run(pick(f32, launch_dq_f32_wide, launch_dq_wide, launch_dq_bf16,
-                  launch_dq_bf16_panels, dtype, head_dim),
+  return run(pick(f32, launch_dq_f32_wide, launch_dq_f32_panels,
+                  launch_dq_bf16, launch_dq_bf16_panels, dtype, head_dim),
              a, device, stream);
 }
 
@@ -215,7 +219,7 @@ extern "C" int dkt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   launch_dkv_f32<128>};
   const BwdArgs a{q, k, v, dout, lse, dvec, nullptr, dk, dv,
                   bh, tq, tk, head_dim, causal, scale};
-  return run(pick(f32, launch_dkv_f32_wide, launch_dkv_wide,
+  return run(pick(f32, launch_dkv_f32_wide, launch_dkv_f32_panels,
                   launch_dkv_bf16, launch_dkv_bf16_panels, dtype, head_dim),
              a, device, stream);
 }

@@ -3,7 +3,7 @@
 // a multiple of 8 (the TMA row stride; the wrapper pads other Dh to the
 // next multiple of 8).  Called from flash_bwd.cu's C interface
 // (dkt_flash_bwd_dq, dkt_flash_bwd_dkv) for dtype 1; up to 256 bf16 runs
-// flash_bwd_sm90.cu, and f32 past 256 flash_bwd_wide.cu on CUDA cores.
+// flash_bwd_sm90.cu, and f32 past 256 flash_bwd_tf32_panels_sm90.cu.
 //
 // Replaces: distkeras_tpu/ops/pallas_attention.py:_bwd_dq_kernel (K2,
 // :169) and _bwd_dkv_kernel (K3, :200), whose BlockSpecs span any head
@@ -27,11 +27,11 @@
 // 0.120).  Bytes bound both, with the operations close behind.
 //
 // Design: the D = 256 kernels of flash_bwd_sm90.cu carried past 256 in
-// output panels, as flash_bwd_wide.cu carried its CUDA-core tile.  A block
-// is two warpgroups (256 threads) and owns one panel of kPanel = 256
-// columns of its outputs, the grid holding (panel, tile, batch*head) with
-// the panels of one tile side by side, so the blocks that read the same
-// rows run together and share them in L2.  Each warpgroup holds a
+// output panels.  A block is two warpgroups (256 threads) and owns one
+// panel of kPanel = 256 columns of its outputs, the grid holding (panel,
+// tile, batch*head) with the panels of one tile side by side, so the
+// blocks that read the same rows run together and share them in L2.
+// Each warpgroup holds a
 // 128-column half of the panel (dQ: 64 accumulator registers a thread;
 // dK and dV: 128) and forms the whole S and dP (K3: S^T and dP^T) itself,
 // as at D = 256; a warpgroup whose half lies wholly past Dh (the last

@@ -1,8 +1,8 @@
 // Flash-attention backward in f32 on Hopper's tensor cores (sm_90a), every
 // product as 3xTF32: K2 (dQ) and K3 (dK, dV) at head dims 32, 64 and 128,
 // and at any head dim in 129-256.  Called from flash_bwd.cu's C interface
-// (dkt_flash_bwd_dq, dkt_flash_bwd_dkv) for dtype 0; past 256 both run on
-// CUDA cores (flash_bwd_wide.cu).
+// (dkt_flash_bwd_dq, dkt_flash_bwd_dkv) for dtype 0; past 256 both run in
+// 512-column output panels (flash_bwd_tf32_panels_sm90.cu).
 //
 // Replaces: distkeras_tpu/ops/pallas_attention.py:_bwd_dq_kernel (K2,
 // :169) and _bwd_dkv_kernel (K3, :200) under the f32 branch of

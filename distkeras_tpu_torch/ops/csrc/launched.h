@@ -8,9 +8,10 @@ enum LaunchedKernel {
   kWgmma = 0,      // bf16 on wgmma, head dim 32, 64 or 128
   kWgmmaWide = 1,  // bf16 on wgmma, head dim 129-256
   kTf32 = 2,       // f32 as 3xTF32 on mma.sync, head dim <= 128
-  kCudaCores = 3,  // CUDA cores (flash_fwd.cu, flash_bwd_wide.cu)
+  kCudaCores = 3,  // CUDA cores (flash_fwd.cu)
   kTf32Wide = 4,   // f32 as 3xTF32 on mma.sync, head dim 129-256
   kWgmmaPast256 = 5,  // bf16 on wgmma past head dim 256, in output panels
+  kTf32Past256 = 6,   // f32 as 3xTF32 past head dim 256, in output panels
 };
 
 void dkt_set_last_kernel(LaunchedKernel kernel);

@@ -1,11 +1,13 @@
 // The 3xTF32 building blocks shared by the f32 flash-attention kernels on
 // Hopper's tensor cores (sm_90a): K1 (flash_fwd_tf32_sm90.cu) and K2/K3
-// (flash_bwd_tf32_sm90.cu).  cp.async into shared memory, the split of an
+// (flash_bwd_tf32_sm90.cu; past head dim 256 flash_bwd_tf32_panels_sm90.cu).
+// cp.async into shared memory (and its commit groups), the split of an
 // f32 value into tf32 hi and lo, mma.sync.m16n8k8 on tf32 operands, the
 // fragment loads of both orientations of a tile (row stride Dh + 4
 // floats), the A fragment taken from an accumulator, S = X Y^T over half
 // a 64-row tile with the small terms summed apart (in one chain, or in
-// pairs of k-steps from zero), unpadded rows of any Dh into a tile, the
+// pairs of k-steps from zero, or over a chunk of Dh at a time), unpadded
+// rows (or a slice of their columns) of any Dh into a tile, the
 // product of an accumulator with a tile's rows over Dh or a slice of it,
 // and the named barriers of a warp pair.  The file header of
 // flash_bwd_tf32_sm90.cu says why each is as it is.
@@ -33,6 +35,16 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
 // waits for every cp.async this thread has issued
 __device__ __forceinline__ void cp_wait_all() {
   asm volatile("cp.async.wait_all;" ::: "memory");
+}
+// closes this thread's group of the cp.async started since the last one
+// (an empty group where there were none)
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// waits until at most N of this thread's groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 // 4 bytes from global to shared memory (for rows that are not 16-byte
 // aligned); `valid` false writes zeros and reads nothing
@@ -168,32 +180,76 @@ __device__ __forceinline__ void product_t(float (&c)[kNJ][4], const float* x,
     for (int i = 0; i < 4; ++i) c[j][i] += cs[j][i];
 }
 
-// Rows [r0, r0 + ROWS) of a contiguous (n, dh) f32 matrix into a tile of
-// ROWS x D at row stride D + 4, by the block's NT threads; rows at or past
-// n and columns at or past dh read as zeros.  16-byte chunks when `vec`
-// (dh % 4 == 0), else one float at a time.
-template <int D, int ROWS, int NT>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int r0, int n, int dh, bool vec) {
+// Columns [c0, c0 + W) of rows [r0, r0 + ROWS) of a contiguous (n, dh)
+// f32 matrix into a tile of ROWS x W at row stride W + 4, by the block's
+// NT threads; rows at or past n and columns at or past dh read as zeros
+// (and read nothing).  16-byte chunks when `vec` (dh % 4 == 0, and c0 a
+// multiple of 4), else one float at a time.
+template <int W, int ROWS, int NT>
+__device__ __forceinline__ void load_cols(float* dst, const float* src,
+                                          int r0, int n, int c0, int dh,
+                                          bool vec) {
   if (vec) {
-    constexpr int kChunks = D / 4;
+    constexpr int kChunks = W / 4;
 #pragma unroll
     for (int u = 0; u < ROWS * kChunks / NT; ++u) {
       const int i = threadIdx.x + u * NT;
       const int r = i / kChunks, c = 4 * (i % kChunks);
-      const bool valid = r0 + r < n && c < dh;
-      cp_async16(dst + r * (D + 4) + c,
-                 valid ? src + (size_t)(r0 + r) * dh + c : src, valid);
+      const bool valid = r0 + r < n && c0 + c < dh;
+      cp_async16(dst + r * (W + 4) + c,
+                 valid ? src + (size_t)(r0 + r) * dh + c0 + c : src, valid);
     }
   } else {
 #pragma unroll 8
-    for (int u = 0; u < ROWS * D / NT; ++u) {
+    for (int u = 0; u < ROWS * W / NT; ++u) {
       const int i = threadIdx.x + u * NT;
-      const int r = i / D, c = i % D;
-      const bool valid = r0 + r < n && c < dh;
-      cp_async4(dst + r * (D + 4) + c,
-                valid ? src + (size_t)(r0 + r) * dh + c : src, valid);
+      const int r = i / W, c = i % W;
+      const bool valid = r0 + r < n && c0 + c < dh;
+      cp_async4(dst + r * (W + 4) + c,
+                valid ? src + (size_t)(r0 + r) * dh + c0 + c : src, valid);
     }
+  }
+}
+
+// Rows [r0, r0 + ROWS) of a contiguous (n, dh) f32 matrix into a tile of
+// ROWS x D at row stride D + 4 (load_cols from column 0)
+template <int D, int ROWS, int NT>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int r0, int n, int dh, bool vec) {
+  load_cols<D, ROWS, NT>(dst, src, r0, n, 0, dh, vec);
+}
+
+// c[j] += X Y^T over KSTEPS k-steps (8 columns each) of tiles of row
+// stride LD: product_s's pairs, hi*hi of each pair from zero and added to
+// c in f32, the small terms into cs.  Called once over all of Dh
+// (product_s), or once for each chunk of Dh's columns with c and cs
+// carried across the chunks (the panel kernels), which sums alike; a
+// chunk stops after its first `ksteps` k-steps (an even count: those past
+// are columns past Dh, read as zeros, which would add exact zeros).
+template <int LD, int KSTEPS, int U, int NJ>
+__device__ __forceinline__ void s_pairs(float (&c)[NJ][4],
+                                        float (&cs)[NJ][4], const float* x,
+                                        const float* y, int m0, int g, int t,
+                                        int ksteps = KSTEPS) {
+  static_assert(KSTEPS % 2 == 0, "k-steps go in pairs");
+#pragma unroll(U)
+  for (int kk = 0; kk < ksteps; kk += 2) {
+    float pair[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pair[j][i] = 0.f;
+#pragma unroll
+    for (int k2 = kk; k2 < kk + 2; ++k2) {
+      const FragA a = frag_a<LD>(x, m0, 8 * k2, g, t);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        mma3(pair[j], cs[j], a, frag_bt<LD>(y, 8 * j, 8 * k2, g, t));
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[j][i] += pair[j][i];
   }
 }
 
@@ -216,31 +272,12 @@ __device__ __forceinline__ void product_s(float (&c)[NJ][4], const float* x,
                                           const float* y, int m0, int g,
                                           int t) {
   static_assert(D % 16 == 0, "k-steps go in pairs");
-  constexpr int LD = D + 4;
   float cs[NJ][4];
 #pragma unroll
   for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) c[j][i] = cs[j][i] = 0.f;
-#pragma unroll(U)
-  for (int kk = 0; kk < D / 8; kk += 2) {
-    float pair[NJ][4];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pair[j][i] = 0.f;
-#pragma unroll
-    for (int k2 = kk; k2 < kk + 2; ++k2) {
-      const FragA a = frag_a<LD>(x, m0, 8 * k2, g, t);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-        mma3(pair[j], cs[j], a, frag_bt<LD>(y, 8 * j, 8 * k2, g, t));
-    }
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) c[j][i] += pair[j][i];
-  }
+  s_pairs<D + 4, D / 8, U, NJ>(c, cs, x, y, m0, g, t);
 #pragma unroll
   for (int j = 0; j < NJ; ++j)
 #pragma unroll
@@ -255,11 +292,13 @@ __device__ __forceinline__ void product_s(float (&c)[NJ][4], const float* x,
 // once (or, with !kSplitOnce, again for each chunk, which keeps 32
 // registers free); the product runs over kChunk n8 tiles of output
 // columns at a time (32 columns by default), each chunk's sum taken apart
-// from zero and added to acc in f32.  Neither choice changes a sum.
+// from zero and added to acc in f32.  Neither choice changes a sum.  A
+// chunk at or past `n_live` n8 tiles (output columns past Dh) is skipped.
 template <int D, bool kSplitOnce = true, int kChunk = 4, int N = D>
 __device__ __forceinline__ void product_pv(float (&acc)[N / 8][4],
                                            const float (&p)[kNJ][4],
-                                           const float* y, int g, int t) {
+                                           const float* y, int g, int t,
+                                           int n_live = N / 8) {
   static_assert(N % (8 * kChunk) == 0, "whole chunks");
   constexpr int LD = D + 4;
   FragA a[kSplitOnce ? kNJ : 1];
@@ -269,6 +308,7 @@ __device__ __forceinline__ void product_pv(float (&acc)[N / 8][4],
   }
 #pragma unroll
   for (int c0 = 0; c0 < N / 8; c0 += kChunk) {
+    if (c0 >= n_live) continue;
     float part[kChunk][4];
 #pragma unroll
     for (int j = 0; j < kChunk; ++j)

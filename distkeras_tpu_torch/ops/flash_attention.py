@@ -13,18 +13,18 @@ as 3xTF32 on mma.sync (``ops/csrc/flash_fwd_tf32_sm90.cu``,
 kernels on 192- and 256-wide wgmma tiles, the f32 ones as 3xTF32 on
 192- and 256-wide tiles.  Past 256 the bf16 kernels run on wgmma in
 256-column output panels (``ops/csrc/flash_fwd_panels_sm90.cu``,
-``ops/csrc/flash_bwd_panels_sm90.cu``).  The f32 forward up to 128 at
-grids too small for 64-row tiles (the serving shapes), and the f32
-forward and backward past 256, run on CUDA cores
-(``ops/csrc/flash_fwd.cu``, ``ops/csrc/flash_bwd_wide.cu``), which take
-any head dim, as the reference's BlockSpecs do.
+``ops/csrc/flash_bwd_panels_sm90.cu``), and so does the f32 backward as
+3xTF32 (``ops/csrc/flash_bwd_tf32_panels_sm90.cu``).  The f32 forward up
+to 128 at grids too small for 64-row tiles (the serving shapes), and
+past 256, runs on CUDA cores (``ops/csrc/flash_fwd.cu``), which take any
+head dim, as the reference's BlockSpecs do.
 ``kernel_head_dim`` names the width each kernel runs.  On CPU tensors
 they are ``flash_fwd_plain`` and ``flash_bwd_plain``, the dense versions
 of the same functions.  A CUDA tensor never takes a plain version: the
 kernel runs or the call raises.
 
-Head dims: the f32 forward and the CUDA-core kernels read rows of the
-caller's Dh and mask the columns past it in their tiles.  The bf16
+Head dims: the f32 forward and the f32 K2 and K3 past 128 read rows of
+the caller's Dh and mask the columns past it in their tiles.  The bf16
 kernels on wgmma (K1, K2 and K3 at every head dim) read rows
 of the caller's Dh into tiles of 32, 64, 128, 192 or 256 columns, or
 past 256 in 64-column chunks, TMA zero-filling the columns past Dh, and
@@ -147,7 +147,7 @@ def kernel_head_dim(dh: int, dtype: torch.dtype, kernel: str) -> int:
     of 8 (the wgmma kernels' TMA rows of a 16-byte multiple, at every
     Dh), so a Dh of a multiple of 8 crosses unpadded; the f32 forward any Dh; the f32 K2 and K3 up to 128
     the least of ``HEAD_DIMS`` that holds it; past that Dh itself (the
-    f32 K2 and K3 at 129–256 and on CUDA cores past 256 mask the columns
+    f32 K2 and K3 at 129–256 and in panels past 256 mask the columns
     past Dh and take any Dh)."""
     if dtype == torch.bfloat16:
         return -(-dh // 8) * 8
@@ -217,20 +217,21 @@ def _check(name: str, q, k, v, causal: bool, stats=(), do=None):
 #: the kernel each C entry point reports it ran
 #: (``dkt_flash_last_kernel``), by its code in ``csrc/launched.h``: bf16
 #: on wgmma up to head dim 128, bf16 on wgmma at 129–256, f32 as
-#: 3xTF32 up to 128, CUDA cores, f32 as 3xTF32 at 129–256, bf16 on wgmma
-#: past 256 (in 256-column output panels)
+#: 3xTF32 up to 128, CUDA cores (K1 only), f32 as 3xTF32 at 129–256, bf16
+#: on wgmma past 256 and f32 as 3xTF32 past 256 (K2, K3 only; both in
+#: 256-column output panels)
 KERNELS = {
     "dkt_flash_fwd": ("flash_fwd", "flash_fwd_wgmma_wide", "flash_fwd_f32",
                       "flash_fwd_cuda_cores", "flash_fwd_f32_wide",
-                      "flash_fwd_wgmma_past256"),
+                      "flash_fwd_wgmma_past256", None),
     "dkt_flash_bwd_dq": ("flash_bwd_dq", "flash_bwd_dq_wgmma_wide",
-                         "flash_bwd_dq_f32", "flash_bwd_dq_wide",
-                         "flash_bwd_dq_f32_wide",
-                         "flash_bwd_dq_wgmma_past256"),
+                         "flash_bwd_dq_f32", None, "flash_bwd_dq_f32_wide",
+                         "flash_bwd_dq_wgmma_past256",
+                         "flash_bwd_dq_f32_past256"),
     "dkt_flash_bwd_dkv": ("flash_bwd_dkv", "flash_bwd_dkv_wgmma_wide",
-                          "flash_bwd_dkv_f32", "flash_bwd_dkv_wide",
-                          "flash_bwd_dkv_f32_wide",
-                          "flash_bwd_dkv_wgmma_past256"),
+                          "flash_bwd_dkv_f32", None, "flash_bwd_dkv_f32_wide",
+                          "flash_bwd_dkv_wgmma_past256",
+                          "flash_bwd_dkv_f32_past256"),
 }
 #: launches by (kernel of ``KERNELS``, dtype name, the caller's head dim),
 #: each counted where its launch returned, under the kernel the C entry

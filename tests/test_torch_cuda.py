@@ -600,8 +600,9 @@ def test_f32_k1_at_head_dim_256_dispatches_by_grid_fill(bh, t, want):
 def test_kernels_at_head_dims_past_256(dtype, causal, t, tk, dh):
     """Head dims past 256, which the kernels take in 256-column panels (S
     and dP summed over every chunk of Dh): K1, K2 and K3 against the plain
-    versions, one launch each, f32 on CUDA cores, bf16 on wgmma (Dh 257
-    and 300 padded to 264 and 304);
+    versions, one launch each, f32 K1 on CUDA cores and K2, K3 as 3xTF32
+    on unpadded rows, bf16 on wgmma (Dh 257 and 300 padded to 264 and
+    304);
     f32 O and lse within 1e-5, the rest within ``_close``'s bound of the
     dtype (bf16 O within ``_close_o``)."""
     args, o_ref = _wide_inputs(4, t, tk, dh, dtype, causal, dh)
@@ -617,8 +618,8 @@ def test_kernels_at_head_dims_past_256(dtype, causal, t, tk, dh):
     name = str(dtype).removeprefix("torch.")
     ran = (("flash_fwd_wgmma_past256", "flash_bwd_dq_wgmma_past256",
             "flash_bwd_dkv_wgmma_past256") if dtype == torch.bfloat16 else
-           ("flash_fwd_cuda_cores", "flash_bwd_dq_wide",
-            "flash_bwd_dkv_wide"))
+           ("flash_fwd_cuda_cores", "flash_bwd_dq_f32_past256",
+            "flash_bwd_dkv_f32_past256"))
     assert KERNEL_LAUNCHES - before == Counter(
         {(kernel, name, dh): 1 for kernel in ran})
     assert o.shape == q.shape and bool(torch.isfinite(o).all())
@@ -688,6 +689,71 @@ def test_bf16_backward_on_wgmma_past_head_dim_256(causal, t, tk, dh):
         assert g.shape == r.shape and g.dtype == r.dtype
         assert bool(torch.isfinite(g).all())
         _close(g, r, torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal,t,tk", [(True, 200, 200), (False, 100, 130),
+                                         (False, 257, 100), (True, 1, 1)])
+@pytest.mark.parametrize("dh", [261, 264, 300, 320, 384, 512, 1024])
+def test_f32_backward_past_head_dim_256_on_tensor_cores(causal, t, tk, dh):
+    """The f32 K2 and K3 past head dim 256, as 3xTF32 on mma.sync in
+    256-column output panels (S and dP summed over 64-column chunks of
+    Dh through a three-stage cp.async ring; at 261 and 264 a last panel
+    of 5 and 8 columns, 261 and 300 read by 4-byte loads, at 1024 four
+    full panels through the same shared memory as at 264): against
+    ``flash_bwd_plain`` at the caller's Dh, causal and not, Tk < Tq and
+    Tk > Tq, ragged T and a causal row of one, one launch each, counted
+    under the 3xTF32 panel kernels, within ``_close``'s f32 bound, all
+    finite."""
+    args, _ = _wide_inputs(4, t, tk, dh, torch.float32, causal, dh + t)
+    counts = (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches)
+    before = Counter(KERNEL_LAUNCHES)
+    got = (flash_bwd_dq_cuda(*args), *flash_bwd_dkv_cuda(*args))
+    torch.cuda.synchronize()
+    assert (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches) == \
+        tuple(c + 1 for c in counts)
+    assert KERNEL_LAUNCHES - before == Counter(
+        {(kernel, "float32", dh): 1 for kernel in (
+            "flash_bwd_dq_f32_past256", "flash_bwd_dkv_f32_past256")})
+    for g, r in zip(got, flash_bwd_plain(*args)):
+        assert g.shape == r.shape and g.dtype == r.dtype
+        assert bool(torch.isfinite(g).all())
+        _close(g, r, torch.float32)
+
+
+@pytest.mark.parametrize("causal,t,tk,dh", [
+    (True, 200, None, 320), (True, 200, None, 512), (False, 64, 130, 512)])
+def test_f32_past256_k2_k3_are_3xtf32_not_tf32(causal, t, tk, dh):
+    """Past head dim 256, on Q and K with a common offset of 1, the f32 K2
+    and K3 (3xTF32 in 512-column panels, S and dP summing 40 or 64
+    k-steps, hi·hi in pairs from zero) are within ``_close``'s f32 bound
+    of dQ, dK and dV computed in float64, and the plain version with TF32
+    products (``allow_tf32``) misses it: their products are 3xTF32, not
+    one TF32 pass.  float64 is the witness, as at Dh 129–256."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    tk = t if tk is None else tk
+    q, do = (torch.randn((8, t, dh), generator=gen, device="cuda")
+             for _ in range(2))
+    k, v = (torch.randn((8, tk, dh), generator=gen, device="cuda")
+            for _ in range(2))
+    q, k = q + 1.0, k + 1.0
+    scale = dh ** -0.5
+    o, lse = flash_fwd_plain(q, k, v, causal, scale)
+    args = (q, k, v, lse, do, (do * o).sum(-1), causal, scale)
+    exact = (dq_float64(torch, *args), *dkv_float64(torch, *args))
+    before = Counter(KERNEL_LAUNCHES)
+    got = (flash_bwd_dq_cuda(*args), *flash_bwd_dkv_cuda(*args))
+    assert KERNEL_LAUNCHES - before == Counter(
+        {(kernel, "float32", dh): 1 for kernel in (
+            "flash_bwd_dq_f32_past256", "flash_bwd_dkv_f32_past256")})
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = flash_bwd_plain(*args)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    for g, r, one_pass in zip(got, exact, tf32):
+        _close(g, r, torch.float32)
+        with pytest.raises(AssertionError):
+            _close(one_pass, r, torch.float32)
 
 
 @pytest.mark.parametrize("t,dh", [(2048, 64), (2048, 128), (4096, 64),

@@ -398,6 +398,43 @@ def test_wide_3xtf32_recipe_matches_jax_kernels(kernel, causal, t, tk):
             np.testing.assert_allclose(one_pass.numpy(), r, **tol)
 
 
+@pytest.mark.parametrize("dh", [320, 512])
+@pytest.mark.parametrize("causal,t,tk", [(True, 64, 64), (False, 32, 96)])
+def test_past256_3xtf32_backward_recipe_matches_jax_kernels(causal, t, tk,
+                                                            dh):
+    """The f32 K2 and K3 past head dim 256 (``ops/csrc/
+    flash_bwd_tf32_panels_sm90.cu``), emulated in plain torch: S and dP
+    summed over all of Dh in the order every 256-column panel's block
+    sums its 64-column chunks (hi·hi of each pair of k-steps from zero,
+    the pairs added in f32 in order, the small terms apart and added
+    last: ``_tf32_scores``, since the chunks end on pairs), each 32-row
+    tile's dQ, dK and dV from zero and added in f32 (``_tiled``), which
+    splitting the outputs into panels does not change — against the JAX
+    package's Pallas backward (``_flash_bwd_raw``, interpret mode, f32
+    HIGHEST) on Q and K with a common offset of 1 (scores near 18 and
+    23): within ``GRAD_TOL``, where one TF32 pass misses it."""
+    rng = np.random.default_rng(17)
+    bh = 2
+    q, k = (torch.from_numpy((rng.normal(size=(bh, n, dh)) + 1.0).astype(
+        np.float32)) for n in (t, tk))
+    v = torch.from_numpy(rng.normal(size=(bh, tk, dh)).astype(np.float32))
+    do = torch.from_numpy(rng.normal(size=(bh, t, dh)).astype(np.float32))
+    scale = dh ** -0.5
+    o, lse = flash_fwd_plain(q, k, v, causal, scale)
+    dvec = (do * o).sum(-1)
+    ref = jax.jit(functools.partial(_flash_bwd_raw, causal=causal, bq=16,
+                                    bk=16, scale=scale))(
+        *(jnp.asarray(x.numpy()) for x in (q, k, v, do)),
+        *(jnp.asarray(x.numpy())[:, None, :] for x in (lse, dvec)))
+    args = (q, k, v, lse, do, dvec, causal, scale)
+    for got, one_pass, r in zip(_bwd_tf32_wide(*args, passes=3),
+                                _bwd_tf32_wide(*args, passes=1), ref):
+        r = np.asarray(r)
+        np.testing.assert_allclose(got.numpy(), r, **GRAD_TOL)
+        with pytest.raises(AssertionError):
+            np.testing.assert_allclose(one_pass.numpy(), r, **GRAD_TOL)
+
+
 @pytest.mark.parametrize("causal,t,tk,dh", [(True, 64, 64, 32),
                                             (False, 16, 48, 32),
                                             (True, 64, 64, 64)])
@@ -496,7 +533,8 @@ def test_plain_kernels_match_jax_kernels_at_odd_head_dims(dtype, causal, t,
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_kernels_match_jax_kernels_past_head_dim_256(dtype):
     """Dh 320, which the CUDA kernels take in 256-column panels (bf16 on
-    wgmma, f32 on CUDA cores): the plain versions against the JAX
+    wgmma; f32 K1 on CUDA cores, K2 and K3 as 3xTF32): the plain
+    versions against the JAX
     package's Pallas kernels (interpret mode), causal, at the bounds of
     the head-dim-128 test."""
     _plain_against_jax_kernels(dtype, True, 32, 32, 320)
@@ -509,6 +547,16 @@ def test_bf16_plain_kernels_match_jax_kernels_at_more_head_dims_past_256(dh):
     plain versions against the JAX package's Pallas kernels (interpret
     mode), causal, B·H 3, T 32, at the bounds of the head-dim-128 test."""
     _plain_against_jax_kernels("bfloat16", True, 32, 32, dh)
+
+
+@pytest.mark.parametrize("causal,t,tk", [(True, 32, 32), (False, 16, 48)])
+def test_f32_plain_kernels_match_jax_kernels_at_head_dim_512(causal, t, tk):
+    """Dh 512, where the f32 K2 and K3 run as 3xTF32 in one 512-column
+    output panel and the f32 K1 on CUDA cores in two of 256: the plain
+    versions against the JAX package's Pallas kernels (interpret mode,
+    f32 HIGHEST), causal and not, B·H 3, at the bounds of the
+    head-dim-128 test."""
+    _plain_against_jax_kernels("float32", causal, t, tk, 512)
 
 
 def _plain_against_jax_kernels(dtype, causal, t, tk, dh):
@@ -594,7 +642,7 @@ def test_zero_padded_head_dim_is_the_same_function(dtype, dh):
     # the bf16 kernels read rows of a multiple of 8 columns as they are,
     # and pad other Dh to the next multiple of 8 (K1, K2 and K3 on wgmma,
     # past 256 in 256-column panels); the f32 K1 reads any Dh, the f32 K2
-    # and K3 any past 128 (on CUDA cores past 256)
+    # and K3 any past 128 (3xTF32 in 512-column panels past 256)
     bf16, f32 = torch.bfloat16, torch.float32
     kinds = ("fwd", "dq", "dkv")
     assert all(kernel_head_dim(d, bf16, k) == d
@@ -793,7 +841,9 @@ def test_kernel_names_follow_the_c_interface_codes():
     its code in ``csrc/launched.h``, the one place the codes are defined;
     past head dim 128 all three kernels have a wgmma kernel (bf16) and a
     3xTF32 one (f32); past 256 all three have a bf16 wgmma kernel in
-    output panels; the launch counts start from 0 after
+    output panels, and K2 and K3 an f32 3xTF32 one (K1's slot of it
+    ``None``); only K1 has a CUDA-core kernel (K2's and K3's slot of it
+    ``None``); the launch counts start from 0 after
     ``reset_launches``; and ``chip_smoke.CUDA_KERNELS`` lists every named
     kernel once."""
     import importlib
@@ -805,7 +855,7 @@ def test_kernel_names_follow_the_c_interface_codes():
         codes = dict(re.findall(r"(k\w+) = (\d+),", f.read()))
     assert codes == {"kWgmma": "0", "kWgmmaWide": "1", "kTf32": "2",
                      "kCudaCores": "3", "kTf32Wide": "4",
-                     "kWgmmaPast256": "5"}
+                     "kWgmmaPast256": "5", "kTf32Past256": "6"}
     assert set(fa_mod.KERNELS) == set(_kernels.SIGNATURES) - {
         "dkt_flash_last_kernel", "dkt_error_string"}
     assert all(len(names) == len(codes) for names in fa_mod.KERNELS.values())
@@ -816,6 +866,10 @@ def test_kernel_names_follow_the_c_interface_codes():
     assert [names[5] for names in fa_mod.KERNELS.values()] == [
         "flash_fwd_wgmma_past256", "flash_bwd_dq_wgmma_past256",
         "flash_bwd_dkv_wgmma_past256"]
+    assert [names[6] for names in fa_mod.KERNELS.values()] == [
+        None, "flash_bwd_dq_f32_past256", "flash_bwd_dkv_f32_past256"]
+    assert [names[3] for names in fa_mod.KERNELS.values()] == [
+        "flash_fwd_cuda_cores", None, None]
     names = [n for ns in fa_mod.KERNELS.values() for n in ns if n]
     assert sorted(names) == sorted(n for n, _, _ in chip_smoke.CUDA_KERNELS)
     fa_mod.KERNEL_LAUNCHES[("flash_fwd", "float32", 64)] += 1
